@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA GPU: build, kernel checks, main path.
+"""Smoke run of the PyTorch port on one CUDA GPU: build, kernel checks, the
+odometry drivers.
 
     python3 chip_smoke.py
 
@@ -7,25 +8,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
   0. Require CUDA; print the GPU's name and power limit (``nvidia-smi``),
      and the torch and CUDA versions; turn TF32 off.
-  1. Build the four CUDA kernels from ``loam_tpu_torch/ops/csrc`` and print
+  1. Build the five CUDA kernels from ``loam_tpu_torch/ops/csrc`` and print
      the build time.
   2. Run every kernel and its plain PyTorch version on the same inputs at
-     the main path's shapes (16 synthetic 64x1024 scans, the first chunk of
-     4 pairs), require equal results, and time both with CUDA events.
-  3. Drive the main path -- ``odometry_offline`` on those 16 frames,
-     ``chunk_pairs=4``, ``motion_init=True`` -- with every launch counter
-     reset first; require each kernel to have launched, finite poses of the
-     right shape and the benchmark's ATE gate; time 3 runs after a warm-up.
-  4. Check agreement with the plain versions on a small input: the same
-     driver on 6 frames of 16x360 scans on the GPU and on the CPU.
+     the paths' shapes (16 synthetic 64x1024 scans, the first chunk of 4
+     pairs; for the dual kNN also a voxel map built from the first frames),
+     require equal results, and time both with CUDA events; print the A/B of
+     one dual kNN launch against the two single launches it replaces.
+  3. Drive ``odometry_offline`` on those 16 frames, ``chunk_pairs=4``,
+     ``motion_init=True`` (single kNN) with every launch counter reset first;
+     require each kernel to have launched, finite poses of the right shape
+     and the benchmark's ATE gate; time 3 runs after a warm-up.
+  4. Check agreement with the plain versions on a small input: the offline,
+     scan-to-map and scan-to-scan drivers on 6 frames of 16x360 scans on
+     the GPU and on the CPU.
+  5. ``odometry_offline`` with ``LOAM_ICF_DUAL_KNN=1``: the dual kNN instead
+     of the single one, the same terminations and iteration counts as phase
+     3, poses within 1e-5 m of it, the ATE gate; scans/s beside phase 3's.
+  6. ``scan_to_map_offline`` on the 16 frames with the default
+     ``ScanToMapConfig`` and ``default_map_reg_params()``, dual kNN: every
+     extraction kernel and the dual kNN launched, no single kNN; the ATE
+     gate; no voxel dropped; map sizes and scans/s over 3 runs.
+  7. A ``scan_to_scan_step(dewarp=True)`` loop over the 16 frames, dual kNN:
+     the same checks as 6, and scans/s.
 
+``LOAM_ICF_DUAL_KNN`` is set and restored around the phases that use it.
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -33,6 +49,9 @@ import time
 import numpy as np
 
 ATOL_SMALL_M = 1e-2  # GPU-vs-CPU trajectory agreement (the ICF position convergence threshold)
+# dual vs single kNN in the ICF loop: bit-equal neighbours, only the
+# gathered and the packed line/plane fits round differently
+ATOL_DUAL_M = 1e-5
 
 
 def _smi() -> str:
@@ -71,6 +90,71 @@ def _require_equal(name, a, b):
     if a.shape != b.shape or not torch.equal(a, b):
         bad = int((a != b).sum().item()) if a.shape == b.shape else -1
         raise AssertionError(f"{name}: kernel differs from the plain version ({bad} entries)")
+
+
+@contextlib.contextmanager
+def _dual_knn(on: bool):
+    """Set ``LOAM_ICF_DUAL_KNN`` for the block and restore it after."""
+    old = os.environ.get("LOAM_ICF_DUAL_KNN")
+    os.environ["LOAM_ICF_DUAL_KNN"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LOAM_ICF_DUAL_KNN"]
+        else:
+            os.environ["LOAM_ICF_DUAL_KNN"] = old
+
+
+def _seconds_per_run(run, reps: int) -> float:
+    """Host seconds per call over ``reps`` calls, ended by a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def _check_trajectory(what, translation, rotation, frames, gt, ate_rmse):
+    """Finite poses of the right shape and the benchmark's ATE gate
+    (``bench.py::_check_accuracy``): ATE < max(5% of the path, 0.05 m)."""
+    tr = translation.cpu().numpy()
+    if tr.shape != (frames, 3) or tuple(rotation.shape) != (frames, 4):
+        raise AssertionError(f"{what}: trajectory shape {tr.shape} / {tuple(rotation.shape)}")
+    if not (np.isfinite(tr).all() and np.isfinite(rotation.cpu().numpy()).all()):
+        raise AssertionError(f"{what}: non-finite trajectory")
+    ate = ate_rmse(tr, gt, align=False)
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=-1)))
+    limit = max(0.05 * path, 0.05)
+    if not ate < limit:
+        raise AssertionError(f"{what}: ATE {ate} m exceeds {limit} m")
+    return ate, limit, path
+
+
+def _check_dual_knn(what, knn_cuda, prep, qe, qp, e_prep, p_prep, k_e, k_p, r_e, r_p):
+    """The dual kernel against its plain version and against two launches
+    of the single kernel, all exactly equal. Returns the max abs error of
+    the valid distances against the plain version."""
+    import torch
+
+    a = knn_cuda.knn_dual_run(prep, qe, qp, k_e, k_p, r_e, r_p)
+    b = knn_cuda.knn_dual_run_reference(prep, qe, qp, k_e, k_p, r_e, r_p)
+    singles = (knn_cuda.knn_run(e_prep, qe, k_e, r_e), knn_cuda.knn_run(p_prep, qp, k_p, r_p))
+    torch.cuda.synchronize()
+    err = 0.0
+    for cls, ra, rb, rs in zip(("edge", "planar"), a, b, singles):
+        _require_equal(f"{what} {cls} mask", ra.mask, rb.mask)
+        _require_equal(f"{what} {cls} indices", ra.indices, rb.indices)
+        _require_equal(f"{what} {cls} distances", ra.distances, rb.distances)
+        _require_equal(f"{what} {cls} mask vs single", ra.mask, rs.mask)
+        _require_equal(f"{what} {cls} indices vs single", ra.indices,
+                       torch.where(rs.mask, rs.indices, 0))
+        _require_equal(f"{what} {cls} distances vs single", ra.distances, rs.distances)
+        err = max(err, _max_err(ra.distances[rb.mask], rb.distances[rb.mask]))
+    return err
 
 
 def main() -> int:
@@ -199,71 +283,209 @@ def main() -> int:
         replaces="loam_tpu/ops/knn_pallas.py:134", shape=knn_shape,
         max_abs_err=knn_err, ms=knn_ms, plain_ms=knn_plain_ms,
     ))
+    # dual kNN, scan scale: the same chunk, both classes in one launch; no
+    # query mask (as knn_dual_run), so every source slot searches
+    k_e, k_p = rp.num_edge_neighbors, rp.num_plane_neighbors
+    r_e, r_p = rp.max_edge_neighbor_dist, rp.max_plane_neighbor_dist
+    tgt = feats.map(lambda x: x[:C])
+    src = feats.map(lambda x: x[1:C + 1].contiguous())
+    d_prep = knn_cuda.knn_dual_prep(tgt.edge_points, tgt.edge_mask, tgt.planar_points, tgt.planar_mask)
+    e_prep = knn_cuda.knn_prep(tgt.edge_points, tgt.edge_mask)
+    p_prep = knn_cuda.knn_prep(tgt.planar_points, tgt.planar_mask)
+    qe, qp = src.edge_points, src.planar_points
+    dual_err = _check_dual_knn("knn_dual scan scale", knn_cuda, d_prep, qe, qp, e_prep, p_prep,
+                               k_e, k_p, r_e, r_p)
+    dual_scan_ms = _time_ms(lambda: knn_cuda.knn_dual_run(d_prep, qe, qp, k_e, k_p, r_e, r_p), 10)
+    dual_scan_plain_ms = _time_ms(
+        lambda: knn_cuda.knn_dual_run_reference(d_prep, qe, qp, k_e, k_p, r_e, r_p), 2)
+    two_ms = _time_ms(lambda: (knn_cuda.knn_run(e_prep, qe, k_e, r_e),
+                               knn_cuda.knn_run(p_prep, qp, k_p, r_p)), 10)
+    two_icf_ms = _time_ms(lambda: (
+        knn_cuda.knn_run(e_prep, qe, k_e, r_e, with_coords=True, query_mask=src.edge_mask),
+        knn_cuda.knn_run(p_prep, qp, k_p, r_p, with_coords=True, query_mask=src.planar_mask)), 10)
+    dual_scan_ms_2 = _time_ms(lambda: knn_cuda.knn_dual_run(d_prep, qe, qp, k_e, k_p, r_e, r_p), 10)
+    print(f"knn A/B, scan scale (B={C}, {qe.shape[1]} edge + {qp.shape[1]} planar queries per pair): "
+          f"one dual launch {dual_scan_ms:.4f} / {dual_scan_ms_2:.4f} ms; two single launches "
+          f"{two_ms:.4f} ms unmasked, {two_icf_ms:.4f} ms as the ICF calls them (packed, masked "
+          f"queries skipped); dual plain version {dual_scan_plain_ms:.4f} ms")
+
+    # dual kNN, map scale: the voxel maps after the first frames at the
+    # default ScanToMapConfig, searched by the next frame's features at the
+    # constant-velocity prediction
+    s2m_cfg = T.ScanToMapConfig()
+    s2m_reg = T.default_map_reg_params()
+    n_map = 4
+    with _dual_knn(True):
+        st, _, _ = T.scan_to_map_offline(scans[:n_map], lidar, fp, s2m_reg, s2m_cfg)
+    f_next = T.registration.spatial_sort_features(T.extract_features(scans[n_map], lidar, fp))
+    guess = st.world_T_current.compose(st.prev_delta)
+    mqe, mqp = guess.act(f_next.edge_points).contiguous(), guess.act(f_next.planar_points).contiguous()
+    em, pm = st.edge_map, st.planar_map
+    m_prep = knn_cuda.knn_dual_prep(em.points, em.mask, pm.points, pm.mask)
+    me_prep = knn_cuda.knn_prep(em.points, em.mask)
+    mp_prep = knn_cuda.knn_prep(pm.points, pm.mask)
+    k_e, k_p = s2m_reg.num_edge_neighbors, s2m_reg.num_plane_neighbors
+    r_e, r_p = s2m_reg.max_edge_neighbor_dist, s2m_reg.max_plane_neighbor_dist
+    dual_err = max(dual_err, _check_dual_knn("knn_dual map scale", knn_cuda, m_prep, mqe, mqp,
+                                             me_prep, mp_prep, k_e, k_p, r_e, r_p))
+    map_shape = (f"B=1, {mqe.shape[0]} edge + {mqp.shape[0]} planar queries vs "
+                 f"{em.points.shape[0]} + {pm.points.shape[0]} map slots "
+                 f"({int(em.size)} + {int(pm.size)} filled after {n_map} frames), k={k_p}")
+    map_ms = _time_ms(lambda: knn_cuda.knn_dual_run(m_prep, mqe, mqp, k_e, k_p, r_e, r_p), 10)
+    map_plain_ms = _time_ms(
+        lambda: knn_cuda.knn_dual_run_reference(m_prep, mqe, mqp, k_e, k_p, r_e, r_p), 2)
+    map_two_ms = _time_ms(lambda: (knn_cuda.knn_run(me_prep, mqe, k_e, r_e),
+                                   knn_cuda.knn_run(mp_prep, mqp, k_p, r_p)), 10)
+    print(f"knn_dual map scale: {map_ms:.4f} ms (plain {map_plain_ms:.4f} ms, two single launches "
+          f"{map_two_ms:.4f} ms) at {map_shape}")
+    if dual_err != 0.0:
+        raise AssertionError(f"knn_dual distances differ from the plain version by {dual_err}")
+    kernels.append(dict(
+        name="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
+        replaces="loam_tpu/ops/knn_pallas.py:946", shape=map_shape,
+        max_abs_err=dual_err, ms=map_ms, plain_ms=map_plain_ms,
+    ))
     for kd in kernels:
         print(f"kernel {kd['name']}: {kd['ms']:.4f} ms (plain {kd['plain_ms']:.4f} ms), "
               f"max_abs_err {kd['max_abs_err']} at {kd['shape']}")
 
-    # ---- 3. the main path ---------------------------------------------------
+    # ---- 3. the offline driver (single kNN) ----------------------------------
     counters = {
         "sector_sort": bitonic_cuda.sector_sort,
         "greedy_nms": nms_cuda.greedy_nms,
         "select_points": assemble_cuda.select_points,
         "knn": knn_cuda.knn_run,
+        "knn_dual": knn_cuda.knn_dual_run,
     }
+    extraction = ("sector_sort", "greedy_nms", "select_points")
+    gt = np.stack([t for (_, t) in poses])
+    path_launches = {}
 
-    def run():
+    def drive(path, run, must, must_not):
+        """One counted run of a path: every counter at 0 just before it,
+        read just after; ``must`` kernels launched, ``must_not`` not."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        path_launches[path] = launches
+        print(f"{path} launches: {launches} (first run {first_s:.3f} s)")
+        missing = [k for k in must if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{path} did not launch: {missing}")
+        extra = [k for k in must_not if launches[k] != 0]
+        if extra:
+            raise AssertionError(f"{path} launched {extra}, which it must not")
+        return out
+
+    def run_offline():
         return T.odometry_offline(scans, lidar, fp, rp, chunk_pairs=4, motion_init=True)
 
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    traj, details = run()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"main path launches: {launches} (first run {first_s:.3f} s)")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path did not launch: {missing}")
-    for kd in kernels:
-        kd["launches"] = launches[kd["name"]]
-
-    tr = traj.translation.cpu().numpy()
-    if tr.shape != (frames, 3) or traj.rotation.shape != (frames, 4):
-        raise AssertionError(f"trajectory shape {tr.shape} / {tuple(traj.rotation.shape)}")
-    if not (np.isfinite(tr).all() and torch.isfinite(traj.rotation).all()):
-        raise AssertionError("non-finite trajectory")
-    gt = np.stack([t for (_, t) in poses])
-    ate = ate_rmse(tr, gt, align=False)
-    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=-1)))
-    limit = max(0.05 * path, 0.05)
-    print(f"ATE {ate:.6f} m (limit {limit:.6f} m, path {path:.3f} m); "
-          f"iterations {details.num_iterations.tolist()}; termination {details.termination.tolist()}")
-    if not ate < limit:
-        raise AssertionError(f"ATE {ate} m exceeds {limit} m")
-
     reps = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out, _ = run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    print(f"main path: {frames * reps / dt:.3f} scans/s ({dt / reps * 1e3:.3f} ms per {frames}-frame run, "
+    with _dual_knn(False):
+        traj, details = drive("offline", run_offline, extraction + ("knn",), ("knn_dual",))
+        ate, limit, path = _check_trajectory("offline", traj.translation, traj.rotation, frames, gt,
+                                             ate_rmse)
+        print(f"ATE {ate:.6f} m (limit {limit:.6f} m, path {path:.3f} m); "
+              f"iterations {details.num_iterations.tolist()}; termination {details.termination.tolist()}")
+        dt = _seconds_per_run(run_offline, reps)
+    offline_sps = frames / dt
+    print(f"main path: {offline_sps:.3f} scans/s ({dt * 1e3:.3f} ms per {frames}-frame run, "
           f"64x1024, chunk_pairs=4) on {smi}")
 
     # ---- 4. small-input agreement with the plain versions on the CPU -------
     small = T.LidarParams(16, 360, 0.5, 80.0)
     s_np, _ = render_trajectory(small, 6, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
                                 noise=0.003, seed=11, dtype=np.float32)
-    tg, dg = T.odometry_offline(torch.from_numpy(s_np).to(dev), small, fp, rp, chunk_pairs=2, motion_init=True)
-    tc, dc = T.odometry_offline(torch.from_numpy(s_np), small, fp, rp, chunk_pairs=2, motion_init=True)
-    gap = float(np.abs(tg.translation.cpu().numpy() - tc.translation.numpy()).max())
-    print(f"small input: GPU vs CPU trajectory max gap {gap:.3e} m (limit {ATOL_SMALL_M}); "
-          f"termination {dg.termination.tolist()} vs {dc.termination.tolist()}")
-    if not gap < ATOL_SMALL_M:
-        raise AssertionError(f"GPU and CPU trajectories differ by {gap} m")
+    s_gpu, s_cpu = torch.from_numpy(s_np).to(dev), torch.from_numpy(s_np)
+    small_cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+
+    def s2s_loop(x, lid):
+        state = T.scan_to_scan_init(lid, fp, device=x.device)
+        out = []
+        for f in range(x.shape[0]):
+            state, pose, det = T.scan_to_scan_step(state, x[f], lid, fp, rp, dewarp=True)
+            out.append((pose, det))
+        return out
+
+    def small_runs(x):
+        t_off, d_off = T.odometry_offline(x, small, fp, rp, chunk_pairs=2, motion_init=True)
+        with _dual_knn(True):
+            _, t_map, d_map = T.scan_to_map_offline(x, small, fp, s2m_reg, small_cfg)
+            s2s = s2s_loop(x, small)
+        t_s2s = torch.stack([p.translation for p, _ in s2s])
+        term_s2s = torch.stack([d.termination for _, d in s2s])
+        return {"offline": (t_off.translation, d_off.termination),
+                "scan_to_map": (t_map.translation, d_map.termination),
+                "scan_to_scan": (t_s2s, term_s2s)}
+
+    on_gpu, on_cpu = small_runs(s_gpu), small_runs(s_cpu)
+    for drv in on_gpu:
+        (tg, dg), (tc, dc) = on_gpu[drv], on_cpu[drv]
+        gap = float(np.abs(tg.cpu().numpy() - tc.numpy()).max())
+        print(f"small input, {drv}: GPU vs CPU trajectory max gap {gap:.3e} m (limit {ATOL_SMALL_M}); "
+              f"termination {dg.tolist()} vs {dc.tolist()}")
+        if not gap < ATOL_SMALL_M:
+            raise AssertionError(f"{drv}: GPU and CPU trajectories differ by {gap} m")
+
+    # ---- 5. the offline driver with the dual kNN ------------------------------
+    with _dual_knn(True):
+        traj_d, details_d = drive("offline dual", run_offline,
+                                  extraction + ("knn_dual",), ("knn",))
+        ate_d, _, _ = _check_trajectory("offline dual", traj_d.translation, traj_d.rotation,
+                                        frames, gt, ate_rmse)
+        _require_equal("offline dual termination", details_d.termination, details.termination)
+        _require_equal("offline dual iterations", details_d.num_iterations, details.num_iterations)
+        gap = _max_err(traj_d.translation, traj.translation)
+        print(f"offline dual: ATE {ate_d:.6f} m; pose gap to the single-kNN run {gap:.3e} m "
+              f"(limit {ATOL_DUAL_M})")
+        if not gap < ATOL_DUAL_M:
+            raise AssertionError(f"offline dual differs from single by {gap} m")
+        dt_d = _seconds_per_run(run_offline, reps)
+    with _dual_knn(False):
+        dt_s = _seconds_per_run(run_offline, reps)
+    print(f"offline A/B: dual kNN {frames / dt_d:.3f} scans/s, single kNN {offline_sps:.3f} "
+          f"(phase 3) and {frames / dt_s:.3f} (after) scans/s, 64x1024, chunk_pairs=4, on {smi}")
+
+    # ---- 6. scan-to-map ---------------------------------------------------------
+    def run_s2m():
+        return T.scan_to_map_offline(scans, lidar, fp, s2m_reg, s2m_cfg)
+
+    with _dual_knn(True):
+        st, traj_m, det_m = drive("scan_to_map", run_s2m, extraction + ("knn_dual",), ("knn",))
+        ate_m, limit_m, _ = _check_trajectory("scan_to_map", traj_m.translation, traj_m.rotation,
+                                              frames, gt, ate_rmse)
+        if int(st.dropped) != 0:
+            raise AssertionError(f"scan_to_map dropped {int(st.dropped)} voxels")
+        dt_m = _seconds_per_run(run_s2m, reps)
+    print(f"scan_to_map: ATE {ate_m:.6f} m (limit {limit_m:.6f} m); maps {int(st.edge_map.size)} / "
+          f"{st.edge_map.points.shape[0]} edge, {int(st.planar_map.size)} / "
+          f"{st.planar_map.points.shape[0]} planar slots, dropped 0; iterations "
+          f"{det_m.num_iterations.tolist()}; termination {det_m.termination.tolist()}")
+    print(f"scan_to_map: {frames / dt_m:.3f} scans/s ({dt_m * 1e3:.3f} ms per {frames}-frame run, "
+          f"64x1024, default ScanToMapConfig, dual kNN) on {smi}")
+
+    # ---- 7. scan-to-scan with dewarping ----------------------------------------
+    def run_s2s():
+        return s2s_loop(scans, lidar)
+
+    with _dual_knn(True):
+        out = drive("scan_to_scan", run_s2s, extraction + ("knn_dual",), ("knn",))
+        t_s2s = torch.stack([p.translation for p, _ in out])
+        q_s2s = torch.stack([p.rotation for p, _ in out])
+        ate_s, limit_s, _ = _check_trajectory("scan_to_scan", t_s2s, q_s2s, frames, gt, ate_rmse)
+        dt_s2s = _seconds_per_run(run_s2s, reps)
+    print(f"scan_to_scan: ATE {ate_s:.6f} m (limit {limit_s:.6f} m); termination "
+          f"{[int(d.termination) for _, d in out]}")
+    print(f"scan_to_scan: {frames / dt_s2s:.3f} scans/s ({dt_s2s * 1e3:.3f} ms per {frames}-frame "
+          f"loop, 64x1024, dewarp=True, dual kNN) on {smi}")
+
+    for kd in kernels:
+        kd["launches"] = sum(lc[kd["name"]] for lc in path_launches.values())
 
     print(json.dumps({"kernels": [
         {k: kd[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")}

@@ -6,9 +6,25 @@ by the tests; it imports neither JAX nor ``loam_tpu``. Kernels run for CUDA
 tensors and their plain PyTorch versions for CPU tensors (see ``ops``).
 """
 
+from .dewarp import dewarp_scan
 from .features import FeatureSet, extract_features, extract_features_batch
 from .geometry import Pose3
-from .odometry import odometry_offline
+from .map import VoxelMap, voxel_map_empty, voxel_map_insert
+from .odometry import (
+    ScanToMapConfig,
+    ScanToMapState,
+    ScanToScanState,
+    default_map_reg_params,
+    odometry_offline,
+    scan_to_map_init,
+    scan_to_map_offline,
+    scan_to_map_rebuild_cache,
+    scan_to_map_step,
+    scan_to_map_step_features,
+    scan_to_map_strip_cache,
+    scan_to_scan_init,
+    scan_to_scan_step,
+)
 from .params import (
     FeatureExtractionParams,
     LidarParams,
@@ -25,10 +41,26 @@ __all__ = [
     "LidarParams",
     "Pose3",
     "RegistrationParams",
+    "ScanToMapConfig",
+    "ScanToMapState",
+    "ScanToScanState",
     "TerminationType",
+    "VoxelMap",
+    "default_map_reg_params",
+    "dewarp_scan",
     "extract_features",
     "extract_features_batch",
     "odometry_offline",
     "register_features",
     "register_features_batch",
+    "scan_to_map_init",
+    "scan_to_map_offline",
+    "scan_to_map_rebuild_cache",
+    "scan_to_map_step",
+    "scan_to_map_step_features",
+    "scan_to_map_strip_cache",
+    "scan_to_scan_init",
+    "scan_to_scan_step",
+    "voxel_map_empty",
+    "voxel_map_insert",
 ]

@@ -188,6 +188,9 @@ class Pose3(NamedTuple):
         """``R p + t`` (reference ``geometry.cpp:21``)."""
         return quat_rotate(self.rotation, p) + self.translation
 
+    def normalize(self) -> "Pose3":
+        return Pose3(quat_normalize(self.rotation), self.translation)
+
 
 def pose_cumcompose(rel: Pose3) -> Pose3:
     """Prefix-compose relative poses along the leading axis:

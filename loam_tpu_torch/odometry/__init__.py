@@ -1,5 +1,32 @@
-"""Odometry drivers. The port has the batched offline driver so far."""
+"""Odometry drivers: batched offline scan-to-scan, the streaming
+scan-to-scan loop, and scan-to-map against voxel maps."""
 
 from .offline import odometry_offline
+from .scan_to_map import (
+    ScanToMapConfig,
+    ScanToMapState,
+    default_map_reg_params,
+    scan_to_map_init,
+    scan_to_map_offline,
+    scan_to_map_rebuild_cache,
+    scan_to_map_step,
+    scan_to_map_step_features,
+    scan_to_map_strip_cache,
+)
+from .scan_to_scan import ScanToScanState, scan_to_scan_init, scan_to_scan_step
 
-__all__ = ["odometry_offline"]
+__all__ = [
+    "ScanToMapConfig",
+    "ScanToMapState",
+    "ScanToScanState",
+    "default_map_reg_params",
+    "odometry_offline",
+    "scan_to_map_init",
+    "scan_to_map_offline",
+    "scan_to_map_rebuild_cache",
+    "scan_to_map_step",
+    "scan_to_map_step_features",
+    "scan_to_map_strip_cache",
+    "scan_to_scan_init",
+    "scan_to_scan_step",
+]

@@ -7,4 +7,7 @@ device. The kernels are built from ``csrc/`` at first use (``_build``).
   * ``nms_cuda.greedy_nms``        -- the serial greedy feature pick
   * ``assemble_cuda.select_points`` -- the picked-coordinate copy-out
   * ``knn_cuda.knn_run``           -- exact brute-force kNN with coordinates
+  * ``knn_cuda.knn_dual_run``      -- the edge and the planar kNN in one launch
+
+``morton`` (Morton keys) is plain PyTorch: ``loam_tpu`` has no kernel there.
 """

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-The four sources under ``csrc/`` are compiled with ``nvcc`` into one shared
+The sources under ``csrc/`` are compiled with ``nvcc`` into one shared
 library with a plain C interface, which is loaded with ``ctypes`` (no
 PyTorch headers, so the build takes seconds). The library lands in
 ``ops/_build/``, named by a hash of the sources, so an edited source is
@@ -39,6 +39,7 @@ SIGNATURES = {
     "loam_select_points_f32": (_P, _P, _I, _I, _I, _P, _P),
     "loam_select_points_f64": (_P, _P, _I, _I, _I, _P, _P),
     "loam_knn": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "loam_knn_dual": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
 }
 
 _lib = None

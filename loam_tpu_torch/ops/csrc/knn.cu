@@ -33,6 +33,20 @@
 // the end, so the hot loop carries only 2K registers. The chunk culling, the
 // active lists and the seed bounds of the Pallas kernel only prune visits
 // and are left to a later change.
+//
+// Second entry point, loam_knn_dual, replaces the dual-class launch of the
+// same Pallas kernel (loam_tpu/ops/knn_pallas.py::knn_dual_run, its
+// pallas_call at :946): edge queries search the edge targets and planar
+// queries the planar targets in ONE launch per ICF iteration. The grid is
+// (edge query blocks, then planar query blocks) x pairs; each block reads
+// its class from blockIdx.x and runs the loop above over its class's block
+// of the concatenated target planes, starting its slots at its own class's
+// r^2 (the Pallas kernel starts both at the larger r^2 and filters per
+// class afterwards; the valid outputs are the same). The dual search has no
+// query mask: queries are never moved to the sentinel, so a sentinel query
+// never meets a sentinel target. Scale on the scan-to-map path: 4,224 edge
+// queries x 32,768 edge slots plus 19,584 planar queries x 131,072 planar
+// slots, 2.7e9 distance evaluations a launch, FP32-bound as above.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -43,43 +57,16 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;
 
+// Runs one query against targets [0, M) of the coordinate planes tx/ty/tz,
+// staged tile by tile through shared memory by the whole block, into the
+// top-k (bd, bi) kept in registers. Every thread of the block must call it
+// (it synchronises); inactive threads only help with the staging.
 template <int K>
-__global__ void knn_kernel(const float* __restrict__ tT,
-                           const float* __restrict__ queries,
-                           const uint8_t* __restrict__ qmask, int M, int Q,
-                           float init_d2, int* __restrict__ out_idx,
-                           float* __restrict__ out_d2,
-                           float* __restrict__ out_x,
-                           float* __restrict__ out_y,
-                           float* __restrict__ out_z) {
-  __shared__ float sx[kTile];
-  __shared__ float sy[kTile];
-  __shared__ float sz[kTile];
-
-  const long long b = blockIdx.y;
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const float* tx = tT + b * 3 * (long long)M;
-  const float* ty = tx + M;
-  const float* tz = ty + M;
-
-  bool active = qi < Q;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const float* q = queries + (b * Q + qi) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-    if (qmask != nullptr) active = qmask[b * Q + qi] != 0;
-  }
-
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = init_d2;
-    bi[s] = 0;
-  }
-
+__device__ __forceinline__ void search_targets(
+    const float* __restrict__ tx, const float* __restrict__ ty,
+    const float* __restrict__ tz, int M, float qx, float qy, float qz,
+    bool active, float (&bd)[K], int (&bi)[K], float* sx, float* sy,
+    float* sz) {
   for (int base = 0; base < M; base += kTile) {
     const int n = min(kTile, M - base);
     __syncthreads();
@@ -119,6 +106,45 @@ __global__ void knn_kernel(const float* __restrict__ tT,
       }
     }
   }
+}
+
+template <int K>
+__global__ void knn_kernel(const float* __restrict__ tT,
+                           const float* __restrict__ queries,
+                           const uint8_t* __restrict__ qmask, int M, int Q,
+                           float init_d2, int* __restrict__ out_idx,
+                           float* __restrict__ out_d2,
+                           float* __restrict__ out_x,
+                           float* __restrict__ out_y,
+                           float* __restrict__ out_z) {
+  __shared__ float sx[kTile];
+  __shared__ float sy[kTile];
+  __shared__ float sz[kTile];
+
+  const long long b = blockIdx.y;
+  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const float* tx = tT + b * 3 * (long long)M;
+  const float* ty = tx + M;
+  const float* tz = ty + M;
+
+  bool active = qi < Q;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    const float* q = queries + (b * Q + qi) * 3;
+    qx = q[0];
+    qy = q[1];
+    qz = q[2];
+    if (qmask != nullptr) active = qmask[b * Q + qi] != 0;
+  }
+
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = init_d2;
+    bi[s] = 0;
+  }
+  search_targets<K>(tx, ty, tz, M, qx, qy, qz, active, bd, bi, sx, sy, sz);
 
   if (qi >= Q) return;
 #pragma unroll
@@ -134,6 +160,69 @@ __global__ void knn_kernel(const float* __restrict__ tT,
   }
 }
 
+// The dual search: edge queries against the edge targets and planar queries
+// against the planar targets in one launch. Grid (edge query blocks, then
+// planar query blocks) x pairs; a block takes its class from blockIdx.x and
+// searches only that class's block of the concatenated target planes
+// (edges at [0, Me), planars at [Me, Me + Mp)), with that class's initial
+// slot value, so the outputs equal two single searches. Indices are
+// relative to the class's block. There is no query mask (as in
+// knn_dual_run): every query searches, and the caller masks afterwards.
+template <int K>
+__global__ void knn_dual_kernel(const float* __restrict__ tT, int Me, int Mp,
+                                const float* __restrict__ q_edge, int E,
+                                const float* __restrict__ q_plane, int P,
+                                int edge_blocks, float init_e, float init_p,
+                                int* __restrict__ idx_e, float* __restrict__ d2_e,
+                                int* __restrict__ idx_p,
+                                float* __restrict__ d2_p) {
+  __shared__ float sx[kTile];
+  __shared__ float sy[kTile];
+  __shared__ float sz[kTile];
+
+  const long long b = blockIdx.y;
+  const bool edge = (int)blockIdx.x < edge_blocks;
+  const int blk = edge ? blockIdx.x : blockIdx.x - edge_blocks;
+  const int qi = blk * kThreads + threadIdx.x;
+  const int Q = edge ? E : P;
+  const int M = edge ? Me : Mp;
+  const float init_d2 = edge ? init_e : init_p;
+  const float* queries = edge ? q_edge : q_plane;
+  const long long mt = (long long)Me + Mp;
+  const float* tx = tT + b * 3 * mt + (edge ? 0 : Me);
+  const float* ty = tx + mt;
+  const float* tz = ty + mt;
+
+  const bool active = qi < Q;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    const float* q = queries + (b * Q + qi) * 3;
+    qx = q[0];
+    qy = q[1];
+    qz = q[2];
+  }
+
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = init_d2;
+    bi[s] = 0;
+  }
+  search_targets<K>(tx, ty, tz, M, qx, qy, qz, active, bd, bi, sx, sy, sz);
+
+  if (!active) return;
+  int* out_idx = edge ? idx_e : idx_p;
+  float* out_d2 = edge ? d2_e : d2_p;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const long long o = (b * K + s) * (long long)Q + qi;
+    const bool real = bd[s] < init_d2;
+    out_idx[o] = real ? bi[s] : 0;
+    out_d2[o] = real ? bd[s] : init_d2;
+  }
+}
+
 template <int K>
 int launch(const float* tT, const float* queries, const uint8_t* qmask, int B,
            int M, int Q, float init_d2, int* out_idx, float* out_d2,
@@ -142,6 +231,20 @@ int launch(const float* tT, const float* queries, const uint8_t* qmask, int B,
   knn_kernel<K><<<grid, kThreads, 0, stream>>>(tT, queries, qmask, M, Q,
                                                init_d2, out_idx, out_d2,
                                                out_x, out_y, out_z);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_dual(const float* tT, int Me, int Mp, const float* q_edge, int E,
+                const float* q_plane, int P, float init_e, float init_p,
+                int* idx_e, float* d2_e, int* idx_p, float* d2_p, int B,
+                cudaStream_t stream) {
+  const int eb = (E + kThreads - 1) / kThreads;
+  const int pb = (P + kThreads - 1) / kThreads;
+  dim3 grid(eb + pb, B);
+  knn_dual_kernel<K><<<grid, kThreads, 0, stream>>>(
+      tT, Me, Mp, q_edge, E, q_plane, P, eb, init_e, init_p, idx_e, d2_e,
+      idx_p, d2_p);
   return (int)cudaGetLastError();
 }
 
@@ -165,4 +268,27 @@ extern "C" int loam_knn(const float* tT, const float* queries,
     case 8: return launch<8>(tT, queries, qmask, B, M, Q, init_d2, out_idx, out_d2, out_x, out_y, out_z, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int loam_knn_dual(const float* tT, int Me, int Mp,
+                             const float* q_edge, int E, const float* q_plane,
+                             int P, int B, int k, float init_e, float init_p,
+                             int* idx_e, float* d2_e, int* idx_p, float* d2_p,
+                             void* stream) {
+  if (B == 0 || E + P == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LOAM_DUAL(KK) \
+  return launch_dual<KK>(tT, Me, Mp, q_edge, E, q_plane, P, init_e, init_p, idx_e, d2_e, idx_p, d2_p, B, s)
+  switch (k) {
+    case 1: LOAM_DUAL(1);
+    case 2: LOAM_DUAL(2);
+    case 3: LOAM_DUAL(3);
+    case 4: LOAM_DUAL(4);
+    case 5: LOAM_DUAL(5);
+    case 6: LOAM_DUAL(6);
+    case 7: LOAM_DUAL(7);
+    case 8: LOAM_DUAL(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LOAM_DUAL
 }

@@ -6,7 +6,14 @@ iterations, as the reference builds its KD-trees once,
 ``registration-inl.h:20-23``), and :func:`knn_run` searches it with moving
 queries. :func:`knn_run` launches the CUDA kernel (``csrc/knn.cu``, the port
 of ``_knn_kernel``) for CUDA tensors and the plain search for CPU tensors;
-:func:`knn_run_reference` is the plain search on any device.
+:func:`knn_run_reference` is the plain search on any device. The dual API
+(:func:`knn_dual_prep`, :func:`knn_dual_run`, :func:`knn_pallas_dual`) runs
+the edge and the planar search of an ICF iteration in one launch of the
+second entry point of ``csrc/knn.cu``, the port of ``knn_dual_run``. Which
+of the two the ICF loop calls is chosen by ``LOAM_ICF_DUAL_KNN``, carried
+over from ``loam_tpu``: it selects an algorithm, as there, and is not an
+implementation switch; kernel or plain version is decided by the device
+alone, for both.
 
 Every array may carry one leading batch axis (the lockstep pairs of the ICF
 loop): targets (B, M, 3), queries (B, Q, 3), results (B, k, Q).
@@ -83,7 +90,7 @@ def _search_reference(tT, queries, k, init_d2, query_mask):
     max_elems = 1 << 26 if tT.is_cuda else 1 << 20
     step = max(1, max_elems // max(B * M, 1))
     idxs, d2s = [], []
-    for lo in range(0, Q, step):
+    for lo in range(0, max(Q, 1), step):  # one empty tile when Q == 0
         d2 = pairwise_d2(queries[:, lo : lo + step], tT[:, 0], tT[:, 1], tT[:, 2])
         v, i = topk_min(d2, min(k, M))
         if v.shape[-1] < k:
@@ -91,8 +98,10 @@ def _search_reference(tT, queries, k, init_d2, query_mask):
             i = torch.nn.functional.pad(i, (0, k - i.shape[-1]))
         d2s.append(v)
         idxs.append(i)
-    v = torch.cat(d2s, dim=1).transpose(1, 2)  # (B, k, Q)
-    i = torch.cat(idxs, dim=1).transpose(1, 2)
+    # (B, k, Q), contiguous as the kernel writes them: the fits' reductions
+    # over k then run alike on either
+    v = torch.cat(d2s, dim=1).transpose(1, 2).contiguous()
+    i = torch.cat(idxs, dim=1).transpose(1, 2).contiguous()
     real = v < init
     if query_mask is not None:
         real = real & query_mask[:, None, :]
@@ -177,3 +186,120 @@ def knn_run(prep: TargetPrep, queries, k: int, max_dist: float = 0.0,
 
 #: Kernel launches since the last reset (plain-version calls do not count).
 knn_run.launches = 0
+
+
+# ---- both classes in one launch (knn_pallas.py:778-998) --------------------
+
+
+class DualTargetPrep(NamedTuple):
+    """Loop-invariant target state of :func:`knn_dual_run`: the edge and the
+    planar targets as one block of coordinate planes, edges first."""
+
+    tT: torch.Tensor  # (B, 3, Me + Mp) float32 planes, sentinel at invalid slots
+    n_edge: int  # Me: edge target slots (planar indices are relative to Me)
+    batched: bool  # whether the caller passed a leading batch axis
+
+
+def knn_dual_prep(t_edge, t_edge_mask, t_plane, t_plane_mask, tt=None) -> DualTargetPrep:
+    """Target planes for :func:`knn_dual_run` from (M, 3) / (B, M, 3) edge and
+    planar targets and their masks. ``tt`` (the Pallas chunk length) is
+    accepted for API compatibility and ignored: the kernel visits every
+    target."""
+    e = knn_prep(t_edge.to(torch.float32), t_edge_mask)
+    p = knn_prep(t_plane.to(torch.float32), t_plane_mask)
+    return DualTargetPrep(torch.cat([e.tT, p.tT], dim=2).contiguous(),
+                          t_edge.shape[-2], e.batched)
+
+
+def _dual_search_reference(prep, qe, qp, k, init_e, init_p):
+    Me = prep.n_edge
+    ie, de, _ = _search_reference(prep.tT[:, :, :Me], qe, k, init_e, None)
+    ip, dp, _ = _search_reference(prep.tT[:, :, Me:], qp, k, init_p, None)
+    return ie, de, ip, dp
+
+
+def _dual_search_kernel(prep, qe, qp, k, init_e, init_p):
+    tT = prep.tT
+    B, _, M = tT.shape
+    Me = prep.n_edge
+    E, P = qe.shape[1], qp.shape[1]
+    if not 1 <= k <= 8:
+        raise ValueError(f"knn kernel supports 1 <= k <= 8, got {k}")
+    _build.require(tT, "targets", (torch.float32,), (B, 3, M))
+    _build.require(qe, "edge queries", (torch.float32,), (B, E, 3), tT.device)
+    _build.require(qp, "planar queries", (torch.float32,), (B, P, 3), tT.device)
+    dev = tT.device
+    ie = torch.empty((B, k, E), dtype=torch.int32, device=dev)
+    de = torch.empty((B, k, E), dtype=torch.float32, device=dev)
+    ip = torch.empty((B, k, P), dtype=torch.int32, device=dev)
+    dp = torch.empty((B, k, P), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().loam_knn_dual(
+            tT.data_ptr(), Me, M - Me, qe.data_ptr(), E, qp.data_ptr(), P, B, k,
+            init_e, init_p, ie.data_ptr(), de.data_ptr(), ip.data_ptr(),
+            dp.data_ptr(), _build.stream_of(tT),
+        )
+    _build.check(err, "knn_dual")
+    knn_dual_run.launches += 1
+    return ie, de, ip, dp
+
+
+def _unpack_class(idx, d2, kc, max_dist, batched):
+    """(B, k, Q) slots -> KnnResult with (..., Q, kc) leaves, as
+    ``knn_dual_run``'s ``unpack`` (:987-993): the first kc slots (ascending,
+    so the kc nearest), index 0 and distance inf where not valid."""
+    v = d2[:, :kc].transpose(1, 2)
+    i = idx[:, :kc].transpose(1, 2)
+    dist = torch.sqrt(torch.clamp(v, min=0.0))
+    valid = torch.isfinite(v) & (dist < max_dist)
+    res = KnnResult(torch.where(valid, i, 0), torch.where(valid, dist, float("inf")), valid)
+    return res if batched else KnnResult(*(x[0] for x in res))
+
+
+def _dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge, max_dist_plane, plain):
+    if not (max_dist_edge > 0 and max_dist_plane > 0):
+        raise ValueError("the dual search needs both radii > 0")
+    k = max(k_edge, k_plane)
+    lift = (lambda x: x) if prep.batched else (lambda x: x[None])
+    qe = lift(q_edge).to(torch.float32).contiguous()
+    qp = lift(q_plane).to(torch.float32).contiguous()
+    search = _dual_search_reference if plain else _dual_search_kernel
+    ie, de, ip, dp = search(prep, qe, qp, k, _init_d2(max_dist_edge), _init_d2(max_dist_plane))
+    return (_unpack_class(ie, de, k_edge, max_dist_edge, prep.batched),
+            _unpack_class(ip, dp, k_plane, max_dist_plane, prep.batched))
+
+
+def knn_dual_run_reference(prep: DualTargetPrep, q_edge, q_plane, k_edge: int, k_plane: int,
+                           max_dist_edge: float, max_dist_plane: float, tq=None):
+    """Plain version of :func:`knn_dual_run` (any device)."""
+    return _dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge,
+                     max_dist_plane, plain=True)
+
+
+def knn_dual_run(prep: DualTargetPrep, q_edge, q_plane, k_edge: int, k_plane: int,
+                 max_dist_edge: float, max_dist_plane: float, tq=None):
+    """Edge queries (E, 3) / (B, E, 3) against the edge targets and planar
+    queries against the planar targets of ``prep``, in one kernel launch.
+
+    Returns ``(KnnResult_edges, KnnResult_planes)`` with (..., E, k_edge) /
+    (..., P, k_plane) leaves, equal to two single searches with their own
+    radii: invalid slots hold index 0 and distance inf, planar indices are
+    relative to the planar targets. Both radii must be positive. There is no
+    query mask (``loam_tpu`` passes none either): every query slot is
+    searched, and association masks the invalid ones. ``tq`` is accepted
+    for API compatibility and ignored.
+    """
+    return _dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge,
+                     max_dist_plane, plain=not q_plane.is_cuda)
+
+
+#: Kernel launches since the last reset (plain-version calls do not count).
+knn_dual_run.launches = 0
+
+
+def knn_pallas_dual(q_edge, q_plane, t_edge, t_edge_mask, t_plane, t_plane_mask,
+                    k_edge: int, k_plane: int, max_dist_edge: float,
+                    max_dist_plane: float, tq=None, tt=None):
+    """Prep and run of the dual search in one call (``knn_pallas_dual``)."""
+    prep = knn_dual_prep(t_edge, t_edge_mask, t_plane, t_plane_mask)
+    return knn_dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge, max_dist_plane)

@@ -185,9 +185,12 @@ _BY_NAME = {
 
 
 def from_reference(p):
-    """Build the port's dataclass from a ``loam_tpu`` parameter dataclass
-    (matched by class name; fields copied via ``dataclasses.asdict``)."""
-    cls = _BY_NAME.get(type(p).__name__)
+    """Build the port's dataclass from a ``loam_tpu`` parameter dataclass or
+    ``ScanToMapConfig`` (matched by class name; fields copied via
+    ``dataclasses.asdict``)."""
+    from .odometry.scan_to_map import ScanToMapConfig
+
+    cls = {**_BY_NAME, "ScanToMapConfig": ScanToMapConfig}.get(type(p).__name__)
     if cls is None or not dataclasses.is_dataclass(p):
         raise TypeError(f"no port counterpart for {type(p)!r}")
     return cls(**dataclasses.asdict(p))

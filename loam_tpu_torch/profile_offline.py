@@ -1,19 +1,23 @@
-"""Where the port's main path spends its time on a CUDA GPU.
+"""Where the port's drivers spend their time on a CUDA GPU.
 
-    python3 -m loam_tpu_torch.profile_offline [--frames 16] [--out profile_out]
+    python3 -m loam_tpu_torch.profile_offline [--driver offline] [--dual-knn]
+                                              [--frames 16] [--out profile_out]
 
-Runs ``odometry_offline`` on synthetic 64x1024 scans (``chunk_pairs=4``,
-``motion_init=True``, as ``chip_smoke.py``), then:
+Runs a driver on synthetic 64x1024 scans as ``chip_smoke.py`` does --
+``odometry_offline`` (``chunk_pairs=4``, ``motion_init=True``),
+``scan_to_map_offline`` (default ``ScanToMapConfig``) or a
+``scan_to_scan_step(dewarp=True)`` loop; ``--dual-knn`` sets
+``LOAM_ICF_DUAL_KNN=1`` -- then:
 
-  * stage times on the host clock with a device sync at each boundary:
-    batched extraction, then each registration chunk (with its ICF
-    iteration count);
+  * for ``offline``, stage times on the host clock with a device sync at
+    each boundary: batched extraction, then each registration chunk (with
+    its ICF iteration count);
   * one ``torch.profiler`` trace of a whole run: device time by kernel name,
     the sum of device kernel time against the wall time (the device's idle
     share), and the number of kernel launches.
 
 Prints a summary and one JSON line; the full kernel table goes to
-``<out>/profile_kernels.txt``.
+``<out>/profile_kernels_<driver>.txt``.
 """
 
 from __future__ import annotations
@@ -42,8 +46,30 @@ def _sync_time(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _offline_stages(scans, lidar, fp, rp, frames, dev):
+    """odometry_offline's steps, each closed by a device sync: batched
+    extraction, then each chunk of 4 pairs."""
+    feats, extract_ms = _sync_time(
+        lambda: T.extract_features_batch(scans, lidar, fp, post=azimuth_sort_features))
+    src, tgt = feats.map(lambda x: x[1:]), feats.map(lambda x: x[:-1])
+    C, n_pairs = 4, frames - 1
+    carry = Pose3.identity(torch.float32, (), dev)
+    chunks = []
+    for c in range(-(-n_pairs // C)):
+        part = lambda x: x[c * C: (c + 1) * C]
+        s, t = src.map(part), tgt.map(part)
+        b = s.edge_mask.shape[0]
+        init = Pose3(carry.rotation.expand(b, 4), carry.translation.expand(b, 3))
+        (rel, det), ms = _sync_time(lambda: T.register_features_batch(s, t, init, rp))
+        carry = Pose3(rel.rotation[-1], rel.translation[-1])
+        chunks.append({"pairs": b, "ms": ms, "iterations": int(det.num_iterations.max())})
+    return extract_ms, chunks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--driver", choices=("offline", "scan_to_map", "scan_to_scan"), default="offline")
+    ap.add_argument("--dual-knn", action="store_true", help="set LOAM_ICF_DUAL_KNN=1")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
@@ -61,27 +87,25 @@ def main() -> int:
                                     yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32)
     scans = torch.from_numpy(scans_np).to(dev)
 
+    if args.dual_knn:
+        os.environ["LOAM_ICF_DUAL_KNN"] = "1"
+
     def run():
+        if args.driver == "scan_to_map":
+            return T.scan_to_map_offline(scans, lidar, fp, T.default_map_reg_params())
+        if args.driver == "scan_to_scan":
+            state = T.scan_to_scan_init(lidar, fp, device=dev)
+            for f in range(args.frames):
+                state, _, _ = T.scan_to_scan_step(state, scans[f], lidar, fp, rp, dewarp=True)
+            return state
         return T.odometry_offline(scans, lidar, fp, rp, chunk_pairs=4, motion_init=True)
 
     run()  # build + warm-up
     _, wall_ms = _sync_time(run)
 
-    # stage split: the driver's steps, each closed by a device sync
-    feats, extract_ms = _sync_time(
-        lambda: T.extract_features_batch(scans, lidar, fp, post=azimuth_sort_features))
-    src, tgt = feats.map(lambda x: x[1:]), feats.map(lambda x: x[:-1])
-    C, n_pairs = 4, args.frames - 1
-    carry = Pose3.identity(torch.float32, (), dev)
-    chunks = []
-    for c in range(-(-n_pairs // C)):
-        part = lambda x: x[c * C: (c + 1) * C]
-        s, t = src.map(part), tgt.map(part)
-        b = s.edge_mask.shape[0]
-        init = Pose3(carry.rotation.expand(b, 4), carry.translation.expand(b, 3))
-        (rel, det), ms = _sync_time(lambda: T.register_features_batch(s, t, init, rp))
-        carry = Pose3(rel.rotation[-1], rel.translation[-1])
-        chunks.append({"pairs": b, "ms": ms, "iterations": int(det.num_iterations.max())})
+    extract_ms, chunks = None, []
+    if args.driver == "offline":
+        extract_ms, chunks = _offline_stages(scans, lidar, fp, rp, args.frames, dev)
 
     # device time by kernel over one whole run
     from torch.profiler import ProfilerActivity, profile
@@ -100,19 +124,22 @@ def main() -> int:
     device_ms = sum(kernel_us.values()) / 1e3
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_kernels.txt"), "w") as f:
+    with open(os.path.join(args.out, f"profile_kernels_{args.driver}.txt"), "w") as f:
         f.write(f"{smi}\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
 
     print(f"gpu: {smi}")
-    print(f"wall {wall_ms:.3f} ms per {args.frames}-frame run ({args.frames / wall_ms * 1e3:.3f} scans/s)")
-    print(f"extraction {extract_ms:.3f} ms; registration chunks {chunks}")
+    print(f"{args.driver}{' (dual kNN)' if args.dual_knn else ''}: wall {wall_ms:.3f} ms per "
+          f"{args.frames}-frame run ({args.frames / wall_ms * 1e3:.3f} scans/s)")
+    if extract_ms is not None:
+        print(f"extraction {extract_ms:.3f} ms; registration chunks {chunks}")
     print(f"profiled run: wall {prof_wall_ms:.3f} ms, device kernels {device_ms:.3f} ms over "
           f"{launches} launches, idle share {1 - device_ms / prof_wall_ms:.4f}")
     for name, us in top[:12]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
     print(json.dumps({
-        "gpu": smi, "frames": args.frames, "wall_ms": wall_ms, "extract_ms": extract_ms,
+        "gpu": smi, "driver": args.driver, "dual_knn": args.dual_knn,
+        "frames": args.frames, "wall_ms": wall_ms, "extract_ms": extract_ms,
         "chunks": chunks, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
         "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms,
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},

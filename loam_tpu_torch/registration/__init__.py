@@ -3,7 +3,12 @@ line/plane fits and an analytic-Jacobian LM solve of the delta pose,
 batched over pairs."""
 
 from .detail import IterationInfo, RegistrationDetail
-from .icf import azimuth_sort_features, register_features, register_features_batch
+from .icf import (
+    azimuth_sort_features,
+    register_features,
+    register_features_batch,
+    spatial_sort_features,
+)
 
 __all__ = [
     "IterationInfo",
@@ -11,4 +16,5 @@ __all__ = [
     "azimuth_sort_features",
     "register_features",
     "register_features_batch",
+    "spatial_sort_features",
 ]

@@ -12,7 +12,11 @@ residual, identically 0 for the PCA fit, so it never fires.
 Two input paths: a :class:`~loam_tpu_torch.ops.knn_cuda.PackedKnn` from the
 kNN kernel (fits straight from its (k, N) coordinate planes), or a
 ``KnnResult`` (or none, then :func:`~loam_tpu_torch.neighbors.knn` runs) with
-the neighbors gathered from the target set. Leading batch axes are allowed.
+the neighbors gathered from the target set into the same (k, N) planes. Both
+paths then fit with the same arithmetic (``geometry.fit_*_packed``), so the
+same neighbours give bit-equal fits whichever search found them (``loam_tpu``
+fits gathered neighbours with its matrix-form ``fit_line``/``fit_plane``,
+which round differently). Leading batch axes are allowed.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..geometry import fit_line, fit_line_packed, fit_plane, fit_plane_packed
+from ..geometry import fit_line_packed, fit_plane_packed
 from ..neighbors import knn
 from ..params import RegistrationParams
 
@@ -46,11 +50,18 @@ class PlaneAssociations(NamedTuple):
     match: torch.Tensor
 
 
-def _gather_rows(target_pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """target_pts (..., M, 3), idx (..., N, k) -> (..., N, k, 3)."""
+def _neighbor_planes(res, target_pts):
+    """(xs, ys, zs, mask, first) of a search result in the packed (..., k, N)
+    layout: a ``PackedKnn`` as it is, a ``KnnResult``'s neighbours gathered
+    from ``target_pts`` (..., M, 3) by index. The gathered planes are
+    contiguous like the kernel's, so the fits' reductions over k run the
+    same way on either."""
+    if hasattr(res, "xs"):  # PackedKnn
+        return res.xs, res.ys, res.zs, res.mask, res.first_idx
+    idx = res.indices.transpose(-1, -2)  # (..., k, N)
     flat = idx.reshape(idx.shape[:-2] + (-1,)).long()
-    out = torch.gather(target_pts, -2, flat[..., None].expand(flat.shape + (3,)))
-    return out.reshape(idx.shape + (3,))
+    xs, ys, zs = (torch.gather(target_pts[..., a], -1, flat).reshape(idx.shape) for a in range(3))
+    return xs, ys, zs, res.mask.transpose(-1, -2).contiguous(), res.indices[..., 0]
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
@@ -69,17 +80,12 @@ def associate_edges(query_pts, query_mask, target_pts, target_mask,
         None to search here.
     """
     res = knn_result
-    if res is not None and hasattr(res, "xs"):  # PackedKnn
-        count = torch.sum(res.mask.to(torch.int32), dim=-2)
-        a, b, cond = fit_line_packed(res.xs, res.ys, res.zs, res.mask)
-        first = res.first_idx
-    else:
-        if res is None:
-            res = knn(query_pts, target_pts, target_mask,
-                      k=params.num_edge_neighbors, max_dist=params.max_edge_neighbor_dist)
-        count = torch.sum(res.mask.to(torch.int32), dim=-1)
-        a, b, cond = fit_line(_gather_rows(target_pts, res.indices), res.mask)
-        first = res.indices[..., 0]
+    if res is None:
+        res = knn(query_pts, target_pts, target_mask,
+                  k=params.num_edge_neighbors, max_dist=params.max_edge_neighbor_dist)
+    xs, ys, zs, mask, first = _neighbor_planes(res, target_pts)
+    count = torch.sum(mask.to(torch.int32), dim=-2)
+    a, b, cond = fit_line_packed(xs, ys, zs, mask)
     enough = count >= params.min_line_fit_points
     # degenerate fits may be non-finite; such slots must never contribute
     finite = torch.isfinite(a).all(-1) & torch.isfinite(b).all(-1)
@@ -96,17 +102,12 @@ def associate_planes(query_pts, query_mask, target_pts, target_mask,
                      params: RegistrationParams, knn_result=None) -> PlaneAssociations:
     """Plane association (reference ``associatePlanes``, ``registration.cpp:65-103``)."""
     res = knn_result
-    if res is not None and hasattr(res, "xs"):  # PackedKnn
-        count = torch.sum(res.mask.to(torch.int32), dim=-2)
-        normal, d, avg_dist = fit_plane_packed(res.xs, res.ys, res.zs, res.mask)
-        first = res.first_idx
-    else:
-        if res is None:
-            res = knn(query_pts, target_pts, target_mask,
-                      k=params.num_plane_neighbors, max_dist=params.max_plane_neighbor_dist)
-        count = torch.sum(res.mask.to(torch.int32), dim=-1)
-        normal, d, avg_dist = fit_plane(_gather_rows(target_pts, res.indices), res.mask)
-        first = res.indices[..., 0]
+    if res is None:
+        res = knn(query_pts, target_pts, target_mask,
+                  k=params.num_plane_neighbors, max_dist=params.max_plane_neighbor_dist)
+    xs, ys, zs, mask, first = _neighbor_planes(res, target_pts)
+    count = torch.sum(mask.to(torch.int32), dim=-2)
+    normal, d, avg_dist = fit_plane_packed(xs, ys, zs, mask)
     enough = count >= params.min_plane_fit_points
     # a nan avg_dist would slip through ~(x > t): reject non-finite fits
     finite = torch.isfinite(normal).all(-1) & torch.isfinite(d) & torch.isfinite(avg_dist)

@@ -15,17 +15,25 @@ both the solve and the insufficient-associations branch and selects between
 them, and commits the result only for pairs still running (``torch.where``),
 so a finished pair's state stays as it was. The loop stops when every pair
 is done or ``max_iterations`` is reached: one host sync per iteration.
+
+Each iteration searches the edge and the planar targets either with two
+single kNN runs (neighbour coordinates packed, fits without a gather) or,
+with ``LOAM_ICF_DUAL_KNN=1``, with one dual run whose indices feed the
+gathered fits -- ``loam_tpu``'s switch between the same two algorithms
+(``icf.py:405-440``), read per call here.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from ..features.types import FeatureSet
 from ..geometry import Pose3, norm, quat_multiply, quat_normalize, quat_rotate
-from ..ops.knn_cuda import knn_prep, knn_run
+from ..ops.knn_cuda import knn_dual_prep, knn_dual_run, knn_prep, knn_run
+from ..ops.morton import morton_key
 from ..params import RegistrationParams, TerminationType
 from .associate import associate_edges, associate_planes
 from .detail import IterationInfo, RegistrationDetail, tree_map
@@ -37,14 +45,12 @@ def _angle_from_identity(q: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.atan2(norm(q[..., 1:]), torch.abs(q[..., 0]))
 
 
-def azimuth_sort_features(fs: FeatureSet) -> FeatureSet:
-    """``fs`` with edge and planar slots stably sorted by azimuth
-    ``atan2(y, x)``, masked slots (key 1e9) last. Leading axes batch."""
+def _sort_features(fs: FeatureSet, key_fn) -> FeatureSet:
+    """``fs`` with edge and planar slots stably sorted by ``key_fn(points,
+    mask)``; leading axes batch."""
 
     def s(points, mask, idxs):
-        az = torch.atan2(points[..., 1], points[..., 0])
-        key = torch.where(mask, az, torch.full_like(az, 1e9))
-        _, order = torch.sort(key, dim=-1, stable=True)
+        _, order = torch.sort(key_fn(points, mask), dim=-1, stable=True)
         return (
             torch.gather(points, -2, order[..., None].expand(points.shape)),
             torch.gather(mask, -1, order),
@@ -54,6 +60,45 @@ def azimuth_sort_features(fs: FeatureSet) -> FeatureSet:
     ep, em, ei = s(fs.edge_points, fs.edge_mask, fs.edge_indices)
     pp, pm, pi = s(fs.planar_points, fs.planar_mask, fs.planar_indices)
     return FeatureSet(ep, em, ei, pp, pm, pi)
+
+
+def azimuth_sort_features(fs: FeatureSet) -> FeatureSet:
+    """``fs`` with edge and planar slots stably sorted by azimuth
+    ``atan2(y, x)``, masked slots (key 1e9) last. Leading axes batch."""
+
+    def key(points, mask):
+        az = torch.atan2(points[..., 1], points[..., 0])
+        return torch.where(mask, az, torch.full_like(az, 1e9))
+
+    return _sort_features(fs, key)
+
+
+def spatial_sort_features(fs: FeatureSet, cell_size: float = 1.0) -> FeatureSet:
+    """``fs`` with edge and planar slots stably sorted by the Morton key of
+    their sensor-frame position on a ``cell_size`` grid, masked slots (key
+    int32 max) last (``loam_tpu``'s order for scan-to-map sources, which
+    matches the voxel maps' Morton-sorted storage). Leading axes batch."""
+
+    def key(points, mask):
+        return torch.where(mask, morton_key(points, cell_size),
+                           torch.iinfo(torch.int32).max)
+
+    return _sort_features(fs, key)
+
+
+def _use_dual_knn(params: RegistrationParams, dtype) -> bool:
+    """``loam_tpu``'s fused-search switch (``icf.py:412-418``) with its
+    conditions (``:268-275``): ``LOAM_ICF_DUAL_KNN=1`` (default ``"0"``),
+    the brute-force backend, both radii positive, float32. It picks the
+    algorithm, not the implementation: the dual search is a kernel on a CUDA
+    tensor and its plain version on a CPU tensor, as every search is."""
+    return (
+        os.environ.get("LOAM_ICF_DUAL_KNN", "0") == "1"
+        and dtype == torch.float32
+        and params.search_backend == "bruteforce"
+        and params.max_edge_neighbor_dist > 0
+        and params.max_plane_neighbor_dist > 0
+    )
 
 
 def _register_impl(
@@ -94,8 +139,13 @@ def _register_impl(
     )
 
     # the targets are fixed across outer iterations: prepare them once
-    e_prep = knn_prep(target.edge_points, target.edge_mask)
-    p_prep = knn_prep(target.planar_points, target.planar_mask)
+    dual = _use_dual_knn(params, dtype)
+    if dual:
+        d_prep = knn_dual_prep(target.edge_points, target.edge_mask,
+                               target.planar_points, target.planar_mask)
+    else:
+        e_prep = knn_prep(target.edge_points, target.edge_mask)
+        p_prep = knn_prep(target.planar_points, target.planar_mask)
     init_inv = init.inverse()
     identity = Pose3.identity(dtype, (B,), dev)
     iters = torch.arange(I, **i32)
@@ -104,12 +154,19 @@ def _register_impl(
     while bool(running.any()):
         qe = quat_rotate(est.rotation[:, None], source.edge_points) + est.translation[:, None]
         qp = quat_rotate(est.rotation[:, None], source.planar_points) + est.translation[:, None]
-        e_res = knn_run(e_prep, qe, params.num_edge_neighbors,
-                        params.max_edge_neighbor_dist, with_coords=True,
-                        query_mask=source.edge_mask)
-        p_res = knn_run(p_prep, qp, params.num_plane_neighbors,
-                        params.max_plane_neighbor_dist, with_coords=True,
-                        query_mask=source.planar_mask)
+        if dual:
+            # one launch for both classes; its KnnResults take the gathered
+            # fits (loam_tpu icf.py:474-477)
+            e_res, p_res = knn_dual_run(
+                d_prep, qe, qp, params.num_edge_neighbors, params.num_plane_neighbors,
+                params.max_edge_neighbor_dist, params.max_plane_neighbor_dist)
+        else:
+            e_res = knn_run(e_prep, qe, params.num_edge_neighbors,
+                            params.max_edge_neighbor_dist, with_coords=True,
+                            query_mask=source.edge_mask)
+            p_res = knn_run(p_prep, qp, params.num_plane_neighbors,
+                            params.max_plane_neighbor_dist, with_coords=True,
+                            query_mask=source.planar_mask)
         ea = associate_edges(qe, source.edge_mask, target.edge_points,
                              target.edge_mask, params, knn_result=e_res)
         pa = associate_planes(qp, source.planar_mask, target.planar_points,

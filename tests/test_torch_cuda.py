@@ -7,8 +7,10 @@ on a machine without JAX it runs on its own:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -m cuda -q
 
 Selections (sort positions, NMS picks, kNN indices and masks, copied
-coordinates) and kNN squared distances must be exactly equal: the kNN kernel
-rounds every step of the distance on its own, as the plain version does.
+coordinates) and kNN squared distances must be exactly equal: the kNN kernels
+round every step of the distance on their own, as the plain versions do.
+The scan-to-map run on the GPU agrees with the same run on the CPU within
+1e-2 m (the ICF position convergence threshold).
 """
 
 import numpy as np
@@ -111,6 +113,56 @@ def test_knn_matches_plain(dev, k, max_dist, m):
     rb = knn_cuda.knn_run_reference(prep, q, k, max_dist, query_mask=qm)
     for x, y in zip(ra, rb):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "B,E,P,k_e,k_p,empty_edges",
+    [(1, 1100, 2600, 5, 5, False), (3, 700, 1500, 3, 7, False),
+     (2, 300, 1200, 5, 5, True), (2, 0, 1300, 5, 5, False)],
+    ids=["B1", "B3-distinct-k", "empty-class", "no-edge-queries"],
+)
+def test_knn_dual_matches_plain_and_two_singles(dev, B, E, P, k_e, k_p, empty_edges):
+    qe, te, me, _ = (torch.from_numpy(x).to(dev) for x in _knn_sets(E + 1, B, 900, E))
+    qp, tp, mp, _ = (torch.from_numpy(x).to(dev) for x in _knn_sets(P, B, 2600, P))
+    if empty_edges:
+        me = torch.zeros_like(me)
+    r_e, r_p = 1.0, 2.0
+    prep = knn_cuda.knn_dual_prep(te, me, tp, mp)
+    before = knn_cuda.knn_dual_run.launches
+    a = knn_cuda.knn_dual_run(prep, qe, qp, k_e, k_p, r_e, r_p)
+    assert knn_cuda.knn_dual_run.launches == before + 1
+    b = knn_cuda.knn_dual_run_reference(prep, qe, qp, k_e, k_p, r_e, r_p)
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            assert torch.equal(x, y)
+    # ... and equal to two launches of the single kernel
+    for res, (q, t, m, k, r) in zip(a, ((qe, te, me, k_e, r_e), (qp, tp, mp, k_p, r_p))):
+        one = knn_cuda.knn_run(knn_cuda.knn_prep(t, m), q, k, r)
+        assert torch.equal(res.mask, one.mask)
+        assert torch.equal(res.indices, torch.where(one.mask, one.indices, 0))
+        assert torch.equal(res.distances, one.distances)
+    if empty_edges:
+        assert not a[0].mask.any()
+
+
+def test_scan_to_map_gpu_matches_cpu(dev, monkeypatch):
+    """scan_to_map_offline with the dual kNN on 6 frames of 16x360 scans
+    (map capacities 2048/8192), on the GPU and on the CPU."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+
+    monkeypatch.setenv("LOAM_ICF_DUAL_KNN", "1")
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans, _ = render_trajectory(lidar, 6, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                 noise=0.003, seed=11, dtype=np.float32)
+    cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+    before = knn_cuda.knn_dual_run.launches
+    sg, tg, dg = T.scan_to_map_offline(torch.from_numpy(scans).to(dev), lidar, config=cfg)
+    assert knn_cuda.knn_dual_run.launches > before
+    sc, tc, dc = T.scan_to_map_offline(torch.from_numpy(scans), lidar, config=cfg)
+    assert torch.equal(dg.termination.cpu(), dc.termination)
+    np.testing.assert_allclose(tg.translation.cpu().numpy(), tc.translation.numpy(), atol=1e-2, rtol=0)
+    assert int(sg.dropped) == 0 and int(sc.dropped) == 0
 
 
 def test_wrappers_refuse_bad_inputs(dev):

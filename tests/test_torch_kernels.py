@@ -1,5 +1,5 @@
-"""The port's four kernels: their plain PyTorch versions against the JAX
-Pallas kernels (interpret mode on the CPU; ``conftest.py`` sets
+"""The port's kernels (sector sort, NMS, copy-out, kNN and the dual-class
+kNN): their plain PyTorch versions against the JAX Pallas kernels (interpret mode on the CPU; ``conftest.py`` sets
 ``LOAM_PALLAS_INTERPRET=1``). The CUDA kernels against their plain versions
 are in ``test_torch_cuda.py``.
 
@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from loam_tpu.ops.assemble_pallas import select_points as j_select
 from loam_tpu.ops.bitonic import bitonic_sort as j_bitonic
+from loam_tpu.ops.knn_pallas import knn_pallas_dual as j_knn_dual
 from loam_tpu.ops.knn_pallas import knn_prep as j_knn_prep
 from loam_tpu.ops.knn_pallas import knn_run as j_knn_run
 from loam_tpu.ops.nms_pallas import greedy_nms as j_nms
@@ -201,3 +202,64 @@ def test_bruteforce_knn_matches_xla(max_dist):
     np.testing.assert_array_equal(got.mask.numpy(), m)
     np.testing.assert_array_equal(got.indices.numpy()[m], np.asarray(ref.indices)[m])
     np.testing.assert_allclose(got.distances.numpy()[m], np.asarray(ref.distances)[m], rtol=1e-6)
+
+
+# ---- dual-class kNN ---------------------------------------------------------
+
+# the three cases of test_knn_pallas.py's dual tests: (edge set seed, M, Q,
+# planar set seed, M, Q, k_e, k_p, r_e, r_p, edge targets all invalid)
+_DUAL_CASES = {
+    "two_singles": (5, 1100, 400, 6, 2600, 900, 5, 5, 1.0, 2.0, False),
+    "distinct_k": (7, 600, 150, 8, 1500, 500, 3, 7, 1.2, 2.2, False),
+    "empty_class": (9, 300, 80, 10, 1200, 400, 5, 5, 1.0, 2.0, True),
+}
+
+
+def _dual_inputs(case):
+    se, me_, qe_, sp, mp_, qp_, k_e, k_p, r_e, r_p, empty = _DUAL_CASES[case]
+    qe, te, me, _ = _knn_sets(se, me_, qe_)
+    qp, tp, mp, _ = _knn_sets(sp, mp_, qp_)
+    if empty:
+        me = np.zeros_like(me)
+    return (qe, qp, te, me, tp, mp), (k_e, k_p, r_e, r_p)
+
+
+@pytest.mark.parametrize("case", sorted(_DUAL_CASES))
+def test_knn_dual_plain_matches_pallas(case):
+    arrays, (k_e, k_p, r_e, r_p) = _dual_inputs(case)
+    j_res = j_knn_dual(*(jnp.asarray(a) for a in arrays), k_e, k_p, r_e, r_p, tq=256, tt=512)
+    t_res = knn_cuda.knn_pallas_dual(*(torch.from_numpy(a) for a in arrays), k_e, k_p, r_e, r_p)
+    for (jr, tr), k in zip(zip(j_res, t_res), (k_e, k_p)):
+        m = np.asarray(jr.mask)
+        assert tr.indices.shape == (m.shape[0], k)
+        np.testing.assert_array_equal(tr.mask.numpy(), m)
+        # loam_tpu's unpack zeroes the invalid slots' indices: all equal
+        np.testing.assert_array_equal(tr.indices.numpy(), np.asarray(jr.indices))
+        assert np.isinf(tr.distances.numpy()[~m]).all()
+        np.testing.assert_allclose(tr.distances.numpy()[m] ** 2, np.asarray(jr.distances)[m] ** 2,
+                                   rtol=1e-6)
+    if _DUAL_CASES[case][-1]:
+        assert not t_res[0].mask.any()
+
+
+@pytest.mark.parametrize("case", sorted(_DUAL_CASES))
+def test_knn_dual_plain_equals_two_singles(case):
+    (qe, qp, te, me, tp, mp), (k_e, k_p, r_e, r_p) = _dual_inputs(case)
+    t = lambda a: torch.from_numpy(np.stack([a, a[::-1].copy()]))  # B = 2 pairs
+    prep = knn_cuda.knn_dual_prep(t(te), t(me), t(tp), t(mp))
+    re, rp = knn_cuda.knn_dual_run_reference(prep, t(qe), t(qp), k_e, k_p, r_e, r_p)
+    for got, (q, tg, tm, k, r) in ((re, (qe, te, me, k_e, r_e)), (rp, (qp, tp, mp, k_p, r_p))):
+        one = knn_cuda.knn_run_reference(knn_cuda.knn_prep(t(tg), t(tm)), t(q), k, r)
+        assert torch.equal(got.mask, one.mask)
+        assert torch.equal(got.indices, torch.where(one.mask, one.indices, 0))
+        assert torch.equal(got.distances, one.distances)
+
+
+def test_knn_dual_no_edge_queries():
+    """E = 0: the planar side is unaffected, the edge side empty."""
+    (qe, qp, te, me, tp, mp), (k_e, k_p, r_e, r_p) = _dual_inputs("two_singles")
+    args = [torch.from_numpy(a) for a in (qe[:0], qp, te, me, tp, mp)]
+    re, rp = knn_cuda.knn_pallas_dual(*args, k_e, k_p, r_e, r_p)
+    assert re.indices.shape == (0, k_e) and re.mask.shape == (0, k_e)
+    one = knn_cuda.knn_run_reference(knn_cuda.knn_prep(args[4], args[5]), args[1], k_p, r_p)
+    assert torch.equal(rp.mask, one.mask) and torch.equal(rp.distances, one.distances)
