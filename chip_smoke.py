@@ -8,17 +8,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
   0. Require CUDA; print the GPU's name and power limit (``nvidia-smi``),
      and the torch and CUDA versions; turn TF32 off.
-  1. Build the five CUDA kernels from ``loam_tpu_torch/ops/csrc`` and print
-     the build time.
+  1. Build the five CUDA kernels from ``loam_tpu_torch/ops/csrc`` (one
+     ``nvcc`` per source, all at once) and print the build time and what
+     ``ptxas`` reports (registers, shared memory, spills).
   2. Run every kernel and its plain PyTorch version on the same inputs at
      the paths' shapes (16 synthetic 64x1024 scans, the first chunk of 4
      pairs; for the dual kNN also a voxel map built from the first frames),
-     require equal results, and time both with CUDA events; print the A/B of
-     one dual kNN launch against the two single launches it replaces.
-  3. Drive ``odometry_offline`` on those 16 frames, ``chunk_pairs=4``,
-     ``motion_init=True`` (single kNN) with every launch counter reset first;
-     require each kernel to have launched, finite poses of the right shape
-     and the benchmark's ATE gate; time 3 runs after a warm-up.
+     require equal results, and time both with CUDA events, beside the
+     kernel's bound on this GPU (the larger of its bytes over 3.35 TB/s and
+     its operations over 67 TFLOP/s float32, from this run's inputs) and,
+     where one PyTorch call computes the same function (a stable
+     ``torch.sort``, ``torch.gather``), that call's time. Both kNN entry
+     points are also checked on one pair (the targets split across thread
+     blocks), on four pairs with the splits switched off, on an empty map
+     and with ``k_edge != k_plane``; print the A/B of one dual kNN launch
+     against the two single launches it replaces.
+  3. Drive ``odometry_offline`` on those 16 frames, handed over as the numpy
+     array the renderer returns and with no ``device`` (so it runs on the
+     GPU), ``chunk_pairs=4``, ``motion_init=True`` (single kNN) with every
+     launch counter reset first; require each kernel to have launched,
+     finite poses of the right shape and the benchmark's ATE gate; time 3
+     runs after a warm-up.
   4. Check agreement with the plain versions on a small input: the offline,
      scan-to-map and scan-to-scan drivers on 6 frames of 16x360 scans on
      the GPU and on the CPU.
@@ -78,6 +88,46 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+PEAK_BYTES_S = 3.35e12  # H100 SXM device memory (published)
+PEAK_FP32_S = 67e12  # H100 SXM float32 outside the tensor cores (published)
+
+
+def _bound(nbytes: float, operations: float) -> dict:
+    """The least time this GPU could take: each input read once and each
+    output written once at the memory rate, or the operations at the
+    float32 rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, operations / PEAK_FP32_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _knn_operations(classes) -> int:
+    """8 float32 operations (3 subtractions, 3 products, 2 additions) for
+    every distance this run's data needs: each searching query against each
+    valid target of its pair. ``classes``: (target mask (B, M), queries per
+    pair or a (B, Q) query mask)."""
+    total = 0
+    for tmask, q in classes:
+        nq = q.sum(-1) if hasattr(q, "sum") else q
+        total += int((tmask.sum(-1) * nq).sum().item())
+    return 8 * total
+
+
+@contextlib.contextmanager
+def _unsplit(knn_cuda):
+    """Keep every class's targets in one range for the block."""
+    old = knn_cuda.MAX_SPLITS
+    knn_cuda.MAX_SPLITS = 1
+    try:
+        yield
+    finally:
+        knn_cuda.MAX_SPLITS = old
+
+
 def _max_err(a, b) -> float:
     import torch
 
@@ -104,6 +154,28 @@ def _dual_knn(on: bool):
             del os.environ["LOAM_ICF_DUAL_KNN"]
         else:
             os.environ["LOAM_ICF_DUAL_KNN"] = old
+
+
+def _check_single_knn(what, knn_cuda, prep, q, k, r, qm):
+    """The single kernel against its plain version in both output forms,
+    all exactly equal. Returns the max abs error of the valid distances."""
+    import torch
+
+    a = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
+    b = knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm)
+    torch.cuda.synchronize()
+    _require_equal(f"{what} mask", a.mask, b.mask)
+    m = b.mask
+    _require_equal(f"{what} first_idx", a.first_idx[m[..., 0, :]], b.first_idx[m[..., 0, :]])
+    for ax in ("xs", "ys", "zs"):
+        _require_equal(f"{what} {ax}", getattr(a, ax)[m], getattr(b, ax)[m])
+    ra = knn_cuda.knn_run(prep, q, k, r, query_mask=qm)
+    rb = knn_cuda.knn_run_reference(prep, q, k, r, query_mask=qm)
+    torch.cuda.synchronize()
+    _require_equal(f"{what} result mask", ra.mask, rb.mask)
+    _require_equal(f"{what} indices", ra.indices[rb.mask], rb.indices[rb.mask])
+    _require_equal(f"{what} distances", ra.distances, rb.distances)
+    return _max_err(ra.distances[rb.mask], rb.distances[rb.mask])
 
 
 def _seconds_per_run(run, reps: int) -> float:
@@ -181,7 +253,8 @@ def main() -> int:
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     _build.lib()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) -> {_build.library_path().name}")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) -> "
+          f"{_build.library_path().name}; {_build.resource_summary()}")
 
     # ---- 2. kernels vs plain versions at the main path's shapes -------------
     lidar = T.LidarParams(64, 1024, 0.5, 120.0)
@@ -199,6 +272,7 @@ def main() -> int:
 
     curv = compute_curvature(scans, lidar, fp).reshape(n_lines, P).contiguous()
     valid = compute_valid_points(scans, lidar, fp).reshape(n_lines, P).contiguous()
+    sort_keys = bitonic_cuda.to_sectors(curv, S, float("inf")).contiguous()
     sc_k, sp_k = bitonic_cuda.sector_sort(curv, S)
     sc_r, sp_r = bitonic_cuda.sector_sort_reference(curv, S)
     torch.cuda.synchronize()
@@ -210,6 +284,10 @@ def main() -> int:
         max_abs_err=max(_max_err(sp_k, sp_r), _max_err(sc_k, sc_r)),
         ms=_time_ms(lambda: bitonic_cuda.sector_sort(curv, S), 20),
         plain_ms=_time_ms(lambda: bitonic_cuda.sector_sort_reference(curv, S), 5),
+        # the same slices, already cut, through one stable torch.sort
+        library_ms=_time_ms(lambda: torch.sort(sort_keys, dim=-1, stable=True), 5),
+        # n log2 n comparisons per slice, far below the bytes
+        **_bound(_nbytes(curv, sc_k, sp_k), sp_k.numel() * np.log2(sp_k.shape[-1])),
     ))
 
     real = sc_k < float("inf")
@@ -229,10 +307,14 @@ def main() -> int:
         max_abs_err=max(_max_err(pe_k, pe_r), _max_err(pp_k, pp_r)),
         ms=_time_ms(lambda: nms_cuda.greedy_nms(valid, cand_e, cand_p, me, mp, n), 20),
         plain_ms=_time_ms(lambda: nms_cuda.greedy_nms_reference(valid, cand_e, cand_p, me, mp, n), 1),
+        library_ms=None,  # no PyTorch call picks greedily with suppression
+        # one visit per candidate slot
+        **_bound(_nbytes(valid, cand_e, cand_p, pe_k, pp_k), cand_e.numel() + cand_p.numel()),
     ))
 
     picks = torch.cat([pe_k.reshape(n_lines, -1), pp_k.reshape(n_lines, -1)], dim=1).contiguous()
     pts = scans.reshape(n_lines, P, 3).contiguous()
+    gather_idx = picks.clamp(min=0).long()[..., None].expand(-1, -1, 3).contiguous()
     sel_k = assemble_cuda.select_points(pts, picks)
     sel_r = assemble_cuda.select_points_reference(pts, picks)
     torch.cuda.synchronize()
@@ -244,13 +326,17 @@ def main() -> int:
         max_abs_err=_max_err(sel_k, sel_r),
         ms=_time_ms(lambda: assemble_cuda.select_points(pts, picks), 50),
         plain_ms=_time_ms(lambda: assemble_cuda.select_points_reference(pts, picks), 50),
+        library_ms=_time_ms(lambda: torch.gather(pts, 1, gather_idx), 50),
+        # the picks, the picked points and the output: what this run's picks need
+        **_bound(_nbytes(picks, sel_k) + int((picks >= 0).sum().item()) * 3 * pts.element_size(), 0),
     ))
 
     # kNN: the first chunk's 4 pairs at the first ICF iteration (identity
     # start), both classes, from the port's own extraction
     feats = T.extract_features_batch(scans, lidar, fp, post=T.registration.azimuth_sort_features)
     C = 4
-    knn_err, knn_ms, knn_plain_ms, knn_shape = 0.0, None, None, ""
+    bq = _build.lib().loam_knn_block_queries()
+    knn_err = 0.0
     for cls, k, r in (("planar", rp.num_plane_neighbors, rp.max_plane_neighbor_dist),
                       ("edge", rp.num_edge_neighbors, rp.max_edge_neighbor_dist)):
         tgt_pts = getattr(feats, f"{cls}_points")[:C]
@@ -258,30 +344,45 @@ def main() -> int:
         q = getattr(feats, f"{cls}_points")[1:C + 1].contiguous()
         qm = getattr(feats, f"{cls}_mask")[1:C + 1].contiguous()
         prep = knn_cuda.knn_prep(tgt_pts, tgt_mask)
-        a = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
-        b = knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm)
-        torch.cuda.synchronize()
-        _require_equal(f"knn {cls} mask", a.mask, b.mask)
-        m = b.mask
-        _require_equal(f"knn {cls} first_idx", a.first_idx[m[:, 0]], b.first_idx[m[:, 0]])
-        for ax in ("xs", "ys", "zs"):
-            _require_equal(f"knn {cls} {ax}", getattr(a, ax)[m], getattr(b, ax)[m])
-        ra = knn_cuda.knn_run(prep, q, k, r, query_mask=qm)
-        rb = knn_cuda.knn_run_reference(prep, q, k, r, query_mask=qm)
-        torch.cuda.synchronize()
-        _require_equal(f"knn {cls} result mask", ra.mask, rb.mask)
-        _require_equal(f"knn {cls} indices", ra.indices[rb.mask], rb.indices[rb.mask])
-        knn_err = max(knn_err, _max_err(ra.distances[rb.mask], rb.distances[rb.mask]))
+        knn_err = max(knn_err, _check_single_knn(f"knn {cls}", knn_cuda, prep, q, k, r, qm))
+        # one pair: the targets are split across thread blocks; four pairs
+        # with the splits switched off: every block searches all live targets
+        prep1 = knn_cuda.knn_prep(tgt_pts[:1], tgt_mask[:1])
+        knn_err = max(knn_err, _check_single_knn(f"knn {cls} B=1", knn_cuda, prep1, q[:1], k, r, qm[:1]))
+        with _unsplit(knn_cuda):
+            knn_err = max(knn_err, _check_single_knn(f"knn {cls} unsplit", knn_cuda, prep, q, k, r, qm))
         if cls == "planar":
-            knn_shape = f"B={C}, Q=M={q.shape[1]} planar (and {feats.edge_points.shape[1]} edge), k={k}"
-            knn_ms = _time_ms(lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm), 10)
+            Qp = q.shape[1]
+            plan4, plan1 = (knn_cuda.split_plan(b, ((Qp, Qp),), bq)[0] for b in (C, 1))
+            if plan1 <= 1:
+                raise AssertionError("knn: one pair at scan scale did not take the split path")
+            run = lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
+            knn_ms = _time_ms(run, 10)
             knn_plain_ms = _time_ms(lambda: knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm), 2)
+            # the launch alone (search and merge kernels, output allocations),
+            # without the wrapper's small PyTorch operations around it
+            knn_launch_ms = _time_ms(lambda: knn_cuda._search_kernel(prep, q, k, r * r, qm), 10)
+            knn_b1_ms = _time_ms(lambda: knn_cuda.knn_run(prep1, q[:1], k, r, with_coords=True,
+                                                          query_mask=qm[:1]), 10)
+            with _unsplit(knn_cuda):
+                knn_unsplit_ms = _time_ms(run, 10)
+            out = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
+            # index, d2 and three coordinate planes out
+            knn_bound = _bound(_nbytes(prep.tT, prep.n_live, q, qm) + 5 * _nbytes(out.xs),
+                               _knn_operations([(tgt_mask, qm)]))
+            knn_shape = (f"B={C}, Q=M={Qp} planar (and {feats.edge_points.shape[1]} edge), k={k}, "
+                         f"n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries")
+            print(f"knn planar: {knn_ms:.4f} ms at B={C} in {plan4} target splits (launch alone "
+                  f"{knn_launch_ms:.4f} ms), {knn_unsplit_ms:.4f} ms unsplit; {knn_b1_ms:.4f} ms at B=1 "
+                  f"in {plan1} splits")
     if knn_err != 0.0:
         raise AssertionError(f"knn distances differ from the plain version by {knn_err}")
     kernels.append(dict(
         name="knn", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:134", shape=knn_shape,
-        max_abs_err=knn_err, ms=knn_ms, plain_ms=knn_plain_ms,
+        max_abs_err=knn_err, ms=knn_ms, launch_ms=knn_launch_ms, plain_ms=knn_plain_ms,
+        library_ms=None,  # cdist + topk is two calls and another arithmetic
+        **knn_bound,
     ))
     # dual kNN, scan scale: the same chunk, both classes in one launch; no
     # query mask (as knn_dual_run), so every source slot searches
@@ -295,7 +396,26 @@ def main() -> int:
     qe, qp = src.edge_points, src.planar_points
     dual_err = _check_dual_knn("knn_dual scan scale", knn_cuda, d_prep, qe, qp, e_prep, p_prep,
                                k_e, k_p, r_e, r_p)
-    dual_scan_ms = _time_ms(lambda: knn_cuda.knn_dual_run(d_prep, qe, qp, k_e, k_p, r_e, r_p), 10)
+    # ... on one pair (scan-to-scan's launch: split targets), and on four
+    # with the splits switched off
+    tgt1 = tgt.map(lambda x: x[:1])
+    d_prep1 = knn_cuda.knn_dual_prep(tgt1.edge_points, tgt1.edge_mask, tgt1.planar_points, tgt1.planar_mask)
+    dual_err = max(dual_err, _check_dual_knn(
+        "knn_dual scan scale B=1", knn_cuda, d_prep1, qe[:1], qp[:1],
+        knn_cuda.knn_prep(tgt1.edge_points, tgt1.edge_mask),
+        knn_cuda.knn_prep(tgt1.planar_points, tgt1.planar_mask), k_e, k_p, r_e, r_p))
+    with _unsplit(knn_cuda):
+        dual_err = max(dual_err, _check_dual_knn("knn_dual scan scale unsplit", knn_cuda, d_prep, qe, qp,
+                                                 e_prep, p_prep, k_e, k_p, r_e, r_p))
+    sizes = ((qe.shape[1], tgt.edge_points.shape[1]), (qp.shape[1], tgt.planar_points.shape[1]))
+    plan4, plan1 = knn_cuda.split_plan(C, sizes, bq), knn_cuda.split_plan(1, sizes, bq)
+    if max(plan1) <= 1:
+        raise AssertionError("knn_dual: one pair at scan scale did not take the split path")
+    run_dual = lambda: knn_cuda.knn_dual_run(d_prep, qe, qp, k_e, k_p, r_e, r_p)
+    dual_scan_ms = _time_ms(run_dual, 10)
+    k_max = max(k_e, k_p)
+    dual_scan_launch_ms = _time_ms(
+        lambda: knn_cuda._dual_search_kernel(d_prep, qe, qp, k_max, r_e * r_e, r_p * r_p), 10)
     dual_scan_plain_ms = _time_ms(
         lambda: knn_cuda.knn_dual_run_reference(d_prep, qe, qp, k_e, k_p, r_e, r_p), 2)
     two_ms = _time_ms(lambda: (knn_cuda.knn_run(e_prep, qe, k_e, r_e),
@@ -303,11 +423,34 @@ def main() -> int:
     two_icf_ms = _time_ms(lambda: (
         knn_cuda.knn_run(e_prep, qe, k_e, r_e, with_coords=True, query_mask=src.edge_mask),
         knn_cuda.knn_run(p_prep, qp, k_p, r_p, with_coords=True, query_mask=src.planar_mask)), 10)
-    dual_scan_ms_2 = _time_ms(lambda: knn_cuda.knn_dual_run(d_prep, qe, qp, k_e, k_p, r_e, r_p), 10)
+    dual_scan_ms_2 = _time_ms(run_dual, 10)
+    dual_b1_ms = _time_ms(lambda: knn_cuda.knn_dual_run(d_prep1, qe[:1], qp[:1], k_e, k_p, r_e, r_p), 10)
+    with _unsplit(knn_cuda):
+        dual_unsplit_ms = _time_ms(run_dual, 10)
     print(f"knn A/B, scan scale (B={C}, {qe.shape[1]} edge + {qp.shape[1]} planar queries per pair): "
-          f"one dual launch {dual_scan_ms:.4f} / {dual_scan_ms_2:.4f} ms; two single launches "
+          f"one dual launch {dual_scan_ms:.4f} / {dual_scan_ms_2:.4f} ms in {plan4} (edge, planar) target "
+          f"splits (launch alone {dual_scan_launch_ms:.4f} ms), {dual_unsplit_ms:.4f} ms unsplit; "
+          f"two single launches "
           f"{two_ms:.4f} ms unmasked, {two_icf_ms:.4f} ms as the ICF calls them (packed, masked "
-          f"queries skipped); dual plain version {dual_scan_plain_ms:.4f} ms")
+          f"queries skipped); dual plain version {dual_scan_plain_ms:.4f} ms; one pair "
+          f"{dual_b1_ms:.4f} ms in {plan1} splits")
+    scan_shape = (f"B={C}, {qe.shape[1]} edge + {qp.shape[1]} planar queries vs the same per pair, "
+                  f"k={k_p}, n_live (edge, planar) {d_prep.n_live.tolist()}")
+
+    def dual_bound(prep, e_mask, p_mask, q_e, q_p, k):
+        """Targets, bounds and queries in; index and d2 planes of both classes out."""
+        lift = lambda m: m if m.ndim == 2 else m[None]
+        n_q = (q_e.numel() + q_p.numel()) // 3
+        return _bound(_nbytes(prep.tT, prep.n_live, q_e, q_p) + 2 * 4 * k * n_q,
+                      _knn_operations([(lift(e_mask), q_e.shape[-2]), (lift(p_mask), q_p.shape[-2])]))
+
+    kernels.append(dict(
+        name="knn_dual_scan", counter="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
+        replaces="loam_tpu/ops/knn_pallas.py:946", shape=scan_shape,
+        max_abs_err=dual_err, ms=dual_scan_ms, launch_ms=dual_scan_launch_ms,
+        plain_ms=dual_scan_plain_ms, library_ms=None,
+        **dual_bound(d_prep, tgt.edge_mask, tgt.planar_mask, qe, qp, max(k_e, k_p)),
+    ))
 
     # dual kNN, map scale: the voxel maps after the first frames at the
     # default ScanToMapConfig, searched by the next frame's features at the
@@ -326,27 +469,65 @@ def main() -> int:
     mp_prep = knn_cuda.knn_prep(pm.points, pm.mask)
     k_e, k_p = s2m_reg.num_edge_neighbors, s2m_reg.num_plane_neighbors
     r_e, r_p = s2m_reg.max_edge_neighbor_dist, s2m_reg.max_plane_neighbor_dist
-    dual_err = max(dual_err, _check_dual_knn("knn_dual map scale", knn_cuda, m_prep, mqe, mqp,
-                                             me_prep, mp_prep, k_e, k_p, r_e, r_p))
+    map_err = _check_dual_knn("knn_dual map scale", knn_cuda, m_prep, mqe, mqp,
+                              me_prep, mp_prep, k_e, k_p, r_e, r_p)
+    # the valid slots of a voxel map are a prefix: the live bound is their count
+    if m_prep.n_live.tolist() != [[int(em.size), int(pm.size)]]:
+        raise AssertionError(f"map n_live {m_prep.n_live.tolist()} is not the maps' sizes")
+    # distinct k per class (the launch runs max(k) slots and cuts each class)
+    for ke, kp in ((3, 5), (5, 2)):
+        map_err = max(map_err, _check_dual_knn(f"knn_dual map scale k=({ke},{kp})", knn_cuda, m_prep,
+                                               mqe, mqp, me_prep, mp_prep, ke, kp, r_e, r_p))
+    # the empty maps of scan-to-map's first frame (built on the GPU by
+    # default): nothing is live, every slot stays at its initial value
+    st0 = T.scan_to_map_init(s2m_cfg)
+    e0, p0 = st0.edge_map, st0.planar_map
+    if not e0.points.is_cuda:
+        raise AssertionError("scan_to_map_init() without a device did not build its state on the GPU")
+    prep0 = knn_cuda.knn_dual_prep(e0.points, e0.mask, p0.points, p0.mask)
+    pe0, pp0 = knn_cuda.knn_prep(e0.points, e0.mask), knn_cuda.knn_prep(p0.points, p0.mask)
+    map_err = max(map_err, _check_dual_knn("knn_dual empty map", knn_cuda, prep0, mqe, mqp,
+                                           pe0, pp0, k_e, k_p, r_e, r_p))
+    _check_single_knn("knn empty map", knn_cuda, pp0, mqp, k_p, r_p, f_next.planar_mask)
+    empty = knn_cuda.knn_dual_run(prep0, mqe, mqp, k_e, k_p, r_e, r_p)
+    if prep0.n_live.any() or empty[0].mask.any() or empty[1].mask.any():
+        raise AssertionError("knn_dual found neighbors in an empty map")
+    map_plan = knn_cuda.split_plan(1, ((mqe.shape[0], em.points.shape[0]),
+                                       (mqp.shape[0], pm.points.shape[0])), bq)
+    if max(map_plan) <= 1:
+        raise AssertionError("knn_dual: the map-scale launch did not take the split path")
     map_shape = (f"B=1, {mqe.shape[0]} edge + {mqp.shape[0]} planar queries vs "
                  f"{em.points.shape[0]} + {pm.points.shape[0]} map slots "
-                 f"({int(em.size)} + {int(pm.size)} filled after {n_map} frames), k={k_p}")
+                 f"({int(em.size)} + {int(pm.size)} filled after {n_map} frames), k={k_p}, "
+                 f"{map_plan} (edge, planar) target splits")
     map_ms = _time_ms(lambda: knn_cuda.knn_dual_run(m_prep, mqe, mqp, k_e, k_p, r_e, r_p), 10)
+    map_launch_ms = _time_ms(lambda: knn_cuda._dual_search_kernel(
+        m_prep, mqe[None], mqp[None], max(k_e, k_p), r_e * r_e, r_p * r_p), 10)
     map_plain_ms = _time_ms(
         lambda: knn_cuda.knn_dual_run_reference(m_prep, mqe, mqp, k_e, k_p, r_e, r_p), 2)
     map_two_ms = _time_ms(lambda: (knn_cuda.knn_run(me_prep, mqe, k_e, r_e),
                                    knn_cuda.knn_run(mp_prep, mqp, k_p, r_p)), 10)
-    print(f"knn_dual map scale: {map_ms:.4f} ms (plain {map_plain_ms:.4f} ms, two single launches "
-          f"{map_two_ms:.4f} ms) at {map_shape}")
-    if dual_err != 0.0:
-        raise AssertionError(f"knn_dual distances differ from the plain version by {dual_err}")
+    map_empty_ms = _time_ms(lambda: knn_cuda.knn_dual_run(prep0, mqe, mqp, k_e, k_p, r_e, r_p), 10)
+    print(f"knn_dual map scale: {map_ms:.4f} ms (launch alone {map_launch_ms:.4f} ms, plain "
+          f"{map_plain_ms:.4f} ms, two single launches {map_two_ms:.4f} ms, empty maps "
+          f"{map_empty_ms:.4f} ms) at {map_shape}")
+    if max(dual_err, map_err) != 0.0:
+        raise AssertionError(f"knn_dual distances differ from the plain version by {max(dual_err, map_err)}")
     kernels.append(dict(
         name="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:946", shape=map_shape,
-        max_abs_err=dual_err, ms=map_ms, plain_ms=map_plain_ms,
+        max_abs_err=map_err, ms=map_ms, launch_ms=map_launch_ms, plain_ms=map_plain_ms,
+        library_ms=None,
+        **dual_bound(m_prep, em.mask, pm.mask, mqe, mqp, max(k_e, k_p)),
     ))
     for kd in kernels:
-        print(f"kernel {kd['name']}: {kd['ms']:.4f} ms (plain {kd['plain_ms']:.4f} ms), "
+        lib_ms = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
+        # the extraction wrappers are their launches; the kNN wrappers add
+        # small PyTorch operations, so their launches are timed alone too
+        kd.setdefault("launch_ms", kd["ms"])
+        print(f"kernel {kd['name']}: {kd['ms']:.4f} ms (launch alone {kd['launch_ms']:.4f} ms, plain "
+              f"{kd['plain_ms']:.4f} ms, one PyTorch call {lib_ms}, bound {kd['bound_ms']:.6f} ms by "
+              f"{kd['bound_by']}, share of bound {kd['bound_ms'] / kd['launch_ms']:.4f}), "
               f"max_abs_err {kd['max_abs_err']} at {kd['shape']}")
 
     # ---- 3. the offline driver (single kNN) ----------------------------------
@@ -383,11 +564,14 @@ def main() -> int:
         return out
 
     def run_offline():
-        return T.odometry_offline(scans, lidar, fp, rp, chunk_pairs=4, motion_init=True)
+        # the renderer's numpy array, no device: odometry_offline moves it to the GPU
+        return T.odometry_offline(scans_np, lidar, fp, rp, chunk_pairs=4, motion_init=True)
 
     reps = 3
     with _dual_knn(False):
         traj, details = drive("offline", run_offline, extraction + ("knn",), ("knn_dual",))
+        if not traj.translation.is_cuda:
+            raise AssertionError("odometry_offline ran a numpy input off the GPU")
         ate, limit, path = _check_trajectory("offline", traj.translation, traj.rotation, frames, gt,
                                              ate_rmse)
         print(f"ATE {ate:.6f} m (limit {limit:.6f} m, path {path:.3f} m); "
@@ -485,10 +669,14 @@ def main() -> int:
           f"loop, 64x1024, dewarp=True, dual kNN) on {smi}")
 
     for kd in kernels:
-        kd["launches"] = sum(lc[kd["name"]] for lc in path_launches.values())
+        counter = kd.get("counter", kd["name"])
+        kd["launches_by_path"] = {path: lc[counter] for path, lc in path_launches.items()}
+        kd["launches"] = sum(kd["launches_by_path"].values())
 
     print(json.dumps({"kernels": [
-        {k: kd[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")}
+        {k: kd[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                            "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_ms", "launches_by_path",
+                            "shape")}
         for kd in kernels
     ]}))
     print(smi)

@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import place
+
 _FIELDS = (
     "edge_points", "edge_mask", "edge_indices",
     "planar_points", "planar_mask", "planar_indices",
@@ -46,17 +48,18 @@ class FeatureSet(NamedTuple):
     @staticmethod
     def from_numpy(fs, device=None, dtype=None) -> "FeatureSet":
         """FeatureSet from any six-field feature set of array-likes, e.g. a
-        ``loam_tpu.FeatureSet`` (its leaves go through ``np.asarray``).
-        ``dtype`` applies to the point arrays only."""
+        ``loam_tpu.FeatureSet`` (its leaves go through ``np.asarray``), on
+        the card unless ``device`` says otherwise (``device.py``). ``dtype``
+        applies to the point arrays only."""
         leaves = [np.asarray(getattr(fs, f)) for f in _FIELDS]
         out = []
         for name, x in zip(_FIELDS, leaves):
             if name.endswith("points"):
-                out.append(torch.tensor(x, dtype=dtype, device=device))
+                out.append(place(x, device, dtype))
             elif name.endswith("mask"):
-                out.append(torch.tensor(x.astype(bool), device=device))
+                out.append(place(x.astype(bool), device))
             else:
-                out.append(torch.tensor(x.astype(np.int32), device=device))
+                out.append(place(x.astype(np.int32), device))
         return FeatureSet(*out)
 
     def to_numpy(self) -> Tuple[np.ndarray, ...]:

@@ -17,8 +17,9 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
+
+from .device import place
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -165,12 +166,10 @@ class Pose3(NamedTuple):
     @staticmethod
     def from_numpy(pose, dtype=None, device=None) -> "Pose3":
         """Pose3 from any ``(rotation, translation)`` pair of array-likes,
-        e.g. a ``loam_tpu`` pose converted with ``np.asarray``."""
+        e.g. a ``loam_tpu`` pose converted with ``np.asarray``, on the card
+        unless ``device`` says otherwise (``device.py``)."""
         rot, trans = pose
-        return Pose3(
-            torch.tensor(np.asarray(rot), dtype=dtype, device=device),
-            torch.tensor(np.asarray(trans), dtype=dtype, device=device),
-        )
+        return Pose3(place(rot, device, dtype), place(trans, device, dtype))
 
     def inverse(self) -> "Pose3":
         """Reference ``geometry.cpp:10-13``."""

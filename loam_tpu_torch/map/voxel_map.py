@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import place, resolve
 from ..geometry import norm
 from ..ops.morton import morton_key
 
@@ -49,19 +50,22 @@ class VoxelMap(NamedTuple):
     @staticmethod
     def from_numpy(m, device=None) -> "VoxelMap":
         """VoxelMap from any four-field map of array-likes, e.g. a
-        ``loam_tpu.VoxelMap`` (leaves go through ``np.asarray``; dtypes kept)."""
+        ``loam_tpu.VoxelMap`` (leaves go through ``np.asarray``; dtypes
+        kept), on the card unless ``device`` says otherwise (``device.py``)."""
         return VoxelMap(
-            torch.tensor(np.asarray(m.points), device=device),
-            torch.tensor(np.asarray(m.mask).astype(bool), device=device),
-            torch.tensor(np.asarray(m.voxel_size), device=device),
-            torch.tensor(np.asarray(m.origin), device=device),
+            place(m.points, device),
+            place(np.asarray(m.mask).astype(bool), device),
+            place(m.voxel_size, device),
+            place(m.origin, device),
         )
 
 
 def voxel_map_empty(capacity: int, voxel_size: float, origin=(0.0, 0.0, 0.0),
                     dtype=torch.float32, device=None) -> VoxelMap:
-    """An empty map. The addressable span around ``origin`` is
+    """An empty map, on the card unless ``device`` says otherwise
+    (``device.py``). The addressable span around ``origin`` is
     ``GRID_CELLS * voxel_size`` (e.g. 1024 * 0.5 m)."""
+    device = resolve(device)
     return VoxelMap(
         points=torch.zeros((capacity, 3), dtype=dtype, device=device),
         mask=torch.zeros((capacity,), dtype=torch.bool, device=device),

@@ -17,9 +17,9 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
+from ..device import place
 from ..features import extract_features_batch
 from ..geometry import Pose3, pose_cumcompose
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
@@ -34,12 +34,14 @@ def odometry_offline(
     reg_params: RegistrationParams = RegistrationParams(),
     chunk_pairs: int = 1,
     motion_init: bool = False,
+    device=None,
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Whole-trajectory scan-to-scan odometry.
 
     Args:
-      scans: (F, L, P, 3) or (F, L*P, 3) stacked scans (a tensor on the
-        device to run on, or a numpy array, which runs on the CPU).
+      scans: (F, L, P, 3) or (F, L*P, 3) stacked scans. A numpy array is
+        moved to the card, or to ``device``; a tensor runs where it lies
+        unless ``device`` names another (``device.py``).
       chunk_pairs: pairs registered per lockstep batch; ``<= 0`` registers
         all pairs in one batch.
       motion_init: start each chunk's pairs from the previous chunk's last
@@ -50,8 +52,7 @@ def odometry_offline(
       ``world_T_frame_i`` with frame 0 at identity; ``details`` stacks the
       RegistrationDetail of the F-1 pairs.
     """
-    if isinstance(scans, np.ndarray):
-        scans = torch.from_numpy(scans)
+    scans = place(scans, device)
     F = scans.shape[0]
     if F < 2:
         raise ValueError(f"odometry needs at least 2 frames, got {F}")

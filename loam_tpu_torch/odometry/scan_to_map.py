@@ -22,9 +22,9 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
+from ..device import place, resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features, extract_features_batch
 from ..geometry import Pose3, norm, quat_conjugate, quat_multiply
@@ -74,7 +74,8 @@ class ScanToMapState(NamedTuple):
     def from_numpy(state, device=None) -> "ScanToMapState":
         """The state of a ``loam_tpu`` ``ScanToMapState`` (leaves through
         ``np.asarray``, dtypes kept; its prep cache is dropped, ``dropped``
-        starts at 0)."""
+        starts at 0), on the card unless ``device`` says otherwise
+        (``device.py``)."""
         pose = lambda p: Pose3.from_numpy(p, device=device)
         return ScanToMapState(
             edge_map=VoxelMap.from_numpy(state.edge_map, device),
@@ -82,8 +83,7 @@ class ScanToMapState(NamedTuple):
             world_T_current=pose(state.world_T_current),
             prev_delta=pose(state.prev_delta),
             world_T_keyframe=pose(state.world_T_keyframe),
-            frames_since_insert=torch.tensor(
-                np.asarray(state.frames_since_insert), dtype=torch.int32, device=device),
+            frames_since_insert=place(state.frames_since_insert, device, torch.int32),
         )
 
 
@@ -95,9 +95,11 @@ def scan_to_map_init(
     feat_params: FeatureExtractionParams = FeatureExtractionParams(),
     device=None,
 ) -> ScanToMapState:
-    """Initial mapping state: empty maps around ``origin``, identity poses.
+    """Initial mapping state: empty maps around ``origin``, identity poses,
+    on the card unless ``device`` says otherwise (``device.py``).
     ``lidar`` and ``feat_params`` are accepted for API compatibility (they
     size ``loam_tpu``'s prep cache)."""
+    device = resolve(device)
     return ScanToMapState(
         edge_map=voxel_map_empty(config.edge_capacity, config.edge_voxel_size, origin, dtype, device),
         planar_map=voxel_map_empty(config.planar_capacity, config.planar_voxel_size, origin, dtype, device),
@@ -223,10 +225,11 @@ def scan_to_map_offline(
     dewarp: bool = False,
     init_state: Optional[ScanToMapState] = None,
     hoist_extraction: bool = True,
+    device=None,
 ) -> Tuple[ScanToMapState, Pose3, RegistrationDetail]:
     """Whole-trajectory scan-to-map odometry over stacked scans (F, L, P, 3)
-    or (F, L*P, 3) (a tensor on the device to run on, or a numpy array,
-    which runs on the CPU).
+    or (F, L*P, 3). A numpy array is moved to the card, or to ``device``; a
+    tensor runs where it lies unless ``device`` names another (``device.py``).
 
     The frames run in order (each registers against the maps built so far).
     With ``hoist_extraction`` and no ``dewarp`` the features of all frames
@@ -236,8 +239,7 @@ def scan_to_map_offline(
     Returns: (final state, trajectory Pose3 with (F, ...) leaves, per-frame
     RegistrationDetail stacked on a leading axis).
     """
-    if isinstance(scans, np.ndarray):
-        scans = torch.from_numpy(scans)
+    scans = place(scans, device)
     if reg_params is None:
         reg_params = default_map_reg_params()
     state = init_state if init_state is not None else scan_to_map_init(

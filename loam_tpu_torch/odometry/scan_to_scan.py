@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features
 from ..geometry import Pose3
@@ -35,7 +36,8 @@ class ScanToScanState(NamedTuple):
     @staticmethod
     def from_numpy(state, device=None) -> "ScanToScanState":
         """The state of any three-field carry of array-likes, e.g. a
-        ``loam_tpu`` ``ScanToScanState`` (dtypes kept)."""
+        ``loam_tpu`` ``ScanToScanState`` (dtypes kept), on the card unless
+        ``device`` says otherwise (``device.py``)."""
         pose = lambda p: Pose3.from_numpy(p, device=device)
         return ScanToScanState(pose(state.world_T_current),
                                FeatureSet.from_numpy(state.prev_features, device=device),
@@ -48,7 +50,9 @@ def scan_to_scan_init(
     dtype=torch.float32,
     device=None,
 ) -> ScanToScanState:
-    """Initial state: identity pose, empty previous features."""
+    """Initial state: identity pose, empty previous features, on the card
+    unless ``device`` says otherwise (``device.py``)."""
+    device = resolve(device)
     e_cap = feat_params.edge_capacity(lidar)
     p_cap = feat_params.planar_capacity(lidar)
     i32 = dict(dtype=torch.int32, device=device)

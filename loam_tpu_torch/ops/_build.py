@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` into one shared
-library with a plain C interface, which is loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds). The library lands in
-``ops/_build/``, named by a hash of the sources, so an edited source is
-rebuilt at its first use and an unchanged one is loaded as built. A failed
-build raises; there is no fallback.
+The sources under ``csrc/`` are compiled with ``nvcc``, one process per
+source and all at once, and linked into one shared library with a plain C
+interface, which is loaded with ``ctypes`` (no PyTorch headers, so the build
+takes seconds). The library lands in ``ops/_build/``, named by a hash of the
+sources and the flags, so an edited source is rebuilt at its first use and an
+unchanged one is loaded as built. ``ptxas`` reports every kernel's registers,
+shared memory and spills (:func:`resource_summary`). A failed build raises;
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,7 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = ("sector_sort.cu", "greedy_nms.cu", "select_points.cu", "knn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,13 +41,27 @@ SIGNATURES = {
     "loam_greedy_nms": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "loam_select_points_f32": (_P, _P, _I, _I, _I, _P, _P),
     "loam_select_points_f64": (_P, _P, _I, _I, _I, _P, _P),
-    "loam_knn": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
-    "loam_knn_dual": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P),
+    "loam_knn_block_queries": (),
+    "loam_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "loam_knn_dual": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P),
 }
 
 _lib = None
+_extra_flags: tuple = ()
 #: Seconds the last build in this process took (0.0 when loaded as built).
 last_build_seconds = 0.0
+#: What the compilers printed during that build (``ptxas -v`` included).
+last_build_log = ""
+
+
+def use_flags(*flags: str) -> None:
+    """Build with extra ``nvcc`` flags (e.g. ``-DLOAM_KNN_QPT=2``) from now
+    on: drops the loaded library, so the next use builds or loads the
+    variant. For tuning scripts; the package itself never calls it."""
+    global _lib, _extra_flags
+    _extra_flags = tuple(flags)
+    _lib = None
 
 
 def _nvcc() -> str:
@@ -59,7 +76,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + _extra_flags).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -72,25 +89,55 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
-    global last_build_seconds
+    global last_build_seconds, last_build_log
     out = library_path()
     if out.exists():
         last_build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    nvcc = _nvcc()
+    flags = NVCC_FLAGS + _extra_flags
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *flags, "-c", "-o", o, str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        results = [p.communicate() + (p.returncode,) for p in procs]  # waits for every one
+        lib_tmp = os.path.join(tmp, "lib.so")
+        link = [nvcc, "-shared", "-o", lib_tmp, *objs]
+        if all(rc == 0 for _, _, rc in results):
+            done = subprocess.run(link, capture_output=True, text=True)
+            cmds.append(link)
+            results.append((done.stdout, done.stderr, done.returncode))
+        log = "".join(so + se for so, se, _ in results)
+        for cmd, (_, _, rc) in zip(cmds, results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+        os.replace(lib_tmp, out)  # atomic: a concurrent loader never sees a partial file
     last_build_seconds = time.perf_counter() - t0
+    last_build_log = log
     return out
+
+
+def resource_summary(log: str | None = None) -> str:
+    """``ptxas -v``'s figures over every kernel of the last build: the range
+    of registers a thread, the largest static shared memory, and the spill
+    stores with the kernels that have any (0 means no kernel spills)."""
+    log = last_build_log if log is None else log
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log)]
+    if not regs:
+        return "ptxas: no report (library loaded as built)"
+    spilled = []
+    for name, nbytes in re.findall(r"Function properties for (\S+)\s+\d+ bytes stack frame, "
+                                   r"(\d+) bytes spill stores", log):
+        if int(nbytes):
+            short = re.search(r"[a-z_]+_kernel(?:ILi\d+E)?", name)
+            spilled.append(f"{short.group(0) if short else name} {nbytes} B")
+    return (f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{max(smem, default=0)} B shared memory at most, "
+            f"spills: {', '.join(spilled) if spilled else 'none'}")
 
 
 def lib() -> ctypes.CDLL:

@@ -29,6 +29,16 @@ The kernel takes float32 (as the Pallas kernel does). The plain version
 keeps the targets' dtype, float32 or float64, so a float64 run on the CPU
 stays float64; its sentinel is chosen so that the squared distance to it
 overflows in either dtype.
+
+Two things of the kernel's design are prepared here, from shapes and masks
+alone and with no host sync. The preps carry ``n_live``, the index of each
+pair's last valid target slot + 1: the kernel visits ``[0, n_live)`` only
+(the voxel maps keep their valid slots as a prefix). :func:`split_plan`
+chooses into how many ranges each class's targets are split across thread
+blocks, so that one pair fills the card as well as four do; the wrapper
+allocates the scratch for the partial lists. The plain versions use
+neither: they visit every slot, and stay the independent statement of the
+result.
 """
 
 from __future__ import annotations
@@ -45,11 +55,23 @@ from ..neighbors.bruteforce import KnnResult, pairwise_d2, topk_min
 SENTINEL = {torch.float32: 3e37, torch.float64: 1e300}
 
 
+#: Thread blocks a search launch aims at: eight waves of the H100's 132 SMs,
+#: so that the last, partly filled wave is a small share of the run (these
+#: three constants are what ``python3 -m loam_tpu_torch.tune_knn`` sweeps).
+TARGET_BLOCKS = 1056
+#: Fewest target slots a split is worth: below it a block's partial lists
+#: cost as much as its search.
+MIN_CHUNK = 512
+#: Most ranges one class's targets are split into.
+MAX_SPLITS = 32
+
+
 class TargetPrep(NamedTuple):
     """Loop-invariant target state of :func:`knn_run`."""
 
     tT: torch.Tensor  # (B, 3, M) coordinate planes, sentinel at invalid slots
     batched: bool  # whether the caller passed a leading batch axis
+    n_live: torch.Tensor  # (B,) int32: index of the last valid slot + 1
 
 
 class PackedKnn(NamedTuple):
@@ -64,24 +86,53 @@ class PackedKnn(NamedTuple):
     zs: torch.Tensor
 
 
+def live_bound(mask: torch.Tensor) -> torch.Tensor:
+    """(..., M) validity -> (...,) int32 index of the last valid slot + 1
+    (0 where none is valid), computed on ``mask``'s device."""
+    M = mask.shape[-1]
+    if M == 0:
+        return torch.zeros(mask.shape[:-1], dtype=torch.int32, device=mask.device)
+    pos = torch.arange(1, M + 1, dtype=torch.int32, device=mask.device)
+    return torch.amax(torch.where(mask, pos, 0), dim=-1)
+
+
 def knn_prep(targets: torch.Tensor, target_mask: torch.Tensor) -> TargetPrep:
     """Target planes for :func:`knn_run`: (M, 3) or (B, M, 3) targets and
     their (M,) / (B, M) mask -> (B, 3, M) planes (float64 stays float64,
-    anything else becomes float32) with the sentinel at invalid slots."""
+    anything else becomes float32) with the sentinel at invalid slots, and
+    the pairs' live-target bounds."""
     batched = targets.ndim == 3
     t = targets if batched else targets[None]
-    m = target_mask if batched else target_mask[None]
+    m = (target_mask if batched else target_mask[None]).to(torch.bool)
     dtype = torch.float64 if t.dtype == torch.float64 else torch.float32
     t = torch.where(m[..., None], t.to(dtype), SENTINEL[dtype])
-    return TargetPrep(t.transpose(-1, -2).contiguous(), batched)
+    return TargetPrep(t.transpose(-1, -2).contiguous(), batched, live_bound(m))
+
+
+def split_plan(B: int, classes, block_queries: int):
+    """Into how many ranges each class's targets are split across thread
+    blocks. ``classes`` is ``((Q, M), ...)``, queries and target slots per
+    pair; ``block_queries`` the queries one block covers. From shapes only
+    (the live counts would need a host sync): the work of a launch, in
+    query blocks x target slots, is cut into about ``TARGET_BLOCKS`` equal
+    chunks of at least ``MIN_CHUNK`` slots, so a class gets splits in
+    proportion to its targets and every block carries similar work."""
+    work = sum(B * -(-q // block_queries) * m for q, m in classes)
+    chunk = max(MIN_CHUNK, -(-work // TARGET_BLOCKS))
+    return tuple(max(1, min(MAX_SPLITS, -(-m // chunk))) for _, m in classes)
 
 
 def _init_d2(max_dist: float) -> float:
     return float(max_dist) ** 2 if max_dist > 0 else float("inf")
 
 
-def _search_reference(tT, queries, k, init_d2, query_mask):
-    """Plain search: direct differences in query tiles, k argmin passes."""
+def _search_reference(prep, queries, k, init_d2, query_mask):
+    """Plain search: direct differences in query tiles, k argmin passes,
+    over every target slot."""
+    return _search_planes(prep.tT, queries, k, init_d2, query_mask)
+
+
+def _search_planes(tT, queries, k, init_d2, query_mask):
     B, _, M = tT.shape
     Q = queries.shape[1]
     init = torch.tensor(init_d2, dtype=tT.dtype, device=tT.device)
@@ -114,24 +165,43 @@ def _search_reference(tT, queries, k, init_d2, query_mask):
     return idx, d2, coords
 
 
-def _search_kernel(tT, queries, k, init_d2, query_mask):
+def _partial_lists(sizes, dev):
+    """Scratch for the partial top-k lists, the classes' (B, splits, k, Q)
+    blocks one after the other; none when no class is split."""
+    if all(s == 1 for _, s, _, _ in sizes):
+        return None, None
+    n = sum(B * s * k * Q for B, s, k, Q in sizes)
+    return (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _search_kernel(prep, queries, k, init_d2, query_mask):
+    tT, n_live = prep.tT, prep.n_live
     B, _, M = tT.shape
     Q = queries.shape[1]
     if not 1 <= k <= 8:
         raise ValueError(f"knn kernel supports 1 <= k <= 8, got {k}")
     _build.require(tT, "targets", (torch.float32,), (B, 3, M))
+    _build.require(n_live, "n_live", (torch.int32,), (B,), tT.device)
     _build.require(queries, "queries", (torch.float32,), (B, Q, 3), tT.device)
     if query_mask is not None:
         _build.require(query_mask, "query_mask", (torch.bool,), (B, Q), tT.device)
     dev = tT.device
+    lib = _build.lib()
+    (splits,) = split_plan(B, ((Q, M),), lib.loam_knn_block_queries())
+    part_d2, part_idx = _partial_lists(((B, splits, k, Q),), dev)
     idx = torch.empty((B, k, Q), dtype=torch.int32, device=dev)
     d2 = torch.empty((B, k, Q), dtype=torch.float32, device=dev)
     coords = [torch.empty((B, k, Q), dtype=torch.float32, device=dev) for _ in range(3)]
     with torch.cuda.device(dev):
-        err = _build.lib().loam_knn(
-            tT.data_ptr(), queries.data_ptr(),
-            None if query_mask is None else query_mask.data_ptr(),
-            B, M, Q, k, init_d2, idx.data_ptr(), d2.data_ptr(),
+        err = lib.loam_knn(
+            tT.data_ptr(), n_live.data_ptr(), queries.data_ptr(), _ptr(query_mask),
+            B, M, Q, k, init_d2, splits, _ptr(part_d2), _ptr(part_idx),
+            idx.data_ptr(), d2.data_ptr(),
             coords[0].data_ptr(), coords[1].data_ptr(), coords[2].data_ptr(),
             _build.stream_of(tT),
         )
@@ -148,7 +218,7 @@ def _run(prep, queries, k, max_dist, with_coords, query_mask, plain):
         qm = (query_mask if prep.batched else query_mask[None]).to(torch.bool).contiguous()
     init_d2 = _init_d2(max_dist)
     search = _search_reference if plain else _search_kernel
-    idx, d2, (xs, ys, zs) = search(prep.tT, q, k, init_d2, qm)
+    idx, d2, (xs, ys, zs) = search(prep, q, k, init_d2, qm)
     valid = torch.isfinite(d2)
     if max_dist > 0:
         # sqrt then strict <, as the reference (kdtree.cpp:24-26)
@@ -198,23 +268,24 @@ class DualTargetPrep(NamedTuple):
     tT: torch.Tensor  # (B, 3, Me + Mp) float32 planes, sentinel at invalid slots
     n_edge: int  # Me: edge target slots (planar indices are relative to Me)
     batched: bool  # whether the caller passed a leading batch axis
+    n_live: torch.Tensor  # (B, 2) int32 live-target bounds: edge, planar
 
 
 def knn_dual_prep(t_edge, t_edge_mask, t_plane, t_plane_mask, tt=None) -> DualTargetPrep:
     """Target planes for :func:`knn_dual_run` from (M, 3) / (B, M, 3) edge and
     planar targets and their masks. ``tt`` (the Pallas chunk length) is
-    accepted for API compatibility and ignored: the kernel visits every
-    target."""
+    accepted for API compatibility and ignored."""
     e = knn_prep(t_edge.to(torch.float32), t_edge_mask)
     p = knn_prep(t_plane.to(torch.float32), t_plane_mask)
     return DualTargetPrep(torch.cat([e.tT, p.tT], dim=2).contiguous(),
-                          t_edge.shape[-2], e.batched)
+                          t_edge.shape[-2], e.batched,
+                          torch.stack([e.n_live, p.n_live], dim=1))
 
 
 def _dual_search_reference(prep, qe, qp, k, init_e, init_p):
     Me = prep.n_edge
-    ie, de, _ = _search_reference(prep.tT[:, :, :Me], qe, k, init_e, None)
-    ip, dp, _ = _search_reference(prep.tT[:, :, Me:], qp, k, init_p, None)
+    ie, de, _ = _search_planes(prep.tT[:, :, :Me], qe, k, init_e, None)
+    ip, dp, _ = _search_planes(prep.tT[:, :, Me:], qp, k, init_p, None)
     return ie, de, ip, dp
 
 
@@ -226,18 +297,23 @@ def _dual_search_kernel(prep, qe, qp, k, init_e, init_p):
     if not 1 <= k <= 8:
         raise ValueError(f"knn kernel supports 1 <= k <= 8, got {k}")
     _build.require(tT, "targets", (torch.float32,), (B, 3, M))
+    _build.require(prep.n_live, "n_live", (torch.int32,), (B, 2), tT.device)
     _build.require(qe, "edge queries", (torch.float32,), (B, E, 3), tT.device)
     _build.require(qp, "planar queries", (torch.float32,), (B, P, 3), tT.device)
     dev = tT.device
+    lib = _build.lib()
+    s_e, s_p = split_plan(B, ((E, Me), (P, M - Me)), lib.loam_knn_block_queries())
+    part_d2, part_idx = _partial_lists(((B, s_e, k, E), (B, s_p, k, P)), dev)
     ie = torch.empty((B, k, E), dtype=torch.int32, device=dev)
     de = torch.empty((B, k, E), dtype=torch.float32, device=dev)
     ip = torch.empty((B, k, P), dtype=torch.int32, device=dev)
     dp = torch.empty((B, k, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _build.lib().loam_knn_dual(
-            tT.data_ptr(), Me, M - Me, qe.data_ptr(), E, qp.data_ptr(), P, B, k,
-            init_e, init_p, ie.data_ptr(), de.data_ptr(), ip.data_ptr(),
-            dp.data_ptr(), _build.stream_of(tT),
+        err = lib.loam_knn_dual(
+            tT.data_ptr(), prep.n_live.data_ptr(), Me, M - Me, qe.data_ptr(), E,
+            qp.data_ptr(), P, B, k, init_e, init_p, s_e, s_p,
+            _ptr(part_d2), _ptr(part_idx), ie.data_ptr(), de.data_ptr(),
+            ip.data_ptr(), dp.data_ptr(), _build.stream_of(tT),
         )
     _build.check(err, "knn_dual")
     knn_dual_run.launches += 1

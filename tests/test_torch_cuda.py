@@ -8,7 +8,9 @@ on a machine without JAX it runs on its own:
 
 Selections (sort positions, NMS picks, kNN indices and masks, copied
 coordinates) and kNN squared distances must be exactly equal: the kNN kernels
-round every step of the distance on their own, as the plain versions do.
+round every step of the distance on their own, as the plain versions do,
+and (d2, index) is a total order, so neither the live-target bound nor the
+target splits may change an output.
 The scan-to-map run on the GPU agrees with the same run on the CPU within
 1e-2 m (the ICF position convergence threshold).
 """
@@ -143,6 +145,171 @@ def test_knn_dual_matches_plain_and_two_singles(dev, B, E, P, k_e, k_p, empty_ed
         assert torch.equal(res.distances, one.distances)
     if empty_edges:
         assert not a[0].mask.any()
+
+
+# ---- the kNN kernels' tiling, live bound and target splits -------------------
+
+def _to(dev, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+
+def _assert_single_equal(prep, q, k, r, qm=None):
+    """Both output forms of the single search, kernel against plain."""
+    before = knn_cuda.knn_run.launches
+    for form in (dict(with_coords=True), dict()):
+        a = knn_cuda.knn_run(prep, q, k, r, query_mask=qm, **form)
+        b = knn_cuda.knn_run_reference(prep, q, k, r, query_mask=qm, **form)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert knn_cuda.knn_run.launches == before + 2
+    return a
+
+
+def _assert_dual_equal(prep, qe, qp, k_e, k_p, r_e, r_p):
+    a = knn_cuda.knn_dual_run(prep, qe, qp, k_e, k_p, r_e, r_p)
+    b = knn_cuda.knn_dual_run_reference(prep, qe, qp, k_e, k_p, r_e, r_p)
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            assert torch.equal(x, y)
+    return a
+
+
+def _block_queries():
+    from loam_tpu_torch.ops import _build
+
+    return _build.lib().loam_knn_block_queries()
+
+
+def _plan(monkeypatch, split, chunk=64):
+    """Make the planner split small shapes into chunks of ``chunk`` slots,
+    or keep every class in one range."""
+    if split:
+        monkeypatch.setattr(knn_cuda, "MIN_CHUNK", chunk)
+        monkeypatch.setattr(knn_cuda, "TARGET_BLOCKS", 1 << 20)
+    else:
+        monkeypatch.setattr(knn_cuda, "MAX_SPLITS", 1)
+
+
+SPLIT = pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+
+
+@SPLIT
+@pytest.mark.parametrize("k", range(1, 9))
+def test_knn_every_k_matches_plain(dev, monkeypatch, k, split):
+    # M and Q multiples neither of 4, nor of the tile, nor of the block
+    _plan(monkeypatch, split)
+    q, t, tm, qm = _to(dev, *_knn_sets(100 + k, 2, 2331, 1219))
+    _assert_single_equal(knn_cuda.knn_prep(t, tm), q, k, 1.5, qm)
+    qe, te, me, _ = _to(dev, *_knn_sets(200 + k, 2, 1027, 515))
+    prep = knn_cuda.knn_dual_prep(te, me, t, tm)
+    _assert_dual_equal(prep, qe, q, k, 9 - k, 1.0, 1.5)
+
+
+@SPLIT
+@pytest.mark.parametrize("live", ["0", "1", "k-1", "k", "M"])
+def test_knn_live_bound(dev, monkeypatch, live, split):
+    """n_live in {0, 1, k-1, k, M}: the valid targets are that prefix."""
+    k, M = 5, 1500
+    n = {"0": 0, "1": 1, "k-1": k - 1, "k": k, "M": M}[live]
+    _plan(monkeypatch, split)
+    q, t, _, qm = _to(dev, *_knn_sets(7, 2, M, 700, spread=2.0))
+    tm = (torch.arange(M, device=dev) < n)[None].expand(2, M).contiguous()
+    prep = knn_cuda.knn_prep(t, tm)
+    assert prep.n_live.tolist() == [n, n]
+    (splits,) = knn_cuda.split_plan(2, ((700, M),), _block_queries())
+    assert (splits > 1) == split
+    for r in (0.0, 3.0):  # +inf and r^2 slot init
+        res = _assert_single_equal(prep, q, k, r, qm)
+        assert int(res.mask.sum(-1).max()) == min(n, k) or r > 0
+    _assert_dual_equal(knn_cuda.knn_dual_prep(t[:, :403], tm[:, :403], t, tm), q[:, :90], q, 3, k,
+                       3.0, 3.0)
+
+
+@SPLIT
+def test_knn_duplicate_targets_keep_first_index(dev, monkeypatch, split):
+    """Every target is one of 16 points, each repeated ~190 times in slots
+    spread over the tiles and the splits: each query's k neighbors are the k
+    lowest slots of its nearest point."""
+    _plan(monkeypatch, split, chunk=200)
+    rng = np.random.default_rng(5)
+    M, Q, k = 3001, 640, 6
+    sites = rng.uniform(-3, 3, size=(16, 3)).astype(np.float32)
+    owner = rng.integers(0, 16, size=(1, M))
+    q, t = _to(dev, rng.uniform(-3, 3, size=(1, Q, 3)).astype(np.float32), sites[owner])
+    tm = torch.ones((1, M), dtype=torch.bool, device=dev)
+    prep = knn_cuda.knn_prep(t, tm)
+    (splits,) = knn_cuda.split_plan(1, ((Q, M),), _block_queries())
+    assert (splits > 1) == split
+    res = _assert_single_equal(prep, q, k, 0.0)
+    idx = res.indices[0].cpu().numpy()
+    nearest = owner[0][idx[:, 0]]
+    for i in range(Q):
+        assert idx[i].tolist() == np.flatnonzero(owner[0] == nearest[i])[:k].tolist()
+    _assert_dual_equal(knn_cuda.knn_dual_prep(t[:, :1001], tm[:, :1001], t, tm), q[:, :77], q,
+                       k, k, 9.0, 9.0)
+
+
+@SPLIT
+def test_knn_all_queries_masked(dev, monkeypatch, split):
+    _plan(monkeypatch, split)
+    q, t, tm, _ = _to(dev, *_knn_sets(9, 2, 1300, 600))
+    qm = torch.zeros((2, 600), dtype=torch.bool, device=dev)
+    assert not _assert_single_equal(knn_cuda.knn_prep(t, tm), q, 5, 1.5, qm).mask.any()
+
+
+def test_knn_one_pair_splits_and_four_pairs_of_few_targets_do_not(dev):
+    """At the planner's own constants: one pair at scan scale takes the
+    split path, four pairs against few targets do not."""
+    bq = _block_queries()
+    q, t, tm, qm = _to(dev, *_knn_sets(13, 1, 19584, 19584, spread=30.0))
+    assert knn_cuda.split_plan(1, ((19584, 19584),), bq)[0] > 1
+    _assert_single_equal(knn_cuda.knn_prep(t, tm), q, 5, 2.0, qm)
+    q4, t4, tm4, qm4 = _to(dev, *_knn_sets(14, 4, 500, 3000))
+    assert knn_cuda.split_plan(4, ((3000, 500),), bq) == (1,)
+    _assert_single_equal(knn_cuda.knn_prep(t4, tm4), q4, 5, 2.0, qm4)
+    # the dual search: edge class unsplit, planar class split
+    qe, te, me, _ = _to(dev, *_knn_sets(15, 1, 401, 300))
+    s_e, s_p = knn_cuda.split_plan(1, ((300, 401), (19584, 19584)), bq)
+    assert s_e == 1 and s_p > 1
+    _assert_dual_equal(knn_cuda.knn_dual_prep(te, me, t, tm), qe, q, 5, 5, 1.0, 2.0)
+
+
+@SPLIT
+@pytest.mark.parametrize("Me", [1, 2, 3, 401, 1023, 1026])
+def test_knn_dual_edge_block_not_a_multiple_of_four(dev, monkeypatch, Me, split):
+    """The planar planes start Me floats into the block: any alignment."""
+    _plan(monkeypatch, split)
+    qe, te, me, _ = _to(dev, *_knn_sets(Me, 2, Me, 130))
+    qp, tp, mp, _ = _to(dev, *_knn_sets(Me + 1, 2, 2049, 770))
+    _assert_dual_equal(knn_cuda.knn_dual_prep(te, me, tp, mp), qe, qp, 5, 5, 2.0, 2.0)
+
+
+def test_entry_points_default_to_the_card(dev):
+    """Numpy in and no ``device``: the odometry functions run on the card, the inits
+    build their state there; ``device="cpu"`` runs on the CPU."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans, _ = render_trajectory(lidar, 3, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                 noise=0.003, seed=11, dtype=np.float32)
+    cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+    s2s, s2m = T.scan_to_scan_init(lidar), T.scan_to_map_init(cfg)
+    assert s2s.prev_features.edge_points.is_cuda and s2s.world_T_current.rotation.is_cuda
+    assert s2m.planar_map.points.is_cuda and s2m.frames_since_insert.is_cuda
+    assert T.Pose3.from_numpy((np.array([1.0, 0, 0, 0]), np.zeros(3))).rotation.is_cuda
+    before = knn_cuda.knn_run.launches
+    traj, _ = T.odometry_offline(scans, lidar, chunk_pairs=2)
+    assert traj.translation.is_cuda and knn_cuda.knn_run.launches > before
+    state, traj_m, _ = T.scan_to_map_offline(scans, lidar, config=cfg)
+    assert traj_m.translation.is_cuda and state.edge_map.points.is_cuda
+    for f in range(len(scans)):  # the README loop: a CUDA scan meets the default state
+        s2s, pose, _ = T.scan_to_scan_step(s2s, torch.from_numpy(scans[f]).to(dev), lidar)
+    assert pose.translation.is_cuda
+    traj_c, _ = T.odometry_offline(scans, lidar, chunk_pairs=2, device="cpu")
+    assert traj_c.translation.device.type == "cpu"
+    np.testing.assert_allclose(traj.translation.cpu().numpy(), traj_c.translation.numpy(),
+                               atol=1e-2, rtol=0)
 
 
 def test_scan_to_map_gpu_matches_cpu(dev, monkeypatch):

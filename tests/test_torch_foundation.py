@@ -123,7 +123,7 @@ def test_pose3_ops_match():
     b = (_rand_quats(rng, 20), rng.normal(size=(20, 3)))
     p = rng.normal(size=(20, 3))
     ja, jb = jg.Pose3(*map(jnp.asarray, a)), jg.Pose3(*map(jnp.asarray, b))
-    ta, tb = tg.Pose3.from_numpy(a), tg.Pose3.from_numpy(b)
+    ta, tb = tg.Pose3.from_numpy(a, device="cpu"), tg.Pose3.from_numpy(b, device="cpu")
     for x, y in zip(ja.compose(jb), ta.compose(tb)):
         _close(x, y)
     for x, y in zip(ja.inverse(), ta.inverse()):
@@ -142,7 +142,7 @@ def test_pose_cumcompose_f32():
     tr = 0.1 * rng.normal(size=(15, 3))
     q = np.asarray(jg.quat_exp(jnp.asarray(rv)))
     jr = jg.pose_cumcompose(jg.Pose3(jnp.asarray(q, jnp.float32), jnp.asarray(tr, jnp.float32)))
-    trr = tg.pose_cumcompose(tg.Pose3.from_numpy((q, tr), dtype=torch.float32))
+    trr = tg.pose_cumcompose(tg.Pose3.from_numpy((q, tr), dtype=torch.float32, device="cpu"))
     _close(jr.rotation, trr.rotation, atol=1e-6)
     _close(jr.translation, trr.translation, atol=1e-6)
 

@@ -53,8 +53,8 @@ def _pair(frames, i):
     tgt = [x[i] for x in frames]
     up = lambda leaves: [x.astype(np.float64) if x.dtype == np.float32 else x for x in leaves]
     js, jt = J.FeatureSet(*map(jnp.asarray, up(src))), J.FeatureSet(*map(jnp.asarray, up(tgt)))
-    ts = T.FeatureSet.from_numpy(js, dtype=torch.float64)
-    tt = T.FeatureSet.from_numpy(jt, dtype=torch.float64)
+    ts = T.FeatureSet.from_numpy(js, dtype=torch.float64, device="cpu")
+    tt = T.FeatureSet.from_numpy(jt, dtype=torch.float64, device="cpu")
     return js, jt, ts, tt
 
 
@@ -132,7 +132,7 @@ def test_lm_solve_matches(frames):
     ta = t_assoc.EdgeAssociations(*(torch.from_numpy(np.asarray(x)) for x in ja))
     tpl = t_assoc.PlaneAssociations(*(torch.from_numpy(np.asarray(x)) for x in jpl))
     offset_j = init.compose(init)
-    offset_t = T.Pose3.from_numpy(offset_j)
+    offset_t = T.Pose3.from_numpy(offset_j, device="cpu")
     dj, cj = j_solver.lm_solve(j_solver._Problem(jnp.asarray(qe), ja, jnp.asarray(qp), jpl, offset_j), rp)
     dt, ct = t_solver.lm_solve(t_solver._Problem(torch.from_numpy(qe), ta, torch.from_numpy(qp), tpl, offset_t), trp)
     np.testing.assert_allclose(dt.rotation.numpy(), np.asarray(dj.rotation), atol=1e-9)
@@ -176,7 +176,7 @@ def test_register_termination_codes_match(frames, overrides, code):
     rp = J.RegistrationParams(**overrides)
     init = J.Pose3(jnp.asarray([1.0, 0.0, 0.0, 0.0]), jnp.asarray([0.05, 0.0, 0.0]))
     pj, dj = J.register_features(js, jt, init, params=rp)
-    pt, dt = T.register_features(ts, tt, T.Pose3.from_numpy(init), params=from_reference(rp))
+    pt, dt = T.register_features(ts, tt, T.Pose3.from_numpy(init, device="cpu"), params=from_reference(rp))
     _compare_registration(pj, dj, pt, dt)
     assert int(dt.termination) == code
     if code == 2:  # bails before solving: the initial estimate, no records

@@ -98,7 +98,7 @@ def test_voxel_map_inserts_match_loam_tpu():
     one past the capacity; contents and ``dropped`` exact."""
     rng = np.random.default_rng(3)
     j_map = J.voxel_map_empty(256, 0.4, origin=(0.5, -0.5, 0.0), dtype=jnp.float32)
-    t_map = T.voxel_map_empty(256, 0.4, origin=(0.5, -0.5, 0.0), dtype=torch.float32)
+    t_map = T.voxel_map_empty(256, 0.4, origin=(0.5, -0.5, 0.0), dtype=torch.float32, device="cpu")
     steps = [
         (rng.uniform(-3, 3, (200, 3)), None, 0.0),  # many shared voxels
         (rng.uniform(-8, 8, (200, 3)), np.array([1.0, 1.0, 0.0]), 6.0),  # eviction
@@ -183,7 +183,7 @@ def test_scan_to_map_state_from_loam_tpu_continues(trajectory, jax_dual_run):
     along loam_tpu's own trajectory (the port's single-search ICF here)."""
     scans, _ = trajectory
     j_rot, j_trans, j_term, _, state2 = jax_dual_run
-    t_state = T.ScanToMapState.from_numpy(state2)
+    t_state = T.ScanToMapState.from_numpy(state2, device="cpu")
     np.testing.assert_array_equal(t_state.planar_map.points.numpy(), state2.planar_map.points)
     np.testing.assert_array_equal(t_state.edge_map.mask.numpy(), state2.edge_map.mask)
     assert int(t_state.frames_since_insert) == int(state2.frames_since_insert)
@@ -200,7 +200,7 @@ def test_scan_to_map_api():
     assert from_reference(J_CFG) == T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
     assert T.default_map_reg_params() == T.RegistrationParams(search_backend="bruteforce",
                                                               prior_weight=300.0)
-    s = T.scan_to_map_init(T.ScanToMapConfig(edge_capacity=16, planar_capacity=32))
+    s = T.scan_to_map_init(T.ScanToMapConfig(edge_capacity=16, planar_capacity=32), device="cpu")
     assert s.knn_prep_cache == () and int(s.frames_since_insert) == -1
     assert s.edge_map.points.shape == (16, 3) and s.planar_map.points.shape == (32, 3)
     assert T.scan_to_map_strip_cache(s).knn_prep_cache == ()

@@ -94,7 +94,7 @@ def test_scan_to_scan_loop_matches_loam_tpu(trajectory, dtype, dewarp, pos_tol, 
     scans, gt = trajectory
     frames, _ = _jax_loop(scans, dtype, dewarp)
     tdt = torch.from_numpy(np.zeros(0, dtype)).dtype
-    ts = T.scan_to_scan_init(from_reference(LIDAR), dtype=tdt)
+    ts = T.scan_to_scan_init(from_reference(LIDAR), dtype=tdt, device="cpu")
     t_pos = []
     for f, (j_rot, j_trans, j_term) in enumerate(frames):
         ts, tp, td = T.scan_to_scan_step(ts, torch.from_numpy(scans[f].astype(dtype)),
@@ -112,7 +112,7 @@ def test_scan_to_scan_state_from_loam_tpu(trajectory):
     port along loam_tpu's own trajectory (float32, 1e-2 m / 1e-3 rad)."""
     scans, _ = trajectory
     frames, state2 = _jax_loop(scans, np.float32, False)
-    ts = T.ScanToScanState.from_numpy(state2)
+    ts = T.ScanToScanState.from_numpy(state2, device="cpu")
     for a, b in zip(ts.prev_features, state2.prev_features):
         np.testing.assert_array_equal(a.numpy(), b)
     for f in range(3, N_FRAMES):
