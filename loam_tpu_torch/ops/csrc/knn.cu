@@ -80,7 +80,7 @@
 //     fastest with every map slot live, and the one without register spills.
 //     Four queries a thread evaluate faster but pay more for the insertions
 //     (a warp's step then holds twice the distances, so it hits twice as
-//     often), and at scan scale the insertions are about a third of the time.
+//     often), and at scan scale the insertions are a quarter of the time.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -13,7 +13,9 @@ host's launch rate, not the device's time) and the launch alone (search and
 merge kernels with their output allocations, the ``raw`` figures):
 
   * ``single``: 4 pairs of 64x1024 scans, the planar search as the ICF
-    calls it (packed coordinates, query mask);
+    calls it (packed coordinates, query mask); ``nohit``: the same with a
+    radius of 5 cm, which next to no target is within, so no list changes:
+    the evaluations alone;
   * ``dual4`` / ``dual1``: the dual search of 4 pairs and of 1 pair
     (scan-to-scan) at scan scale;
   * ``map4`` / ``map15``: the dual search of one frame against the voxel
@@ -93,6 +95,11 @@ def _shapes(dev):
             shapes["single"] = (lambda: knn_cuda.knn_run(*args, **kw),
                                 lambda: knn_cuda.knn_run_reference(*args, **kw),
                                 lambda: knn_cuda._search_kernel(*raw))
+            near = args[:3] + (0.05,)
+            raw_near = raw[:3] + (0.05 ** 2,) + raw[4:]
+            shapes["nohit"] = (lambda: knn_cuda.knn_run(*near, **kw),
+                               lambda: knn_cuda.knn_run_reference(*near, **kw),
+                               lambda: knn_cuda._search_kernel(*raw_near))
         d_prep = knn_cuda.knn_dual_prep(tgt.edge_points, tgt.edge_mask,
                                         tgt.planar_points, tgt.planar_mask)
         shapes["dual" + name] = dual(d_prep, src.edge_points, src.planar_points, rp)
