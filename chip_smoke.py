@@ -12,17 +12,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``nvcc`` per source, all at once) and print the build time and what
      ``ptxas`` reports (registers, shared memory, spills).
   2. Run every kernel and its plain PyTorch version on the same inputs at
-     the paths' shapes (16 synthetic 64x1024 scans, the first chunk of 4
-     pairs; for the dual kNN also a voxel map built from the first frames),
-     require equal results, and time both with CUDA events, beside the
-     kernel's bound on this GPU (the larger of its bytes over 3.35 TB/s and
-     its operations over 67 TFLOP/s float32, from this run's inputs) and,
-     where one PyTorch call computes the same function (a stable
-     ``torch.sort``, ``torch.gather``), that call's time. Both kNN entry
-     points are also checked on one pair (the targets split across thread
-     blocks), on four pairs with the splits switched off, on an empty map
-     and with ``k_edge != k_plane``; print the A/B of one dual kNN launch
-     against the two single launches it replaces.
+     the paths' shapes (16 synthetic 64x1024 scans: all 1,024 lines for the
+     extraction kernels, and one frame's 64 lines, which is what scan-to-scan
+     launches; the first chunk of 4 pairs for the kNN; for the dual kNN also
+     a voxel map built from the first frames), require equal results, and
+     time both with CUDA events, beside the kernel's bound on this GPU (the
+     larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
+     float32, from this run's inputs) and, where one PyTorch call computes
+     the same function (a stable ``torch.sort``, ``torch.gather``), that
+     call's time. Every kernel is timed as its wrapper is called (``ms``) and
+     as a launch alone (``launch_ms``: for the extraction kernels a CUDA
+     graph of 20 calls replayed, so no Python runs between the launches; for
+     the kNN the search and merge kernels without the wrapper's PyTorch
+     operations); the extraction wrappers' host microseconds a call are
+     printed too, and the greedy NMS's chain floor (the accepts of its
+     longest line, one dependent step each). The NMS is also checked on
+     lines of 2,048 points. Both kNN entry points are also checked on one
+     pair (the targets split across thread blocks), on four pairs with the
+     splits switched off, on an empty map and with ``k_edge != k_plane``;
+     print the A/B of one dual kNN launch against the two single launches it
+     replaces. ``--extraction-only`` stops here, after the three extraction
+     kernels, and prints their rows.
   3. Drive ``odometry_offline`` on those 16 frames, handed over as the numpy
      array the renderer returns and with no ``device`` (so it runs on the
      GPU), ``chunk_pairs=4``, ``motion_init=True`` (single kNN) with every
@@ -229,16 +239,191 @@ def _check_dual_knn(what, knn_cuda, prep, qe, qp, e_prep, p_prep, k_e, k_p, r_e,
     return err
 
 
+def _graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device ms per call of ``fn`` with no Python between the launches:
+    ``launches`` calls are captured into one CUDA graph (their allocations
+    come from the graph's pool, their kernels go to the capturing stream)
+    and the graph is replayed ``replays`` times between two CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _time_ms(graph.replay, replays) / launches
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call: the caller's clock over ``calls`` calls
+    with no synchronisation inside, i.e. what enqueueing one costs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+# The greedy pick's own floor: its accepts are a dependent chain (find the
+# next live candidate, suppress around it, find the next), one after another
+# within a line, whatever the card's width. A step is a warp reduction, a
+# compare and a select, each waiting for the one before: ~60 cycles (an
+# estimate from those instructions' latencies, not a measurement) at the
+# H100 SXM's 1.98 GHz boost clock.
+NMS_STEP_CYCLES = 60
+BOOST_HZ = 1.98e9
+
+
+def _extraction_kernels(scans, lidar, fp, suffix: str) -> list:
+    """The three extraction kernels on all lines of ``scans`` (F, L, P, 3):
+    each against its plain version (exactly equal), then timed three ways --
+    the wrapper call by call (``ms``: with a kernel of a few microseconds
+    this is the host's call rate), the launch alone from a CUDA graph
+    (``launch_ms``: the device's time) and the wrapper's host microseconds a
+    call -- beside the bound, the plain version and the one PyTorch call for
+    the same function (call by call and from a graph too)."""
+    import torch
+
+    from loam_tpu_torch.features.curvature import compute_curvature, compute_valid_points
+    from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, nms_cuda
+
+    L, P, S = lidar.scan_lines, lidar.points_per_line, fp.number_sectors
+    n_lines = scans.shape[0] * L
+    rows = []
+
+    def row(name, source, replaces, shape, err, kernel, plain, plain_reps, library, bound, **extra):
+        rows.append(dict(
+            name=name + suffix, counter=name, route="cuda",
+            source=f"loam_tpu_torch/ops/csrc/{source}", replaces=replaces, shape=shape,
+            max_abs_err=err, ms=_time_ms(kernel, 50), launch_ms=_graph_ms(kernel),
+            host_us=_host_us(kernel), plain_ms=_time_ms(plain, plain_reps),
+            library_ms=None if library is None else _time_ms(library, 20),
+            library_launch_ms=None if library is None else _graph_ms(library),
+            **bound, **extra))
+
+    curv = compute_curvature(scans, lidar, fp).reshape(n_lines, P).contiguous()
+    valid = compute_valid_points(scans, lidar, fp).reshape(n_lines, P).contiguous()
+    sort_keys = bitonic_cuda.to_sectors(curv, S, float("inf")).contiguous()
+    sc_k, sp_k = bitonic_cuda.sector_sort(curv, S)
+    sc_r, sp_r = bitonic_cuda.sector_sort_reference(curv, S)
+    torch.cuda.synchronize()
+    _require_equal(f"sector_sort{suffix} positions", sp_k, sp_r)
+    _require_equal(f"sector_sort{suffix} keys", sc_k, sc_r)
+    row("sector_sort", "sector_sort.cu", "loam_tpu/ops/bitonic.py:197",
+        f"curv f64 ({n_lines}, {P}), S={S}", max(_max_err(sp_k, sp_r), _max_err(sc_k, sc_r)),
+        lambda: bitonic_cuda.sector_sort(curv, S),
+        lambda: bitonic_cuda.sector_sort_reference(curv, S), 5,
+        # the same slices, already cut, through one stable torch.sort
+        lambda: torch.sort(sort_keys, dim=-1, stable=True),
+        # n log2 n comparisons per slice, far below the bytes
+        _bound(_nbytes(curv, sc_k, sp_k), sp_k.numel() * np.log2(sp_k.shape[-1])))
+
+    real = sc_k < float("inf")
+    neg = torch.full_like(sp_k, -1)
+    cand_e = torch.where(real & (sc_k > fp.edge_feat_threshold), sp_k, neg).flip(-1).contiguous()
+    cand_p = torch.where(real & (sc_k < fp.planar_feat_threshold), sp_k, neg).contiguous()
+    me, mp, n = fp.max_edge_feats_per_sector, fp.max_planar_feats_per_sector, fp.neighbor_points
+    pe_k, pp_k = nms_cuda.greedy_nms(valid, cand_e, cand_p, me, mp, n)
+    pe_r, pp_r = nms_cuda.greedy_nms_reference(valid, cand_e, cand_p, me, mp, n)
+    torch.cuda.synchronize()
+    _require_equal(f"greedy_nms{suffix} edges", pe_k, pe_r)
+    _require_equal(f"greedy_nms{suffix} planars", pp_k, pp_r)
+    accepts = (pe_r >= 0).sum((1, 2)) + (pp_r >= 0).sum((1, 2))  # per line
+    row("greedy_nms", "greedy_nms.cu", "loam_tpu/ops/nms_pallas.py:85",
+        f"valid ({n_lines}, {P}), candidates ({n_lines}, {S}, {cand_e.shape[2]}) x2",
+        max(_max_err(pe_k, pe_r), _max_err(pp_k, pp_r)),
+        lambda: nms_cuda.greedy_nms(valid, cand_e, cand_p, me, mp, n),
+        lambda: nms_cuda.greedy_nms_reference(valid, cand_e, cand_p, me, mp, n), 1,
+        None,  # no PyTorch call picks greedily with suppression
+        # one visit per candidate slot
+        _bound(_nbytes(valid, cand_e, cand_p, pe_k, pp_k), cand_e.numel() + cand_p.numel()),
+        accepts_mean=float(accepts.float().mean().item()), accepts_max=int(accepts.max().item()),
+        # the line with the most accepts ends last
+        chain_floor_ms=int(accepts.max().item()) * NMS_STEP_CYCLES / BOOST_HZ * 1e3)
+
+    picks = torch.cat([pe_k.reshape(n_lines, -1), pp_k.reshape(n_lines, -1)], dim=1).contiguous()
+    pts = scans.reshape(n_lines, P, 3).contiguous()
+    gather_idx = picks.clamp(min=0).long()[..., None].expand(-1, -1, 3).contiguous()
+    sel_k = assemble_cuda.select_points(pts, picks)
+    sel_r = assemble_cuda.select_points_reference(pts, picks)
+    torch.cuda.synchronize()
+    _require_equal(f"select_points{suffix}", sel_k, sel_r)
+    row("select_points", "select_points.cu", "loam_tpu/ops/assemble_pallas.py:37",
+        f"pts ({n_lines}, {P}, 3) f32, picks ({n_lines}, {picks.shape[1]})", _max_err(sel_k, sel_r),
+        lambda: assemble_cuda.select_points(pts, picks),
+        lambda: assemble_cuda.select_points_reference(pts, picks), 20,
+        lambda: torch.gather(pts, 1, gather_idx),
+        # the picks, the picked points and the output: what this run's picks need
+        _bound(_nbytes(picks, sel_k) + int((picks >= 0).sum().item()) * 3 * pts.element_size(), 0))
+    return rows
+
+
+def _check_wide_nms(dev):
+    """``greedy_nms`` on lines of 2,048 points (two mask words a lane in the
+    kernel) against the plain version."""
+    import torch
+
+    from loam_tpu_torch.ops import nms_cuda
+
+    N, P, S = 64, 2048, 6
+    s_max = P - (S - 1) * (P // S)
+    g = torch.Generator().manual_seed(0)
+    valid = (torch.rand((N, P), generator=g) > 0.2).to(dev)
+    # every point of a sector a candidate, in a random order, in both lists
+    base = (torch.arange(S) * (P // S))[None, :, None]
+    order = lambda: (torch.rand((N, S, s_max), generator=g).argsort(-1) + base).clamp(max=P - 1)
+    cand_e, cand_p = (order().to(torch.int32).to(dev).contiguous() for _ in range(2))
+    got = nms_cuda.greedy_nms(valid, cand_e, cand_p, 10, 50, 3)
+    want = nms_cuda.greedy_nms_reference(valid, cand_e, cand_p, 10, 50, 3)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("edges", "planars"), got, want):
+        _require_equal(f"greedy_nms P={P} {what}", a, b)
+    ms = _graph_ms(lambda: nms_cuda.greedy_nms(valid, cand_e, cand_p, 10, 50, 3))
+    print(f"greedy_nms at P={P} ({N} lines, {S} sectors of {s_max}): equal to the plain version, "
+          f"launch alone {ms:.4f} ms")
+
+
+def _print_kernels(kernels):
+    """One line a kernel: its times beside its bound."""
+    for kd in kernels:
+        lib_ms = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
+        line = (f"kernel {kd['name']}: {kd['ms']:.4f} ms (launch alone {kd['launch_ms']:.4f} ms, plain "
+                f"{kd['plain_ms']:.4f} ms, one PyTorch call {lib_ms}")
+        if kd.get("library_launch_ms") is not None:
+            line += f" and {kd['library_launch_ms']:.4f} ms alone"
+        line += (f", bound {kd['bound_ms']:.6f} ms by {kd['bound_by']}, share of bound "
+                 f"{kd['bound_ms'] / kd['launch_ms']:.4f})")
+        if "host_us" in kd:
+            line += f", wrapper {kd['host_us']:.2f} us of host time a call"
+        if "chain_floor_ms" in kd:
+            line += (f", chain floor {kd['chain_floor_ms']:.6f} ms ({kd['accepts_max']} accepts in the "
+                     f"longest line, {kd['accepts_mean']:.1f} a line on average)")
+        print(line + f", max_abs_err {kd['max_abs_err']} at {kd['shape']}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    extraction_only = sys.argv[1:] == ["--extraction-only"]
+    if sys.argv[1:] and not extraction_only:
+        print("usage: chip_smoke.py [--extraction-only]", file=sys.stderr)
+        return 2
 
     import loam_tpu_torch as T
     from loam_tpu_torch.evaluation import ate_rmse
-    from loam_tpu_torch.features.curvature import compute_curvature, compute_valid_points
     from loam_tpu_torch.io import render_trajectory
     from loam_tpu_torch.ops import _build, assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
 
@@ -266,70 +451,15 @@ def main() -> int:
         noise=0.005, seed=0, dtype=np.float32,
     )
     scans = torch.from_numpy(scans_np).to(dev)
-    L, P, S = lidar.scan_lines, lidar.points_per_line, fp.number_sectors
-    n_lines = frames * L
-    kernels = []
-
-    curv = compute_curvature(scans, lidar, fp).reshape(n_lines, P).contiguous()
-    valid = compute_valid_points(scans, lidar, fp).reshape(n_lines, P).contiguous()
-    sort_keys = bitonic_cuda.to_sectors(curv, S, float("inf")).contiguous()
-    sc_k, sp_k = bitonic_cuda.sector_sort(curv, S)
-    sc_r, sp_r = bitonic_cuda.sector_sort_reference(curv, S)
-    torch.cuda.synchronize()
-    _require_equal("sector_sort positions", sp_k, sp_r)
-    _require_equal("sector_sort keys", sc_k, sc_r)
-    kernels.append(dict(
-        name="sector_sort", route="cuda", source="loam_tpu_torch/ops/csrc/sector_sort.cu",
-        replaces="loam_tpu/ops/bitonic.py:197", shape=f"curv f64 ({n_lines}, {P}), S={S}",
-        max_abs_err=max(_max_err(sp_k, sp_r), _max_err(sc_k, sc_r)),
-        ms=_time_ms(lambda: bitonic_cuda.sector_sort(curv, S), 20),
-        plain_ms=_time_ms(lambda: bitonic_cuda.sector_sort_reference(curv, S), 5),
-        # the same slices, already cut, through one stable torch.sort
-        library_ms=_time_ms(lambda: torch.sort(sort_keys, dim=-1, stable=True), 5),
-        # n log2 n comparisons per slice, far below the bytes
-        **_bound(_nbytes(curv, sc_k, sp_k), sp_k.numel() * np.log2(sp_k.shape[-1])),
-    ))
-
-    real = sc_k < float("inf")
-    neg = torch.full_like(sp_k, -1)
-    cand_e = torch.where(real & (sc_k > fp.edge_feat_threshold), sp_k, neg).flip(-1).contiguous()
-    cand_p = torch.where(real & (sc_k < fp.planar_feat_threshold), sp_k, neg).contiguous()
-    me, mp, n = fp.max_edge_feats_per_sector, fp.max_planar_feats_per_sector, fp.neighbor_points
-    pe_k, pp_k = nms_cuda.greedy_nms(valid, cand_e, cand_p, me, mp, n)
-    pe_r, pp_r = nms_cuda.greedy_nms_reference(valid, cand_e, cand_p, me, mp, n)
-    torch.cuda.synchronize()
-    _require_equal("greedy_nms edges", pe_k, pe_r)
-    _require_equal("greedy_nms planars", pp_k, pp_r)
-    kernels.append(dict(
-        name="greedy_nms", route="cuda", source="loam_tpu_torch/ops/csrc/greedy_nms.cu",
-        replaces="loam_tpu/ops/nms_pallas.py:85",
-        shape=f"valid ({n_lines}, {P}), candidates ({n_lines}, {S}, {cand_e.shape[2]}) x2",
-        max_abs_err=max(_max_err(pe_k, pe_r), _max_err(pp_k, pp_r)),
-        ms=_time_ms(lambda: nms_cuda.greedy_nms(valid, cand_e, cand_p, me, mp, n), 20),
-        plain_ms=_time_ms(lambda: nms_cuda.greedy_nms_reference(valid, cand_e, cand_p, me, mp, n), 1),
-        library_ms=None,  # no PyTorch call picks greedily with suppression
-        # one visit per candidate slot
-        **_bound(_nbytes(valid, cand_e, cand_p, pe_k, pp_k), cand_e.numel() + cand_p.numel()),
-    ))
-
-    picks = torch.cat([pe_k.reshape(n_lines, -1), pp_k.reshape(n_lines, -1)], dim=1).contiguous()
-    pts = scans.reshape(n_lines, P, 3).contiguous()
-    gather_idx = picks.clamp(min=0).long()[..., None].expand(-1, -1, 3).contiguous()
-    sel_k = assemble_cuda.select_points(pts, picks)
-    sel_r = assemble_cuda.select_points_reference(pts, picks)
-    torch.cuda.synchronize()
-    _require_equal("select_points", sel_k, sel_r)
-    kernels.append(dict(
-        name="select_points", route="cuda", source="loam_tpu_torch/ops/csrc/select_points.cu",
-        replaces="loam_tpu/ops/assemble_pallas.py:37",
-        shape=f"pts ({n_lines}, {P}, 3) f32, picks ({n_lines}, {picks.shape[1]})",
-        max_abs_err=_max_err(sel_k, sel_r),
-        ms=_time_ms(lambda: assemble_cuda.select_points(pts, picks), 50),
-        plain_ms=_time_ms(lambda: assemble_cuda.select_points_reference(pts, picks), 50),
-        library_ms=_time_ms(lambda: torch.gather(pts, 1, gather_idx), 50),
-        # the picks, the picked points and the output: what this run's picks need
-        **_bound(_nbytes(picks, sel_k) + int((picks >= 0).sum().item()) * 3 * pts.element_size(), 0),
-    ))
+    kernels = _extraction_kernels(scans, lidar, fp, "")
+    # ... and at one frame's shape, what scan-to-scan launches once a frame
+    kernels += _extraction_kernels(scans[:1], lidar, fp, "_frame")
+    _check_wide_nms(dev)
+    if extraction_only:
+        _print_kernels(kernels)
+        print(json.dumps({"extraction_kernels": kernels}))
+        print(smi)
+        return 0
 
     # kNN: the first chunk's 4 pairs at the first ICF iteration (identity
     # start), both classes, from the port's own extraction
@@ -520,15 +650,7 @@ def main() -> int:
         library_ms=None,
         **dual_bound(m_prep, em.mask, pm.mask, mqe, mqp, max(k_e, k_p)),
     ))
-    for kd in kernels:
-        lib_ms = "none" if kd["library_ms"] is None else f"{kd['library_ms']:.4f} ms"
-        # the extraction wrappers are their launches; the kNN wrappers add
-        # small PyTorch operations, so their launches are timed alone too
-        kd.setdefault("launch_ms", kd["ms"])
-        print(f"kernel {kd['name']}: {kd['ms']:.4f} ms (launch alone {kd['launch_ms']:.4f} ms, plain "
-              f"{kd['plain_ms']:.4f} ms, one PyTorch call {lib_ms}, bound {kd['bound_ms']:.6f} ms by "
-              f"{kd['bound_by']}, share of bound {kd['bound_ms'] / kd['launch_ms']:.4f}), "
-              f"max_abs_err {kd['max_abs_err']} at {kd['shape']}")
+    _print_kernels(kernels)
 
     # ---- 3. the offline driver (single kNN) ----------------------------------
     counters = {
@@ -677,6 +799,8 @@ def main() -> int:
         {k: kd[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                             "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_ms", "launches_by_path",
                             "shape")}
+        | {k: kd[k] for k in ("host_us", "library_launch_ms", "chain_floor_ms", "accepts_max",
+                              "accepts_mean") if k in kd}
         for kd in kernels
     ]}))
     print(smi)

@@ -22,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
@@ -153,17 +155,21 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+def launch(fn, what: str, t, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with PyTorch's current
+    stream on ``t``'s device, that device being the current one during the
+    call, and raise if it returns a CUDA error. The device is switched only
+    when it is not current already, and the stream's raw handle is read
+    without building a ``Stream`` object: a kernel of a few microseconds is
+    called from a loop that the host's time per call bounds."""
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
-
-
-def stream_of(t) -> int:
-    """Raw handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def require(t, name: str, dtypes, shape=None, device=None) -> None:
@@ -178,7 +184,7 @@ def require(t, name: str, dtypes, shape=None, device=None) -> None:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if shape is not None and (
+    if shape is not None and t.shape != shape and (
         t.ndim != len(shape)
         or any(s is not None and s != d for s, d in zip(shape, t.shape))
     ):

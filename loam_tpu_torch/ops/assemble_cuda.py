@@ -31,15 +31,10 @@ def select_points(pts: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:
     _build.require(pts, "pts", (torch.float32, torch.float64), (N, P, 3))
     _build.require(picks, "picks", (torch.int32,), (N, C), pts.device)
     out = torch.empty((N, C, 3), dtype=pts.dtype, device=pts.device)
-    fn = (
-        _build.lib().loam_select_points_f64
-        if pts.dtype == torch.float64
-        else _build.lib().loam_select_points_f32
-    )
-    with torch.cuda.device(pts.device):
-        err = fn(pts.data_ptr(), picks.data_ptr(), N, P, C, out.data_ptr(),
-                 _build.stream_of(pts))
-    _build.check(err, "select_points")
+    lib = _build.lib()
+    fn = lib.loam_select_points_f64 if pts.dtype == torch.float64 else lib.loam_select_points_f32
+    _build.launch(fn, "select_points", pts, pts.data_ptr(), picks.data_ptr(), N, P, C,
+                  out.data_ptr())
     select_points.launches += 1
     return out
 

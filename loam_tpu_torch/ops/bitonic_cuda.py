@@ -63,24 +63,18 @@ def sector_sort(curv: torch.Tensor, n_sectors: int):
     if not curv.is_cuda:
         return sector_sort_reference(curv, n_sectors)
     N, P = curv.shape
-    pps, s_max, _ = sector_layout(P, n_sectors)
+    pps = P // n_sectors
+    s_max = P - (n_sectors - 1) * pps  # as sector_layout, without its position table
     npad = 1 << max(int(s_max - 1).bit_length(), 0)
     if npad > 1024:
         raise ValueError(f"sector_sort: sector size {s_max} exceeds 1024")
     _build.require(curv, "curv", (torch.float32, torch.float64), (None, None))
     out_c = torch.empty((N, n_sectors, s_max), dtype=curv.dtype, device=curv.device)
     out_p = torch.empty((N, n_sectors, s_max), dtype=torch.int32, device=curv.device)
-    fn = (
-        _build.lib().loam_sector_sort_f64
-        if curv.dtype == torch.float64
-        else _build.lib().loam_sector_sort_f32
-    )
-    with torch.cuda.device(curv.device):
-        err = fn(
-            curv.data_ptr(), N, P, n_sectors, pps, s_max, npad,
-            out_c.data_ptr(), out_p.data_ptr(), _build.stream_of(curv),
-        )
-    _build.check(err, "sector_sort")
+    lib = _build.lib()
+    fn = lib.loam_sector_sort_f64 if curv.dtype == torch.float64 else lib.loam_sector_sort_f32
+    _build.launch(fn, "sector_sort", curv, curv.data_ptr(), N, P, n_sectors, pps, s_max, npad,
+                  out_c.data_ptr(), out_p.data_ptr())
     sector_sort.launches += 1
     return out_c, out_p
 

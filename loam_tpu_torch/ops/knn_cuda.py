@@ -197,15 +197,13 @@ def _search_kernel(prep, queries, k, init_d2, query_mask):
     idx = torch.empty((B, k, Q), dtype=torch.int32, device=dev)
     d2 = torch.empty((B, k, Q), dtype=torch.float32, device=dev)
     coords = [torch.empty((B, k, Q), dtype=torch.float32, device=dev) for _ in range(3)]
-    with torch.cuda.device(dev):
-        err = lib.loam_knn(
-            tT.data_ptr(), n_live.data_ptr(), queries.data_ptr(), _ptr(query_mask),
-            B, M, Q, k, init_d2, splits, _ptr(part_d2), _ptr(part_idx),
-            idx.data_ptr(), d2.data_ptr(),
-            coords[0].data_ptr(), coords[1].data_ptr(), coords[2].data_ptr(),
-            _build.stream_of(tT),
-        )
-    _build.check(err, "knn")
+    _build.launch(
+        lib.loam_knn, "knn", tT,
+        tT.data_ptr(), n_live.data_ptr(), queries.data_ptr(), _ptr(query_mask),
+        B, M, Q, k, init_d2, splits, _ptr(part_d2), _ptr(part_idx),
+        idx.data_ptr(), d2.data_ptr(),
+        coords[0].data_ptr(), coords[1].data_ptr(), coords[2].data_ptr(),
+    )
     knn_run.launches += 1
     return idx, d2, coords
 
@@ -308,14 +306,13 @@ def _dual_search_kernel(prep, qe, qp, k, init_e, init_p):
     de = torch.empty((B, k, E), dtype=torch.float32, device=dev)
     ip = torch.empty((B, k, P), dtype=torch.int32, device=dev)
     dp = torch.empty((B, k, P), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.loam_knn_dual(
-            tT.data_ptr(), prep.n_live.data_ptr(), Me, M - Me, qe.data_ptr(), E,
-            qp.data_ptr(), P, B, k, init_e, init_p, s_e, s_p,
-            _ptr(part_d2), _ptr(part_idx), ie.data_ptr(), de.data_ptr(),
-            ip.data_ptr(), dp.data_ptr(), _build.stream_of(tT),
-        )
-    _build.check(err, "knn_dual")
+    _build.launch(
+        lib.loam_knn_dual, "knn_dual", tT,
+        tT.data_ptr(), prep.n_live.data_ptr(), Me, M - Me, qe.data_ptr(), E,
+        qp.data_ptr(), P, B, k, init_e, init_p, s_e, s_p,
+        _ptr(part_d2), _ptr(part_idx), ie.data_ptr(), de.data_ptr(),
+        ip.data_ptr(), dp.data_ptr(),
+    )
     knn_dual_run.launches += 1
     return ie, de, ip, dp
 

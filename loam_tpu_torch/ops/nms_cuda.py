@@ -63,19 +63,19 @@ def greedy_nms(valid, cand_e, cand_p, max_e: int, max_p: int, n: int):
     N, P = valid.shape
     if P > 2048:
         raise ValueError(f"greedy_nms: {P} points per line exceeds 2048")
+    if n < 1:
+        raise ValueError(f"greedy_nms: neighbor_points must be at least 1, got {n}")
     S, s_max = cand_e.shape[1], cand_e.shape[2]
     _build.require(valid, "valid", (torch.bool, torch.uint8), (N, P))
     _build.require(cand_e, "cand_e", (torch.int32,), (N, S, s_max), valid.device)
     _build.require(cand_p, "cand_p", (torch.int32,), (N, S, s_max), valid.device)
     out_e = torch.empty((N, S, max_e + 1), dtype=torch.int32, device=valid.device)
     out_p = torch.empty((N, S, max_p + 1), dtype=torch.int32, device=valid.device)
-    with torch.cuda.device(valid.device):
-        err = _build.lib().loam_greedy_nms(
-            valid.data_ptr(), cand_e.data_ptr(), cand_p.data_ptr(),
-            N, P, S, s_max, max_e, max_p, n,
-            out_e.data_ptr(), out_p.data_ptr(), _build.stream_of(valid),
-        )
-    _build.check(err, "greedy_nms")
+    _build.launch(
+        _build.lib().loam_greedy_nms, "greedy_nms", valid,
+        valid.data_ptr(), cand_e.data_ptr(), cand_p.data_ptr(),
+        N, P, S, s_max, max_e, max_p, n, out_e.data_ptr(), out_p.data_ptr(),
+    )
     greedy_nms.launches += 1
     return out_e, out_p
 

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_nms_cases import NMS_CASES, random_candidates as _candidates
+
 from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
 
 pytestmark = pytest.mark.cuda
@@ -29,21 +31,6 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     return torch.device("cuda", 0)
-
-
-def _candidates(rng, L, P, S, density=0.5):
-    """(L, S, s_max) int32 candidate lists: a random subset of each sector's
-    positions, shuffled, at a random offset among -1 slots."""
-    pps = P // S
-    s_max = P - (S - 1) * pps
-    c = np.full((L, S, s_max), -1, np.int32)
-    for li in range(L):
-        for s in range(S):
-            size = s_max if s == S - 1 else pps
-            pos = s * pps + rng.permutation(size)[: int(size * density)]
-            off = rng.integers(0, s_max - len(pos) + 1)
-            c[li, s, off : off + len(pos)] = pos
-    return c
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -62,15 +49,36 @@ def test_sector_sort_matches_plain(dev, dtype, P, S):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("L,P,S,max_e,max_p,n", [(32, 1024, 6, 10, 50, 3), (9, 100, 4, 2, 5, 1)])
+@pytest.mark.parametrize(
+    "L,P,S,max_e,max_p,n",
+    [(32, 1024, 6, 10, 50, 3), (9, 100, 4, 2, 5, 1),
+     # one line; one frame; lines not a multiple of the warps a block
+     (1, 1024, 6, 10, 50, 3), (64, 1024, 6, 10, 50, 3), (7, 360, 6, 10, 50, 3),
+     # two mask words a lane, and a window that covers whole words there
+     (5, 2048, 6, 10, 50, 3), (3, 1500, 4, 2, 40, 35)],
+)
 def test_greedy_nms_matches_plain(dev, L, P, S, max_e, max_p, n):
     rng = np.random.default_rng(L)
     valid = torch.from_numpy(rng.random((L, P)) > 0.2).to(dev)
     ce, cp = (torch.from_numpy(_candidates(rng, L, P, S)).to(dev) for _ in range(2))
+    before = nms_cuda.greedy_nms.launches
+    a = nms_cuda.greedy_nms(valid, ce, cp, max_e, max_p, n)
+    assert nms_cuda.greedy_nms.launches == before + 1
+    b = nms_cuda.greedy_nms_reference(valid, ce, cp, max_e, max_p, n)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+def test_greedy_nms_matches_plain_at_kernel_branches(dev, case):
+    valid, ce, cp, max_e, max_p, n = NMS_CASES[case]()
+    valid, ce, cp = (torch.from_numpy(x).to(dev) for x in (valid, ce, cp))
     a = nms_cuda.greedy_nms(valid, ce, cp, max_e, max_p, n)
     b = nms_cuda.greedy_nms_reference(valid, ce, cp, max_e, max_p, n)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    if case == "suppressed_inside_a_group":
+        assert a[1][0, 0].tolist() == [10, 13, 7, 20, 23] + [-1] * 8
 
 
 def test_greedy_nms_padded_sector_past_count_bound(dev):
@@ -86,12 +94,28 @@ def test_greedy_nms_padded_sector_past_count_bound(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_select_points_matches_plain(dev, dtype):
+@pytest.mark.parametrize(
+    "N,P,C,picks",
+    [(64, 1024, 372, "mixed"), (1024, 1024, 372, "mixed"),
+     # picks not a multiple of a warp's 32 slots, fewer than 32, one line
+     (5, 100, 45, "mixed"), (3, 64, 7, "mixed"), (1, 360, 372, "mixed"),
+     (4, 200, 70, "all negative"), (4, 200, 70, "past the line")],
+)
+def test_select_points_matches_plain(dev, dtype, N, P, C, picks):
     rng = np.random.default_rng(2)
-    pts = torch.from_numpy(rng.standard_normal((64, 1024, 3))).to(dev, dtype)
-    picks = torch.from_numpy(rng.integers(-1, 1024, (64, 372)).astype(np.int32)).to(dev)
-    assert torch.equal(assemble_cuda.select_points(pts, picks),
-                       assemble_cuda.select_points_reference(pts, picks))
+    pts = torch.from_numpy(rng.standard_normal((N, P, 3))).to(dev, dtype)
+    idx = rng.integers(-1, P, (N, C)).astype(np.int32)
+    if picks == "all negative":
+        idx[:] = rng.integers(-5, 0, (N, C))
+    elif picks == "past the line":  # P and beyond yield zeros and read nothing
+        idx[:, ::2] = rng.integers(P, 4 * P, (N, (C + 1) // 2))
+    idx = torch.from_numpy(idx).to(dev)
+    before = assemble_cuda.select_points.launches
+    got = assemble_cuda.select_points(pts, idx)
+    assert assemble_cuda.select_points.launches == before + 1
+    assert torch.equal(got, assemble_cuda.select_points_reference(pts, idx))
+    if picks == "all negative":
+        assert not got.any()
 
 
 def _knn_sets(seed, B, m, q, spread=5.0):
@@ -341,3 +365,6 @@ def test_wrappers_refuse_bad_inputs(dev):
         knn_cuda.knn_run(prep, torch.zeros((2, 3), device=dev), 9, 1.0)
     with pytest.raises(ValueError):  # not contiguous
         bitonic_cuda.sector_sort(torch.zeros((64, 8), device=dev).t(), 2)
+    cand = torch.full((2, 1, 8), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # no suppression window: the kernel needs n >= 1
+        nms_cuda.greedy_nms(torch.ones((2, 8), dtype=torch.bool, device=dev), cand, cand, 2, 2, 0)

@@ -21,6 +21,8 @@ from loam_tpu.ops.knn_pallas import knn_prep as j_knn_prep
 from loam_tpu.ops.knn_pallas import knn_run as j_knn_run
 from loam_tpu.ops.nms_pallas import greedy_nms as j_nms
 
+from torch_nms_cases import NMS_CASES, random_candidates
+
 from loam_tpu_torch.neighbors import knn as t_knn
 from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
 
@@ -79,21 +81,10 @@ def test_sector_sort_layout_padding():
 
 # ---- greedy NMS -------------------------------------------------------------
 
-def _nms_case(rng, L, P, S, density=0.5):
-    pps = P // S
-    s_max = P - (S - 1) * pps
+def _nms_case(rng, L, P, S):
     valid = rng.random((L, P)) > 0.2
-    cands = []
-    for _ in range(2):
-        c = np.full((L, S, s_max), -1, np.int32)
-        for li in range(L):
-            for s in range(S):
-                size = s_max if s == S - 1 else pps
-                pos = s * pps + rng.permutation(size)[: int(size * density)]
-                off = rng.integers(0, s_max - len(pos) + 1)
-                c[li, s, off : off + len(pos)] = pos
-        cands.append(c)
-    return valid, cands[0], cands[1], pps, s_max
+    ce, cp = random_candidates(rng, L, P, S), random_candidates(rng, L, P, S)
+    return valid, ce, cp, P // S, ce.shape[2]
 
 
 @pytest.mark.parametrize(
@@ -108,6 +99,25 @@ def test_greedy_nms_plain_matches_pallas(L, P, S, max_e, max_p, n):
                                            torch.from_numpy(cp), max_e, max_p, n)
     np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+def test_greedy_nms_plain_matches_pallas_at_kernel_branches(case):
+    """The shapes the CUDA kernel branches on (mask words, groups of 32
+    candidates, caps, windows): integer-exact."""
+    valid, ce, cp, max_e, max_p, n = NMS_CASES[case]()
+    P, (S, s_max) = valid.shape[1], ce.shape[1:]
+    ej, pj = j_nms(jnp.asarray(valid), jnp.asarray(ce), jnp.asarray(cp), max_e, max_p, n, P // S, s_max)
+    et, pt = nms_cuda.greedy_nms_reference(torch.from_numpy(valid), torch.from_numpy(ce),
+                                           torch.from_numpy(cp), max_e, max_p, n)
+    np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    if case == "cap_reached_at_a_group_end":
+        assert pt[0, 0].tolist() == [1, 2, 3, 4, 5, 6]
+    if case == "suppressed_inside_a_group":
+        assert pt[0, 0].tolist() == [10, 13, 7, 20, 23] + [-1] * 8
+    if case in ("lists_all_minus_one", "all_points_invalid"):
+        assert (et == -1).all() and (pt == -1).all()
 
 
 def test_padded_sector_edge_candidates_past_count_bound():
