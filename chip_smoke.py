@@ -13,8 +13,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``ptxas`` reports (registers, shared memory, spills).
   2. Run every kernel and its plain PyTorch version on the same inputs at
      the paths' shapes (16 synthetic 64x1024 scans: all 1,024 lines for the
-     extraction kernels, and one frame's 64 lines, which is what scan-to-scan
-     launches; the first chunk of 4 pairs for the kNN; for the dual kNN also
+     extraction kernels, one frame's 64 lines, which is what scan-to-scan
+     launches, and a streaming chunk's 512; the sector sort also with its
+     float32 key and on ties, -0.0, infinities and slices padded to 32 and
+     1,024 slots through both of its kernels; the first chunk of 4 pairs for
+     the kNN; for the dual kNN also
      a voxel map built from the first frames), require equal results, and
      time both with CUDA events, beside the kernel's bound on this GPU (the
      larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
@@ -40,8 +43,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      finite poses of the right shape and the benchmark's ATE gate; time 3
      runs after a warm-up.
   4. Check agreement with the plain versions on a small input: the offline,
-     scan-to-map and scan-to-scan drivers on 6 frames of 16x360 scans on
-     the GPU and on the CPU.
+     scan-to-map (brute force and grid), scan-to-scan and streaming drivers
+     on 6 frames of 16x360 scans on the GPU and on the CPU.
   5. ``odometry_offline`` with ``LOAM_ICF_DUAL_KNN=1``: the dual kNN instead
      of the single one, the same terminations and iteration counts as phase
      3, poses within 1e-5 m of it, the ATE gate; scans/s beside phase 3's.
@@ -51,6 +54,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      gate; no voxel dropped; map sizes and scans/s over 3 runs.
   7. A ``scan_to_scan_step(dewarp=True)`` loop over the 16 frames, dual kNN:
      the same checks as 6, and scans/s.
+  8. ``scan_to_map_offline`` with ``RegistrationParams(search_backend="grid",
+     prior_weight=300)``: the voxel-grid search instead of the kNN kernel. The
+     ATE gate, no voxel dropped, the grid's overflow count (required 0 at the
+     default ``grid_max_per_cell``, where the grid is exact), terminations
+     equal to phase 6's and poses within 1e-5 m of it, no kNN kernel
+     launched, every extraction kernel launched; scans/s.
+  9. ``odometry_streaming`` on the 16 frames handed over as numpy, in chunks
+     of 8, packed and unpacked, and ``StreamingOdometry`` pushed frame by
+     frame (single kNN): the same poses from both entry points, the unpacked
+     trajectory within 1e-2 m of phase 3's (the same math; the motion prior
+     is constant over a chunk of 8 frames here and of 4 pairs there), the ATE
+     gate for both, each extraction kernel launched once a chunk and the kNN
+     kernel launched; scans/s.
 
 ``LOAM_ICF_DUAL_KNN`` is set and restored around the phases that use it.
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
@@ -62,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,6 +89,14 @@ ATOL_SMALL_M = 1e-2  # GPU-vs-CPU trajectory agreement (the ICF position converg
 # dual vs single kNN in the ICF loop: bit-equal neighbours, only the
 # gathered and the packed line/plane fits round differently
 ATOL_DUAL_M = 1e-5
+# grid vs brute-force search in scan-to-map: the grid is exact at overflow 0
+# and both feed the gathered fits; only equidistant neighbours may come in
+# another order (the grid visits cells, the kernel target indices)
+ATOL_GRID_M = 1e-5
+# streaming (chunks of 8 frames) vs offline (chunks of 4 pairs): the same
+# registrations from other constant-velocity priors, each converged to the
+# ICF's position threshold
+ATOL_STREAM_M = 1e-2
 
 
 def _smi() -> str:
@@ -284,49 +309,104 @@ NMS_STEP_CYCLES = 60
 BOOST_HZ = 1.98e9
 
 
-def _extraction_kernels(scans, lidar, fp, suffix: str) -> list:
-    """The three extraction kernels on all lines of ``scans`` (F, L, P, 3):
-    each against its plain version (exactly equal), then timed three ways --
-    the wrapper call by call (``ms``: with a kernel of a few microseconds
-    this is the host's call rate), the launch alone from a CUDA graph
-    (``launch_ms``: the device's time) and the wrapper's host microseconds a
-    call -- beside the bound, the plain version and the one PyTorch call for
-    the same function (call by call and from a graph too)."""
+def _kernel_row(name, suffix, source, replaces, shape, err, kernel, plain, plain_reps, library, bound,
+                **extra) -> dict:
+    """One extraction kernel's entry: timed three ways -- the wrapper call by
+    call (``ms``: with a kernel of a few microseconds this is the host's call
+    rate), the launch alone from a CUDA graph (``launch_ms``: the device's
+    time) and the wrapper's host microseconds a call -- beside the bound, the
+    plain version and the one PyTorch call for the same function (call by
+    call and from a graph too)."""
+    return dict(
+        name=name + suffix, counter=name, route="cuda",
+        source=f"loam_tpu_torch/ops/csrc/{source}", replaces=replaces, shape=shape,
+        max_abs_err=err, ms=_time_ms(kernel, 50), launch_ms=_graph_ms(kernel),
+        host_us=_host_us(kernel), plain_ms=_time_ms(plain, plain_reps),
+        library_ms=None if library is None else _time_ms(library, 20),
+        library_launch_ms=None if library is None else _graph_ms(library),
+        **bound, **extra)
+
+
+def _sector_sort_row(curv, S: int, suffix: str):
+    """``sector_sort`` on the (lines, P) curvature against its plain version
+    (positions and keys exactly equal), timed. Returns (row, sorted keys,
+    sorted positions)."""
     import torch
 
-    from loam_tpu_torch.features.curvature import compute_curvature, compute_valid_points
-    from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, nms_cuda
+    from loam_tpu_torch.ops import bitonic_cuda
 
-    L, P, S = lidar.scan_lines, lidar.points_per_line, fp.number_sectors
-    n_lines = scans.shape[0] * L
-    rows = []
-
-    def row(name, source, replaces, shape, err, kernel, plain, plain_reps, library, bound, **extra):
-        rows.append(dict(
-            name=name + suffix, counter=name, route="cuda",
-            source=f"loam_tpu_torch/ops/csrc/{source}", replaces=replaces, shape=shape,
-            max_abs_err=err, ms=_time_ms(kernel, 50), launch_ms=_graph_ms(kernel),
-            host_us=_host_us(kernel), plain_ms=_time_ms(plain, plain_reps),
-            library_ms=None if library is None else _time_ms(library, 20),
-            library_launch_ms=None if library is None else _graph_ms(library),
-            **bound, **extra))
-
-    curv = compute_curvature(scans, lidar, fp).reshape(n_lines, P).contiguous()
-    valid = compute_valid_points(scans, lidar, fp).reshape(n_lines, P).contiguous()
     sort_keys = bitonic_cuda.to_sectors(curv, S, float("inf")).contiguous()
     sc_k, sp_k = bitonic_cuda.sector_sort(curv, S)
     sc_r, sp_r = bitonic_cuda.sector_sort_reference(curv, S)
     torch.cuda.synchronize()
     _require_equal(f"sector_sort{suffix} positions", sp_k, sp_r)
     _require_equal(f"sector_sort{suffix} keys", sc_k, sc_r)
-    row("sector_sort", "sector_sort.cu", "loam_tpu/ops/bitonic.py:197",
-        f"curv f64 ({n_lines}, {P}), S={S}", max(_max_err(sp_k, sp_r), _max_err(sc_k, sc_r)),
+    kind = "f64" if curv.dtype == torch.float64 else "f32"
+    row = _kernel_row(
+        "sector_sort", suffix, "sector_sort.cu", "loam_tpu/ops/bitonic.py:197",
+        f"curv {kind} ({curv.shape[0]}, {curv.shape[1]}), S={S}",
+        max(_max_err(sp_k, sp_r), _max_err(sc_k, sc_r)),
         lambda: bitonic_cuda.sector_sort(curv, S),
         lambda: bitonic_cuda.sector_sort_reference(curv, S), 5,
         # the same slices, already cut, through one stable torch.sort
         lambda: torch.sort(sort_keys, dim=-1, stable=True),
         # n log2 n comparisons per slice, far below the bytes
         _bound(_nbytes(curv, sc_k, sp_k), sp_k.numel() * np.log2(sp_k.shape[-1])))
+    return row, sc_k, sp_k
+
+
+def _check_sort_cases(dev):
+    """``sector_sort`` where its key mapping and its slice widths could go
+    wrong: ties, -0.0 beside +0.0, +inf and -inf in real slots, slices padded
+    to 32 and to 1,024 slots, both key types. Positions equal to the plain
+    version's and keys equal bit for bit."""
+    import torch
+
+    from loam_tpu_torch.ops import bitonic_cuda
+
+    g = torch.Generator().manual_seed(0)
+    pool = torch.tensor([-0.0, 0.0, -1.5, 1.5, float("inf"), float("-inf"), 0.25, -0.0],
+                        dtype=torch.float64)
+    n = 0
+    for lines, P, S in ((7, 50, 3), (5, 64, 2), (3, 1000, 1), (64, 1024, 6)):  # 32, 32, 1,024, 256 slots
+        # as many lines again as make the launch the warp-a-slice kernel's
+        many = bitonic_cuda.lines_for_warp_kernel(P, S)
+        draw = pool[torch.randint(0, len(pool), (lines + many, P), generator=g)]
+        for dtype, as_bits, n_lines in ((torch.float64, torch.int64, lines), (torch.float32, torch.int32, lines),
+                                        (torch.float64, torch.int64, lines + many),
+                                        (torch.float32, torch.int32, lines + many)):
+            c = draw[:n_lines].to(dev, dtype)
+            (ka, pa), (kb, pb) = bitonic_cuda.sector_sort(c, S), bitonic_cuda.sector_sort_reference(c, S)
+            torch.cuda.synchronize()
+            _require_equal(f"sector_sort ({n_lines}, {P}) S={S} {dtype} positions", pa, pb)
+            _require_equal(f"sector_sort ({n_lines}, {P}) S={S} {dtype} key bits",
+                           ka.view(as_bits), kb.view(as_bits))
+            n += 1
+    print(f"sector_sort on ties, -0.0, +inf and -inf in real slots, slices padded to 32, 256 and "
+          f"1,024 slots, f64 and f32, through the thread-a-slot and the warp-a-slice kernel: {n} inputs "
+          f"equal to the plain version bit for bit")
+
+
+def _extraction_kernels(scans, lidar, fp, suffix: str) -> list:
+    """The three extraction kernels on all lines of ``scans`` (F, L, P, 3):
+    each against its plain version (exactly equal), then timed
+    (:func:`_kernel_row`)."""
+    import torch
+
+    from loam_tpu_torch.features.curvature import compute_curvature, compute_valid_points
+    from loam_tpu_torch.ops import assemble_cuda, nms_cuda
+
+    L, P, S = lidar.scan_lines, lidar.points_per_line, fp.number_sectors
+    n_lines = scans.shape[0] * L
+    rows = []
+
+    def row(name, *args, **extra):
+        rows.append(_kernel_row(name, suffix, *args, **extra))
+
+    curv = compute_curvature(scans, lidar, fp).reshape(n_lines, P).contiguous()
+    valid = compute_valid_points(scans, lidar, fp).reshape(n_lines, P).contiguous()
+    sort_row, sc_k, sp_k = _sector_sort_row(curv, S, suffix)
+    rows.append(sort_row)
 
     real = sc_k < float("inf")
     neg = torch.full_like(sp_k, -1)
@@ -424,6 +504,7 @@ def main() -> int:
 
     import loam_tpu_torch as T
     from loam_tpu_torch.evaluation import ate_rmse
+    from loam_tpu_torch.features.curvature import compute_curvature
     from loam_tpu_torch.io import render_trajectory
     from loam_tpu_torch.ops import _build, assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
 
@@ -441,6 +522,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) -> "
           f"{_build.library_path().name}; {_build.resource_summary()}")
 
+    for fn, stack, spill, regs in re.findall(
+            r"Function properties for (\S*sector_sort\S*)\s+(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores.*\n.*Used (\d+) registers", _build.last_build_log):
+        slots = re.search(r"I([df])Li(\d+)E", fn)
+        what = f"<{'f64' if slots.group(1) == 'd' else 'f32'}, {slots.group(2)} slots a lane>" if slots else fn
+        print(f"ptxas sector_sort_kernel{what}: {regs} registers, {stack} B stack, {spill} B spill stores")
+
     # ---- 2. kernels vs plain versions at the main path's shapes -------------
     lidar = T.LidarParams(64, 1024, 0.5, 120.0)
     fp = T.FeatureExtractionParams(precise_selection=True)
@@ -454,6 +542,15 @@ def main() -> int:
     kernels = _extraction_kernels(scans, lidar, fp, "")
     # ... and at one frame's shape, what scan-to-scan launches once a frame
     kernels += _extraction_kernels(scans[:1], lidar, fp, "_frame")
+    # ... at a streaming chunk's shape (8 frames), and the sort with the
+    # float32 key (precise_selection=False) on all 16 frames' lines
+    kernels += _extraction_kernels(scans[:8], lidar, fp, "_chunk")
+    fp32 = T.FeatureExtractionParams(precise_selection=False)
+    curv32 = compute_curvature(scans, lidar, fp32).reshape(-1, lidar.points_per_line).contiguous()
+    if curv32.dtype != torch.float32:
+        raise AssertionError(f"precise_selection=False gave {curv32.dtype} curvature")
+    kernels.append(_sector_sort_row(curv32, fp32.number_sectors, "_f32")[0])
+    _check_sort_cases(dev)
     _check_wide_nms(dev)
     if extraction_only:
         _print_kernels(kernels)
@@ -492,6 +589,7 @@ def main() -> int:
             # the launch alone (search and merge kernels, output allocations),
             # without the wrapper's small PyTorch operations around it
             knn_launch_ms = _time_ms(lambda: knn_cuda._search_kernel(prep, q, k, r * r, qm), 10)
+            knn_host_us = _host_us(run, 50)
             knn_b1_ms = _time_ms(lambda: knn_cuda.knn_run(prep1, q[:1], k, r, with_coords=True,
                                                           query_mask=qm[:1]), 10)
             with _unsplit(knn_cuda):
@@ -510,7 +608,8 @@ def main() -> int:
     kernels.append(dict(
         name="knn", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:134", shape=knn_shape,
-        max_abs_err=knn_err, ms=knn_ms, launch_ms=knn_launch_ms, plain_ms=knn_plain_ms,
+        max_abs_err=knn_err, ms=knn_ms, launch_ms=knn_launch_ms, host_us=knn_host_us,
+        plain_ms=knn_plain_ms,
         library_ms=None,  # cdist + topk is two calls and another arithmetic
         **knn_bound,
     ))
@@ -546,6 +645,7 @@ def main() -> int:
     k_max = max(k_e, k_p)
     dual_scan_launch_ms = _time_ms(
         lambda: knn_cuda._dual_search_kernel(d_prep, qe, qp, k_max, r_e * r_e, r_p * r_p), 10)
+    dual_scan_host_us = _host_us(run_dual, 50)
     dual_scan_plain_ms = _time_ms(
         lambda: knn_cuda.knn_dual_run_reference(d_prep, qe, qp, k_e, k_p, r_e, r_p), 2)
     two_ms = _time_ms(lambda: (knn_cuda.knn_run(e_prep, qe, k_e, r_e),
@@ -578,7 +678,7 @@ def main() -> int:
         name="knn_dual_scan", counter="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:946", shape=scan_shape,
         max_abs_err=dual_err, ms=dual_scan_ms, launch_ms=dual_scan_launch_ms,
-        plain_ms=dual_scan_plain_ms, library_ms=None,
+        host_us=dual_scan_host_us, plain_ms=dual_scan_plain_ms, library_ms=None,
         **dual_bound(d_prep, tgt.edge_mask, tgt.planar_mask, qe, qp, max(k_e, k_p)),
     ))
 
@@ -631,6 +731,7 @@ def main() -> int:
                  f"({int(em.size)} + {int(pm.size)} filled after {n_map} frames), k={k_p}, "
                  f"{map_plan} (edge, planar) target splits")
     map_ms = _time_ms(lambda: knn_cuda.knn_dual_run(m_prep, mqe, mqp, k_e, k_p, r_e, r_p), 10)
+    map_host_us = _host_us(lambda: knn_cuda.knn_dual_run(m_prep, mqe, mqp, k_e, k_p, r_e, r_p), 50)
     map_launch_ms = _time_ms(lambda: knn_cuda._dual_search_kernel(
         m_prep, mqe[None], mqp[None], max(k_e, k_p), r_e * r_e, r_p * r_p), 10)
     map_plain_ms = _time_ms(
@@ -646,8 +747,8 @@ def main() -> int:
     kernels.append(dict(
         name="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:946", shape=map_shape,
-        max_abs_err=map_err, ms=map_ms, launch_ms=map_launch_ms, plain_ms=map_plain_ms,
-        library_ms=None,
+        max_abs_err=map_err, ms=map_ms, launch_ms=map_launch_ms, host_us=map_host_us,
+        plain_ms=map_plain_ms, library_ms=None,
         **dual_bound(m_prep, em.mask, pm.mask, mqe, mqp, max(k_e, k_p)),
     ))
     _print_kernels(kernels)
@@ -709,6 +810,7 @@ def main() -> int:
                                 noise=0.003, seed=11, dtype=np.float32)
     s_gpu, s_cpu = torch.from_numpy(s_np).to(dev), torch.from_numpy(s_np)
     small_cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+    grid_reg = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
 
     def s2s_loop(x, lid):
         state = T.scan_to_scan_init(lid, fp, device=x.device)
@@ -723,11 +825,15 @@ def main() -> int:
         with _dual_knn(True):
             _, t_map, d_map = T.scan_to_map_offline(x, small, fp, s2m_reg, small_cfg)
             s2s = s2s_loop(x, small)
+        _, t_grid, d_grid = T.scan_to_map_offline(x, small, fp, grid_reg, small_cfg)
+        t_str, d_str = T.odometry_streaming(s_np, small, fp, rp, chunk_frames=4, device=x.device)
         t_s2s = torch.stack([p.translation for p, _ in s2s])
         term_s2s = torch.stack([d.termination for _, d in s2s])
         return {"offline": (t_off.translation, d_off.termination),
                 "scan_to_map": (t_map.translation, d_map.termination),
-                "scan_to_scan": (t_s2s, term_s2s)}
+                "scan_to_map_grid": (t_grid.translation, d_grid.termination),
+                "scan_to_scan": (t_s2s, term_s2s),
+                "streaming": (t_str.translation, d_str.termination)}
 
     on_gpu, on_cpu = small_runs(s_gpu), small_runs(s_cpu)
     for drv in on_gpu:
@@ -789,6 +895,78 @@ def main() -> int:
           f"{[int(d.termination) for _, d in out]}")
     print(f"scan_to_scan: {frames / dt_s2s:.3f} scans/s ({dt_s2s * 1e3:.3f} ms per {frames}-frame "
           f"loop, 64x1024, dewarp=True, dual kNN) on {smi}")
+
+    # ---- 8. scan-to-map through the voxel grid ----------------------------------
+    def run_s2m_grid():
+        return T.scan_to_map_offline(scans, lidar, fp, grid_reg, s2m_cfg)
+
+    st_g, traj_g, det_g = drive("scan_to_map_grid", run_s2m_grid, extraction, ("knn", "knn_dual"))
+    ate_g, limit_g, _ = _check_trajectory("scan_to_map_grid", traj_g.translation, traj_g.rotation,
+                                          frames, gt, ate_rmse)
+    if int(st_g.dropped) != 0:
+        raise AssertionError(f"scan_to_map_grid dropped {int(st_g.dropped)} voxels")
+    info_g = det_g.iteration_info
+    overflow = int(info_g.edge_knn_overflow.sum().item()), int(info_g.plane_knn_overflow.sum().item())
+    gap_g = _max_err(traj_g.translation, traj_m.translation)
+    print(f"scan_to_map_grid: ATE {ate_g:.6f} m (limit {limit_g:.6f} m); overflow (edge, planar) "
+          f"{overflow} at grid_max_per_cell={grid_reg.grid_max_per_cell}; pose gap to the brute-force "
+          f"run {gap_g:.3e} m (limit {ATOL_GRID_M}); termination {det_g.termination.tolist()}")
+    if overflow != (0, 0):
+        raise AssertionError(f"scan_to_map_grid: {overflow} lookups over grid_max_per_cell")
+    _require_equal("scan_to_map_grid termination", det_g.termination, det_m.termination)
+    if not gap_g < ATOL_GRID_M:
+        raise AssertionError(f"scan_to_map_grid differs from the brute-force run by {gap_g} m")
+    dt_g = _seconds_per_run(run_s2m_grid, reps)
+    print(f"scan_to_map_grid: {frames / dt_g:.3f} scans/s ({dt_g * 1e3:.3f} ms per {frames}-frame run, "
+          f"64x1024, default ScanToMapConfig, search_backend=grid) on {smi}")
+
+    # ---- 9. the streaming drivers ---------------------------------------------------
+    chunk = 8
+
+    def run_stream(packed):
+        return T.odometry_streaming(scans_np, lidar, fp, rp, chunk_frames=chunk, packed=packed)
+
+    def run_pushed():
+        odo = T.StreamingOdometry(lidar, fp, rp, chunk_frames=chunk, packed=True)
+        out = [pose for f in range(frames) for pose in odo.push(scans_np[f])]
+        return out + odo.finish()
+
+    with _dual_knn(False):
+        traj_p, det_p = drive("streaming", lambda: run_stream(True), extraction + ("knn",), ("knn_dual",))
+        per_chunk = {k: path_launches["streaming"][k] for k in extraction}
+        if any(n != frames // chunk for n in per_chunk.values()):
+            raise AssertionError(f"streaming: extraction kernels launched {per_chunk}, expected "
+                                 f"{frames // chunk} each (once a chunk)")
+        if not traj_p.translation.is_cuda:
+            raise AssertionError("odometry_streaming ran a numpy input off the GPU")
+        traj_u, det_u = drive("streaming_unpacked", lambda: run_stream(False), extraction + ("knn",),
+                              ("knn_dual",))
+        pushed = run_pushed()
+        if [i for i, _ in pushed] != list(range(frames)):
+            raise AssertionError(f"StreamingOdometry handed out frames {[i for i, _ in pushed]}")
+        t_pushed = torch.stack([p.translation for _, p in pushed])
+        _require_equal("StreamingOdometry vs odometry_streaming translations", t_pushed,
+                       traj_p.translation.cpu())
+        _require_equal("StreamingOdometry vs odometry_streaming rotations",
+                       torch.stack([p.rotation for _, p in pushed]), traj_p.rotation.cpu())
+        ate_p, limit_p, _ = _check_trajectory("streaming packed", traj_p.translation, traj_p.rotation,
+                                              frames, gt, ate_rmse)
+        ate_u, _, _ = _check_trajectory("streaming unpacked", traj_u.translation, traj_u.rotation,
+                                        frames, gt, ate_rmse)
+        gap_u = _max_err(traj_u.translation, traj.translation)
+        gap_pu = _max_err(traj_p.translation, traj_u.translation)
+        print(f"streaming: ATE packed {ate_p:.6f} m, unpacked {ate_u:.6f} m (limit {limit_p:.6f} m); "
+              f"unpacked vs the offline run of phase 3 {gap_u:.3e} m (limit {ATOL_STREAM_M}); packed vs "
+              f"unpacked {gap_pu:.3e} m; StreamingOdometry equal to odometry_streaming; termination "
+              f"{det_p.termination.tolist()}")
+        if not gap_u < ATOL_STREAM_M:
+            raise AssertionError(f"streaming differs from the offline run by {gap_u} m")
+        dt_p = _seconds_per_run(lambda: run_stream(True), reps)
+        dt_u = _seconds_per_run(lambda: run_stream(False), reps)
+        dt_push = _seconds_per_run(run_pushed, reps)
+    print(f"streaming: packed {frames / dt_p:.3f} scans/s ({dt_p * 1e3:.3f} ms per {frames}-frame run), "
+          f"unpacked {frames / dt_u:.3f}, StreamingOdometry pushed frame by frame {frames / dt_push:.3f} "
+          f"scans/s, 64x1024, chunk_frames={chunk}, host encode and upload included, on {smi}")
 
     for kd in kernels:
         counter = kd.get("counter", kd["name"])

@@ -14,8 +14,10 @@ from .odometry import (
     ScanToMapConfig,
     ScanToMapState,
     ScanToScanState,
+    StreamingOdometry,
     default_map_reg_params,
     odometry_offline,
+    odometry_streaming,
     scan_to_map_init,
     scan_to_map_offline,
     scan_to_map_rebuild_cache,
@@ -44,6 +46,7 @@ __all__ = [
     "ScanToMapConfig",
     "ScanToMapState",
     "ScanToScanState",
+    "StreamingOdometry",
     "TerminationType",
     "VoxelMap",
     "default_map_reg_params",
@@ -51,6 +54,7 @@ __all__ = [
     "extract_features",
     "extract_features_batch",
     "odometry_offline",
+    "odometry_streaming",
     "register_features",
     "register_features_batch",
     "scan_to_map_init",

@@ -21,7 +21,8 @@ def dewarp_scan(scan: torch.Tensor, begin_T_end: Pose3, lidar: LidarParams,
     """Motion-compensate a scan into its end-of-sweep frame.
 
     Args:
-      scan: (L, P, 3) or flat (L*P, 3) range-image scan, as swept.
+      scan: (L, P, 3) or flat (L*P, 3) range-image scan, as swept; leading
+        axes batch over scans that share the motion.
       begin_T_end: the sensor's motion over this sweep.
       exact: False (default): rotation by ``Exp(beta * log R)`` and
         translation linearly as ``beta * t`` (``loam_tpu``'s default
@@ -33,7 +34,8 @@ def dewarp_scan(scan: torch.Tensor, begin_T_end: Pose3, lidar: LidarParams,
     """
     L, P = lidar.scan_lines, lidar.points_per_line
     shape_in = scan.shape
-    pts = scan.reshape(L, P, 3)
+    flat = scan.shape[-2] == L * P and scan.shape[-3:-1] != (L, P)
+    pts = scan.reshape(scan.shape[: -2 if flat else -3] + (L, P, 3))
     dtype, dev = pts.dtype, pts.device
 
     alpha = (torch.arange(P, dtype=dtype, device=dev) + 0.5) / P  # (P,)
@@ -48,7 +50,7 @@ def dewarp_scan(scan: torch.Tensor, begin_T_end: Pose3, lidar: LidarParams,
         q = quat_exp(beta[:, None] * quat_log(rot)[None, :])
         t = beta[:, None] * trans[None, :]
 
-    out = quat_rotate(q[None, :, :], pts) + t[None, :, :]
+    out = quat_rotate(q, pts) + t  # (P, .) against (..., L, P, 3)
     keep = torch.sum(pts * pts, dim=-1, keepdim=True) > 0
     out = torch.where(keep, out, pts)
     return out.reshape(shape_in)

@@ -1,5 +1,6 @@
-"""Odometry drivers: batched offline scan-to-scan, the streaming
-scan-to-scan loop, and scan-to-map against voxel maps."""
+"""Odometry drivers: batched offline scan-to-scan, the frame-by-frame
+scan-to-scan loop, the chunked streaming drivers, and scan-to-map against
+voxel maps."""
 
 from .offline import odometry_offline
 from .scan_to_map import (
@@ -14,13 +15,23 @@ from .scan_to_map import (
     scan_to_map_strip_cache,
 )
 from .scan_to_scan import ScanToScanState, scan_to_scan_init, scan_to_scan_step
+from .streaming import (
+    StreamCarry,
+    StreamingOdometry,
+    odometry_streaming,
+    stream_chunk_step,
+    stream_init,
+)
 
 __all__ = [
     "ScanToMapConfig",
     "ScanToMapState",
     "ScanToScanState",
+    "StreamCarry",
+    "StreamingOdometry",
     "default_map_reg_params",
     "odometry_offline",
+    "odometry_streaming",
     "scan_to_map_init",
     "scan_to_map_offline",
     "scan_to_map_rebuild_cache",
@@ -29,4 +40,6 @@ __all__ = [
     "scan_to_map_strip_cache",
     "scan_to_scan_init",
     "scan_to_scan_step",
+    "stream_chunk_step",
+    "stream_init",
 ]

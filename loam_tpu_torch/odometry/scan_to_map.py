@@ -141,8 +141,10 @@ def _map_feature_set(edge_map: VoxelMap, planar_map: VoxelMap) -> FeatureSet:
 def default_map_reg_params() -> RegistrationParams:
     """Map-target registration defaults: the exact brute-force search (the
     kNN kernel) with the solver prior, ``loam_tpu``'s choice on its
-    accelerator. (``loam_tpu`` picks its voxel grid on a CPU; the port has no
-    grid search yet.)"""
+    accelerator. ``loam_tpu`` picks its voxel grid off the accelerator; the
+    port's is there for the asking, ``RegistrationParams(search_backend=
+    "grid", prior_weight=300.0)``, and is plain tensor code on either
+    device."""
     return RegistrationParams(search_backend="bruteforce", prior_weight=300.0)
 
 

@@ -1,12 +1,22 @@
 """Sector sort: every (line, sector) curvature slice sorted ascending.
 
-:func:`sector_sort` launches the CUDA kernel (``csrc/sector_sort.cu``, the
+:func:`sector_sort` launches a CUDA kernel of ``csrc/sector_sort.cu`` (the
 port of ``loam_tpu/ops/bitonic.py::_sort_kernel``) for a CUDA tensor and runs
 :func:`sector_sort_reference`, a stable ``torch.sort``, for a CPU tensor.
 Both give the canonical (curvature, position) order of ``loam_tpu``'s
 extraction driver (``features/extract.py:30-34``): sector ``s`` covers
 ``[s*pps, s*pps + size)`` (the last sector absorbs the remainder) and its
-padding slots carry ``(+inf, P-1)``, as ``to_sectors`` pads.
+padding slots carry ``(+inf, P-1)``, as ``to_sectors`` pads. The order is
+total: negative < -0.0 == +0.0 < positive < +inf < NaN, ties by position, so
+a NaN sorts behind the padding slots; the curvature that comes out is the
+input's own value (``-0.0`` stays ``-0.0``).
+
+The source holds two kernels for the one function, chosen from the launch's
+size: a warp a slice with the slice in registers (integer keys, no shared
+memory, no barrier) when the slices outnumber what the card holds at once,
+and a block a slice, a thread a slot, when they do not (one frame), where a
+lone warp's latency would decide. :func:`lines_for_warp_kernel` says where
+the choice falls.
 """
 
 from __future__ import annotations
@@ -47,13 +57,20 @@ def to_sectors(x: torch.Tensor, S: int, fill) -> torch.Tensor:
 
 def sector_sort_reference(curv: torch.Tensor, n_sectors: int):
     """Plain version: (N, P) curvature -> (sorted curvature (N, S, s_max),
-    sorted positions (N, S, s_max) int32) by a stable ``torch.sort``."""
+    sorted positions (N, S, s_max) int32) by a stable ``torch.sort``.
+
+    The order: negative < -0.0 == +0.0 < positive < +inf < NaN, ties by
+    position. ``torch.sort`` on a CPU tensor gives that by itself; on a CUDA
+    tensor it may sort by the keys' bits (negative NaNs first, NaNs by
+    payload), so the order is taken on keys whose NaNs are one NaN and whose
+    zeros are +0.0, and the curvature returned is the input's own value."""
     P = curv.shape[-1]
     _, s_max, pos = sector_layout(P, n_sectors)
     keys = to_sectors(curv, n_sectors, float("inf"))
-    sc, order = torch.sort(keys, dim=-1, stable=True)
+    canonical = torch.where(torch.isnan(keys), torch.full_like(keys, float("nan")), keys + 0.0)
+    order = torch.sort(canonical, dim=-1, stable=True).indices
     pos_t = torch.as_tensor(pos, device=curv.device).expand(keys.shape)
-    return sc, torch.gather(pos_t, -1, order).to(torch.int32)
+    return torch.gather(keys, -1, order), torch.gather(pos_t, -1, order).to(torch.int32)
 
 
 def sector_sort(curv: torch.Tensor, n_sectors: int):
@@ -81,3 +98,13 @@ def sector_sort(curv: torch.Tensor, n_sectors: int):
 
 #: Kernel launches since the last reset (plain-version calls do not count).
 sector_sort.launches = 0
+
+
+def lines_for_warp_kernel(P: int, n_sectors: int) -> int:
+    """The fewest lines of ``P`` points at which :func:`sector_sort` launches
+    its warp-a-slice kernel; below, the thread-a-slot kernel takes the launch
+    (``csrc/sector_sort.cu``). Builds the library: for GPU tests and timing
+    scripts that want to reach either kernel."""
+    s_max = P - (n_sectors - 1) * (P // n_sectors)
+    npad = max(32, 1 << int(s_max - 1).bit_length())
+    return _build.lib().loam_sector_sort_block_kernel_threads() // (npad * n_sectors) + 1

@@ -6,21 +6,50 @@
 // (hi, lo, position) double-float keys of all slices at once with the slices
 // on TPU lanes.
 //
-// What bounds it on the H100: nothing substantial. At the main path's size
-// (16 frames x 64 lines x 6 sectors = 6,144 slices of <= 256 keys) it reads
-// 8 MB of f64 curvature and writes 13 MB; each block runs a 36-stage network
-// in shared memory, so the time is launch latency, shared-memory traffic and
-// __syncthreads between stages.
+// What bounds it on the H100: the integer pipe, not the bytes. At 16 frames
+// (6,144 slices of 174 slots, 21 MB in and out) the memory time is ~6 us, but
+// the network is 36 stages x 256 slots a slice, each compare-exchange some
+// nine integer operations (compares and selects of a 96-bit item: ~2,400
+// warp operations a slice), and an SM runs integer operations at half the
+// float32 rate (64 lanes a clock): ~26 us of scheduler cycles at the least.
+// At one frame (384 slices, under one warp a scheduler) it is the latency of
+// the 36 dependent stages, and of fetching the code: a network unrolled from
+// end to end is tens of kilobytes that every lone warp reads once, cold.
 //
-// Design: one block per slice, one thread per padded slot (the slice padded
-// to the next power of two, <= 1024). The block builds its slice straight from
-// the (lines, P) curvature row -- sector s covers [s*pps, s*pps + size), the
-// last sector absorbing the remainder -- so no (lines, S, s_max) copy is made
-// first. Slots in [size, s_max) carry (+inf, P-1), exactly as loam_tpu's
-// to_sectors pads; slots past s_max carry (+inf, INT_MAX) and sort last. The
+// Two kernels, chosen from the launch's size (launch()): the warp kernel
+// below for launches that fill the card (a streaming chunk, a batch of
+// frames), and the block kernel further down, a thread a slot in shared
+// memory, for launches whose threads all fit on the card at once (one
+// frame), where it ends ~8% sooner than a lone warp a slice does.
+//
+// Design of the warp kernel: one warp per slice, the slice in registers, no
+// shared memory and no block barrier. The slice is padded to NPAD = 32 * E slots (E a power of two
+// up to 32, a template parameter), E per lane. The loads are striped (slot
+// e * 32 + lane, coalesced): the order going in does not matter to a sort.
+// The network runs on the blocked index lane * E + e, so the stages with
+// j < E exchange between a lane's own registers and only those with j >= E
+// cross lanes, by __shfl_xor_sync with lane ^ (j / E) (for 256 slots: 21 and
+// 15 of the 36 stages). The phases k <= E (a lane sorting its own slots) are
+// unrolled; the phases k > E are one loop whose body is a shuffle stage (in
+// an inner loop over the lane distance) and the in-register stages, so the
+// code is a few hundred operations long and stays in the code cache. The
+// sorted slice then lies contiguous per lane.
+//
+// The key: the curvature is mapped once, at the load, to an unsigned integer
+// of its own width whose order is the order a stable torch.sort gives
+// (sector_sort_reference): negative < -0.0 == +0.0 < positive < +inf < NaN,
+// ties by position. -0.0 and +0.0 map to one value; every NaN, whatever its
+// sign or payload, maps to the largest value, so NaN sorts after the padding
+// slots (+inf, P-1), as torch.sort puts it, and NaNs keep their positions'
+// order. For float32 the mapped key and the position are packed into one
+// 64-bit word, so a compare is one integer compare and an exchange moves two
+// registers; for float64 an item is the 64-bit key and the position. Slots
+// past s_max hold an item above every other and are never written out. The
 // key is total (positions are unique within a slice, padding slots are fully
-// identical), so the unstable bitonic network gives the stable-sort order.
-// The curvature key is templated on double (precise path) and float.
+// identical), so the unstable network gives the stable-sort order. The
+// curvature written out is the original value, read again at the sorted
+// position (the slice is in L1 by then), not the mapped one: -0.0 stays -0.0
+// and a NaN keeps its bits.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -29,37 +58,201 @@
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ T pos_inf();
-template <>
-__device__ __forceinline__ double pos_inf<double>() { return CUDART_INF; }
-template <>
-__device__ __forceinline__ float pos_inf<float>() { return CUDART_INF_F; }
+#ifndef LOAM_SORT_WARPS
+#define LOAM_SORT_WARPS 1
+#endif
+constexpr int WARPS = LOAM_SORT_WARPS;  // slices a block
+constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T>
-__global__ void sector_sort_kernel(const T* __restrict__ curv, int P, int S,
-                                   int pps, int s_max, int npad,
-                                   T* __restrict__ out_curv,
-                                   int* __restrict__ out_pos) {
-  extern __shared__ unsigned char smem_raw[];
+struct Key;
+
+template <>
+struct Key<double> {
+  struct Item {
+    unsigned long long k;
+    int p;
+  };
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+  static __device__ __forceinline__ Item make(double x, int p) {
+    unsigned long long u = (unsigned long long)__double_as_longlong(x);
+    if (x != x) u = ~0ull;
+    else if (x == 0.0) u = 1ull << 63;
+    else u = (u >> 63) ? ~u : (u | (1ull << 63));
+    return Item{u, p};
+  }
+  static __device__ __forceinline__ Item last() { return Item{~0ull, INT_MAX}; }
+  static __device__ __forceinline__ bool greater(const Item& a, const Item& b) {
+#ifdef LOAM_SORT_LEX
+    return a.k > b.k || (a.k == b.k && a.p > b.p);
+#else
+    // (key, position) as one 96-bit integer: a chain of three compares
+    typedef unsigned __int128 u128;
+    return (((u128)a.k << 32) | (unsigned)a.p) > (((u128)b.k << 32) | (unsigned)b.p);
+#endif
+  }
+  static __device__ __forceinline__ Item exchange(const Item& a, int lane_mask) {
+    return Item{__shfl_xor_sync(FULL, a.k, lane_mask), __shfl_xor_sync(FULL, a.p, lane_mask)};
+  }
+  static __device__ __forceinline__ int pos(const Item& a) { return a.p; }
+};
+
+template <>
+struct Key<float> {
+  typedef unsigned long long Item;  // mapped key in the high word, position in the low
+  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
+  static __device__ __forceinline__ Item make(float x, int p) {
+    unsigned u = __float_as_uint(x);
+    if (x != x) u = ~0u;
+    else if (x == 0.0f) u = 1u << 31;
+    else u = (u >> 31) ? ~u : (u | (1u << 31));
+    return ((unsigned long long)u << 32) | (unsigned)p;
+  }
+  static __device__ __forceinline__ Item last() { return ~0ull; }
+  static __device__ __forceinline__ bool greater(Item a, Item b) { return a > b; }
+  static __device__ __forceinline__ Item exchange(Item a, int lane_mask) {
+    return __shfl_xor_sync(FULL, a, lane_mask);
+  }
+  static __device__ __forceinline__ int pos(Item a) { return (int)(unsigned)a; }
+};
+
+// The stage j (< E) within a lane's registers: the pair (e, e | j) ordered
+// ascending where ``ascending`` (of the pair's lower index) says so.
+template <typename T, int E, int J, typename Asc>
+__device__ __forceinline__ void local_stage(typename Key<T>::Item (&a)[E], Asc ascending) {
+  using K = Key<T>;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if ((e & J) == 0) {
+      const typename K::Item x = a[e], y = a[e | J];
+      const bool swap = K::greater(x, y) == ascending(e);
+      a[e] = swap ? y : x;
+      a[e | J] = swap ? x : y;
+    }
+  }
+}
+
+// The stages j = J, J / 2, .. 1 within a lane's registers.
+template <typename T, int E, int J, typename Asc>
+__device__ __forceinline__ void local_stages(typename Key<T>::Item (&a)[E], Asc ascending) {
+  if constexpr (J >= 1) {
+    local_stage<T, E, J>(a, ascending);
+    local_stages<T, E, J / 2>(a, ascending);
+  }
+}
+
+// The phases k = K, 2K, .. E: a lane sorts its own E slots.
+template <typename T, int E, int K>
+__device__ __forceinline__ void local_phases(typename Key<T>::Item (&a)[E], int lane) {
+  if constexpr (K <= E) {
+    local_stages<T, E, K / 2>(a, [lane](int e) { return ((lane * E + e) & K) == 0; });
+    local_phases<T, E, 2 * K>(a, lane);
+  }
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(WARPS * 32)
+sector_sort_kernel(const T* __restrict__ curv, int n_slices, int P, int S,
+                   int pps, int s_max, T* __restrict__ out_curv,
+                   int* __restrict__ out_pos) {
+  using K = Key<T>;
+  using Item = typename K::Item;
+
+  const int lane = threadIdx.x & 31;
+  const int slice = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (slice >= n_slices) return;  // the whole warp leaves together
+  const int line = slice / S;
+  const int s = slice - line * S;
+  const int start = s * pps;
+  const int size = (s == S - 1) ? (P - start) : pps;
+  const T* __restrict__ row = curv + (long long)line * P;
+
+  Item a[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int t = e * 32 + lane;
+    if (t < size) a[e] = K::make(__ldg(row + start + t), start + t);
+    else if (t < s_max) a[e] = K::make(K::inf(), P - 1);
+    else a[e] = K::last();
+  }
+
+  // bitonic network on the index i = lane * E + e: stage (k, j) orders the
+  // pair (i, i ^ j) ascending where (i & k) == 0 and descending elsewhere
+  local_phases<T, E, 2>(a, lane);
+#pragma unroll 1
+  for (int k = 2 * E; k <= 32 * E; k <<= 1) {
+    const bool ascending = ((lane * E) & k) == 0;
+#pragma unroll 1
+    for (int lane_mask = k / (2 * E); lane_mask > 0; lane_mask >>= 1) {
+      // the lower index of the pair keeps the smaller item where ascending
+      const bool keep_min = ((lane & lane_mask) == 0) == ascending;
+      // up to eight exchanges in flight before the first compare waits for one
+      constexpr int G = E < 8 ? E : 8;
+#pragma unroll
+      for (int g = 0; g < E; g += G) {
+        Item other[G];
+#pragma unroll
+        for (int i = 0; i < G; ++i) other[i] = K::exchange(a[g + i], lane_mask);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+          if (K::greater(a[g + i], other[i]) == keep_min) a[g + i] = other[i];
+      }
+    }
+    local_stages<T, E, E / 2>(a, [ascending](int) { return ascending; });
+  }
+
+  const long long out = (long long)slice * s_max;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int t = lane * E + e;
+    if (t < s_max) {
+      const int p = K::pos(a[e]);
+      // only a padding slot carries P-1 outside the last sector, which has none
+      const bool padding = (p == P - 1) && (s != S - 1);
+      out_pos[out + t] = p;
+      out_curv[out + t] = padding ? K::inf() : __ldg(row + p);
+    }
+  }
+}
+
+// The few-slices kernel: one block per slice, one thread per slot, the same
+// network in shared memory on the curvature itself and the position, a
+// __syncthreads() a stage; the lower thread of a pair does its
+// compare-exchange. It does more work in all than the warp kernel (a barrier
+// a stage, half of the threads idle, 1.8x the time at 16 frames), but a stage
+// is one compare-exchange deep, eight warps share a slice, and its compares
+// run on the float pipes beside the integer one, so with few slices (one
+// frame: 384) it ends sooner than a lone warp a scheduler. It takes the
+// launches whose threads all fit on the card at once; the warp kernel takes
+// the rest. The floating compare orders -0.0 and +0.0 as equal by itself; a
+// NaN goes in as +inf with NAN_FLAG set in its position, which puts it behind
+// the padding slots (+inf, P-1) in position order, and comes out as the
+// input's value.
+constexpr int NAN_FLAG = 1 << 30;
+
+template <typename T>
+__global__ void sector_sort_block_kernel(const T* __restrict__ curv, int P, int S, int pps,
+                                         int s_max, T* __restrict__ out_curv,
+                                         int* __restrict__ out_pos) {
+  extern __shared__ double smem_raw[];
+  const int t = threadIdx.x, npad = blockDim.x;
   T* key = reinterpret_cast<T*>(smem_raw);
   int* pos = reinterpret_cast<int*>(key + npad);
 
-  const long long line = blockIdx.x;
-  const int s = blockIdx.y;
-  const int t = threadIdx.x;
+  const int slice = blockIdx.x;
+  const int line = slice / S;
+  const int s = slice - line * S;
   const int start = s * pps;
   const int size = (s == S - 1) ? (P - start) : pps;
+  const T* __restrict__ row = curv + (long long)line * P;
 
   if (t < size) {
-    key[t] = curv[line * P + start + t];
-    pos[t] = start + t;
-  } else if (t < s_max) {
-    key[t] = pos_inf<T>();
-    pos[t] = P - 1;
+    const T x = __ldg(row + start + t);
+    key[t] = (x != x) ? Key<T>::inf() : x;
+    pos[t] = (x != x) ? (start + t) | NAN_FLAG : start + t;
   } else {
-    key[t] = pos_inf<T>();
-    pos[t] = INT_MAX;
+    key[t] = Key<T>::inf();
+    pos[t] = (t < s_max) ? P - 1 : INT_MAX;
   }
   __syncthreads();
 
@@ -70,8 +263,7 @@ __global__ void sector_sort_kernel(const T* __restrict__ curv, int P, int S,
         const T ka = key[t], kb = key[partner];
         const int pa = pos[t], pb = pos[partner];
         const bool a_gt_b = (ka > kb) || (ka == kb && pa > pb);
-        const bool ascending = (t & k) == 0;
-        if (a_gt_b == ascending) {
+        if (a_gt_b == ((t & k) == 0)) {
           key[t] = kb;
           key[partner] = ka;
           pos[t] = pb;
@@ -83,24 +275,54 @@ __global__ void sector_sort_kernel(const T* __restrict__ curv, int P, int S,
   }
 
   if (t < s_max) {
-    const long long o = (line * S + s) * (long long)s_max + t;
-    out_curv[o] = key[t];
-    out_pos[o] = pos[t];
+    const int p = pos[t];
+    out_pos[(long long)slice * s_max + t] = p & ~NAN_FLAG;
+    out_curv[(long long)slice * s_max + t] = (p & NAN_FLAG) ? __ldg(row + (p & ~NAN_FLAG)) : key[t];
   }
+}
+
+#ifndef LOAM_SORT_BLOCK_KERNEL_THREADS
+// threads an H100 holds at once: 132 SMs x 2,048
+#define LOAM_SORT_BLOCK_KERNEL_THREADS (132 * 2048)
+#endif
+
+template <typename T, int E>
+int launch_e(const T* curv, int n_slices, int P, int S, int pps, int s_max,
+             T* out_curv, int* out_pos, cudaStream_t stream) {
+  const int blocks = (n_slices + WARPS - 1) / WARPS;
+  sector_sort_kernel<T, E><<<blocks, WARPS * 32, 0, stream>>>(
+      curv, n_slices, P, S, pps, s_max, out_curv, out_pos);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* curv, int n_lines, int P, int S, int pps, int s_max,
            int npad, T* out_curv, int* out_pos, cudaStream_t stream) {
   if (n_lines == 0) return 0;
-  const size_t smem = (size_t)npad * (sizeof(T) + sizeof(int));
-  dim3 grid(n_lines, S);
-  sector_sort_kernel<T><<<grid, npad, smem, stream>>>(curv, P, S, pps, s_max,
-                                                      npad, out_curv, out_pos);
-  return (int)cudaGetLastError();
+  if ((long long)n_lines * S > INT_MAX - WARPS) return (int)cudaErrorInvalidValue;
+  const int n = n_lines * S;
+  if (npad < 32) npad = 32;
+  if ((long long)n * npad <= LOAM_SORT_BLOCK_KERNEL_THREADS && npad <= 1024) {
+    sector_sort_block_kernel<T><<<n, npad, npad * (sizeof(T) + sizeof(int)), stream>>>(
+        curv, P, S, pps, s_max, out_curv, out_pos);
+    return (int)cudaGetLastError();
+  }
+  switch (npad / 32) {  // slots a lane
+    case 1: return launch_e<T, 1>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
+    case 2: return launch_e<T, 2>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
+    case 4: return launch_e<T, 4>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
+    case 8: return launch_e<T, 8>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
+    case 16: return launch_e<T, 16>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
+    case 32: return launch_e<T, 32>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
+
+// The most threads (slices x padded slots) a launch may have to take the
+// thread-a-slot kernel; for tests and timing scripts that want either kernel.
+extern "C" int loam_sector_sort_block_kernel_threads() { return LOAM_SORT_BLOCK_KERNEL_THREADS; }
 
 extern "C" int loam_sector_sort_f64(const double* curv, int n_lines, int P,
                                     int S, int pps, int s_max, int npad,

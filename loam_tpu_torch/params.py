@@ -151,12 +151,13 @@ class RegistrationParams:
     #: Accepted for configuration compatibility with ``loam_tpu``; ignored
     #: by the port (the LM solve has one implementation).
     lm_impl: str = "auto"
-    #: Neighbor-search backend. The port implements "bruteforce" (the exact
-    #: kNN kernel); "grid" is accepted for configuration compatibility and
-    #: rejected by :func:`register_features` until the voxel-hash search is
-    #: ported.
+    #: Neighbor-search backend: "bruteforce" (the exact kNN kernel on a
+    #: GPU) or "grid" (``neighbors/grid.py``: a voxel grid over the targets,
+    #: exact while no cell holds more than ``grid_max_per_cell`` points; it
+    #: needs both radii positive and searches by brute force otherwise).
     search_backend: str = "bruteforce"
-    #: Per-voxel candidate cap for the "grid" backend.
+    #: Per-voxel candidate cap for the "grid" backend; lookups beyond it
+    #: are counted in the detail's ``*_knn_overflow``.
     grid_max_per_cell: int = 64
 
     def __post_init__(self):

@@ -5,9 +5,10 @@
 
 Runs a driver on synthetic 64x1024 scans as ``chip_smoke.py`` does --
 ``odometry_offline`` (``chunk_pairs=4``, ``motion_init=True``),
-``scan_to_map_offline`` (default ``ScanToMapConfig``) or a
-``scan_to_scan_step(dewarp=True)`` loop; ``--dual-knn`` sets
-``LOAM_ICF_DUAL_KNN=1`` -- then:
+``scan_to_map_offline`` (default ``ScanToMapConfig``; ``scan_to_map_grid``:
+the same with ``search_backend="grid"``), a ``scan_to_scan_step(dewarp=True)``
+loop, or ``odometry_streaming`` (``streaming``: the numpy frames in chunks of
+8, packed); ``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` -- then:
 
   * for ``offline``, stage times on the host clock with a device sync at
     each boundary: batched extraction, then each registration chunk (with
@@ -68,7 +69,8 @@ def _offline_stages(scans, lidar, fp, rp, frames, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--driver", choices=("offline", "scan_to_map", "scan_to_scan"), default="offline")
+    ap.add_argument("--driver", default="offline",
+                    choices=("offline", "scan_to_map", "scan_to_map_grid", "scan_to_scan", "streaming"))
     ap.add_argument("--dual-knn", action="store_true", help="set LOAM_ICF_DUAL_KNN=1")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default="profile_out")
@@ -93,6 +95,11 @@ def main() -> int:
     def run():
         if args.driver == "scan_to_map":
             return T.scan_to_map_offline(scans, lidar, fp, T.default_map_reg_params())
+        if args.driver == "scan_to_map_grid":
+            return T.scan_to_map_offline(
+                scans, lidar, fp, T.RegistrationParams(search_backend="grid", prior_weight=300.0))
+        if args.driver == "streaming":
+            return T.odometry_streaming(scans_np, lidar, fp, rp, chunk_frames=8, packed=True)
         if args.driver == "scan_to_scan":
             state = T.scan_to_scan_init(lidar, fp, device=dev)
             for f in range(args.frames):

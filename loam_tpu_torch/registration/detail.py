@@ -28,9 +28,10 @@ class IterationInfo(NamedTuple):
         source edge slot, or -1 (empty when matches are not recorded).
       plane_match: (..., I, Q) int32 -- the same for planar features.
       edge_count / plane_count: (..., I) int32 valid associations.
-      edge_knn_overflow / plane_knn_overflow: (..., I) int32, always 0 for
-        the exact brute-force search (the field the grid backend fills in
-        ``loam_tpu``).
+      edge_knn_overflow / plane_knn_overflow: (..., I) int32 -- the
+        iteration's (query, cell) lookups of the grid backend whose cell
+        held more than ``grid_max_per_cell`` points (neighbors may have been
+        missed); always 0 for the exact brute-force search.
     """
 
     target_T_source_init: Pose3

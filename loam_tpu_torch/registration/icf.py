@@ -20,7 +20,11 @@ Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,
 with ``LOAM_ICF_DUAL_KNN=1``, with one dual run whose indices feed the
 gathered fits -- ``loam_tpu``'s switch between the same two algorithms
-(``icf.py:405-440``), read per call here.
+(``icf.py:405-440``), read per call here. With ``search_backend="grid"`` and
+both radii positive the searches go through voxel grids built once per
+registration (``neighbors/grid.py``; ``loam_tpu`` ``icf.py:315-360``): their
+indices feed the gathered fits too, and every iteration's count of cells over
+``grid_max_per_cell`` is recorded in the detail.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from ..features.types import FeatureSet
 from ..geometry import Pose3, norm, quat_multiply, quat_normalize, quat_rotate
+from ..neighbors.grid import build_grid, knn_grid
 from ..ops.knn_cuda import knn_dual_prep, knn_dual_run, knn_prep, knn_run
 from ..ops.morton import morton_key
 from ..params import RegistrationParams, TerminationType
@@ -109,10 +114,6 @@ def _register_impl(
     with_matches: bool,
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Register batched feature sets ((B, ...) leaves) from ``init`` (B poses)."""
-    if params.search_backend != "bruteforce":
-        raise NotImplementedError(
-            "the port implements search_backend='bruteforce' only"
-        )
     dtype = source.edge_points.dtype
     dev = source.edge_points.device
     B, E = source.edge_mask.shape
@@ -138,9 +139,17 @@ def _register_impl(
         plane_knn_overflow=torch.zeros((B, I), **i32),
     )
 
-    # the targets are fixed across outer iterations: prepare them once
+    # the targets are fixed across outer iterations: prepare them once.
+    # The grid needs both radii (its cell sizes); without them the "grid"
+    # backend searches by brute force, as loam_tpu's does.
+    use_grid = (params.search_backend == "grid" and params.max_edge_neighbor_dist > 0
+                and params.max_plane_neighbor_dist > 0)
     dual = _use_dual_knn(params, dtype)
-    if dual:
+    if use_grid:
+        edge_grid = build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist)
+        plane_grid = build_grid(target.planar_points, target.planar_mask,
+                                params.max_plane_neighbor_dist)
+    elif dual:
         d_prep = knn_dual_prep(target.edge_points, target.edge_mask,
                                target.planar_points, target.planar_mask)
     else:
@@ -154,7 +163,13 @@ def _register_impl(
     while bool(running.any()):
         qe = quat_rotate(est.rotation[:, None], source.edge_points) + est.translation[:, None]
         qp = quat_rotate(est.rotation[:, None], source.planar_points) + est.translation[:, None]
-        if dual:
+        if use_grid:
+            # indices into the unsorted targets: the gathered fits
+            e_res, e_ovf = knn_grid(edge_grid, qe, params.num_edge_neighbors,
+                                    params.max_edge_neighbor_dist, params.grid_max_per_cell)
+            p_res, p_ovf = knn_grid(plane_grid, qp, params.num_plane_neighbors,
+                                    params.max_plane_neighbor_dist, params.grid_max_per_cell)
+        elif dual:
             # one launch for both classes; its KnnResults take the gathered
             # fits (loam_tpu icf.py:474-477)
             e_res, p_res = knn_dual_run(
@@ -210,8 +225,11 @@ def _register_impl(
             plane_match=put(detail.plane_match, pa.match[:, :Qm]),
             edge_count=put(detail.edge_count, n_edge),
             plane_count=put(detail.plane_count, n_plane),
-            edge_knn_overflow=detail.edge_knn_overflow,
-            plane_knn_overflow=detail.plane_knn_overflow,
+            # only the grid can overflow; the exact searches leave the zeros
+            edge_knn_overflow=put(detail.edge_knn_overflow, e_ovf) if use_grid
+            else detail.edge_knn_overflow,
+            plane_knn_overflow=put(detail.plane_knn_overflow, p_ovf) if use_grid
+            else detail.plane_knn_overflow,
         )
         commit = running & ~insufficient
         est = Pose3(_select(commit, new_est.rotation, est.rotation),

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from torch_nms_cases import NMS_CASES, random_candidates as _candidates
+from torch_sort_cases import SORT_CASES
 
 from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
 
@@ -46,6 +47,35 @@ def test_sector_sort_matches_plain(dev, dtype, P, S):
     b = bitonic_cuda.sector_sort_reference(c, S)
     assert bitonic_cuda.sector_sort.launches == before + 1
     for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", ["thread_a_slot", "warp_a_slice"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_sector_sort_matches_plain_at_kernel_branches(dev, case, dtype, kernel):
+    """Ties, -0.0, NaN, +inf in real slots and every padded width (32 to
+    1,024 slots): positions equal, keys equal bit for bit (-0.0 stays -0.0,
+    a NaN keeps its payload). Each input as it is (few slices: the
+    thread-a-slot kernel) and repeated until the launch is the warp-a-slice
+    kernel's."""
+    make, S, _ = SORT_CASES[case]
+    c = torch.from_numpy(make()).to(dev, dtype)
+    if kernel == "warp_a_slice":
+        c = c.repeat(-(-bitonic_cuda.lines_for_warp_kernel(c.shape[1], S) // c.shape[0]), 1)
+    (ka, pa), (kb, pb) = bitonic_cuda.sector_sort(c, S), bitonic_cuda.sector_sort_reference(c, S)
+    assert torch.equal(pa, pb)
+    as_bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(ka.view(as_bits), kb.view(as_bits))
+
+
+@pytest.mark.parametrize("lines", [1, 3, 64, 512, 1024])
+def test_sector_sort_line_counts(dev, lines):
+    """One line, a count below the slices a block, one frame, a streaming
+    chunk and 16 frames of 64x1024 (6 sectors of 174 slots in 256)."""
+    g = torch.Generator().manual_seed(lines)
+    c = torch.randn((lines, 1024), generator=g, dtype=torch.float64).round(decimals=1).to(dev)
+    for x, y in zip(bitonic_cuda.sector_sort(c, 6), bitonic_cuda.sector_sort_reference(c, 6)):
         assert torch.equal(x, y)
 
 
@@ -354,6 +384,62 @@ def test_scan_to_map_gpu_matches_cpu(dev, monkeypatch):
     assert torch.equal(dg.termination.cpu(), dc.termination)
     np.testing.assert_allclose(tg.translation.cpu().numpy(), tc.translation.numpy(), atol=1e-2, rtol=0)
     assert int(sg.dropped) == 0 and int(sc.dropped) == 0
+
+
+def test_knn_grid_gpu_matches_cpu_and_bruteforce(dev):
+    """The voxel-grid search is plain tensor code: on the GPU it gives the
+    CPU's neighbors and masks exactly, distances within rtol 1e-6 (the two
+    devices' square roots may round the last bit differently), and at
+    overflow 0 the kNN kernel's neighbors."""
+    from loam_tpu_torch.neighbors import build_grid, knn, knn_grid
+
+    rng = np.random.default_rng(0)
+    t = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(np.float32))
+    m = torch.from_numpy(rng.random(3000) > 0.15)
+    q = torch.from_numpy(rng.uniform(-12, 12, (5000, 3)).astype(np.float32))  # above one tile of 4,096
+    on_cpu, o_cpu = knn_grid(build_grid(t, m, 1.0), q, 5, 1.0)
+    on_gpu, o_gpu = knn_grid(build_grid(t.to(dev), m.to(dev), 1.0), q.to(dev), 5, 1.0)
+    assert int(o_cpu) == int(o_gpu) == 0 and on_gpu.indices.is_cuda
+    assert torch.equal(on_gpu.mask.cpu(), on_cpu.mask) and on_cpu.mask.any()
+    assert torch.equal(on_gpu.indices.cpu()[on_cpu.mask], on_cpu.indices[on_cpu.mask])
+    torch.testing.assert_close(on_gpu.distances.cpu(), on_cpu.distances, rtol=1e-6, atol=0)
+    kernel = knn(q.to(dev), t.to(dev), m.to(dev), 5, 1.0)
+    assert torch.equal(kernel.mask, on_gpu.mask)
+    assert torch.equal(kernel.indices[kernel.mask], on_gpu.indices[kernel.mask])
+    torch.testing.assert_close(kernel.distances, on_gpu.distances, rtol=1e-6, atol=0)
+
+
+def test_grid_and_streaming_drivers_gpu_match_cpu(dev):
+    """scan_to_map_offline through the grid and odometry_streaming (numpy in,
+    no ``device``: on the card) on 6 frames of 16x360 scans, beside the same
+    runs on the CPU: within 1e-2 m, equal terminations; the pushed form
+    equals the offline form exactly."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans, _ = render_trajectory(lidar, 6, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                 noise=0.003, seed=11, dtype=np.float32)
+    cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+    grid = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
+    before = knn_cuda.knn_run.launches, knn_cuda.knn_dual_run.launches
+    _, tg, dg = T.scan_to_map_offline(scans, lidar, reg_params=grid, config=cfg)
+    assert (knn_cuda.knn_run.launches, knn_cuda.knn_dual_run.launches) == before  # no kNN kernel
+    _, tc, dc = T.scan_to_map_offline(scans, lidar, reg_params=grid, config=cfg, device="cpu")
+    assert tg.translation.is_cuda and torch.equal(dg.termination.cpu(), dc.termination)
+    np.testing.assert_allclose(tg.translation.cpu().numpy(), tc.translation.numpy(), atol=1e-2, rtol=0)
+    assert not dg.iteration_info.plane_knn_overflow.any()
+
+    sorts = bitonic_cuda.sector_sort.launches
+    sg, dsg = T.odometry_streaming(scans, lidar, chunk_frames=4)
+    assert sg.translation.is_cuda and bitonic_cuda.sector_sort.launches == sorts + 2  # once a chunk
+    sc, dsc = T.odometry_streaming(scans, lidar, chunk_frames=4, device="cpu")
+    assert torch.equal(dsg.termination.cpu(), dsc.termination)
+    np.testing.assert_allclose(sg.translation.cpu().numpy(), sc.translation.numpy(), atol=1e-2, rtol=0)
+    odo = T.StreamingOdometry(lidar, chunk_frames=4)
+    out = [p for s in scans for p in odo.push(s)] + odo.finish()
+    assert [i for i, _ in out] == list(range(6)) and not out[0][1].translation.is_cuda
+    assert torch.equal(torch.stack([p.translation for _, p in out]), sg.translation.cpu())
 
 
 def test_wrappers_refuse_bad_inputs(dev):

@@ -22,6 +22,7 @@ from loam_tpu.ops.knn_pallas import knn_run as j_knn_run
 from loam_tpu.ops.nms_pallas import greedy_nms as j_nms
 
 from torch_nms_cases import NMS_CASES, random_candidates
+from torch_sort_cases import SORT_CASES, lexsort_reference
 
 from loam_tpu_torch.neighbors import knn as t_knn
 from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
@@ -77,6 +78,40 @@ def test_sector_sort_layout_padding():
     assert sc.shape == (1, 3, 18)
     assert torch.isinf(sc[0, 0, 16:]).all() and (sp[0, 0, 16:] == 49).all()
     assert sp[0, 2].tolist() == list(range(49, 31, -1))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_sector_sort_plain_at_kernel_branches(case, dtype):
+    """The inputs the CUDA kernel's key mapping and slice widths could get
+    wrong (ties, -0.0, NaN, +inf in a real slot, slices padded to 32..1,024
+    slots): the plain version's positions equal a numpy lexsort's, its keys
+    are the input's values at those positions bit for bit, and where
+    ``loam_tpu``'s kernel takes the case (float32, no NaN, a small slice) its
+    output is the same."""
+    make, S, pallas_ok = SORT_CASES[case]
+    curv = make().astype(dtype)
+    N, P = curv.shape
+    sc_t, sp_t = bitonic_cuda.sector_sort_reference(torch.from_numpy(curv), S)
+    assert sc_t.dtype == torch.from_numpy(curv).dtype and sp_t.dtype == torch.int32
+    want = lexsort_reference(curv, S)
+    np.testing.assert_array_equal(sp_t.numpy(), want)
+    _, s_max, pos = bitonic_cuda.sector_layout(P, S)
+    bits = np.uint32 if dtype == np.float32 else np.uint64
+    picked = np.take_along_axis(curv[:, None, :], want.astype(np.int64), axis=2)
+    got = sc_t.numpy()
+    # outside the last sector (which has no padding) only padding slots carry P - 1
+    padding = (want == P - 1) & (np.arange(S) != S - 1)[None, :, None]
+    np.testing.assert_array_equal(got[~padding].view(bits), picked[~padding].view(bits))
+    assert np.isposinf(got[padding]).all()
+    if pallas_ok and dtype == np.float32:
+        keys = bitonic_cuda.to_sectors(torch.from_numpy(curv), S, float("inf")).numpy()
+        k_t = jnp.asarray(keys.reshape(N * S, s_max).T)
+        p_t = jnp.asarray(np.broadcast_to(pos, (N, S, s_max)).reshape(N * S, s_max).T.astype(np.int32))
+        sk, sp = j_bitonic((k_t, p_t), num_keys=2, impl="pallas")
+        back = lambda x: np.asarray(x).T.reshape(N, S, s_max)
+        np.testing.assert_array_equal(sp_t.numpy(), back(sp))
+        np.testing.assert_array_equal(got.view(bits), back(sk).view(bits))
 
 
 # ---- greedy NMS -------------------------------------------------------------
