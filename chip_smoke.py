@@ -16,7 +16,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      extraction kernels, one frame's 64 lines, which is what scan-to-scan
      launches, and a streaming chunk's 512; the sector sort also with its
      float32 key and on ties, -0.0, infinities and slices padded to 32 and
-     1,024 slots through both of its kernels; the first chunk of 4 pairs for
+     1,024 slots; the first chunk of 4 pairs for
      the kNN; for the dual kNN also
      a voxel map built from the first frames), require equal results, and
      time both with CUDA events, beside the kernel's bound on this GPU (the
@@ -369,22 +369,17 @@ def _check_sort_cases(dev):
                         dtype=torch.float64)
     n = 0
     for lines, P, S in ((7, 50, 3), (5, 64, 2), (3, 1000, 1), (64, 1024, 6)):  # 32, 32, 1,024, 256 slots
-        # as many lines again as make the launch the warp-a-slice kernel's
-        many = bitonic_cuda.lines_for_warp_kernel(P, S)
-        draw = pool[torch.randint(0, len(pool), (lines + many, P), generator=g)]
-        for dtype, as_bits, n_lines in ((torch.float64, torch.int64, lines), (torch.float32, torch.int32, lines),
-                                        (torch.float64, torch.int64, lines + many),
-                                        (torch.float32, torch.int32, lines + many)):
-            c = draw[:n_lines].to(dev, dtype)
+        draw = pool[torch.randint(0, len(pool), (lines, P), generator=g)]
+        for dtype, as_bits in ((torch.float64, torch.int64), (torch.float32, torch.int32)):
+            c = draw.to(dev, dtype)
             (ka, pa), (kb, pb) = bitonic_cuda.sector_sort(c, S), bitonic_cuda.sector_sort_reference(c, S)
             torch.cuda.synchronize()
-            _require_equal(f"sector_sort ({n_lines}, {P}) S={S} {dtype} positions", pa, pb)
-            _require_equal(f"sector_sort ({n_lines}, {P}) S={S} {dtype} key bits",
+            _require_equal(f"sector_sort ({lines}, {P}) S={S} {dtype} positions", pa, pb)
+            _require_equal(f"sector_sort ({lines}, {P}) S={S} {dtype} key bits",
                            ka.view(as_bits), kb.view(as_bits))
             n += 1
     print(f"sector_sort on ties, -0.0, +inf and -inf in real slots, slices padded to 32, 256 and "
-          f"1,024 slots, f64 and f32, through the thread-a-slot and the warp-a-slice kernel: {n} inputs "
-          f"equal to the plain version bit for bit")
+          f"1,024 slots, f64 and f32: {n} inputs equal to the plain version bit for bit")
 
 
 def _extraction_kernels(scans, lidar, fp, suffix: str) -> list:

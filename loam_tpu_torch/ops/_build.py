@@ -40,7 +40,6 @@ _F = ctypes.c_float
 SIGNATURES = {
     "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "loam_sector_sort_f32": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "loam_sector_sort_block_kernel_threads": (),
     "loam_greedy_nms": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "loam_select_points_f32": (_P, _P, _I, _I, _I, _P, _P),
     "loam_select_points_f64": (_P, _P, _I, _I, _I, _P, _P),

@@ -1,6 +1,6 @@
 """Sector sort: every (line, sector) curvature slice sorted ascending.
 
-:func:`sector_sort` launches a CUDA kernel of ``csrc/sector_sort.cu`` (the
+:func:`sector_sort` launches the CUDA kernel (``csrc/sector_sort.cu``, the
 port of ``loam_tpu/ops/bitonic.py::_sort_kernel``) for a CUDA tensor and runs
 :func:`sector_sort_reference`, a stable ``torch.sort``, for a CPU tensor.
 Both give the canonical (curvature, position) order of ``loam_tpu``'s
@@ -11,12 +11,9 @@ total: negative < -0.0 == +0.0 < positive < +inf < NaN, ties by position, so
 a NaN sorts behind the padding slots; the curvature that comes out is the
 input's own value (``-0.0`` stays ``-0.0``).
 
-The source holds two kernels for the one function, chosen from the launch's
-size: a warp a slice with the slice in registers (integer keys, no shared
-memory, no barrier) when the slices outnumber what the card holds at once,
-and a block a slice, a thread a slot, when they do not (one frame), where a
-lone warp's latency would decide. :func:`lines_for_warp_kernel` says where
-the choice falls.
+The kernel is a warp a slice with the slice in registers: integer keys, a
+bitonic network whose cross-lane stages are shuffles, no block barrier, and
+coalesced stores.
 """
 
 from __future__ import annotations
@@ -98,13 +95,3 @@ def sector_sort(curv: torch.Tensor, n_sectors: int):
 
 #: Kernel launches since the last reset (plain-version calls do not count).
 sector_sort.launches = 0
-
-
-def lines_for_warp_kernel(P: int, n_sectors: int) -> int:
-    """The fewest lines of ``P`` points at which :func:`sector_sort` launches
-    its warp-a-slice kernel; below, the thread-a-slot kernel takes the launch
-    (``csrc/sector_sort.cu``). Builds the library: for GPU tests and timing
-    scripts that want to reach either kernel."""
-    s_max = P - (n_sectors - 1) * (P // n_sectors)
-    npad = max(32, 1 << int(s_max - 1).bit_length())
-    return _build.lib().loam_sector_sort_block_kernel_threads() // (npad * n_sectors) + 1

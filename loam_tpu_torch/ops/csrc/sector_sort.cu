@@ -8,24 +8,21 @@
 //
 // What bounds it on the H100: the integer pipe, not the bytes. At 16 frames
 // (6,144 slices of 174 slots, 21 MB in and out) the memory time is ~6 us, but
-// the network is 36 stages x 256 slots a slice, each compare-exchange some
-// nine integer operations (compares and selects of a 96-bit item: ~2,400
-// warp operations a slice), and an SM runs integer operations at half the
-// float32 rate (64 lanes a clock): ~26 us of scheduler cycles at the least.
+// the network is 36 stages x 256 slots a slice, each compare-exchange eight
+// to eleven integer operations on a 96-bit item (~1,900 warp operations a
+// slice beside 360 shuffles), and an SM runs integer operations at half the
+// float32 rate (64 lanes a clock): ~22 us of scheduler cycles at the least.
 // At one frame (384 slices, under one warp a scheduler) it is the latency of
 // the 36 dependent stages, and of fetching the code: a network unrolled from
-// end to end is tens of kilobytes that every lone warp reads once, cold.
+// end to end is tens of kilobytes that every lone warp reads once, cold. And
+// the stores must coalesce: written out a lane's run at a time they cost as
+// much as the whole network.
 //
-// Two kernels, chosen from the launch's size (launch()): the warp kernel
-// below for launches that fill the card (a streaming chunk, a batch of
-// frames), and the block kernel further down, a thread a slot in shared
-// memory, for launches whose threads all fit on the card at once (one
-// frame), where it ends ~8% sooner than a lone warp a slice does.
-//
-// Design of the warp kernel: one warp per slice, the slice in registers, no
-// shared memory and no block barrier. The slice is padded to NPAD = 32 * E slots (E a power of two
-// up to 32, a template parameter), E per lane. The loads are striped (slot
-// e * 32 + lane, coalesced): the order going in does not matter to a sort.
+// Design: one warp per slice, the slice in registers, no block barrier, and
+// shared memory only to turn the sorted positions around for the stores. The
+// slice is padded to NPAD = 32 * E slots (E a power of two up to 32, a
+// template parameter), E per lane. The loads are striped (slot e * 32 + lane,
+// coalesced): the order going in does not matter to a sort.
 // The network runs on the blocked index lane * E + e, so the stages with
 // j < E exchange between a lane's own registers and only those with j >= E
 // cross lanes, by __shfl_xor_sync with lane ^ (j / E) (for 256 slots: 21 and
@@ -33,7 +30,8 @@
 // unrolled; the phases k > E are one loop whose body is a shuffle stage (in
 // an inner loop over the lane distance) and the in-register stages, so the
 // code is a few hundred operations long and stays in the code cache. The
-// sorted slice then lies contiguous per lane.
+// sorted slice then lies contiguous per lane; its positions cross the warp
+// through 1 KB of shared memory and go out 32 consecutive slots a store.
 //
 // The key: the curvature is mapped once, at the load, to an unsigned integer
 // of its own width whose order is the order a stable torch.sort gives
@@ -53,7 +51,6 @@
 
 #include <cuda_runtime.h>
 #include <climits>
-#include <cstdint>
 #include <math_constants.h>
 
 namespace {
@@ -82,14 +79,48 @@ struct Key<double> {
     return Item{u, p};
   }
   static __device__ __forceinline__ Item last() { return Item{~0ull, INT_MAX}; }
-  static __device__ __forceinline__ bool greater(const Item& a, const Item& b) {
+  // All ones where a > b, (key, position) taken as one 96-bit integer: the
+  // borrow of b - a through the three words, four operations in all. The
+  // compiler has no 96-bit type: written as key-then-position, or as an
+  // unsigned __int128, the compare came out at 12-14 operations.
+  static __device__ __forceinline__ unsigned greater_mask(const Item& a, const Item& b) {
 #ifdef LOAM_SORT_LEX
-    return a.k > b.k || (a.k == b.k && a.p > b.p);
+    return (a.k > b.k || (a.k == b.k && a.p > b.p)) ? ~0u : 0u;
 #else
-    // (key, position) as one 96-bit integer: a chain of three compares
-    typedef unsigned __int128 u128;
-    return (((u128)a.k << 32) | (unsigned)a.p) > (((u128)b.k << 32) | (unsigned)b.p);
+    unsigned mask, scratch;
+    asm("sub.cc.u32 %1, %5, %2;\n\t"
+        "subc.cc.u32 %1, %6, %3;\n\t"
+        "subc.cc.u32 %1, %7, %4;\n\t"
+        "subc.u32 %0, 0, 0;"
+        : "=r"(mask), "=&r"(scratch)
+        : "r"((unsigned)a.p), "r"((unsigned)a.k), "r"((unsigned)(a.k >> 32)),
+          "r"((unsigned)b.p), "r"((unsigned)b.k), "r"((unsigned)(b.k >> 32)));
+    return mask;
 #endif
+  }
+  // x where the mask is clear, y where it is set: one three-input logic
+  // operation a word (written as (x & ~m) | (y & m) it compiled to three)
+  static __device__ __forceinline__ unsigned blend(unsigned x, unsigned y, unsigned mask) {
+    unsigned d;
+    asm("lop3.b32 %0, %1, %2, %3, 0xD8;" : "=r"(d) : "r"(x), "r"(y), "r"(mask));
+    return d;
+  }
+  static __device__ __forceinline__ Item blend(const Item& x, const Item& y, unsigned mask) {
+    const unsigned lo = blend((unsigned)x.k, (unsigned)y.k, mask);
+    const unsigned hi = blend((unsigned)(x.k >> 32), (unsigned)(y.k >> 32), mask);
+    return Item{((unsigned long long)hi << 32) | lo, (int)blend((unsigned)x.p, (unsigned)y.p, mask)};
+  }
+  // The pair (x, y) in ascending order if ``ascending``, else descending.
+  static __device__ __forceinline__ void order(Item& x, Item& y, bool ascending) {
+    const unsigned swap = greater_mask(x, y) ^ (ascending ? 0u : ~0u);
+    const Item lo = blend(x, y, swap);
+    y = blend(y, x, swap);
+    x = lo;
+  }
+  // The smaller of a lane's item and its partner's if ``keep_min``, else the
+  // larger.
+  static __device__ __forceinline__ Item pick(const Item& mine, const Item& other, bool keep_min) {
+    return blend(mine, other, greater_mask(mine, other) ^ (keep_min ? 0u : ~0u));
   }
   static __device__ __forceinline__ Item exchange(const Item& a, int lane_mask) {
     return Item{__shfl_xor_sync(FULL, a.k, lane_mask), __shfl_xor_sync(FULL, a.p, lane_mask)};
@@ -109,7 +140,15 @@ struct Key<float> {
     return ((unsigned long long)u << 32) | (unsigned)p;
   }
   static __device__ __forceinline__ Item last() { return ~0ull; }
-  static __device__ __forceinline__ bool greater(Item a, Item b) { return a > b; }
+  static __device__ __forceinline__ void order(Item& x, Item& y, bool ascending) {
+    const bool swap = (x > y) == ascending;
+    const Item lo = swap ? y : x;
+    y = swap ? x : y;
+    x = lo;
+  }
+  static __device__ __forceinline__ Item pick(Item mine, Item other, bool keep_min) {
+    return ((mine > other) == keep_min) ? other : mine;
+  }
   static __device__ __forceinline__ Item exchange(Item a, int lane_mask) {
     return __shfl_xor_sync(FULL, a, lane_mask);
   }
@@ -123,12 +162,7 @@ __device__ __forceinline__ void local_stage(typename Key<T>::Item (&a)[E], Asc a
   using K = Key<T>;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    if ((e & J) == 0) {
-      const typename K::Item x = a[e], y = a[e | J];
-      const bool swap = K::greater(x, y) == ascending(e);
-      a[e] = swap ? y : x;
-      a[e | J] = swap ? x : y;
-    }
+    if ((e & J) == 0) K::order(a[e], a[e | J], ascending(e));
   }
 }
 
@@ -194,19 +228,30 @@ sector_sort_kernel(const T* __restrict__ curv, int n_slices, int P, int S,
 #pragma unroll
         for (int i = 0; i < G; ++i) other[i] = K::exchange(a[g + i], lane_mask);
 #pragma unroll
-        for (int i = 0; i < G; ++i)
-          if (K::greater(a[g + i], other[i]) == keep_min) a[g + i] = other[i];
+        for (int i = 0; i < G; ++i) a[g + i] = K::pick(a[g + i], other[i], keep_min);
       }
     }
     local_stages<T, E, E / 2>(a, [ascending](int) { return ascending; });
   }
 
-  const long long out = (long long)slice * s_max;
+  // The sorted run lies contiguous per lane; written out so, every store
+  // would touch 32 sectors for a fraction of each. The positions cross the
+  // warp through shared memory (slot i at i + i / 32: no bank conflicts
+  // either way) and go out striped, 32 consecutive slots a store.
+  __shared__ int staged[WARPS][32 * E + E];
+  int* sorted_pos = staged[threadIdx.x >> 5];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    const int t = lane * E + e;
+    const int i = lane * E + e;
+    sorted_pos[i + (i >> 5)] = K::pos(a[e]);
+  }
+  __syncwarp();
+  const long long out = (long long)slice * s_max;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int t = r * 32 + lane;
     if (t < s_max) {
-      const int p = K::pos(a[e]);
+      const int p = sorted_pos[t + r];
       // only a padding slot carries P-1 outside the last sector, which has none
       const bool padding = (p == P - 1) && (s != S - 1);
       out_pos[out + t] = p;
@@ -214,77 +259,6 @@ sector_sort_kernel(const T* __restrict__ curv, int n_slices, int P, int S,
     }
   }
 }
-
-// The few-slices kernel: one block per slice, one thread per slot, the same
-// network in shared memory on the curvature itself and the position, a
-// __syncthreads() a stage; the lower thread of a pair does its
-// compare-exchange. It does more work in all than the warp kernel (a barrier
-// a stage, half of the threads idle, 1.8x the time at 16 frames), but a stage
-// is one compare-exchange deep, eight warps share a slice, and its compares
-// run on the float pipes beside the integer one, so with few slices (one
-// frame: 384) it ends sooner than a lone warp a scheduler. It takes the
-// launches whose threads all fit on the card at once; the warp kernel takes
-// the rest. The floating compare orders -0.0 and +0.0 as equal by itself; a
-// NaN goes in as +inf with NAN_FLAG set in its position, which puts it behind
-// the padding slots (+inf, P-1) in position order, and comes out as the
-// input's value.
-constexpr int NAN_FLAG = 1 << 30;
-
-template <typename T>
-__global__ void sector_sort_block_kernel(const T* __restrict__ curv, int P, int S, int pps,
-                                         int s_max, T* __restrict__ out_curv,
-                                         int* __restrict__ out_pos) {
-  extern __shared__ double smem_raw[];
-  const int t = threadIdx.x, npad = blockDim.x;
-  T* key = reinterpret_cast<T*>(smem_raw);
-  int* pos = reinterpret_cast<int*>(key + npad);
-
-  const int slice = blockIdx.x;
-  const int line = slice / S;
-  const int s = slice - line * S;
-  const int start = s * pps;
-  const int size = (s == S - 1) ? (P - start) : pps;
-  const T* __restrict__ row = curv + (long long)line * P;
-
-  if (t < size) {
-    const T x = __ldg(row + start + t);
-    key[t] = (x != x) ? Key<T>::inf() : x;
-    pos[t] = (x != x) ? (start + t) | NAN_FLAG : start + t;
-  } else {
-    key[t] = Key<T>::inf();
-    pos[t] = (t < s_max) ? P - 1 : INT_MAX;
-  }
-  __syncthreads();
-
-  for (int k = 2; k <= npad; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int partner = t ^ j;
-      if (partner > t) {
-        const T ka = key[t], kb = key[partner];
-        const int pa = pos[t], pb = pos[partner];
-        const bool a_gt_b = (ka > kb) || (ka == kb && pa > pb);
-        if (a_gt_b == ((t & k) == 0)) {
-          key[t] = kb;
-          key[partner] = ka;
-          pos[t] = pb;
-          pos[partner] = pa;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (t < s_max) {
-    const int p = pos[t];
-    out_pos[(long long)slice * s_max + t] = p & ~NAN_FLAG;
-    out_curv[(long long)slice * s_max + t] = (p & NAN_FLAG) ? __ldg(row + (p & ~NAN_FLAG)) : key[t];
-  }
-}
-
-#ifndef LOAM_SORT_BLOCK_KERNEL_THREADS
-// threads an H100 holds at once: 132 SMs x 2,048
-#define LOAM_SORT_BLOCK_KERNEL_THREADS (132 * 2048)
-#endif
 
 template <typename T, int E>
 int launch_e(const T* curv, int n_slices, int P, int S, int pps, int s_max,
@@ -301,13 +275,7 @@ int launch(const T* curv, int n_lines, int P, int S, int pps, int s_max,
   if (n_lines == 0) return 0;
   if ((long long)n_lines * S > INT_MAX - WARPS) return (int)cudaErrorInvalidValue;
   const int n = n_lines * S;
-  if (npad < 32) npad = 32;
-  if ((long long)n * npad <= LOAM_SORT_BLOCK_KERNEL_THREADS && npad <= 1024) {
-    sector_sort_block_kernel<T><<<n, npad, npad * (sizeof(T) + sizeof(int)), stream>>>(
-        curv, P, S, pps, s_max, out_curv, out_pos);
-    return (int)cudaGetLastError();
-  }
-  switch (npad / 32) {  // slots a lane
+  switch (npad <= 32 ? 1 : npad / 32) {  // slots a lane
     case 1: return launch_e<T, 1>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
     case 2: return launch_e<T, 2>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
     case 4: return launch_e<T, 4>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
@@ -319,10 +287,6 @@ int launch(const T* curv, int n_lines, int P, int S, int pps, int s_max,
 }
 
 }  // namespace
-
-// The most threads (slices x padded slots) a launch may have to take the
-// thread-a-slot kernel; for tests and timing scripts that want either kernel.
-extern "C" int loam_sector_sort_block_kernel_threads() { return LOAM_SORT_BLOCK_KERNEL_THREADS; }
 
 extern "C" int loam_sector_sort_f64(const double* curv, int n_lines, int P,
                                     int S, int pps, int s_max, int npad,

@@ -3,10 +3,9 @@
     python3 -m loam_tpu_torch.tune_sort [--out tune_out] [--quick]
 
 For every variant of ``ops/csrc/sector_sort.cu`` -- slices a block
-(``-DLOAM_SORT_WARPS``), the float64 item's compare (``-DLOAM_SORT_LEX``:
-key then position, instead of one 96-bit compare) and which launches take the
-thread-a-slot kernel instead of the warp-a-slice one
-(``-DLOAM_SORT_BLOCK_KERNEL_THREADS``: 0 none, 2000000000 all) -- it builds the library,
+(``-DLOAM_SORT_WARPS``) and the float64 item's compare (``-DLOAM_SORT_LEX``:
+key then position as the compiler makes it, instead of the hand-written
+borrow chain over 96 bits) -- it builds the library,
 checks the kernel against its plain version (positions and keys equal) and
 times the launch alone (a CUDA graph of 20 launches replayed, so no Python
 runs between them) at the shapes the odometry paths launch: all lines of 16
@@ -110,8 +109,7 @@ def main() -> int:
 
     builds = [()] if args.quick else [
         (), ("-DLOAM_SORT_LEX",), ("-DLOAM_SORT_WARPS=2",), ("-DLOAM_SORT_WARPS=4",),
-        ("-DLOAM_SORT_WARPS=8",), ("-DLOAM_SORT_BLOCK_KERNEL_THREADS=0",),
-        ("-DLOAM_SORT_BLOCK_KERNEL_THREADS=2000000000",), (),
+        ("-DLOAM_SORT_WARPS=8",), (),
     ]
     rows = []
     for flags in builds:

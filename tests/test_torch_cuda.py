@@ -50,19 +50,14 @@ def test_sector_sort_matches_plain(dev, dtype, P, S):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("kernel", ["thread_a_slot", "warp_a_slice"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", sorted(SORT_CASES))
-def test_sector_sort_matches_plain_at_kernel_branches(dev, case, dtype, kernel):
+def test_sector_sort_matches_plain_at_kernel_branches(dev, case, dtype):
     """Ties, -0.0, NaN, +inf in real slots and every padded width (32 to
     1,024 slots): positions equal, keys equal bit for bit (-0.0 stays -0.0,
-    a NaN keeps its payload). Each input as it is (few slices: the
-    thread-a-slot kernel) and repeated until the launch is the warp-a-slice
-    kernel's."""
+    a NaN keeps its payload)."""
     make, S, _ = SORT_CASES[case]
     c = torch.from_numpy(make()).to(dev, dtype)
-    if kernel == "warp_a_slice":
-        c = c.repeat(-(-bitonic_cuda.lines_for_warp_kernel(c.shape[1], S) // c.shape[0]), 1)
     (ka, pa), (kb, pb) = bitonic_cuda.sector_sort(c, S), bitonic_cuda.sector_sort_reference(c, S)
     assert torch.equal(pa, pb)
     as_bits = torch.int32 if dtype == torch.float32 else torch.int64
@@ -71,8 +66,8 @@ def test_sector_sort_matches_plain_at_kernel_branches(dev, case, dtype, kernel):
 
 @pytest.mark.parametrize("lines", [1, 3, 64, 512, 1024])
 def test_sector_sort_line_counts(dev, lines):
-    """One line, a count below the slices a block, one frame, a streaming
-    chunk and 16 frames of 64x1024 (6 sectors of 174 slots in 256)."""
+    """One line, three, one frame, a streaming chunk and 16 frames of
+    64x1024 (6 sectors of 174 slots in 256)."""
     g = torch.Generator().manual_seed(lines)
     c = torch.randn((lines, 1024), generator=g, dtype=torch.float64).round(decimals=1).to(dev)
     for x, y in zip(bitonic_cuda.sector_sort(c, 6), bitonic_cuda.sector_sort_reference(c, 6)):
