@@ -357,16 +357,17 @@ def _sector_sort_row(curv, S: int, suffix: str):
 
 def _check_sort_cases(dev):
     """``sector_sort`` where its key mapping and its slice widths could go
-    wrong: ties, -0.0 beside +0.0, +inf and -inf in real slots, slices padded
-    to 32 and to 1,024 slots, both key types. Positions equal to the plain
-    version's and keys equal bit for bit."""
+    wrong: ties, -0.0 beside +0.0, +inf and -inf in real slots, NaNs of
+    either sign (behind +inf and behind the padding, by position), slices
+    padded to 32 and to 1,024 slots, both key types. Positions equal to the
+    plain version's and keys equal bit for bit."""
     import torch
 
     from loam_tpu_torch.ops import bitonic_cuda
 
     g = torch.Generator().manual_seed(0)
-    pool = torch.tensor([-0.0, 0.0, -1.5, 1.5, float("inf"), float("-inf"), 0.25, -0.0],
-                        dtype=torch.float64)
+    pool = torch.tensor([-0.0, 0.0, -1.5, 1.5, float("inf"), float("-inf"), 0.25, -0.0,
+                         float("nan"), -float("nan")], dtype=torch.float64)
     n = 0
     for lines, P, S in ((7, 50, 3), (5, 64, 2), (3, 1000, 1), (64, 1024, 6)):  # 32, 32, 1,024, 256 slots
         draw = pool[torch.randint(0, len(pool), (lines, P), generator=g)]
@@ -378,7 +379,7 @@ def _check_sort_cases(dev):
             _require_equal(f"sector_sort ({lines}, {P}) S={S} {dtype} key bits",
                            ka.view(as_bits), kb.view(as_bits))
             n += 1
-    print(f"sector_sort on ties, -0.0, +inf and -inf in real slots, slices padded to 32, 256 and "
+    print(f"sector_sort on ties, -0.0, +inf, -inf and NaNs of either sign in real slots, slices padded to 32, 256 and "
           f"1,024 slots, f64 and f32: {n} inputs equal to the plain version bit for bit")
 
 
@@ -545,11 +546,14 @@ def main() -> int:
     if curv32.dtype != torch.float32:
         raise AssertionError(f"precise_selection=False gave {curv32.dtype} curvature")
     kernels.append(_sector_sort_row(curv32, fp32.number_sectors, "_f32")[0])
+    if extraction_only:
+        # the times first: a kernel that fails a corner case below (an earlier
+        # tree's, built here for comparison) has still shown them
+        _print_kernels(kernels)
+        print(json.dumps({"extraction_kernels": kernels}))
     _check_sort_cases(dev)
     _check_wide_nms(dev)
     if extraction_only:
-        _print_kernels(kernels)
-        print(json.dumps({"extraction_kernels": kernels}))
         print(smi)
         return 0
 

@@ -18,9 +18,10 @@
 // the stores must coalesce: written out a lane's run at a time they cost as
 // much as the whole network.
 //
-// Design: one warp per slice, the slice in registers, no block barrier, and
-// shared memory only to turn the sorted positions around for the stores. The
-// slice is padded to NPAD = 32 * E slots (E a power of two up to 32, a
+// Design: one warp per slice and one slice per block (more slices a block
+// were never faster, and slower at one frame), the slice in registers, no
+// block barrier, and shared memory only to turn the sorted positions around
+// for the stores. The slice is padded to NPAD = 32 * E slots (E a power of two up to 32, a
 // template parameter), E per lane. The loads are striped (slot e * 32 + lane,
 // coalesced): the order going in does not matter to a sort.
 // The network runs on the blocked index lane * E + e, so the stages with
@@ -55,10 +56,6 @@
 
 namespace {
 
-#ifndef LOAM_SORT_WARPS
-#define LOAM_SORT_WARPS 1
-#endif
-constexpr int WARPS = LOAM_SORT_WARPS;  // slices a block
 constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T>
@@ -80,13 +77,11 @@ struct Key<double> {
   }
   static __device__ __forceinline__ Item last() { return Item{~0ull, INT_MAX}; }
   // All ones where a > b, (key, position) taken as one 96-bit integer: the
-  // borrow of b - a through the three words, four operations in all. The
-  // compiler has no 96-bit type: written as key-then-position, or as an
-  // unsigned __int128, the compare came out at 12-14 operations.
+  // borrow of b - a through the three words, four operations in all. It
+  // means (a.k > b.k || (a.k == b.k && a.p > b.p)) ? ~0u : 0u. The compiler
+  // has no 96-bit type: written so, or as an unsigned __int128, the compare
+  // came out at 12-14 operations.
   static __device__ __forceinline__ unsigned greater_mask(const Item& a, const Item& b) {
-#ifdef LOAM_SORT_LEX
-    return (a.k > b.k || (a.k == b.k && a.p > b.p)) ? ~0u : 0u;
-#else
     unsigned mask, scratch;
     asm("sub.cc.u32 %1, %5, %2;\n\t"
         "subc.cc.u32 %1, %6, %3;\n\t"
@@ -96,7 +91,6 @@ struct Key<double> {
         : "r"((unsigned)a.p), "r"((unsigned)a.k), "r"((unsigned)(a.k >> 32)),
           "r"((unsigned)b.p), "r"((unsigned)b.k), "r"((unsigned)(b.k >> 32)));
     return mask;
-#endif
   }
   // x where the mask is clear, y where it is set: one three-input logic
   // operation a word (written as (x & ~m) | (y & m) it compiled to three)
@@ -185,16 +179,14 @@ __device__ __forceinline__ void local_phases(typename Key<T>::Item (&a)[E], int 
 }
 
 template <typename T, int E>
-__global__ void __launch_bounds__(WARPS * 32)
-sector_sort_kernel(const T* __restrict__ curv, int n_slices, int P, int S,
-                   int pps, int s_max, T* __restrict__ out_curv,
-                   int* __restrict__ out_pos) {
+__global__ void __launch_bounds__(32)
+sector_sort_kernel(const T* __restrict__ curv, int P, int S, int pps, int s_max,
+                   T* __restrict__ out_curv, int* __restrict__ out_pos) {
   using K = Key<T>;
   using Item = typename K::Item;
 
-  const int lane = threadIdx.x & 31;
-  const int slice = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (slice >= n_slices) return;  // the whole warp leaves together
+  const int lane = threadIdx.x;
+  const int slice = blockIdx.x;
   const int line = slice / S;
   const int s = slice - line * S;
   const int start = s * pps;
@@ -238,8 +230,7 @@ sector_sort_kernel(const T* __restrict__ curv, int n_slices, int P, int S,
   // would touch 32 sectors for a fraction of each. The positions cross the
   // warp through shared memory (slot i at i + i / 32: no bank conflicts
   // either way) and go out striped, 32 consecutive slots a store.
-  __shared__ int staged[WARPS][32 * E + E];
-  int* sorted_pos = staged[threadIdx.x >> 5];
+  __shared__ int sorted_pos[32 * E + E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int i = lane * E + e;
@@ -263,9 +254,8 @@ sector_sort_kernel(const T* __restrict__ curv, int n_slices, int P, int S,
 template <typename T, int E>
 int launch_e(const T* curv, int n_slices, int P, int S, int pps, int s_max,
              T* out_curv, int* out_pos, cudaStream_t stream) {
-  const int blocks = (n_slices + WARPS - 1) / WARPS;
-  sector_sort_kernel<T, E><<<blocks, WARPS * 32, 0, stream>>>(
-      curv, n_slices, P, S, pps, s_max, out_curv, out_pos);
+  sector_sort_kernel<T, E><<<n_slices, 32, 0, stream>>>(
+      curv, P, S, pps, s_max, out_curv, out_pos);
   return (int)cudaGetLastError();
 }
 
@@ -273,7 +263,7 @@ template <typename T>
 int launch(const T* curv, int n_lines, int P, int S, int pps, int s_max,
            int npad, T* out_curv, int* out_pos, cudaStream_t stream) {
   if (n_lines == 0) return 0;
-  if ((long long)n_lines * S > INT_MAX - WARPS) return (int)cudaErrorInvalidValue;
+  if ((long long)n_lines * S > INT_MAX) return (int)cudaErrorInvalidValue;
   const int n = n_lines * S;
   switch (npad <= 32 ? 1 : npad / 32) {  // slots a lane
     case 1: return launch_e<T, 1>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
