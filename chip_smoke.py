@@ -44,7 +44,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      runs after a warm-up.
   4. Check agreement with the plain versions on a small input: the offline,
      scan-to-map (brute force and grid), scan-to-scan and streaming drivers
-     on 6 frames of 16x360 scans on the GPU and on the CPU.
+     on 6 frames of 16x360 scans on the GPU and on the CPU;
+     ``optimize_trajectory_with_closures`` on a closed loop of 17 keyframes
+     of 16x360 (candidates and accepted closures equal, poses within 1e-2 m);
+     ``optimize_pose_graph`` in float64 on a 60-node graph (poses within
+     1e-8); a float64 ``register_features`` (the plain kNN on the card, within
+     1e-9 m) and a k = 9 search (equal to the plain one).
   5. ``odometry_offline`` with ``LOAM_ICF_DUAL_KNN=1``: the dual kNN instead
      of the single one, the same terminations and iteration counts as phase
      3, poses within 1e-5 m of it, the ATE gate; scans/s beside phase 3's.
@@ -67,6 +72,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      is constant over a chunk of 8 frames here and of 4 pairs there), the ATE
      gate for both, each extraction kernel launched once a chunk and the kNN
      kernel launched; scans/s.
+ 10. The loop-closed path at full width: 33 keyframes of 64x1024 around a
+     closed square (``profile_offline.square_loop_scans``) written as KITTI
+     ``.bin`` files, ``odometry_streaming`` over the paths through the native
+     loader (packed, chunks of 8), the keyframes' features by
+     ``extract_features_batch``, ``optimize_trajectory_with_closures`` (8
+     candidates, 10 iterations). Requires the native loader, the start/end
+     revisit among the accepted closures, the end gap shrinking, the
+     optimized trajectory's ATE no worse than the odometry's and under the
+     gate, and every extraction kernel and the single kNN launched by both
+     counted runs; prints scans/s of the file-fed run, ms per
+     ``verify_closures`` call and per pose-graph solve.
+ 11. ``optimize_pose_graph`` at drive scale: a chain of 1,000 nodes plus 50
+     closures, noise-free measurements, a perturbed start (H is 6,000 x
+     6,000), in float64 and float32 on the card. Requires the float64 solve
+     to recover the true poses within 1e-5 m and both costs to fall; prints
+     ms per solve and the peak device memory.
 
 ``LOAM_ICF_DUAL_KNN`` is set and restored around the phases that use it.
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
@@ -81,6 +102,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -97,6 +119,15 @@ ATOL_GRID_M = 1e-5
 # registrations from other constant-velocity priors, each converged to the
 # ICF's position threshold
 ATOL_STREAM_M = 1e-2
+# float64 on the card vs the CPU: the same plain kNN and solver, summed in
+# other orders
+ATOL_F64_M = 1e-9
+# the float64 pose graph, card vs CPU: index_put_(accumulate=True) adds into
+# H in no fixed order on the card
+ATOL_GRAPH = 1e-8
+# the float64 pose-graph solve of noise-free edges vs the truth (the
+# tolerance of tests/test_pose_graph.py::test_recovers_exact_graph)
+ATOL_GRAPH_TRUTH_M = 1e-5
 
 
 def _smi() -> str:
@@ -467,6 +498,13 @@ def _check_wide_nms(dev):
     ms = _graph_ms(lambda: nms_cuda.greedy_nms(valid, cand_e, cand_p, 10, 50, 3))
     print(f"greedy_nms at P={P} ({N} lines, {S} sectors of {s_max}): equal to the plain version, "
           f"launch alone {ms:.4f} ms")
+
+
+def _to(tree, dev, dtype=None):
+    """Every tensor of a nest of NamedTuples on ``dev`` (floats in ``dtype``)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(x, dev, dtype) for x in tree))
+    return tree.to(dev, dtype if dtype is not None and tree.is_floating_point() else tree.dtype)
 
 
 def _print_kernels(kernels):
@@ -843,6 +881,71 @@ def main() -> int:
         if not gap < ATOL_SMALL_M:
             raise AssertionError(f"{drv}: GPU and CPU trajectories differ by {gap} m")
 
+    # ... the loop-closed path on 17 keyframes of 16x360 around the closed
+    # square, from the true poses plus a random-walk drift
+    from loam_tpu_torch.geometry import Pose3, quat_exp
+    from loam_tpu_torch.loop_closure import optimize_trajectory_with_closures
+    from loam_tpu_torch.pose_graph import _cost, optimize_pose_graph
+    from loam_tpu_torch.profile_offline import (
+        LOOP_CLOSURE_KW, random_pose_graph, square_loop_scans, write_kitti_bins)
+
+    lo_np, lo_pos, lo_yaw = square_loop_scans(small, n_side=4, step=0.4)
+    drift = np.cumsum(np.random.default_rng(0).normal(0, 0.01, lo_pos.shape) * [1, 1, 0.2], axis=0)
+    lo_traj = Pose3(quat_exp(torch.tensor([[0.0, 0.0, y] for y in lo_yaw])).float(),
+                    torch.from_numpy(lo_pos + drift).float())
+    small_kw = dict(max_candidates=4, min_separation=8, max_distance=1.5, iterations=8)
+    (opt_g, clo_g), (opt_c, clo_c) = (
+        optimize_trajectory_with_closures(_to(lo_traj, d), T.extract_features_batch(
+            torch.from_numpy(lo_np).to(d), small, fp), rp, **small_kw) for d in (dev, "cpu"))
+    for what in ("i", "j", "accepted"):
+        _require_equal(f"small loop closures {what} (GPU vs CPU)", getattr(clo_g, what).cpu(),
+                       getattr(clo_c, what))
+    if not clo_c.accepted.any():
+        raise AssertionError("small loop: no closure accepted")
+    gap = _max_err(opt_g.translation.cpu(), opt_c.translation)
+    print(f"small input, loop closure: candidates {list(zip(clo_c.i.tolist(), clo_c.j.tolist()))}, "
+          f"accepted {clo_c.accepted.tolist()} on both; GPU vs CPU optimized trajectory max gap "
+          f"{gap:.3e} m (limit {ATOL_SMALL_M})")
+    if not gap < ATOL_SMALL_M:
+        raise AssertionError(f"loop closure: GPU and CPU trajectories differ by {gap} m")
+
+    # ... the pose graph in float64 (a chain of 60 nodes and 6 closures)
+    gt60, init60, edges60 = random_pose_graph(60, 6, seed=1)
+    (pg_g, cost_g), (pg_c, cost_c) = (optimize_pose_graph(_to(init60, d), _to(edges60, d), 10)
+                                      for d in (dev, "cpu"))
+    gap = max(_max_err(pg_g.translation.cpu(), pg_c.translation),
+              _max_err(pg_g.rotation.cpu(), pg_c.rotation))
+    print(f"small input, pose graph (60 nodes, float64): GPU vs CPU max gap {gap:.3e} (limit "
+          f"{ATOL_GRAPH}); cost {float(cost_g):.3e} vs {float(cost_c):.3e}")
+    if not gap < ATOL_GRAPH:
+        raise AssertionError(f"pose graph: GPU and CPU differ by {gap}")
+
+    # ... F3: float64 registration and a k above the kernel's range take the
+    # plain search on the card, with no kernel launch
+    f64 = T.extract_features_batch(torch.from_numpy(s_np[:2]).to(dev, torch.float64), small, fp)
+    src64, tgt64 = f64.map(lambda x: x[1]), f64.map(lambda x: x[0])
+    knn_cuda.knn_run.launches = knn_cuda.knn_dual_run.launches = 0
+    est_g, det_g64 = T.register_features(src64, tgt64, params=rp)
+    q9, t9, m9 = src64.planar_points.float(), tgt64.planar_points.float(), tgt64.planar_mask
+    k9 = T.knn(q9, t9, m9, 9, rp.max_plane_neighbor_dist)
+    if knn_cuda.knn_run.launches or knn_cuda.knn_dual_run.launches:
+        raise AssertionError("a float64 registration or a k = 9 search launched the kNN kernel")
+    est_c, det_c64 = T.register_features(src64.map(lambda x: x.cpu()), tgt64.map(lambda x: x.cpu()),
+                                         params=rp)
+    _require_equal("float64 registration termination", det_g64.termination.cpu(), det_c64.termination)
+    gap = max(_max_err(est_g.translation.cpu(), est_c.translation),
+              _max_err(est_g.rotation.cpu(), est_c.rotation))
+    p9 = knn_cuda.knn_run_reference(knn_cuda.knn_prep(t9, m9), q9, 9, rp.max_plane_neighbor_dist)
+    _require_equal("k = 9 search mask vs the plain one", k9.mask, p9.mask)
+    for what in ("indices", "distances"):
+        _require_equal(f"k = 9 search {what} vs the plain one", getattr(k9, what)[p9.mask],
+                       getattr(p9, what)[p9.mask])
+    print(f"small input, float64 register_features: GPU vs CPU {gap:.3e} m (limit {ATOL_F64_M}), "
+          f"{int(det_g64.num_iterations)} iterations, no kNN kernel launched; k = 9 search equal to "
+          f"the plain one")
+    if not gap < ATOL_F64_M:
+        raise AssertionError(f"float64 registration: GPU and CPU differ by {gap} m")
+
     # ---- 5. the offline driver with the dual kNN ------------------------------
     with _dual_knn(True):
         traj_d, details_d = drive("offline dual", run_offline,
@@ -966,6 +1069,84 @@ def main() -> int:
     print(f"streaming: packed {frames / dt_p:.3f} scans/s ({dt_p * 1e3:.3f} ms per {frames}-frame run), "
           f"unpacked {frames / dt_u:.3f}, StreamingOdometry pushed frame by frame {frames / dt_push:.3f} "
           f"scans/s, 64x1024, chunk_frames={chunk}, host encode and upload included, on {smi}")
+
+    # ---- 10. the loop-closed path at full width ------------------------------------
+    from loam_tpu_torch.io import native_available
+    from loam_tpu_torch.loop_closure import closure_edges, join_edges, propose_candidates, verify_closures
+    from loam_tpu_torch.pose_graph import odometry_edges
+
+    if not native_available():
+        raise AssertionError("the native loader (io/native/loam_io.cpp) did not build")
+    loop_np, loop_pos, _ = square_loop_scans(lidar)
+    n_kf = len(loop_np)
+    loop_path = float(np.sum(np.linalg.norm(np.diff(loop_pos, axis=0), axis=-1)))
+    with tempfile.TemporaryDirectory() as tmp, _dual_knn(False):
+        paths = write_kitti_bins(loop_np, tmp)
+
+        def run_file_odometry():
+            return T.odometry_streaming(paths, lidar, fp, rp, chunk_frames=8, packed=True)
+
+        traj_l, det_l = drive("loop_odometry", run_file_odometry, extraction + ("knn",), ("knn_dual",))
+        dt_file = _seconds_per_run(run_file_odometry, reps)
+        loop_scans = torch.from_numpy(loop_np).to(dev)
+
+        def run_closures():
+            feats = T.extract_features_batch(loop_scans, lidar, fp)
+            return feats, optimize_trajectory_with_closures(traj_l, feats, rp, **LOOP_CLOSURE_KW)
+
+        feats_l, (opt_l, clo_l) = drive("loop_closure", run_closures, extraction + ("knn",), ("knn_dual",))
+        kw = LOOP_CLOSURE_KW
+        cand = propose_candidates(traj_l, kw["max_candidates"], kw["min_separation"], kw["max_distance"])
+        dt_verify = _seconds_per_run(lambda: verify_closures(traj_l, feats_l, *cand, rp), reps)
+        edges_l = join_edges(odometry_edges(traj_l), closure_edges(clo_l))
+        dt_solve = _seconds_per_run(lambda: optimize_pose_graph(traj_l, edges_l, kw["iterations"]), reps)
+    pairs = list(zip(clo_l.i.tolist(), clo_l.j.tolist()))
+    accepted = [p for p, a in zip(pairs, clo_l.accepted.tolist()) if a]
+    ate_o = ate_rmse(traj_l.translation.cpu().numpy(), loop_pos, align=False)
+    ate_l, limit_l, _ = _check_trajectory("loop closure", opt_l.translation, opt_l.rotation, n_kf,
+                                          loop_pos, ate_rmse)
+    t_o, t_l = traj_l.translation.cpu().numpy(), opt_l.translation.cpu().numpy()
+    end0, end1 = float(np.linalg.norm(t_o[-1] - t_o[0])), float(np.linalg.norm(t_l[-1] - t_l[0]))
+    print(f"loop closure: {n_kf} keyframes of 64x1024 from .bin files through the native loader, "
+          f"min_separation={kw['min_separation']}, max_distance={kw['max_distance']} m; candidates "
+          f"{pairs}, accepted {accepted}; inlier_frac {[round(x, 4) for x in clo_l.inlier_frac.tolist()]}, "
+          f"mean_residual {[round(x, 5) for x in clo_l.mean_residual.tolist()]}; odometry termination "
+          f"{det_l.termination.tolist()}")
+    print(f"loop closure: ATE odometry {ate_o:.6f} m -> optimized {ate_l:.6f} m (limit {limit_l:.6f} m, "
+          f"path {loop_path:.3f} m); end gap {end0:.6f} -> {end1:.6f} m")
+    if (0, n_kf - 1) not in accepted:
+        raise AssertionError(f"loop closure: the start/end revisit (0, {n_kf - 1}) was not accepted")
+    if not (end1 < 0.5 * end0 or end1 < 0.02):
+        raise AssertionError(f"loop closure: the end gap went {end0} -> {end1} m")
+    if not ate_l <= ate_o:
+        raise AssertionError(f"loop closure: ATE rose from {ate_o} to {ate_l} m")
+    print(f"loop closure: file-fed odometry {n_kf / dt_file:.3f} scans/s ({dt_file * 1e3:.3f} ms per "
+          f"{n_kf}-frame run, 64x1024, chunk_frames=8, packed, files read and projected by the native "
+          f"loader); verify_closures {dt_verify * 1e3:.3f} ms a call ({len(pairs)} pairs); pose-graph "
+          f"solve {dt_solve * 1e3:.3f} ms ({n_kf} nodes, {int(edges_l.mask.sum())} live edges, "
+          f"{kw['iterations']} iterations) on {smi}")
+
+    # ---- 11. the pose graph at drive scale ---------------------------------------------
+    gt1k, init1k, edges1k = random_pose_graph(1000, 50, seed=2)
+    for dtype in (torch.float64, torch.float32):
+        init_d, edges_d = _to(init1k, dev, dtype), _to(edges1k, dev, dtype)
+        cost0 = float(_cost(init_d, edges_d))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        opt_k, cost_k = optimize_pose_graph(init_d, edges_d, 10)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        dt_k = _seconds_per_run(lambda: optimize_pose_graph(init_d, edges_d, 10), reps)
+        err = _max_err(opt_k.translation.cpu(), gt1k.translation)
+        print(f"pose graph, 1,000 nodes + 50 closures, {str(dtype)[6:]}: cost {cost0:.6e} -> "
+              f"{float(cost_k):.6e}; max position error vs the truth {err:.3e} m; {dt_k * 1e3:.3f} ms a "
+              f"solve (10 iterations, H 6,000 x 6,000); peak device memory {peak / 2**20:.1f} MiB above "
+              f"the {held / 2**20:.1f} MiB held before, on {smi}")
+        if not float(cost_k) < cost0:
+            raise AssertionError(f"pose graph {dtype}: the cost did not fall ({cost0} -> {float(cost_k)})")
+        if dtype == torch.float64 and not err < ATOL_GRAPH_TRUTH_M:
+            raise AssertionError(f"pose graph float64: {err} m from the true poses")
 
     for kd in kernels:
         counter = kd.get("counter", kd["name"])

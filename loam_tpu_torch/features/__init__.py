@@ -1,6 +1,6 @@
 from .curvature import compute_curvature, compute_valid_points, validate_scan
-from .extract import extract_features, extract_features_batch
-from .types import FeatureSet
+from .extract import extract_features, extract_features_batch, extract_features_given
+from .types import FeatureSet, feature_set_from_points
 
 __all__ = [
     "FeatureSet",
@@ -8,5 +8,7 @@ __all__ = [
     "compute_valid_points",
     "extract_features",
     "extract_features_batch",
+    "extract_features_given",
+    "feature_set_from_points",
     "validate_scan",
 ]

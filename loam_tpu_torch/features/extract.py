@@ -92,6 +92,24 @@ def extract_features_batch(
     return post(fs) if post is not None else fs
 
 
+def extract_features_given(
+    scan: torch.Tensor,
+    curv: torch.Tensor,
+    valid: torch.Tensor,
+    lidar: LidarParams,
+    params: FeatureExtractionParams = FeatureExtractionParams(),
+) -> FeatureSet:
+    """Feature pick from precomputed curvature (L, P) and validity (L, P) of
+    one scan, so that a caller controls the exact curvature values the
+    tie-sensitive greedy stage sees."""
+    pts = validate_scan(scan, lidar)
+    if pts.ndim != 3:
+        raise ValueError(f"expected one scan, got shape {tuple(scan.shape)}")
+    L, P = lidar.scan_lines, lidar.points_per_line
+    fs = _extract_core(pts[None], curv.reshape(1, L, P), valid.reshape(1, L, P), lidar, params)
+    return fs.map(lambda x: x[0])
+
+
 def extract_features(
     scan: torch.Tensor,
     lidar: LidarParams,

@@ -41,6 +41,14 @@ class FeatureSet(NamedTuple):
     planar_mask: torch.Tensor
     planar_indices: torch.Tensor
 
+    @property
+    def num_edge(self) -> torch.Tensor:
+        return torch.sum(self.edge_mask.to(torch.int32), dim=-1)
+
+    @property
+    def num_planar(self) -> torch.Tensor:
+        return torch.sum(self.planar_mask.to(torch.int32), dim=-1)
+
     def map(self, fn) -> "FeatureSet":
         """Apply ``fn`` to every leaf (e.g. a slice over the batch axis)."""
         return FeatureSet(*(fn(x) for x in self))
@@ -76,3 +84,32 @@ class FeatureSet(NamedTuple):
         """Dense flat scan indices of the selected features."""
         _, em, ei, _, pm, pi = self.to_numpy()
         return ei[em], pi[pm]
+
+
+def feature_set_from_points(
+    edge_points,
+    planar_points,
+    edge_capacity: int | None = None,
+    planar_capacity: int | None = None,
+    dtype=None,
+    device=None,
+) -> FeatureSet:
+    """FeatureSet from dense (n, 3) arrays (synthetic scenes, map contents),
+    padded to the requested capacities; on the card unless ``device`` says
+    otherwise (``device.py``)."""
+    edge_points = place(edge_points, device, dtype)
+    planar_points = place(planar_points, device, dtype)
+    ne, np_ = edge_points.shape[0], planar_points.shape[0]
+    ecap = ne if edge_capacity is None else edge_capacity
+    pcap = np_ if planar_capacity is None else planar_capacity
+    if ecap < ne or pcap < np_:
+        raise ValueError("capacity smaller than provided points")
+
+    def pad(pts, n, cap):
+        out = torch.zeros((cap, 3), dtype=pts.dtype, device=pts.device)
+        out[:n] = pts
+        ar = torch.arange(cap, device=pts.device)
+        mask = ar < n
+        return out, mask, torch.where(mask, ar, -1).to(torch.int32)
+
+    return FeatureSet(*pad(edge_points, ne, ecap), *pad(planar_points, np_, pcap))

@@ -1,9 +1,10 @@
 """SE(3) and geometric primitives on torch tensors.
 
 The counterpart of ``loam_tpu.geometry`` (itself the analogue of the
-reference's ``geometry.h`` / ``geometry.cpp``) for what the offline odometry
-path needs: the quaternion ops, ``Pose3``, the SE(3) exponential and
-logarithm, the closed-form symmetric 3x3 eigensolvers and the line/plane fits.
+reference's ``geometry.h`` / ``geometry.cpp``), the whole of its public
+surface: the quaternion ops, ``Pose3``, the SE(3) exponential and logarithm,
+the closed-form symmetric 3x3 eigensolvers, the line/plane fits and the
+point-to-line/plane distances.
 Every function accepts arbitrary leading batch dimensions, and the
 expressions keep ``loam_tpu``'s association so both packages round alike.
 
@@ -78,6 +79,29 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (w * uv + cross(u, uv))
 
 
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Unit ``axis`` (..., 3) and ``angle`` (...) -> quaternion (..., 4)."""
+    half = 0.5 * torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
 def quat_exp(rotvec: torch.Tensor) -> torch.Tensor:
     """so(3) exponential: rotation vector (..., 3) -> unit quaternion (..., 4),
     with the Taylor form near zero."""
@@ -104,6 +128,12 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
         small, 2.0 / torch.where(w == 0, one, w), angle / torch.where(small, one, un)
     )
     return scale * u
+
+
+def quat_angular_distance(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Angle of ``q1^-1 q2``, as Eigen's ``angularDistance``."""
+    d = quat_multiply(quat_conjugate(q1), q2)
+    return 2.0 * torch.atan2(norm(d[..., 1:]), torch.abs(d[..., 0]))
 
 
 def _so3_V_apply(rotvec: torch.Tensor, v: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -187,8 +217,21 @@ class Pose3(NamedTuple):
         """``R p + t`` (reference ``geometry.cpp:21``)."""
         return quat_rotate(self.rotation, p) + self.translation
 
+    def matrix(self) -> torch.Tensor:
+        """4x4 homogeneous matrix (reference ``geometry.cpp:24-29``)."""
+        t = self.translation
+        m = torch.zeros(t.shape[:-1] + (4, 4), dtype=t.dtype, device=t.device)
+        m[..., :3, :3] = quat_to_matrix(self.rotation)
+        m[..., :3, 3] = t
+        m[..., 3, 3] = 1.0
+        return m
+
     def normalize(self) -> "Pose3":
         return Pose3(quat_normalize(self.rotation), self.translation)
+
+
+def pose_from_rotvec(rotvec: torch.Tensor, translation: torch.Tensor) -> Pose3:
+    return Pose3(quat_exp(rotvec), translation)
 
 
 def pose_cumcompose(rel: Pose3) -> Pose3:
@@ -395,3 +438,13 @@ def fit_plane_packed(xs, ys, zs, mask):
     flip = torch.where(d < 0, -1.0, 1.0).to(d.dtype)
     normal = torch.stack([vx * flip, vy * flip, vz * flip], dim=-1)
     return normal, d * flip, torch.zeros_like(d)
+
+
+def point_to_line_distance(point: torch.Tensor, line_a: torch.Tensor, line_b: torch.Tensor) -> torch.Tensor:
+    """``|(p-a) x (p-b)| / |a-b|`` (reference ``geometry-inl.h:21-27``)."""
+    return norm(cross(point - line_a, point - line_b)) / norm(line_a - line_b)
+
+
+def point_to_plane_distance(point: torch.Tensor, normal: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``|n . p - d|`` (reference ``geometry-inl.h:30-33``)."""
+    return torch.abs(torch.sum(point * normal, dim=-1) - d)

@@ -72,9 +72,11 @@ def knn(
 ) -> KnnResult:
     """Exact k-nearest-neighbor search.
 
-    On CUDA tensors this is the kNN kernel (``ops.knn_cuda.knn_run``, float32,
-    as ``loam_tpu`` dispatches to its Pallas kernel on a TPU). On CPU
-    tensors it is the plain search below, queries in tiles of ``tile``.
+    On CUDA tensors this goes through ``ops.knn_cuda.knn_run``: the kNN
+    kernel for float32 and ``k`` in its range (as ``loam_tpu`` dispatches
+    float32 to its Pallas kernel on a TPU), the plain search on the card for
+    float64 or a larger ``k``. On CPU tensors it is the plain search below,
+    queries in tiles of ``tile``.
 
     Args:
       queries: (Q, 3); targets: (M, 3); target_mask: (M,) bool.
@@ -96,8 +98,10 @@ def knn(
         v, i = topk_min(d2 + inf_row, kk)
         vals.append(v)
         idxs.append(i)
-    d2k = torch.cat(vals) if vals else torch.empty((0, kk), dtype=queries.dtype)
-    idx = torch.cat(idxs) if idxs else torch.empty((0, kk), dtype=torch.int32)
+    d2k = torch.cat(vals) if vals else torch.empty((0, kk), dtype=queries.dtype,
+                                                    device=queries.device)
+    idx = torch.cat(idxs) if idxs else torch.empty((0, kk), dtype=torch.int32,
+                                                   device=queries.device)
     if kk < k:
         d2k = torch.nn.functional.pad(d2k, (0, k - kk), value=float("inf"))
         idx = torch.nn.functional.pad(idx, (0, k - kk))

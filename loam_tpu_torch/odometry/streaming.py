@@ -6,7 +6,8 @@ registerFeatures -> compose). This driver runs it in chunks of K frames:
 
   1. the frames of a chunk are gathered on the host, by default in the
      4-byte/point packed format (``io/packed.py``), a third of the bytes of
-     the float32 grids;
+     the float32 grids; from files, the native loader's worker threads read,
+     project and pack them ahead of the consumer (``io/native.py``);
   2. the chunk goes to the GPU from a pinned host buffer with a non-blocking
      copy and is decoded there;
   3. one batched extraction and one lockstep registration of the K pairs
@@ -35,6 +36,7 @@ from ..device import resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features_batch
 from ..geometry import Pose3, pose_cumcompose
+from ..io.native import ScanLoader
 from ..io.packed import PACKED_R_MAX, decode_packed, encode_packed_grid
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
@@ -269,26 +271,32 @@ def odometry_streaming(
     chunk_frames: int = 16,
     packed: bool = True,
     motion_init: bool = True,
+    n_threads: int = 4,
+    queue_cap: int = 32,
     elev_lo: float = -0.30,
     elev_hi: float = 0.25,
     dewarp: bool = False,
     device=None,
 ) -> Tuple[Pose3, RegistrationDetail]:
-    """Odometry over a stream of frames, upload and compute pipelined.
+    """Odometry over a stream of frames, IO, upload and compute pipelined.
 
     Args:
-      source: a stacked (F, L, P, 3) array, or any iterable of per-frame
-        grids or (4, L, P) uint8 packed planes (numpy arrays or CPU tensors).
-        A list of ``.bin``/``.pcd`` paths needs the native prefetch loader,
-        which the port does not have yet (``NotImplementedError``).
+      source: a list of ``.bin``/``.pcd`` paths (read and projected ahead by
+        the native prefetch loader, ``io.native.ScanLoader``), a stacked
+        (F, L, P, 3) array, or any iterable of per-frame grids or (4, L, P)
+        uint8 packed planes (numpy arrays or CPU tensors).
       chunk_frames: frames per upload and compute quantum. Larger chunks
         spread the per-chunk launches over more frames; smaller chunks
         overlap host and device more finely and answer sooner.
       packed: ship the scans in the 4-byte/point format (a third of the
-        upload bytes, quantization below sensor noise, see ``io/packed.py``);
-        grids are packed on the host thread.
-      elev_lo / elev_hi: the sensor's vertical field of view (rad), used by
-        the packed codec's per-row elevation cells. They MUST match the
+        upload bytes, quantization below sensor noise, see ``io/packed.py``).
+        For path sources the loader packs in its worker threads; grids are
+        packed on the host thread.
+      n_threads / queue_cap: the loader's worker threads and the frames it
+        may hold ready (path sources only).
+      elev_lo / elev_hi: the sensor's vertical field of view (rad), used both
+        by the file projection and by the packed codec's per-row elevation
+        cells. They MUST match the
         geometry of the data: the codec quantizes elevation offsets against
         these rows, so a wrong field of view snaps points into wrong cells
         (meters of error at range) instead of raising. The defaults match the
@@ -300,19 +308,26 @@ def odometry_streaming(
       identity; details has (F-1,) leaves for the pairs (i-1, i), as
       ``odometry_offline`` returns them. Both stay on the device.
     """
-    if isinstance(source, (list, tuple)) and source and isinstance(source[0], (str, os.PathLike)):
-        raise NotImplementedError(
-            "odometry_streaming over file paths needs loam_tpu's native prefetch loader "
-            "(io/native.py with native/loam_io.cpp), which is not ported yet: load the "
-            "scans and pass an array or an iterable of frames")
     runner = _ChunkRunner(lidar, feat_params, reg_params, chunk_frames, packed, motion_init,
                           elev_lo, elev_hi, dewarp, device)
+    loader = None
+    if isinstance(source, (list, tuple)) and source and isinstance(source[0], (str, os.PathLike)):
+        loader = ScanLoader([os.fspath(p) for p in source], lidar.scan_lines,
+                            lidar.points_per_line, elev_lo, elev_hi, n_threads=n_threads,
+                            queue_cap=queue_cap, packed=packed)
+        frames = loader
+    else:
+        frames = np.asarray(source) if hasattr(source, "shape") else source
     worlds, dets = [], []
-    for frame in (np.asarray(source) if hasattr(source, "shape") else source):
-        ran = runner.add(frame)
-        if ran is not None:
-            worlds.append(ran[0])
-            dets.append(ran[1])
+    try:
+        for frame in frames:
+            ran = runner.add(frame)
+            if ran is not None:
+                worlds.append(ran[0])
+                dets.append(ran[1])
+    finally:
+        if loader is not None:
+            loader.close()
     ran = runner.flush()
     if ran is not None:
         worlds.append(ran[1])

@@ -25,10 +25,16 @@ fills a slot only when it is below that; invalid targets sit at a ``+3e37``
 sentinel; masked queries return the initial slots; a slot is valid when its
 distance is finite and ``sqrt(d2) < max_dist``.
 
-The kernel takes float32 (as the Pallas kernel does). The plain version
-keeps the targets' dtype, float32 or float64, so a float64 run on the CPU
-stays float64; its sentinel is chosen so that the squared distance to it
-overflows in either dtype.
+The kernel takes float32 and ``1 <= k <= KERNEL_MAX_K`` (as the Pallas
+kernel does). The plain version keeps the targets' dtype, float32 or
+float64, so a float64 run stays float64; its sentinel is chosen so that the
+squared distance to it overflows in either dtype. Which of the two runs is
+decided by device, dtype and ``k``, as ``loam_tpu`` decides
+(``registration/icf.py:266-275``): the kernel for float32 CUDA tensors and
+a ``k`` in its range, the plain version on the tensors' own device for
+everything else (float64 on the card, ``k > KERNEL_MAX_K``, any CPU
+tensor). That is a dispatch by type and shape, not an implementation
+switch.
 
 Two things of the kernel's design are prepared here, from shapes and masks
 alone and with no host sync. The preps carry ``n_live``, the index of each
@@ -49,6 +55,9 @@ import torch
 
 from . import _build
 from ..neighbors.bruteforce import KnnResult, pairwise_d2, topk_min
+
+#: Largest ``k`` the kernel's per-thread lists hold.
+KERNEL_MAX_K = 8
 
 #: Coordinates of invalid target slots, per dtype: the squared distance to
 #: them overflows to +inf.
@@ -122,6 +131,12 @@ def split_plan(B: int, classes, block_queries: int):
     return tuple(max(1, min(MAX_SPLITS, -(-m // chunk))) for _, m in classes)
 
 
+def kernel_takes(t: torch.Tensor, k: int) -> bool:
+    """Whether the kernel searches targets ``t`` for ``k`` neighbours: a
+    float32 CUDA tensor and ``1 <= k <= KERNEL_MAX_K``."""
+    return t.is_cuda and t.dtype == torch.float32 and 1 <= k <= KERNEL_MAX_K
+
+
 def _init_d2(max_dist: float) -> float:
     return float(max_dist) ** 2 if max_dist > 0 else float("inf")
 
@@ -183,8 +198,8 @@ def _search_kernel(prep, queries, k, init_d2, query_mask):
     tT, n_live = prep.tT, prep.n_live
     B, _, M = tT.shape
     Q = queries.shape[1]
-    if not 1 <= k <= 8:
-        raise ValueError(f"knn kernel supports 1 <= k <= 8, got {k}")
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"knn kernel supports 1 <= k <= {KERNEL_MAX_K}, got {k}")
     _build.require(tT, "targets", (torch.float32,), (B, 3, M))
     _build.require(n_live, "n_live", (torch.int32,), (B,), tT.device)
     _build.require(queries, "queries", (torch.float32,), (B, Q, 3), tT.device)
@@ -246,10 +261,11 @@ def knn_run(prep: TargetPrep, queries, k: int, max_dist: float = 0.0,
     with (..., Q, k) leaves. ``query_mask`` (Q,) / (B, Q): masked queries
     skip the search and return empty lists. ``seed_bound`` is accepted for
     API compatibility with ``loam_tpu`` and ignored: in the Pallas kernel it
-    only prunes visits, never changing an output.
+    only prunes visits, never changing an output. The kernel runs where
+    :func:`kernel_takes` the targets, the plain search everywhere else.
     """
     return _run(prep, queries, k, max_dist, with_coords, query_mask,
-                plain=not queries.is_cuda)
+                plain=not kernel_takes(prep.tT, k))
 
 
 #: Kernel launches since the last reset (plain-version calls do not count).
@@ -292,8 +308,8 @@ def _dual_search_kernel(prep, qe, qp, k, init_e, init_p):
     B, _, M = tT.shape
     Me = prep.n_edge
     E, P = qe.shape[1], qp.shape[1]
-    if not 1 <= k <= 8:
-        raise ValueError(f"knn kernel supports 1 <= k <= 8, got {k}")
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"knn kernel supports 1 <= k <= {KERNEL_MAX_K}, got {k}")
     _build.require(tT, "targets", (torch.float32,), (B, 3, M))
     _build.require(prep.n_live, "n_live", (torch.int32,), (B, 2), tT.device)
     _build.require(qe, "edge queries", (torch.float32,), (B, E, 3), tT.device)
@@ -360,10 +376,11 @@ def knn_dual_run(prep: DualTargetPrep, q_edge, q_plane, k_edge: int, k_plane: in
     relative to the planar targets. Both radii must be positive. There is no
     query mask (``loam_tpu`` passes none either): every query slot is
     searched, and association masks the invalid ones. ``tq`` is accepted
-    for API compatibility and ignored.
+    for API compatibility and ignored. The kernel runs where
+    :func:`kernel_takes` the targets for ``max(k_edge, k_plane)``.
     """
     return _dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge,
-                     max_dist_plane, plain=not q_plane.is_cuda)
+                     max_dist_plane, plain=not kernel_takes(prep.tT, max(k_edge, k_plane)))
 
 
 #: Kernel launches since the last reset (plain-version calls do not count).

@@ -7,12 +7,18 @@ Runs a driver on synthetic 64x1024 scans as ``chip_smoke.py`` does --
 ``odometry_offline`` (``chunk_pairs=4``, ``motion_init=True``),
 ``scan_to_map_offline`` (default ``ScanToMapConfig``; ``scan_to_map_grid``:
 the same with ``search_backend="grid"``), a ``scan_to_scan_step(dewarp=True)``
-loop, or ``odometry_streaming`` (``streaming``: the numpy frames in chunks of
-8, packed); ``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` -- then:
+loop, ``odometry_streaming`` (``streaming``: the numpy frames in chunks of
+8, packed), or the loop-closed path (``loop_closure``: the 33 keyframes of
+:func:`square_loop_scans` written as KITTI ``.bin`` files, read by the native
+loader into ``odometry_streaming``, then ``extract_features_batch`` on the
+keyframes and ``optimize_trajectory_with_closures``); ``--dual-knn`` sets
+``LOAM_ICF_DUAL_KNN=1`` -- then:
 
   * for ``offline``, stage times on the host clock with a device sync at
     each boundary: batched extraction, then each registration chunk (with
-    its ICF iteration count);
+    its ICF iteration count); for ``loop_closure`` likewise: the file-fed
+    odometry, the keyframes' extraction, the candidates' verification and
+    the pose-graph solve;
   * one ``torch.profiler`` trace of a whole run: device time by kernel name,
     the sum of device kernel time against the wall time (the device's idle
     share), and the number of kernel launches.
@@ -28,15 +34,90 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import loam_tpu_torch as T
-from loam_tpu_torch.geometry import Pose3
-from loam_tpu_torch.io import render_trajectory
+from loam_tpu_torch.geometry import Pose3, pose_cumcompose, quat_exp, quat_multiply, quat_normalize
+from loam_tpu_torch.io import default_world, render_scan, render_trajectory
+from loam_tpu_torch.loop_closure import (
+    closure_edges, join_edges, optimize_trajectory_with_closures, propose_candidates, verify_closures)
+from loam_tpu_torch.pose_graph import make_edges, odometry_edges, optimize_pose_graph
 from loam_tpu_torch.registration import azimuth_sort_features
+
+#: The loop-closed path's settings: 8 candidates a call, revisits at least
+#: half the loop apart and within 1 m, 10 pose-graph iterations.
+LOOP_CLOSURE_KW = dict(max_candidates=8, min_separation=16, max_distance=1.0, iterations=10)
+
+
+def square_loop_scans(lidar, n_side: int = 8, step: float = 0.2, noise: float = 0.002):
+    """Keyframes around a square of 4 x ``n_side`` steps that ends where it
+    began, in ``default_world(seed=2)``: the loop of
+    ``tests/test_loop_closure.py``, two changes made so that frame-to-frame
+    odometry can follow it. The heading turns by the same angle every frame
+    (a full turn over the loop) instead of 90 degrees at each corner, and the
+    square is [0, 1.6 m]^2, which no pillar crosses (that test's 2 m square
+    has its corner (2, 0) inside one). The rays sit half a column off the
+    renderer's azimuths (``c 2 pi / P``), which are the cell edges of the file
+    loader's projection (``io.native.project_range_image``): there, rounding
+    would send returns to the neighbouring column and leave cells empty, so
+    the scans written as files would come back as other scans.
+
+    Returns (scans (4 n_side + 1, L, P, 3) float32, positions (F, 3), yaws (F,)).
+    """
+    world = default_world(seed=2)
+    half = np.pi / lidar.points_per_line
+    c, s = np.cos(half), np.sin(half)
+    n = 4 * n_side
+    pos, heading, positions = np.zeros(3), 0.0, []
+    for _ in range(4):
+        for _ in range(n_side):
+            positions.append(pos.copy())
+            pos = pos + np.array([np.cos(heading), np.sin(heading), 0.0]) * step
+        heading += np.pi / 2
+    positions.append(positions[0].copy())
+    yaws = np.arange(n + 1) * (2 * np.pi / n)
+    scans = np.stack([render_scan(lidar, p, y + half, world=world, noise=noise, seed=i)
+                      for i, (p, y) in enumerate(zip(positions, yaws))])
+    x, y = scans[..., 0], scans[..., 1]  # rendered at yaw + half: turn back by half
+    scans = np.stack([c * x - s * y, s * x + c * y, scans[..., 2]], axis=-1).astype(np.float32)
+    return scans, np.stack(positions), yaws
+
+
+def write_kitti_bins(scans, directory: str) -> list:
+    """Each (L, P, 3) scan as a KITTI velodyne ``.bin`` file (x, y, z,
+    intensity float32 records) in ``directory``; returns the paths."""
+    paths = []
+    for f, scan in enumerate(scans):
+        pts = scan.reshape(-1, 3).astype(np.float32)
+        paths.append(os.path.join(directory, f"{f:06d}.bin"))
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], axis=1).tofile(paths[-1])
+    return paths
+
+
+def random_pose_graph(N: int, closures: int, seed: int):
+    """A chain of N float64 poses (steps of 0.1 rad and 1 m spread) plus
+    ``closures`` edges from the first half of the chain to the second, all
+    measurements noise-free, and a start perturbed by 0.02 rad and 0.2 m
+    (node 0 at the truth). Returns (truth, start, edges) on the CPU."""
+    rng = np.random.default_rng(seed)
+    steps = Pose3(quat_exp(torch.from_numpy(rng.normal(0, 0.1, (N, 3)))),
+                  torch.from_numpy(rng.normal(0, 1.0, (N, 3))))
+    steps.rotation[0], steps.translation[0] = torch.tensor([1.0, 0, 0, 0]), 0.0
+    gt = pose_cumcompose(steps)
+    i = np.r_[np.arange(N - 1), rng.integers(0, N // 2, closures)]
+    j = np.r_[np.arange(1, N), rng.integers(N // 2, N, closures)]
+    ii, jj = torch.from_numpy(i), torch.from_numpy(j)
+    rel = Pose3(gt.rotation[ii], gt.translation[ii]).inverse().compose(
+        Pose3(gt.rotation[jj], gt.translation[jj]))
+    init = Pose3(quat_normalize(quat_multiply(quat_exp(torch.from_numpy(rng.normal(0, 0.02, (N, 3)))),
+                                              gt.rotation)),
+                 gt.translation + torch.from_numpy(rng.normal(0, 0.2, (N, 3))))
+    init.rotation[0], init.translation[0] = gt.rotation[0], gt.translation[0]
+    return gt, init, make_edges(i, j, rel)
 
 
 def _sync_time(fn):
@@ -67,10 +148,26 @@ def _offline_stages(scans, lidar, fp, rp, frames, dev):
     return extract_ms, chunks
 
 
+def _loop_closure_stages(paths, scans, lidar, fp, rp):
+    """The loop-closed path's steps, each closed by a device sync."""
+    kw = LOOP_CLOSURE_KW
+    (traj, _), odo_ms = _sync_time(
+        lambda: T.odometry_streaming(paths, lidar, fp, rp, chunk_frames=8, packed=True))
+    feats, extract_ms = _sync_time(lambda: T.extract_features_batch(scans, lidar, fp))
+    cand, propose_ms = _sync_time(lambda: propose_candidates(
+        traj, kw["max_candidates"], kw["min_separation"], kw["max_distance"]))
+    clo, verify_ms = _sync_time(lambda: verify_closures(traj, feats, *cand, rp))
+    edges = join_edges(odometry_edges(traj), closure_edges(clo))
+    _, solve_ms = _sync_time(lambda: optimize_pose_graph(traj, edges, kw["iterations"]))
+    return {"odometry_ms": odo_ms, "extract_ms": extract_ms, "propose_ms": propose_ms,
+            "verify_ms": verify_ms, "solve_ms": solve_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--driver", default="offline",
-                    choices=("offline", "scan_to_map", "scan_to_map_grid", "scan_to_scan", "streaming"))
+                    choices=("offline", "scan_to_map", "scan_to_map_grid", "scan_to_scan", "streaming",
+                             "loop_closure"))
     ap.add_argument("--dual-knn", action="store_true", help="set LOAM_ICF_DUAL_KNN=1")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default="profile_out")
@@ -85,8 +182,14 @@ def main() -> int:
     lidar = T.LidarParams(64, 1024, 0.5, 120.0)
     fp = T.FeatureExtractionParams(precise_selection=True)
     rp = T.RegistrationParams(search_backend="bruteforce")
-    scans_np, _ = render_trajectory(lidar, args.frames, step=np.array([0.08, 0.02, 0.0]),
-                                    yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32)
+    if args.driver == "loop_closure":
+        scans_np, _, _ = square_loop_scans(lidar)
+        args.frames = len(scans_np)
+        tmp = tempfile.TemporaryDirectory()
+        paths = write_kitti_bins(scans_np, tmp.name)
+    else:
+        scans_np, _ = render_trajectory(lidar, args.frames, step=np.array([0.08, 0.02, 0.0]),
+                                        yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32)
     scans = torch.from_numpy(scans_np).to(dev)
 
     if args.dual_knn:
@@ -100,6 +203,10 @@ def main() -> int:
                 scans, lidar, fp, T.RegistrationParams(search_backend="grid", prior_weight=300.0))
         if args.driver == "streaming":
             return T.odometry_streaming(scans_np, lidar, fp, rp, chunk_frames=8, packed=True)
+        if args.driver == "loop_closure":
+            traj, _ = T.odometry_streaming(paths, lidar, fp, rp, chunk_frames=8, packed=True)
+            feats = T.extract_features_batch(scans, lidar, fp)
+            return optimize_trajectory_with_closures(traj, feats, rp, **LOOP_CLOSURE_KW)
         if args.driver == "scan_to_scan":
             state = T.scan_to_scan_init(lidar, fp, device=dev)
             for f in range(args.frames):
@@ -110,9 +217,11 @@ def main() -> int:
     run()  # build + warm-up
     _, wall_ms = _sync_time(run)
 
-    extract_ms, chunks = None, []
+    extract_ms, chunks, stages = None, [], None
     if args.driver == "offline":
         extract_ms, chunks = _offline_stages(scans, lidar, fp, rp, args.frames, dev)
+    if args.driver == "loop_closure":
+        stages = _loop_closure_stages(paths, scans, lidar, fp, rp)
 
     # device time by kernel over one whole run
     from torch.profiler import ProfilerActivity, profile
@@ -140,6 +249,8 @@ def main() -> int:
           f"{args.frames}-frame run ({args.frames / wall_ms * 1e3:.3f} scans/s)")
     if extract_ms is not None:
         print(f"extraction {extract_ms:.3f} ms; registration chunks {chunks}")
+    if stages is not None:
+        print(f"stages (ms, a device sync after each): {stages}")
     print(f"profiled run: wall {prof_wall_ms:.3f} ms, device kernels {device_ms:.3f} ms over "
           f"{launches} launches, idle share {1 - device_ms / prof_wall_ms:.4f}")
     for name, us in top[:12]:
@@ -147,7 +258,7 @@ def main() -> int:
     print(json.dumps({
         "gpu": smi, "driver": args.driver, "dual_knn": args.dual_knn,
         "frames": args.frames, "wall_ms": wall_ms, "extract_ms": extract_ms,
-        "chunks": chunks, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
+        "chunks": chunks, "stages": stages, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
         "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms,
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},
     }))

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..debug import tap_finite
 from ..features.types import FeatureSet
 from ..geometry import Pose3, norm, quat_multiply, quat_normalize, quat_rotate
 from ..neighbors.grid import build_grid, knn_grid
@@ -199,6 +200,9 @@ def _register_impl(
             quat_normalize(quat_multiply(delta.rotation, est.rotation)),
             quat_rotate(delta.rotation, est.translation) + delta.translation,
         )
+        # LOAM_DEBUG_NANS=1 checks every iteration's values (no-op otherwise)
+        tap_finite({"delta": delta, "est": new_est, "lines": ea.line_a, "planes": pa.normal},
+                   where="icf.iteration")
         converged = (_angle_from_identity(delta.rotation) < params.rotation_convergence_thresh) & (
             norm(delta.translation) < params.position_convergence_thresh
         )

@@ -441,11 +441,161 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(TypeError):
         assemble_cuda.select_points(torch.zeros((2, 8, 3), device=dev),
                                     torch.zeros((2, 4), dtype=torch.int64, device=dev))
-    prep = knn_cuda.knn_prep(torch.zeros((4, 3), device=dev), torch.ones(4, dtype=torch.bool, device=dev))
-    with pytest.raises(ValueError):  # k above the kernel's template range
-        knn_cuda.knn_run(prep, torch.zeros((2, 3), device=dev), 9, 1.0)
+    # k above the kernel's range is no error: the plain search runs on the card
+    g = torch.Generator().manual_seed(9)
+    prep = knn_cuda.knn_prep(torch.rand((40, 3), generator=g).to(dev),
+                             torch.ones(40, dtype=torch.bool, device=dev))
+    q = torch.rand((6, 3), generator=g).to(dev)
+    before = knn_cuda.knn_run.launches
+    got = knn_cuda.knn_run(prep, q, 9, 1.0)
+    assert knn_cuda.knn_run.launches == before and got.indices.is_cuda
+    for x, y in zip(got, knn_cuda.knn_run_reference(prep, q, 9, 1.0)):
+        assert torch.equal(x, y)
     with pytest.raises(ValueError):  # not contiguous
         bitonic_cuda.sector_sort(torch.zeros((64, 8), device=dev).t(), 2)
     cand = torch.full((2, 1, 8), -1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # no suppression window: the kernel needs n >= 1
         nms_cuda.greedy_nms(torch.ones((2, 8), dtype=torch.bool, device=dev), cand, cand, 2, 2, 0)
+
+
+def _pair_features(lidar, dtype, dev):
+    """Features of the first two frames of the 16x360 test trajectory."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+
+    scans, _ = render_trajectory(lidar, 2, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                 noise=0.003, seed=11, dtype=np.float64)
+    feats = T.extract_features_batch(torch.from_numpy(scans).to(dev, dtype), lidar)
+    return feats.map(lambda x: x[1]), feats.map(lambda x: x[0])
+
+
+def test_float64_registration_and_large_k_run_the_plain_search_on_the_card(dev):
+    """float64 targets and k above the kernel's range take the plain search
+    on the card (no kernel launch, no TypeError), as ``loam_tpu`` takes its
+    plain search for float64: a float64 registration on the card equals its
+    CPU run within 1e-9 m, and ``neighbors.knn`` with k = 9 equals the plain
+    search exactly."""
+    import loam_tpu_torch as T
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    src, tgt = _pair_features(lidar, torch.float64, dev)
+    before = knn_cuda.knn_run.launches, knn_cuda.knn_dual_run.launches
+    est, det = T.register_features(src, tgt)
+    assert (knn_cuda.knn_run.launches, knn_cuda.knn_dual_run.launches) == before
+    assert est.translation.is_cuda and est.translation.dtype == torch.float64
+    est_c, det_c = T.register_features(src.map(lambda x: x.cpu()), tgt.map(lambda x: x.cpu()))
+    assert int(det.termination) == int(det_c.termination) == int(T.TerminationType.CONVERGED)
+    assert int(det.num_iterations) == int(det_c.num_iterations)
+    np.testing.assert_allclose(est.translation.cpu().numpy(), est_c.translation.numpy(), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(est.rotation.cpu().numpy(), est_c.rotation.numpy(), atol=1e-9, rtol=0)
+
+    q, t, m = src.planar_points, tgt.planar_points, tgt.planar_mask
+    for dtype in (torch.float32, torch.float64):
+        got = T.knn(q.to(dtype), t.to(dtype), m, 9, 1.0)
+        want = knn_cuda.knn_run_reference(knn_cuda.knn_prep(t.to(dtype), m), q.to(dtype), 9, 1.0)
+        assert knn_cuda.knn_run.launches == before[0] and got.indices.is_cuda
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_pose_graph_gpu_matches_cpu(dev):
+    """``optimize_pose_graph`` on a 60-node chain with 6 closures: in float64
+    the card's solve equals the CPU's within 1e-8 (the card's
+    ``index_put_(accumulate=True)`` adds in no fixed order) and recovers the
+    true poses; in float32 it stays finite and lowers the cost."""
+    from loam_tpu_torch.pose_graph import _cost, optimize_pose_graph
+    from loam_tpu_torch.profile_offline import random_pose_graph
+
+    gt, init, edges = random_pose_graph(60, 6, seed=0)
+    to = lambda tree, dtype=None: type(tree)(*(
+        to(x, dtype) if isinstance(x, tuple) else x.to(dev, dtype if x.is_floating_point() else x.dtype)
+        for x in tree))
+    opt, cost = optimize_pose_graph(to(init), to(edges), 10)
+    opt_c, cost_c = optimize_pose_graph(init, edges, 10)
+    assert opt.translation.is_cuda
+    np.testing.assert_allclose(opt.translation.cpu().numpy(), opt_c.translation.numpy(), atol=1e-8, rtol=0)
+    np.testing.assert_allclose(opt.rotation.cpu().numpy(), opt_c.rotation.numpy(), atol=1e-8, rtol=0)
+    np.testing.assert_allclose(opt.translation.cpu().numpy(), gt.translation.numpy(), atol=1e-5)
+    assert float(cost) < 1e-12
+    init32, edges32 = to(init, torch.float32), to(edges, torch.float32)
+    opt32, cost32 = optimize_pose_graph(init32, edges32, 10)
+    assert torch.isfinite(opt32.translation).all()
+    assert float(cost32) < float(_cost(init32, edges32))
+
+
+def _loop_keyframes(dev):
+    """Features of 17 keyframes of 16x360 around a closed square (the
+    smoke's phase-4 loop), and the true poses."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.geometry import Pose3, quat_exp
+    from loam_tpu_torch.profile_offline import square_loop_scans
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans, positions, yaws = square_loop_scans(lidar, n_side=4, step=0.4)
+    rot = quat_exp(torch.tensor([[0.0, 0.0, y] for y in yaws])).float()
+    feats = T.extract_features_batch(torch.from_numpy(scans).to(dev), lidar)
+    return feats, Pose3(rot.to(dev), torch.from_numpy(positions).float().to(dev))
+
+
+def test_loop_closure_gpu_matches_cpu(dev):
+    """``optimize_trajectory_with_closures`` on the closed square with drift:
+    on the card the kNN kernel verifies the candidates; candidates and the
+    accepted set equal the CPU run's, the closures' measurements and the
+    optimized trajectory agree within 1e-2 m, and the end gap shrinks."""
+    from loam_tpu_torch.geometry import Pose3
+    from loam_tpu_torch.loop_closure import optimize_trajectory_with_closures
+
+    feats, gt = _loop_keyframes(dev)
+    N = gt.translation.shape[0]
+    rng = np.random.default_rng(0)
+    drift = np.cumsum(rng.normal(0, 0.01, (N, 3)) * np.array([1, 1, 0.2]), axis=0)
+    noisy = Pose3(gt.rotation, gt.translation + torch.from_numpy(drift).float().to(dev))
+    kw = dict(max_candidates=4, min_separation=8, max_distance=1.5, iterations=8)
+    before = knn_cuda.knn_run.launches
+    opt, clo = optimize_trajectory_with_closures(noisy, feats, **kw)
+    assert knn_cuda.knn_run.launches > before and opt.translation.is_cuda
+    cpu = lambda p: type(p)(*(x.cpu() for x in p))
+    opt_c, clo_c = optimize_trajectory_with_closures(cpu(noisy), feats.map(lambda x: x.cpu()), **kw)
+    for name in ("i", "j", "accepted"):
+        assert torch.equal(getattr(clo, name).cpu(), getattr(clo_c, name)), name
+    assert clo.accepted.any()
+    np.testing.assert_allclose(clo.measurement.translation.cpu().numpy(),
+                               clo_c.measurement.translation.numpy(), atol=1e-2, rtol=0)
+    np.testing.assert_allclose(opt.translation.cpu().numpy(), opt_c.translation.numpy(), atol=1e-2, rtol=0)
+    t, t0 = opt.translation.cpu().numpy(), noisy.translation.cpu().numpy()
+    assert np.linalg.norm(t[-1] - t[0]) < 0.5 * np.linalg.norm(t0[-1] - t0[0])
+
+
+def test_odometry_streaming_over_paths_on_the_card(dev, tmp_path):
+    """A list of KITTI ``.bin`` paths through the native loader, packed and
+    not, runs on the card by default, equals the card's run over the frames
+    the loader reads, agrees with the CPU's run over the paths (equal
+    terminations, within 1e-2 m) and passes the ATE gate of
+    ``test_dataset_e2e.py``. The frames are the first 6 of the smoke's loop,
+    whose returns sit mid-cell, so that the files read back as the scans
+    that were written."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.evaluation import ate_rmse
+    from loam_tpu_torch.io import ScanLoader, native_available
+    from loam_tpu_torch.profile_offline import square_loop_scans, write_kitti_bins
+
+    assert native_available()
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans, gt, _ = square_loop_scans(lidar)
+    scans, gt = scans[:6], gt[:6]
+    paths = write_kitti_bins(scans, str(tmp_path))
+    limit = max(0.05 * float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=-1))), 0.05)
+    for packed in (False, True):
+        loader = ScanLoader(paths, 16, 360, packed=packed)
+        loaded = np.stack(list(loader))
+        loader.close()
+        sorts = bitonic_cuda.sector_sort.launches
+        got, det = T.odometry_streaming(paths, lidar, chunk_frames=4, packed=packed)
+        assert got.translation.is_cuda and bitonic_cuda.sector_sort.launches == sorts + 2
+        want, det_w = T.odometry_streaming(loaded, lidar, chunk_frames=4, packed=packed)
+        assert torch.equal(got.translation, want.translation) and torch.equal(got.rotation, want.rotation)
+        assert torch.equal(det.termination, det_w.termination)
+        cpu, det_c = T.odometry_streaming(paths, lidar, chunk_frames=4, packed=packed, device="cpu")
+        assert torch.equal(det.termination.cpu(), det_c.termination)
+        np.testing.assert_allclose(got.translation.cpu().numpy(), cpu.translation.numpy(), atol=1e-2, rtol=0)
+        assert ate_rmse(got.translation.cpu().numpy(), gt, align=False) < limit

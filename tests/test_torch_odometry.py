@@ -93,7 +93,10 @@ def test_odometry_chunking_matches_single_batch(trajectory):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, loam_tpu_torch, loam_tpu_torch.odometry, loam_tpu_torch.ops.knn_cuda; "
+    code = ("import sys, loam_torch, loam_tpu_torch, loam_tpu_torch.odometry, "
+            "loam_tpu_torch.ops.knn_cuda, loam_tpu_torch.adapters, loam_tpu_torch.checkpoint, "
+            "loam_tpu_torch.compat, loam_tpu_torch.debug, loam_tpu_torch.io.native, "
+            "loam_tpu_torch.loop_closure, loam_tpu_torch.pose_graph, loam_tpu_torch.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'loam_tpu.'))"
             " or m == 'loam_tpu']; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -231,11 +231,24 @@ def test_odometry_streaming_beside_odometry_offline(scans):
     assert torch.equal(t_det.termination, o_det.termination)
 
 
-def test_odometry_streaming_sources(scans):
-    """A list of paths waits for the native loader; an empty source and a
-    chunk of no frames are refused."""
-    with pytest.raises(NotImplementedError, match="io/native.py"):
-        T.odometry_streaming(["a.bin", "b.bin"], T_LIDAR, device="cpu")
+def test_odometry_streaming_sources(scans, tmp_path):
+    """A list of paths (``os.PathLike`` too) goes through the native loader
+    and equals the run over the frames it loads; an empty source and a chunk
+    of no frames are refused."""
+    from loam_tpu_torch.io import ScanLoader
+
+    paths = []
+    for f in range(2):
+        p = tmp_path / f"{f:06d}.bin"
+        pts = scans[f].reshape(-1, 3)
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], axis=1).tofile(p)
+        paths.append(p)
+    loader = ScanLoader([str(p) for p in paths], 16, 360)
+    loaded = np.stack(list(loader))
+    loader.close()
+    ta, _ = T.odometry_streaming(paths, T_LIDAR, chunk_frames=K, packed=False, device="cpu")
+    tb, _ = T.odometry_streaming(loaded, T_LIDAR, chunk_frames=K, packed=False, device="cpu")
+    assert torch.equal(ta.translation, tb.translation) and torch.equal(ta.rotation, tb.rotation)
     with pytest.raises(ValueError, match="empty source"):
         T.odometry_streaming([], T_LIDAR, device="cpu")
     with pytest.raises(ValueError, match="chunk_frames"):
