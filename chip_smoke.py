@@ -32,7 +32,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      longest line, one dependent step each). The NMS is also checked on
      lines of 2,048 points. Both kNN entry points are also checked on one
      pair (the targets split across thread blocks), on four pairs with the
-     splits switched off, on an empty map and with ``k_edge != k_plane``;
+     splits switched off, on an empty map, with ``k_edge != k_plane`` and
+     with a k above the register lists (the kernel's wide form: 9 and 16,
+     dual (9, 12));
      print the A/B of one dual kNN launch against the two single launches it
      replaces. ``--extraction-only`` stops here, after the three extraction
      kernels, and prints their rows.
@@ -49,7 +51,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of 16x360 (candidates and accepted closures equal, poses within 1e-2 m);
      ``optimize_pose_graph`` in float64 on a 60-node graph (poses within
      1e-8); a float64 ``register_features`` (the plain kNN on the card, within
-     1e-9 m) and a k = 9 search (equal to the plain one).
+     1e-9 m) and a k = 9 search (the kernel's wide form, equal to the plain
+     one).
   5. ``odometry_offline`` with ``LOAM_ICF_DUAL_KNN=1``: the dual kNN instead
      of the single one, the same terminations and iteration counts as phase
      3, poses within 1e-5 m of it, the ATE gate; scans/s beside phase 3's.
@@ -73,7 +76,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      gate for both, each extraction kernel launched once a chunk and the kNN
      kernel launched; scans/s.
  10. The loop-closed path at full width: 33 keyframes of 64x1024 around a
-     closed square (``profile_offline.square_loop_scans``) written as KITTI
+     closed square (``io.square_loop_scans``) written as KITTI
      ``.bin`` files, ``odometry_streaming`` over the paths through the native
      loader (packed, chunks of 8), the keyframes' features by
      ``extract_features_batch``, ``optimize_trajectory_with_closures`` (8
@@ -81,8 +84,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      revisit among the accepted closures, the end gap shrinking, the
      optimized trajectory's ATE no worse than the odometry's and under the
      gate, and every extraction kernel and the single kNN launched by both
-     counted runs; prints scans/s of the file-fed run, ms per
-     ``verify_closures`` call and per pose-graph solve.
+     counted runs. Holds the kernels against their plain versions at this
+     path's shapes: the extraction kernels on the keyframes' 2,112 lines and
+     the single kNN on the candidate pairs that ``verify_closures``
+     registers, with their query masks, at the first ICF iteration and at
+     the verified poses (rows ``*_loop``). Prints scans/s of the file-fed
+     run, ms per ``verify_closures`` call and per pose-graph solve.
  11. ``optimize_pose_graph`` at drive scale: a chain of 1,000 nodes plus 50
      closures, noise-free measurements, a perturbed start (H is 6,000 x
      6,000), in float64 and float32 on the card. Requires the float64 solve
@@ -242,6 +249,25 @@ def _check_single_knn(what, knn_cuda, prep, q, k, r, qm):
     _require_equal(f"{what} indices", ra.indices[rb.mask], rb.indices[rb.mask])
     _require_equal(f"{what} distances", ra.distances, rb.distances)
     return _max_err(ra.distances[rb.mask], rb.distances[rb.mask])
+
+
+def _knn_row(name, knn_cuda, prep, q, k, r, qm, tmask, err, shape) -> dict:
+    """The single kNN's entry: the wrapper call by call (``ms``), the search
+    and merge kernels without the wrapper's PyTorch operations
+    (``launch_ms``), the wrapper's host microseconds a call and the plain
+    version, beside the bound from this run's targets and searching
+    queries."""
+    run = lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
+    out = run()
+    return dict(
+        name=name, counter="knn", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
+        replaces="loam_tpu/ops/knn_pallas.py:134", shape=shape, max_abs_err=err,
+        ms=_time_ms(run, 10), launch_ms=_time_ms(lambda: knn_cuda._search_kernel(prep, q, k, r * r, qm), 10),
+        host_us=_host_us(run, 50),
+        plain_ms=_time_ms(lambda: knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm), 2),
+        library_ms=None,  # cdist + topk is two calls and another arithmetic
+        # index, d2 and three coordinate planes out
+        **_bound(_nbytes(prep.tT, prep.n_live, q, qm) + 5 * _nbytes(out.xs), _knn_operations([(tmask, qm)])))
 
 
 def _seconds_per_run(run, reps: int) -> float:
@@ -620,36 +646,27 @@ def main() -> int:
             plan4, plan1 = (knn_cuda.split_plan(b, ((Qp, Qp),), bq)[0] for b in (C, 1))
             if plan1 <= 1:
                 raise AssertionError("knn: one pair at scan scale did not take the split path")
-            run = lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
-            knn_ms = _time_ms(run, 10)
-            knn_plain_ms = _time_ms(lambda: knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm), 2)
-            # the launch alone (search and merge kernels, output allocations),
-            # without the wrapper's small PyTorch operations around it
-            knn_launch_ms = _time_ms(lambda: knn_cuda._search_kernel(prep, q, k, r * r, qm), 10)
-            knn_host_us = _host_us(run, 50)
+            knn_shape = (f"B={C}, Q=M={Qp} planar (and {feats.edge_points.shape[1]} edge), k={k}, "
+                         f"n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries")
+            knn_row = _knn_row("knn", knn_cuda, prep, q, k, r, qm, tgt_mask, 0.0, knn_shape)
             knn_b1_ms = _time_ms(lambda: knn_cuda.knn_run(prep1, q[:1], k, r, with_coords=True,
                                                           query_mask=qm[:1]), 10)
             with _unsplit(knn_cuda):
-                knn_unsplit_ms = _time_ms(run, 10)
-            out = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
-            # index, d2 and three coordinate planes out
-            knn_bound = _bound(_nbytes(prep.tT, prep.n_live, q, qm) + 5 * _nbytes(out.xs),
-                               _knn_operations([(tgt_mask, qm)]))
-            knn_shape = (f"B={C}, Q=M={Qp} planar (and {feats.edge_points.shape[1]} edge), k={k}, "
-                         f"n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries")
-            print(f"knn planar: {knn_ms:.4f} ms at B={C} in {plan4} target splits (launch alone "
-                  f"{knn_launch_ms:.4f} ms), {knn_unsplit_ms:.4f} ms unsplit; {knn_b1_ms:.4f} ms at B=1 "
-                  f"in {plan1} splits")
+                knn_unsplit_ms = _time_ms(lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True,
+                                                                   query_mask=qm), 10)
+            print(f"knn planar: {knn_row['ms']:.4f} ms at B={C} in {plan4} target splits (launch alone "
+                  f"{knn_row['launch_ms']:.4f} ms), {knn_unsplit_ms:.4f} ms unsplit; {knn_b1_ms:.4f} ms at "
+                  f"B=1 in {plan1} splits")
+            # k above the register lists (the Pallas kernel takes any k): the
+            # kernel's wide form, one thread a query, at the same chunk
+            for k_wide in (9, 16):
+                knn_err = max(knn_err, _check_single_knn(f"knn planar k={k_wide}", knn_cuda, prep, q,
+                                                         k_wide, r, qm))
+            wide_ms = _time_ms(lambda: knn_cuda._search_kernel(prep, q, 16, r * r, qm), 3)
     if knn_err != 0.0:
         raise AssertionError(f"knn distances differ from the plain version by {knn_err}")
-    kernels.append(dict(
-        name="knn", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
-        replaces="loam_tpu/ops/knn_pallas.py:134", shape=knn_shape,
-        max_abs_err=knn_err, ms=knn_ms, launch_ms=knn_launch_ms, host_us=knn_host_us,
-        plain_ms=knn_plain_ms,
-        library_ms=None,  # cdist + topk is two calls and another arithmetic
-        **knn_bound,
-    ))
+    knn_row["max_abs_err"] = knn_err
+    kernels.append(knn_row)
     # dual kNN, scan scale: the same chunk, both classes in one launch; no
     # query mask (as knn_dual_run), so every source slot searches
     k_e, k_p = rp.num_edge_neighbors, rp.num_plane_neighbors
@@ -673,6 +690,11 @@ def main() -> int:
     with _unsplit(knn_cuda):
         dual_err = max(dual_err, _check_dual_knn("knn_dual scan scale unsplit", knn_cuda, d_prep, qe, qp,
                                                  e_prep, p_prep, k_e, k_p, r_e, r_p))
+    dual_err = max(dual_err, _check_dual_knn("knn_dual scan scale k=(9,12)", knn_cuda, d_prep, qe, qp,
+                                             e_prep, p_prep, 9, 12, r_e, r_p))
+    print(f"knn wide form (k above {knn_cuda.REGISTER_MAX_K}): single k = 9 and 16, dual k = (9, 12) at "
+          f"the chunk's shapes equal to the plain version; single k = 16 planar launch alone "
+          f"{wide_ms:.4f} ms")
     sizes = ((qe.shape[1], tgt.edge_points.shape[1]), (qp.shape[1], tgt.planar_points.shape[1]))
     plan4, plan1 = knn_cuda.split_plan(C, sizes, bq), knn_cuda.split_plan(1, sizes, bq)
     if max(plan1) <= 1:
@@ -883,11 +905,11 @@ def main() -> int:
 
     # ... the loop-closed path on 17 keyframes of 16x360 around the closed
     # square, from the true poses plus a random-walk drift
-    from loam_tpu_torch.geometry import Pose3, quat_exp
+    from loam_tpu_torch.geometry import Pose3, quat_conjugate, quat_exp, quat_multiply, quat_rotate
     from loam_tpu_torch.loop_closure import optimize_trajectory_with_closures
     from loam_tpu_torch.pose_graph import _cost, optimize_pose_graph
-    from loam_tpu_torch.profile_offline import (
-        LOOP_CLOSURE_KW, random_pose_graph, square_loop_scans, write_kitti_bins)
+    from loam_tpu_torch.io import random_pose_graph, square_loop_scans, write_kitti_bins
+    from loam_tpu_torch.profile_offline import LOOP_CLOSURE_KW
 
     lo_np, lo_pos, lo_yaw = square_loop_scans(small, n_side=4, step=0.4)
     drift = np.cumsum(np.random.default_rng(0).normal(0, 0.01, lo_pos.shape) * [1, 1, 0.2], axis=0)
@@ -920,16 +942,18 @@ def main() -> int:
     if not gap < ATOL_GRAPH:
         raise AssertionError(f"pose graph: GPU and CPU differ by {gap}")
 
-    # ... F3: float64 registration and a k above the kernel's range take the
-    # plain search on the card, with no kernel launch
+    # ... F3: a float64 registration takes the plain search on the card, with
+    # no kernel launch; a float32 k = 9 search launches the kernel's wide form
     f64 = T.extract_features_batch(torch.from_numpy(s_np[:2]).to(dev, torch.float64), small, fp)
     src64, tgt64 = f64.map(lambda x: x[1]), f64.map(lambda x: x[0])
     knn_cuda.knn_run.launches = knn_cuda.knn_dual_run.launches = 0
     est_g, det_g64 = T.register_features(src64, tgt64, params=rp)
+    if knn_cuda.knn_run.launches or knn_cuda.knn_dual_run.launches:
+        raise AssertionError("a float64 registration launched the kNN kernel")
     q9, t9, m9 = src64.planar_points.float(), tgt64.planar_points.float(), tgt64.planar_mask
     k9 = T.knn(q9, t9, m9, 9, rp.max_plane_neighbor_dist)
-    if knn_cuda.knn_run.launches or knn_cuda.knn_dual_run.launches:
-        raise AssertionError("a float64 registration or a k = 9 search launched the kNN kernel")
+    if knn_cuda.knn_run.launches != 1:
+        raise AssertionError("a float32 k = 9 search did not launch the kNN kernel")
     est_c, det_c64 = T.register_features(src64.map(lambda x: x.cpu()), tgt64.map(lambda x: x.cpu()),
                                          params=rp)
     _require_equal("float64 registration termination", det_g64.termination.cpu(), det_c64.termination)
@@ -941,8 +965,8 @@ def main() -> int:
         _require_equal(f"k = 9 search {what} vs the plain one", getattr(k9, what)[p9.mask],
                        getattr(p9, what)[p9.mask])
     print(f"small input, float64 register_features: GPU vs CPU {gap:.3e} m (limit {ATOL_F64_M}), "
-          f"{int(det_g64.num_iterations)} iterations, no kNN kernel launched; k = 9 search equal to "
-          f"the plain one")
+          f"{int(det_g64.num_iterations)} iterations, no kNN kernel launched; k = 9 search (the kernel's "
+          f"wide form) equal to the plain one")
     if not gap < ATOL_F64_M:
         raise AssertionError(f"float64 registration: GPU and CPU differ by {gap} m")
 
@@ -1097,6 +1121,38 @@ def main() -> int:
         feats_l, (opt_l, clo_l) = drive("loop_closure", run_closures, extraction + ("knn",), ("knn_dual",))
         kw = LOOP_CLOSURE_KW
         cand = propose_candidates(traj_l, kw["max_candidates"], kw["min_separation"], kw["max_distance"])
+        # the kernels at this path's shapes against their plain versions: the
+        # extraction kernels on the keyframes' lines, and the single kNN on
+        # the candidate pairs verify_closures registers (keyframe j's
+        # features against keyframe i's, masked queries), at its first ICF
+        # iteration (the odometry's relative poses) and at the verified poses
+        loop_rows = _extraction_kernels(loop_scans, lidar, fp, "_loop")
+        ci, cj = cand[0].long(), cand[1].long()
+        inv = quat_conjugate(traj_l.rotation[ci])
+        first = Pose3(quat_multiply(inv, traj_l.rotation[cj]),
+                      quat_rotate(inv, traj_l.translation[cj] - traj_l.translation[ci]))
+        src_l, tgt_l = feats_l.map(lambda x: x[cj]), feats_l.map(lambda x: x[ci])
+        loop_knn_err = 0.0
+        for at, pose in (("first iteration", first), ("verified", clo_l.measurement)):
+            for cls, k, r in (("planar", rp.num_plane_neighbors, rp.max_plane_neighbor_dist),
+                              ("edge", rp.num_edge_neighbors, rp.max_edge_neighbor_dist)):
+                prep = knn_cuda.knn_prep(getattr(tgt_l, f"{cls}_points"), getattr(tgt_l, f"{cls}_mask"))
+                q = (quat_rotate(pose.rotation[:, None], getattr(src_l, f"{cls}_points"))
+                     + pose.translation[:, None]).contiguous()
+                qm = getattr(src_l, f"{cls}_mask").contiguous()
+                loop_knn_err = max(loop_knn_err, _check_single_knn(f"knn loop {cls} {at}", knn_cuda, prep, q,
+                                                                   k, r, qm))
+                if cls == "planar" and at == "first iteration":
+                    loop_knn = (prep, q, k, r, qm, getattr(tgt_l, f"{cls}_mask"))
+        if loop_knn_err != 0.0:
+            raise AssertionError(f"knn on the loop's pairs differs from the plain version by {loop_knn_err}")
+        prep, q, k, r, qm, tmask = loop_knn
+        loop_rows.append(_knn_row(
+            "knn_loop", knn_cuda, prep, q, k, r, qm, tmask, loop_knn_err,
+            f"B={len(ci)} candidate pairs, Q=M={q.shape[1]} planar (and {src_l.edge_points.shape[1]} edge), "
+            f"k={k}, n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries, first ICF iteration"))
+        _print_kernels(loop_rows)
+        kernels += loop_rows
         dt_verify = _seconds_per_run(lambda: verify_closures(traj_l, feats_l, *cand, rp), reps)
         edges_l = join_edges(odometry_edges(traj_l), closure_edges(clo_l))
         dt_solve = _seconds_per_run(lambda: optimize_pose_graph(traj_l, edges_l, kw["iterations"]), reps)

@@ -24,8 +24,13 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
-#: Leaves of the port's state types that ``loam_tpu``'s files lack.
+#: Fields of the port's state types that ``loam_tpu``'s files lack, matched
+#: as the last component of a leaf's path (a state may sit inside a nest).
 PORT_ONLY_LEAVES = (".dropped",)
+
+
+def _port_only(name: str) -> bool:
+    return name.rsplit("/", 1)[-1] in PORT_ONLY_LEAVES
 
 
 def _is_namedtuple(x) -> bool:
@@ -97,7 +102,7 @@ def load(path: str, template: Any) -> Any:
         keys = sorted(data.files, key=lambda k: int(k.split("|", 1)[0]))
         stored = {k.split("|", 1)[1]: data[k] for k in keys}
         stored_names = list(stored)
-    expected = [n for n in names if n in stored or n not in PORT_ONLY_LEAVES]
+    expected = [n for n in names if n in stored or not _port_only(n)]
     if len(stored_names) != len(expected):
         raise ValueError(f"checkpoint {path} has {len(stored_names)} leaves, "
                          f"template has {len(expected)}")

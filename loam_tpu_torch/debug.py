@@ -62,9 +62,15 @@ def check_finite(tree: Any, where: str = "") -> None:
     leaves = list(_float_leaves(tree))
     if not leaves:
         return
-    # one count per leaf on its device, one read back for all of them
-    counts = [torch.sum(~torch.isfinite(x)).reshape(1).cpu() for _, x in leaves]
-    n = torch.cat(counts).tolist()
+    # one count per leaf on its device, stacked there: one read back per device
+    n = [0] * len(leaves)
+    by_device = {}
+    for i, (_, x) in enumerate(leaves):
+        by_device.setdefault(x.device, []).append(i)
+    for idx in by_device.values():
+        counts = torch.stack([torch.sum(~torch.isfinite(leaves[i][1])) for i in idx]).tolist()
+        for i, c in zip(idx, counts):
+            n[i] = c
     _report(where, [(p, c, x.numel()) for (p, x), c in zip(leaves, n)])
 
 

@@ -12,7 +12,15 @@ from .native import (
     write_pcd,
 )
 from .packed import PACKED_R_MAX, decode_packed, encode_packed_grid, project_packed_numpy
-from .synthetic import Box, default_world, render_scan, render_trajectory
+from .synthetic import (
+    Box,
+    default_world,
+    random_pose_graph,
+    render_scan,
+    render_trajectory,
+    square_loop_scans,
+    write_kitti_bins,
+)
 
 __all__ = [
     "Box",
@@ -24,9 +32,12 @@ __all__ = [
     "native_available",
     "project_packed_numpy",
     "project_range_image",
+    "random_pose_graph",
     "read_kitti_bin",
     "read_pcd",
     "render_scan",
     "render_trajectory",
+    "square_loop_scans",
+    "write_kitti_bins",
     "write_pcd",
 ]

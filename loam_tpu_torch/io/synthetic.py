@@ -14,16 +14,25 @@ noise breaks curvature ties like real sensor noise does.
 The scan layout matches the reference's expected row-major range-image input
 (``features.h:8-10``): index = line * points_per_line + column, azimuth
 sweeping 0..2pi per line.
+
+Beyond ``loam_tpu``'s renderer, the inputs of the loop-closed path:
+:func:`square_loop_scans` (keyframes around a closed square),
+:func:`write_kitti_bins` (scans as KITTI ``.bin`` files) and
+:func:`random_pose_graph` (a pose graph with known truth, as tensors).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..geometry import Pose3, pose_cumcompose, quat_exp, quat_multiply, quat_normalize
 from ..params import LidarParams
+from ..pose_graph import make_edges
 
 
 @dataclasses.dataclass
@@ -219,3 +228,70 @@ def render_trajectory(
         pos = pos + R @ step
         yaw += yaw_rate
     return np.stack(scans), poses
+
+
+def square_loop_scans(lidar, n_side: int = 8, step: float = 0.2, noise: float = 0.002):
+    """Keyframes around a square of 4 x ``n_side`` steps that ends where it
+    began, in ``default_world(seed=2)``: the loop of
+    ``tests/test_loop_closure.py``, two changes made so that frame-to-frame
+    odometry can follow it. The heading turns by the same angle every frame
+    (a full turn over the loop) instead of 90 degrees at each corner, and the
+    square is [0, 1.6 m]^2, which no pillar crosses (that test's 2 m square
+    has its corner (2, 0) inside one). The rays sit half a column off the
+    renderer's azimuths (``c 2 pi / P``), which are the cell edges of the file
+    loader's projection (``io.native.project_range_image``): there, rounding
+    would send returns to the neighbouring column and leave cells empty, so
+    the scans written as files would come back as other scans.
+
+    Returns (scans (4 n_side + 1, L, P, 3) float32, positions (F, 3), yaws (F,)).
+    """
+    world = default_world(seed=2)
+    half = np.pi / lidar.points_per_line
+    c, s = np.cos(half), np.sin(half)
+    n = 4 * n_side
+    pos, heading, positions = np.zeros(3), 0.0, []
+    for _ in range(4):
+        for _ in range(n_side):
+            positions.append(pos.copy())
+            pos = pos + np.array([np.cos(heading), np.sin(heading), 0.0]) * step
+        heading += np.pi / 2
+    positions.append(positions[0].copy())
+    yaws = np.arange(n + 1) * (2 * np.pi / n)
+    scans = np.stack([render_scan(lidar, p, y + half, world=world, noise=noise, seed=i)
+                      for i, (p, y) in enumerate(zip(positions, yaws))])
+    x, y = scans[..., 0], scans[..., 1]  # rendered at yaw + half: turn back by half
+    scans = np.stack([c * x - s * y, s * x + c * y, scans[..., 2]], axis=-1).astype(np.float32)
+    return scans, np.stack(positions), yaws
+
+
+def write_kitti_bins(scans, directory: str) -> list:
+    """Each (L, P, 3) scan as a KITTI velodyne ``.bin`` file (x, y, z,
+    intensity float32 records) in ``directory``; returns the paths."""
+    paths = []
+    for f, scan in enumerate(scans):
+        pts = scan.reshape(-1, 3).astype(np.float32)
+        paths.append(os.path.join(directory, f"{f:06d}.bin"))
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], axis=1).tofile(paths[-1])
+    return paths
+
+
+def random_pose_graph(N: int, closures: int, seed: int):
+    """A chain of N float64 poses (steps of 0.1 rad and 1 m spread) plus
+    ``closures`` edges from the first half of the chain to the second, all
+    measurements noise-free, and a start perturbed by 0.02 rad and 0.2 m
+    (node 0 at the truth). Returns (truth, start, edges) on the CPU."""
+    rng = np.random.default_rng(seed)
+    steps = Pose3(quat_exp(torch.from_numpy(rng.normal(0, 0.1, (N, 3)))),
+                  torch.from_numpy(rng.normal(0, 1.0, (N, 3))))
+    steps.rotation[0], steps.translation[0] = torch.tensor([1.0, 0, 0, 0]), 0.0
+    gt = pose_cumcompose(steps)
+    i = np.r_[np.arange(N - 1), rng.integers(0, N // 2, closures)]
+    j = np.r_[np.arange(1, N), rng.integers(N // 2, N, closures)]
+    ii, jj = torch.from_numpy(i), torch.from_numpy(j)
+    rel = Pose3(gt.rotation[ii], gt.translation[ii]).inverse().compose(
+        Pose3(gt.rotation[jj], gt.translation[jj]))
+    init = Pose3(quat_normalize(quat_multiply(quat_exp(torch.from_numpy(rng.normal(0, 0.02, (N, 3)))),
+                                              gt.rotation)),
+                 gt.translation + torch.from_numpy(rng.normal(0, 0.2, (N, 3))))
+    init.rotation[0], init.translation[0] = gt.rotation[0], gt.translation[0]
+    return gt, init, make_edges(i, j, rel)

@@ -73,10 +73,9 @@ def knn(
     """Exact k-nearest-neighbor search.
 
     On CUDA tensors this goes through ``ops.knn_cuda.knn_run``: the kNN
-    kernel for float32 and ``k`` in its range (as ``loam_tpu`` dispatches
-    float32 to its Pallas kernel on a TPU), the plain search on the card for
-    float64 or a larger ``k``. On CPU tensors it is the plain search below,
-    queries in tiles of ``tile``.
+    kernel for float32, any ``k`` (as ``loam_tpu`` dispatches float32 to its
+    Pallas kernel on a TPU), the plain search on the card for float64. On
+    CPU tensors it is the plain search below, queries in tiles of ``tile``.
 
     Args:
       queries: (Q, 3); targets: (M, 3); target_mask: (M,) bool.

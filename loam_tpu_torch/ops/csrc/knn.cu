@@ -81,6 +81,9 @@
 //     Four queries a thread evaluate faster but pay more for the insertions
 //     (a warp's step then holds twice the distances, so it hits twice as
 //     often), and at scan scale the insertions are a quarter of the time.
+//   * A k above 8 (the Pallas kernel takes any k) goes to a second, plain
+//     kernel that keeps each query's list in the output planes
+//     (knn_wide_kernel below); the same semantics, one thread a query.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -104,6 +107,9 @@ constexpr int kTile = LOAM_KNN_TILE;        // targets a staged tile
 constexpr int kBlockQ = kThreads * kQpt;    // queries a search block
 constexpr int kMergeThreads = 256;
 constexpr int kMaxSplits = 1024;
+constexpr int kMaxRegK = 8;         // largest k whose lists stay in registers
+constexpr int kWideThreads = 128;   // threads (queries) a block of the wide kernel
+constexpr int kWideTile = 1024;     // targets a staged tile of the wide kernel
 constexpr float kSentinel = 3e37f;
 static_assert(kThreads % 32 == 0 && kTile % 4 == 0, "warp / float4 granularity");
 
@@ -400,7 +406,106 @@ __global__ void __launch_bounds__(kMergeThreads)
   write_final<K>(cd, b, qi, on, bd, bi, tx, ty, tz);
 }
 
+// k above kMaxRegK: lists too long for registers. One thread a query, its
+// list kept ascending in the output planes themselves ((B, k, Q): a warp's
+// slots are adjacent, so its loads and stores coalesce); a candidate below
+// the k-th shifts the tail down one slot and takes its place. Targets are
+// staged a tile at a time in shared memory and visited in index order, so an
+// equal distance never passes an entry already in the list. No target
+// splits. Exact and simple rather than fast: the drivers ask for k <= 5.
+__global__ void __launch_bounds__(kWideThreads)
+    knn_wide_kernel(const SearchArgs a, int k) {
+  __shared__ float stage[3][kWideTile];
+
+  const bool second = (int)blockIdx.x >= a.blocks0;
+  const ClassDesc cd = second ? a.c[1] : a.c[0];
+  const int qi = (second ? blockIdx.x - a.blocks0 : blockIdx.x) * kWideThreads + threadIdx.x;
+  const long long b = blockIdx.y;
+  const float* tx = cd.planes + b * a.pair_stride;
+  const float* ty = tx + a.plane_stride;
+  const float* tz = ty + a.plane_stride;
+  const long long Q = cd.Q;
+
+  const bool in = qi < cd.Q;
+  bool on = in;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (in) {
+    const float* q = cd.queries + (b * Q + qi) * 3;
+    qx = q[0];
+    qy = q[1];
+    qz = q[2];
+    if (cd.qmask != nullptr) on = cd.qmask[b * Q + qi] != 0;
+  }
+  float* od = cd.out_d2 + b * k * Q + qi;  // slot s at od[s * Q]
+  int* oi = cd.out_idx + b * k * Q + qi;
+  // nothing is below -inf: a query that does not search never inserts
+  const float start = on ? cd.init_d2 : -CUDART_INF_F;
+  if (in) {
+    for (int s = 0; s < k; ++s) {
+      od[s * Q] = start;
+      oi[s * Q] = 0;
+    }
+  }
+  float kth = start;  // the list's last entry, kept in registers
+  int kth_i = 0;
+
+  const int n_live = cd.n_live[b * cd.live_stride];
+  const bool block_on = __syncthreads_or(on);
+  for (int base = 0; block_on && base < n_live; base += kWideTile) {
+    const int n = min(kWideTile, n_live - base);
+    __syncthreads();  // every thread is done with the tile before
+    for (int e = threadIdx.x; e < n; e += kWideThreads) {
+      stage[0][e] = tx[base + e];
+      stage[1][e] = ty[base + e];
+      stage[2][e] = tz[base + e];
+    }
+    __syncthreads();
+    if (!on) continue;
+    for (int e = 0; e < n; ++e) {
+      const float d = dist2(stage[0][e], stage[1][e], stage[2][e], qx, qy, qz);
+      const int j = base + e;
+      if (!(d < kth || (d == kth && j < kth_i))) continue;
+      int s = k - 1;
+      for (; s > 0; --s) {
+        const float pd = od[(s - 1) * Q];
+        const int pi = oi[(s - 1) * Q];
+        if (!(d < pd || (d == pd && j < pi))) break;
+        od[s * Q] = pd;
+        oi[s * Q] = pi;
+      }
+      od[s * Q] = d;
+      oi[s * Q] = j;
+      kth = od[(k - 1) * Q];
+      kth_i = oi[(k - 1) * Q];
+    }
+  }
+
+  if (!in) return;
+  for (int s = 0; s < k; ++s) {
+    const float d = od[s * Q];
+    const int j = oi[s * Q];
+    const bool real = on && d < cd.init_d2;
+    oi[s * Q] = real ? j : 0;
+    od[s * Q] = real ? d : cd.init_d2;
+    if (cd.out_x != nullptr) {
+      cd.out_x[(b * k + s) * Q + qi] = real ? tx[j] : 0.f;
+      cd.out_y[(b * k + s) * Q + qi] = real ? ty[j] : 0.f;
+      cd.out_z[(b * k + s) * Q + qi] = real ? tz[j] : 0.f;
+    }
+  }
+}
+
 inline int query_blocks(int Q) { return (Q + kBlockQ - 1) / kBlockQ; }
+
+int launch_wide(SearchArgs a, int B, int k, cudaStream_t stream) {
+  for (const ClassDesc& cd : a.c)
+    if (cd.splits != 1) return (int)cudaErrorInvalidValue;
+  a.blocks0 = (a.c[0].Q + kWideThreads - 1) / kWideThreads;
+  const int blocks1 = (a.c[1].Q + kWideThreads - 1) / kWideThreads;
+  if (a.blocks0 + blocks1 == 0) return 0;
+  knn_wide_kernel<<<dim3(a.blocks0 + blocks1, B), kWideThreads, 0, stream>>>(a, k);
+  return (int)cudaGetLastError();
+}
 
 template <int K>
 int launch(SearchArgs a, int B, cudaStream_t stream) {
@@ -433,7 +538,7 @@ int dispatch(const SearchArgs& a, int B, int k, cudaStream_t s) {
     case 6: return launch<6>(a, B, s);
     case 7: return launch<7>(a, B, s);
     case 8: return launch<8>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return k > kMaxRegK ? launch_wide(a, B, k, s) : (int)cudaErrorInvalidValue;
   }
 }
 

@@ -25,16 +25,16 @@ fills a slot only when it is below that; invalid targets sit at a ``+3e37``
 sentinel; masked queries return the initial slots; a slot is valid when its
 distance is finite and ``sqrt(d2) < max_dist``.
 
-The kernel takes float32 and ``1 <= k <= KERNEL_MAX_K`` (as the Pallas
-kernel does). The plain version keeps the targets' dtype, float32 or
-float64, so a float64 run stays float64; its sentinel is chosen so that the
-squared distance to it overflows in either dtype. Which of the two runs is
-decided by device, dtype and ``k``, as ``loam_tpu`` decides
-(``registration/icf.py:266-275``): the kernel for float32 CUDA tensors and
-a ``k`` in its range, the plain version on the tensors' own device for
-everything else (float64 on the card, ``k > KERNEL_MAX_K``, any CPU
-tensor). That is a dispatch by type and shape, not an implementation
-switch.
+The kernel takes float32 and any ``k >= 1``, as the Pallas kernel does: up
+to ``REGISTER_MAX_K`` its lists stay in registers, above it a second entry
+of ``csrc/knn.cu`` keeps them in the output planes. The plain version keeps
+the targets' dtype, float32 or float64, so a float64 run stays float64; its
+sentinel is chosen so that the squared distance to it overflows in either
+dtype. Which of the two runs is decided by device and dtype, as
+``loam_tpu`` decides (``registration/icf.py:266-275``): the kernel for
+float32 CUDA tensors, the plain version on the tensors' own device for
+float64 (on the card too) and for any CPU tensor. That is a dispatch by
+type, not an implementation switch.
 
 Two things of the kernel's design are prepared here, from shapes and masks
 alone and with no host sync. The preps carry ``n_live``, the index of each
@@ -56,8 +56,9 @@ import torch
 from . import _build
 from ..neighbors.bruteforce import KnnResult, pairwise_d2, topk_min
 
-#: Largest ``k`` the kernel's per-thread lists hold.
-KERNEL_MAX_K = 8
+#: Largest ``k`` whose lists the kernel keeps in registers; a larger ``k``
+#: launches the kernel's wide form (one thread a query, no target splits).
+REGISTER_MAX_K = 8
 
 #: Coordinates of invalid target slots, per dtype: the squared distance to
 #: them overflows to +inf.
@@ -131,10 +132,16 @@ def split_plan(B: int, classes, block_queries: int):
     return tuple(max(1, min(MAX_SPLITS, -(-m // chunk))) for _, m in classes)
 
 
-def kernel_takes(t: torch.Tensor, k: int) -> bool:
-    """Whether the kernel searches targets ``t`` for ``k`` neighbours: a
-    float32 CUDA tensor and ``1 <= k <= KERNEL_MAX_K``."""
-    return t.is_cuda and t.dtype == torch.float32 and 1 <= k <= KERNEL_MAX_K
+def kernel_takes(t: torch.Tensor) -> bool:
+    """Whether the kernel searches targets ``t``: a float32 CUDA tensor."""
+    return t.is_cuda and t.dtype == torch.float32
+
+
+def _splits(B: int, classes, k: int):
+    """:func:`split_plan` for the register lists; the wide form takes none."""
+    if k > REGISTER_MAX_K:
+        return (1,) * len(classes)
+    return split_plan(B, classes, _build.lib().loam_knn_block_queries())
 
 
 def _init_d2(max_dist: float) -> float:
@@ -198,8 +205,8 @@ def _search_kernel(prep, queries, k, init_d2, query_mask):
     tT, n_live = prep.tT, prep.n_live
     B, _, M = tT.shape
     Q = queries.shape[1]
-    if not 1 <= k <= KERNEL_MAX_K:
-        raise ValueError(f"knn kernel supports 1 <= k <= {KERNEL_MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"knn kernel needs k >= 1, got {k}")
     _build.require(tT, "targets", (torch.float32,), (B, 3, M))
     _build.require(n_live, "n_live", (torch.int32,), (B,), tT.device)
     _build.require(queries, "queries", (torch.float32,), (B, Q, 3), tT.device)
@@ -207,7 +214,7 @@ def _search_kernel(prep, queries, k, init_d2, query_mask):
         _build.require(query_mask, "query_mask", (torch.bool,), (B, Q), tT.device)
     dev = tT.device
     lib = _build.lib()
-    (splits,) = split_plan(B, ((Q, M),), lib.loam_knn_block_queries())
+    (splits,) = _splits(B, ((Q, M),), k)
     part_d2, part_idx = _partial_lists(((B, splits, k, Q),), dev)
     idx = torch.empty((B, k, Q), dtype=torch.int32, device=dev)
     d2 = torch.empty((B, k, Q), dtype=torch.float32, device=dev)
@@ -265,7 +272,7 @@ def knn_run(prep: TargetPrep, queries, k: int, max_dist: float = 0.0,
     :func:`kernel_takes` the targets, the plain search everywhere else.
     """
     return _run(prep, queries, k, max_dist, with_coords, query_mask,
-                plain=not kernel_takes(prep.tT, k))
+                plain=not kernel_takes(prep.tT))
 
 
 #: Kernel launches since the last reset (plain-version calls do not count).
@@ -308,15 +315,15 @@ def _dual_search_kernel(prep, qe, qp, k, init_e, init_p):
     B, _, M = tT.shape
     Me = prep.n_edge
     E, P = qe.shape[1], qp.shape[1]
-    if not 1 <= k <= KERNEL_MAX_K:
-        raise ValueError(f"knn kernel supports 1 <= k <= {KERNEL_MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"knn kernel needs k >= 1, got {k}")
     _build.require(tT, "targets", (torch.float32,), (B, 3, M))
     _build.require(prep.n_live, "n_live", (torch.int32,), (B, 2), tT.device)
     _build.require(qe, "edge queries", (torch.float32,), (B, E, 3), tT.device)
     _build.require(qp, "planar queries", (torch.float32,), (B, P, 3), tT.device)
     dev = tT.device
     lib = _build.lib()
-    s_e, s_p = split_plan(B, ((E, Me), (P, M - Me)), lib.loam_knn_block_queries())
+    s_e, s_p = _splits(B, ((E, Me), (P, M - Me)), k)
     part_d2, part_idx = _partial_lists(((B, s_e, k, E), (B, s_p, k, P)), dev)
     ie = torch.empty((B, k, E), dtype=torch.int32, device=dev)
     de = torch.empty((B, k, E), dtype=torch.float32, device=dev)
@@ -377,10 +384,11 @@ def knn_dual_run(prep: DualTargetPrep, q_edge, q_plane, k_edge: int, k_plane: in
     query mask (``loam_tpu`` passes none either): every query slot is
     searched, and association masks the invalid ones. ``tq`` is accepted
     for API compatibility and ignored. The kernel runs where
-    :func:`kernel_takes` the targets for ``max(k_edge, k_plane)``.
+    :func:`kernel_takes` the targets (always: the dual prep is float32),
+    the plain search for CPU tensors.
     """
     return _dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge,
-                     max_dist_plane, plain=not kernel_takes(prep.tT, max(k_edge, k_plane)))
+                     max_dist_plane, plain=not kernel_takes(prep.tT))
 
 
 #: Kernel launches since the last reset (plain-version calls do not count).

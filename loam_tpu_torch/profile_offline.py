@@ -9,7 +9,7 @@ Runs a driver on synthetic 64x1024 scans as ``chip_smoke.py`` does --
 the same with ``search_backend="grid"``), a ``scan_to_scan_step(dewarp=True)``
 loop, ``odometry_streaming`` (``streaming``: the numpy frames in chunks of
 8, packed), or the loop-closed path (``loop_closure``: the 33 keyframes of
-:func:`square_loop_scans` written as KITTI ``.bin`` files, read by the native
+``io.square_loop_scans`` written as KITTI ``.bin`` files, read by the native
 loader into ``odometry_streaming``, then ``extract_features_batch`` on the
 keyframes and ``optimize_trajectory_with_closures``); ``--dual-knn`` sets
 ``LOAM_ICF_DUAL_KNN=1`` -- then:
@@ -41,83 +41,16 @@ import numpy as np
 import torch
 
 import loam_tpu_torch as T
-from loam_tpu_torch.geometry import Pose3, pose_cumcompose, quat_exp, quat_multiply, quat_normalize
-from loam_tpu_torch.io import default_world, render_scan, render_trajectory
+from loam_tpu_torch.geometry import Pose3
+from loam_tpu_torch.io import render_trajectory, square_loop_scans, write_kitti_bins
 from loam_tpu_torch.loop_closure import (
     closure_edges, join_edges, optimize_trajectory_with_closures, propose_candidates, verify_closures)
-from loam_tpu_torch.pose_graph import make_edges, odometry_edges, optimize_pose_graph
+from loam_tpu_torch.pose_graph import odometry_edges, optimize_pose_graph
 from loam_tpu_torch.registration import azimuth_sort_features
 
 #: The loop-closed path's settings: 8 candidates a call, revisits at least
 #: half the loop apart and within 1 m, 10 pose-graph iterations.
 LOOP_CLOSURE_KW = dict(max_candidates=8, min_separation=16, max_distance=1.0, iterations=10)
-
-
-def square_loop_scans(lidar, n_side: int = 8, step: float = 0.2, noise: float = 0.002):
-    """Keyframes around a square of 4 x ``n_side`` steps that ends where it
-    began, in ``default_world(seed=2)``: the loop of
-    ``tests/test_loop_closure.py``, two changes made so that frame-to-frame
-    odometry can follow it. The heading turns by the same angle every frame
-    (a full turn over the loop) instead of 90 degrees at each corner, and the
-    square is [0, 1.6 m]^2, which no pillar crosses (that test's 2 m square
-    has its corner (2, 0) inside one). The rays sit half a column off the
-    renderer's azimuths (``c 2 pi / P``), which are the cell edges of the file
-    loader's projection (``io.native.project_range_image``): there, rounding
-    would send returns to the neighbouring column and leave cells empty, so
-    the scans written as files would come back as other scans.
-
-    Returns (scans (4 n_side + 1, L, P, 3) float32, positions (F, 3), yaws (F,)).
-    """
-    world = default_world(seed=2)
-    half = np.pi / lidar.points_per_line
-    c, s = np.cos(half), np.sin(half)
-    n = 4 * n_side
-    pos, heading, positions = np.zeros(3), 0.0, []
-    for _ in range(4):
-        for _ in range(n_side):
-            positions.append(pos.copy())
-            pos = pos + np.array([np.cos(heading), np.sin(heading), 0.0]) * step
-        heading += np.pi / 2
-    positions.append(positions[0].copy())
-    yaws = np.arange(n + 1) * (2 * np.pi / n)
-    scans = np.stack([render_scan(lidar, p, y + half, world=world, noise=noise, seed=i)
-                      for i, (p, y) in enumerate(zip(positions, yaws))])
-    x, y = scans[..., 0], scans[..., 1]  # rendered at yaw + half: turn back by half
-    scans = np.stack([c * x - s * y, s * x + c * y, scans[..., 2]], axis=-1).astype(np.float32)
-    return scans, np.stack(positions), yaws
-
-
-def write_kitti_bins(scans, directory: str) -> list:
-    """Each (L, P, 3) scan as a KITTI velodyne ``.bin`` file (x, y, z,
-    intensity float32 records) in ``directory``; returns the paths."""
-    paths = []
-    for f, scan in enumerate(scans):
-        pts = scan.reshape(-1, 3).astype(np.float32)
-        paths.append(os.path.join(directory, f"{f:06d}.bin"))
-        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], axis=1).tofile(paths[-1])
-    return paths
-
-
-def random_pose_graph(N: int, closures: int, seed: int):
-    """A chain of N float64 poses (steps of 0.1 rad and 1 m spread) plus
-    ``closures`` edges from the first half of the chain to the second, all
-    measurements noise-free, and a start perturbed by 0.02 rad and 0.2 m
-    (node 0 at the truth). Returns (truth, start, edges) on the CPU."""
-    rng = np.random.default_rng(seed)
-    steps = Pose3(quat_exp(torch.from_numpy(rng.normal(0, 0.1, (N, 3)))),
-                  torch.from_numpy(rng.normal(0, 1.0, (N, 3))))
-    steps.rotation[0], steps.translation[0] = torch.tensor([1.0, 0, 0, 0]), 0.0
-    gt = pose_cumcompose(steps)
-    i = np.r_[np.arange(N - 1), rng.integers(0, N // 2, closures)]
-    j = np.r_[np.arange(1, N), rng.integers(N // 2, N, closures)]
-    ii, jj = torch.from_numpy(i), torch.from_numpy(j)
-    rel = Pose3(gt.rotation[ii], gt.translation[ii]).inverse().compose(
-        Pose3(gt.rotation[jj], gt.translation[jj]))
-    init = Pose3(quat_normalize(quat_multiply(quat_exp(torch.from_numpy(rng.normal(0, 0.02, (N, 3)))),
-                                              gt.rotation)),
-                 gt.translation + torch.from_numpy(rng.normal(0, 0.2, (N, 3))))
-    init.rotation[0], init.translation[0] = gt.rotation[0], gt.translation[0]
-    return gt, init, make_edges(i, j, rel)
 
 
 def _sync_time(fn):

@@ -145,16 +145,17 @@ def test_root_exports_every_loam_tpu_name():
 # ---- F3: the kNN dispatch -----------------------------------------------------------------
 
 def test_knn_dispatch_by_dtype_and_k():
-    """The kernel takes float32 CUDA targets and 1 <= k <= 8; float64, a
-    larger k and CPU tensors take the plain search (the CUDA side runs in
+    """The kernel takes float32 CUDA targets at any k (its register lists up
+    to 8, its wide form above, which splits no targets); float64 and CPU
+    tensors take the plain search (the CUDA side runs in
     ``tests/test_torch_cuda.py``)."""
     cuda = lambda dt: types.SimpleNamespace(is_cuda=True, dtype=dt)
-    assert knn_cuda.KERNEL_MAX_K == 8
-    assert knn_cuda.kernel_takes(cuda(torch.float32), 8)
-    assert not knn_cuda.kernel_takes(cuda(torch.float32), 9)
-    assert not knn_cuda.kernel_takes(cuda(torch.float64), 5)
-    assert not knn_cuda.kernel_takes(torch.zeros(3), 5)
-    # k above the kernel's range on a plain search: padded like loam_tpu's
+    assert knn_cuda.REGISTER_MAX_K == 8
+    assert knn_cuda.kernel_takes(cuda(torch.float32))
+    assert not knn_cuda.kernel_takes(cuda(torch.float64))
+    assert not knn_cuda.kernel_takes(torch.zeros(3))
+    assert knn_cuda._splits(4, ((100, 5000), (300, 9000)), 9) == (1, 1)
+    # k above the register lists on a plain search: padded like loam_tpu's
     g = torch.Generator().manual_seed(3)
     t, q = torch.rand((6, 3), generator=g), torch.rand((4, 3), generator=g)
     res = T.knn(q, t, torch.ones(6, dtype=torch.bool), 9)
@@ -284,6 +285,22 @@ def test_checkpoint_roundtrip_and_cross_load(tmp_path, mapped_states):
                                  dtype=np.float32)
     _, pose, _ = T.scan_to_map_step(back, torch.from_numpy(scans[2]), lidar)
     assert torch.isfinite(pose.translation).all()
+
+
+def test_checkpoint_nested_state_cross_loads(tmp_path, mapped_states):
+    """A state inside a nest (a tuple beside a pose, a dict) saved by
+    ``loam_tpu`` loads into the port's template: the missing ``dropped``
+    leaf is matched by its field name, whatever the path before it."""
+    js, j_tpl, ts, t_tpl = mapped_states
+    pose_j, pose_t = J.Pose3.identity(), T.Pose3.identity(device="cpu")
+    for j_tree, t_tree in (((js, pose_j), (t_tpl, pose_t)), ({"s": js}, {"s": t_tpl})):
+        p = str(tmp_path / "nested.npz")
+        j_ckpt.save(p, j_tree)
+        got = t_ckpt.load(p, t_tree)
+        state = got[0] if isinstance(got, tuple) else got["s"]
+        assert state.dropped == t_tpl.dropped
+        for a, b in zip(_leaves(state._replace(dropped=None)), _leaves(ts._replace(dropped=None))):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_checkpoint_schema_mismatch_rejected(tmp_path):

@@ -275,13 +275,14 @@ def test_knn_live_bound(dev, monkeypatch, live, split):
 
 
 @SPLIT
-def test_knn_duplicate_targets_keep_first_index(dev, monkeypatch, split):
+@pytest.mark.parametrize("k", [6, 20])
+def test_knn_duplicate_targets_keep_first_index(dev, monkeypatch, k, split):
     """Every target is one of 16 points, each repeated ~190 times in slots
     spread over the tiles and the splits: each query's k neighbors are the k
-    lowest slots of its nearest point."""
+    lowest slots of its nearest point (k = 20: the wide form, unsplit)."""
     _plan(monkeypatch, split, chunk=200)
     rng = np.random.default_rng(5)
-    M, Q, k = 3001, 640, 6
+    M, Q = 3001, 640
     sites = rng.uniform(-3, 3, size=(16, 3)).astype(np.float32)
     owner = rng.integers(0, 16, size=(1, M))
     q, t = _to(dev, rng.uniform(-3, 3, size=(1, Q, 3)).astype(np.float32), sites[owner])
@@ -304,6 +305,20 @@ def test_knn_all_queries_masked(dev, monkeypatch, split):
     q, t, tm, _ = _to(dev, *_knn_sets(9, 2, 1300, 600))
     qm = torch.zeros((2, 600), dtype=torch.bool, device=dev)
     assert not _assert_single_equal(knn_cuda.knn_prep(t, tm), q, 5, 1.5, qm).mask.any()
+
+
+@pytest.mark.parametrize("k,r,m", [(9, 1.5, 2331), (16, 0.0, 2331), (40, 2.0, 1027), (12, 0.0, 7)])
+def test_knn_wide_k_matches_plain(dev, k, r, m):
+    """k above the register lists (the Pallas kernel takes any k): the
+    kernel's wide form, one launch a call, equal to the plain search in both
+    output forms, with masked queries and with fewer targets than k; the
+    dual search likewise."""
+    q, t, tm, qm = _to(dev, *_knn_sets(300 + k, 2, m, 1219))
+    _assert_single_equal(knn_cuda.knn_prep(t, tm), q, k, r, qm)
+    qe, te, me, _ = _to(dev, *_knn_sets(400 + k, 2, 515, 301))
+    before = knn_cuda.knn_dual_run.launches
+    _assert_dual_equal(knn_cuda.knn_dual_prep(te, me, t, tm), qe, q, k, k - 3, max(r, 1.0), max(r, 1.5))
+    assert knn_cuda.knn_dual_run.launches == before + 1
 
 
 def test_knn_one_pair_splits_and_four_pairs_of_few_targets_do_not(dev):
@@ -441,16 +456,18 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(TypeError):
         assemble_cuda.select_points(torch.zeros((2, 8, 3), device=dev),
                                     torch.zeros((2, 4), dtype=torch.int64, device=dev))
-    # k above the kernel's range is no error: the plain search runs on the card
+    # any k >= 1 launches the kernel (k = 9 its wide form); k = 0 is refused
     g = torch.Generator().manual_seed(9)
     prep = knn_cuda.knn_prep(torch.rand((40, 3), generator=g).to(dev),
                              torch.ones(40, dtype=torch.bool, device=dev))
     q = torch.rand((6, 3), generator=g).to(dev)
     before = knn_cuda.knn_run.launches
     got = knn_cuda.knn_run(prep, q, 9, 1.0)
-    assert knn_cuda.knn_run.launches == before and got.indices.is_cuda
+    assert knn_cuda.knn_run.launches == before + 1 and got.indices.is_cuda
     for x, y in zip(got, knn_cuda.knn_run_reference(prep, q, 9, 1.0)):
         assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        knn_cuda.knn_run(prep, q, 0, 1.0)
     with pytest.raises(ValueError):  # not contiguous
         bitonic_cuda.sector_sort(torch.zeros((64, 8), device=dev).t(), 2)
     cand = torch.full((2, 1, 8), -1, dtype=torch.int32, device=dev)
@@ -469,12 +486,12 @@ def _pair_features(lidar, dtype, dev):
     return feats.map(lambda x: x[1]), feats.map(lambda x: x[0])
 
 
-def test_float64_registration_and_large_k_run_the_plain_search_on_the_card(dev):
-    """float64 targets and k above the kernel's range take the plain search
-    on the card (no kernel launch, no TypeError), as ``loam_tpu`` takes its
-    plain search for float64: a float64 registration on the card equals its
-    CPU run within 1e-9 m, and ``neighbors.knn`` with k = 9 equals the plain
-    search exactly."""
+def test_float64_registration_runs_the_plain_search_on_the_card(dev):
+    """float64 targets take the plain search on the card (no kernel launch,
+    no TypeError), as ``loam_tpu`` takes its plain search for float64: a
+    float64 registration on the card equals its CPU run within 1e-9 m.
+    ``neighbors.knn`` with k = 9 equals the plain search exactly: the plain
+    search itself in float64, the kernel's wide form in float32."""
     import loam_tpu_torch as T
 
     lidar = T.LidarParams(16, 360, 0.5, 80.0)
@@ -490,10 +507,10 @@ def test_float64_registration_and_large_k_run_the_plain_search_on_the_card(dev):
     np.testing.assert_allclose(est.rotation.cpu().numpy(), est_c.rotation.numpy(), atol=1e-9, rtol=0)
 
     q, t, m = src.planar_points, tgt.planar_points, tgt.planar_mask
-    for dtype in (torch.float32, torch.float64):
+    for dtype, launched in ((torch.float64, 0), (torch.float32, 1)):
         got = T.knn(q.to(dtype), t.to(dtype), m, 9, 1.0)
         want = knn_cuda.knn_run_reference(knn_cuda.knn_prep(t.to(dtype), m), q.to(dtype), 9, 1.0)
-        assert knn_cuda.knn_run.launches == before[0] and got.indices.is_cuda
+        assert knn_cuda.knn_run.launches == before[0] + launched and got.indices.is_cuda
         for x, y in zip(got, want):
             assert torch.equal(x, y)
 
@@ -504,7 +521,7 @@ def test_pose_graph_gpu_matches_cpu(dev):
     ``index_put_(accumulate=True)`` adds in no fixed order) and recovers the
     true poses; in float32 it stays finite and lowers the cost."""
     from loam_tpu_torch.pose_graph import _cost, optimize_pose_graph
-    from loam_tpu_torch.profile_offline import random_pose_graph
+    from loam_tpu_torch.io import random_pose_graph
 
     gt, init, edges = random_pose_graph(60, 6, seed=0)
     to = lambda tree, dtype=None: type(tree)(*(
@@ -528,7 +545,7 @@ def _loop_keyframes(dev):
     smoke's phase-4 loop), and the true poses."""
     import loam_tpu_torch as T
     from loam_tpu_torch.geometry import Pose3, quat_exp
-    from loam_tpu_torch.profile_offline import square_loop_scans
+    from loam_tpu_torch.io import square_loop_scans
 
     lidar = T.LidarParams(16, 360, 0.5, 80.0)
     scans, positions, yaws = square_loop_scans(lidar, n_side=4, step=0.4)
@@ -577,7 +594,7 @@ def test_odometry_streaming_over_paths_on_the_card(dev, tmp_path):
     import loam_tpu_torch as T
     from loam_tpu_torch.evaluation import ate_rmse
     from loam_tpu_torch.io import ScanLoader, native_available
-    from loam_tpu_torch.profile_offline import square_loop_scans, write_kitti_bins
+    from loam_tpu_torch.io import square_loop_scans, write_kitti_bins
 
     assert native_available()
     lidar = T.LidarParams(16, 360, 0.5, 80.0)
