@@ -95,6 +95,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      6,000), in float64 and float32 on the card. Requires the float64 solve
      to recover the true poses within 1e-5 m and both costs to fall; prints
      ms per solve and the peak device memory.
+ 12. The multi-device surface (``loam_tpu_torch.parallel``) on a mesh of 4
+     shards of this GPU, in a world-size-1 NCCL group started in-process
+     (TCP store on 127.0.0.1; NCCL takes one rank a GPU). Drives
+     ``scan_to_map_step_sharded`` over the 16 frames at the default
+     capacities (8,192 / 32,768 slots a shard) beside the single-device
+     ``scan_to_map_step`` (single kNN): keyframes and terminations equal,
+     poses within 1e-5, map sizes within 1%, ``dropped`` 0, the ATE gate,
+     every extraction kernel and the kNN launched; scans/s of both. Holds
+     the kNN at the sharded shape (one frame's planar queries against the 4
+     shards of the planar map in one launch) against its plain version on
+     the final maps and on the empty maps of frame 0 (rows ``knn_shard``,
+     ``knn_shard_empty``). ``odometry_offline_sharded`` against
+     ``odometry_offline`` with its defaults (terminations equal, poses within
+     1e-5 m, the ATE gate); ``extract_features_sharded`` on a (2 data x 2
+     line) mesh equal to ``extract_features_batch``;
+     ``optimize_pose_graph_sharded`` on phase 11's graph in float64, its
+     edges padded with masked ones to a multiple of 4, within 1e-8 of phase
+     11's solve and 1e-5 m of the truth; ms per solve, peak memory.
 
 ``LOAM_ICF_DUAL_KNN`` is set and restored around the phases that use it.
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
@@ -135,6 +153,10 @@ ATOL_GRAPH = 1e-8
 # the float64 pose-graph solve of noise-free edges vs the truth (the
 # tolerance of tests/test_pose_graph.py::test_recovers_exact_graph)
 ATOL_GRAPH_TRUTH_M = 1e-5
+# the sharded drivers vs the single-device ones: the same neighbours (the
+# scan-to-map merge is exact; equidistant map points may come in shard
+# order), offline pairs in one lockstep batch against one pair a call
+ATOL_SHARD = 1e-5
 
 
 def _smi() -> str:
@@ -551,6 +573,180 @@ def _print_kernels(kernels):
         print(line + f", max_abs_err {kd['max_abs_err']} at {kd['shape']}")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive, extraction,
+                   ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps) -> list:
+    """Phase 12: the multi-device surface on a mesh of 4 shards of this GPU
+    in a world-size-1 NCCL group (NCCL takes one rank a GPU, so this card
+    holds one rank). Returns the kernel rows ``knn_shard`` and
+    ``knn_shard_empty``."""
+    import torch.distributed as dist
+
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
+    from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on the loopback
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        return _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive,
+                               extraction, ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps,
+                               parallel, scan_to_map_init_sharded, scan_to_map_step_sharded,
+                               optimize_pose_graph_sharded, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive, extraction,
+                    ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps, parallel, init_sharded,
+                    step_sharded, solve_sharded, group) -> list:
+    D = 4
+    mesh = parallel.make_mesh([dev] * D, group=group)
+    cfg, reg = T.ScanToMapConfig(), T.default_map_reg_params()
+    if mesh.shape != {"data": D, "line": 1} or mesh.device != dev:
+        raise AssertionError(f"mesh {mesh.shape} on {mesh.device}")
+
+    # scan-to-map against maps sharded 4 ways, and the single-device steps
+    def run_sharded():
+        st = init_sharded(cfg, mesh)
+        out = []
+        for f in range(frames):
+            st, pose, det = step_sharded(st, scans[f], lidar, mesh, fp, reg, cfg)
+            out.append((pose, det, int(st.frames_since_insert)))
+        return st, out
+
+    def run_single():
+        st = T.scan_to_map_init(cfg)
+        out = []
+        for f in range(frames):
+            st, pose, det = T.scan_to_map_step(st, scans[f], lidar, fp, reg, cfg)
+            out.append((pose, det, int(st.frames_since_insert)))
+        return st, out
+
+    with _dual_knn(False):
+        st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn",), ("knn_dual",))
+        st_1, out_1 = run_single()
+        dt_sh = _seconds_per_run(run_sharded, reps)
+        dt_1 = _seconds_per_run(run_single, reps)
+    t_sh = torch.stack([p.translation for p, _, _ in out_sh])
+    t_1 = torch.stack([p.translation for p, _, _ in out_1])
+    q_sh = torch.stack([p.rotation for p, _, _ in out_sh])
+    ate, limit, _ = _check_trajectory("scan_to_map_sharded", t_sh, q_sh, frames, gt, ate_rmse)
+    gap = max(_max_err(t_sh, t_1), _max_err(q_sh, torch.stack([p.rotation for p, _, _ in out_1])))
+    fsi_sh, fsi_1 = [f for _, _, f in out_sh], [f for _, _, f in out_1]
+    term_sh = [int(d.termination) for _, d, _ in out_sh]
+    term_1 = [int(d.termination) for _, d, _ in out_1]
+    n_sh = int(st_sh.edge_map.mask.sum()) + int(st_sh.planar_map.mask.sum())
+    n_1 = int(st_1.edge_map.size) + int(st_1.planar_map.size)
+    print(f"scan_to_map_sharded: {D} shards of {dev} ({cfg.edge_capacity // D} / {cfg.planar_capacity // D} "
+          f"slots a shard); ATE {ate:.6f} m (limit {limit:.6f} m); pose gap to the single-device steps "
+          f"{gap:.3e} (limit {ATOL_SHARD}); keyframes {fsi_sh}; termination {term_sh}; map voxels "
+          f"{n_sh} vs {n_1} single; dropped {int(st_sh.dropped)}")
+    if fsi_sh != fsi_1:
+        raise AssertionError(f"scan_to_map_sharded keyframes {fsi_sh} != single {fsi_1}")
+    if term_sh != term_1:
+        raise AssertionError(f"scan_to_map_sharded termination {term_sh} != single {term_1}")
+    if not gap < ATOL_SHARD:
+        raise AssertionError(f"scan_to_map_sharded differs from the single-device steps by {gap}")
+    if abs(n_sh - n_1) > max(5, n_1 // 100):
+        raise AssertionError(f"scan_to_map_sharded holds {n_sh} voxels, the single map {n_1}")
+    if int(st_sh.dropped) != 0:
+        raise AssertionError(f"scan_to_map_sharded dropped {int(st_sh.dropped)} voxels")
+    print(f"scan_to_map_sharded: {frames / dt_sh:.3f} scans/s ({dt_sh * 1e3:.3f} ms per {frames}-frame "
+          f"run, 64x1024, default ScanToMapConfig over {D} shards, single kNN) beside the single-device "
+          f"steps' {frames / dt_1:.3f} scans/s, on {smi}")
+
+    # the kNN at the sharded path's shape: one frame's planar queries against
+    # each 32,768-slot shard of the planar map (the four shards one launch),
+    # on the final maps and on the empty maps of frame 0
+    k, r = reg.num_plane_neighbors, reg.max_plane_neighbor_dist
+    feats = T.registration.spatial_sort_features(T.extract_features(scans[frames - 1], lidar, fp))
+    guess = st_sh.world_T_current.compose(st_sh.prev_delta)
+    q = guess.act(feats.planar_points).expand(D, -1, -1).contiguous()
+    qm = feats.planar_mask.expand(D, -1).contiguous()
+    rows = []
+    for name, pm in (("knn_shard", st_sh.planar_map), ("knn_shard_empty", init_sharded(cfg, mesh).planar_map)):
+        prep = knn_cuda.knn_prep(pm.points, pm.mask)
+        err = _check_single_knn(name, knn_cuda, prep, q, k, r, qm)
+        if err != 0.0:
+            raise AssertionError(f"{name} distances differ from the plain version by {err}")
+        if name == "knn_shard_empty":
+            out = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
+            if prep.n_live.any() or out.mask.any():
+                raise AssertionError("knn_shard_empty found neighbours in empty shards")
+        rows.append(_knn_row(name, knn_cuda, prep, q, k, r, qm, pm.mask, err,
+                             f"B={D} shards, Q={q.shape[1]} planar queries ({int(qm[0].sum())} searching) vs "
+                             f"{pm.points.shape[1]} slots a shard, k={k}, n_live {prep.n_live.tolist()}"))
+    _print_kernels(rows)
+
+    # offline odometry with the frames split 4 ways, against odometry_offline
+    # with the same defaults (chunk_pairs=1, no motion prior)
+    with _dual_knn(False):
+        run_off = lambda: parallel.odometry_offline_sharded(scans_np, lidar, mesh, fp, rp)
+        traj_sh, det_sh = drive("offline_sharded", run_off, extraction + ("knn",), ("knn_dual",))
+        run_off1 = lambda: T.odometry_offline(scans_np, lidar, fp, rp)
+        traj_1, det_1 = run_off1()
+        dt_off = _seconds_per_run(run_off, reps)
+        dt_off1 = _seconds_per_run(run_off1, reps)
+    ate_o, limit_o, _ = _check_trajectory("offline_sharded", traj_sh.translation, traj_sh.rotation, frames,
+                                          gt, ate_rmse)
+    gap_o = _max_err(traj_sh.translation, traj_1.translation)
+    print(f"offline_sharded: ATE {ate_o:.6f} m (limit {limit_o:.6f} m); pose gap to odometry_offline "
+          f"{gap_o:.3e} m (limit {ATOL_SHARD}); termination {det_sh.termination.tolist()}; "
+          f"{frames / dt_off:.3f} scans/s ({dt_off * 1e3:.3f} ms per {frames}-frame run) beside "
+          f"odometry_offline's {frames / dt_off1:.3f} (one pair a call), on {smi}")
+    _require_equal("offline_sharded termination", det_sh.termination, det_1.termination)
+    if not gap_o < ATOL_SHARD:
+        raise AssertionError(f"offline_sharded differs from odometry_offline by {gap_o} m")
+
+    # extraction on a (2 data x 2 line) mesh: index-exact
+    mesh22 = parallel.make_mesh([dev] * D, line_axis=2, group=group)
+    got = drive("extract_sharded", lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp),
+                extraction, ("knn", "knn_dual"))
+    want = T.extract_features_batch(scans, lidar, fp)
+    for field, a, b in zip(want._fields, got, want):
+        _require_equal(f"extract_features_sharded {field}", a, b)
+    print(f"extract_features_sharded: (2 data x 2 line) mesh, {frames} frames of 64x1024, equal to "
+          f"extract_features_batch in every leaf")
+
+    # the pose graph of phase 11, its 1,049 edges padded with masked ones to a
+    # multiple of 4 and split over the shards, float64
+    init_d, edges_d = _to(init1k, dev, torch.float64), _to(edges1k, dev, torch.float64)
+    pad = (-edges_d.i.shape[0]) % D
+    edges_p = type(edges_d)(
+        torch.cat([edges_d.i, torch.zeros(pad, dtype=torch.int32, device=dev)]),
+        torch.cat([edges_d.j, torch.ones(pad, dtype=torch.int32, device=dev)]),
+        type(edges_d.measurement)(*(torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+                                    for x in edges_d.measurement)),
+        torch.cat([edges_d.weight, torch.zeros(pad, dtype=torch.float64, device=dev)]),
+        torch.cat([edges_d.mask, torch.zeros(pad, dtype=torch.bool, device=dev)]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    opt_sh, cost_sh = solve_sharded(init_d, edges_p, mesh, 10)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    dt_pg = _seconds_per_run(lambda: solve_sharded(init_d, edges_p, mesh, 10), reps)
+    gap_pg = max(_max_err(opt_sh.translation, opt64.translation), _max_err(opt_sh.rotation, opt64.rotation))
+    err_pg = _max_err(opt_sh.translation.cpu(), gt1k.translation)
+    print(f"pose graph sharded: {edges_d.i.shape[0]} + {pad} masked edges over {D} shards, float64: cost "
+          f"{float(cost_sh):.6e}; gap to optimize_pose_graph {gap_pg:.3e} (limit {ATOL_GRAPH}); "
+          f"{err_pg:.3e} m from the truth; {dt_pg * 1e3:.3f} ms a solve (10 iterations); peak device "
+          f"memory {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held before, on {smi}")
+    if not gap_pg < ATOL_GRAPH:
+        raise AssertionError(f"pose graph sharded differs from optimize_pose_graph by {gap_pg}")
+    if not err_pg < ATOL_GRAPH_TRUTH_M:
+        raise AssertionError(f"pose graph sharded: {err_pg} m from the true poses")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -663,6 +859,9 @@ def main() -> int:
                 knn_err = max(knn_err, _check_single_knn(f"knn planar k={k_wide}", knn_cuda, prep, q,
                                                          k_wide, r, qm))
             wide_ms = _time_ms(lambda: knn_cuda._search_kernel(prep, q, 16, r * r, qm), 3)
+            # the same distances as k = 5, index, d2 and three coordinate planes of 16 slots out
+            wide_bound = _bound(_nbytes(prep.tT, prep.n_live, q, qm) + 5 * 4 * 16 * qm.numel(),
+                                _knn_operations([(tgt_mask, qm)]))
     if knn_err != 0.0:
         raise AssertionError(f"knn distances differ from the plain version by {knn_err}")
     knn_row["max_abs_err"] = knn_err
@@ -694,7 +893,8 @@ def main() -> int:
                                              e_prep, p_prep, 9, 12, r_e, r_p))
     print(f"knn wide form (k above {knn_cuda.REGISTER_MAX_K}): single k = 9 and 16, dual k = (9, 12) at "
           f"the chunk's shapes equal to the plain version; single k = 16 planar launch alone "
-          f"{wide_ms:.4f} ms")
+          f"{wide_ms:.4f} ms, bound {wide_bound['bound_ms']:.6f} ms by {wide_bound['bound_by']}, share "
+          f"{wide_bound['bound_ms'] / wide_ms:.4f}")
     sizes = ((qe.shape[1], tgt.edge_points.shape[1]), (qp.shape[1], tgt.planar_points.shape[1]))
     plan4, plan1 = knn_cuda.split_plan(C, sizes, bq), knn_cuda.split_plan(1, sizes, bq)
     if max(plan1) <= 1:
@@ -1203,6 +1403,12 @@ def main() -> int:
             raise AssertionError(f"pose graph {dtype}: the cost did not fall ({cost0} -> {float(cost_k)})")
         if dtype == torch.float64 and not err < ATOL_GRAPH_TRUTH_M:
             raise AssertionError(f"pose graph float64: {err} m from the true poses")
+        if dtype == torch.float64:
+            opt64 = opt_k
+
+    # ---- 12. the sharded paths on a mesh of four shards of this GPU ----------------------
+    kernels += _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive,
+                              extraction, ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps)
 
     for kd in kernels:
         counter = kd.get("counter", kd["name"])

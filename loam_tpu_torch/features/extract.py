@@ -33,9 +33,12 @@ from .curvature import compute_curvature, compute_valid_points, validate_scan
 from .types import FeatureSet
 
 
-def _extract_core(pts, curv, valid, lidar: LidarParams, params: FeatureExtractionParams) -> FeatureSet:
+def _extract_core(pts, curv, valid, lidar: LidarParams, params: FeatureExtractionParams,
+                  line0: int = 0) -> FeatureSet:
     """Sector sort + greedy pick + copy-out for (B, L, P, ...) inputs;
-    returns a FeatureSet with (B, ...) leaves."""
+    returns a FeatureSet with (B, ...) leaves. The L lines are the scan's
+    lines ``line0 .. line0 + L - 1`` (a line shard's block; the flat scan
+    indices count from line 0)."""
     B = pts.shape[0]
     L, P = lidar.scan_lines, lidar.points_per_line
     S = params.number_sectors
@@ -55,7 +58,7 @@ def _extract_core(pts, curv, valid, lidar: LidarParams, params: FeatureExtractio
         params.neighbor_points,
     )
 
-    line_off = (torch.arange(L, device=pts.device, dtype=torch.int32) * P)[None, :, None, None]
+    line_off = ((line0 + torch.arange(L, device=pts.device, dtype=torch.int32)) * P)[None, :, None, None]
 
     def flat(picks, cap_total):
         picks = picks.reshape((B, L) + picks.shape[1:])

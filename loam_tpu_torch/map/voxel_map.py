@@ -74,6 +74,14 @@ def voxel_map_empty(capacity: int, voxel_size: float, origin=(0.0, 0.0, 0.0),
     )
 
 
+def _voxel_key(map_: VoxelMap, pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Morton key of each point's voxel in ``map_``'s grid, int32 max where
+    not ``valid`` (``loam_tpu``'s ``_voxel_key``; the sharded map's owner of
+    a voxel is this key mod the shard count)."""
+    return torch.where(valid, morton_key(pts, map_.voxel_size, map_.origin),
+                       torch.full_like(valid, _INT32_MAX, dtype=torch.int32))
+
+
 def voxel_map_insert(
     map_: VoxelMap,
     new_points: torch.Tensor,
@@ -101,8 +109,7 @@ def voxel_map_insert(
     if center is not None and keep_radius > 0:
         valid = valid & (norm(pts - center) <= keep_radius)
 
-    keys = torch.where(valid, morton_key(pts, map_.voxel_size, map_.origin),
-                       torch.full_like(valid, _INT32_MAX, dtype=torch.int32))
+    keys = _voxel_key(map_, pts, valid)
     # stable: equal keys keep buffer order, so stored points (first in the
     # concatenation) win their voxel
     skeys, order = torch.sort(keys, stable=True)

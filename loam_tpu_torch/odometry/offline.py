@@ -89,11 +89,15 @@ def odometry_offline(
         rel = tree_map(lambda *xs: torch.cat(xs)[:n_pairs], *rels)
         details = tree_map(lambda *xs: torch.cat(xs)[:n_pairs], *dets)
 
-    # rel[i] = frame_i_T_frame_{i+1}; prefix-compose into world poses
+    return compose_trajectory(rel), details
+
+
+def compose_trajectory(rel: Pose3) -> Pose3:
+    """World poses from relative ones: ``rel[i] = frame_i_T_frame_{i+1}``
+    (F-1 leaves) prefix-composed, with frame 0 at identity (F leaves)."""
     world = pose_cumcompose(rel)
-    first = Pose3.identity(dtype, (1,), dev)
-    trajectory = Pose3(
+    first = Pose3.identity(rel.translation.dtype, (1,), rel.translation.device)
+    return Pose3(
         torch.cat([first.rotation, world.rotation]),
         torch.cat([first.translation, world.translation]),
     )
-    return trajectory, details

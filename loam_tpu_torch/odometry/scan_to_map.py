@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import place, resolve
@@ -71,11 +72,21 @@ class ScanToMapState(NamedTuple):
     dropped: torch.Tensor = 0
 
     @staticmethod
-    def from_numpy(state, device=None) -> "ScanToMapState":
+    def from_numpy(state, device=None, mesh=None) -> "ScanToMapState":
         """The state of a ``loam_tpu`` ``ScanToMapState`` (leaves through
         ``np.asarray``, dtypes kept; its prep cache is dropped, ``dropped``
         starts at 0), on the card unless ``device`` says otherwise
-        (``device.py``)."""
+        (``device.py``). With a ``mesh`` (``parallel.make_mesh``) the state is
+        a sharded one, its map leaves (D, C, ...) over every shard
+        (``parallel.distributed.scan_to_map_init_sharded``): this rank keeps
+        its shards' rows, on the mesh's device."""
+        if mesh is not None:
+            device = mesh.device
+            rows = list(mesh.shard_ids)
+            state = state._replace(**{
+                name: VoxelMap(np.asarray(m.points)[rows], np.asarray(m.mask)[rows], m.voxel_size,
+                               m.origin)
+                for name, m in (("edge_map", state.edge_map), ("planar_map", state.planar_map))})
         pose = lambda p: Pose3.from_numpy(p, device=device)
         return ScanToMapState(
             edge_map=VoxelMap.from_numpy(state.edge_map, device),

@@ -9,5 +9,11 @@ device. The kernels are built from ``csrc/`` at first use (``_build``).
   * ``knn_cuda.knn_run``           -- exact brute-force kNN with coordinates
   * ``knn_cuda.knn_dual_run``      -- the edge and the planar kNN in one launch
 
+``knn_pallas`` is ``loam_tpu.ops.knn_pallas``'s one-shot prep + search.
+
 ``morton`` (Morton keys) is plain PyTorch: ``loam_tpu`` has no kernel there.
 """
+
+from .knn_cuda import knn_pallas
+
+__all__ = ["knn_pallas"]

@@ -230,28 +230,43 @@ def _search_kernel(prep, queries, k, init_d2, query_mask):
     return idx, d2, coords
 
 
-def _run(prep, queries, k, max_dist, with_coords, query_mask, plain):
-    q = queries if prep.batched else queries[None]
+def knn_slots(prep: TargetPrep, queries, k: int, max_dist: float = 0.0, query_mask=None):
+    """The search's raw slots for (B, Q, 3) queries: ``(idx, d2, (xs, ys,
+    zs))``, each (B, k, Q), in (d2, index) order; a slot no target filled
+    holds index 0, ``d2 = max_dist ** 2`` (+inf without a radius) and zero
+    coordinates. The kernel where :func:`kernel_takes` the targets, the
+    plain search elsewhere. :func:`knn_run` packs these; the sharded search
+    (``parallel.distributed.sharded_knn``) merges them across shards."""
+    return _slots(prep, queries, k, max_dist, query_mask, plain=not kernel_takes(prep.tT))
+
+
+def _slots(prep, q, k, max_dist, query_mask, plain):
     q = q.to(prep.tT.dtype).contiguous()
-    qm = None
-    if query_mask is not None:
-        qm = (query_mask if prep.batched else query_mask[None]).to(torch.bool).contiguous()
-    init_d2 = _init_d2(max_dist)
+    qm = None if query_mask is None else query_mask.to(torch.bool).contiguous()
     search = _search_reference if plain else _search_kernel
-    idx, d2, (xs, ys, zs) = search(prep, q, k, init_d2, qm)
+    return search(prep, q, k, _init_d2(max_dist), qm)
+
+
+def pack_slots(idx, d2, coords, max_dist: float, with_coords: bool):
+    """(B, k, Q) slots -> :class:`PackedKnn` (``with_coords``) or a
+    ``KnnResult`` with (B, Q, k) leaves."""
     valid = torch.isfinite(d2)
     if max_dist > 0:
         # sqrt then strict <, as the reference (kdtree.cpp:24-26)
         valid = valid & (torch.sqrt(torch.clamp(d2, min=0.0)) < max_dist)
-    unb = (lambda x: x) if prep.batched else (lambda x: x[0])
     if with_coords:
-        return PackedKnn(unb(idx[:, 0]), unb(valid), unb(xs), unb(ys), unb(zs))
+        return PackedKnn(idx[:, 0], valid, *coords)
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
-    return KnnResult(
-        unb(idx.transpose(1, 2)),
-        unb(torch.where(valid, dist, float("inf")).transpose(1, 2)),
-        unb(valid.transpose(1, 2)),
-    )
+    return KnnResult(idx.transpose(1, 2), torch.where(valid, dist, float("inf")).transpose(1, 2),
+                     valid.transpose(1, 2))
+
+
+def _run(prep, queries, k, max_dist, with_coords, query_mask, plain):
+    lift = (lambda x: x) if prep.batched else (lambda x: x[None])
+    qm = None if query_mask is None else lift(query_mask)
+    idx, d2, coords = _slots(prep, lift(queries), k, max_dist, qm, plain)
+    out = pack_slots(idx, d2, coords, max_dist, with_coords)
+    return out if prep.batched else type(out)(*(x[0] for x in out))
 
 
 def knn_run_reference(prep: TargetPrep, queries, k: int, max_dist: float = 0.0,
@@ -401,3 +416,11 @@ def knn_pallas_dual(q_edge, q_plane, t_edge, t_edge_mask, t_plane, t_plane_mask,
     """Prep and run of the dual search in one call (``knn_pallas_dual``)."""
     prep = knn_dual_prep(t_edge, t_edge_mask, t_plane, t_plane_mask)
     return knn_dual_run(prep, q_edge, q_plane, k_edge, k_plane, max_dist_edge, max_dist_plane)
+
+
+def knn_pallas(queries, targets, target_mask, k: int, max_dist: float = 0.0, tq=None, tt=None):
+    """Prep and run of the single search in one call (``knn_pallas``): the
+    drop-in of ``neighbors.knn`` for (Q, 3) queries, a ``KnnResult``. ``tq``
+    and ``tt`` (the Pallas tiles) are accepted for API compatibility and
+    ignored."""
+    return knn_run(knn_prep(targets, target_mask), queries, k, max_dist)

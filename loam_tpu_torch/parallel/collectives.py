@@ -1,0 +1,49 @@
+"""The two collectives of the port's mesh: gather and a sum in fixed order.
+
+``loam_tpu`` leaves its collectives to XLA (``ppermute``, ``psum``, the
+all-gather of a sharded output). Here they are written out, over the
+``torch.distributed`` group of a :class:`~loam_tpu_torch.parallel.sharding.Mesh`
+(gloo for CPU tensors, NCCL for CUDA tensors); with no group nothing crosses
+a process.
+
+A per-shard tensor leads with this rank's shards, in the mesh's local order.
+Ranks hold consecutive blocks of global shards (``rank * local + j``), so
+the ranks' blocks concatenated in rank order are in global shard order.
+
+:func:`sum` adds the gathered partials one after another in global shard
+order instead of an ``all_reduce``, whose order of additions is the
+backend's. Every rank then holds the same bits, which the replicated control
+flow above needs: the ICF loop's ``running.any()``, the keyframe decision and
+the pose graph's accept test branch on reduced values, and two ranks that
+branch apart wait on each other's next collective forever. The same order
+makes a run on 2 ranks of 2 shards equal to one on 1 rank of 4 shards.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def gather(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` (a leading axis of the same length on each rank)
+    concatenated along that axis in rank order: for a per-shard tensor,
+    (global shards, ...) in global order. ``x`` itself without a group."""
+    if mesh.group is None:
+        return x
+    # bool travels as uint8: not every backend reduces or gathers bool
+    wire = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(mesh.group))]
+    dist.all_gather(parts, wire, group=mesh.group)
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+def sum(mesh, x: torch.Tensor) -> torch.Tensor:  # noqa: A001 -- the collective's name
+    """The sum over every shard of the per-shard ``x`` (L, ...), added one
+    shard after another in global shard order, the same bits on every rank."""
+    parts = gather(mesh, x)
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
+    return out

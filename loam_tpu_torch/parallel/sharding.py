@@ -1,0 +1,233 @@
+"""The mesh, and the sharded batch entry points: extraction, pair
+registration and offline odometry.
+
+Counterpart of ``loam_tpu.parallel.sharding``. ``loam_tpu`` places its
+inputs over a ``jax.sharding.Mesh`` and lets XLA partition the single-device
+programs; PyTorch runs one process (rank) per GPU under ``torch.distributed``.
+The port's :class:`Mesh` joins the two: a rank holds one or more shards, all
+on its one device (several GPUs means several ranks), and the ranks form the
+mesh's process group. Inputs are replicated (every rank passes all frames),
+each shard computes its block, and the blocks are gathered
+(``collectives.gather``), so every rank returns the whole result.
+
+Axes, as in ``loam_tpu``:
+
+  * ``data`` -- frames or pairs, in contiguous blocks. Consecutive pairs need
+    each block's first frame from the block to its right: ``loam_tpu``'s
+    ``ppermute`` halo, here a gather of every rank's first frame.
+  * ``line`` -- scan lines within extraction. Curvature and validity are
+    stencils along a line only (``features/curvature.py``), so a line block
+    needs no halo; its picks count flat scan indices from its first line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..device import place
+from ..features import FeatureSet
+from ..features.curvature import compute_curvature, compute_valid_points, validate_scan
+from ..features.extract import _extract_core
+from ..geometry import Pose3
+from ..odometry.offline import compose_trajectory
+from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
+from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
+from ..registration.detail import tree_map
+from .collectives import gather
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A ("data", "line") mesh of shards over the ranks of a process group.
+
+    Global shard ``g`` sits at ``(g // line, g % line)`` of the
+    (data, line) grid, ``loam_tpu``'s process-major device order; rank ``r``
+    holds shards ``r * local .. r * local + local - 1``, whole rows of the
+    grid.
+    """
+
+    #: This rank's shards, one ``torch.device`` each, all the same device.
+    devices: Tuple[torch.device, ...]
+    #: The ``torch.distributed`` group of the ranks, or None for one process.
+    group: Optional[object]
+    #: Shards along each axis: ``{"data": ..., "line": ...}``.
+    shape: Dict[str, int]
+    #: Global index of each of this rank's shards.
+    shard_ids: Tuple[int, ...]
+
+    axis_names = ("data", "line")
+
+    @property
+    def device(self) -> torch.device:
+        """The device of this rank's shards."""
+        return self.devices[0]
+
+    @property
+    def size(self) -> int:
+        """Shards over all ranks."""
+        return self.shape["data"] * self.shape["line"]
+
+    def rows(self) -> Tuple[int, int]:
+        """This rank's rows of the data axis: (first, count)."""
+        line = self.shape["line"]
+        return self.shard_ids[0] // line, len(self.shard_ids) // line
+
+    def shards_along(self, axis: str) -> Tuple[int, Tuple[int, ...]]:
+        """(shards along ``axis``, this rank's shards' indices on it), for the
+        functions that shard one axis; the mesh's other axis must be 1."""
+        if axis not in self.shape:
+            raise ValueError(f"mesh has no axis {axis!r}; its axes are {self.axis_names}")
+        if self.size != self.shape[axis]:
+            raise ValueError(f"sharding over {axis!r} needs the other mesh axis to be 1, "
+                             f"got {self.shape}")
+        return self.shape[axis], self.shard_ids
+
+
+def _device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) -> Mesh:
+    """A ("data", "line") mesh of this rank's shards ``devices`` in the
+    process group ``group``.
+
+    ``devices``: one entry a shard, all the same device; a device may repeat
+    (four shards on one GPU, eight on the CPU as the tests run). ``None`` is
+    one shard on this rank's GPU (``torch.cuda.current_device()``), and
+    raises PyTorch's CUDA error on a machine without one (``device.py``).
+    ``line_axis`` of each rank's shards go to the line axis, the rest to the
+    data axis: ``shape = {"data": world * local / line_axis, "line":
+    line_axis}``. ``group``: the ranks' ``torch.distributed`` group (the
+    caller initialises it), or None for one process.
+    """
+    if devices is None:
+        devices = [torch.device("cuda", torch.cuda.current_device())]
+    devs = tuple(_device(d) for d in devices)
+    if not devs:
+        raise ValueError("a mesh needs at least one shard")
+    if any(d != devs[0] for d in devs):
+        raise ValueError(f"a rank's shards must share one device, got {sorted(set(map(str, devs)))}: "
+                         f"several GPUs means several ranks")
+    n = len(devs)
+    if line_axis < 1 or n % line_axis:
+        raise ValueError(f"{n} shards not divisible by line_axis={line_axis}")
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    return Mesh(devs, group, {"data": world * n // line_axis, "line": line_axis},
+                tuple(rank * n + j for j in range(n)))
+
+
+def _blocks(count: int, what: str, mesh: Mesh) -> Tuple[int, int]:
+    """This rank's contiguous block of ``count`` items split over the data
+    axis: (first, end)."""
+    data = mesh.shape["data"]
+    if count % data:
+        raise ValueError(f"{count} {what} do not split evenly over the mesh's data axis of {data}")
+    first, rows = mesh.rows()
+    per = count // data
+    return first * per, (first + rows) * per
+
+
+def _extract_lines(pts: torch.Tensor, lidar: LidarParams, params: FeatureExtractionParams,
+                   line: int) -> FeatureSet:
+    """Features of frames (B, L, P, 3), extracted per line block of
+    ``L / line`` lines (one shard each) and joined along the slots, which
+    are line-major."""
+    L = lidar.scan_lines
+    if L % line:
+        raise ValueError(f"{L} scan lines do not split evenly over the mesh's line axis of {line}")
+    n = L // line
+    sub = dataclasses.replace(lidar, scan_lines=n)
+    parts = []
+    for b in range(line):
+        blk = pts[:, b * n:(b + 1) * n]
+        parts.append(_extract_core(blk, compute_curvature(blk, sub, params),
+                                   compute_valid_points(blk, sub, params), sub, params, line0=b * n))
+    return tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
+
+
+def _scans(scans, lidar: LidarParams, mesh: Mesh) -> torch.Tensor:
+    pts = validate_scan(place(scans, mesh.device), lidar)
+    if pts.ndim != 4:
+        raise ValueError(f"expected a batch of scans, got shape {tuple(pts.shape)}")
+    return pts
+
+
+def extract_features_sharded(
+    scans,
+    lidar: LidarParams,
+    mesh: Mesh,
+    params: FeatureExtractionParams = FeatureExtractionParams(),
+) -> FeatureSet:
+    """Batched feature extraction with frames sharded over "data" and scan
+    lines over "line": equal to ``extract_features_batch`` of ``scans``
+    (F, L, P, 3) or (F, L*P, 3), which every rank passes whole. The frame
+    count must be a multiple of the data axis, the line count of the line
+    axis."""
+    pts = _scans(scans, lidar, mesh)
+    lo, hi = _blocks(pts.shape[0], "frames", mesh)
+    return tree_map(lambda x: gather(mesh, x),
+                    _extract_lines(pts[lo:hi], lidar, params, mesh.shape["line"]))
+
+
+def register_pairs_sharded(
+    source: FeatureSet,
+    target: FeatureSet,
+    init: Pose3,
+    mesh: Mesh,
+    params: RegistrationParams = RegistrationParams(),
+) -> Tuple[Pose3, RegistrationDetail]:
+    """Batched pair registration with the pair axis sharded over "data":
+    each rank registers its block of pairs in one ``register_features_batch``
+    and the blocks are gathered. Every rank passes all pairs; the pair count
+    must be a multiple of the data axis."""
+    lo, hi = _blocks(source.edge_mask.shape[0], "pairs", mesh)
+    block = lambda x: x.to(mesh.device)[lo:hi]
+    pose, detail = register_features_batch(source.map(block), target.map(block), tree_map(block, init),
+                                           params)
+    return tree_map(lambda x: gather(mesh, x), pose), tree_map(lambda x: gather(mesh, x), detail)
+
+
+def odometry_offline_sharded(
+    scans,
+    lidar: LidarParams,
+    mesh: Mesh,
+    feat_params: FeatureExtractionParams = FeatureExtractionParams(),
+    reg_params: RegistrationParams = RegistrationParams(),
+) -> Tuple[Pose3, RegistrationDetail]:
+    """Whole-trajectory odometry with the frame axis sharded over the mesh:
+    ``odometry_offline`` with its defaults (``chunk_pairs=1``, no motion
+    prior), whose pairs are independent.
+
+    The frames split into contiguous blocks over "data" (their count must be
+    a multiple of it), lines over "line". Each rank extracts its block and
+    registers the pairs that start in it, the last one against the first
+    frame of the block to its right (the halo); the relative poses are
+    gathered and composed on every rank.
+    """
+    pts = _scans(scans, lidar, mesh)
+    F = pts.shape[0]
+    if F < 2:
+        raise ValueError(f"odometry needs at least 2 frames, got {F}")
+    lo, hi = _blocks(F, "frames", mesh)
+    feats = azimuth_sort_features(_extract_lines(pts[lo:hi], lidar, feat_params, mesh.shape["line"]))
+    n = hi - lo
+    heads = tree_map(lambda x: gather(mesh, x[:1]), feats)  # every rank's first frame
+    if hi < F:
+        frames = tree_map(lambda x, h: torch.cat([x, h[hi // n:hi // n + 1]]), feats, heads)
+    else:
+        # the last block has one pair fewer: pad with its last frame against
+        # itself, so every rank gathers n pairs; the pad is cut below
+        frames = feats.map(lambda x: torch.cat([x, x[-1:]]))
+    src, tgt = frames.map(lambda x: x[1:]), frames.map(lambda x: x[:-1])
+    init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
+    rel, details = register_features_batch(src, tgt, init, reg_params)
+    cut = lambda x: gather(mesh, x)[:F - 1]
+    return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)

@@ -195,6 +195,45 @@ def _apply_update(poses: Pose3, dx: torch.Tensor) -> Pose3:
                  quat_rotate(dq, poses.translation) + xi[:, 3:])
 
 
+def _cast(initial: Pose3, edges: PoseGraphEdges):
+    """Poses and edge measurements / weights in the dtype of ``initial``'s
+    translations."""
+    dtype = initial.translation.dtype
+    poses = Pose3(initial.rotation.to(dtype), initial.translation.to(dtype))
+    z = edges.measurement
+    edges = edges._replace(measurement=Pose3(z.rotation.to(dtype), z.translation.to(dtype)),
+                           weight=edges.weight.to(dtype))
+    return poses, edges
+
+
+def _levenberg_marquardt(poses: Pose3, iterations: int, assemble, cost):
+    """The LM loop over ``assemble(poses) -> (H, b)`` and ``cost(poses)``:
+    a fixed count of damped Cholesky steps, each kept only if it lowers the
+    cost, with no host sync."""
+    dtype, dev = poses.translation.dtype, poses.translation.device
+    dim = 6 * poses.translation.shape[0]
+    gauge = torch.zeros(dim, dtype=dtype, device=dev)
+    gauge[:6] = 1e12  # clamp node 0
+    lam = torch.tensor(1e-6, dtype=dtype, device=dev)
+    c = cost(poses)
+    for _ in range(iterations):
+        H, b = assemble(poses)
+        diag = H.diagonal()
+        diag.add_(lam * diag + 1e-8 + gauge)
+        L, info = torch.linalg.cholesky_ex(H)
+        del H
+        dx = -torch.cholesky_solve(b[:, None], L)[:, 0]
+        del L
+        candidate = _apply_update(poses, dx)
+        new_cost = cost(candidate)
+        accept = (new_cost < c) & (info == 0)
+        poses = Pose3(torch.where(accept, candidate.rotation, poses.rotation),
+                      torch.where(accept, candidate.translation, poses.translation))
+        c = torch.where(accept, new_cost, c)
+        lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-12), torch.clamp(lam * 4.0, max=1e8))
+    return poses, c
+
+
 def optimize_pose_graph(
     initial: Pose3,
     edges: PoseGraphEdges,
@@ -209,30 +248,54 @@ def optimize_pose_graph(
 
     Returns: (optimized trajectory, final total weighted squared error).
     """
-    dtype = initial.translation.dtype
-    dim = 6 * initial.translation.shape[0]
-    poses = Pose3(initial.rotation.to(dtype), initial.translation.to(dtype))
-    z = edges.measurement
-    edges = edges._replace(measurement=Pose3(z.rotation.to(dtype), z.translation.to(dtype)),
-                           weight=edges.weight.to(dtype))
-    dev = poses.translation.device
-    gauge = torch.zeros(dim, dtype=dtype, device=dev)
-    gauge[:6] = 1e12  # clamp node 0
-    lam = torch.tensor(1e-6, dtype=dtype, device=dev)
-    cost = _cost(poses, edges)
-    for _ in range(iterations):
-        H, b = _assemble(poses, edges, dim)
-        diag = H.diagonal()
-        diag.add_(lam * diag + 1e-8 + gauge)
-        L, info = torch.linalg.cholesky_ex(H)
-        del H
-        dx = -torch.cholesky_solve(b[:, None], L)[:, 0]
-        del L
-        candidate = _apply_update(poses, dx)
-        new_cost = _cost(candidate, edges)
-        accept = (new_cost < cost) & (info == 0)
-        poses = Pose3(torch.where(accept, candidate.rotation, poses.rotation),
-                      torch.where(accept, candidate.translation, poses.translation))
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-12), torch.clamp(lam * 4.0, max=1e8))
-    return poses, cost
+    poses, edges = _cast(initial, edges)
+    dim = 6 * poses.translation.shape[0]
+    return _levenberg_marquardt(poses, iterations, lambda p: _assemble(p, edges, dim),
+                                lambda p: _cost(p, edges))
+
+
+def optimize_pose_graph_sharded(
+    initial: Pose3,
+    edges: PoseGraphEdges,
+    mesh,
+    iterations: int = 10,
+    axis: str = "data",
+) -> Tuple[Pose3, torch.Tensor]:
+    """Distributed pose-graph solve: the edges sharded over ``axis`` of
+    ``mesh`` (``parallel.make_mesh``), ``loam_tpu``'s
+    ``optimize_pose_graph_sharded``.
+
+    ``initial`` and ``edges`` are replicated: every rank passes the whole
+    graph. Each shard assembles the normal equations and the cost of its
+    contiguous block of edges (shard g holds edges ``g*E/D .. (g+1)*E/D - 1``);
+    ``parallel.collectives.sum`` adds the partials in global shard order, so
+    every rank holds the same system bit for bit, and the LM loop of
+    :func:`optimize_pose_graph` runs replicated on it. Results match the
+    single-device solve up to the order of the additions. The edge count
+    must be a multiple of the shard count: pad with masked edges.
+    """
+    from .parallel import collectives
+    from .registration.detail import tree_map
+
+    D, mine = mesh.shards_along(axis)
+    E = edges.i.shape[0]
+    if E % D:
+        raise ValueError(f"{E} edges do not split evenly over the {D} shards of mesh axis "
+                         f"{axis!r}: pad with masked edges")
+    to_mesh = lambda x: x.to(mesh.device)
+    poses, edges = _cast(tree_map(to_mesh, initial), tree_map(to_mesh, edges))
+    dim = 6 * poses.translation.shape[0]
+    n = E // D
+    blocks = [tree_map(lambda x, g=g: x[g * n:(g + 1) * n], edges) for g in mine]
+
+    def assemble(p):
+        H = torch.empty((len(blocks), dim, dim), dtype=p.translation.dtype, device=mesh.device)
+        b = torch.empty((len(blocks), dim), dtype=p.translation.dtype, device=mesh.device)
+        for s, e in enumerate(blocks):  # one partial H at a time beside the stack
+            H[s], b[s] = _assemble(p, e, dim)
+        return collectives.sum(mesh, H), collectives.sum(mesh, b)
+
+    def cost(p):
+        return collectives.sum(mesh, torch.stack([_cost(p, e) for e in blocks]))
+
+    return _levenberg_marquardt(poses, iterations, assemble, cost)

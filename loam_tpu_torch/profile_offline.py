@@ -11,8 +11,11 @@ loop, ``odometry_streaming`` (``streaming``: the numpy frames in chunks of
 8, packed), or the loop-closed path (``loop_closure``: the 33 keyframes of
 ``io.square_loop_scans`` written as KITTI ``.bin`` files, read by the native
 loader into ``odometry_streaming``, then ``extract_features_batch`` on the
-keyframes and ``optimize_trajectory_with_closures``); ``--dual-knn`` sets
-``LOAM_ICF_DUAL_KNN=1`` -- then:
+keyframes and ``optimize_trajectory_with_closures``), or
+``scan_to_map_sharded``: ``scan_to_map_step_sharded`` frame by frame against
+maps of the default capacities split over a mesh of 4 shards of the GPU, in
+a world-size-1 NCCL group; ``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` --
+then:
 
   * for ``offline``, stage times on the host clock with a device sync at
     each boundary: batched extraction, then each registration chunk (with
@@ -47,6 +50,9 @@ from loam_tpu_torch.loop_closure import (
     closure_edges, join_edges, optimize_trajectory_with_closures, propose_candidates, verify_closures)
 from loam_tpu_torch.pose_graph import odometry_edges, optimize_pose_graph
 from loam_tpu_torch.registration import azimuth_sort_features
+
+#: Shards of the GPU in the ``scan_to_map_sharded`` driver's mesh.
+SHARDS = 4
 
 #: The loop-closed path's settings: 8 candidates a call, revisits at least
 #: half the loop apart and within 1 m, 10 pose-graph iterations.
@@ -100,7 +106,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--driver", default="offline",
                     choices=("offline", "scan_to_map", "scan_to_map_grid", "scan_to_scan", "streaming",
-                             "loop_closure"))
+                             "loop_closure", "scan_to_map_sharded"))
     ap.add_argument("--dual-knn", action="store_true", help="set LOAM_ICF_DUAL_KNN=1")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default="profile_out")
@@ -127,8 +133,27 @@ def main() -> int:
 
     if args.dual_knn:
         os.environ["LOAM_ICF_DUAL_KNN"] = "1"
+    if args.driver == "scan_to_map_sharded":
+        import socket
+
+        import torch.distributed as dist
+        from loam_tpu_torch import parallel
+        from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on the loopback
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+        mesh = parallel.make_mesh([dev] * SHARDS, group=dist.group.WORLD)
 
     def run():
+        if args.driver == "scan_to_map_sharded":
+            cfg, reg = T.ScanToMapConfig(), T.default_map_reg_params()
+            state = scan_to_map_init_sharded(cfg, mesh)
+            for f in range(args.frames):
+                state, _, _ = scan_to_map_step_sharded(state, scans[f], lidar, mesh, fp, reg, cfg)
+            return state
         if args.driver == "scan_to_map":
             return T.scan_to_map_offline(scans, lidar, fp, T.default_map_reg_params())
         if args.driver == "scan_to_map_grid":
@@ -195,6 +220,8 @@ def main() -> int:
         "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms,
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},
     }))
+    if args.driver == "scan_to_map_sharded":
+        dist.destroy_process_group()
     return 0
 
 

@@ -113,8 +113,18 @@ def _register_impl(
     init: Pose3,
     params: RegistrationParams,
     with_matches: bool,
+    custom_knn=None,
 ) -> Tuple[Pose3, RegistrationDetail]:
-    """Register batched feature sets ((B, ...) leaves) from ``init`` (B poses)."""
+    """Register batched feature sets ((B, ...) leaves) from ``init`` (B poses).
+
+    ``custom_knn``: optional ``(edge_fn, plane_fn)``, each mapping the moved
+    queries (B, Q, 3) to a ``PackedKnn`` with (B, k, Q) leaves (or a
+    ``KnnResult``, whose indices then address ``target``): the hook the
+    sharded registration (``parallel.distributed``) binds to its search, as
+    ``loam_tpu``'s ``custom_knn`` (``icf.py:222-250``). With it, the target
+    is neither prepared nor searched here. ``loam_tpu``'s third element, the
+    seed windows, has no counterpart: the port's kernel takes no seed bound.
+    """
     dtype = source.edge_points.dtype
     dev = source.edge_points.device
     B, E = source.edge_mask.shape
@@ -143,10 +153,12 @@ def _register_impl(
     # the targets are fixed across outer iterations: prepare them once.
     # The grid needs both radii (its cell sizes); without them the "grid"
     # backend searches by brute force, as loam_tpu's does.
-    use_grid = (params.search_backend == "grid" and params.max_edge_neighbor_dist > 0
-                and params.max_plane_neighbor_dist > 0)
-    dual = _use_dual_knn(params, dtype)
-    if use_grid:
+    use_grid = (custom_knn is None and params.search_backend == "grid"
+                and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
+    dual = custom_knn is None and _use_dual_knn(params, dtype)
+    if custom_knn is not None:
+        edge_knn, plane_knn = custom_knn
+    elif use_grid:
         edge_grid = build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist)
         plane_grid = build_grid(target.planar_points, target.planar_mask,
                                 params.max_plane_neighbor_dist)
@@ -164,7 +176,9 @@ def _register_impl(
     while bool(running.any()):
         qe = quat_rotate(est.rotation[:, None], source.edge_points) + est.translation[:, None]
         qp = quat_rotate(est.rotation[:, None], source.planar_points) + est.translation[:, None]
-        if use_grid:
+        if custom_knn is not None:
+            e_res, p_res = edge_knn(qe), plane_knn(qp)
+        elif use_grid:
             # indices into the unsorted targets: the gathered fits
             e_res, e_ovf = knn_grid(edge_grid, qe, params.num_edge_neighbors,
                                     params.max_edge_neighbor_dist, params.grid_max_per_cell)

@@ -616,3 +616,46 @@ def test_odometry_streaming_over_paths_on_the_card(dev, tmp_path):
         assert torch.equal(det.termination.cpu(), det_c.termination)
         np.testing.assert_allclose(got.translation.cpu().numpy(), cpu.translation.numpy(), atol=1e-2, rtol=0)
         assert ate_rmse(got.translation.cpu().numpy(), gt, align=False) < limit
+
+
+@pytest.mark.parametrize("case", ["one_empty_shard", "all_empty", "ties"])
+def test_sharded_knn_on_the_card_matches_plain(dev, case):
+    """``sharded_knn`` on a mesh of four shards of the card: one batched
+    launch of the kNN kernel for the four shards, then the merge, equal to
+    the plain search over the whole target (indices where valid, masks,
+    distances, neighbour coordinates) and to the same sharded search on the
+    CPU (masks and indices equal, distances and coordinates within 1e-6:
+    the two devices' square roots). An empty shard, or an empty target,
+    gives no neighbour from it."""
+    from loam_tpu_torch.parallel import make_mesh
+    from loam_tpu_torch.parallel.distributed import sharded_knn
+
+    rng = np.random.default_rng(17)
+    S = 4096
+    if case == "ties":  # a 0.5 m grid: many equidistant targets across shards
+        t = (rng.integers(-6, 7, (4 * S, 3)) * 0.5).astype(np.float32)
+        q = (rng.integers(-6, 7, (3000, 3)) * 0.5).astype(np.float32)
+    else:
+        t = rng.uniform(-20, 20, (4 * S, 3)).astype(np.float32)
+        q = rng.uniform(-20, 20, (3000, 3)).astype(np.float32)
+    m = rng.random(4 * S) > 0.3
+    m[S:2 * S] = False
+    if case == "all_empty":
+        m[:] = False
+    tq, tt, tm = (torch.from_numpy(x).to(dev) for x in (q, t, m))
+    for k, r in ((5, 1.0), (5, 0.0), (2, 3.0)):
+        before = knn_cuda.knn_run.launches
+        res, nbr = sharded_knn(tq, tt, tm, k, r, make_mesh([dev] * 4))
+        assert knn_cuda.knn_run.launches == before + 1
+        plain = knn_cuda.knn_run_reference(knn_cuda.knn_prep(tt, tm), tq, k, r)
+        assert torch.equal(res.mask, plain.mask)
+        assert torch.equal(res.indices[res.mask], plain.indices[plain.mask])
+        assert torch.equal(res.distances, plain.distances)
+        assert torch.equal(nbr[res.mask], tt[res.indices[res.mask].long()])
+        if case == "all_empty":
+            assert not res.mask.any()
+        cpu, nbr_c = sharded_knn(*(x.cpu() for x in (tq, tt, tm)), k, r, make_mesh(["cpu"] * 4))
+        assert torch.equal(res.mask.cpu(), cpu.mask)
+        assert torch.equal(res.indices.cpu()[cpu.mask], cpu.indices[cpu.mask])
+        torch.testing.assert_close(res.distances.cpu(), cpu.distances, atol=1e-6, rtol=0)
+        torch.testing.assert_close(nbr.cpu()[cpu.mask], nbr_c[cpu.mask], atol=1e-6, rtol=0)
