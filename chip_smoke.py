@@ -36,14 +36,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      with a k above the register lists (the kernel's wide form: 9 and 16,
      dual (9, 12));
      print the A/B of one dual kNN launch against the two single launches it
-     replaces. ``--extraction-only`` stops here, after the three extraction
-     kernels, and prints their rows.
+     replaces. The kNN kernels prune their visits (boxes of the targets, a
+     nearest-first list a block of queries, the per-visit gate, the seed
+     bounds): the single search runs with the ICF loop's cold seed bound at
+     the first iteration (row ``knn``), with the warm one from the last
+     result at moved queries (``knn_warm``), in the wide form at k = 16
+     (``knn_wide16``), and at map scale as scan-to-map's prep cache runs it
+     (``knn_map``); every seed bound
+     computed on the card is bit-equal to the plain functions' on the CPU,
+     and the bound the kernel gated with (its debug plane) to the one it was
+     given. Each kNN row prints its visits against the live boxes, the bound
+     from the distance evaluations the search needed (``bound_ms``: the
+     query-box visits that passed the gate) beside the dense bound, and the
+     row's launch-alone time before the pruning (from ``PERF.md``; printed,
+     not in the JSON line). ``--extraction-only`` stops here, after the three
+     extraction kernels, and prints their rows.
   3. Drive ``odometry_offline`` on those 16 frames, handed over as the numpy
      array the renderer returns and with no ``device`` (so it runs on the
      GPU), ``chunk_pairs=4``, ``motion_init=True`` (single kNN) with every
      launch counter reset first; require each kernel to have launched,
      finite poses of the right shape and the benchmark's ATE gate; time 3
-     runs after a warm-up.
+     runs after a warm-up. Run again with ``LOAM_KNN_SEED=0`` and
+     ``LOAM_S2M_PREP_CACHE=0``: poses bit-equal, terminations and iteration
+     counts equal.
   4. Check agreement with the plain versions on a small input: the offline,
      scan-to-map (brute force and grid), scan-to-scan and streaming drivers
      on 6 frames of 16x360 scans on the GPU and on the CPU;
@@ -57,11 +72,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of the single one, the same terminations and iteration counts as phase
      3, poses within 1e-5 m of it, the ATE gate; scans/s beside phase 3's.
   6. ``scan_to_map_offline`` on the 16 frames with the default
-     ``ScanToMapConfig`` and ``default_map_reg_params()``, dual kNN: every
-     extraction kernel and the dual kNN launched, no single kNN; the ATE
-     gate; no voxel dropped; map sizes and scans/s over 3 runs.
+     ``ScanToMapConfig`` and ``default_map_reg_params()``: the
+     rebuild-on-insert prep cache and the seeded single kNN, as ``loam_tpu``
+     runs it; every extraction kernel and the single kNN launched, no dual
+     kNN; the ATE gate; no voxel dropped; the cache after the inserts, and
+     stripped and rebuilt, equal to one built fresh; again without the seeds
+     and the cache: poses bit-equal, terminations and iteration counts
+     equal; map sizes and scans/s over 3 runs of both.
   7. A ``scan_to_scan_step(dewarp=True)`` loop over the 16 frames, dual kNN:
-     the same checks as 6, and scans/s.
+     every extraction kernel and the dual kNN launched, no single kNN; the
+     ATE gate; scans/s.
   8. ``scan_to_map_offline`` with ``RegistrationParams(search_backend="grid",
      prior_weight=300)``: the voxel-grid search instead of the kNN kernel. The
      ATE gate, no voxel dropped, the grid's overflow count (required 0 at the
@@ -84,7 +104,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      revisit among the accepted closures, the end gap shrinking, the
      optimized trajectory's ATE no worse than the odometry's and under the
      gate, and every extraction kernel and the single kNN launched by both
-     counted runs. Holds the kernels against their plain versions at this
+     counted runs; both runs again without the seed bounds: odometry poses
+     bit-equal, terminations and iteration counts equal, the same closures
+     and optimized poses. Holds the kernels against their plain versions at this
      path's shapes: the extraction kernels on the keyframes' 2,112 lines and
      the single kNN on the candidate pairs that ``verify_closures``
      registers, with their query masks, at the first ICF iteration and at
@@ -114,7 +136,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edges padded with masked ones to a multiple of 4, within 1e-8 of phase
      11's solve and 1e-5 m of the truth; ms per solve, peak memory.
 
-``LOAM_ICF_DUAL_KNN`` is set and restored around the phases that use it.
+``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
+and restored around the phases that use them.
 It prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -238,33 +261,56 @@ def _require_equal(name, a, b):
 
 
 @contextlib.contextmanager
-def _dual_knn(on: bool):
-    """Set ``LOAM_ICF_DUAL_KNN`` for the block and restore it after."""
-    old = os.environ.get("LOAM_ICF_DUAL_KNN")
-    os.environ["LOAM_ICF_DUAL_KNN"] = "1" if on else "0"
+def _env(**values):
+    """Set environment variables for the block and restore them after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["LOAM_ICF_DUAL_KNN"]
-        else:
-            os.environ["LOAM_ICF_DUAL_KNN"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
-def _check_single_knn(what, knn_cuda, prep, q, k, r, qm):
-    """The single kernel against its plain version in both output forms,
-    all exactly equal. Returns the max abs error of the valid distances."""
+def _dual_knn(on: bool):
+    """Set ``LOAM_ICF_DUAL_KNN`` for the block and restore it after."""
+    return _env(LOAM_ICF_DUAL_KNN="1" if on else "0")
+
+
+#: The pruning's switches off: no seed bounds, no scan-to-map prep cache.
+UNSEEDED = dict(LOAM_KNN_SEED="0", LOAM_S2M_PREP_CACHE="0")
+
+#: Each kNN row's launch-alone time before the pruning, as PERF.md section 6
+#: gives it (NVIDIA H100 80GB HBM3, 700 W); printed beside the row, not in
+#: the JSON line. The warm row has the cold row's shape.
+EARLIER_LAUNCH_MS = {"knn": 0.7324, "knn_warm": 0.7324, "knn_dual_scan": 0.7999, "knn_dual": 0.1011,
+                     "knn_shard": 0.1368, "knn_shard_empty": 0.0480, "knn_wide16": 5.2558}
+
+
+def _check_single_knn(what, knn_cuda, prep, q, k, r, qm, seed=None):
+    """The single kernel (with ``seed``, ``knn_run``'s seed arguments, if
+    any) against its plain version in both output forms, all exactly equal;
+    the kernel visits no more boxes than are live. Returns the max abs error
+    of the valid distances."""
     import torch
 
-    a = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
-    b = knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm)
+    seed = seed or {}
+    a, va = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm, return_visits=True,
+                             **seed)
+    b, vb = knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm,
+                                       return_visits=True)
     torch.cuda.synchronize()
+    if va.shape != vb.shape or not bool((va <= vb).all()):
+        raise AssertionError(f"{what}: the kernel visited more boxes than are live")
     _require_equal(f"{what} mask", a.mask, b.mask)
     m = b.mask
     _require_equal(f"{what} first_idx", a.first_idx[m[..., 0, :]], b.first_idx[m[..., 0, :]])
     for ax in ("xs", "ys", "zs"):
         _require_equal(f"{what} {ax}", getattr(a, ax)[m], getattr(b, ax)[m])
-    ra = knn_cuda.knn_run(prep, q, k, r, query_mask=qm)
+    ra = knn_cuda.knn_run(prep, q, k, r, query_mask=qm, **seed)
     rb = knn_cuda.knn_run_reference(prep, q, k, r, query_mask=qm)
     torch.cuda.synchronize()
     _require_equal(f"{what} result mask", ra.mask, rb.mask)
@@ -273,23 +319,78 @@ def _check_single_knn(what, knn_cuda, prep, q, k, r, qm):
     return _max_err(ra.distances[rb.mask], rb.distances[rb.mask])
 
 
-def _knn_row(name, knn_cuda, prep, q, k, r, qm, tmask, err, shape) -> dict:
+def _visit_fields(name, visits, plain_visits, tt, nbytes, dense_ops) -> dict:
+    """The pruning's figures of a kNN row: ``visits`` (B, blocks, 2) of the
+    kernel's debug counter (boxes staged, query-box visits) against the
+    plain search's every live box; ``bound_ms`` from the distance
+    evaluations the search needed (the query-box visits that passed the
+    gate x box length, 8 float32 operations each), ``dense_bound_ms`` from
+    every searching query against every valid target."""
+    done = int(visits[..., 1].sum().item()) * tt
+    staged, live = int(visits[..., 0].sum().item()), int(plain_visits.sum().item())
+    dense = _bound(nbytes, dense_ops)
+    return dict(visits=staged, live_boxes=live, visits_share=staged / max(live, 1), evaluations=done,
+                dense_bound_ms=dense["bound_ms"], earlier_launch_ms=EARLIER_LAUNCH_MS.get(name),
+                **_bound(nbytes, 8 * done))
+
+
+def _knn_row(name, knn_cuda, prep, q, k, r, qm, tmask, err, shape, seed=None, want=None) -> dict:
     """The single kNN's entry: the wrapper call by call (``ms``), the search
     and merge kernels without the wrapper's PyTorch operations
     (``launch_ms``), the wrapper's host microseconds a call and the plain
-    version, beside the bound from this run's targets and searching
-    queries."""
-    run = lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm)
+    version, beside the bound from the evaluations the kernel did and the
+    dense bound from this run's targets and searching queries; the visit
+    share. ``seed`` holds ``knn_run``'s seed arguments; the bound the kernel
+    gated each query with (its debug plane) must equal ``want`` bit for bit
+    (+inf without a seed)."""
+    import torch
+
+    seed = seed or {}
+    run = lambda: knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm, **seed)
     out = run()
+    prev = seed.get("seed_prev")
+    raw = dict(prev=None if prev is None else (prev.xs, prev.ys, prev.zs, prev.mask),
+               window=seed.get("seed_window", False))
+    sb = seed.get("seed_bound")
+    _, _, _, visits, used = knn_cuda._search_kernel(prep, q, k, r * r, qm, sb, visits=True, bound=True,
+                                                    **raw)
+    if want is None:
+        want = torch.full_like(used, float("inf"))
+    if not torch.equal(used.cpu(), want.cpu()):
+        raise AssertionError(f"{name}: the kernel gated with another bound than the plain functions give")
+    # index, d2 and three coordinate planes out
+    nbytes = (_nbytes(prep.tT, prep.n_live, prep.rot, prep.rbox, q, qm, sb, *(raw["prev"] or ()))
+              + 5 * _nbytes(out.xs))
     return dict(
         name=name, counter="knn", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:134", shape=shape, max_abs_err=err,
-        ms=_time_ms(run, 10), launch_ms=_time_ms(lambda: knn_cuda._search_kernel(prep, q, k, r * r, qm), 10),
+        ms=_time_ms(run, 10),
+        launch_ms=_time_ms(lambda: knn_cuda._search_kernel(prep, q, k, r * r, qm, sb, **raw), 10),
         host_us=_host_us(run, 50),
         plain_ms=_time_ms(lambda: knn_cuda.knn_run_reference(prep, q, k, r, with_coords=True, query_mask=qm), 2),
         library_ms=None,  # cdist + topk is two calls and another arithmetic
-        # index, d2 and three coordinate planes out
-        **_bound(_nbytes(prep.tT, prep.n_live, q, qm) + 5 * _nbytes(out.xs), _knn_operations([(tmask, qm)])))
+        seeded=bool(seed),
+        **_visit_fields(name, visits, knn_cuda._plain_visits(prep.n_live, prep.tt, q.shape[1], k),
+                        prep.tt, nbytes, _knn_operations([(tmask, qm)])))
+
+
+def _plain_seed(knn_cuda, q, t_points, t_mask, k, prev=None):
+    """The ICF loop's seed bound for moved queries ``q`` (B, Q, 3) by the
+    plain functions on the CPU: min(warm start from the packed result
+    ``prev``, or none yet, cold start from the rank window of the
+    targets)."""
+    import torch
+
+    q, t, m = q.cpu(), t_points.cpu(), t_mask.cpu()
+    B, Q = q.shape[:2]
+    if prev is None:  # the carry before the first iteration: no neighbours
+        z = torch.zeros((B, k, Q), dtype=q.dtype)
+        prev_t = (z, z, z, torch.zeros((B, k, Q), dtype=torch.bool))
+    else:
+        prev_t = tuple(x.cpu() for x in (prev.xs, prev.ys, prev.zs, prev.mask))
+    win = knn_cuda.window_candidates(t, m, Q)
+    return torch.minimum(knn_cuda.seed_bound_from_packed(q, *prev_t),
+                         knn_cuda.seed_bound_from_window(q, *win, k))
 
 
 def _seconds_per_run(run, reps: int) -> float:
@@ -567,6 +668,14 @@ def _print_kernels(kernels):
                  f"{kd['bound_ms'] / kd['launch_ms']:.4f})")
         if "host_us" in kd:
             line += f", wrapper {kd['host_us']:.2f} us of host time a call"
+        if "visits" in kd:
+            earlier = kd["earlier_launch_ms"]
+            line += (f", visits {kd['visits']} of {kd['live_boxes']} live boxes (share "
+                     f"{kd['visits_share']:.4f}), {kd['evaluations']} distance evaluations done, dense "
+                     f"bound {kd['dense_bound_ms']:.6f} ms, launch alone before the pruning "
+                     + ("not measured" if earlier is None else f"{earlier:.4f} ms (PERF.md)"))
+            if kd.get("seeded"):
+                line += ", seed bound bit-equal to the plain functions' on the CPU"
         if "chain_floor_ms" in kd:
             line += (f", chain floor {kd['chain_floor_ms']:.6f} ms ({kd['accepts_max']} accepts in the "
                      f"longest line, {kd['accepts_mean']:.1f} a line on average)")
@@ -830,13 +939,22 @@ def main() -> int:
         q = getattr(feats, f"{cls}_points")[1:C + 1].contiguous()
         qm = getattr(feats, f"{cls}_mask")[1:C + 1].contiguous()
         prep = knn_cuda.knn_prep(tgt_pts, tgt_mask)
-        knn_err = max(knn_err, _check_single_knn(f"knn {cls}", knn_cuda, prep, q, k, r, qm))
+        # the first ICF iteration's cold seed bound (the rank window), and a
+        # mid-run iteration's warm one: the last result at moved queries
+        # (the kernel computes both in its prologue, as the ICF loop runs it)
+        cold = dict(seed_window=True)
+        prev = knn_cuda.knn_run(prep, q, k, r, with_coords=True, query_mask=qm, **cold)
+        q_warm = (q + torch.tensor([0.012, -0.005, 0.002], device=dev)).contiguous()
+        warm = dict(seed_prev=prev, seed_window=True)
+        for what, qq, seed in (("", q, None), (" cold", q, cold), (" warm", q_warm, warm)):
+            knn_err = max(knn_err, _check_single_knn(f"knn {cls}{what}", knn_cuda, prep, qq, k, r, qm, seed))
         # one pair: the targets are split across thread blocks; four pairs
         # with the splits switched off: every block searches all live targets
         prep1 = knn_cuda.knn_prep(tgt_pts[:1], tgt_mask[:1])
-        knn_err = max(knn_err, _check_single_knn(f"knn {cls} B=1", knn_cuda, prep1, q[:1], k, r, qm[:1]))
+        knn_err = max(knn_err, _check_single_knn(f"knn {cls} B=1", knn_cuda, prep1, q[:1], k, r, qm[:1],
+                                                 cold))
         with _unsplit(knn_cuda):
-            knn_err = max(knn_err, _check_single_knn(f"knn {cls} unsplit", knn_cuda, prep, q, k, r, qm))
+            knn_err = max(knn_err, _check_single_knn(f"knn {cls} unsplit", knn_cuda, prep, q, k, r, qm, cold))
         if cls == "planar":
             Qp = q.shape[1]
             plan4, plan1 = (knn_cuda.split_plan(b, ((Qp, Qp),), bq)[0] for b in (C, 1))
@@ -844,7 +962,15 @@ def main() -> int:
                 raise AssertionError("knn: one pair at scan scale did not take the split path")
             knn_shape = (f"B={C}, Q=M={Qp} planar (and {feats.edge_points.shape[1]} edge), k={k}, "
                          f"n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries")
-            knn_row = _knn_row("knn", knn_cuda, prep, q, k, r, qm, tgt_mask, 0.0, knn_shape)
+            knn_row = _knn_row("knn", knn_cuda, prep, q, k, r, qm, tgt_mask, 0.0,
+                               knn_shape + ", first ICF iteration, cold seed bound", cold,
+                               _plain_seed(knn_cuda, q, tgt_pts, tgt_mask, k))
+            warm_row = _knn_row("knn_warm", knn_cuda, prep, q_warm, k, r, qm, tgt_mask, 0.0,
+                                knn_shape + ", queries moved (0.012, -0.005, 0.002) m, warm seed bound "
+                                "from the last result", warm,
+                                _plain_seed(knn_cuda, q_warm, tgt_pts, tgt_mask, k, prev))
+            if not warm_row["visits"] < warm_row["live_boxes"] or not knn_row["visits"] < knn_row["live_boxes"]:
+                raise AssertionError("knn at scan scale visited every live box")
             knn_b1_ms = _time_ms(lambda: knn_cuda.knn_run(prep1, q[:1], k, r, with_coords=True,
                                                           query_mask=qm[:1]), 10)
             with _unsplit(knn_cuda):
@@ -858,14 +984,19 @@ def main() -> int:
             for k_wide in (9, 16):
                 knn_err = max(knn_err, _check_single_knn(f"knn planar k={k_wide}", knn_cuda, prep, q,
                                                          k_wide, r, qm))
+                knn_err = max(knn_err, _check_single_knn(
+                    f"knn planar k={k_wide} seeded", knn_cuda, prep, q, k_wide, r, qm, cold))
             wide_ms = _time_ms(lambda: knn_cuda._search_kernel(prep, q, 16, r * r, qm), 3)
+            wide_row = _knn_row("knn_wide16", knn_cuda, prep, q, 16, r, qm, tgt_mask, 0.0,
+                                knn_shape.replace("k=5", "k=16 (the wide form)") + ", cold seed bound",
+                                cold, _plain_seed(knn_cuda, q, tgt_pts, tgt_mask, 16))
             # the same distances as k = 5, index, d2 and three coordinate planes of 16 slots out
             wide_bound = _bound(_nbytes(prep.tT, prep.n_live, q, qm) + 5 * 4 * 16 * qm.numel(),
                                 _knn_operations([(tgt_mask, qm)]))
     if knn_err != 0.0:
         raise AssertionError(f"knn distances differ from the plain version by {knn_err}")
-    knn_row["max_abs_err"] = knn_err
-    kernels.append(knn_row)
+    knn_row["max_abs_err"] = warm_row["max_abs_err"] = wide_row["max_abs_err"] = knn_err
+    kernels += [knn_row, warm_row, wide_row]
     # dual kNN, scan scale: the same chunk, both classes in one launch; no
     # query mask (as knn_dual_run), so every source slot searches
     k_e, k_p = rp.num_edge_neighbors, rp.num_plane_neighbors
@@ -926,19 +1057,27 @@ def main() -> int:
     scan_shape = (f"B={C}, {qe.shape[1]} edge + {qp.shape[1]} planar queries vs the same per pair, "
                   f"k={k_p}, n_live (edge, planar) {d_prep.n_live.tolist()}")
 
-    def dual_bound(prep, e_mask, p_mask, q_e, q_p, k):
-        """Targets, bounds and queries in; index and d2 planes of both classes out."""
+    def dual_bound(name, prep, e_mask, p_mask, q_e, q_p, k, r_e, r_p):
+        """Targets, boxes, bounds and queries in; index and d2 planes of both
+        classes out; the visits of one launch."""
         lift = lambda m: m if m.ndim == 2 else m[None]
         n_q = (q_e.numel() + q_p.numel()) // 3
-        return _bound(_nbytes(prep.tT, prep.n_live, q_e, q_p) + 2 * 4 * k * n_q,
-                      _knn_operations([(lift(e_mask), q_e.shape[-2]), (lift(p_mask), q_p.shape[-2])]))
+        le, lp = q_e.reshape(-1, q_e.shape[-2], 3), q_p.reshape(-1, q_p.shape[-2], 3)
+        *_, ve, vp = knn_cuda._dual_search_kernel(prep, le.contiguous(), lp.contiguous(), k, r_e * r_e,
+                                                  r_p * r_p, visits=True)
+        plain = torch.cat([knn_cuda._plain_visits(prep.n_live[:, 0], prep.tt, le.shape[1], k),
+                           knn_cuda._plain_visits(prep.n_live[:, 1], prep.tt, lp.shape[1], k)], dim=1)
+        return _visit_fields(name, torch.cat([ve, vp], dim=1), plain, prep.tt,
+                             _nbytes(prep.tT, prep.n_live, prep.rot, prep.rbox, q_e, q_p) + 2 * 4 * k * n_q,
+                             _knn_operations([(lift(e_mask), q_e.shape[-2]), (lift(p_mask), q_p.shape[-2])]))
 
     kernels.append(dict(
         name="knn_dual_scan", counter="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
         replaces="loam_tpu/ops/knn_pallas.py:946", shape=scan_shape,
         max_abs_err=dual_err, ms=dual_scan_ms, launch_ms=dual_scan_launch_ms,
         host_us=dual_scan_host_us, plain_ms=dual_scan_plain_ms, library_ms=None,
-        **dual_bound(d_prep, tgt.edge_mask, tgt.planar_mask, qe, qp, max(k_e, k_p)),
+        **dual_bound("knn_dual_scan", d_prep, tgt.edge_mask, tgt.planar_mask, qe, qp, max(k_e, k_p),
+                     r_e, r_p),
     ))
 
     # dual kNN, map scale: the voxel maps after the first frames at the
@@ -1008,8 +1147,29 @@ def main() -> int:
         replaces="loam_tpu/ops/knn_pallas.py:946", shape=map_shape,
         max_abs_err=map_err, ms=map_ms, launch_ms=map_launch_ms, host_us=map_host_us,
         plain_ms=map_plain_ms, library_ms=None,
-        **dual_bound(m_prep, em.mask, pm.mask, mqe, mqp, max(k_e, k_p)),
+        **dual_bound("knn_dual", m_prep, em.mask, pm.mask, mqe, mqp, max(k_e, k_p), r_e, r_p),
     ))
+    # the single search at map scale, as scan-to-map's prep cache runs it:
+    # one frame's queries (masked) against the maps, the cold seed bound
+    # from the kernel's prologue
+    map_err = 0.0
+    for cls, vm, qq, qmask, k, r in (("planar", pm, mqp, f_next.planar_mask, k_p, r_p),
+                                     ("edge", em, mqe, f_next.edge_mask, k_e, r_e)):
+        cprep = knn_cuda.knn_prep(vm.points[None], vm.mask[None])
+        cq, cqm = qq[None].contiguous(), qmask[None].contiguous()
+        map_err = max(map_err, _check_single_knn(f"knn map {cls}", knn_cuda, cprep, cq, k, r, cqm,
+                                                 dict(seed_window=True)))
+        if cls == "planar":
+            map_row = (cprep, cq, k, r, cqm, vm.mask[None],
+                       _plain_seed(knn_cuda, cq, vm.points[None], vm.mask[None], k))
+    if map_err != 0.0:
+        raise AssertionError(f"knn at map scale differs from the plain version by {map_err}")
+    cprep, cq, k, r, cqm, cmask, want = map_row
+    kernels.append(_knn_row(
+        "knn_map", knn_cuda, cprep, cq, k, r, cqm, cmask, map_err,
+        f"B=1, {cq.shape[1]} planar queries ({int(cqm.sum())} searching) vs {cmask.shape[1]} map slots "
+        f"({int(cmask.sum())} filled after {n_map} frames), k={k}, box {cprep.tt}, cold seed bound: "
+        f"scan-to-map's cached search", dict(seed_window=True), want))
     _print_kernels(kernels)
 
     # ---- 3. the offline driver (single kNN) ----------------------------------
@@ -1049,6 +1209,15 @@ def main() -> int:
         # the renderer's numpy array, no device: odometry_offline moves it to the GPU
         return T.odometry_offline(scans_np, lidar, fp, rp, chunk_pairs=4, motion_init=True)
 
+    def same_run(what, traj_a, det_a, traj_b, det_b):
+        """The pruning's switches move no pose bit, termination or iteration count."""
+        _require_equal(f"{what} translations, seeded vs not", traj_a.translation, traj_b.translation)
+        _require_equal(f"{what} rotations, seeded vs not", traj_a.rotation, traj_b.rotation)
+        _require_equal(f"{what} terminations, seeded vs not", det_a.termination, det_b.termination)
+        _require_equal(f"{what} iterations, seeded vs not", det_a.num_iterations, det_b.num_iterations)
+        print(f"{what}: poses bit-equal, terminations and iteration counts equal with and without "
+              f"{' and '.join(UNSEEDED)}")
+
     reps = 3
     with _dual_knn(False):
         traj, details = drive("offline", run_offline, extraction + ("knn",), ("knn_dual",))
@@ -1059,9 +1228,12 @@ def main() -> int:
         print(f"ATE {ate:.6f} m (limit {limit:.6f} m, path {path:.3f} m); "
               f"iterations {details.num_iterations.tolist()}; termination {details.termination.tolist()}")
         dt = _seconds_per_run(run_offline, reps)
+        with _env(**UNSEEDED):
+            same_run("offline", traj, details, *run_offline())
+            dt_unseeded = _seconds_per_run(run_offline, reps)
     offline_sps = frames / dt
     print(f"main path: {offline_sps:.3f} scans/s ({dt * 1e3:.3f} ms per {frames}-frame run, "
-          f"64x1024, chunk_pairs=4) on {smi}")
+          f"64x1024, chunk_pairs=4; {frames / dt_unseeded:.3f} scans/s with LOAM_KNN_SEED=0) on {smi}")
 
     # ---- 4. small-input agreement with the plain versions on the CPU -------
     small = T.LidarParams(16, 360, 0.5, 80.0)
@@ -1193,19 +1365,41 @@ def main() -> int:
     def run_s2m():
         return T.scan_to_map_offline(scans, lidar, fp, s2m_reg, s2m_cfg)
 
-    with _dual_knn(True):
-        st, traj_m, det_m = drive("scan_to_map", run_s2m, extraction + ("knn_dual",), ("knn",))
+    # the rebuild-on-insert prep cache and the seeded single kNN, as
+    # loam_tpu runs scan-to-map on its accelerator; then neither
+    from loam_tpu_torch.odometry.scan_to_map import _build_prep_cache
+
+    with _dual_knn(False):
+        st, traj_m, det_m = drive("scan_to_map", run_s2m, extraction + ("knn",), ("knn_dual",))
         ate_m, limit_m, _ = _check_trajectory("scan_to_map", traj_m.translation, traj_m.rotation,
                                               frames, gt, ate_rmse)
         if int(st.dropped) != 0:
             raise AssertionError(f"scan_to_map dropped {int(st.dropped)} voxels")
+        if len(st.knn_prep_cache) != 16:
+            raise AssertionError(f"scan_to_map on the card carried a cache of {len(st.knn_prep_cache)} entries")
+        fresh = _build_prep_cache(st.edge_map, st.planar_map, fp.edge_capacity(lidar),
+                                  fp.planar_capacity(lidar))
+        rebuilt = T.scan_to_map_rebuild_cache(T.scan_to_map_strip_cache(st), lidar, fp)
+        for i, (a, b, c) in enumerate(zip(st.knn_prep_cache, fresh, rebuilt.knn_prep_cache)):
+            _require_equal(f"scan_to_map prep cache entry {i} after the inserts vs built fresh", a, b)
+            _require_equal(f"scan_to_map prep cache entry {i} rebuilt vs built fresh", c, b)
+        print("scan_to_map: the prep cache after the inserts equals one built fresh from the final maps, "
+              "and so does strip + rebuild (16 entries)")
         dt_m = _seconds_per_run(run_s2m, reps)
+        with _env(**UNSEEDED):
+            st0, traj0, det0 = run_s2m()
+            if st0.knn_prep_cache != ():
+                raise AssertionError("LOAM_S2M_PREP_CACHE=0 still carried a cache")
+            same_run("scan_to_map", traj_m, det_m, traj0, det0)
+            _require_equal("scan_to_map planar map, cached vs not", st.planar_map.points, st0.planar_map.points)
+            dt_m0 = _seconds_per_run(run_s2m, reps)
     print(f"scan_to_map: ATE {ate_m:.6f} m (limit {limit_m:.6f} m); maps {int(st.edge_map.size)} / "
           f"{st.edge_map.points.shape[0]} edge, {int(st.planar_map.size)} / "
           f"{st.planar_map.points.shape[0]} planar slots, dropped 0; iterations "
           f"{det_m.num_iterations.tolist()}; termination {det_m.termination.tolist()}")
     print(f"scan_to_map: {frames / dt_m:.3f} scans/s ({dt_m * 1e3:.3f} ms per {frames}-frame run, "
-          f"64x1024, default ScanToMapConfig, dual kNN) on {smi}")
+          f"64x1024, default ScanToMapConfig, the prep cache and the seeded single kNN; "
+          f"{frames / dt_m0:.3f} scans/s with neither) on {smi}")
 
     # ---- 7. scan-to-scan with dewarping ----------------------------------------
     def run_s2s():
@@ -1298,6 +1492,7 @@ def main() -> int:
     from loam_tpu_torch.io import native_available
     from loam_tpu_torch.loop_closure import closure_edges, join_edges, propose_candidates, verify_closures
     from loam_tpu_torch.pose_graph import odometry_edges
+    from loam_tpu_torch.registration import azimuth_sort_features
 
     if not native_available():
         raise AssertionError("the native loader (io/native/loam_io.cpp) did not build")
@@ -1319,19 +1514,28 @@ def main() -> int:
             return feats, optimize_trajectory_with_closures(traj_l, feats, rp, **LOOP_CLOSURE_KW)
 
         feats_l, (opt_l, clo_l) = drive("loop_closure", run_closures, extraction + ("knn",), ("knn_dual",))
+        with _env(**UNSEEDED):
+            same_run("loop odometry", traj_l, det_l, *run_file_odometry())
+            _, (opt_u, clo_u) = run_closures()
+            for what in ("accepted", "inlier_frac", "mean_residual"):
+                _require_equal(f"loop closures {what}, seeded vs not", getattr(clo_l, what), getattr(clo_u, what))
+            _require_equal("loop closure optimized translations, seeded vs not", opt_l.translation,
+                           opt_u.translation)
         kw = LOOP_CLOSURE_KW
         cand = propose_candidates(traj_l, kw["max_candidates"], kw["min_separation"], kw["max_distance"])
         # the kernels at this path's shapes against their plain versions: the
         # extraction kernels on the keyframes' lines, and the single kNN on
         # the candidate pairs verify_closures registers (keyframe j's
-        # features against keyframe i's, masked queries), at its first ICF
-        # iteration (the odometry's relative poses) and at the verified poses
+        # features against keyframe i's, masked queries, both azimuth-sorted
+        # as the registration sorts them), at its first ICF iteration (the
+        # odometry's relative poses) and at the verified poses
         loop_rows = _extraction_kernels(loop_scans, lidar, fp, "_loop")
         ci, cj = cand[0].long(), cand[1].long()
         inv = quat_conjugate(traj_l.rotation[ci])
         first = Pose3(quat_multiply(inv, traj_l.rotation[cj]),
                       quat_rotate(inv, traj_l.translation[cj] - traj_l.translation[ci]))
-        src_l, tgt_l = feats_l.map(lambda x: x[cj]), feats_l.map(lambda x: x[ci])
+        src_l = azimuth_sort_features(feats_l.map(lambda x: x[cj]))
+        tgt_l = azimuth_sort_features(feats_l.map(lambda x: x[ci]))
         loop_knn_err = 0.0
         for at, pose in (("first iteration", first), ("verified", clo_l.measurement)):
             for cls, k, r in (("planar", rp.num_plane_neighbors, rp.max_plane_neighbor_dist),
@@ -1341,16 +1545,18 @@ def main() -> int:
                      + pose.translation[:, None]).contiguous()
                 qm = getattr(src_l, f"{cls}_mask").contiguous()
                 loop_knn_err = max(loop_knn_err, _check_single_knn(f"knn loop {cls} {at}", knn_cuda, prep, q,
-                                                                   k, r, qm))
+                                                                   k, r, qm, dict(seed_window=True)))
                 if cls == "planar" and at == "first iteration":
-                    loop_knn = (prep, q, k, r, qm, getattr(tgt_l, f"{cls}_mask"))
+                    loop_knn = (prep, q, k, r, qm, getattr(tgt_l, f"{cls}_mask"),
+                                _plain_seed(knn_cuda, q, tgt_l.planar_points, tgt_l.planar_mask, k))
         if loop_knn_err != 0.0:
             raise AssertionError(f"knn on the loop's pairs differs from the plain version by {loop_knn_err}")
-        prep, q, k, r, qm, tmask = loop_knn
+        prep, q, k, r, qm, tmask, want = loop_knn
         loop_rows.append(_knn_row(
             "knn_loop", knn_cuda, prep, q, k, r, qm, tmask, loop_knn_err,
             f"B={len(ci)} candidate pairs, Q=M={q.shape[1]} planar (and {src_l.edge_points.shape[1]} edge), "
-            f"k={k}, n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries, first ICF iteration"))
+            f"k={k}, n_live {prep.n_live.tolist()}, {int(qm.sum())} searching queries, first ICF iteration, "
+            f"cold seed bound", dict(seed_window=True), want))
         _print_kernels(loop_rows)
         kernels += loop_rows
         dt_verify = _seconds_per_run(lambda: verify_closures(traj_l, feats_l, *cand, rp), reps)
@@ -1419,8 +1625,9 @@ def main() -> int:
         {k: kd[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                             "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_ms", "launches_by_path",
                             "shape")}
-        | {k: kd[k] for k in ("host_us", "library_launch_ms", "chain_floor_ms", "accepts_max",
-                              "accepts_mean") if k in kd}
+        | {k: kd[k] for k in ("host_us", "library_launch_ms", "accepts_max",
+                              "accepts_mean", "visits", "live_boxes", "visits_share", "evaluations",
+                              "seeded") if k in kd}
         for kd in kernels
     ]}))
     print(smi)

@@ -64,7 +64,7 @@ def odometry_offline(
 
     if chunk_pairs <= 0 or n_pairs <= chunk_pairs:
         init = Pose3.identity(dtype, (n_pairs,), dev)
-        rel, details = register_features_batch(src, tgt, init, reg_params)
+        rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
     else:
         C = chunk_pairs
         nc = -(-n_pairs // C)
@@ -82,7 +82,8 @@ def odometry_offline(
                 init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
             else:
                 init = Pose3.identity(dtype, (C,), dev)
-            rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init, reg_params)
+            rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init, reg_params,
+                                                   reorder_mode="none")
             carry = Pose3(rel_c.rotation[-1], rel_c.translation[-1])
             rels.append(rel_c)
             dets.append(det_c)

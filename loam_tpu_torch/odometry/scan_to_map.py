@@ -10,9 +10,15 @@ it has moved far enough from the last keyframe.
 Differences from ``loam_tpu``, none of which changes a result:
 
   * The keyframe ``lax.cond`` is a host ``if`` on one synced bool a frame.
-  * ``knn_prep_cache`` is always ``()``, as ``loam_tpu`` carries it on any
-    non-TPU backend: its cached Pallas chunk boxes and seed windows only
-    prune kNN visits, and the port's kernel visits every target.
+  * ``knn_prep_cache`` (``loam_tpu``'s rebuild-on-insert prep cache,
+    ``scan_to_map.py:60-115, 271-324``) holds both maps' kNN planes, boxes
+    and cold-seed windows, and also their live bounds ``n_live``, which the
+    port's kernel reads; it is rebuilt only when a keyframe is inserted, and
+    the step then searches the maps with the seeded single kNN. It is active
+    where the kernel takes the maps (float32 on the card) and
+    ``LOAM_S2M_PREP_CACHE`` is not ``"0"``, and ``()`` elsewhere, as
+    ``loam_tpu`` carries it only on its accelerator; results are the same
+    either way.
   * The state also counts the voxels the map inserts dropped for capacity
     (``dropped``), which ``loam_tpu``'s driver discards.
 """
@@ -20,6 +26,7 @@ Differences from ``loam_tpu``, none of which changes a result:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,8 +38,10 @@ from ..features import FeatureSet, extract_features, extract_features_batch
 from ..geometry import Pose3, norm, quat_conjugate, quat_multiply
 from ..map import VoxelMap, voxel_map_empty, voxel_map_insert
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
+from ..ops.knn_cuda import TargetPrep, default_tt, kernel_takes, knn_prep, window_candidates
 from ..registration import RegistrationDetail, register_features, spatial_sort_features
 from ..registration.detail import tree_map
+from ..registration.icf import _register_impl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +74,10 @@ class ScanToMapState(NamedTuple):
     prev_delta: Pose3
     world_T_keyframe: Pose3
     frames_since_insert: torch.Tensor  # int32; -1 means "no keyframe yet"
-    #: Always () in the port (see the module docstring).
+    #: kNN target state of both maps, rebuilt only on keyframe inserts:
+    #: ``loam_tpu``'s (tT_e, rot_e, rbox_e, tT_p, rot_p, rbox_p,
+    #: *edge_window(4), *planar_window(4)) and the port's (n_live_e,
+    #: n_live_p); () where the cache is inactive (:func:`_use_prep_cache`).
     knn_prep_cache: tuple = ()
     #: Count of occupied voxels the inserts so far dropped for capacity
     #: (an int32 tensor once a keyframe was inserted).
@@ -98,6 +110,31 @@ class ScanToMapState(NamedTuple):
         )
 
 
+def _use_prep_cache(points: torch.Tensor) -> bool:
+    """Whether the state carries the rebuild-on-insert kNN prep cache
+    (``loam_tpu``'s ``_use_prep_cache``): ``LOAM_S2M_PREP_CACHE`` (default
+    ``"1"``) and the kernel takes the maps' ``points`` (float32 on the
+    card). It only moves the maps' prep out of the frames without an insert
+    and hands the search its seed windows; results are the same either
+    way."""
+    return os.environ.get("LOAM_S2M_PREP_CACHE", "1") == "1" and kernel_takes(points)
+
+
+def _build_prep_cache(edge_map: VoxelMap, planar_map: VoxelMap, qe: Optional[int] = None,
+                      qp: Optional[int] = None) -> tuple:
+    """The kNN state of the current maps (:data:`ScanToMapState.knn_prep_cache`),
+    with the cold-seed windows when the scan-side capacities ``qe`` / ``qp``
+    are given: 16 entries, else 8."""
+    e = knn_prep(edge_map.points, edge_map.mask)
+    p = knn_prep(planar_map.points, planar_map.mask)
+    base = (e.tT, e.rot, e.rbox, p.tT, p.rot, p.rbox)
+    live = (e.n_live, p.n_live)
+    if qe is None or qp is None:
+        return base + live
+    return (base + window_candidates(edge_map.points, edge_map.mask, qe)
+            + window_candidates(planar_map.points, planar_map.mask, qp) + live)
+
+
 def scan_to_map_init(
     config: ScanToMapConfig = ScanToMapConfig(),
     origin=(0.0, 0.0, 0.0),
@@ -107,22 +144,35 @@ def scan_to_map_init(
     device=None,
 ) -> ScanToMapState:
     """Initial mapping state: empty maps around ``origin``, identity poses,
-    on the card unless ``device`` says otherwise (``device.py``).
-    ``lidar`` and ``feat_params`` are accepted for API compatibility (they
-    size ``loam_tpu``'s prep cache)."""
+    on the card unless ``device`` says otherwise (``device.py``). With
+    ``lidar`` (and ``feat_params``) the state carries the kNN prep cache
+    where it is active (:func:`_use_prep_cache`), its seed windows sized to
+    the scan's feature capacities; without, it carries none, and the step
+    prepares the maps every frame (the same results)."""
     device = resolve(device)
+    edge_map = voxel_map_empty(config.edge_capacity, config.edge_voxel_size, origin, dtype, device)
+    planar_map = voxel_map_empty(config.planar_capacity, config.planar_voxel_size, origin, dtype,
+                                 device)
+    cache = ()
+    if lidar is not None and _use_prep_cache(edge_map.points):
+        cache = _build_prep_cache(edge_map, planar_map, feat_params.edge_capacity(lidar),
+                                  feat_params.planar_capacity(lidar))
     return ScanToMapState(
-        edge_map=voxel_map_empty(config.edge_capacity, config.edge_voxel_size, origin, dtype, device),
-        planar_map=voxel_map_empty(config.planar_capacity, config.planar_voxel_size, origin, dtype, device),
+        edge_map=edge_map,
+        planar_map=planar_map,
         world_T_current=Pose3.identity(dtype, device=device),
         prev_delta=Pose3.identity(dtype, device=device),
         world_T_keyframe=Pose3.identity(dtype, device=device),
         frames_since_insert=torch.tensor(-1, dtype=torch.int32, device=device),
+        knn_prep_cache=cache,
     )
 
 
 def scan_to_map_strip_cache(state: ScanToMapState) -> ScanToMapState:
-    """``state`` with the kNN prep cache dropped (it is derived state)."""
+    """``state`` with the kNN prep cache dropped: it is derived state, so
+    strip it before a checkpoint; the stripped state loads into a plain
+    ``scan_to_map_init()`` template, and :func:`scan_to_map_rebuild_cache`
+    derives it again."""
     return state._replace(knn_prep_cache=())
 
 
@@ -131,9 +181,14 @@ def scan_to_map_rebuild_cache(
     lidar: LidarParams,
     feat_params: FeatureExtractionParams = FeatureExtractionParams(),
 ) -> ScanToMapState:
-    """The inverse of :func:`scan_to_map_strip_cache`: the cache is inactive
-    in the port, as in ``loam_tpu`` on a non-TPU backend, so it stays ()."""
-    return state._replace(knn_prep_cache=())
+    """The inverse of :func:`scan_to_map_strip_cache`: the kNN prep cache
+    and seed windows of ``state``'s maps, or () where the cache is inactive
+    (:func:`_use_prep_cache`)."""
+    if not _use_prep_cache(state.edge_map.points):
+        return state._replace(knn_prep_cache=())
+    return state._replace(knn_prep_cache=_build_prep_cache(
+        state.edge_map, state.planar_map, feat_params.edge_capacity(lidar),
+        feat_params.planar_capacity(lidar)))
 
 
 def _map_feature_set(edge_map: VoxelMap, planar_map: VoxelMap) -> FeatureSet:
@@ -190,7 +245,16 @@ def scan_to_map_step_features(
 
     init = state.world_T_current.compose(state.prev_delta)  # constant velocity
     target = _map_feature_set(state.edge_map, state.planar_map)
-    world_T_new, detail = register_features(feats, target, init, reg_params, with_matches=False)
+    cache = state.knn_prep_cache
+    if (len(cache) == 16 and reg_params.search_backend == "bruteforce"
+            and reg_params.max_edge_neighbor_dist > 0 and reg_params.max_plane_neighbor_dist > 0
+            and _use_prep_cache(state.edge_map.points)):
+        world_T_new, detail = _register_cached(feats, target, init, reg_params, cache)
+    else:
+        # the maps' storage is spatially compact: no reordering (loam_tpu
+        # scan_to_map.py:270)
+        world_T_new, detail = register_features(feats, target, init, reg_params, with_matches=False,
+                                                reorder_mode="none")
     # first frame (empty map): registration bails at the init pose; the
     # trajectory starts at the state's pose instead of the prediction
     first = state.frames_since_insert < 0
@@ -211,6 +275,11 @@ def scan_to_map_step_features(
         planar_map, dp = voxel_map_insert(planar_map, world_T_new.act(feats.planar_points),
                                           feats.planar_mask, center, config.keep_radius)
         dropped = dropped + de + dp
+        # the prep cache mirrors the maps: rebuilt here only, in its own shape
+        if cache:
+            qe, qp = (feats.edge_mask.shape[0], feats.planar_mask.shape[0]) if len(cache) == 16 \
+                else (None, None)
+            cache = _build_prep_cache(edge_map, planar_map, qe, qp)
 
     prev_delta = state.world_T_current.inverse().compose(world_T_new).normalize()
     new_state = ScanToMapState(
@@ -223,10 +292,30 @@ def scan_to_map_step_features(
             torch.where(insert, world_T_new.translation, state.world_T_keyframe.translation)),
         frames_since_insert=torch.where(
             insert, 0, torch.clamp(state.frames_since_insert, min=0) + 1).to(torch.int32),
-        knn_prep_cache=(),
+        knn_prep_cache=cache,
         dropped=dropped,
     )
     return new_state, world_T_new, detail
+
+
+def _register_cached(feats: FeatureSet, target: FeatureSet, init: Pose3,
+                     reg_params: RegistrationParams, cache: tuple):
+    """The registration against the maps from the prep cache
+    (``loam_tpu`` ``scan_to_map.py:271-324``): the single kNN kernel on the
+    cached preps, with the query masks and the loop's seed bounds. The
+    kernel computes the bounds in its prologue, reading the rank window
+    straight from the cached planes, so the cached windows (entries 6-13)
+    are not read here: they are ``loam_tpu``'s state, and the seed windows
+    a 3-element ``custom_knn`` takes. Returns (pose, detail), unbatched."""
+    tT_e, rot_e, rbox_e, tT_p, rot_p, rbox_p = cache[:6]
+    live_e, live_p = cache[-2:]
+    preps = (TargetPrep(tT_e, True, live_e, rot_e, rbox_e, default_tt(tT_e.shape[-1])),
+             TargetPrep(tT_p, True, live_p, rot_p, rbox_p, default_tt(tT_p.shape[-1])))
+    add = lambda x: x[None]
+    est, det = _register_impl(feats.map(add), target.map(add),
+                              Pose3(add(init.rotation), add(init.translation)), reg_params, False,
+                              target_preps=preps, reorder_mode="none")
+    return Pose3(est.rotation[0], est.translation[0]), tree_map(lambda x: x[0], det)
 
 
 def scan_to_map_offline(

@@ -93,6 +93,6 @@ def scan_to_scan_step(
     # prev_T_current: the current scan is the source, the previous the
     # target; both sides are stored azimuth-sorted
     delta, detail = register_features(feats, state.prev_features, init, reg_params,
-                                      with_matches=False)
+                                      with_matches=False, reorder_mode="none")
     world = state.world_T_current.compose(delta).normalize()
     return ScanToScanState(world, feats, delta), world, detail

@@ -100,7 +100,7 @@ def stream_chunk_step(
         init = Pose3(carry.prev_delta.rotation.expand(K, 4), carry.prev_delta.translation.expand(K, 3))
     else:
         init = Pose3.identity(dtype, (K,), dev)
-    rel, det = register_features_batch(feats, tgt, init, reg_params)
+    rel, det = register_features_batch(feats, tgt, init, reg_params, reorder_mode="none")
     # world_T_frame_j = carry.world o rel_0 o ... o rel_j
     cum = pose_cumcompose(rel)
     world = Pose3(carry.world.rotation.expand(K, 4), carry.world.translation.expand(K, 3)).compose(cum)

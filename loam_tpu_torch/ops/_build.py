@@ -44,9 +44,12 @@ SIGNATURES = {
     "loam_select_points_f32": (_P, _P, _I, _I, _I, _P, _P),
     "loam_select_points_f64": (_P, _P, _I, _I, _I, _P, _P),
     "loam_knn_block_queries": (),
-    "loam_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    "loam_knn_dual": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P),
+    "loam_knn_wide_block_queries": (),
+    "loam_knn_max_boxes": (),
+    "loam_knn": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "loam_knn_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None

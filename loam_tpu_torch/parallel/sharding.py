@@ -228,6 +228,6 @@ def odometry_offline_sharded(
         frames = feats.map(lambda x: torch.cat([x, x[-1:]]))
     src, tgt = frames.map(lambda x: x[1:]), frames.map(lambda x: x[:-1])
     init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
-    rel, details = register_features_batch(src, tgt, init, reg_params)
+    rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
     cut = lambda x: gather(mesh, x)[:F - 1]
     return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)

@@ -24,7 +24,11 @@ then:
     the pose-graph solve;
   * one ``torch.profiler`` trace of a whole run: device time by kernel name,
     the sum of device kernel time against the wall time (the device's idle
-    share), and the number of kernel launches.
+    share), and the number of kernel launches; for ``offline`` and the
+    scan-to-map drivers also the ICF iterations of the run and the launches
+    an iteration. ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
+    environment profiles the run without the kNN seed bounds and the
+    scan-to-map prep cache.
 
 Prints a summary and one JSON line; the full kernel table goes to
 ``<out>/profile_kernels_<driver>.txt``.
@@ -81,7 +85,7 @@ def _offline_stages(scans, lidar, fp, rp, frames, dev):
         s, t = src.map(part), tgt.map(part)
         b = s.edge_mask.shape[0]
         init = Pose3(carry.rotation.expand(b, 4), carry.translation.expand(b, 3))
-        (rel, det), ms = _sync_time(lambda: T.register_features_batch(s, t, init, rp))
+        (rel, det), ms = _sync_time(lambda: T.register_features_batch(s, t, init, rp, reorder_mode="none"))
         carry = Pose3(rel.rotation[-1], rel.translation[-1])
         chunks.append({"pairs": b, "ms": ms, "iterations": int(det.num_iterations.max())})
     return extract_ms, chunks
@@ -100,6 +104,16 @@ def _loop_closure_stages(paths, scans, lidar, fp, rp):
     _, solve_ms = _sync_time(lambda: optimize_pose_graph(traj, edges, kw["iterations"]))
     return {"odometry_ms": odo_ms, "extract_ms": extract_ms, "propose_ms": propose_ms,
             "verify_ms": verify_ms, "solve_ms": solve_ms}
+
+
+def _iterations(driver: str, out):
+    """The ICF iterations of a run of the offline or a scan-to-map driver
+    (the sum of its details' ``num_iterations``), else None."""
+    if driver == "offline":
+        return int(out[1].num_iterations.sum())
+    if driver in ("scan_to_map", "scan_to_map_grid"):
+        return int(out[2].num_iterations.sum())
+    return None
 
 
 def main() -> int:
@@ -187,7 +201,7 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     kernel_us, launches = {}, 0
@@ -209,15 +223,21 @@ def main() -> int:
         print(f"extraction {extract_ms:.3f} ms; registration chunks {chunks}")
     if stages is not None:
         print(f"stages (ms, a device sync after each): {stages}")
+    iterations = _iterations(args.driver, out)
     print(f"profiled run: wall {prof_wall_ms:.3f} ms, device kernels {device_ms:.3f} ms over "
-          f"{launches} launches, idle share {1 - device_ms / prof_wall_ms:.4f}")
+          f"{launches} launches, idle share {1 - device_ms / prof_wall_ms:.4f}"
+          + ("" if iterations is None else
+             f"; {iterations} ICF iterations, {launches / iterations:.1f} launches an iteration (all "
+             f"launches of the run over its iterations)"))
     for name, us in top[:12]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
     print(json.dumps({
         "gpu": smi, "driver": args.driver, "dual_knn": args.dual_knn,
         "frames": args.frames, "wall_ms": wall_ms, "extract_ms": extract_ms,
         "chunks": chunks, "stages": stages, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
-        "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms,
+        "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms, "icf_iterations": iterations,
+        "knn_seed": os.environ.get("LOAM_KNN_SEED", "1"),
+        "s2m_prep_cache": os.environ.get("LOAM_S2M_PREP_CACHE", "1"),
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},
     }))
     if args.driver == "scan_to_map_sharded":

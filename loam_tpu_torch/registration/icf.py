@@ -20,7 +20,17 @@ Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,
 with ``LOAM_ICF_DUAL_KNN=1``, with one dual run whose indices feed the
 gathered fits -- ``loam_tpu``'s switch between the same two algorithms
-(``icf.py:405-440``), read per call here. With ``search_backend="grid"`` and
+(``icf.py:405-440``), read per call here. The single search with the kernel
+carries ``loam_tpu``'s seed bounds (``icf.py:321-329, 392-400, 442-455,
+478-505``, ``LOAM_KNN_SEED``, default ``"1"``): each iteration the kernel
+gates its visits, per query, on the smaller of the last iteration's
+neighbours' distances at the moved query (warm start) and the k-th distance
+to the targets at the same sorted rank (cold start). The kernel computes
+both in its prologue from the last result; a 3-element ``custom_knn`` gets
+them as a tensor. They only prune the kernel's visits. Where the kernel
+searches, ``reorder_mode="auto"`` (``loam_tpu``'s default, ``icf.py:256-290``)
+azimuth-sorts both feature sets first, so that the gate has wedges to prune;
+the drivers whose features are stored sorted pass ``"none"``. With ``search_backend="grid"`` and
 both radii positive the searches go through voxel grids built once per
 registration (``neighbors/grid.py``; ``loam_tpu`` ``icf.py:315-360``): their
 indices feed the gathered fits too, and every iteration's count of cells over
@@ -38,7 +48,15 @@ from ..debug import tap_finite
 from ..features.types import FeatureSet
 from ..geometry import Pose3, norm, quat_multiply, quat_normalize, quat_rotate
 from ..neighbors.grid import build_grid, knn_grid
-from ..ops.knn_cuda import knn_dual_prep, knn_dual_run, knn_prep, knn_run
+from ..ops.knn_cuda import (
+    kernel_takes,
+    knn_dual_prep,
+    knn_dual_run,
+    knn_prep,
+    knn_run,
+    seed_bound_from_packed,
+    seed_bound_from_window,
+)
 from ..ops.morton import morton_key
 from ..params import RegistrationParams, TerminationType
 from .associate import associate_edges, associate_planes
@@ -51,32 +69,40 @@ def _angle_from_identity(q: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.atan2(norm(q[..., 1:]), torch.abs(q[..., 0]))
 
 
-def _sort_features(fs: FeatureSet, key_fn) -> FeatureSet:
-    """``fs`` with edge and planar slots stably sorted by ``key_fn(points,
-    mask)``; leading axes batch."""
+def _permute_features(fs: FeatureSet, e_perm: torch.Tensor, p_perm: torch.Tensor) -> FeatureSet:
+    """``fs`` with its edge slots in the order ``e_perm`` and its planar
+    slots in the order ``p_perm``; leading axes batch."""
 
-    def s(points, mask, idxs):
-        _, order = torch.sort(key_fn(points, mask), dim=-1, stable=True)
+    def g(points, mask, idxs, order):
         return (
             torch.gather(points, -2, order[..., None].expand(points.shape)),
             torch.gather(mask, -1, order),
             torch.gather(idxs, -1, order),
         )
 
-    ep, em, ei = s(fs.edge_points, fs.edge_mask, fs.edge_indices)
-    pp, pm, pi = s(fs.planar_points, fs.planar_mask, fs.planar_indices)
-    return FeatureSet(ep, em, ei, pp, pm, pi)
+    return FeatureSet(*g(fs.edge_points, fs.edge_mask, fs.edge_indices, e_perm),
+                      *g(fs.planar_points, fs.planar_mask, fs.planar_indices, p_perm))
+
+
+def _sort_features(fs: FeatureSet, key_fn, with_perms: bool = False):
+    """``fs`` with edge and planar slots stably sorted by ``key_fn(points,
+    mask)``; leading axes batch. ``with_perms`` also returns the two
+    orders (sorted slot i holds the caller's slot ``perm[i]``)."""
+    e_perm = torch.sort(key_fn(fs.edge_points, fs.edge_mask), dim=-1, stable=True)[1]
+    p_perm = torch.sort(key_fn(fs.planar_points, fs.planar_mask), dim=-1, stable=True)[1]
+    out = _permute_features(fs, e_perm, p_perm)
+    return (out, e_perm, p_perm) if with_perms else out
+
+
+def _azimuth_key(points, mask):
+    az = torch.atan2(points[..., 1], points[..., 0])
+    return torch.where(mask, az, torch.full_like(az, 1e9))
 
 
 def azimuth_sort_features(fs: FeatureSet) -> FeatureSet:
     """``fs`` with edge and planar slots stably sorted by azimuth
     ``atan2(y, x)``, masked slots (key 1e9) last. Leading axes batch."""
-
-    def key(points, mask):
-        az = torch.atan2(points[..., 1], points[..., 0])
-        return torch.where(mask, az, torch.full_like(az, 1e9))
-
-    return _sort_features(fs, key)
+    return _sort_features(fs, _azimuth_key)
 
 
 def spatial_sort_features(fs: FeatureSet, cell_size: float = 1.0) -> FeatureSet:
@@ -107,6 +133,23 @@ def _use_dual_knn(params: RegistrationParams, dtype) -> bool:
     )
 
 
+def _unpermute_matches(match: torch.Tensor, s_perm: torch.Tensor, t_perm: torch.Tensor):
+    """(B, I, Q) match indices of sorted feature sets back in the caller's
+    slots (``loam_tpu`` ``icf.py:617-640``): sorted source row i is the
+    caller's slot ``s_perm[i]``, a sorted target value v its slot
+    ``t_perm[v]``; -1 stays -1."""
+    B = match.shape[0]
+    flat = torch.gather(t_perm, -1, torch.clamp(match, min=0).reshape(B, -1).long())
+    vals = torch.where(match >= 0, flat.reshape(match.shape).to(match.dtype), -1)
+    return torch.full_like(match, -1).scatter(-1, s_perm[:, None].expand(match.shape), vals)
+
+
+def _use_seed() -> bool:
+    """``loam_tpu``'s seed-bound switch (``LOAM_KNN_SEED``, default ``"1"``):
+    an algorithm for pruning the kernel's visits, never a change of output."""
+    return os.environ.get("LOAM_KNN_SEED", "1") != "0"
+
+
 def _register_impl(
     source: FeatureSet,
     target: FeatureSet,
@@ -114,6 +157,8 @@ def _register_impl(
     params: RegistrationParams,
     with_matches: bool,
     custom_knn=None,
+    target_preps=None,
+    reorder_mode: str = "auto",
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Register batched feature sets ((B, ...) leaves) from ``init`` (B poses).
 
@@ -122,9 +167,35 @@ def _register_impl(
     ``KnnResult``, whose indices then address ``target``): the hook the
     sharded registration (``parallel.distributed``) binds to its search, as
     ``loam_tpu``'s ``custom_knn`` (``icf.py:222-250``). With it, the target
-    is neither prepared nor searched here. ``loam_tpu``'s third element, the
-    seed windows, has no counterpart: the port's kernel takes no seed bound.
+    is neither prepared nor searched here. The 3-element form ``(edge_fn,
+    plane_fn, seed_windows)`` is ``loam_tpu``'s too: ``seed_windows`` is the
+    ``(edge, planar)`` pair of :func:`window_candidates` tuples, each leaf
+    (B, w, Q); the callables then take a second argument, the (B, Q) seed
+    bound, and return a ``PackedKnn`` (its coordinates feed the next
+    iteration's warm start).
+
+    ``target_preps``: optional ``(edge, planar)`` :class:`TargetPrep` of
+    ``target`` already built (the scan-to-map prep cache): the single
+    search uses them and prepares nothing, with the kernel's own seeds.
+
+    ``reorder_mode`` (``loam_tpu``'s ``_register`` argument, ``icf.py:
+    256-290``): ``"auto"`` azimuth-sorts both feature sets before the loop
+    where the kernel searches (float32 on the card, the brute-force backend,
+    both radii, no ``custom_knn`` or ``target_preps``), so the query blocks
+    and the target boxes cover narrow wedges and the gate prunes; the detail's
+    match indices are mapped back to the caller's slots. ``"none"`` keeps the
+    order, for callers whose features are sorted already. Only the order of
+    equal-distance neighbours and of the fits' sums can differ.
     """
+    if reorder_mode not in ("auto", "none"):
+        raise ValueError(f"reorder_mode must be 'auto' or 'none', got {reorder_mode!r}")
+    reorder = (reorder_mode == "auto" and custom_knn is None and target_preps is None
+               and kernel_takes(source.edge_points) and kernel_takes(target.edge_points)
+               and params.search_backend == "bruteforce"
+               and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
+    if reorder:
+        source, se, sp = _sort_features(source, _azimuth_key, with_perms=True)
+        target, te, tp = _sort_features(target, _azimuth_key, with_perms=True)
     dtype = source.edge_points.dtype
     dev = source.edge_points.device
     B, E = source.edge_mask.shape
@@ -153,11 +224,14 @@ def _register_impl(
     # the targets are fixed across outer iterations: prepare them once.
     # The grid needs both radii (its cell sizes); without them the "grid"
     # backend searches by brute force, as loam_tpu's does.
-    use_grid = (custom_knn is None and params.search_backend == "grid"
+    use_grid = (custom_knn is None and target_preps is None and params.search_backend == "grid"
                 and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
-    dual = custom_knn is None and _use_dual_knn(params, dtype)
+    dual = custom_knn is None and target_preps is None and _use_dual_knn(params, dtype)
+    seed_windows = None  # the cold-start candidates, when the seed carry runs
     if custom_knn is not None:
-        edge_knn, plane_knn = custom_knn
+        edge_knn, plane_knn = custom_knn[0], custom_knn[1]
+        if len(custom_knn) > 2 and custom_knn[2] is not None and _use_seed():
+            seed_windows = custom_knn[2]
     elif use_grid:
         edge_grid = build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist)
         plane_grid = build_grid(target.planar_points, target.planar_mask,
@@ -165,9 +239,26 @@ def _register_impl(
     elif dual:
         d_prep = knn_dual_prep(target.edge_points, target.edge_mask,
                                target.planar_points, target.planar_mask)
+    elif target_preps is not None:
+        e_prep, p_prep = target_preps
     else:
         e_prep = knn_prep(target.edge_points, target.edge_mask)
         p_prep = knn_prep(target.planar_points, target.planar_mask)
+    # where loam_tpu's carry runs: its kernel with both radii (icf.py:268-275,
+    # 392-400), here computed by the kernel itself; on a CPU tensor the plain
+    # search visits everything, so there is nothing to prune
+    kernel_seed = (custom_knn is None and not use_grid and not dual and kernel_takes(e_prep.tT)
+                   and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0
+                   and _use_seed())
+    e_prev = p_prev = None  # the last iteration's results, for the warm start
+    if seed_windows is not None:
+        # the warm-start carry: the last iteration's neighbours, none yet
+        kE, kP = params.num_edge_neighbors, params.num_plane_neighbors
+        f = dict(dtype=dtype, device=dev)
+        e_seed = (*(torch.zeros((B, kE, E), **f) for _ in range(3)),
+                  torch.zeros((B, kE, E), dtype=torch.bool, device=dev))
+        p_seed = (*(torch.zeros((B, kP, Q), **f) for _ in range(3)),
+                  torch.zeros((B, kP, Q), dtype=torch.bool, device=dev))
     init_inv = init.inverse()
     identity = Pose3.identity(dtype, (B,), dev)
     iters = torch.arange(I, **i32)
@@ -176,7 +267,18 @@ def _register_impl(
     while bool(running.any()):
         qe = quat_rotate(est.rotation[:, None], source.edge_points) + est.translation[:, None]
         qp = quat_rotate(est.rotation[:, None], source.planar_points) + est.translation[:, None]
-        if custom_knn is not None:
+        if seed_windows is not None:
+            # the kernel's visit gates: min(warm start at the moved queries,
+            # cold start); they prune visits and change no output
+            ew, pw = seed_windows
+            eb = torch.minimum(seed_bound_from_packed(qe, *e_seed),
+                               seed_bound_from_window(qe, *ew, params.num_edge_neighbors))
+            pb = torch.minimum(seed_bound_from_packed(qp, *p_seed),
+                               seed_bound_from_window(qp, *pw, params.num_plane_neighbors))
+            e_res, p_res = edge_knn(qe, eb), plane_knn(qp, pb)
+            e_seed = (e_res.xs, e_res.ys, e_res.zs, e_res.mask)
+            p_seed = (p_res.xs, p_res.ys, p_res.zs, p_res.mask)
+        elif custom_knn is not None:
             e_res, p_res = edge_knn(qe), plane_knn(qp)
         elif use_grid:
             # indices into the unsorted targets: the gathered fits
@@ -191,12 +293,15 @@ def _register_impl(
                 d_prep, qe, qp, params.num_edge_neighbors, params.num_plane_neighbors,
                 params.max_edge_neighbor_dist, params.max_plane_neighbor_dist)
         else:
+            # with kernel_seed the kernel gates on the warm and cold starts
             e_res = knn_run(e_prep, qe, params.num_edge_neighbors,
                             params.max_edge_neighbor_dist, with_coords=True,
-                            query_mask=source.edge_mask)
+                            query_mask=source.edge_mask, seed_prev=e_prev, seed_window=kernel_seed)
             p_res = knn_run(p_prep, qp, params.num_plane_neighbors,
                             params.max_plane_neighbor_dist, with_coords=True,
-                            query_mask=source.planar_mask)
+                            query_mask=source.planar_mask, seed_prev=p_prev, seed_window=kernel_seed)
+            if kernel_seed:
+                e_prev, p_prev = e_res, p_res
         ea = associate_edges(qe, source.edge_mask, target.edge_points,
                              target.edge_mask, params, knn_result=e_res)
         pa = associate_planes(qp, source.planar_mask, target.planar_points,
@@ -257,6 +362,9 @@ def _register_impl(
         it = it + running.to(torch.int32)
         running = ~done & (it < I)
 
+    if reorder and with_matches:
+        detail = detail._replace(edge_match=_unpermute_matches(detail.edge_match, se, te),
+                                 plane_match=_unpermute_matches(detail.plane_match, sp, tp))
     n_rec = torch.where(status == TerminationType.INSUFFICIENT_ASSOCIATIONS, it - 1, it)
     return est, RegistrationDetail(detail, status, n_rec.to(torch.int32))
 
@@ -267,10 +375,13 @@ def register_features_batch(
     target_T_source_init: Pose3,
     params: RegistrationParams = RegistrationParams(),
     with_matches: bool = False,
+    reorder_mode: str = "auto",
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Batched multi-pair registration: every leaf carries a leading pair
-    axis, and the pairs run in lockstep until all have terminated."""
-    return _register_impl(source, target, target_T_source_init, params, with_matches)
+    axis, and the pairs run in lockstep until all have terminated.
+    ``reorder_mode``: as ``_register_impl``'s."""
+    return _register_impl(source, target, target_T_source_init, params, with_matches,
+                          reorder_mode=reorder_mode)
 
 
 def register_features(
@@ -279,10 +390,12 @@ def register_features(
     target_T_source_init: Optional[Pose3] = None,
     params: RegistrationParams = RegistrationParams(),
     with_matches: bool = True,
+    reorder_mode: str = "auto",
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Register a source feature set to a target feature set (reference
     ``registerFeatures``, ``registration.h:128-131``): the refined
-    ``target_T_source`` and fixed-shape diagnostics."""
+    ``target_T_source`` and fixed-shape diagnostics. ``reorder_mode``: as
+    ``_register_impl``'s."""
     if target_T_source_init is None:
         target_T_source_init = Pose3.identity(
             source.edge_points.dtype, device=source.edge_points.device
@@ -291,6 +404,6 @@ def register_features(
     est, det = _register_impl(
         source.map(add), target.map(add),
         Pose3(add(target_T_source_init.rotation), add(target_T_source_init.translation)),
-        params, with_matches,
+        params, with_matches, reorder_mode=reorder_mode,
     )
     return Pose3(est.rotation[0], est.translation[0]), tree_map(lambda x: x[0], det)

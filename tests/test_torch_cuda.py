@@ -377,8 +377,11 @@ def test_entry_points_default_to_the_card(dev):
 
 
 def test_scan_to_map_gpu_matches_cpu(dev, monkeypatch):
-    """scan_to_map_offline with the dual kNN on 6 frames of 16x360 scans
-    (map capacities 2048/8192), on the GPU and on the CPU."""
+    """scan_to_map_offline on 6 frames of 16x360 scans (map capacities
+    2048/8192), on the GPU and on the CPU: with the dual kNN (the prep cache
+    off, so the registration takes the dual search), and with the default
+    rebuild-on-insert prep cache, which searches the maps with the seeded
+    single kNN on the card."""
     import loam_tpu_torch as T
     from loam_tpu_torch.io import render_trajectory
 
@@ -387,13 +390,17 @@ def test_scan_to_map_gpu_matches_cpu(dev, monkeypatch):
     scans, _ = render_trajectory(lidar, 6, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
                                  noise=0.003, seed=11, dtype=np.float32)
     cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
-    before = knn_cuda.knn_dual_run.launches
-    sg, tg, dg = T.scan_to_map_offline(torch.from_numpy(scans).to(dev), lidar, config=cfg)
-    assert knn_cuda.knn_dual_run.launches > before
     sc, tc, dc = T.scan_to_map_offline(torch.from_numpy(scans), lidar, config=cfg)
-    assert torch.equal(dg.termination.cpu(), dc.termination)
-    np.testing.assert_allclose(tg.translation.cpu().numpy(), tc.translation.numpy(), atol=1e-2, rtol=0)
-    assert int(sg.dropped) == 0 and int(sc.dropped) == 0
+    assert sc.knn_prep_cache == ()
+    for cache, counter in (("0", knn_cuda.knn_dual_run), ("1", knn_cuda.knn_run)):
+        monkeypatch.setenv("LOAM_S2M_PREP_CACHE", cache)
+        before = counter.launches
+        sg, tg, dg = T.scan_to_map_offline(torch.from_numpy(scans).to(dev), lidar, config=cfg)
+        assert counter.launches > before
+        assert len(sg.knn_prep_cache) == (16 if cache == "1" else 0)
+        assert torch.equal(dg.termination.cpu(), dc.termination)
+        np.testing.assert_allclose(tg.translation.cpu().numpy(), tc.translation.numpy(), atol=1e-2, rtol=0)
+        assert int(sg.dropped) == 0 and int(sc.dropped) == 0
 
 
 def test_knn_grid_gpu_matches_cpu_and_bruteforce(dev):
@@ -513,6 +520,38 @@ def test_float64_registration_runs_the_plain_search_on_the_card(dev):
         assert knn_cuda.knn_run.launches == before[0] + launched and got.indices.is_cuda
         for x, y in zip(got, want):
             assert torch.equal(x, y)
+
+
+def test_registration_reorders_where_the_kernel_searches(dev):
+    """float32 features in the extractor's order on the card: the
+    registration azimuth-sorts both sets before its loop (``loam_tpu``'s
+    ``reorder_mode="auto"``), so it equals a ``"none"`` run on the sorted
+    sets bit for bit, its matches mapped back to the caller's slots; its
+    kernel visits fewer boxes than the unsorted search would."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.registration import icf
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    src, tgt = _pair_features(lidar, torch.float32, dev)
+    est, det = T.register_features(src, tgt)
+    ss, se, sp = icf._sort_features(src.map(lambda x: x[None]), icf._azimuth_key, with_perms=True)
+    ts, te, tp = icf._sort_features(tgt.map(lambda x: x[None]), icf._azimuth_key, with_perms=True)
+    est_s, det_s = T.register_features(ss.map(lambda x: x[0]), ts.map(lambda x: x[0]),
+                                       reorder_mode="none")
+    assert torch.equal(est.rotation, est_s.rotation) and torch.equal(est.translation, est_s.translation)
+    assert int(det.termination) == int(det_s.termination) == int(T.TerminationType.CONVERGED)
+    info, info_s = det.iteration_info, det_s.iteration_info
+    assert torch.equal(info.plane_match, icf._unpermute_matches(info_s.plane_match[None], sp, tp)[0])
+    assert torch.equal(info.edge_match, icf._unpermute_matches(info_s.edge_match[None], se, te)[0])
+    p = T.RegistrationParams()
+    visits = {}
+    for what, (s_, t_) in (("sorted", (ss, ts)), ("unsorted", (src.map(lambda x: x[None]),
+                                                                tgt.map(lambda x: x[None])))):
+        prep = knn_cuda.knn_prep(t_.planar_points, t_.planar_mask)
+        _, v = knn_cuda.knn_run(prep, s_.planar_points, p.num_plane_neighbors, p.max_plane_neighbor_dist,
+                                query_mask=s_.planar_mask, return_visits=True)
+        visits[what] = int(v[..., 0].sum())
+    assert visits["sorted"] < visits["unsorted"]
 
 
 def test_pose_graph_gpu_matches_cpu(dev):
@@ -659,3 +698,127 @@ def test_sharded_knn_on_the_card_matches_plain(dev, case):
         assert torch.equal(res.indices.cpu()[cpu.mask], cpu.indices[cpu.mask])
         torch.testing.assert_close(res.distances.cpu(), cpu.distances, atol=1e-6, rtol=0)
         torch.testing.assert_close(nbr.cpu()[cpu.mask], nbr_c[cpu.mask], atol=1e-6, rtol=0)
+
+
+# ---- the visit pruning: boxes, lists, the gate and the seed bounds ------------
+
+
+def _sorted_sets(dev, seed, B, m, q, spread=10.0):
+    """Targets and queries sorted along x, so the boxes of consecutive slots
+    are compact and the gate has something to skip."""
+    qs, t, tm, qm = _knn_sets(seed, B, m, q, spread)
+    t = t[:, np.argsort(t[0, :, 0], kind="stable")]
+    qs = qs[:, np.argsort(qs[0, :, 0], kind="stable")]
+    return _to(dev, qs, t, tm, qm)
+
+
+def _assert_pruned_equal(prep, q, k, r, qm=None, seed=None, **seeds):
+    """Both output forms with the gate (and ``seed``, or the seeds the
+    kernel computes: ``seed_prev``, ``seed_window``) against the plain
+    search; the boxes the kernel visits never exceed the live ones."""
+    for form in (dict(with_coords=True), dict()):
+        a, va = knn_cuda.knn_run(prep, q, k, r, query_mask=qm, seed_bound=seed, return_visits=True,
+                                 **seeds, **form)
+        b, vb = knn_cuda.knn_run_reference(prep, q, k, r, query_mask=qm, return_visits=True, **form)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert va.shape == vb.shape and bool((va <= vb).all())
+    return a, va, vb
+
+
+@SPLIT
+@pytest.mark.parametrize("seed_kind", ["none", "cold", "warm", "exact"])
+def test_knn_seed_bounds_match_plain(dev, monkeypatch, seed_kind, split):
+    """Cold (rank window), warm (last neighbours at moved queries, and the
+    window) and the exact k-th distance as the seed bound: equal outputs,
+    fewer visits. The cold and warm bounds also as the kernel computes them
+    in its prologue: its debug plane equal to the plain functions' bits."""
+    _plan(monkeypatch, split)
+    k, r = 5, 1.0
+    q, t, tm, qm = _sorted_sets(dev, 21, 2, 3001, 2100)
+    prep = knn_cuda.knn_prep(t, tm)
+    seed, seeds = None, {}
+    window = lambda: knn_cuda.seed_bound_from_window(q, *knn_cuda.window_candidates(t, tm, q.shape[1]), k)
+    if seed_kind == "cold":
+        seed, seeds = window(), dict(seed_window=True)
+    elif seed_kind == "warm":
+        prev = knn_cuda.knn_run_reference(prep, q + 0.02, k, r, with_coords=True, query_mask=qm)
+        seed = torch.minimum(knn_cuda.seed_bound_from_packed(q, prev.xs, prev.ys, prev.zs, prev.mask),
+                             window())
+        seeds = dict(seed_prev=prev, seed_window=True)
+    elif seed_kind == "exact":
+        seed = knn_cuda._search_reference(prep, q, k, float("inf"), None)[1][:, k - 1].contiguous()
+    _, va, vb = _assert_pruned_equal(prep, q, k, r, qm, seed)
+    assert int(va.sum()) < int(vb.sum())
+    _, vk, _ = _assert_pruned_equal(prep, q, k, r, qm, **seeds)
+    assert torch.equal(vk, va) or not seeds
+    # the debug plane: the bound each query was gated with, as given or as
+    # the prologue computed it
+    bound = knn_cuda._search_kernel(prep, q, k, r * r, qm, seed, bound=True)[4]
+    want = torch.full_like(bound, float("inf")) if seed is None else seed
+    assert torch.equal(bound, want)
+    if seeds:
+        prev = seeds.get("seed_prev")
+        raw = None if prev is None else (prev.xs, prev.ys, prev.zs, prev.mask)
+        assert torch.equal(knn_cuda._search_kernel(prep, q, k, r * r, qm, bound=True, prev=raw,
+                                                   window=True)[4], seed)
+
+
+@SPLIT
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 16])
+def test_knn_pruned_every_form(dev, monkeypatch, k, split):
+    """Splits, the wide form (k = 9, 16), masked queries and boxes without a
+    valid target (a masked run of slots), with a seed bound."""
+    _plan(monkeypatch, split)
+    q, t, tm, qm = _sorted_sets(dev, 30 + k, 2, 2600, 1300)
+    tm[:, 700:1300] = False  # whole boxes without a valid target
+    prep = knn_cuda.knn_prep(t, tm, 128)
+    assert bool((prep.rbox[:, 0] > prep.rbox[:, 1]).any())
+    seed = knn_cuda.seed_bound_from_window(q, *knn_cuda.window_candidates(t, tm, q.shape[1]), k)
+    for s in (None, seed):
+        _assert_pruned_equal(prep, q, k, 1.5, qm, s)
+    none = torch.zeros_like(qm)
+    res, va, _ = _assert_pruned_equal(prep, q, k, 1.5, none, seed)
+    assert not res.mask.any() and int(va.sum()) == 0
+
+
+@pytest.mark.parametrize("empty", [None, "edge", "planar"])
+def test_knn_dual_pruned_matches_plain(dev, monkeypatch, empty):
+    """The dual search with its per-class boxes and lists, one class empty."""
+    _plan(monkeypatch, True)
+    qe, te, me, _ = _sorted_sets(dev, 51, 2, 900, 700)
+    qp, tp, mp, _ = _sorted_sets(dev, 52, 2, 3001, 2100)
+    if empty == "edge":
+        me = torch.zeros_like(me)
+    if empty == "planar":
+        mp = torch.zeros_like(mp)
+    prep = knn_cuda.knn_dual_prep(te, me, tp, mp)
+    a, (ve, vp) = knn_cuda.knn_dual_run(prep, qe, qp, 3, 5, 1.0, 1.5, return_visits=True)
+    b, (we, wp) = knn_cuda.knn_dual_run_reference(prep, qe, qp, 3, 5, 1.0, 1.5, return_visits=True)
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            assert torch.equal(x, y)
+    assert bool((ve <= we).all()) and bool((vp <= wp).all())
+    if empty is not None:
+        assert int((ve if empty == "edge" else vp).sum()) == 0
+
+
+@pytest.mark.parametrize("box", [64, 256])
+@pytest.mark.parametrize("k,r", [(1, 0.3), (5, 0.6), (8, 0.51), (9, 0.8)])
+def test_knn_gate_on_axis_aligned_faces(dev, k, r, box):
+    """Targets on an axis-aligned grid, in slab order, and queries on grid
+    points and half-way between layers: lower bounds land on box faces and
+    many distances tie. Rounding in the rotated frame must not skip an
+    equal-distance, lower-index candidate."""
+    g = np.stack(np.meshgrid(np.arange(32), np.arange(16), np.arange(8), indexing="ij"), -1)
+    t = (g.reshape(-1, 3) * 0.5 + np.array([20.0, -3.0, 1.0])).astype(np.float32)
+    rng = np.random.default_rng(box + k)
+    q = t[np.sort(rng.integers(0, len(t), 1500))].copy()
+    q[::3, 0] += 0.25
+    q[1::3, 1] += 0.25
+    qq, tt = _to(dev, q[None], t[None])
+    prep = knn_cuda.knn_prep(tt, torch.ones((1, len(t)), dtype=torch.bool, device=dev), box)
+    exact = knn_cuda._search_reference(prep, qq, k, float("inf"), None)[1][:, k - 1].contiguous()
+    for seed in (None, exact):
+        _, va, vb = _assert_pruned_equal(prep, qq, k, r, None, seed)
+        assert int(va.sum()) < int(vb.sum())
