@@ -42,7 +42,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the first iteration (row ``knn``), with the warm one from the last
      result at moved queries (``knn_warm``), in the wide form at k = 16
      (``knn_wide16``), and at map scale as scan-to-map's prep cache runs it
-     (``knn_map``); every seed bound
+     (``knn_map``); against maps whose every slot is live (points uniform in
+     a 40 m cube: nothing to prune), the dual search (``knn_dual_mapfull``)
+     and the single one with the cold seed (``knn_mapfull``); every seed bound
      computed on the card is bit-equal to the plain functions' on the CPU,
      and the bound the kernel gated with (its debug plane) to the one it was
      given. Each kNN row prints its visits against the live boxes, the bound
@@ -135,6 +137,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``optimize_pose_graph_sharded`` on phase 11's graph in float64, its
      edges padded with masked ones to a multiple of 4, within 1e-8 of phase
      11's solve and 1e-5 m of the truth; ms per solve, peak memory.
+ 13. The card's full-width output against the float64 oracle
+     (``loam_tpu_torch.oracle``, numpy on the host): ``extract_features_batch``
+     on 4 of the 16 frames, every edge and planar pick index-exact with
+     ``oracle.extract_features`` on the same scans in float64; both kNN
+     entry points -- the single search on the main path's chunk with the
+     cold seed, the dual one at scan scale, on the map after 4 frames and on
+     the live map of phase 2 -- on 2,048 sampled searching queries a launch
+     against ``knn_oracle`` by ``oracle.compare.check_knn`` (indices and
+     masks exact on every row whose f64 gaps between ranks 1..k+1 and to the
+     radius exceed 2^-20 of d2, the float32 rounding of a distance being 5 *
+     2^-24 at most; the rows inside the margin counted; d2 within 1e-6 of the
+     oracle's); one ICF pair of 32x512 scans in float32 through the kNN
+     kernel (the oracle's termination, the pose within 1e-2 m / 1e-3 rad of
+     the oracle's, the gap printed: F6 on the card) and in float64 on the
+     card, which takes the plain search (no kernel launch; validity and
+     matches equal to ``register_oracle``'s in every iteration, estimates
+     within 1e-9, deltas within 1e-8).
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -156,6 +175,7 @@ import time
 import numpy as np
 
 ATOL_SMALL_M = 1e-2  # GPU-vs-CPU trajectory agreement (the ICF position convergence threshold)
+ATOL_SMALL_RAD = 1e-3  # the same in rotation, as tests/test_torch_odometry.py
 # dual vs single kNN in the ICF loop: bit-equal neighbours, only the
 # gathered and the packed line/plane fits round differently
 ATOL_DUAL_M = 1e-5
@@ -287,7 +307,8 @@ UNSEEDED = dict(LOAM_KNN_SEED="0", LOAM_S2M_PREP_CACHE="0")
 #: gives it (NVIDIA H100 80GB HBM3, 700 W); printed beside the row, not in
 #: the JSON line. The warm row has the cold row's shape.
 EARLIER_LAUNCH_MS = {"knn": 0.7324, "knn_warm": 0.7324, "knn_dual_scan": 0.7999, "knn_dual": 0.1011,
-                     "knn_shard": 0.1368, "knn_shard_empty": 0.0480, "knn_wide16": 5.2558}
+                     "knn_shard": 0.1368, "knn_shard_empty": 0.0480, "knn_wide16": 5.2558,
+                     "knn_dual_mapfull": 1.1152}
 
 
 def _check_single_knn(what, knn_cuda, prep, q, k, r, qm, seed=None):
@@ -856,6 +877,109 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     return rows
 
 
+def _oracle_phase(T, torch, dev, smi, scans_np, lidar, fp, rp, oracle_knn, counters):
+    """Phase 13: the card's full-width output against the float64 oracle
+    (``loam_tpu_torch.oracle``, numpy on the host): the extraction kernels'
+    picks, both kNN entry points on sampled queries, and one ICF pair in
+    float32 through the kernel and in float64. Raises on any departure."""
+    from loam_tpu_torch.io import render_trajectory
+    from loam_tpu_torch.oracle import compare, extract_features, register_oracle
+
+    # extraction: the three kernels on 4 frames, index-exact with the oracle
+    n = 4
+    before = {k: counters[k].launches for k in ("sector_sort", "greedy_nms", "select_points")}
+    fb = T.extract_features_batch(torch.from_numpy(scans_np[:n]).to(dev), lidar, fp)
+    torch.cuda.synchronize()
+    idle = [k for k, v in before.items() if counters[k].launches == v]
+    if idle:
+        raise AssertionError(f"oracle phase: extraction did not launch {idle}")
+    t0 = time.perf_counter()
+    sizes = []
+    for f in range(n):
+        one = fb.map(lambda x: x[f])
+        e, p = one.compact_indices()
+        oe, op = extract_features(scans_np[f].astype(np.float64), lidar, fp)
+        if e.tolist() != oe or p.tolist() != op:
+            raise AssertionError(f"oracle phase: frame {f}: {len(e)} edges / {len(p)} planars picked on the card, "
+                                 f"the f64 oracle {len(oe)} / {len(op)}, not index-exact")
+        flat = scans_np[f].reshape(-1, 3)
+        ep, pp = one.compact()
+        if not (np.array_equal(ep, flat[e]) and np.array_equal(pp, flat[p])):
+            raise AssertionError(f"oracle phase: frame {f}: picked coordinates are not the scan's")
+        sizes.append((len(e), len(p)))
+    print(f"oracle extraction: {n} frames of {lidar.scan_lines}x{lidar.points_per_line}, precise_selection: "
+          f"edges and planars {sizes} index-exact with the f64 oracle (sector sort, greedy NMS, copy-out on "
+          f"the card; oracle {time.perf_counter() - t0:.1f} s of host time)")
+
+    # kNN: both entry points on 2,048 sampled searching queries a launch
+    rng = np.random.default_rng(13)
+    for what, run, classes in oracle_knn:
+        results = run()
+        torch.cuda.synchronize()
+        per = 2048 // len(classes)
+        tot = dict(rows=0, near_ties=0, d2_rtol=0.0)
+        t0 = time.perf_counter()
+        for cls, at, q, qm, tp, tm, k, r in classes:
+            idx, dist, m = (x.reshape((-1,) + x.shape[-2:]).cpu().numpy() for x in results[at])  # (B, Q, k)
+            qn, qmn, tpn, tmn = (x.cpu().numpy() for x in (q, qm, tp, tm))
+            bs, rows = np.nonzero(qmn)
+            pick = rng.choice(len(bs), size=min(per, len(bs)), replace=False)
+            for b in np.unique(bs[pick]):
+                sel = rows[pick][bs[pick] == b]
+                got = compare.check_knn(f"{what} {cls} pair {b}", qn[b, sel], tpn[b], tmn[b], k, r,
+                                        idx[b, sel], dist[b, sel], m[b, sel])
+                tot["rows"] += got["rows"]
+                tot["near_ties"] += got["near_ties"]
+                tot["d2_rtol"] = max(tot["d2_rtol"], got["d2_rtol"])
+        print(f"oracle {what}: {tot['rows']} sampled queries against knn_oracle in f64 on the same f32 "
+              f"coordinates: indices and masks exact on every row outside the near-tie margin (gaps of at "
+              f"most 2^-20 of d2), {tot['near_ties']} rows inside it; d2 within {tot['d2_rtol']:.3e} "
+              f"(relative, limit {compare.KNN_D2_RTOL}) ({time.perf_counter() - t0:.1f} s of host time)")
+
+    # one ICF pair at 32x512: float32 through the kernel, float64 on the card
+    # (the dtype rule sends it to the plain search), against register_oracle
+    small = T.LidarParams(32, 512, 0.5, 120.0)
+    pair_np, _ = render_trajectory(small, 2, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01, noise=0.005,
+                                   seed=0, dtype=np.float32)
+    fs = T.extract_features_batch(torch.from_numpy(pair_np).to(dev), small, fp)
+    (te, tp), (se, sp) = (fs.map(lambda x: x[i]).compact() for i in range(2))
+    up = lambda a: a.astype(np.float64)
+    t0 = time.perf_counter()
+    orc = register_oracle(up(se), up(sp), up(te), up(tp), params=rp)
+    oracle_s = time.perf_counter() - t0
+    sets = lambda dt: (T.feature_set_from_points(se, sp, dtype=dt, device=dev),
+                       T.feature_set_from_points(te, tp, dtype=dt, device=dev))
+    knn_fns = (counters["knn"], counters["knn_dual"])
+    for fn in knn_fns:
+        fn.launches = 0
+    est, det = T.register_features(*sets(torch.float32), params=rp)
+    torch.cuda.synchronize()
+    if counters["knn"].launches + counters["knn_dual"].launches == 0:
+        raise AssertionError("oracle phase: the float32 registration did not launch a kNN kernel")
+    gap_m, gap_rad = compare.pose_gap(est.rotation, est.translation, orc)
+    if int(det.termination) != orc.termination:
+        raise AssertionError(f"oracle phase: float32 termination {int(det.termination)}, the oracle's "
+                             f"{orc.termination}")
+    if not (gap_m <= ATOL_SMALL_M and gap_rad <= ATOL_SMALL_RAD):
+        raise AssertionError(f"oracle phase: float32 pose {gap_m:.3e} m / {gap_rad:.3e} rad from the oracle's")
+    print(f"oracle ICF pair, {small.scan_lines}x{small.points_per_line} ({len(se)} + {len(sp)} source "
+          f"features), float32 through the kNN kernel: termination {int(det.termination)} after "
+          f"{int(det.num_iterations)} iterations as the oracle's ({len(orc.iterations)}); pose "
+          f"{gap_m:.3e} m / {gap_rad:.3e} rad from the oracle's (F6 on the card; limits {ATOL_SMALL_M} m / "
+          f"{ATOL_SMALL_RAD} rad); oracle {oracle_s:.1f} s of host time, on {smi}")
+    for fn in knn_fns:
+        fn.launches = 0
+    est64, det64 = T.register_features(*sets(torch.float64), params=rp)
+    torch.cuda.synchronize()
+    if counters["knn"].launches + counters["knn_dual"].launches != 0:
+        raise AssertionError("oracle phase: the float64 registration launched a kNN kernel")
+    iters = compare.check_icf("oracle phase float64 pair", det64, orc)
+    gap_m, gap_rad = compare.pose_gap(est64.rotation, est64.translation, orc)
+    print(f"oracle ICF pair in float64 on the card (plain search): {iters} iterations, validity and matches "
+          f"equal to the oracle's in each, entering estimates within {compare.ICF_INPUT_ATOL} and deltas "
+          f"within {compare.ICF_DELTA_ATOL}; final pose {gap_m:.3e} m / {gap_rad:.3e} rad from the oracle's")
+
+
 def main() -> int:
     import torch
 
@@ -1170,7 +1294,66 @@ def main() -> int:
         f"B=1, {cq.shape[1]} planar queries ({int(cqm.sum())} searching) vs {cmask.shape[1]} map slots "
         f"({int(cmask.sum())} filled after {n_map} frames), k={k}, box {cprep.tt}, cold seed bound: "
         f"scan-to-map's cached search", dict(seed_window=True), want))
+
+    # every map slot live, the points spread over the room the scans see
+    # (tune_knn's mapfull): nothing to prune, the search's dense case; the
+    # dual search and the single one as scan-to-map's cache runs it
+    g = torch.Generator(device="cpu").manual_seed(0)
+    full = lambda n: ((torch.rand((n, 3), generator=g) - 0.5) * 40.0).to(dev)
+    ne, npl = em.points.shape[0], pm.points.shape[0]
+    fe, fpl = full(ne), full(npl)
+    ones_e, ones_p = (torch.ones(n, dtype=torch.bool, device=dev) for n in (ne, npl))
+    f_prep = knn_cuda.knn_dual_prep(fe, ones_e, fpl, ones_p)
+    k_e, k_p = s2m_reg.num_edge_neighbors, s2m_reg.num_plane_neighbors
+    full_err = _check_dual_knn("knn_dual mapfull", knn_cuda, f_prep, mqe, mqp, knn_cuda.knn_prep(fe, ones_e),
+                               knn_cuda.knn_prep(fpl, ones_p), k_e, k_p, r_e, r_p)
+    run_full = lambda: knn_cuda.knn_dual_run(f_prep, mqe, mqp, k_e, k_p, r_e, r_p)
+    full_shape = (f"B=1, {mqe.shape[0]} edge + {mqp.shape[0]} planar queries vs {ne} + {npl} map slots, "
+                  f"every one live, uniform in a 40 m cube, k={k_p}")
+    kernels.append(dict(
+        name="knn_dual_mapfull", counter="knn_dual", route="cuda", source="loam_tpu_torch/ops/csrc/knn.cu",
+        replaces="loam_tpu/ops/knn_pallas.py:946", shape=full_shape, max_abs_err=full_err,
+        ms=_time_ms(run_full, 10), host_us=_host_us(run_full, 50),
+        launch_ms=_time_ms(lambda: knn_cuda._dual_search_kernel(
+            f_prep, mqe[None], mqp[None], max(k_e, k_p), r_e * r_e, r_p * r_p), 10),
+        plain_ms=_time_ms(lambda: knn_cuda.knn_dual_run_reference(f_prep, mqe, mqp, k_e, k_p, r_e, r_p), 2),
+        library_ms=None, **dual_bound("knn_dual_mapfull", f_prep, ones_e, ones_p, mqe, mqp, max(k_e, k_p),
+                                      r_e, r_p)))
+    f1_prep = knn_cuda.knn_prep(fpl[None], ones_p[None])
+    full1_err = _check_single_knn("knn mapfull", knn_cuda, f1_prep, cq, k_p, r_p, cqm, dict(seed_window=True))
+    kernels.append(_knn_row(
+        "knn_mapfull", knn_cuda, f1_prep, cq, k_p, r_p, cqm, ones_p[None], full1_err,
+        f"B=1, {cq.shape[1]} planar queries ({int(cqm.sum())} searching) vs {npl} map slots, every one "
+        f"live, uniform in a 40 m cube, k={k_p}, box {f1_prep.tt}, cold seed bound", dict(seed_window=True),
+        _plain_seed(knn_cuda, cq, fpl[None], ones_p[None], k_p)))
+    if max(full_err, full1_err) != 0.0:
+        raise AssertionError(f"knn mapfull differs from the plain version by {max(full_err, full1_err)}")
     _print_kernels(kernels)
+
+    # what phase 13 holds to knn_oracle: (label, run, [(class, result index,
+    # queries, query mask, targets, target mask, k, radius)]), batched
+    lift = lambda *xs: tuple(x[None] for x in xs)
+    map_cls = lambda qe_, qp_, e_pts, e_m, p_pts, p_m: [
+        ("edge", 0, *lift(qe_, f_next.edge_mask, e_pts, e_m), k_e, r_e),
+        ("planar", 1, *lift(qp_, f_next.planar_mask, p_pts, p_m), k_p, r_p)]
+    k_s, r_s = rp.num_plane_neighbors, rp.max_plane_neighbor_dist
+    p_src = feats.planar_points[1:C + 1].contiguous()
+    p_qm = feats.planar_mask[1:C + 1].contiguous()
+    s_prep = knn_cuda.knn_prep(feats.planar_points[:C], feats.planar_mask[:C])
+    oracle_knn = [
+        ("knn (single), main path's chunk, cold seed",
+         lambda: (knn_cuda.knn_run(s_prep, p_src, k_s, r_s, query_mask=p_qm, seed_window=True),),
+         [("planar", 0, p_src, p_qm, feats.planar_points[:C], feats.planar_mask[:C], k_s, r_s)]),
+        ("knn_dual, scan scale", lambda: knn_cuda.knn_dual_run(d_prep, qe, qp, rp.num_edge_neighbors,
+                                                              rp.num_plane_neighbors,
+                                                              rp.max_edge_neighbor_dist, r_s),
+         [("edge", 0, qe, src.edge_mask, tgt.edge_points, tgt.edge_mask, rp.num_edge_neighbors,
+           rp.max_edge_neighbor_dist),
+          ("planar", 1, qp, src.planar_mask, tgt.planar_points, tgt.planar_mask, k_s, r_s)]),
+        (f"knn_dual, map after {n_map} frames", lambda: knn_cuda.knn_dual_run(m_prep, mqe, mqp, k_e, k_p, r_e, r_p),
+         map_cls(mqe, mqp, em.points, em.mask, pm.points, pm.mask)),
+        ("knn_dual, mapfull", run_full, map_cls(mqe, mqp, fe, ones_e, fpl, ones_p)),
+    ]
 
     # ---- 3. the offline driver (single kNN) ----------------------------------
     counters = {
@@ -1615,6 +1798,9 @@ def main() -> int:
     # ---- 12. the sharded paths on a mesh of four shards of this GPU ----------------------
     kernels += _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive,
                               extraction, ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps)
+
+    # ---- 13. the f64 oracle on the card ----------------------------------------------------
+    _oracle_phase(T, torch, dev, smi, scans_np, lidar, fp, rp, oracle_knn, counters)
 
     for kd in kernels:
         counter = kd.get("counter", kd["name"])

@@ -17,6 +17,8 @@ the port needs no such layer.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -126,3 +128,24 @@ def _valid_from_range_checks(N, P, out_of_range, occl_fwd, occl_bwd, parallel) -
     # CHECK 4: beam-parallel surface; clears self only
     f4 = gate3 & ~(f3a | f3b) & parallel
     return ~(c1 | inv2 | inv3 | f4)
+
+
+def compute_curvature_df(scan: torch.Tensor, lidar: LidarParams, params: FeatureExtractionParams):
+    """Curvature as ``loam_tpu``'s double-float pair: ``(hi, lo)``, each
+    (..., L, P) float32, with ``hi = f32(c)`` and ``lo = f32(c - hi)`` for
+    the float64 curvature ``c`` of :func:`compute_curvature` (whatever
+    ``params.precise_selection`` says); the -1 sentinel lands in ``hi`` with
+    ``lo = 0``. For API parity with ``loam_tpu.features.curvature``, whose
+    TPU path needs the pair for lack of float64: the port's own path uses
+    native float64 and does not call this."""
+    c = compute_curvature(scan, lidar, dataclasses.replace(params, precise_selection=True))
+    hi = c.to(torch.float32)
+    return hi, (c - hi.to(torch.float64)).to(torch.float32)
+
+
+def compute_valid_points_df(scan: torch.Tensor, lidar: LidarParams,
+                            params: FeatureExtractionParams) -> torch.Tensor:
+    """The validity mask with every range comparison in float64 (whatever
+    ``params.precise_selection`` says): ``loam_tpu``'s double-float mask,
+    for API parity; the port's own path does not call this."""
+    return compute_valid_points(scan, lidar, dataclasses.replace(params, precise_selection=True))

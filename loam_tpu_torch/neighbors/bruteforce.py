@@ -5,12 +5,14 @@ distance-ascending with first-index ties, entries at or beyond ``max_dist``
 masked out (strict ``<``, reference ``kdtree.cpp:24-26``), invalid targets
 never returned. Distances are direct coordinate differences, never the
 ``|q|^2 + |t|^2 - 2 q.t`` expansion, which cancels at long range.
+``knn_oracle`` is the NumPy reference both are held to.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -109,3 +111,32 @@ def knn(
     if max_dist > 0:
         valid = valid & (dist < max_dist)
     return KnnResult(idx, torch.where(valid, dist, float("inf")), valid)
+
+
+def knn_oracle(
+    queries: np.ndarray,
+    targets: np.ndarray,
+    target_mask: np.ndarray,
+    k: int,
+    max_dist: float = 0.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """NumPy reference oracle replicating ``kdtree_internal::knnSearch``
+    (``kdtree.cpp:10-28``): k nearest by full sort, then strict radius filter.
+    Returns (indices, distances, mask) shaped (Q, k). A copy of
+    ``loam_tpu.neighbors.knn_oracle``, equal to it bit for bit."""
+    tgt = np.asarray(targets)[np.asarray(target_mask)]
+    orig_idx = np.flatnonzero(np.asarray(target_mask))
+    Q = queries.shape[0]
+    idx = np.zeros((Q, k), dtype=np.int32)
+    dist = np.full((Q, k), np.inf)
+    mask = np.zeros((Q, k), dtype=bool)
+    for i in range(Q):
+        d = np.linalg.norm(tgt - queries[i], axis=-1)
+        order = np.argsort(d, kind="stable")[:k]
+        m = len(order)
+        sel = d[order]
+        keep = np.ones(m, dtype=bool) if max_dist <= 0 else sel < max_dist
+        idx[i, :m] = orig_idx[order]
+        dist[i, :m] = np.where(keep, sel, np.inf)
+        mask[i, :m] = keep
+    return idx, dist, mask

@@ -67,8 +67,21 @@
 //     most one tile old, and k-th distances only fall, so a skipped box
 //     cannot hold a candidate that would enter. Inside a staged tile a warp
 //     skips the boxes that none of its queries can use (the same test with
-//     the k-th of that moment). A query that does not search holds -inf as
+//     the k-th of that moment; a tile whose every box it can use is searched
+//     with no per-group test). A query that does not search holds -inf as
 //     its k-th and never votes.
+//   * Where nothing can be pruned (every box near every query, as in a map
+//     whose slots are all live) the search costs what an unpruned one does
+//     plus the list, the vote and the gate. Those are not what made it
+//     slower: a build that skipped the rank sort and the vote for blocks
+//     whose list held every box moved such a launch by under 1%. The hot
+//     loop and the staging were: each query's seed bound lives in shared
+//     memory and its |x| + |y| + |z| is recomputed where the gate needs it
+//     (spills of the k = 5 search 132 -> ~50 bytes); nine threads a box put a
+//     staged box's frame and bounds beside it, where thread 0 loaded all of
+//     them; a box's copies are spread over the block slot by slot, where
+//     the first `box` threads issued them all; and a tile whose every box
+//     some query of the warp wants is searched with no per-group test.
 //   * Soundness in float32. The lower bound is computed in the box's rotated
 //     frame, u = cx*x + cy*y, v = cx*y - cy*x, so rounding could put it an
 //     ulp above the d2 of a target on the box's face, and the <= test could
@@ -394,10 +407,63 @@ __device__ __forceinline__ void block_min(float (&v)[N], float (*red)[kWarps]) {
     for (int w = 0; w < kWarps; ++w) v[i] = fminf(v[i], red[i][w]);
 }
 
+// Searches a staged tile of n_boxes boxes (slot[s]: the box in slot s) for
+// one thread's queries, skipping the boxes whose bit in use is clear unless
+// kAll. The groups of four targets are visited in bit-reversed order:
+// sorted targets visited in index order approach a query monotonically, so
+// nearly every one within the radius would enter its list (~150 insertions
+// a query at scan scale); in this order about a quarter do.
+template <int K, bool kAll>
+__device__ __forceinline__ void search_tile(const float (*tile)[kTile], const int* slot, int n_boxes,
+                                            int box_shift, unsigned use, const float (&qx)[kQpt],
+                                            const float (&qy)[kQpt], const float (&qz)[kQpt],
+                                            float (&bd)[kQpt][K], int (&bi)[kQpt][K]) {
+  const int gshift = box_shift - 2;  // groups of four a box: 1 << gshift
+  const int groups = n_boxes << gshift;
+  const float4* sx4 = reinterpret_cast<const float4*>(tile[0]);
+  const float4* sy4 = reinterpret_cast<const float4*>(tile[1]);
+  const float4* sz4 = reinterpret_cast<const float4*>(tile[2]);
+  int bits = 1;
+  while ((1 << bits) < groups) ++bits;
+  for (int v = 0; v < (1 << bits); ++v) {
+    const int g = (int)(__brev((unsigned)v) >> (32 - bits));
+    if (g >= groups) continue;
+    if (!kAll && !((use >> (g >> gshift)) & 1u)) continue;
+    const float4 X = sx4[g];
+    const float4 Y = sy4[g];
+    const float4 Z = sz4[g];
+    float d[kQpt][4];
+    bool hit[kQpt];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kQpt; ++j) {
+      d[j][0] = dist2(X.x, Y.x, Z.x, qx[j], qy[j], qz[j]);
+      d[j][1] = dist2(X.y, Y.y, Z.y, qx[j], qy[j], qz[j]);
+      d[j][2] = dist2(X.z, Y.z, Z.z, qx[j], qy[j], qz[j]);
+      d[j][3] = dist2(X.w, Y.w, Z.w, qx[j], qy[j], qz[j]);
+      // <= : an equal distance with a smaller index still enters
+      const float kth = bd[j][K - 1];
+      hit[j] = (d[j][0] <= kth) | (d[j][1] <= kth) | (d[j][2] <= kth) | (d[j][3] <= kth);
+      any |= hit[j];
+    }
+    if (any) {
+      const int j0 = (slot[g >> gshift] << box_shift) + ((g & ((1 << gshift) - 1)) << 2);
+#pragma unroll
+      for (int j = 0; j < kQpt; ++j) {
+        if (hit[j]) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) try_insert<K>(bd[j], bi[j], d[j][c], j0 + c);
+        }
+      }
+    }
+  }
+}
+
 // Two blocks an SM for k <= 5 (64 registers a thread, a few spilled), one
-// above (lists of 6-8 spill heavily at 64): the gate's state took the search
-// to ~120 registers, and at one block an SM the k = 5 launch at scan scale
-// took 0.54 ms where two blocks take 0.46 (tune_knn's shapes, H100).
+// above (lists of 6-8 spill heavily at 64): the gate's state takes the
+// search to ~115 registers unbounded, and at one block an SM the k = 5
+// launch at scan scale took 0.51 ms where two blocks took 0.45, every other
+// shape of tune_knn slower too (H100).
 template <int K>
 __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
     knn_search_kernel(const SearchArgs a) {
@@ -410,6 +476,7 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
   __shared__ unsigned s_vote[2][kWarps];  // a vote round's wanted boxes, per warp
   __shared__ float s_box[2][kMaxSlots][9];  // the staged boxes: frame, bounds, |bound|
   __shared__ int s_cnt;
+  __shared__ float s_sb[kQpt][kThreads];  // each query's seed bound, out of the registers
 
   const bool second = (int)blockIdx.x >= a.blocks0;
   const ClassDesc cd = second ? a.c[1] : a.c[0];
@@ -430,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
   // same boxes
   const int q0 = qblk * kBlockQ + (threadIdx.x >> 5) * (32 * kQpt) +
                  (threadIdx.x & 31);
-  float qx[kQpt], qy[kQpt], qz[kQpt], qs[kQpt], sb[kQpt];
+  float qx[kQpt], qy[kQpt], qz[kQpt];
   float bd[kQpt][K];
   int bi[kQpt][K];
   unsigned searching = 0;  // bit j: query j is in range and not masked
@@ -442,16 +509,17 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
     const int qi = q0 + 32 * j;
     bool on = qi < cd.Q;
     qx[j] = qy[j] = qz[j] = 0.f;
-    sb[j] = CUDART_INF_F;
+    float sbj = CUDART_INF_F;
     if (on) {
       const float* q = cd.queries + (b * cd.Q + qi) * 3;
       qx[j] = q[0];
       qy[j] = q[1];
       qz[j] = q[2];
       if (cd.qmask != nullptr) on = cd.qmask[b * cd.Q + qi] != 0;
-      sb[j] = seed_bound(cd, b, qi, qx[j], qy[j], qz[j], K, tx, ty, tz);
-      if (cd.bound_out != nullptr && split == 0) cd.bound_out[b * cd.Q + qi] = sb[j];
+      sbj = seed_bound(cd, b, qi, qx[j], qy[j], qz[j], K, tx, ty, tz);
+      if (cd.bound_out != nullptr && split == 0) cd.bound_out[b * cd.Q + qi] = sbj;
     }
+    s_sb[j][threadIdx.x] = sbj;  // read back by this thread only
     if (on) {
       searching |= 1u << j;
       lo3[0] = fminf(lo3[0], qx[j]);
@@ -460,9 +528,8 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
       hi3[1] = fmaxf(hi3[1], qy[j]);
       lo3[2] = fminf(lo3[2], qz[j]);
       hi3[2] = fmaxf(hi3[2], qz[j]);
-      reach = fmaxf(reach, fminf(sb[j], cd.init_d2));
+      reach = fmaxf(reach, fminf(sbj, cd.init_d2));
     }
-    qs[j] = fabsf(qx[j]) + fabsf(qy[j]) + fabsf(qz[j]);
     // nothing is below -inf: a query that does not search never inserts
     // and never votes for a box, with no test of its own in the loop
     const float start = on ? cd.init_d2 : -CUDART_INF_F;
@@ -534,13 +601,51 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
     __syncthreads();
   }
 
-  // The gate: how many queries of this thread can use box c?
+  // The gate: how many queries of this thread can use box bx? (A query
+  // that does not search holds -inf as its k-th and never does.)
   auto wants = [&](const Box& bx) {
     int w = 0;
 #pragma unroll
     for (int j = 0; j < kQpt; ++j)
-      w += point_lb(bx, qx[j], qy[j], qz[j], qs[j]) <= fminf(bd[j][K - 1], sb[j]);
+      w += point_lb(bx, qx[j], qy[j], qz[j], fabsf(qx[j]) + fabsf(qy[j]) + fabsf(qz[j])) <=
+           fminf(bd[j][K - 1], s_sb[j][threadIdx.x]);
     return w;
+  };
+
+  // Starts the copy of box c into slot sl of buffer buf, the copies spread
+  // over the threads slot by slot, a ragged end padded with the sentinel;
+  // nine threads put the box's frame, bounds and largest |bound| beside it.
+  auto stage_box = [&](int buf, int sl, int c) {
+    const int f = (int)threadIdx.x - sl * 9;
+    if (f >= 0 && f < 9) {
+      float v = 0.f;
+      if (f < 2) {
+        v = __ldg(rot + f * cd.box_row + c);
+      } else if (f < 8) {
+        v = __ldg(rbox + (f - 2) * cd.box_row + c);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 6; ++r) v = fmaxf(v, fabsf(__ldg(rbox + r * cd.box_row + c)));
+      }
+      s_box[buf][sl][f] = v;
+      if (f == 0) slot_box[buf][sl] = c;
+    }
+    const int base = c << a.box_shift;
+    const int nc = min(box, hi - base);
+    float* sx = stage[buf][0] + (sl << a.box_shift);
+    float* sy = stage[buf][1] + (sl << a.box_shift);
+    float* sz = stage[buf][2] + (sl << a.box_shift);
+    for (int e = ((int)threadIdx.x - (sl << a.box_shift)) & (kThreads - 1); e < box; e += kThreads) {
+      if (e < nc) {
+        cp_async4(sx + e, tx + base + e);
+        cp_async4(sy + e, ty + base + e);
+        cp_async4(sz + e, tz + base + e);
+      } else {
+        sx[e] = kSentinel;
+        sy[e] = kSentinel;
+        sz[e] = kSentinel;
+      }
+    }
   };
 
   // Chooses the next tile's boxes from the list and starts their copies into
@@ -565,35 +670,8 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
       __syncthreads();
       m = 0;
       for (int w = 0; w < kWarps; ++w) m |= vote[w];
-      for (int i = 0; i < n; ++i) {
-        if (!((m >> i) & 1u)) continue;
-        const int c = s_lst[pos + i];
-        if (threadIdx.x == 0) {
-          const Box bx = load_box(rot, rbox, cd.box_row, c);
-          float* p = s_box[buf][filled];
-          p[0] = bx.cx;
-          p[1] = bx.cy;
-          for (int r = 0; r < 6; ++r) p[2 + r] = bx.b[r];
-          p[8] = bx.s;
-          slot_box[buf][filled] = c;
-        }
-        const int base = c << a.box_shift;
-        const int nc = min(box, hi - base);
-        float* sx = stage[buf][0] + (filled << a.box_shift);
-        float* sy = stage[buf][1] + (filled << a.box_shift);
-        float* sz = stage[buf][2] + (filled << a.box_shift);
-        for (int e = threadIdx.x; e < nc; e += kThreads) {
-          cp_async4(sx + e, tx + base + e);
-          cp_async4(sy + e, ty + base + e);
-          cp_async4(sz + e, tz + base + e);
-        }
-        for (int e = nc + threadIdx.x; e < box; e += kThreads) {
-          sx[e] = kSentinel;
-          sy[e] = kSentinel;
-          sz[e] = kSentinel;
-        }
-        ++filled;
-      }
+      for (int i = 0; i < n; ++i)
+        if ((m >> i) & 1u) stage_box(buf, filled++, s_lst[pos + i]);
       pos += n;
     }
     cp_async_commit();
@@ -612,61 +690,24 @@ __global__ void __launch_bounds__(kThreads, K <= 5 ? 2 : 1)
     const int n_now = filled;
     filled = next_tile(cur ^ 1);
     if (!warp_on) continue;
-    // the boxes of this tile that some query of this warp can use
+    // the boxes of this tile that some query of this warp can use, with the
+    // k-th distances of this moment
     unsigned use = 0;
-    for (int s = 0; s < n_now; ++s) {
-      const float* p = s_box[cur][s];
+    for (int sl = 0; sl < n_now; ++sl) {
+      const float* p = s_box[cur][sl];
       Box bx;
       bx.cx = p[0];
       bx.cy = p[1];
       for (int r = 0; r < 6; ++r) bx.b[r] = p[2 + r];
       bx.s = p[8];
       const int w = wants(bx);
-      needed += w;
-      if (__any_sync(0xffffffffu, w > 0)) use |= 1u << s;
+      if (cd.visits != nullptr) needed += w;
+      if (__any_sync(0xffffffffu, w > 0)) use |= 1u << sl;
     }
-    if (use == 0) continue;
-    const int gshift = a.box_shift - 2;  // groups of four a box: 1 << gshift
-    const int groups = n_now << gshift;
-    const float4* sx4 = reinterpret_cast<const float4*>(stage[cur][0]);
-    const float4* sy4 = reinterpret_cast<const float4*>(stage[cur][1]);
-    const float4* sz4 = reinterpret_cast<const float4*>(stage[cur][2]);
-    int bits = 1;
-    while ((1 << bits) < groups) ++bits;
-    for (int v = 0; v < (1 << bits); ++v) {
-      const int g = (int)(__brev((unsigned)v) >> (32 - bits));
-      if (g >= groups) continue;
-      const int s = g >> gshift;
-      if (!((use >> s) & 1u)) continue;
-      const float4 X = sx4[g];
-      const float4 Y = sy4[g];
-      const float4 Z = sz4[g];
-      float d[kQpt][4];
-      bool hit[kQpt];
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < kQpt; ++j) {
-        d[j][0] = dist2(X.x, Y.x, Z.x, qx[j], qy[j], qz[j]);
-        d[j][1] = dist2(X.y, Y.y, Z.y, qx[j], qy[j], qz[j]);
-        d[j][2] = dist2(X.z, Y.z, Z.z, qx[j], qy[j], qz[j]);
-        d[j][3] = dist2(X.w, Y.w, Z.w, qx[j], qy[j], qz[j]);
-        // <= : an equal distance with a smaller index still enters
-        const float kth = bd[j][K - 1];
-        hit[j] = (d[j][0] <= kth) | (d[j][1] <= kth) | (d[j][2] <= kth) |
-                 (d[j][3] <= kth);
-        any |= hit[j];
-      }
-      if (any) {
-        const int j0 = (slot_box[cur][s] << a.box_shift) +
-                       ((g & ((1 << gshift) - 1)) << 2);
-#pragma unroll
-        for (int j = 0; j < kQpt; ++j) {
-          if (hit[j]) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) try_insert<K>(bd[j], bi[j], d[j][c], j0 + c);
-          }
-        }
-      }
+    if (use == (n_now == 32 ? ~0u : (1u << n_now) - 1)) {
+      search_tile<K, true>(stage[cur], slot_box[cur], n_now, a.box_shift, use, qx, qy, qz, bd, bi);
+    } else if (use != 0) {
+      search_tile<K, false>(stage[cur], slot_box[cur], n_now, a.box_shift, use, qx, qy, qz, bd, bi);
     }
   }
   if (cd.visits != nullptr) {

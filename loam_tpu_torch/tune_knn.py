@@ -1,6 +1,7 @@
 """Times the kNN kernels' build-time and launch-time choices on a CUDA GPU.
 
     python3 -m loam_tpu_torch.tune_knn [--out tune_out] [--quick]
+        [--variant="-DNAME=VALUE ..."]... [--csrc DIR]
 
 For every variant -- threads a block, queries a thread and tile length
 (``-DLOAM_KNN_THREADS/QPT/TILE`` of ``ops/csrc/knn.cu``), and the split
@@ -13,14 +14,26 @@ host's launch rate, not the device's time) and the launch alone (search and
 merge kernels with their output allocations, the ``raw`` figures):
 
   * ``single``: 4 pairs of 64x1024 scans, the planar search as the ICF
-    calls it (packed coordinates, query mask); ``nohit``: the same with a
-    radius of 5 cm, which next to no target is within, so no list changes:
-    the evaluations alone;
+    calls it (packed coordinates, query mask), no seed bound; ``nohit``:
+    the same with a radius of 5 cm, which next to no target is within, so
+    no list changes: the evaluations alone; ``cold`` / ``warm``: with the
+    ICF loop's seed bounds from the kernel's prologue, the rank window at
+    the first iteration and the last result at queries moved (0.012,
+    -0.005, 0.002) m;
   * ``dual4`` / ``dual1``: the dual search of 4 pairs and of 1 pair
     (scan-to-scan) at scan scale;
   * ``map4`` / ``map15``: the dual search of one frame against the voxel
     maps after 4 and after 15 frames at the default ``ScanToMapConfig``;
-  * ``mapfull``: the same against maps whose every slot is live.
+    ``mapc``: the single planar search of that frame against the map after
+    4 frames with the cold seed, as scan-to-map's prep cache runs it;
+  * ``mapfull``: the dual search against maps whose every slot is live
+    (nothing to prune); ``mapfull1``: the single planar search there, with
+    the cold seed.
+
+``--variant`` (repeatable; write it with ``=``) builds the given ``-D``
+flags instead of the sweep, at the planner's defaults; ``--csrc`` builds the kernels from another directory of sources with
+the same C interface (an earlier tree's, to time it beside this one in one
+process).
 
 Prints one line per variant with the ``ptxas`` figures and one JSON line;
 the table also goes to ``<out>/tune_knn.json``. The defaults in the sources
@@ -33,8 +46,10 @@ import argparse
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,6 +73,14 @@ def _time_ms(fn, reps=20):
 
 def _equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _ptxas(log: str, kernel: str = "knn_search_kernelILi5E") -> str:
+    """Registers and spill stores of one kernel (default: the k = 5 search)."""
+    m = re.search(rf"Function properties for \S*{kernel}\S*\s+(\d+) bytes stack frame, (\d+) bytes "
+                  r"spill stores, (\d+) bytes spill loads.*\n.*Used (\d+) registers", log)
+    return "not reported" if m is None else (f"{m.group(4)} registers, {m.group(2)} B spill stores, "
+                                             f"{m.group(3)} B spill loads")
 
 
 def _shapes(dev):
@@ -95,6 +118,18 @@ def _shapes(dev):
             shapes["single"] = (lambda: knn_cuda.knn_run(*args, **kw),
                                 lambda: knn_cuda.knn_run_reference(*args, **kw),
                                 lambda: knn_cuda._search_kernel(*raw))
+            cold = dict(seed_window=True)
+            shapes["cold"] = (lambda: knn_cuda.knn_run(*args, **kw, **cold),
+                              lambda: knn_cuda.knn_run_reference(*args, **kw),
+                              lambda: knn_cuda._search_kernel(*raw, window=True))
+            prev = knn_cuda.knn_run(*args, **kw, **cold)
+            moved = (src.planar_points + torch.tensor([0.012, -0.005, 0.002], device=dev)).contiguous()
+            wargs = (prep, moved) + args[2:]
+            wraw = (prep, moved) + raw[2:]
+            wprev = (prev.xs, prev.ys, prev.zs, prev.mask)
+            shapes["warm"] = (lambda: knn_cuda.knn_run(*wargs, **kw, seed_prev=prev, seed_window=True),
+                              lambda: knn_cuda.knn_run_reference(*wargs, **kw),
+                              lambda: knn_cuda._search_kernel(*wraw, prev=wprev, window=True))
             near = args[:3] + (0.05,)
             raw_near = raw[:3] + (0.05 ** 2,) + raw[4:]
             shapes["nohit"] = (lambda: knn_cuda.knn_run(*near, **kw),
@@ -103,6 +138,17 @@ def _shapes(dev):
         d_prep = knn_cuda.knn_dual_prep(tgt.edge_points, tgt.edge_mask,
                                         tgt.planar_points, tgt.planar_mask)
         shapes["dual" + name] = dual(d_prep, src.edge_points, src.planar_points, rp)
+
+    def cached(points, mask, q, qm, p):
+        """The single planar search of one frame against a map, cold seed."""
+        prep = knn_cuda.knn_prep(points[None], mask[None])
+        q, qm = q[None].contiguous(), qm[None].contiguous()
+        args = (prep, q, p.num_plane_neighbors, p.max_plane_neighbor_dist)
+        kw = dict(with_coords=True, query_mask=qm)
+        return (lambda: knn_cuda.knn_run(*args, **kw, seed_window=True),
+                lambda: knn_cuda.knn_run_reference(*args, **kw),
+                lambda: knn_cuda._search_kernel(prep, q, p.num_plane_neighbors,
+                                                p.max_plane_neighbor_dist ** 2, qm, window=True))
 
     os.environ["LOAM_ICF_DUAL_KNN"] = "1"
     for n_map in (4, 15):
@@ -114,13 +160,16 @@ def _shapes(dev):
         em, pm = st.edge_map, st.planar_map
         shapes[f"map{n_map}"] = dual(knn_cuda.knn_dual_prep(em.points, em.mask, pm.points, pm.mask),
                                      qe, qp, mrp)
+        if n_map == 4:
+            shapes["mapc"] = cached(pm.points, pm.mask, qp, f_next.planar_mask, mrp)
     # every slot live: points spread over the room the scans see
     g = torch.Generator(device="cpu").manual_seed(0)
     full = lambda n: ((torch.rand((n, 3), generator=g) - 0.5) * 40.0).to(dev)
     ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)
     ne, npl = em.points.shape[0], pm.points.shape[0]
-    shapes["mapfull"] = dual(knn_cuda.knn_dual_prep(full(ne), ones(ne), full(npl), ones(npl)),
-                             qe, qp, mrp)
+    fe, fpl = full(ne), full(npl)
+    shapes["mapfull"] = dual(knn_cuda.knn_dual_prep(fe, ones(ne), fpl, ones(npl)), qe, qp, mrp)
+    shapes["mapfull1"] = cached(fpl, ones(npl), qp, f_next.planar_mask, mrp)
     return shapes
 
 
@@ -128,6 +177,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="tune_out")
     ap.add_argument("--quick", action="store_true", help="the sources' defaults only")
+    ap.add_argument("--variant", action="append", default=None,
+                    help="-D flags of one build to time instead of the sweep (repeatable; '' = defaults)")
+    ap.add_argument("--csrc", default=None, help="build the kernels from this directory of sources")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_knn: no CUDA device", file=sys.stderr)
@@ -136,17 +188,19 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"gpu: {smi}")
     dev = torch.device("cuda", 0)
+    if args.csrc is not None:
+        _build.CSRC = Path(args.csrc).resolve()
     shapes = _shapes(dev)
     plain = {}
 
     variant = lambda threads, qpt, tile=1024: (
         f"-DLOAM_KNN_THREADS={threads}", f"-DLOAM_KNN_QPT={qpt}", f"-DLOAM_KNN_TILE={tile}")
-    builds = [()] if args.quick else [
+    builds = [tuple(v.split()) for v in args.variant] if args.variant else [()] if args.quick else [
         (), variant(512, 2), variant(256, 2), variant(128, 2), variant(256, 1), variant(128, 4),
         variant(256, 4), variant(512, 2, 512), variant(512, 2, 2048),
     ]
     default_plan = (knn_cuda.TARGET_BLOCKS, knn_cuda.MAX_SPLITS)
-    plans = [default_plan] if args.quick else list(
+    plans = [default_plan] if args.quick or args.variant else list(
         itertools.product((264, 528, 1056, 2112), (8, 16, 32)))
     rows = []
     for flags in builds:
@@ -156,8 +210,9 @@ def main() -> int:
         # the planner's constants are swept on the default build only
         for target_blocks, max_splits in plans if flags == () else [default_plan]:
             knn_cuda.TARGET_BLOCKS, knn_cuda.MAX_SPLITS = target_blocks, max_splits
-            row = {"flags": list(flags), "target_blocks": target_blocks, "max_splits": max_splits,
-                   "nvcc_s": _build.last_build_seconds, "ptxas": res}
+            row = {"flags": list(flags), "csrc": str(_build.CSRC), "target_blocks": target_blocks,
+                   "max_splits": max_splits, "nvcc_s": _build.last_build_seconds, "ptxas": res,
+                   "ptxas_k5": _ptxas(_build.last_build_log)}
             for name, (kernel, ref, raw) in shapes.items():
                 if name not in plain:
                     plain[name] = ref()
@@ -169,7 +224,7 @@ def main() -> int:
             rows.append(row)
             print(" ".join(flags) or "(defaults)", f"blocks {target_blocks} splits<={max_splits}:",
                   " ".join(f"{n} {row[n]:.4f}/{row[n + '_raw']:.4f}" for n in shapes),
-                  "ms (wrapper/raw);", res, flush=True)
+                  "ms (wrapper/raw);", res, "; k = 5 search:", row["ptxas_k5"], flush=True)
     knn_cuda.TARGET_BLOCKS, knn_cuda.MAX_SPLITS = default_plan
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "tune_knn.json"), "w") as f:

@@ -822,3 +822,120 @@ def test_knn_gate_on_axis_aligned_faces(dev, k, r, box):
     for seed in (None, exact):
         _, va, vb = _assert_pruned_equal(prep, qq, k, r, None, seed)
         assert int(va.sum()) < int(vb.sum())
+
+
+# ---- full width against the float64 oracle, and the dense case -------------
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """The first two 64x1024 frames of the smoke's trajectory (float32) and
+    their features' compact coordinates, extracted on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+
+    lidar = T.LidarParams(64, 1024, 0.5, 120.0)
+    fp = T.FeatureExtractionParams(precise_selection=True)
+    scans, _ = render_trajectory(lidar, 2, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01,
+                                 noise=0.005, seed=0, dtype=np.float32)
+    feats = T.extract_features_batch(torch.from_numpy(scans).cuda(), lidar, fp)
+    return lidar, fp, scans, feats
+
+
+def test_oracle_extraction_full_width(dev, full_width):
+    """The three extraction kernels' picks on one 64x1024 scan, index-exact
+    with the f64 oracle, their coordinates the scan's."""
+    from loam_tpu_torch.oracle import extract_features
+
+    lidar, fp, scans, feats = full_width
+    one = feats.map(lambda x: x[0])
+    e, p = one.compact_indices()
+    oe, op = extract_features(scans[0].astype(np.float64), lidar, fp)
+    assert e.tolist() == oe and p.tolist() == op and len(e) > 100 and len(p) > 10000
+    ep, pp = one.compact()
+    flat = scans[0].reshape(-1, 3)
+    assert np.array_equal(ep, flat[e]) and np.array_equal(pp, flat[p])
+
+
+def test_oracle_knn_sample_full_width(dev, full_width):
+    """Both kNN entry points on one 64x1024 pair against knn_oracle on 512
+    sampled queries a class: indices exact outside the near-tie margin, d2
+    within 1e-6 (``oracle.compare.check_knn``)."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.oracle import compare
+
+    _, _, _, feats = full_width
+    rp = T.RegistrationParams()
+    tgt, src = feats.map(lambda x: x[:1]), feats.map(lambda x: x[1:2].contiguous())
+    k_e, k_p, r_e, r_p = (rp.num_edge_neighbors, rp.num_plane_neighbors, rp.max_edge_neighbor_dist,
+                          rp.max_plane_neighbor_dist)
+    single = knn_cuda.knn_run(knn_cuda.knn_prep(tgt.planar_points, tgt.planar_mask), src.planar_points,
+                              k_p, r_p, query_mask=src.planar_mask, seed_window=True)
+    dual = knn_cuda.knn_dual_run(knn_cuda.knn_dual_prep(tgt.edge_points, tgt.edge_mask, tgt.planar_points,
+                                                        tgt.planar_mask),
+                                 src.edge_points, src.planar_points, k_e, k_p, r_e, r_p)
+    rng = np.random.default_rng(5)
+    np_ = lambda x: x[0].cpu().numpy()
+    for res, cls, k, r in ((single, "planar", k_p, r_p), (dual[0], "edge", k_e, r_e),
+                           (dual[1], "planar", k_p, r_p)):
+        qm = np_(getattr(src, f"{cls}_mask"))
+        rows = np.sort(rng.choice(np.flatnonzero(qm), size=min(512, int(qm.sum())), replace=False))
+        got = compare.check_knn(cls, np_(getattr(src, f"{cls}_points"))[rows],
+                                np_(getattr(tgt, f"{cls}_points")), np_(getattr(tgt, f"{cls}_mask")), k, r,
+                                *(np_(x)[rows] for x in res))
+        assert got["rows"] == len(rows) and got["near_ties"] < len(rows) // 10
+
+
+@pytest.fixture(scope="module")
+def full_width_oracle(full_width):
+    """register_oracle on the 64x1024 pair (~25 s of host time)."""
+    from loam_tpu_torch.oracle import register_oracle
+    import loam_tpu_torch as T
+
+    _, _, _, feats = full_width
+    (te, tp), (se, sp) = (feats.map(lambda x: x[i]).compact() for i in range(2))
+    up = lambda a: a.astype(np.float64)
+    orc = register_oracle(up(se), up(sp), up(te), up(tp), params=T.RegistrationParams())
+    return (se, sp, te, tp), orc
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_oracle_icf_pair_full_width(dev, full_width_oracle, dtype):
+    """The 64x1024 pair against register_oracle: in float64 on the card (the
+    plain search) equal iteration by iteration (``oracle.compare.check_icf``:
+    validity and matches equal, estimates within 1e-9, deltas within 1e-8);
+    in float32 through the kernel, the oracle's termination and its pose
+    within tests/test_torch_odometry.py's 1e-2 m / 1e-3 rad."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.oracle import compare
+
+    (se, sp, te, tp), orc = full_width_oracle
+    sets = [T.feature_set_from_points(e, p, dtype=dtype, device=dev) for e, p in ((se, sp), (te, tp))]
+    before = knn_cuda.knn_run.launches
+    est, det = T.register_features(*sets, params=T.RegistrationParams())
+    gap_m, gap_rad = compare.pose_gap(est.rotation, est.translation, orc)
+    if dtype == torch.float64:
+        assert knn_cuda.knn_run.launches == before
+        assert compare.check_icf("64x1024 pair", det, orc) == len(orc.iterations) > 0
+    else:
+        assert knn_cuda.knn_run.launches > before
+        assert int(det.termination) == orc.termination
+        assert gap_m <= 1e-2 and gap_rad <= 1e-3
+
+
+def test_knn_mapfull_matches_plain(dev):
+    """Maps whose every slot is live, points uniform in a 40 m cube (nothing
+    to prune): the dual search and the single one with the cold seed bit-equal
+    to the plain versions; no more boxes visited than are live."""
+    rng = np.random.default_rng(17)
+    full = lambda n: torch.from_numpy(((rng.random((n, 3)) - 0.5) * 40.0).astype(np.float32)).to(dev)
+    te, tp = full(32768), full(131072)
+    me = torch.ones(32768, dtype=torch.bool, device=dev)
+    mp = torch.ones(131072, dtype=torch.bool, device=dev)
+    qe, qp = full(4000), full(19000)
+    prep = knn_cuda.knn_dual_prep(te, me, tp, mp)
+    _assert_dual_equal(prep, qe, qp, 5, 5, 1.0, 2.0)
+    qm = torch.from_numpy(rng.random(19000) > 0.1).to(dev)
+    _assert_pruned_equal(knn_cuda.knn_prep(tp[None], mp[None]), qp[None], 5, 2.0, qm[None], seed_window=True)
