@@ -154,6 +154,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      card, which takes the plain search (no kernel launch; validity and
      matches equal to ``register_oracle``'s in every iteration, estimates
      within 1e-9, deltas within 1e-8).
+ 14. Widths past the kernels' register forms (F9: the port refused them
+     before): ``extract_features_batch`` on 16x3600, 64x2083 (lines of more
+     than 2,048 points: the NMS keeps its mask in shared memory), 64x2048
+     with one sector and 8x8192 with one sector (sectors of 2,048 and 8,192
+     slots: the sort's block form), each a counted path that launches the
+     three extraction kernels, equal to the CPU path and index-exact with the
+     f64 oracle; the three kernels against their plain versions at each
+     shape, timed (rows ``*_wide_<shape>``). ``odometry_offline`` on 8 frames
+     of 64x2083 under phase 3's ATE gate. The five ``examples/torch_*.py`` at
+     their defaults on the card, side by side, each exiting 0 (their own
+     asserts included).
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -980,6 +991,92 @@ def _oracle_phase(T, torch, dev, smi, scans_np, lidar, fp, rp, oracle_knn, count
           f"within {compare.ICF_DELTA_ATOL}; final pose {gap_m:.3e} m / {gap_rad:.3e} rad from the oracle's")
 
 
+#: Phase 14's scans, past the kernels' register forms: (label, lines, points
+#: a line, sectors, frames). 16x3600: a 16-beam spinning LiDAR at 0.1 degree;
+#: 64x2083: a 64-beam scan at its native azimuth spacing; one sector of
+#: 2,048 and of 8,192 slots.
+WIDE_SCANS = (("16x3600", 16, 3600, 6, 4), ("64x2083", 64, 2083, 6, 2),
+              ("64x2048_one_sector", 64, 2048, 1, 2), ("8x8192_one_sector", 8, 8192, 1, 2))
+
+#: The examples (``examples/torch_*.py``), run at their defaults on the card.
+EXAMPLES = ("torch_scan_to_scan_odometry.py", "torch_scan_to_map_odometry.py", "torch_streaming_odometry.py",
+            "torch_full_slam.py", "torch_distributed_mapping.py")
+
+
+def _wide_phase(T, torch, dev, smi, drive, extraction, rp, ate_rmse) -> list:
+    """Phase 14: the widths past the kernels' register forms (F9), the
+    offline driver at 64x2083 and the examples. Returns the extraction
+    kernels' rows at the wide shapes (names ``*_wide_<shape>``)."""
+    from loam_tpu_torch.io import render_scan, render_trajectory
+    from loam_tpu_torch.oracle import extract_features as oracle_extract
+    from loam_tpu_torch.ops import bitonic_cuda, nms_cuda
+
+    rows = []
+    for label, L, P, S, n in WIDE_SCANS:
+        lidar = T.LidarParams(L, P, 0.5, 120.0)
+        fp = T.FeatureExtractionParams(number_sectors=S, precise_selection=True)
+        npad = 1 << (P - (S - 1) * (P // S) - 1).bit_length()
+        forms = (bitonic_cuda.kernel_form(npad, torch.float64, dev), nms_cuda.kernel_form(P, dev))
+        if (npad > 1024) == (forms[0] == "warp") or (P > 2048) == (forms[1] == "registers"):
+            raise AssertionError(f"wide {label}: sort and NMS took the forms {forms}")
+        scans_np = np.stack([render_scan(lidar, np.array([0.1 * f, 0.0, 0.0]), 0.01 * f, noise=0.005, seed=f,
+                                         dtype=np.float32) for f in range(n)])
+        scans = torch.from_numpy(scans_np).to(dev)
+        feats = drive(f"wide_{label}", lambda: T.extract_features_batch(scans, lidar, fp), extraction,
+                      ("knn", "knn_dual"))
+        plain = T.extract_features_batch(torch.from_numpy(scans_np), lidar, fp)
+        for name, a, b in zip(feats._fields, feats, plain):
+            _require_equal(f"wide {label} {name} vs the CPU path", a.cpu(), b)
+        t0 = time.perf_counter()
+        sizes = []
+        for f in range(n):
+            e, p = feats.map(lambda x: x[f].cpu()).compact_indices()
+            oe, op = oracle_extract(scans_np[f].astype(np.float64), lidar, fp)
+            if e.tolist() != oe or p.tolist() != op:
+                raise AssertionError(f"wide {label} frame {f}: {len(e)} / {len(p)} picks on the card, the f64 "
+                                     f"oracle {len(oe)} / {len(op)}, not index-exact")
+            sizes.append((len(e), len(p)))
+        print(f"wide {label} ({n} frames, {S} sectors; sort {forms[0]}, NMS {forms[1]}): edges and planars "
+              f"{sizes} equal to the CPU path and index-exact with the f64 oracle (oracle "
+              f"{time.perf_counter() - t0:.1f} s of host time)")
+        rows += _extraction_kernels(scans, lidar, fp, f"_wide_{label}")
+    _print_kernels(rows)
+
+    # the offline driver on 8 frames of 64x2083 under phase 3's gate
+    lidar = T.LidarParams(64, 2083, 0.5, 120.0)
+    fp = T.FeatureExtractionParams(precise_selection=True)
+    scans_np, poses = render_trajectory(lidar, 8, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01, noise=0.005,
+                                        seed=0, dtype=np.float32)
+    gt = np.stack([t for (_, t) in poses])
+    run = lambda: T.odometry_offline(scans_np, lidar, fp, rp, chunk_pairs=4, motion_init=True)
+    traj, det = drive("wide_offline_64x2083", run, extraction + ("knn",), ("knn_dual",))
+    ate, limit, _ = _check_trajectory("offline 64x2083", traj.translation, traj.rotation, 8, gt, ate_rmse)
+    dt = _seconds_per_run(run, 3)
+    print(f"offline 64x2083: ATE {ate:.6f} m (limit {limit:.6f} m); termination {det.termination.tolist()}; "
+          f"{8 / dt:.3f} scans/s ({dt * 1e3:.3f} ms per 8-frame run, chunk_pairs=4) on {smi}")
+
+    # the examples at their defaults, side by side on this card
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {ex: subprocess.Popen([sys.executable, os.path.join(root, "examples", ex)], cwd=root,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for ex in EXAMPLES}
+    t0 = time.perf_counter()
+    try:
+        for ex, proc in procs.items():
+            out = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0:
+                raise AssertionError(f"example {ex} exited with {proc.returncode}:\n{out[-3000:]}")
+            keep = [ln for ln in out.splitlines() if not ln.startswith(("  frame", "frame "))]
+            print(f"example {ex} (defaults, on the card): " + " | ".join(keep))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"examples: all {len(EXAMPLES)} exited 0 in {time.perf_counter() - t0:.1f} s, side by side, on {smi}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1802,9 +1899,19 @@ def main() -> int:
     # ---- 13. the f64 oracle on the card ----------------------------------------------------
     _oracle_phase(T, torch, dev, smi, scans_np, lidar, fp, rp, oracle_knn, counters)
 
+    # ---- 14. widths past the register forms, the offline driver at 64x2083, the examples
+    kernels += _wide_phase(T, torch, dev, smi, drive, extraction, rp, ate_rmse)
+
     for kd in kernels:
         counter = kd.get("counter", kd["name"])
-        kd["launches_by_path"] = {path: lc[counter] for path, lc in path_launches.items()}
+        # an extraction row counts the launches of its own shape's paths: a
+        # wide row those of phase 14 at its shape, the others those of
+        # phases 3-12
+        shape = kd["name"].split("_wide_")[1] if "_wide_" in kd["name"] else None
+        kd["launches_by_path"] = {
+            path: lc[counter] for path, lc in path_launches.items()
+            if counter not in extraction
+            or (path.endswith(f"_{shape}") if shape else not path.startswith("wide_"))}
         kd["launches"] = sum(kd["launches_by_path"].values())
 
     print(json.dumps({"kernels": [

@@ -37,10 +37,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types; every one returns cudaError_t
+# (the *_form queries and loam_knn_*_queries / _max_boxes return a number)
 SIGNATURES = {
-    "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "loam_sector_sort_f32": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "loam_greedy_nms": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "loam_sector_sort_form": (_I, _I, _I, _I),
+    "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "loam_sector_sort_f32": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "loam_greedy_nms_form": (_I, _I, _I),
+    "loam_greedy_nms": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "loam_select_points_f32": (_P, _P, _I, _I, _I, _P, _P),
     "loam_select_points_f64": (_P, _P, _I, _I, _I, _P, _P),
     "loam_knn_block_queries": (),

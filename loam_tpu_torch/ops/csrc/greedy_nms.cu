@@ -23,7 +23,8 @@
 // Design: a warp a line.
 //  - The validity mask lives in registers, bit-packed: word w (points
 //    32w .. 32w+31) in lane w % 32, one word a lane for P <= 1024 and two for
-//    P <= 2048. It is built from coalesced byte loads and __ballot_sync.
+//    P <= 2048 (a wider line keeps it in memory: the forms at the end of
+//    this file). It is built from coalesced byte loads and __ballot_sync.
 //  - Candidates are read 32 at a time, one a lane, coalesced, and the loads
 //    run six groups ahead of the walk (a whole list at 174 slots), so that a
 //    run of empty groups does not wait for memory group by group. Each lane
@@ -188,18 +189,193 @@ __global__ void greedy_nms_kernel(const uint8_t* __restrict__ valid,
   }
 }
 
+// ---- lines wider than 2,048 points -------------------------------------------
+//
+// The register forms above hold at most two mask words a lane. A wider line
+// keeps its mask in memory, one bit a point, ceil(P / 32) words a line: in
+// dynamic shared memory (P / 8 bytes a warp: four warps of 65,536-point lines
+// take 32 KB, and a block of one warp takes up to the opt-in 227 KB, about
+// 1.8 M points), or beyond that in a device-memory scratch that the wrapper
+// allocates. The walk is the register form's, with three changes:
+//  - a lane probes its candidate's word with a load of its own, no shuffle;
+//  - the window's words are cleared in memory, word w always by lane w % 32,
+//    so that two accepts' clears of one word stay in one lane's program
+//    order; a __syncwarp before each group's probe makes them visible;
+//  - the reduction's key is the lane alone, and the pick's index comes from
+//    that lane by a shuffle (the register form packs the index into the
+//    key's low 16 bits, which a line of more than 65,536 points overflows):
+//    one reduction and one shuffle a step.
+// The semantics are the register form's: full lists walked, the window
+// clipped to the line and across sectors, cap + 1 accepts.
+
+constexpr int kWideWarpsPerBlock = 4;
+constexpr uint32_t kNoLane = 32u;
+
+__global__ void greedy_nms_wide_kernel(const uint8_t* __restrict__ valid,
+                                       const int* __restrict__ cand_e,
+                                       const int* __restrict__ cand_p,
+                                       int n_lines, int P, int S, int s_max,
+                                       int max_e, int max_p, int n,
+                                       int* __restrict__ out_e,
+                                       int* __restrict__ out_p,
+                                       uint32_t* __restrict__ scratch) {
+  extern __shared__ uint32_t wide_mask[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long line = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (line >= n_lines) return;  // the whole warp leaves together
+  const int words = (P + 31) >> 5;
+  uint32_t* mask = scratch ? scratch + line * words : wide_mask + (long long)warp * words;
+
+  const long long cbase = line * S * (long long)s_max;
+  const int* ce = cand_e + cbase;
+  const int* cp = cand_p + cbase;
+  const int lists = 2 * S;
+  const int groups = (s_max + 31) >> 5;
+  int f_list = 0, f_group = 0;
+  auto fetch = [&]() -> int {
+    int c = -1;
+    if (f_list < lists) {
+      const int t = (f_group << 5) + lane;
+      const int* list = ((f_list & 1) ? cp : ce) + (f_list >> 1) * (long long)s_max;
+      if (t < s_max) c = list[t];
+      if (++f_group == groups) {
+        f_group = 0;
+        ++f_list;
+      }
+    }
+    return c;
+  };
+  int ahead[kAhead];
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) ahead[k] = fetch();
+
+  const uint8_t* v = valid + line * P;
+  for (int w = 0; w < words; ++w) {
+    const int q = (w << 5) + lane;
+    const uint32_t bits = __ballot_sync(kFull, q < P && v[q] != 0);
+    if (lane == (w & 31)) mask[w] = bits;
+  }
+
+  const int reach = n - 1;  // >= 0: the wrapper refuses n < 1
+  for (int list = 0; list < lists; ++list) {
+    const int max_f = (list & 1) ? max_p : max_e;
+    int* out = ((list & 1) ? out_p : out_e) +
+               (line * S + (list >> 1)) * (long long)(max_f + 1);
+    int count = 0;
+    int staged = -1;  // lane l: the pick of slot (count & ~31) + l
+    for (int g = 0; g < groups; ++g) {
+      const int c = ahead[0];
+#pragma unroll
+      for (int k = 0; k + 1 < kAhead; ++k) ahead[k] = ahead[k + 1];
+      ahead[kAhead - 1] = fetch();
+
+      __syncwarp();  // the last group's clears are visible to every lane
+      const bool live = c >= 0 && c < P && ((mask[c >> 5] >> (c & 31)) & 1u);
+      uint32_t key = live ? (uint32_t)lane : kNoLane;
+      uint32_t first = __reduce_min_sync(kFull, key);
+      while (first != kNoLane) {
+        const int idx = __shfl_sync(kFull, c, first);
+        if (lane == (count & 31)) staged = idx;
+        ++count;
+        if ((count & 31) == 0) {  // 32 picks staged: one coalesced store
+          out[count - 32 + lane] = staged;
+          staged = -1;
+        }
+        if ((uint32_t)(c - idx + reach) <= (uint32_t)(2 * reach) || count > max_f)
+          key = kNoLane;
+        first = __reduce_min_sync(kFull, key);
+        // the window leaves the mask while the reduction is under way
+        const int lo = max(idx - reach, 0);
+        const int hi = min(idx + reach, P - 1);
+        const int w_lo = lo >> 5;
+        for (int w = w_lo + ((lane - w_lo) & 31); w <= (hi >> 5); w += 32) {
+          const int a = max(lo - (w << 5), 0);
+          const int b = min(hi - (w << 5), 31);
+          mask[w] &= ~((kFull >> (31 - b)) & (kFull << a));
+        }
+      }
+      if (count > max_f) {
+        if (g + 1 < groups) {
+          f_list = list + 1;
+          f_group = 0;
+#pragma unroll
+          for (int k = 0; k < kAhead; ++k) ahead[k] = fetch();
+        }
+        break;
+      }
+    }
+    for (int j = (count & ~31) + lane; j <= max_f; j += 32)
+      out[j] = j < count ? staged : -1;
+  }
+}
+
+int shared_optin(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  return optin;
+}
+
 }  // namespace
 
+// The form that lines of P points take: 0 the mask in registers (P <= 2,048),
+// 1 in shared memory, 2 in device memory. ``force`` -1 asks for the first
+// form that takes P, 0-2 for that form; -1 comes back if it cannot take P.
+extern "C" int loam_greedy_nms_form(int P, int force, int device) {
+  const long long warp_bytes = 4LL * ((P + 31) / 32);
+  const bool takes[3] = {P <= 2048, warp_bytes <= shared_optin(device), true};
+  if (force >= 0) return force < 3 && takes[force] ? force : -1;
+  for (int f = 0; f < 3; ++f)
+    if (takes[f]) return f;
+  return -1;
+}
+
+// ``scratch``: ceil(P / 32) words a line in device memory for form 2.
 extern "C" int loam_greedy_nms(const uint8_t* valid, const int* cand_e,
                                const int* cand_p, int n_lines, int P, int S,
                                int s_max, int max_e, int max_p, int n,
-                               int* out_e, int* out_p, void* stream) {
+                               int form, uint32_t* scratch, int* out_e,
+                               int* out_p, void* stream) {
   if (n_lines == 0) return 0;
-  if (P > 2048 || n < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_lines + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  auto kernel = P <= 1024 ? greedy_nms_kernel<1> : greedy_nms_kernel<2>;
-  kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (form == 0) {
+    if (P > 2048) return (int)cudaErrorInvalidValue;  // the registers hold 2,048 points
+    const int blocks = (n_lines + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    auto kernel = P <= 1024 ? greedy_nms_kernel<1> : greedy_nms_kernel<2>;
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+        valid, cand_e, cand_p, n_lines, P, S, s_max, max_e, max_p, n, out_e,
+        out_p);
+    return (int)cudaGetLastError();
+  }
+  int warps = kWideWarpsPerBlock;
+  size_t smem = 0;
+  if (form == 1) {
+    int device = 0;
+    cudaGetDevice(&device);
+    const long long optin = shared_optin(device);
+    const long long warp_bytes = 4LL * ((P + 31) / 32);
+    if (warp_bytes * warps > optin) warps = 1;
+    if (warp_bytes * warps > optin) return (int)cudaErrorInvalidValue;
+    smem = (size_t)(warp_bytes * warps);
+    // raised once to the largest size asked for, so that a launch captured
+    // into a CUDA graph after a first call makes no such call
+    static size_t opted_in = 48 * 1024;
+    if (smem > opted_in) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          greedy_nms_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      opted_in = smem;
+    }
+    scratch = nullptr;
+  } else if (form != 2 || scratch == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n_lines + warps - 1) / warps;
+  greedy_nms_wide_kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
       valid, cand_e, cand_p, n_lines, P, S, s_max, max_e, max_p, n, out_e,
-      out_p);
+      out_p, scratch);
   return (int)cudaGetLastError();
 }

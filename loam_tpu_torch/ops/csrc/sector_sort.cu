@@ -24,7 +24,8 @@
 // for the stores. The slice is padded to NPAD = 32 * E slots (E a power of two up to 32, a
 // template parameter), E per lane. The loads are striped (slot e * 32 + lane,
 // coalesced): the order going in does not matter to a sort.
-// The network runs on the blocked index lane * E + e, so the stages with
+// (A sector of more than 1,024 slots takes the block form at the end of this
+// file.) The network runs on the blocked index lane * E + e, so the stages with
 // j < E exchange between a lane's own registers and only those with j >= E
 // cross lanes, by __shfl_xor_sync with lane ^ (j / E) (for 256 slots: 21 and
 // 15 of the 36 stages). The phases k <= E (a lane sorting its own slots) are
@@ -251,6 +252,233 @@ sector_sort_kernel(const T* __restrict__ curv, int P, int S, int pps, int s_max,
   }
 }
 
+// ---- sectors over 1,024 slots ------------------------------------------------
+//
+// A slice padded to NPAD > 1,024 slots is sorted by one block of
+// min(NPAD / 1,024, 8) warps, the slice in memory: in dynamic shared memory
+// while it fits the opt-in limit (12 B a slot for float64, 8 for float32, so
+// 16,384 slots take 198 KB), beyond that in a device-memory scratch that the
+// wrapper allocates. It goes in chunks of 1,024 slots, a warp's worth of the
+// form above (E = 32):
+//  1. every chunk is sorted by a warp in registers with the network above and
+//     stored ascending in even chunks and descending in odd ones, so that
+//     each pair of chunks is a bitonic sequence;
+//  2. the phases k = 2,048 .. NPAD: the stages with j >= 1,024 pair slots of
+//     different chunks and run over the memory, a pair a thread at a time,
+//     between __syncthreads; those with j < 1,024 stay inside a chunk, whose
+//     slots all go one way, and a warp runs them in registers as above
+//     (shuffles for j >= 32, a lane's own registers below);
+//  3. the positions and the curvature go out as the warp form writes them.
+// Slot i lives at i + i / 32 of the memory, so that a warp's blocked loads
+// (lane l reads l * 32 + e) fall in distinct banks. The key and the order
+// are the warp form's.
+
+constexpr int kChunk = 1024;  // slots a warp sorts in registers: E = 32
+constexpr int kWideWarps = 8;
+
+__device__ __forceinline__ int phys(int i) { return i + (i >> 5); }
+
+// A slice's slots in memory: the 64-bit items of float32; the keys, then
+// the positions, of float64.
+template <typename T>
+struct Slots;
+
+template <>
+struct Slots<float> {
+  static constexpr int kBytes = 8;
+  unsigned long long* k;
+  __device__ Slots(unsigned char* base, int) : k((unsigned long long*)base) {}
+  __device__ __forceinline__ Key<float>::Item get(int i) const { return k[i]; }
+  __device__ __forceinline__ void put(int i, Key<float>::Item a) const { k[i] = a; }
+};
+
+template <>
+struct Slots<double> {
+  static constexpr int kBytes = 12;
+  unsigned long long* k;
+  int* p;
+  __device__ Slots(unsigned char* base, int n)
+      : k((unsigned long long*)base), p((int*)(base + 8LL * n)) {}
+  __device__ __forceinline__ Key<double>::Item get(int i) const {
+    return Key<double>::Item{k[i], p[i]};
+  }
+  __device__ __forceinline__ void put(int i, const Key<double>::Item& a) const {
+    k[i] = a.k;
+    p[i] = a.p;
+  }
+};
+
+// The stages j = 32 * lane_mask .. 32 of the network on a chunk in a warp's
+// registers (blocked index lane * 32 + e), each a shuffle with lane ^ lane_mask.
+template <typename T>
+__device__ __forceinline__ void shuffle_stages(typename Key<T>::Item (&a)[32], int lane,
+                                               int top, bool ascending) {
+  using K = Key<T>;
+  using Item = typename K::Item;
+#pragma unroll 1
+  for (int lane_mask = top; lane_mask > 0; lane_mask >>= 1) {
+    const bool keep_min = ((lane & lane_mask) == 0) == ascending;
+#pragma unroll
+    for (int g = 0; g < 32; g += 8) {
+      Item other[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) other[i] = K::exchange(a[g + i], lane_mask);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[g + i] = K::pick(a[g + i], other[i], keep_min);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_chunk(const Slots<T>& mem, int c, int lane,
+                                           typename Key<T>::Item (&a)[32]) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) a[e] = mem.get(phys(c * kChunk + lane * 32 + e));
+}
+
+// The chunk back to memory, reversed (descending) if ``reverse``.
+template <typename T>
+__device__ __forceinline__ void store_chunk(const Slots<T>& mem, int c, int lane,
+                                            const typename Key<T>::Item (&a)[32], bool reverse) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = lane * 32 + e;
+    mem.put(phys(c * kChunk + (reverse ? kChunk - 1 - i : i)), a[e]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideWarps)
+sector_sort_wide_kernel(const T* __restrict__ curv, int P, int S, int pps, int s_max,
+                        int npad, unsigned char* __restrict__ scratch,
+                        T* __restrict__ out_curv, int* __restrict__ out_pos) {
+  using K = Key<T>;
+  using Item = typename K::Item;
+  constexpr int E = 32;
+  extern __shared__ __align__(16) unsigned char sort_slots[];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const int slice = blockIdx.x;
+  const int line = slice / S;
+  const int s = slice - line * S;
+  const int start = s * pps;
+  const int size = (s == S - 1) ? (P - start) : pps;
+  const T* __restrict__ row = curv + (long long)line * P;
+  const int n_phys = phys(npad);
+  const Slots<T> mem(scratch ? scratch + (long long)slice * n_phys * Slots<T>::kBytes : sort_slots,
+                     n_phys);
+  const int chunks = npad / kChunk;
+
+  for (int t = tid; t < npad; t += blockDim.x) {
+    Item a;
+    if (t < size) a = K::make(__ldg(row + start + t), start + t);
+    else if (t < s_max) a = K::make(K::inf(), P - 1);
+    else a = K::last();
+    mem.put(phys(t), a);
+  }
+  __syncthreads();
+
+  // 1. each chunk sorted in a warp's registers: ascending, then stored
+  // reversed in the odd chunks
+#pragma unroll 1
+  for (int c = warp; c < chunks; c += warps) {
+    Item a[E];
+    load_chunk<T>(mem, c, lane, a);
+    local_phases<T, E, 2>(a, lane);
+#pragma unroll 1
+    for (int k = 2 * E; k <= kChunk; k <<= 1) {
+      const bool ascending = ((lane * E) & k) == 0;
+      shuffle_stages<T>(a, lane, k / (2 * E), ascending);
+      local_stages<T, E, E / 2>(a, [ascending](int) { return ascending; });
+    }
+    store_chunk<T>(mem, c, lane, a, c & 1);
+  }
+
+  // 2. the phases across chunks
+#pragma unroll 1
+  for (int k = 2 * kChunk; k <= npad; k <<= 1) {
+#pragma unroll 1
+    for (int j = k >> 1; j >= kChunk; j >>= 1) {
+      __syncthreads();
+      for (int q = tid; q < npad / 2; q += blockDim.x) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        Item x = mem.get(phys(i));
+        Item y = mem.get(phys(i + j));
+        K::order(x, y, (i & k) == 0);
+        mem.put(phys(i), x);
+        mem.put(phys(i + j), y);
+      }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int c = warp; c < chunks; c += warps) {
+      const bool ascending = ((c * kChunk) & k) == 0;
+      Item a[E];
+      load_chunk<T>(mem, c, lane, a);
+      shuffle_stages<T>(a, lane, kChunk / (2 * E), ascending);
+      local_stages<T, E, E / 2>(a, [ascending](int) { return ascending; });
+      store_chunk<T>(mem, c, lane, a, false);
+    }
+  }
+  __syncthreads();
+
+  // 3. out, 32 consecutive slots a warp's store
+  const long long out = (long long)slice * s_max;
+  for (int t = tid; t < s_max; t += blockDim.x) {
+    const int p = K::pos(mem.get(phys(t)));
+    const bool padding = (p == P - 1) && (s != S - 1);
+    out_pos[out + t] = p;
+    out_curv[out + t] = padding ? K::inf() : __ldg(row + p);
+  }
+}
+
+int shared_optin(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return 0;
+  return optin;
+}
+
+// Slots a slice takes in the block form: NPAD, at least one chunk, with the
+// bank padding.
+long long wide_bytes(int npad, int key_bytes) {
+  const int np = npad < kChunk ? kChunk : npad;
+  return (long long)(np + (np >> 5)) * key_bytes;
+}
+
+template <typename T>
+int launch_wide(const T* curv, int n, int P, int S, int pps, int s_max, int npad, int form,
+                unsigned char* scratch, T* out_curv, int* out_pos, cudaStream_t stream) {
+  const int np = npad < kChunk ? kChunk : npad;
+  const int warps = np / kChunk < kWideWarps ? np / kChunk : kWideWarps;
+  size_t smem = 0;
+  if (form == 1) {
+    int device = 0;
+    cudaGetDevice(&device);
+    const long long bytes = wide_bytes(npad, Slots<T>::kBytes);
+    if (bytes > shared_optin(device)) return (int)cudaErrorInvalidValue;
+    smem = (size_t)bytes;
+    // raised once to the largest size asked for, so that a launch captured
+    // into a CUDA graph after a first call makes no such call
+    static size_t opted_in = 48 * 1024;
+    if (smem > opted_in) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sector_sort_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      opted_in = smem;
+    }
+    scratch = nullptr;
+  } else if (form != 2 || scratch == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  sector_sort_wide_kernel<T><<<n, 32 * warps, smem, stream>>>(curv, P, S, pps, s_max, np, scratch,
+                                                             out_curv, out_pos);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int E>
 int launch_e(const T* curv, int n_slices, int P, int S, int pps, int s_max,
              T* out_curv, int* out_pos, cudaStream_t stream) {
@@ -261,10 +489,13 @@ int launch_e(const T* curv, int n_slices, int P, int S, int pps, int s_max,
 
 template <typename T>
 int launch(const T* curv, int n_lines, int P, int S, int pps, int s_max,
-           int npad, T* out_curv, int* out_pos, cudaStream_t stream) {
+           int npad, int form, unsigned char* scratch, T* out_curv, int* out_pos,
+           cudaStream_t stream) {
   if (n_lines == 0) return 0;
   if ((long long)n_lines * S > INT_MAX) return (int)cudaErrorInvalidValue;
   const int n = n_lines * S;
+  if (form != 0)
+    return launch_wide<T>(curv, n, P, S, pps, s_max, npad, form, scratch, out_curv, out_pos, stream);
   switch (npad <= 32 ? 1 : npad / 32) {  // slots a lane
     case 1: return launch_e<T, 1>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
     case 2: return launch_e<T, 2>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
@@ -272,24 +503,41 @@ int launch(const T* curv, int n_lines, int P, int S, int pps, int s_max,
     case 8: return launch_e<T, 8>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
     case 16: return launch_e<T, 16>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
     case 32: return launch_e<T, 32>(curv, n, P, S, pps, s_max, out_curv, out_pos, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;  // the warp form holds 1,024 slots
   }
 }
 
 }  // namespace
 
+// The form that slices padded to ``npad`` slots of ``key_bytes`` (12 for
+// float64, 8 for float32) take on ``device``: 0 the warp form (npad <= 1,024), 1 the block
+// form in shared memory, 2 the block form in device memory. ``force`` -1
+// asks for the first form that takes npad, 0-2 for that form; -1 comes back
+// if it cannot take npad.
+extern "C" int loam_sector_sort_form(int npad, int key_bytes, int force, int device) {
+  const bool takes[3] = {npad <= kChunk, wide_bytes(npad, key_bytes) <= shared_optin(device), true};
+  if (force >= 0) return force < 3 && takes[force] ? force : -1;
+  for (int f = 0; f < 3; ++f)
+    if (takes[f]) return f;
+  return -1;
+}
+
+// ``scratch``: for form 2, (npad + npad / 32) slots of 12 (float64) or 8
+// (float32) bytes a slice, npad at least 1,024.
 extern "C" int loam_sector_sort_f64(const double* curv, int n_lines, int P,
                                     int S, int pps, int s_max, int npad,
-                                    double* out_curv, int* out_pos,
-                                    void* stream) {
-  return launch<double>(curv, n_lines, P, S, pps, s_max, npad, out_curv,
-                        out_pos, (cudaStream_t)stream);
+                                    int form, void* scratch, double* out_curv,
+                                    int* out_pos, void* stream) {
+  return launch<double>(curv, n_lines, P, S, pps, s_max, npad, form,
+                        (unsigned char*)scratch, out_curv, out_pos,
+                        (cudaStream_t)stream);
 }
 
 extern "C" int loam_sector_sort_f32(const float* curv, int n_lines, int P,
                                     int S, int pps, int s_max, int npad,
-                                    float* out_curv, int* out_pos,
-                                    void* stream) {
-  return launch<float>(curv, n_lines, P, S, pps, s_max, npad, out_curv,
-                       out_pos, (cudaStream_t)stream);
+                                    int form, void* scratch, float* out_curv,
+                                    int* out_pos, void* stream) {
+  return launch<float>(curv, n_lines, P, S, pps, s_max, npad, form,
+                       (unsigned char*)scratch, out_curv, out_pos,
+                       (cudaStream_t)stream);
 }

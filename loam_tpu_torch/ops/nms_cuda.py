@@ -12,6 +12,8 @@ sector boundaries) and counts; up to ``cap + 1`` are admitted.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -55,26 +57,52 @@ def greedy_nms_reference(valid, cand_e, cand_p, max_e: int, max_p: int, n: int):
     return outs[0], outs[1]
 
 
-def greedy_nms(valid, cand_e, cand_p, max_e: int, max_p: int, n: int):
+#: The kernel's forms (``csrc/greedy_nms.cu``), by where a line's validity
+#: mask lives: registers (lines of up to 2,048 points), shared memory, or a
+#: device-memory scratch (a line too long for shared memory).
+FORMS = ("registers", "shared", "global")
+
+
+def kernel_form(P: int, device, form=None) -> str:
+    """The form the kernel takes for lines of ``P`` points on ``device``:
+    the first of :data:`FORMS` that holds such a line, or ``form`` where it
+    does (else ``ValueError``)."""
+    return _form(P, torch.device(device).index or 0, form)
+
+
+@functools.lru_cache(maxsize=None)  # a device's answer never changes
+def _form(P: int, index: int, form) -> str:
+    got = _build.lib().loam_greedy_nms_form(P, -1 if form is None else FORMS.index(form), index)
+    if got < 0:
+        raise ValueError(f"greedy_nms: the {form} form does not hold lines of {P} points")
+    return FORMS[got]
+
+
+def greedy_nms(valid, cand_e, cand_p, max_e: int, max_p: int, n: int, form=None):
     """Greedy sector NMS over all lines in one launch for CUDA tensors (see
-    :func:`greedy_nms_reference` for the arguments)."""
+    :func:`greedy_nms_reference` for the arguments). Lines of any width:
+    ``form`` (one of :data:`FORMS`, for tests) picks the kernel's form,
+    ``None`` the first that holds the line (:func:`kernel_form`)."""
     if not valid.is_cuda:
         return greedy_nms_reference(valid, cand_e, cand_p, max_e, max_p, n)
     N, P = valid.shape
-    if P > 2048:
-        raise ValueError(f"greedy_nms: {P} points per line exceeds 2048")
     if n < 1:
         raise ValueError(f"greedy_nms: neighbor_points must be at least 1, got {n}")
     S, s_max = cand_e.shape[1], cand_e.shape[2]
     _build.require(valid, "valid", (torch.bool, torch.uint8), (N, P))
     _build.require(cand_e, "cand_e", (torch.int32,), (N, S, s_max), valid.device)
     _build.require(cand_p, "cand_p", (torch.int32,), (N, S, s_max), valid.device)
+    form = kernel_form(P, valid.device, form)
+    # form "global": a line's mask words in device memory
+    scratch = (torch.empty((N, (P + 31) // 32), dtype=torch.int32, device=valid.device)
+               if form == "global" else None)
     out_e = torch.empty((N, S, max_e + 1), dtype=torch.int32, device=valid.device)
     out_p = torch.empty((N, S, max_p + 1), dtype=torch.int32, device=valid.device)
     _build.launch(
         _build.lib().loam_greedy_nms, "greedy_nms", valid,
         valid.data_ptr(), cand_e.data_ptr(), cand_p.data_ptr(),
-        N, P, S, s_max, max_e, max_p, n, out_e.data_ptr(), out_p.data_ptr(),
+        N, P, S, s_max, max_e, max_p, n, FORMS.index(form), None if scratch is None else scratch.data_ptr(),
+        out_e.data_ptr(), out_p.data_ptr(),
     )
     greedy_nms.launches += 1
     return out_e, out_p

@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch_edge_scenes import EXTRACTION_SCENES, REGISTRATION_SCENES
 from torch_nms_cases import NMS_CASES, random_candidates as _candidates
-from torch_sort_cases import SORT_CASES
+from torch_sort_cases import SORT_CASES, corner_values
 
 from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
 
@@ -939,3 +940,168 @@ def test_knn_mapfull_matches_plain(dev):
     _assert_dual_equal(prep, qe, qp, 5, 5, 1.0, 2.0)
     qm = torch.from_numpy(rng.random(19000) > 0.1).to(dev)
     _assert_pruned_equal(knn_cuda.knn_prep(tp[None], mp[None]), qp[None], 5, 2.0, qm[None], seed_window=True)
+
+
+# ---- F9: lines of more than 2,048 points and sectors of more than 1,024 slots
+
+
+@pytest.mark.parametrize("P", [2049, 2083, 3600, 4096, 8192, 16384, 65536])
+def test_greedy_nms_wide_lines_match_plain(dev, P):
+    """Lines wider than the register forms hold (the mask in shared memory),
+    index-exact against the plain version (run on the CPU, where its serial
+    loop over the slots is faster)."""
+    L, S = (3, 6) if P <= 8192 else (1, 4)
+    rng = np.random.default_rng(P)
+    valid = torch.from_numpy(rng.random((L, P)) > 0.2)
+    ce, cp = (torch.from_numpy(_candidates(rng, L, P, S)) for _ in range(2))
+    assert nms_cuda.kernel_form(P, dev) == "shared"
+    before = nms_cuda.greedy_nms.launches
+    got = nms_cuda.greedy_nms(valid.to(dev), ce.to(dev), cp.to(dev), 10, 50, 3)
+    assert nms_cuda.greedy_nms.launches == before + 1
+    for x, y in zip(got, nms_cuda.greedy_nms_reference(valid, ce, cp, 10, 50, 3)):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("form", nms_cuda.FORMS)
+@pytest.mark.parametrize("P", [1500, 3600])
+def test_greedy_nms_every_form(dev, form, P):
+    """Each form forced where it holds the line; the registers refuse a line
+    of more than 2,048 points when forced."""
+    if form == "registers" and P > 2048:
+        with pytest.raises(ValueError):
+            nms_cuda.kernel_form(P, dev, form)
+        return
+    rng = np.random.default_rng(P + 1)
+    valid = torch.from_numpy(rng.random((5, P)) > 0.2)
+    ce, cp = (torch.from_numpy(_candidates(rng, 5, P, 6)) for _ in range(2))
+    got = nms_cuda.greedy_nms(valid.to(dev), ce.to(dev), cp.to(dev), 4, 30, 4, form=form)
+    for x, y in zip(got, nms_cuda.greedy_nms_reference(valid, ce, cp, 4, 30, 4)):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("form", ["shared", "global"])
+def test_greedy_nms_wide_bound_from_last_real_candidate(dev, form):
+    """The regression of test_nms_pallas.py on a 5,000-point line: dead
+    slots, eight real edge candidates, and one more at slot 2,400 of 2,500;
+    a count-derived bound would drop it."""
+    P = 5000
+    valid = torch.ones((1, P), dtype=torch.bool, device=dev)
+    cand_e = torch.full((1, 2, 2500), -1, dtype=torch.int32, device=dev)
+    cand_e[0, 0, 2:10] = torch.arange(10, 50, 5, dtype=torch.int32, device=dev)
+    cand_e[0, 0, 2400] = 2100
+    ep, _ = nms_cuda.greedy_nms(valid, cand_e, torch.full_like(cand_e, -1), 12, 12, 1, form=form)
+    got = ep[0, 0].cpu()
+    assert sorted(got[got >= 0].tolist()) == list(range(10, 50, 5)) + [2100]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", [1025, 2048, 4096, 8192, 16384])
+def test_sector_sort_wide_sectors_match_plain(dev, dtype, size):
+    """Sectors of more than 1,024 slots (a block a slice, in shared memory)
+    with NaNs, +inf, -0.0 beside +0.0 and ties: positions equal, keys equal
+    bit for bit."""
+    c = torch.from_numpy(corner_values(size, 3, size)).to(dev, dtype)
+    npad = 1 << (size - 1).bit_length()
+    assert bitonic_cuda.kernel_form(npad, dtype, dev) == "shared"
+    before = bitonic_cuda.sector_sort.launches
+    (ka, pa), (kb, pb) = bitonic_cuda.sector_sort(c, 1), bitonic_cuda.sector_sort_reference(c, 1)
+    assert bitonic_cuda.sector_sort.launches == before + 1
+    assert torch.equal(pa, pb)
+    as_bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(ka.view(as_bits), kb.view(as_bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", bitonic_cuda.FORMS)
+@pytest.mark.parametrize("P,S", [(1000, 3), (5000, 2), (40000, 1)])
+def test_sector_sort_every_form(dev, dtype, form, P, S):
+    """Each form forced where it holds the slice (the warp form refuses a
+    slice padded past 1,024 slots when forced); a 40,000-slot sector takes
+    device memory by itself."""
+    npad = 1 << (P // S + P % S - 1).bit_length()
+    if form == "warp" and npad > 1024:
+        with pytest.raises(ValueError):
+            bitonic_cuda.kernel_form(npad, dtype, dev, form)
+        return
+    if form == "shared" and npad > 16384:
+        with pytest.raises(ValueError):
+            bitonic_cuda.kernel_form(npad, dtype, dev, form)
+        return
+    if P == 40000:
+        assert bitonic_cuda.kernel_form(npad, dtype, dev) == "global"
+    c = torch.from_numpy(corner_values(P, 2, P)).to(dev, dtype)
+    (ka, pa), (kb, pb) = bitonic_cuda.sector_sort(c, S, form=form), bitonic_cuda.sector_sort_reference(c, S)
+    assert torch.equal(pa, pb)
+    as_bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(ka.view(as_bits), kb.view(as_bits))
+
+
+#: F9's shapes: (lines, points a line, sectors)
+WIDE_SCANS = {"16x3600": (16, 3600, 6), "64x2083": (64, 2083, 6), "64x2048_one_sector": (64, 2048, 1)}
+
+
+@pytest.mark.parametrize("shape", sorted(WIDE_SCANS))
+def test_f9_wide_scans_extract_on_the_card(dev, shape):
+    """F9: at these widths the sort and the NMS refused the launch, so every
+    extraction path failed on the card. ``extract_features_batch`` launches
+    both kernels and its output equals the CPU path's (picks, masks and
+    coordinates) and its picks the f64 oracle's, index for index."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_scan
+    from loam_tpu_torch.oracle import extract_features as oracle_extract
+
+    L, P, S = WIDE_SCANS[shape]
+    lidar = T.LidarParams(L, P, 0.5, 80.0)
+    fp = T.FeatureExtractionParams(number_sectors=S, precise_selection=True)
+    scan = render_scan(lidar, noise=0.005, seed=3, dtype=np.float32)
+    before = bitonic_cuda.sector_sort.launches, nms_cuda.greedy_nms.launches
+    on_card = T.extract_features_batch(torch.from_numpy(scan[None]).to(dev), lidar, fp)
+    assert (bitonic_cuda.sector_sort.launches, nms_cuda.greedy_nms.launches) == (before[0] + 1, before[1] + 1)
+    on_cpu = T.extract_features_batch(torch.from_numpy(scan[None]), lidar, fp)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    e, p = on_card.map(lambda x: x[0].cpu()).compact_indices()
+    oe, op = oracle_extract(scan.astype(np.float64), lidar, fp)
+    assert len(e) > 0 and len(p) > 0
+    assert e.tolist() == oe and p.tolist() == op
+
+
+@pytest.mark.parametrize("name", sorted(EXTRACTION_SCENES))
+def test_edge_extraction_scenes_on_the_card(dev, name):
+    """The degenerate extraction scenes of ``test_torch_edge_cases.py``
+    through the kernels: picks equal to the CPU path's."""
+    import loam_tpu_torch as T
+
+    scene = EXTRACTION_SCENES[name]()
+    lidar, fp = T.LidarParams(**scene["lidar"]), T.FeatureExtractionParams(**scene["fp"])
+    before = nms_cuda.greedy_nms.launches
+    got = T.extract_features(torch.from_numpy(scene["scan"]).to(dev), lidar, fp)
+    assert nms_cuda.greedy_nms.launches == before + 1
+    want = T.extract_features(torch.from_numpy(scene["scan"]), lidar, fp)
+    for a, b in zip(got.map(lambda x: x.cpu()).compact_indices(), want.compact_indices()):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRATION_SCENES))
+def test_edge_registration_scenes_on_the_card(dev, name):
+    """The degenerate registration scenes of ``test_torch_edge_cases.py`` on
+    the card against the CPU: termination and iterations equal; poses within
+    1e-9 in float64 (the same plain search, sums in another order) and 1e-4
+    in float32 (the kNN kernel's matches equal the plain search's; the normal
+    equations of up to 3,675 points at 100 m round in another order)."""
+    import loam_tpu_torch as T
+
+    scene = REGISTRATION_SCENES[name]()
+    dtype = getattr(torch, scene["dtype"])
+    params = T.RegistrationParams(**scene["reg"])
+    out = []
+    for d in (dev, "cpu"):
+        src = T.feature_set_from_points(*scene["source"], dtype=dtype, device=d, **scene["capacities"])
+        out.append(T.register_features(src, T.feature_set_from_points(*scene["target"], dtype=dtype, device=d),
+                                       None, params))
+    (eg, dg), (ec, dc) = out
+    assert int(dg.termination) == int(dc.termination)
+    assert int(dg.num_iterations) == int(dc.num_iterations)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    np.testing.assert_allclose(eg.translation.cpu().numpy(), ec.translation.numpy(), atol=tol, rtol=0)
+    np.testing.assert_allclose(eg.rotation.cpu().numpy(), ec.rotation.numpy(), atol=tol, rtol=0)

@@ -34,8 +34,9 @@ def _infinities(seed, N, P):
     return c
 
 
-def _nans(seed, N, P):
-    """NaNs of both signs and two payloads, with +inf and -0.0 around them."""
+def corner_values(seed, N, P):
+    """NaNs of both signs and two payloads, with +inf, -0.0 and ties around
+    them: every corner of the key, at any width."""
     rng = np.random.default_rng(seed)
     c = _zeros(seed, N, P) + np.round(rng.standard_normal((N, P)), 0)
     nan = np.array([0x7FF8000000000000, 0xFFF8000000000000, 0x7FF8000100000000],
@@ -60,16 +61,16 @@ SORT_CASES = {
     "negative_and_positive_zero": (lambda: _zeros(3, 3, 50), 3, True),
     "negative_keys": (lambda: _negatives(4, 3, 64), 2, True),
     "inf_in_real_slots": (lambda: _infinities(5, 3, 50), 3, True),
-    "nan_sorts_last": (lambda: _nans(6, 3, 50), 3, False),
+    "nan_sorts_last": (lambda: corner_values(6, 3, 50), 3, False),
     "all_equal": (lambda: np.full((2, 40), 1.5), 3, True),
     "all_nan": (lambda: np.full((2, 40), np.nan), 3, False),
     # slice widths: padded to 32 (s_max 5 and 32), 64, 128, 256, 512, 1,024
     "npad_below_32": (lambda: _ties(7, 3, 17), 4, True),
     "npad_32": (lambda: _ties(8, 2, 64), 2, True),
-    "npad_64": (lambda: _nans(9, 2, 100), 2, False),
+    "npad_64": (lambda: corner_values(9, 2, 100), 2, False),
     "npad_128": (lambda: _ties(10, 2, 200), 2, False),
     "npad_256": (lambda: _infinities(11, 5, 1024), 6, False),
-    "npad_512": (lambda: _nans(12, 2, 1000), 3, False),
+    "npad_512": (lambda: corner_values(12, 2, 1000), 3, False),
     "npad_1024": (lambda: _zeros(13, 3, 1000), 1, False),
     # more sectors than points a sector: every short sector is all padding
     "empty_sectors": (lambda: _ties(14, 2, 5), 8, True),
