@@ -165,6 +165,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of 64x2083 under phase 3's ATE gate. The five ``examples/torch_*.py`` at
      their defaults on the card, side by side, each exiting 0 (their own
      asserts included).
+ 15. The ICF loop as CUDA graphs (``registration/loop.py``: each outer
+     iteration one replay of a captured step; phases 3-14 already ran
+     through them) against the eager loop (``registration.loop._eager()``,
+     the graphs' plain version), at full width on offline-64x1024-c4, its
+     dual-kNN twin, scan-to-map, scan-to-scan with dewarping and streaming
+     in chunks of 8: every output tensor bit-equal (poses, terminations,
+     iteration counts, detail rows, maps) and every kernel's launches equal;
+     each captured loop's graphs, capture seconds (warm-up included), pool
+     bytes and replays; scans/s of both in turns (graph, eager, eager,
+     graph). A ``torch.profiler`` trace of each: the host's launch calls
+     (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...) inside the ICF loop an
+     outer iteration (required at most 4 through the graphs), device kernel
+     ms and the idle share. Prints them as an
+     ``{"icf_graphs": ...}`` line.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -426,9 +440,12 @@ def _plain_seed(knn_cuda, q, t_points, t_mask, k, prev=None):
 
 
 def _seconds_per_run(run, reps: int) -> float:
-    """Host seconds per call over ``reps`` calls, ended by a synchronize."""
+    """Host seconds per call over ``reps`` calls after one warm-up call
+    (which captures the ICF loop's graphs where the cache lacks them),
+    ended by a synchronize."""
     import torch
 
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1075,6 +1092,103 @@ def _wide_phase(T, torch, dev, smi, drive, extraction, rp, ate_rmse) -> list:
                 proc.wait()
     print(f"examples: all {len(EXAMPLES)} exited 0 in {time.perf_counter() - t0:.1f} s, side by side, on {smi}")
     return rows
+
+
+def _leaves(tree) -> list:
+    """The tensors of a driver's output, in order (NamedTuples, tuples and
+    lists walked; other leaves skipped)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [x for part in tree for x in _leaves(part)]
+    return []
+
+
+def _profile_loop(torch, run):
+    """One ``torch.profiler`` trace of ``run``: wall ms, device kernel ms,
+    the host's launch calls (all, and inside the ICF loop), the loop's
+    outer iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch.profiling import kernel_times, launch_calls
+    from loam_tpu_torch.registration import loop
+
+    torch.cuda.synchronize()
+    n0 = loop.iterations
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = sum(kernel_times(events).values()) / 1e3
+    every, inside = launch_calls(events)
+    return {"wall_ms": wall, "device_kernel_ms": device, "idle_share": 1 - device / wall,
+            "host_launch_calls": every, "host_launch_calls_in_loop": inside,
+            "loop_iterations": loop.iterations - n0}
+
+
+def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
+    """Phase 15: every captured path at full width as CUDA graphs against
+    the eager loop (``registration.loop._eager``, the graphs' plain
+    version): all output tensors bit-equal (poses, terminations, iteration
+    counts, detail rows, maps), every kernel's launches equal; each graph's
+    capture time and pool bytes; scans/s of both in turns (graph, eager,
+    eager, graph); a trace of each, with the host's launch calls inside
+    the ICF loop an outer iteration (at most 4 through the graphs)."""
+    from loam_tpu_torch.registration import loop
+
+    out = {}
+    for cell, (run, env, must, must_not) in cells.items():
+        with _env(**env):
+            loop.clear_cache()
+            got = drive(f"graph_{cell}", run, must, must_not)
+            stats = loop.graph_stats()
+            if not stats:
+                raise AssertionError(f"{cell}: no ICF graph was captured")
+            with loop._eager():
+                want = drive(f"eager_{cell}", run, must, must_not)
+            if path_launches[f"graph_{cell}"] != path_launches[f"eager_{cell}"]:
+                raise AssertionError(f"{cell}: launches {path_launches[f'graph_{cell}']} through the graphs, "
+                                     f"{path_launches[f'eager_{cell}']} eager")
+            a, b = _leaves(got), _leaves(want)
+            if len(a) != len(b):
+                raise AssertionError(f"{cell}: {len(a)} output tensors through the graphs, {len(b)} eager")
+            for i, (x, y) in enumerate(zip(a, b)):
+                _require_equal(f"{cell} output tensor {i} (graph vs eager loop)", x, y)
+            ms = []
+            for graph in (True, False, False, True):
+                with contextlib.nullcontext() if graph else loop._eager():
+                    ms.append(_seconds_per_run(run, reps) * 1e3)
+            row = {"graph_ms": (ms[0] + ms[3]) / 2, "eager_ms": (ms[1] + ms[2]) / 2, "turns_ms": ms,
+                   "graphs": stats}
+            row["graph_scans_s"], row["eager_scans_s"] = frames / row["graph_ms"] * 1e3, frames / row["eager_ms"] * 1e3
+            row["profile_graph"] = _profile_loop(torch, run)
+            with loop._eager():
+                row["profile_eager"] = _profile_loop(torch, run)
+            for how in ("graph", "eager"):
+                pr = row[f"profile_{how}"]
+                n = sum(pr["host_launch_calls_in_loop"].values())
+                pr["loop_calls_per_iteration"] = n / max(pr["loop_iterations"], 1)
+                print(f"{cell} ({how}): {n} host launch calls inside the ICF loop over "
+                      f"{pr['loop_iterations']} outer iterations = {pr['loop_calls_per_iteration']:.2f} "
+                      f"an iteration {pr['host_launch_calls_in_loop']}; {sum(pr['host_launch_calls'].values())} "
+                      f"a run; device kernels {pr['device_kernel_ms']:.3f} ms of {pr['wall_ms']:.3f} ms, "
+                      f"idle share {pr['idle_share']:.4f}, on {smi}")
+            if row["profile_graph"]["loop_calls_per_iteration"] > 4:
+                raise AssertionError(f"{cell}: {row['profile_graph']['loop_calls_per_iteration']} host launch "
+                                     f"calls an ICF iteration through the graphs")
+            out[cell] = row
+            print(f"{cell}: graph vs eager loop bit-equal ({len(a)} output tensors), launches equal "
+                  f"{path_launches[f'graph_{cell}']}; {row['graph_scans_s']:.3f} scans/s through the graphs, "
+                  f"{row['eager_scans_s']:.3f} eager (turns graph/eager/eager/graph "
+                  f"{', '.join(f'{x:.3f}' for x in ms)} ms a {frames}-frame run); captured "
+                  + "; ".join(f"{g['path']}{' seeded' if g['seeded'] else ''} B={g['pairs']}: {g['graphs']} "
+                              f"graph(s) in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B, "
+                              f"{g['replays']} replays" for g in stats) + f", on {smi}")
+    return out
 
 
 def main() -> int:
@@ -1901,6 +2015,19 @@ def main() -> int:
 
     # ---- 14. widths past the register forms, the offline driver at 64x2083, the examples
     kernels += _wide_phase(T, torch, dev, smi, drive, extraction, rp, ate_rmse)
+
+    # ---- 15. the ICF loop as CUDA graphs against the eager loop, at full width -------
+    single = (extraction + ("knn",), ("knn_dual",))
+    dual = (extraction + ("knn_dual",), ("knn",))
+    graph_cells = {
+        "offline-64x1024-c4": (run_offline, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "offline-64x1024-c4-dual": (run_offline, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
+        "s2m-64x1024": (run_s2m, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "s2s-64x1024-dewarp": (run_s2s, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
+        "stream-64x1024-k8": (lambda: run_stream(True), dict(LOAM_ICF_DUAL_KNN="0"), *single),
+    }
+    print(json.dumps({"icf_graphs": _graph_phase(torch, smi, frames, drive, path_launches, graph_cells,
+                                                 reps)}))
 
     for kd in kernels:
         counter = kd.get("counter", kd["name"])

@@ -234,16 +234,45 @@ def pose_from_rotvec(rotvec: torch.Tensor, translation: torch.Tensor) -> Pose3:
     return Pose3(quat_exp(rotvec), translation)
 
 
+def _compose_pairs(a: Pose3, b: Pose3) -> Pose3:
+    """Elementwise ``a[i] o b[i]``: ``pose_cumcompose``'s combination."""
+    return Pose3(quat_multiply(a.rotation, b.rotation),
+                 a.translation + quat_rotate(a.rotation, b.translation))
+
+
+def _associative_scan(elems: Pose3) -> Pose3:
+    """Inclusive scan of :func:`_compose_pairs` along the leading axis in
+    ``lax.associative_scan``'s own combination tree (the odd/even recursion
+    of ``jax/_src/lax/control_flow/loops.py``, ``associative_scan``): the
+    adjacent pairs combined, their scan by recursion giving the odd outputs,
+    each even output its odd predecessor combined with its own element,
+    then the two interleaved. Log-depth, a few batched operations a level."""
+    n = elems.rotation.shape[0]
+    if n < 2:
+        return elems
+    take = lambda tree, s: Pose3(tree.rotation[s], tree.translation[s])
+    odd = _associative_scan(_compose_pairs(take(elems, slice(0, -1, 2)), take(elems, slice(1, None, 2))))
+    rest = take(elems, slice(2, None, 2))
+    even = _compose_pairs(take(odd, slice(0, -1)) if n % 2 == 0 else odd, rest)
+
+    def interleave(first, ev, od):
+        out = torch.empty((n,) + first.shape[1:], dtype=first.dtype, device=first.device)
+        out[:1] = first[:1]
+        out[2::2] = ev
+        out[1::2] = od
+        return out
+
+    return Pose3(interleave(elems.rotation, even.rotation, odd.rotation),
+                 interleave(elems.translation, even.translation, odd.translation))
+
+
 def pose_cumcompose(rel: Pose3) -> Pose3:
     """Prefix-compose relative poses along the leading axis:
-    ``out[i] = rel[0] o ... o rel[i]``, sequentially (``loam_tpu`` uses an
-    associative scan, whose tree order rounds differently)."""
-    rots, trans = [rel.rotation[0]], [rel.translation[0]]
-    for i in range(1, rel.rotation.shape[0]):
-        r, t = rots[-1], trans[-1]
-        rots.append(quat_multiply(r, rel.rotation[i]))
-        trans.append(t + quat_rotate(r, rel.translation[i]))
-    return Pose3(quat_normalize(torch.stack(rots)), torch.stack(trans))
+    ``out[i] = rel[0] o ... o rel[i]``, in ``loam_tpu``'s order
+    (``lax.associative_scan``'s tree, :func:`_associative_scan`), rotations
+    normalized at the end."""
+    out = _associative_scan(rel)
+    return Pose3(quat_normalize(out.rotation), out.translation)
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,9 @@ def closure_quality(
 ):
     """Post-fit quality of registrations: (inlier_frac, mean_residual).
 
-    Every leaf carries a leading pair axis (K,). The source is re-associated
+    Every leaf carries a leading pair axis (K,), and so do the outputs; or,
+    as ``loam_tpu`` calls it, none: one ``Pose3`` (a (3,) translation) and
+    unbatched feature sets give two scalars. The source is re-associated
     at the final pose and the raw point-to-line/plane residuals are
     evaluated there: ``inlier_frac`` = valid associations / valid source
     features; ``mean_residual`` = mean absolute residual over the associated
@@ -80,6 +82,11 @@ def closure_quality(
     shows up here as few inliers and/or large residuals -- convergence alone
     cannot tell it apart.
     """
+    if est.translation.ndim == 1:
+        add = lambda x: x[None]
+        frac, mean_r = closure_quality(Pose3(add(est.rotation), add(est.translation)),
+                                       source.map(add), target.map(add), reg_params)
+        return frac[0], mean_r[0]
     dtype, dev = source.edge_points.dtype, source.edge_points.device
     K = source.edge_mask.shape[0]
     qe = _act(est, source.edge_points)

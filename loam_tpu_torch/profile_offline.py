@@ -26,7 +26,10 @@ then:
     the sum of device kernel time against the wall time (the device's idle
     share), and the number of kernel launches; for ``offline`` and the
     scan-to-map drivers also the ICF iterations of the run and the launches
-    an iteration. ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
+    an iteration; the host's launch calls (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...) of the run, and those inside the ICF loop
+    over the loop's outer iterations (on the kNN paths one graph replay
+    an iteration). ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
     environment profiles the run without the kNN seed bounds and the
     scan-to-map prep cache.
 
@@ -53,7 +56,8 @@ from loam_tpu_torch.io import render_trajectory, square_loop_scans, write_kitti_
 from loam_tpu_torch.loop_closure import (
     closure_edges, join_edges, optimize_trajectory_with_closures, propose_candidates, verify_closures)
 from loam_tpu_torch.pose_graph import odometry_edges, optimize_pose_graph
-from loam_tpu_torch.registration import azimuth_sort_features
+from loam_tpu_torch.profiling import kernel_times, launch_calls
+from loam_tpu_torch.registration import azimuth_sort_features, loop
 
 #: Shards of the GPU in the ``scan_to_map_sharded`` driver's mesh.
 SHARDS = 4
@@ -73,21 +77,25 @@ def _sync_time(fn):
 
 def _offline_stages(scans, lidar, fp, rp, frames, dev):
     """odometry_offline's steps, each closed by a device sync: batched
-    extraction, then each chunk of 4 pairs."""
+    extraction, then each chunk of 4 pairs (the last padded with copies of
+    pair 0, as the driver pads it, so every chunk replays one captured ICF
+    loop)."""
     feats, extract_ms = _sync_time(
         lambda: T.extract_features_batch(scans, lidar, fp, post=azimuth_sort_features))
-    src, tgt = feats.map(lambda x: x[1:]), feats.map(lambda x: x[:-1])
     C, n_pairs = 4, frames - 1
+    pad = -(-n_pairs // C) * C - n_pairs
+    padded = lambda x: torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
+    src, tgt = feats.map(lambda x: padded(x[1:])), feats.map(lambda x: padded(x[:-1]))
     carry = Pose3.identity(torch.float32, (), dev)
     chunks = []
     for c in range(-(-n_pairs // C)):
         part = lambda x: x[c * C: (c + 1) * C]
         s, t = src.map(part), tgt.map(part)
-        b = s.edge_mask.shape[0]
-        init = Pose3(carry.rotation.expand(b, 4), carry.translation.expand(b, 3))
+        init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
         (rel, det), ms = _sync_time(lambda: T.register_features_batch(s, t, init, rp, reorder_mode="none"))
         carry = Pose3(rel.rotation[-1], rel.translation[-1])
-        chunks.append({"pairs": b, "ms": ms, "iterations": int(det.num_iterations.max())})
+        chunks.append({"pairs": min(C, n_pairs - c * C), "ms": ms,
+                       "iterations": int(det.num_iterations.max())})
     return extract_ms, chunks
 
 
@@ -199,16 +207,17 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    iters0 = loop.iterations
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernel_us, launches = {}, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time > 0:
-            kernel_us[ev.name] = kernel_us.get(ev.name, 0.0) + ev.device_time
-            launches += 1
+    loop_iterations = loop.iterations - iters0
+    host_calls, loop_calls = launch_calls(prof.events())
+    kernel_us = kernel_times(prof.events())
+    launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time > 0 and e.name in kernel_us)
     device_ms = sum(kernel_us.values()) / 1e3
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])
     os.makedirs(args.out, exist_ok=True)
@@ -229,6 +238,10 @@ def main() -> int:
           + ("" if iterations is None else
              f"; {iterations} ICF iterations, {launches / iterations:.1f} launches an iteration (all "
              f"launches of the run over its iterations)"))
+    n_calls, n_loop = sum(host_calls.values()), sum(loop_calls.values())
+    print(f"host launch calls: {n_calls} a run {host_calls}; inside the ICF loop {n_loop} {loop_calls} "
+          f"over {loop_iterations} outer iterations"
+          + (f", {n_loop / loop_iterations:.2f} an iteration" if loop_iterations else ""))
     for name, us in top[:12]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
     print(json.dumps({
@@ -236,6 +249,8 @@ def main() -> int:
         "frames": args.frames, "wall_ms": wall_ms, "extract_ms": extract_ms,
         "chunks": chunks, "stages": stages, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
         "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms, "icf_iterations": iterations,
+        "host_launch_calls": host_calls, "host_launch_calls_in_loop": loop_calls,
+        "loop_iterations": loop_iterations, "icf_graphs": loop.graph_stats(),
         "knn_seed": os.environ.get("LOAM_KNN_SEED", "1"),
         "s2m_prep_cache": os.environ.get("LOAM_S2M_PREP_CACHE", "1"),
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},

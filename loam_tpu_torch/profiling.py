@@ -7,7 +7,10 @@ Counterpart of ``loam_tpu.profiling``:
     ``chrome://tracing``) into a directory;
   * :func:`force` -- a completion barrier for the devices a result lives on;
   * :func:`device_time` -- average time per call of a function: CUDA events
-    around the calls on the card, the host clock after a barrier on the CPU.
+    around the calls on the card, the host clock after a barrier on the CPU;
+  * :func:`kernel_times` / :func:`launch_calls` -- a ``torch.profiler``
+    trace's device time by kernel, and the host's kernel and graph launch
+    calls, all of them and those inside the ICF loop.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Callable
 import torch
 
 from .checkpoint import _flatten
+from .registration.loop import LOOP_RANGE
 
 
 @contextlib.contextmanager
@@ -81,3 +85,36 @@ def device_time(
     for _ in range(n):
         fn(x, *static_args)
     return (time.perf_counter() - t0) / n
+
+
+#: The runtime and driver calls that launch device work from the host: a
+#: kernel each, or a whole CUDA graph.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def kernel_times(events) -> dict:
+    """Device microseconds by kernel name in a ``torch.profiler`` trace's
+    ``events()``: the card's kernels only, not the device-side spans of
+    ``record_function`` ranges (the ICF loop's), which cover kernels."""
+    out = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0
+                and not getattr(e, "is_user_annotation", False) and e.name != LOOP_RANGE):
+            out[e.name] = out.get(e.name, 0.0) + e.device_time
+    return out
+
+
+def launch_calls(events, within: str = LOOP_RANGE) -> tuple:
+    """Host launch calls in a ``torch.profiler`` trace's ``events()``, by
+    name: ``(all, inside)``, ``inside`` those that start within a range
+    named ``within`` (by default the ICF loop's, around its iterations)."""
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == within and e.device_type == torch.autograd.DeviceType.CPU]
+    every, inside = {}, {}
+    for e in events:
+        if e.name in LAUNCH_CALLS:
+            every[e.name] = every.get(e.name, 0) + 1
+            if any(a <= e.time_range.start <= b for a, b in spans):
+                inside[e.name] = inside.get(e.name, 0) + 1
+    return every, inside

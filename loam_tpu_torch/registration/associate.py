@@ -69,8 +69,17 @@ def _neighbor_planes(res, target_pts, neighbor_pts=None):
     return xs, ys, zs, mask, res.indices[..., 0]
 
 
+_CONSTS: dict = {}
+
+
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+    """``values`` as a tensor of ``like``'s dtype and device, made once: a
+    CUDA graph cannot copy from the host while it captures (the ICF loop's
+    warm-up makes them before)."""
+    key = (values, like.dtype, like.device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(values, dtype=like.dtype, device=like.device)
+    return _CONSTS[key]
 
 
 def associate_edges(query_pts, query_mask, target_pts, target_mask,
@@ -104,8 +113,8 @@ def associate_edges(query_pts, query_mask, target_pts, target_mask,
     if params.enforce_line_condition:
         valid = valid & (cond >= params.min_line_condition_number)
     match = torch.where(valid, first, -1).to(torch.int32)
-    a = torch.where(valid[..., None], a, _const([0.0, 0.0, 0.1], a))
-    b = torch.where(valid[..., None], b, _const([0.0, 0.0, -0.1], b))
+    a = torch.where(valid[..., None], a, _const((0.0, 0.0, 0.1), a))
+    b = torch.where(valid[..., None], b, _const((0.0, 0.0, -0.1), b))
     return EdgeAssociations(a, b, valid, match)
 
 
@@ -126,6 +135,6 @@ def associate_planes(query_pts, query_mask, target_pts, target_mask,
     finite = torch.isfinite(normal).all(-1) & torch.isfinite(d) & torch.isfinite(avg_dist)
     valid = query_mask & enough & finite & ~(avg_dist > params.max_avg_point_plane_dist)
     match = torch.where(valid, first, -1).to(torch.int32)
-    normal = torch.where(valid[..., None], normal, _const([0.0, 0.0, 1.0], normal))
+    normal = torch.where(valid[..., None], normal, _const((0.0, 0.0, 1.0), normal))
     d = torch.where(valid, d, torch.zeros_like(d))
     return PlaneAssociations(normal, d, valid, match)

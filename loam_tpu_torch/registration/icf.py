@@ -14,7 +14,11 @@ are a batch axis. Every outer iteration runs the body for all pairs, computes
 both the solve and the insufficient-associations branch and selects between
 them, and commits the result only for pairs still running (``torch.where``),
 so a finished pair's state stays as it was. The loop stops when every pair
-is done or ``max_iterations`` is reached: one host sync per iteration.
+is done or ``max_iterations`` is reached: one host sync per iteration. The
+body is ``loop.py``'s step over buffers of its own: eager on the CPU, on
+the card a CUDA graph replayed once an iteration for the kNN paths
+(``lax.while_loop``'s compiled body), eager for the grid, a
+``custom_knn``, float64 and ``LOAM_DEBUG_NANS=1``.
 
 Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,
@@ -44,29 +48,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..debug import tap_finite
+from ..debug import debug_nans_enabled
 from ..features.types import FeatureSet
-from ..geometry import Pose3, norm, quat_multiply, quat_normalize, quat_rotate
-from ..neighbors.grid import build_grid, knn_grid
-from ..ops.knn_cuda import (
-    kernel_takes,
-    knn_dual_prep,
-    knn_dual_run,
-    knn_prep,
-    knn_run,
-    seed_bound_from_packed,
-    seed_bound_from_window,
-)
+from ..geometry import Pose3
+from ..neighbors.grid import build_grid
+from ..ops.knn_cuda import kernel_takes, knn_dual_prep, knn_prep
 from ..ops.morton import morton_key
 from ..params import RegistrationParams, TerminationType
-from .associate import associate_edges, associate_planes
-from .detail import IterationInfo, RegistrationDetail, tree_map
-from .solver import _Problem, _select, lm_solve
-
-
-def _angle_from_identity(q: torch.Tensor) -> torch.Tensor:
-    """Rotation angle of a unit quaternion (Eigen ``angularDistance`` to I)."""
-    return 2.0 * torch.atan2(norm(q[..., 1:]), torch.abs(q[..., 0]))
+from .detail import RegistrationDetail, tree_map
+from .loop import _eager, run_loop
 
 
 def _permute_features(fs: FeatureSet, e_perm: torch.Tensor, p_perm: torch.Tensor) -> FeatureSet:
@@ -197,29 +187,6 @@ def _register_impl(
         source, se, sp = _sort_features(source, _azimuth_key, with_perms=True)
         target, te, tp = _sort_features(target, _azimuth_key, with_perms=True)
     dtype = source.edge_points.dtype
-    dev = source.edge_points.device
-    B, E = source.edge_mask.shape
-    Q = source.planar_mask.shape[1]
-    I = params.max_iterations
-    Em = E if with_matches else 0
-    Qm = Q if with_matches else 0
-    i32 = dict(dtype=torch.int32, device=dev)
-
-    init = Pose3(init.rotation.to(dtype), init.translation.to(dtype))
-    est = init
-    it = torch.zeros(B, **i32)
-    status = torch.full((B,), TerminationType.MAX_ITER, **i32)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    detail = IterationInfo(
-        target_T_source_init=Pose3.identity(dtype, (B, I), dev),
-        estimate_update=Pose3.identity(dtype, (B, I), dev),
-        edge_match=torch.full((B, I, Em), -1, **i32),
-        plane_match=torch.full((B, I, Qm), -1, **i32),
-        edge_count=torch.zeros((B, I), **i32),
-        plane_count=torch.zeros((B, I), **i32),
-        edge_knn_overflow=torch.zeros((B, I), **i32),
-        plane_knn_overflow=torch.zeros((B, I), **i32),
-    )
 
     # the targets are fixed across outer iterations: prepare them once.
     # The grid needs both radii (its cell sizes); without them the "grid"
@@ -227,146 +194,45 @@ def _register_impl(
     use_grid = (custom_knn is None and target_preps is None and params.search_backend == "grid"
                 and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
     dual = custom_knn is None and target_preps is None and _use_dual_knn(params, dtype)
-    seed_windows = None  # the cold-start candidates, when the seed carry runs
+    gathered = (target.edge_points, target.edge_mask, target.planar_points, target.planar_mask)
+    kernel_seed = False
     if custom_knn is not None:
-        edge_knn, plane_knn = custom_knn[0], custom_knn[1]
-        if len(custom_knn) > 2 and custom_knn[2] is not None and _use_seed():
-            seed_windows = custom_knn[2]
+        windows = custom_knn[2] if len(custom_knn) > 2 and _use_seed() else None
+        path, search, tgt = "custom", (custom_knn[0], custom_knn[1], windows), gathered
     elif use_grid:
-        edge_grid = build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist)
-        plane_grid = build_grid(target.planar_points, target.planar_mask,
-                                params.max_plane_neighbor_dist)
+        path, tgt = "grid", gathered
+        search = (build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist),
+                  build_grid(target.planar_points, target.planar_mask, params.max_plane_neighbor_dist))
     elif dual:
-        d_prep = knn_dual_prep(target.edge_points, target.edge_mask,
-                               target.planar_points, target.planar_mask)
-    elif target_preps is not None:
-        e_prep, p_prep = target_preps
+        path, tgt = "dual", gathered
+        search = (knn_dual_prep(target.edge_points, target.edge_mask,
+                                target.planar_points, target.planar_mask),)
     else:
-        e_prep = knn_prep(target.edge_points, target.edge_mask)
-        p_prep = knn_prep(target.planar_points, target.planar_mask)
-    # where loam_tpu's carry runs: its kernel with both radii (icf.py:268-275,
-    # 392-400), here computed by the kernel itself; on a CPU tensor the plain
-    # search visits everything, so there is nothing to prune
-    kernel_seed = (custom_knn is None and not use_grid and not dual and kernel_takes(e_prep.tT)
-                   and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0
-                   and _use_seed())
-    e_prev = p_prev = None  # the last iteration's results, for the warm start
-    if seed_windows is not None:
-        # the warm-start carry: the last iteration's neighbours, none yet
-        kE, kP = params.num_edge_neighbors, params.num_plane_neighbors
-        f = dict(dtype=dtype, device=dev)
-        e_seed = (*(torch.zeros((B, kE, E), **f) for _ in range(3)),
-                  torch.zeros((B, kE, E), dtype=torch.bool, device=dev))
-        p_seed = (*(torch.zeros((B, kP, Q), **f) for _ in range(3)),
-                  torch.zeros((B, kP, Q), dtype=torch.bool, device=dev))
-    init_inv = init.inverse()
-    identity = Pose3.identity(dtype, (B,), dev)
-    iters = torch.arange(I, **i32)
-
-    running = ~done & (it < I)
-    while bool(running.any()):
-        qe = quat_rotate(est.rotation[:, None], source.edge_points) + est.translation[:, None]
-        qp = quat_rotate(est.rotation[:, None], source.planar_points) + est.translation[:, None]
-        if seed_windows is not None:
-            # the kernel's visit gates: min(warm start at the moved queries,
-            # cold start); they prune visits and change no output
-            ew, pw = seed_windows
-            eb = torch.minimum(seed_bound_from_packed(qe, *e_seed),
-                               seed_bound_from_window(qe, *ew, params.num_edge_neighbors))
-            pb = torch.minimum(seed_bound_from_packed(qp, *p_seed),
-                               seed_bound_from_window(qp, *pw, params.num_plane_neighbors))
-            e_res, p_res = edge_knn(qe, eb), plane_knn(qp, pb)
-            e_seed = (e_res.xs, e_res.ys, e_res.zs, e_res.mask)
-            p_seed = (p_res.xs, p_res.ys, p_res.zs, p_res.mask)
-        elif custom_knn is not None:
-            e_res, p_res = edge_knn(qe), plane_knn(qp)
-        elif use_grid:
-            # indices into the unsorted targets: the gathered fits
-            e_res, e_ovf = knn_grid(edge_grid, qe, params.num_edge_neighbors,
-                                    params.max_edge_neighbor_dist, params.grid_max_per_cell)
-            p_res, p_ovf = knn_grid(plane_grid, qp, params.num_plane_neighbors,
-                                    params.max_plane_neighbor_dist, params.grid_max_per_cell)
-        elif dual:
-            # one launch for both classes; its KnnResults take the gathered
-            # fits (loam_tpu icf.py:474-477)
-            e_res, p_res = knn_dual_run(
-                d_prep, qe, qp, params.num_edge_neighbors, params.num_plane_neighbors,
-                params.max_edge_neighbor_dist, params.max_plane_neighbor_dist)
-        else:
-            # with kernel_seed the kernel gates on the warm and cold starts
-            e_res = knn_run(e_prep, qe, params.num_edge_neighbors,
-                            params.max_edge_neighbor_dist, with_coords=True,
-                            query_mask=source.edge_mask, seed_prev=e_prev, seed_window=kernel_seed)
-            p_res = knn_run(p_prep, qp, params.num_plane_neighbors,
-                            params.max_plane_neighbor_dist, with_coords=True,
-                            query_mask=source.planar_mask, seed_prev=p_prev, seed_window=kernel_seed)
-            if kernel_seed:
-                e_prev, p_prev = e_res, p_res
-        ea = associate_edges(qe, source.edge_mask, target.edge_points,
-                             target.edge_mask, params, knn_result=e_res)
-        pa = associate_planes(qp, source.planar_mask, target.planar_points,
-                              target.planar_mask, params, knn_result=p_res)
-        n_edge = torch.sum(ea.valid, dim=-1, dtype=torch.int32)
-        n_plane = torch.sum(pa.valid, dim=-1, dtype=torch.int32)
-        insufficient = (n_edge + n_plane) < params.min_associations
-
-        problem = _Problem(qe, ea, qp, pa, prior_offset=est.compose(init_inv))
-        solved, _ = lm_solve(problem, params)
-        # both branches of loam_tpu's lax.cond, selected per pair
-        delta = Pose3(_select(insufficient, identity.rotation, solved.rotation),
-                      _select(insufficient, identity.translation, solved.translation))
-        new_est = Pose3(
-            quat_normalize(quat_multiply(delta.rotation, est.rotation)),
-            quat_rotate(delta.rotation, est.translation) + delta.translation,
-        )
-        # LOAM_DEBUG_NANS=1 checks every iteration's values (no-op otherwise)
-        tap_finite({"delta": delta, "est": new_est, "lines": ea.line_a, "planes": pa.normal},
-                   where="icf.iteration")
-        converged = (_angle_from_identity(delta.rotation) < params.rotation_convergence_thresh) & (
-            norm(delta.translation) < params.position_convergence_thresh
-        )
-        step_status = torch.where(
-            insufficient,
-            TerminationType.INSUFFICIENT_ASSOCIATIONS,
-            torch.where(converged, TerminationType.CONVERGED, TerminationType.MAX_ITER),
-        ).to(torch.int32)
-
-        # record this iteration's row (none for an insufficient one, none
-        # for a pair that already stopped): iota compare, no scatter
-        hit = (iters[None, :] == it[:, None]) & (running & ~insufficient)[:, None]
-
-        def put(buf, val):
-            h = hit.reshape(hit.shape + (1,) * (buf.ndim - 2))
-            return torch.where(h, val[:, None], buf)
-
-        detail = IterationInfo(
-            target_T_source_init=Pose3(put(detail.target_T_source_init.rotation, est.rotation),
-                                       put(detail.target_T_source_init.translation, est.translation)),
-            estimate_update=Pose3(put(detail.estimate_update.rotation, delta.rotation),
-                                  put(detail.estimate_update.translation, delta.translation)),
-            edge_match=put(detail.edge_match, ea.match[:, :Em]),
-            plane_match=put(detail.plane_match, pa.match[:, :Qm]),
-            edge_count=put(detail.edge_count, n_edge),
-            plane_count=put(detail.plane_count, n_plane),
-            # only the grid can overflow; the exact searches leave the zeros
-            edge_knn_overflow=put(detail.edge_knn_overflow, e_ovf) if use_grid
-            else detail.edge_knn_overflow,
-            plane_knn_overflow=put(detail.plane_knn_overflow, p_ovf) if use_grid
-            else detail.plane_knn_overflow,
-        )
-        commit = running & ~insufficient
-        est = Pose3(_select(commit, new_est.rotation, est.rotation),
-                    _select(commit, new_est.translation, est.translation))
-        status = torch.where(running, step_status, status)
-        done = torch.where(running, insufficient | converged, done)
-        it = it + running.to(torch.int32)
-        running = ~done & (it < I)
+        # the packed fits read no target: the preps are the search's whole input
+        path, tgt = ("preps" if target_preps is not None else "single"), None
+        search = tuple(target_preps) if target_preps is not None else (
+            knn_prep(target.edge_points, target.edge_mask),
+            knn_prep(target.planar_points, target.planar_mask))
+        # where loam_tpu's carry runs: its kernel with both radii (icf.py:
+        # 268-275, 392-400), here computed by the kernel itself; on a CPU
+        # tensor the plain search visits everything, so there is nothing to prune
+        kernel_seed = (kernel_takes(search[0].tT) and params.max_edge_neighbor_dist > 0
+                       and params.max_plane_neighbor_dist > 0 and _use_seed())
+    est, status, it, detail = run_loop(path, params, with_matches, kernel_seed, source, init,
+                                       search, tgt, debug_nans_enabled())
 
     if reorder and with_matches:
         detail = detail._replace(edge_match=_unpermute_matches(detail.edge_match, se, te),
                                  plane_match=_unpermute_matches(detail.plane_match, sp, tp))
     n_rec = torch.where(status == TerminationType.INSUFFICIENT_ASSOCIATIONS, it - 1, it)
     return est, RegistrationDetail(detail, status, n_rec.to(torch.int32))
+
+
+def _register_eager(*args, **kwargs) -> Tuple[Pose3, RegistrationDetail]:
+    """:func:`_register_impl` on the eager loop whatever the path: the plain
+    version the CUDA graphs are held against."""
+    with _eager():
+        return _register_impl(*args, **kwargs)
 
 
 def register_features_batch(

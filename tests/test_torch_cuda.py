@@ -1105,3 +1105,100 @@ def test_edge_registration_scenes_on_the_card(dev, name):
     tol = 1e-9 if dtype == torch.float64 else 1e-4
     np.testing.assert_allclose(eg.translation.cpu().numpy(), ec.translation.numpy(), atol=tol, rtol=0)
     np.testing.assert_allclose(eg.rotation.cpu().numpy(), ec.rotation.numpy(), atol=tol, rtol=0)
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [x for part in tree for x in _tensor_leaves(part)]
+    return []
+
+
+def _icf_chunk(dev):
+    """Three pairs of 16x360 features on the card, azimuth-sorted: two real
+    pairs from the identity and one whose source is emptied
+    (INSUFFICIENT)."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+    from loam_tpu_torch.registration import azimuth_sort_features
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans, _ = render_trajectory(lidar, 4, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                 noise=0.003, seed=11, dtype=np.float32)
+    f = T.extract_features_batch(torch.from_numpy(scans).to(dev), lidar, post=azimuth_sort_features)
+    src, tgt = f.map(lambda x: x[1:]), f.map(lambda x: x[:-1])
+    keep = torch.tensor([True, True, False], device=dev)
+    src = src._replace(edge_mask=src.edge_mask & keep[:, None], planar_mask=src.planar_mask & keep[:, None])
+    return src, tgt, T.Pose3.identity(torch.float32, (3,), dev)
+
+
+@pytest.mark.parametrize("max_iterations", [2, 10])
+@pytest.mark.parametrize("path", ["seeded", "unseeded", "preps", "dual"])
+def test_icf_graph_matches_eager_loop(dev, monkeypatch, path, max_iterations):
+    """The ICF loop replayed as CUDA graphs against the eager loop on the
+    same inputs: poses, terminations, iteration counts and every detail row
+    bit-equal, the kNN launch counters moved alike; a second call through the
+    cached graphs equal again. Paths: the single kNN with its seed bounds
+    (graphs A and B), without them (one graph), on preps handed over as
+    scan-to-map's cache hands them (seeded: two graphs), and the dual kNN."""
+    from loam_tpu_torch.params import RegistrationParams, TerminationType
+    from loam_tpu_torch.registration import icf, loop
+
+    monkeypatch.setenv("LOAM_KNN_SEED", "0" if path == "unseeded" else "1")
+    monkeypatch.setenv("LOAM_ICF_DUAL_KNN", "1" if path == "dual" else "0")
+    src, tgt, init = _icf_chunk(dev)
+    kw = {}
+    if path == "preps":
+        kw["target_preps"] = (knn_cuda.knn_prep(tgt.edge_points, tgt.edge_mask),
+                              knn_cuda.knn_prep(tgt.planar_points, tgt.planar_mask))
+    params = RegistrationParams(max_iterations=max_iterations)
+    args = (src, tgt, init, params, True)
+
+    def counted(fn):
+        before = [c.launches for c in loop.COUNTED]
+        out = fn(*args, reorder_mode="none", **kw)
+        torch.cuda.synchronize()
+        return out, [c.launches - b for c, b in zip(loop.COUNTED, before)]
+
+    loop.clear_cache()
+    eager, n_eager = counted(icf._register_eager)
+    graph, n_graph = counted(icf._register_impl)
+    again, n_again = counted(icf._register_impl)
+    assert n_graph == n_eager == n_again and sum(n_eager) > 0
+    want = _tensor_leaves(eager)
+    for got in (graph, again):
+        got = _tensor_leaves(got)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    term = eager[1].termination.tolist()
+    assert term[2] == TerminationType.INSUFFICIENT_ASSOCIATIONS
+    assert max_iterations == 10 or TerminationType.MAX_ITER in term
+    (stats,) = loop.graph_stats()
+    assert stats["path"] == ("single" if path in ("seeded", "unseeded") else path)
+    assert stats["graphs"] == (2 if path in ("seeded", "preps") else 1)
+    assert stats["replays"] == 2 * int(eager[1].num_iterations.max())  # one an outer iteration a call
+    assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
+
+
+def test_icf_eager_paths_capture_nothing(dev, monkeypatch):
+    """The grid search, float64 (the plain search on the card) and
+    ``LOAM_DEBUG_NANS=1`` stay on the eager loop: no graph is captured, and
+    the debug run equals the graphs' bit for bit."""
+    from loam_tpu_torch.params import RegistrationParams
+    from loam_tpu_torch.registration import icf, loop
+
+    src, tgt, init = _icf_chunk(dev)
+    loop.clear_cache()
+    icf._register_impl(src, tgt, init, RegistrationParams(search_backend="grid"), False)
+    f64 = lambda fs: fs.map(lambda x: x.double() if x.is_floating_point() else x)
+    icf._register_impl(f64(src), f64(tgt), init, RegistrationParams(), False)
+    monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
+    debug = icf._register_impl(src, tgt, init, RegistrationParams(), True)
+    assert loop.graph_stats() == []
+    monkeypatch.delenv("LOAM_DEBUG_NANS")
+    graph = icf._register_impl(src, tgt, init, RegistrationParams(), True)
+    assert len(loop.graph_stats()) == 1
+    for a, b in zip(_tensor_leaves(graph), _tensor_leaves(debug)):
+        assert torch.equal(a, b)

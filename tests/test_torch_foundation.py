@@ -135,8 +135,9 @@ def test_pose3_ops_match():
 
 
 def test_pose_cumcompose_f32():
-    # loam_tpu composes with an associative scan (tree order), the port
-    # sequentially: float32 rounding differs, stated tolerance 1e-6
+    # both packages compose in lax.associative_scan's tree order; XLA may
+    # fuse the combination's multiply-adds, so float32 rounding can still
+    # differ by a few ulps: stated tolerance 1e-6
     rng = np.random.default_rng(3)
     rv = 0.05 * rng.normal(size=(15, 3))
     tr = 0.1 * rng.normal(size=(15, 3))
@@ -145,6 +146,25 @@ def test_pose_cumcompose_f32():
     trr = tg.pose_cumcompose(tg.Pose3.from_numpy((q, tr), dtype=torch.float32, device="cpu"))
     _close(jr.rotation, trr.rotation, atol=1e-6)
     _close(jr.translation, trr.translation, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 16, 17])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pose_cumcompose_tree_order(n, dtype):
+    """The port's prefix composition in ``lax.associative_scan``'s own
+    combination tree (the odd/even recursion), at lengths that take each
+    branch of it (1: the base case; 2, 16: even levels; 3, 17: odd ones):
+    within 1e-12 of ``loam_tpu``'s in float64; in float32 within 1e-6 (a
+    few ulps at these magnitudes, XLA fusing the multiply-adds)."""
+    rng = np.random.default_rng(10 + n)
+    q = np.asarray(jg.quat_exp(jnp.asarray(0.1 * rng.normal(size=(n, 3))))).astype(dtype)
+    tr = (0.5 * rng.normal(size=(n, 3))).astype(dtype)
+    want = jg.pose_cumcompose(jg.Pose3(jnp.asarray(q), jnp.asarray(tr)))
+    got = tg.pose_cumcompose(tg.Pose3(torch.from_numpy(q), torch.from_numpy(tr)))
+    tol = 1e-12 if dtype == np.float64 else 1e-6
+    assert got.rotation.dtype == torch.from_numpy(q).dtype and got.rotation.shape == (n, 4)
+    _close(want.rotation, got.rotation, atol=tol)
+    _close(want.translation, got.translation, atol=tol)
 
 
 def _spd(rng, n, degenerate=False):

@@ -147,3 +147,59 @@ def test_wrong_minimum_closure_rejected(loop_data):
         _check_closures(t_clo, j_clo)
         assert bool(t_clo.accepted[0]) == (j == N - 1)
     assert float(t_clo.inlier_frac[0]) > 0.5
+
+
+def _closure_pair_inputs(loop_data, pairs):
+    """Keyframe j's features against keyframe i's for each ``(i, j)`` in
+    ``pairs``, at the true relative pose moved by a fixed small offset
+    (so the residuals are not all zero): numpy (rotation, translation) and
+    the two packages' feature sets, each with a leading pair axis."""
+    rot, trans, j_feats, t_feats = loop_data
+    off = np.asarray(j_quat_exp(jnp.asarray([0.0, 0.0, 0.01])), np.float32)
+    q, t = [], []
+    for i, j in pairs:
+        inv = tlc.quat_conjugate(torch.from_numpy(rot[i]))
+        rel_q = tlc.quat_multiply(inv, torch.from_numpy(rot[j]))  # i_T_j
+        rel_t = tlc.quat_rotate(inv, torch.from_numpy(trans[j] - trans[i]))
+        q.append(tlc.quat_multiply(torch.from_numpy(off), rel_q).numpy())
+        t.append(rel_t.numpy() + np.float32([0.03, -0.02, 0.01]))
+    ii, jj = np.array([p[0] for p in pairs]), np.array([p[1] for p in pairs])
+    j_src, j_tgt = (jax.tree.map(lambda x, s=s: x[s], j_feats) for s in (jj, ii))
+    t_src, t_tgt = (t_feats.map(lambda x, s=s: x[torch.from_numpy(s)]) for s in (jj, ii))
+    return np.stack(q), np.stack(t), (j_src, j_tgt), (t_src, t_tgt)
+
+
+def test_closure_quality_unbatched_matches_loam_tpu(loop_data):
+    """F10: ``closure_quality`` called as ``loam_tpu`` calls it (one Pose3,
+    feature sets without a pair axis) gives two scalars equal to
+    ``loam_tpu``'s: the same associations counted (``inlier_frac`` within
+    1e-6) and the mean residual within ``RES_TOL`` (the packed and the
+    matrix-form fits round differently: 1.3e-4 m apart on this pair)."""
+    q, t, (j_src, j_tgt), (t_src, t_tgt) = _closure_pair_inputs(loop_data, [(0, 1)])
+    jp, tp = _both(q[0], t[0])
+    want = jlc.closure_quality(jp, jax.tree.map(lambda x: x[0], j_src),
+                               jax.tree.map(lambda x: x[0], j_tgt))
+    got = tlc.closure_quality(tp, t_src.map(lambda x: x[0]), t_tgt.map(lambda x: x[0]))
+    for g, w, tol in zip(got, want, (1e-6, RES_TOL)):
+        assert g.shape == () == np.shape(w)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol, rtol=0)
+    assert 0.5 < float(got[0]) <= 1.0 and float(got[1]) > 0.0
+
+
+def test_closure_quality_batched_matches_vmap(loop_data):
+    """F10: K pairs against ``jax.vmap`` of ``loam_tpu``'s unbatched
+    ``closure_quality``, within the unbatched test's tolerances: the port's
+    batched call gives (K,) outputs, and its unbatched call on each pair
+    (what the vmap maps) the K scalars."""
+    pairs = [(0, 1), (3, 4), (0, 16), (5, 9)]
+    q, t, (j_src, j_tgt), (t_src, t_tgt) = _closure_pair_inputs(loop_data, pairs)
+    jp, tp = _both(q, t)
+    want = jax.vmap(jlc.closure_quality)(jp, j_src, j_tgt)
+    got = tlc.closure_quality(tp, t_src, t_tgt)
+    one = lambda k: tlc.closure_quality(Pose3(tp.rotation[k], tp.translation[k]),
+                                        t_src.map(lambda x: x[k]), t_tgt.map(lambda x: x[k]))
+    each = [torch.stack(x) for x in zip(*(one(k) for k in range(len(pairs))))]
+    for g, e, w, tol in zip(got, each, want, (1e-6, RES_TOL)):
+        assert g.shape == e.shape == (len(pairs),) == np.shape(w)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol, rtol=0)
+        np.testing.assert_allclose(e.numpy(), np.asarray(w), atol=tol, rtol=0)
