@@ -8,8 +8,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
   0. Require CUDA; print the GPU's name and power limit (``nvidia-smi``),
      and the torch and CUDA versions; turn TF32 off.
-  1. Build the five CUDA kernels from ``loam_tpu_torch/ops/csrc`` (one
-     ``nvcc`` per source, all at once) and print the build time and what
+  1. Build the five CUDA kernels and the CUDA-graph IF nodes
+     (``graph_if.cu``) from ``loam_tpu_torch/ops/csrc`` (one ``nvcc`` per
+     source, all at once) and print the build time and what
      ``ptxas`` reports (registers, shared memory, spills).
   2. Run every kernel and its plain PyTorch version on the same inputs at
      the paths' shapes (16 synthetic 64x1024 scans: all 1,024 lines for the
@@ -57,7 +58,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      array the renderer returns and with no ``device`` (so it runs on the
      GPU), ``chunk_pairs=4``, ``motion_init=True`` (single kNN) with every
      launch counter reset first; require each kernel to have launched,
-     finite poses of the right shape and the benchmark's ATE gate; time 3
+     finite poses of the right shape and the benchmark's ATE gate; time 2
      runs after a warm-up. Run again with ``LOAM_KNN_SEED=0`` and
      ``LOAM_S2M_PREP_CACHE=0``: poses bit-equal, terminations and iteration
      counts equal.
@@ -67,9 +68,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``optimize_trajectory_with_closures`` on a closed loop of 17 keyframes
      of 16x360 (candidates and accepted closures equal, poses within 1e-2 m);
      ``optimize_pose_graph`` in float64 on a 60-node graph (poses within
-     1e-8); a float64 ``register_features`` (the plain kNN on the card, within
-     1e-9 m) and a k = 9 search (the kernel's wide form, equal to the plain
-     one).
+     1e-8); a float64 ``register_features`` (the plain kNN on the card, one
+     captured program with its later iterations under IF nodes, bit-equal to
+     the eager loop, within 1e-9 m of the CPU, no kNN kernel launched) and a
+     k = 9 search (the kernel's wide form, equal to the plain one).
   5. ``odometry_offline`` with ``LOAM_ICF_DUAL_KNN=1``: the dual kNN instead
      of the single one, the same terminations and iteration counts as phase
      3, poses within 1e-5 m of it, the ATE gate; scans/s beside phase 3's.
@@ -80,7 +82,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kNN; the ATE gate; no voxel dropped; the cache after the inserts, and
      stripped and rebuilt, equal to one built fresh; again without the seeds
      and the cache: poses bit-equal, terminations and iteration counts
-     equal; map sizes and scans/s over 3 runs of both.
+     equal; map sizes and scans/s over 2 runs of both.
   7. A ``scan_to_scan_step(dewarp=True)`` loop over the 16 frames, dual kNN:
      every extraction kernel and the dual kNN launched, no single kNN; the
      ATE gate; scans/s.
@@ -165,20 +167,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of 64x2083 under phase 3's ATE gate. The five ``examples/torch_*.py`` at
      their defaults on the card, side by side, each exiting 0 (their own
      asserts included).
- 15. The ICF loop as CUDA graphs (``registration/loop.py``: each outer
-     iteration one replay of a captured step; phases 3-14 already ran
-     through them) against the eager loop (``registration.loop._eager()``,
-     the graphs' plain version), at full width on offline-64x1024-c4, its
-     dual-kNN twin, scan-to-map, scan-to-scan with dewarping and streaming
-     in chunks of 8: every output tensor bit-equal (poses, terminations,
-     iteration counts, detail rows, maps) and every kernel's launches equal;
-     each captured loop's graphs, capture seconds (warm-up included), pool
-     bytes and replays; scans/s of both in turns (graph, eager, eager,
-     graph). A ``torch.profiler`` trace of each: the host's launch calls
-     (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...) inside the ICF loop an
-     outer iteration (required at most 4 through the graphs), device kernel
-     ms and the idle share. Prints them as an
-     ``{"icf_graphs": ...}`` line.
+ 15. One program a driver call (``program.py``; phases 3-14 already ran
+     through them): each registration, scan-to-map frame, scan-to-scan frame
+     and streaming chunk one CUDA graph, ``lax.while_loop``'s later
+     iterations and the keyframe ``lax.cond`` under IF nodes, against the
+     same drivers eager (``program.eager``, the graphs' plain version), at
+     full width on offline-64x1024-c4, its dual-kNN twin, scan-to-map, scan-to-map
+     with dewarping (first driven alone: the ATE gate, ``dropped`` 0),
+     scan-to-scan with dewarping and streaming in chunks of 8: every output
+     tensor bit-equal (poses, terminations, iteration counts, detail rows,
+     maps, the prep cache), every kernel's launches and the outer ICF
+     iterations equal; each program's IF nodes, capture seconds (warm-up
+     included), pool bytes and replays; scans/s of both in turns (graph,
+     eager, eager, graph). A ``torch.profiler`` trace of each graph run:
+     inside the driver's loop (``program.DRIVER_RANGE``) the
+     ``cudaGraphLaunch`` calls and the host's reads of the device a frame
+     or chunk (required 1 and 0), the host's launch calls a run, device
+     kernel ms and the idle share. Prints them as a ``{"one_program": ...}``
+     line.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -233,6 +239,14 @@ def _smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+_T0 = time.perf_counter()
+
+
+def _stamp(what: str) -> None:
+    """Seconds since the script started, as a phase begins."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] {what}", flush=True)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -1106,13 +1120,16 @@ def _leaves(tree) -> list:
     return []
 
 
-def _profile_loop(torch, run):
+def _profile_run(torch, run, units: int):
     """One ``torch.profiler`` trace of ``run``: wall ms, device kernel ms,
-    the host's launch calls (all, and inside the ICF loop), the loop's
-    outer iterations."""
+    the idle share, the host's launch calls (all of them, and inside the
+    driver's loop over frames or chunks), ``cudaGraphLaunch`` calls and the
+    host's reads of the device inside that loop a frame or chunk (``units``
+    of them), the outer ICF iterations."""
     from torch.profiler import ProfilerActivity, profile
 
-    from loam_tpu_torch.profiling import kernel_times, launch_calls
+    from loam_tpu_torch import program
+    from loam_tpu_torch.profiling import host_reads, kernel_times, launch_calls
     from loam_tpu_torch.registration import loop
 
     torch.cuda.synchronize()
@@ -1124,70 +1141,81 @@ def _profile_loop(torch, run):
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     device = sum(kernel_times(events).values()) / 1e3
-    every, inside = launch_calls(events)
+    every, _ = launch_calls(events)
+    _, inside = launch_calls(events, within=program.DRIVER_RANGE)
+    reads = host_reads(events)
     return {"wall_ms": wall, "device_kernel_ms": device, "idle_share": 1 - device / wall,
-            "host_launch_calls": every, "host_launch_calls_in_loop": inside,
+            "host_launch_calls": every, "host_launch_calls_in_driver_loop": inside,
+            "graph_launches_per_unit": inside.get("cudaGraphLaunch", 0) / units,
+            "host_reads_in_driver_loop": reads, "host_reads_per_unit": sum(reads.values()) / units,
             "loop_iterations": loop.iterations - n0}
 
 
 def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
-    """Phase 15: every captured path at full width as CUDA graphs against
-    the eager loop (``registration.loop._eager``, the graphs' plain
-    version): all output tensors bit-equal (poses, terminations, iteration
-    counts, detail rows, maps), every kernel's launches equal; each graph's
-    capture time and pool bytes; scans/s of both in turns (graph, eager,
-    eager, graph); a trace of each, with the host's launch calls inside
-    the ICF loop an outer iteration (at most 4 through the graphs)."""
+    """Phase 15: every driver at full width with one program a frame or
+    chunk (one CUDA graph, the ICF loop's later iterations and the keyframe
+    insert under IF nodes) against the same driver eager
+    (``program.eager``: host branches, the graphs' plain version): all
+    output tensors bit-equal (poses, terminations, iteration counts, detail
+    rows, maps, the prep cache), every kernel's launches and the outer ICF
+    iterations equal; one ``cudaGraphLaunch`` and no host read a frame or
+    chunk inside the driver's loop; capture seconds and pool bytes a key;
+    scans/s of both in turns (graph, eager, eager, graph); a trace
+    of the graph run (host launch calls a run, device kernel ms, idle
+    share)."""
     from loam_tpu_torch.registration import loop
 
     out = {}
-    for cell, (run, env, must, must_not) in cells.items():
+    for cell, (run, units, env, must, must_not) in cells.items():
+        _stamp(f"phase 15: {cell}")
         with _env(**env):
             loop.clear_cache()
+            n0 = loop.iterations
             got = drive(f"graph_{cell}", run, must, must_not)
+            n_graph = loop.iterations - n0
             stats = loop.graph_stats()
-            if not stats:
-                raise AssertionError(f"{cell}: no ICF graph was captured")
+            if not stats or not all(g["if_nodes"] > 0 for g in stats):
+                raise AssertionError(f"{cell}: no program with IF nodes was captured: {stats}")
             with loop._eager():
+                n0 = loop.iterations
                 want = drive(f"eager_{cell}", run, must, must_not)
-            if path_launches[f"graph_{cell}"] != path_launches[f"eager_{cell}"]:
-                raise AssertionError(f"{cell}: launches {path_launches[f'graph_{cell}']} through the graphs, "
-                                     f"{path_launches[f'eager_{cell}']} eager")
+                n_eager = loop.iterations - n0
+            if path_launches[f"graph_{cell}"] != path_launches[f"eager_{cell}"] or n_graph != n_eager:
+                raise AssertionError(f"{cell}: launches {path_launches[f'graph_{cell}']}, {n_graph} ICF "
+                                     f"iterations through the graphs; {path_launches[f'eager_{cell}']}, "
+                                     f"{n_eager} eager")
             a, b = _leaves(got), _leaves(want)
             if len(a) != len(b):
                 raise AssertionError(f"{cell}: {len(a)} output tensors through the graphs, {len(b)} eager")
             for i, (x, y) in enumerate(zip(a, b)):
-                _require_equal(f"{cell} output tensor {i} (graph vs eager loop)", x, y)
+                _require_equal(f"{cell} output tensor {i} (graph vs eager)", x, y)
             ms = []
             for graph in (True, False, False, True):
                 with contextlib.nullcontext() if graph else loop._eager():
                     ms.append(_seconds_per_run(run, reps) * 1e3)
-            row = {"graph_ms": (ms[0] + ms[3]) / 2, "eager_ms": (ms[1] + ms[2]) / 2, "turns_ms": ms,
-                   "graphs": stats}
+            row = {"units": units, "graph_ms": (ms[0] + ms[3]) / 2, "eager_ms": (ms[1] + ms[2]) / 2,
+                   "turns_ms": ms, "icf_iterations": n_graph, "programs": loop.graph_stats()}
             row["graph_scans_s"], row["eager_scans_s"] = frames / row["graph_ms"] * 1e3, frames / row["eager_ms"] * 1e3
-            row["profile_graph"] = _profile_loop(torch, run)
-            with loop._eager():
-                row["profile_eager"] = _profile_loop(torch, run)
-            for how in ("graph", "eager"):
-                pr = row[f"profile_{how}"]
-                n = sum(pr["host_launch_calls_in_loop"].values())
-                pr["loop_calls_per_iteration"] = n / max(pr["loop_iterations"], 1)
-                print(f"{cell} ({how}): {n} host launch calls inside the ICF loop over "
-                      f"{pr['loop_iterations']} outer iterations = {pr['loop_calls_per_iteration']:.2f} "
-                      f"an iteration {pr['host_launch_calls_in_loop']}; {sum(pr['host_launch_calls'].values())} "
-                      f"a run; device kernels {pr['device_kernel_ms']:.3f} ms of {pr['wall_ms']:.3f} ms, "
-                      f"idle share {pr['idle_share']:.4f}, on {smi}")
-            if row["profile_graph"]["loop_calls_per_iteration"] > 4:
-                raise AssertionError(f"{cell}: {row['profile_graph']['loop_calls_per_iteration']} host launch "
-                                     f"calls an ICF iteration through the graphs")
+            # the trace of the graph run only: a trace's cost grows with its
+            # events, and the eager run's scans/s are in the turns above
+            pg = row["profile_graph"] = _profile_run(torch, run, units)
+            print(f"{cell} (graph): {pg['graph_launches_per_unit']:.2f} cudaGraphLaunch and "
+                  f"{pg['host_reads_per_unit']:.2f} host reads a frame or chunk inside the driver's loop "
+                  f"({units} units; launch calls there {pg['host_launch_calls_in_driver_loop']}, reads "
+                  f"{pg['host_reads_in_driver_loop'] or 'none'}); {sum(pg['host_launch_calls'].values())} "
+                  f"host launch calls a run; device kernels {pg['device_kernel_ms']:.3f} ms of "
+                  f"{pg['wall_ms']:.3f} ms, idle share {pg['idle_share']:.4f}, on {smi}")
+            if pg["graph_launches_per_unit"] != 1 or pg["host_reads_per_unit"] != 0:
+                raise AssertionError(f"{cell}: {pg['graph_launches_per_unit']} cudaGraphLaunch and "
+                                     f"{pg['host_reads_per_unit']} host reads a frame or chunk")
             out[cell] = row
-            print(f"{cell}: graph vs eager loop bit-equal ({len(a)} output tensors), launches equal "
-                  f"{path_launches[f'graph_{cell}']}; {row['graph_scans_s']:.3f} scans/s through the graphs, "
-                  f"{row['eager_scans_s']:.3f} eager (turns graph/eager/eager/graph "
-                  f"{', '.join(f'{x:.3f}' for x in ms)} ms a {frames}-frame run); captured "
-                  + "; ".join(f"{g['path']}{' seeded' if g['seeded'] else ''} B={g['pairs']}: {g['graphs']} "
-                              f"graph(s) in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B, "
-                              f"{g['replays']} replays" for g in stats) + f", on {smi}")
+            print(f"{cell}: graph vs eager bit-equal ({len(a)} output tensors), launches equal "
+                  f"{path_launches[f'graph_{cell}']}, {n_graph} ICF iterations; "
+                  f"{row['graph_scans_s']:.3f} scans/s through the graphs, {row['eager_scans_s']:.3f} eager "
+                  f"(turns graph/eager/eager/graph {', '.join(f'{x:.3f}' for x in ms)} ms a {frames}-frame "
+                  f"run); captured " + "; ".join(
+                      f"{g['path']}: {g['if_nodes']} IF nodes in {g['capture_s']:.3f} s, pool "
+                      f"{g['pool_bytes']} B, {g['replays']} replays" for g in row["programs"]) + f", on {smi}")
     return out
 
 
@@ -1203,6 +1231,7 @@ def main() -> int:
         return 2
 
     import loam_tpu_torch as T
+    from loam_tpu_torch import program
     from loam_tpu_torch.evaluation import ate_rmse
     from loam_tpu_torch.features.curvature import compute_curvature
     from loam_tpu_torch.io import render_trajectory
@@ -1217,6 +1246,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. build ----------------------------------------------------------
+    _stamp("phase 1")
     t0 = time.perf_counter()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.last_build_seconds:.2f} s) -> "
@@ -1230,6 +1260,7 @@ def main() -> int:
         print(f"ptxas sector_sort_kernel{what}: {regs} registers, {stack} B stack, {spill} B spill stores")
 
     # ---- 2. kernels vs plain versions at the main path's shapes -------------
+    _stamp("phase 2")
     lidar = T.LidarParams(64, 1024, 0.5, 120.0)
     fp = T.FeatureExtractionParams(precise_selection=True)
     rp = T.RegistrationParams(search_backend="bruteforce")
@@ -1567,6 +1598,7 @@ def main() -> int:
     ]
 
     # ---- 3. the offline driver (single kNN) ----------------------------------
+    _stamp("phase 3")
     counters = {
         "sector_sort": bitonic_cuda.sector_sort,
         "greedy_nms": nms_cuda.greedy_nms,
@@ -1612,7 +1644,7 @@ def main() -> int:
         print(f"{what}: poses bit-equal, terminations and iteration counts equal with and without "
               f"{' and '.join(UNSEEDED)}")
 
-    reps = 3
+    reps = 2  # timed runs after a warm-up, for every scans/s figure
     with _dual_knn(False):
         traj, details = drive("offline", run_offline, extraction + ("knn",), ("knn_dual",))
         if not traj.translation.is_cuda:
@@ -1630,6 +1662,7 @@ def main() -> int:
           f"64x1024, chunk_pairs=4; {frames / dt_unseeded:.3f} scans/s with LOAM_KNN_SEED=0) on {smi}")
 
     # ---- 4. small-input agreement with the plain versions on the CPU -------
+    _stamp("phase 4")
     small = T.LidarParams(16, 360, 0.5, 80.0)
     s_np, _ = render_trajectory(small, 6, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
                                 noise=0.003, seed=11, dtype=np.float32)
@@ -1640,9 +1673,10 @@ def main() -> int:
     def s2s_loop(x, lid):
         state = T.scan_to_scan_init(lid, fp, device=x.device)
         out = []
-        for f in range(x.shape[0]):
-            state, pose, det = T.scan_to_scan_step(state, x[f], lid, fp, rp, dewarp=True)
-            out.append((pose, det))
+        with torch.profiler.record_function(program.DRIVER_RANGE):
+            for f in range(x.shape[0]):
+                state, pose, det = T.scan_to_scan_step(state, x[f], lid, fp, rp, dewarp=True)
+                out.append((pose, det))
         return out
 
     def small_runs(x):
@@ -1713,9 +1747,20 @@ def main() -> int:
     f64 = T.extract_features_batch(torch.from_numpy(s_np[:2]).to(dev, torch.float64), small, fp)
     src64, tgt64 = f64.map(lambda x: x[1]), f64.map(lambda x: x[0])
     knn_cuda.knn_run.launches = knn_cuda.knn_dual_run.launches = 0
+    from loam_tpu_torch.registration import loop as icf_loop
+
+    icf_loop.clear_cache()
     est_g, det_g64 = T.register_features(src64, tgt64, params=rp)
     if knn_cuda.knn_run.launches or knn_cuda.knn_dual_run.launches:
         raise AssertionError("a float64 registration launched the kNN kernel")
+    # ... through the one-program loop: one graph, its later iterations under IF nodes
+    f64_programs = [g for g in icf_loop.graph_stats() if g.get("dtype") == "torch.float64"]
+    if len(f64_programs) != 1 or f64_programs[0]["if_nodes"] != rp.max_iterations - 1:
+        raise AssertionError(f"the float64 registration was not one captured program: {icf_loop.graph_stats()}")
+    with icf_loop._eager():
+        est_e, det_e64 = T.register_features(src64, tgt64, params=rp)
+    for a, b in zip(_leaves((est_g, det_g64)), _leaves((est_e, det_e64))):
+        _require_equal("float64 registration, graph vs eager", a, b)
     q9, t9, m9 = src64.planar_points.float(), tgt64.planar_points.float(), tgt64.planar_mask
     k9 = T.knn(q9, t9, m9, 9, rp.max_plane_neighbor_dist)
     if knn_cuda.knn_run.launches != 1:
@@ -1730,13 +1775,15 @@ def main() -> int:
     for what in ("indices", "distances"):
         _require_equal(f"k = 9 search {what} vs the plain one", getattr(k9, what)[p9.mask],
                        getattr(p9, what)[p9.mask])
-    print(f"small input, float64 register_features: GPU vs CPU {gap:.3e} m (limit {ATOL_F64_M}), "
+    print(f"small input, float64 register_features: one captured program ({f64_programs[0]['if_nodes']} IF "
+          f"nodes), bit-equal to the eager loop; GPU vs CPU {gap:.3e} m (limit {ATOL_F64_M}), "
           f"{int(det_g64.num_iterations)} iterations, no kNN kernel launched; k = 9 search (the kernel's "
           f"wide form) equal to the plain one")
     if not gap < ATOL_F64_M:
         raise AssertionError(f"float64 registration: GPU and CPU differ by {gap} m")
 
     # ---- 5. the offline driver with the dual kNN ------------------------------
+    _stamp("phase 5")
     with _dual_knn(True):
         traj_d, details_d = drive("offline dual", run_offline,
                                   extraction + ("knn_dual",), ("knn",))
@@ -1756,6 +1803,7 @@ def main() -> int:
           f"(phase 3) and {frames / dt_s:.3f} (after) scans/s, 64x1024, chunk_pairs=4, on {smi}")
 
     # ---- 6. scan-to-map ---------------------------------------------------------
+    _stamp("phase 6")
     def run_s2m():
         return T.scan_to_map_offline(scans, lidar, fp, s2m_reg, s2m_cfg)
 
@@ -1796,6 +1844,7 @@ def main() -> int:
           f"{frames / dt_m0:.3f} scans/s with neither) on {smi}")
 
     # ---- 7. scan-to-scan with dewarping ----------------------------------------
+    _stamp("phase 7")
     def run_s2s():
         return s2s_loop(scans, lidar)
 
@@ -1811,6 +1860,7 @@ def main() -> int:
           f"loop, 64x1024, dewarp=True, dual kNN) on {smi}")
 
     # ---- 8. scan-to-map through the voxel grid ----------------------------------
+    _stamp("phase 8")
     def run_s2m_grid():
         return T.scan_to_map_offline(scans, lidar, fp, grid_reg, s2m_cfg)
 
@@ -1835,6 +1885,7 @@ def main() -> int:
           f"64x1024, default ScanToMapConfig, search_backend=grid) on {smi}")
 
     # ---- 9. the streaming drivers ---------------------------------------------------
+    _stamp("phase 9")
     chunk = 8
 
     def run_stream(packed):
@@ -1883,6 +1934,7 @@ def main() -> int:
           f"scans/s, 64x1024, chunk_frames={chunk}, host encode and upload included, on {smi}")
 
     # ---- 10. the loop-closed path at full width ------------------------------------
+    _stamp("phase 10")
     from loam_tpu_torch.io import native_available
     from loam_tpu_torch.loop_closure import closure_edges, join_edges, propose_candidates, verify_closures
     from loam_tpu_torch.pose_graph import odometry_edges
@@ -1983,6 +2035,7 @@ def main() -> int:
           f"{kw['iterations']} iterations) on {smi}")
 
     # ---- 11. the pose graph at drive scale ---------------------------------------------
+    _stamp("phase 11")
     gt1k, init1k, edges1k = random_pose_graph(1000, 50, seed=2)
     for dtype in (torch.float64, torch.float32):
         init_d, edges_d = _to(init1k, dev, dtype), _to(edges1k, dev, dtype)
@@ -2007,28 +2060,47 @@ def main() -> int:
             opt64 = opt_k
 
     # ---- 12. the sharded paths on a mesh of four shards of this GPU ----------------------
+    _stamp("phase 12")
     kernels += _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive,
                               extraction, ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps)
 
     # ---- 13. the f64 oracle on the card ----------------------------------------------------
+    _stamp("phase 13")
     _oracle_phase(T, torch, dev, smi, scans_np, lidar, fp, rp, oracle_knn, counters)
 
     # ---- 14. widths past the register forms, the offline driver at 64x2083, the examples
+    _stamp("phase 14")
     kernels += _wide_phase(T, torch, dev, smi, drive, extraction, rp, ate_rmse)
 
-    # ---- 15. the ICF loop as CUDA graphs against the eager loop, at full width -------
+    # ---- 15. one program a frame or chunk against the eager drivers, at full width ----
+    _stamp("phase 15")
     single = (extraction + ("knn",), ("knn_dual",))
     dual = (extraction + ("knn_dual",), ("knn",))
-    graph_cells = {
-        "offline-64x1024-c4": (run_offline, dict(LOAM_ICF_DUAL_KNN="0"), *single),
-        "offline-64x1024-c4-dual": (run_offline, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
-        "s2m-64x1024": (run_s2m, dict(LOAM_ICF_DUAL_KNN="0"), *single),
-        "s2s-64x1024-dewarp": (run_s2s, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
-        "stream-64x1024-k8": (lambda: run_stream(True), dict(LOAM_ICF_DUAL_KNN="0"), *single),
-    }
-    print(json.dumps({"icf_graphs": _graph_phase(torch, smi, frames, drive, path_launches, graph_cells,
-                                                 reps)}))
 
+    def run_s2m_dewarp():
+        return T.scan_to_map_offline(scans, lidar, fp, s2m_reg, s2m_cfg, dewarp=True)
+
+    with _dual_knn(False):
+        st_w, traj_w, _ = drive("scan_to_map_dewarp", run_s2m_dewarp, single[0], single[1])
+    ate_w, limit_w, _ = _check_trajectory("scan_to_map dewarp", traj_w.translation, traj_w.rotation,
+                                          frames, gt, ate_rmse)
+    if int(st_w.dropped) != 0:
+        raise AssertionError(f"scan_to_map dewarp dropped {int(st_w.dropped)} voxels")
+    print(f"scan_to_map dewarp: ATE {ate_w:.6f} m (limit {limit_w:.6f} m), dropped 0")
+    chunks = -(-(frames - 1) // 4)
+    graph_cells = {
+        "offline-64x1024-c4": (run_offline, chunks, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "offline-64x1024-c4-dual": (run_offline, chunks, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
+        "s2m-64x1024": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "s2m-64x1024-dewarp": (run_s2m_dewarp, frames, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "s2s-64x1024-dewarp": (run_s2s, frames, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
+        "stream-64x1024-k8": (lambda: run_stream(True), -(-frames // chunk), dict(LOAM_ICF_DUAL_KNN="0"),
+                              *single),
+    }
+    print(json.dumps({"one_program": _graph_phase(torch, smi, frames, drive, path_launches, graph_cells,
+                                                  reps)}))
+
+    _stamp("phases done")
     for kd in kernels:
         counter = kd.get("counter", kd["name"])
         # an extraction row counts the launches of its own shape's paths: a

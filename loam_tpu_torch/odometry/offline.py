@@ -6,7 +6,8 @@ odometry loop to user code, ``README.md:44-60``):
   1. features of all frames extracted in one batch, each frame
      azimuth-sorted once (it serves as source and as target);
   2. the consecutive (source, target) pairs registered in lockstep chunks of
-     ``chunk_pairs``, a Python loop over chunks; the last chunk is padded
+     ``chunk_pairs``, a Python loop over chunks, each one registration
+     program (one CUDA-graph launch on the card); the last chunk is padded
      with copies of pair 0, whose results are dropped; with ``motion_init``
      every pair of a chunk starts from the last relative pose of the chunk
      before (a constant-velocity prior);
@@ -19,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from .. import program
 from ..device import place
 from ..features import extract_features_batch
 from ..geometry import Pose3, pose_cumcompose
@@ -76,17 +78,20 @@ def odometry_offline(
         src_p, tgt_p = src.map(padded), tgt.map(padded)
         carry = Pose3.identity(dtype, (), dev)
         rels, dets = [], []
-        for c in range(nc):
-            part = lambda x: x[c * C : (c + 1) * C]
-            if motion_init:
-                init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
-            else:
-                init = Pose3.identity(dtype, (C,), dev)
-            rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init, reg_params,
-                                                   reorder_mode="none")
-            carry = Pose3(rel_c.rotation[-1], rel_c.translation[-1])
-            rels.append(rel_c)
-            dets.append(det_c)
+        # one registration program a chunk (one CUDA-graph launch on the
+        # card), the motion_init carry on the device: no read between chunks
+        with torch.profiler.record_function(program.DRIVER_RANGE):
+            for c in range(nc):
+                part = lambda x: x[c * C : (c + 1) * C]
+                if motion_init:
+                    init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
+                else:
+                    init = Pose3.identity(dtype, (C,), dev)
+                rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init,
+                                                       reg_params, reorder_mode="none")
+                carry = Pose3(rel_c.rotation[-1], rel_c.translation[-1])
+                rels.append(rel_c)
+                dets.append(det_c)
         rel = tree_map(lambda *xs: torch.cat(xs)[:n_pairs], *rels)
         details = tree_map(lambda *xs: torch.cat(xs)[:n_pairs], *dets)
 

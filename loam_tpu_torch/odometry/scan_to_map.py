@@ -7,9 +7,15 @@ initial estimate is a constant-velocity prediction, which the solver also
 uses as a prior (``prior_weight``); a frame is inserted into the maps when
 it has moved far enough from the last keyframe.
 
+A frame is one program (``program.py``): eager on the CPU, one CUDA-graph
+launch on the card, the keyframe insert under an IF node where
+``loam_tpu`` has its ``lax.cond``. :func:`scan_to_map_offline` keeps the
+state in the program's buffers from frame to frame, as ``lax.scan`` keeps
+its carry; a call of :func:`scan_to_map_step` copies the state in and
+returns clones.
+
 Differences from ``loam_tpu``, none of which changes a result:
 
-  * The keyframe ``lax.cond`` is a host ``if`` on one synced bool a frame.
   * ``knn_prep_cache`` (``loam_tpu``'s rebuild-on-insert prep cache,
     ``scan_to_map.py:60-115, 271-324``) holds both maps' kNN planes, boxes
     and cold-seed windows, and also their live bounds ``n_live``, which the
@@ -32,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import program
 from ..device import place, resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features, extract_features_batch
@@ -42,6 +49,7 @@ from ..ops.knn_cuda import TargetPrep, default_tt, kernel_takes, knn_prep, windo
 from ..registration import RegistrationDetail, register_features, spatial_sort_features
 from ..registration.detail import tree_map
 from ..registration.icf import _register_impl
+from ..registration.loop import driver_program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,12 +233,10 @@ def scan_to_map_step(
 ) -> Tuple[ScanToMapState, Pose3, RegistrationDetail]:
     """Process one scan against the maps; returns (state, world pose,
     detail). Flow: optional dewarp with the constant-velocity motion,
-    extraction, Morton sort, then :func:`scan_to_map_step_features`.
+    extraction, Morton sort, then :func:`scan_to_map_step_features`'s
+    frame, all in one program (one CUDA-graph launch on the card).
     ``reg_params=None`` uses :func:`default_map_reg_params`."""
-    if dewarp:
-        scan = dewarp_scan(scan, state.prev_delta, lidar)
-    feats = spatial_sort_features(extract_features(scan, lidar, feat_params))
-    return scan_to_map_step_features(state, feats, reg_params=reg_params, config=config)
+    return _step(state, scan, (lidar, feat_params, dewarp), reg_params, config)
 
 
 def scan_to_map_step_features(
@@ -240,9 +246,60 @@ def scan_to_map_step_features(
     config: ScanToMapConfig = ScanToMapConfig(),
 ) -> Tuple[ScanToMapState, Pose3, RegistrationDetail]:
     """:func:`scan_to_map_step` from extracted, Morton-sorted features."""
+    return _step(state, feats, None, reg_params, config)
+
+
+def _step(state, frame, extract, reg_params, config):
+    """One frame through its program: the state copied in, clones out."""
+    state = _with_dropped(state)
+    prog, fn = _frame_program(state, frame, extract, reg_params, config)
+    out = prog.run(fn, (state, frame))
+    pose, det = prog.own(out)
+    return program.clone(prog.buffers[0]), pose, det
+
+
+def _with_dropped(state: ScanToMapState) -> ScanToMapState:
+    """``state`` with ``dropped`` an int32 tensor on the maps' device (a
+    fresh state carries the int 0): the frame adds to it in place."""
+    d = state.dropped
+    if isinstance(d, torch.Tensor) and d.dtype == torch.int32:
+        return state
+    return state._replace(dropped=torch.full((), int(d), dtype=torch.int32,
+                                             device=state.edge_map.points.device))
+
+
+def _frame_program(state, frame, extract, reg_params, config):
+    """The program of one frame (``loop.driver_program``) and its function
+    over ``(state, frame)`` buffers. ``extract``: None when ``frame`` is
+    features, else ``(lidar, feat_params, dewarp)`` and ``frame`` a scan."""
     if reg_params is None:
         reg_params = default_map_reg_params()
 
+    def fn(bufs):
+        st, fr = bufs
+        if extract is not None:
+            lidar, feat_params, dewarp = extract
+            if dewarp:
+                fr = dewarp_scan(fr, st.prev_delta, lidar)
+            fr = spatial_sort_features(extract_features(fr, lidar, feat_params))
+        return _frame(st, fr, reg_params, config)
+
+    prog = driver_program(state.edge_map.points.device, ("scan_to_map", extract, config),
+                          (state, frame), reg_params, path="scan_to_map",
+                          frame="scan" if extract else "features")
+    return prog, fn
+
+
+def _frame(state: ScanToMapState, feats: FeatureSet, reg_params: RegistrationParams,
+           config: ScanToMapConfig) -> Tuple[Pose3, RegistrationDetail]:
+    """One frame against the maps, ``state``'s tensors updated in place
+    (``loam_tpu``'s ``scan_to_map_step`` body): the constant-velocity init,
+    the registration, the first-frame and keyframe logic, the insert of both
+    maps and the prep cache's rebuild under ``program.when(insert)`` (a
+    host branch eagerly, an IF node in a capture: ``lax.cond`` at
+    ``loam_tpu/odometry/scan_to_map.py:374``), and the carry. Every read of
+    the old state comes before the write that replaces it. Returns the
+    frame's world pose and detail."""
     init = state.world_T_current.compose(state.prev_delta)  # constant velocity
     target = _map_feature_set(state.edge_map, state.planar_map)
     cache = state.knn_prep_cache
@@ -267,35 +324,30 @@ def scan_to_map_step_features(
     dist = norm(world_T_new.translation - state.world_T_keyframe.translation)
     insert = first | (dist > config.keyframe_dist) | (angle > config.keyframe_angle)
 
-    edge_map, planar_map, dropped = state.edge_map, state.planar_map, state.dropped
-    if bool(insert):
+    def insert_maps():
         center = world_T_new.translation
-        edge_map, de = voxel_map_insert(edge_map, world_T_new.act(feats.edge_points),
-                                        feats.edge_mask, center, config.keep_radius)
-        planar_map, dp = voxel_map_insert(planar_map, world_T_new.act(feats.planar_points),
-                                          feats.planar_mask, center, config.keep_radius)
-        dropped = dropped + de + dp
+        em, de = voxel_map_insert(state.edge_map, world_T_new.act(feats.edge_points),
+                                  feats.edge_mask, center, config.keep_radius)
+        pm, dp = voxel_map_insert(state.planar_map, world_T_new.act(feats.planar_points),
+                                  feats.planar_mask, center, config.keep_radius)
+        state.dropped.add_(de + dp)
         # the prep cache mirrors the maps: rebuilt here only, in its own shape
         if cache:
             qe, qp = (feats.edge_mask.shape[0], feats.planar_mask.shape[0]) if len(cache) == 16 \
                 else (None, None)
-            cache = _build_prep_cache(edge_map, planar_map, qe, qp)
+            program.copy_into(cache, _build_prep_cache(em, pm, qe, qp))
+        program.copy_into((state.edge_map[:2], state.planar_map[:2]), (em[:2], pm[:2]))
+
+    program.when(insert, insert_maps)
 
     prev_delta = state.world_T_current.inverse().compose(world_T_new).normalize()
-    new_state = ScanToMapState(
-        edge_map=edge_map,
-        planar_map=planar_map,
-        world_T_current=world_T_new.normalize(),
-        prev_delta=prev_delta,
-        world_T_keyframe=Pose3(
-            torch.where(insert, world_T_new.rotation, state.world_T_keyframe.rotation),
-            torch.where(insert, world_T_new.translation, state.world_T_keyframe.translation)),
-        frames_since_insert=torch.where(
-            insert, 0, torch.clamp(state.frames_since_insert, min=0) + 1).to(torch.int32),
-        knn_prep_cache=cache,
-        dropped=dropped,
-    )
-    return new_state, world_T_new, detail
+    carry = (world_T_new.normalize(), prev_delta,
+             Pose3(torch.where(insert, world_T_new.rotation, state.world_T_keyframe.rotation),
+                   torch.where(insert, world_T_new.translation, state.world_T_keyframe.translation)),
+             torch.where(insert, 0, torch.clamp(state.frames_since_insert, min=0) + 1).to(torch.int32))
+    program.copy_into((state.world_T_current, state.prev_delta, state.world_T_keyframe,
+                       state.frames_since_insert), carry)
+    return world_T_new, detail
 
 
 def _register_cached(feats: FeatureSet, target: FeatureSet, init: Pose3,
@@ -333,33 +385,33 @@ def scan_to_map_offline(
     or (F, L*P, 3). A numpy array is moved to the card, or to ``device``; a
     tensor runs where it lies unless ``device`` names another (``device.py``).
 
-    The frames run in order (each registers against the maps built so far).
-    With ``hoist_extraction`` and no ``dewarp`` the features of all frames
-    are extracted in one batch first; dewarping needs each frame's motion,
-    so it extracts frame by frame.
+    The frames run in order (each registers against the maps built so far),
+    one program launch a frame with the state in the program's buffers and
+    no host read until the return. With ``hoist_extraction`` and no
+    ``dewarp`` the features of all frames are extracted in one batch first
+    (eagerly, once a call); dewarping needs each frame's motion, so it
+    extracts frame by frame, inside the frame's program.
 
     Returns: (final state, trajectory Pose3 with (F, ...) leaves, per-frame
     RegistrationDetail stacked on a leading axis).
     """
     scans = place(scans, device)
-    if reg_params is None:
-        reg_params = default_map_reg_params()
-    state = init_state if init_state is not None else scan_to_map_init(
-        config, lidar=lidar, feat_params=feat_params, device=scans.device)
-
-    poses, details = [], []
+    state = _with_dropped(init_state if init_state is not None else scan_to_map_init(
+        config, lidar=lidar, feat_params=feat_params, device=scans.device))
     if dewarp or not hoist_extraction:
-        for f in range(scans.shape[0]):
-            state, pose, det = scan_to_map_step(state, scans[f], lidar, feat_params,
-                                                reg_params, config, dewarp)
-            poses.append(pose)
-            details.append(det)
+        frames, extract = scans, (lidar, feat_params, dewarp)
     else:
-        feats_all = extract_features_batch(scans, lidar, feat_params, post=spatial_sort_features)
+        frames = extract_features_batch(scans, lidar, feat_params, post=spatial_sort_features)
+        extract = None
+    frame = lambda f: frames[f] if extract is not None else frames.map(lambda x: x[f])
+    prog, fn = _frame_program(state, frame(0), extract, reg_params, config)
+    # the state lives in the program's buffers from frame to frame, as the
+    # carry of loam_tpu's lax.scan: copied in once, no read until the return
+    poses, details = [], []
+    with torch.profiler.record_function(program.DRIVER_RANGE):
         for f in range(scans.shape[0]):
-            state, pose, det = scan_to_map_step_features(
-                state, feats_all.map(lambda x: x[f]), reg_params, config)
+            pose, det = prog.own(prog.run(fn, (state if f == 0 else None, frame(f))))
             poses.append(pose)
             details.append(det)
     traj = tree_map(lambda *xs: torch.stack(xs), *poses)
-    return state, traj, tree_map(lambda *xs: torch.stack(xs), *details)
+    return program.clone(prog.buffers[0]), traj, tree_map(lambda *xs: torch.stack(xs), *details)

@@ -17,12 +17,14 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import program
 from ..device import resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features
 from ..geometry import Pose3
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features
+from ..registration.loop import driver_program
 
 
 class ScanToScanState(NamedTuple):
@@ -83,8 +85,26 @@ def scan_to_scan_step(
     """Process one scan; returns (new_state, world_T_current, detail).
 
     ``dewarp=True`` motion-compensates the sweep with the previous relative
-    pose (constant velocity) before extraction.
+    pose (constant velocity) before extraction. The frame (dewarp,
+    extraction, azimuth sort, registration, compose) is one program
+    (``program.py``): eager on the CPU, one CUDA-graph launch on the card;
+    the state is copied in and returned as clones.
     """
+    inputs = (state, scan)
+
+    def fn(bufs):
+        return _frame(*bufs, lidar, feat_params, reg_params, use_motion_prior, dewarp)
+
+    prog = driver_program(scan.device, ("scan_to_scan", lidar, feat_params, use_motion_prior, dewarp),
+                          inputs, reg_params, path="scan_to_scan")
+    world, detail = prog.own(prog.run(fn, inputs))
+    return program.clone(prog.buffers[0]), world, detail
+
+
+def _frame(state: ScanToScanState, scan, lidar, feat_params, reg_params, use_motion_prior,
+           dewarp) -> Tuple[Pose3, RegistrationDetail]:
+    """One frame over ``state``'s tensors, updated in place once every read
+    of them is done: returns (world_T_current, detail)."""
     if dewarp:
         scan = dewarp_scan(scan, state.prev_delta, lidar)
     feats = azimuth_sort_features(extract_features(scan, lidar, feat_params))
@@ -95,4 +115,5 @@ def scan_to_scan_step(
     delta, detail = register_features(feats, state.prev_features, init, reg_params,
                                       with_matches=False, reorder_mode="none")
     world = state.world_T_current.compose(delta).normalize()
-    return ScanToScanState(world, feats, delta), world, detail
+    program.copy_into(state, (world, feats, delta))
+    return world, detail

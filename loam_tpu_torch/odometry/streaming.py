@@ -11,9 +11,9 @@ registerFeatures -> compose). This driver runs it in chunks of K frames:
   2. the chunk goes to the GPU from a pinned host buffer with a non-blocking
      copy and is decoded there;
   3. one batched extraction and one lockstep registration of the K pairs
-     follow, all enqueued without reading a result back, so the host gathers
-     chunk c+1 while the GPU works on chunk c (the ICF loop's own
-     ``running.any()`` once an iteration is the only synchronisation).
+     follow, one program (``program.py``: one CUDA-graph launch on the card)
+     with no result read back, so the host gathers chunk c+1 while the GPU
+     works on chunk c.
 
 Each chunk registers its K frames against their predecessors, carrying the
 previous chunk's boundary features (no frame is extracted twice) and its last
@@ -32,6 +32,7 @@ from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import program
 from ..device import resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features_batch
@@ -41,6 +42,7 @@ from ..io.packed import PACKED_R_MAX, decode_packed, encode_packed_grid
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
 from ..registration.detail import tree_map
+from ..registration.loop import driver_program
 from .scan_to_scan import scan_to_scan_init
 
 
@@ -86,6 +88,21 @@ def stream_chunk_step(
     features for j = 0), all K in lockstep: the math of ``odometry_offline``'s
     chunked form, reshaped for a stream.
     """
+    inputs = (carry, chunk)
+
+    def fn(bufs):
+        return _chunk(*bufs, lidar, feat_params, reg_params, packed_cfg, motion_init, dewarp)
+
+    prog = driver_program(chunk.device, ("stream_chunk", lidar, feat_params, packed_cfg, motion_init,
+                                         dewarp), inputs, reg_params, path="stream_chunk")
+    world, det = prog.own(prog.run(fn, inputs))
+    return program.clone(prog.buffers[0]), world, det
+
+
+def _chunk(carry: StreamCarry, chunk, lidar, feat_params, reg_params, packed_cfg, motion_init,
+           dewarp) -> Tuple[Pose3, RegistrationDetail]:
+    """One chunk over ``carry``'s tensors, updated in place once every read
+    of them is done: returns (world poses, detail)."""
     scans = decode_packed(chunk, *packed_cfg) if packed_cfg is not None else chunk
     K = scans.shape[0]
     if dewarp:
@@ -105,12 +122,8 @@ def stream_chunk_step(
     cum = pose_cumcompose(rel)
     world = Pose3(carry.world.rotation.expand(K, 4), carry.world.translation.expand(K, 3)).compose(cum)
     last = lambda x: x[-1]
-    new_carry = StreamCarry(
-        prev_feats=feats.map(last),
-        prev_delta=tree_map(last, rel),
-        world=tree_map(last, world).normalize(),
-    )
-    return new_carry, world, det
+    program.copy_into(carry, (feats.map(last), tree_map(last, rel), tree_map(last, world).normalize()))
+    return world, det
 
 
 def _prep_frame(frame, packed: bool, cfg) -> np.ndarray:
@@ -319,16 +332,17 @@ def odometry_streaming(
     else:
         frames = np.asarray(source) if hasattr(source, "shape") else source
     worlds, dets = [], []
-    try:
-        for frame in frames:
-            ran = runner.add(frame)
-            if ran is not None:
-                worlds.append(ran[0])
-                dets.append(ran[1])
-    finally:
-        if loader is not None:
-            loader.close()
-    ran = runner.flush()
+    with torch.profiler.record_function(program.DRIVER_RANGE):
+        try:
+            for frame in frames:
+                ran = runner.add(frame)
+                if ran is not None:
+                    worlds.append(ran[0])
+                    dets.append(ran[1])
+        finally:
+            if loader is not None:
+                loader.close()
+        ran = runner.flush()
     if ran is not None:
         worlds.append(ran[1])
         dets.append(ran[2])

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc``, one process per
-source and all at once, and linked into one shared library with a plain C
+The sources under ``csrc/`` (the kernels, and ``graph_if.cu``: the
+CUDA-graph IF nodes of ``program.when``) are compiled with ``nvcc``, one
+process per source and all at once, and linked into one shared library with a plain C
 interface, which is loaded with ``ctypes`` (no PyTorch headers, so the build
 takes seconds). The library lands in ``ops/_build/``, named by a hash of the
 sources and the flags, so an edited source is rebuilt at its first use and an
@@ -27,7 +28,7 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("sector_sort.cu", "greedy_nms.cu", "select_points.cu", "knn.cu")
+SOURCES = ("sector_sort.cu", "greedy_nms.cu", "select_points.cu", "knn.cu", "graph_if.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +54,10 @@ SIGNATURES = {
                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "loam_knn_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # CUDA-graph IF nodes (graph_if.cu, program.when)
+    "loam_stream_create": (ctypes.POINTER(_P),),
+    "loam_if_begin": (_P, _P, _P),
+    "loam_if_end": (_P,),
 }
 
 _lib = None

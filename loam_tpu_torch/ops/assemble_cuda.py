@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..program import Counted
 from . import _build
 
 
@@ -35,9 +36,10 @@ def select_points(pts: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:
     fn = lib.loam_select_points_f64 if pts.dtype == torch.float64 else lib.loam_select_points_f32
     _build.launch(fn, "select_points", pts, pts.data_ptr(), picks.data_ptr(), N, P, C,
                   out.data_ptr())
-    select_points.launches += 1
+    select_points.counter.add()
     return out
 
 
-#: Kernel launches since the last reset (plain-version calls do not count).
-select_points.launches = 0
+#: Kernel launches since the last reset (plain-version calls do not count;
+#: read through IF-node bodies, ``program.Counted``).
+select_points = Counted(select_points)

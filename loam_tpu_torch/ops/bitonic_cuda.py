@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..program import Counted
 from . import _build
 
 
@@ -130,9 +131,10 @@ def sector_sort(curv: torch.Tensor, n_sectors: int, form=None):
     _build.launch(fn, "sector_sort", curv, curv.data_ptr(), N, P, n_sectors, pps, s_max, npad,
                   FORMS.index(form), None if scratch is None else scratch.data_ptr(),
                   out_c.data_ptr(), out_p.data_ptr())
-    sector_sort.launches += 1
+    sector_sort.counter.add()
     return out_c, out_p
 
 
-#: Kernel launches since the last reset (plain-version calls do not count).
-sector_sort.launches = 0
+#: Kernel launches since the last reset (plain-version calls do not count;
+#: read through IF-node bodies, ``program.Counted``).
+sector_sort = Counted(sector_sort)

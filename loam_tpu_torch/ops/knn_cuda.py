@@ -67,6 +67,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..program import Counted
 from . import _build
 from ..neighbors.bruteforce import KnnResult, pairwise_d2, topk_min
 
@@ -372,7 +373,8 @@ def _search_reference(prep, queries, k, init_d2, query_mask, seed=None):
 def _search_planes(tT, queries, k, init_d2, query_mask):
     B, _, M = tT.shape
     Q = queries.shape[1]
-    init = torch.tensor(init_d2, dtype=tT.dtype, device=tT.device)
+    # a device fill, not a copy from the host: the search runs inside CUDA graphs
+    init = torch.full((), init_d2, dtype=tT.dtype, device=tT.device)
     # (B, tile, M) distance tiles: small enough to stay in a CPU's cache,
     # large enough on a GPU that the launches are few
     max_elems = 1 << 26 if tT.is_cuda else 1 << 20
@@ -475,7 +477,7 @@ def _search_kernel(prep, queries, k, init_d2, query_mask, seed=None, visits=Fals
         idx.data_ptr(), d2.data_ptr(),
         coords[0].data_ptr(), coords[1].data_ptr(), coords[2].data_ptr(), _ptr(vis), _ptr(bnd),
     )
-    knn_run.launches += 1
+    knn_run.counter.add()
     return idx, d2, coords, vis, bnd
 
 
@@ -571,8 +573,9 @@ def knn_run(prep: TargetPrep, queries, k: int, max_dist: float = 0.0,
                 not kernel_takes(prep.tT), seed_prev, seed_window)
 
 
-#: Kernel launches since the last reset (plain-version calls do not count).
-knn_run.launches = 0
+#: Kernel launches since the last reset (plain-version calls do not count;
+#: read through IF-node bodies, ``program.Counted``).
+knn_run = Counted(knn_run)
 
 
 # ---- both classes in one launch (knn_pallas.py:778-998) --------------------
@@ -652,7 +655,7 @@ def _dual_search_kernel(prep, qe, qp, k, init_e, init_p, visits=False):
         _ptr(part_d2), _ptr(part_idx), ie.data_ptr(), de.data_ptr(),
         ip.data_ptr(), dp.data_ptr(), _ptr(ve), _ptr(vp),
     )
-    knn_dual_run.launches += 1
+    knn_dual_run.counter.add()
     return ie, de, ip, dp, ve, vp
 
 
@@ -720,8 +723,9 @@ def knn_dual_run(prep: DualTargetPrep, q_edge, q_plane, k_edge: int, k_plane: in
                      max_dist_plane, return_visits, plain=not kernel_takes(prep.tT))
 
 
-#: Kernel launches since the last reset (plain-version calls do not count).
-knn_dual_run.launches = 0
+#: Kernel launches since the last reset (plain-version calls do not count;
+#: read through IF-node bodies, ``program.Counted``).
+knn_dual_run = Counted(knn_dual_run)
 
 
 def knn_pallas_dual(q_edge, q_plane, t_edge, t_edge_mask, t_plane, t_plane_mask,

@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from ..program import Counted
 from . import _build
 
 
@@ -104,9 +105,10 @@ def greedy_nms(valid, cand_e, cand_p, max_e: int, max_p: int, n: int, form=None)
         N, P, S, s_max, max_e, max_p, n, FORMS.index(form), None if scratch is None else scratch.data_ptr(),
         out_e.data_ptr(), out_p.data_ptr(),
     )
-    greedy_nms.launches += 1
+    greedy_nms.counter.add()
     return out_e, out_p
 
 
-#: Kernel launches since the last reset (plain-version calls do not count).
-greedy_nms.launches = 0
+#: Kernel launches since the last reset (plain-version calls do not count;
+#: read through IF-node bodies, ``program.Counted``).
+greedy_nms = Counted(greedy_nms)

@@ -27,9 +27,12 @@ then:
     share), and the number of kernel launches; for ``offline`` and the
     scan-to-map drivers also the ICF iterations of the run and the launches
     an iteration; the host's launch calls (``cudaLaunchKernel``,
-    ``cudaGraphLaunch``, ...) of the run, and those inside the ICF loop
-    over the loop's outer iterations (on the kNN paths one graph replay
-    an iteration). ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
+    ``cudaGraphLaunch``, ...) of the run, those inside the ICF loop over
+    the loop's outer iterations (only where the loop runs eagerly: on the
+    kNN paths a registration is one graph replay and its iterations leave
+    no host range), and those and the host's reads of the device inside the
+    driver's loop over frames or chunks (``program.DRIVER_RANGE``: one
+    ``cudaGraphLaunch`` a frame or chunk). ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
     environment profiles the run without the kNN seed bounds and the
     scan-to-map prep cache.
 
@@ -56,7 +59,8 @@ from loam_tpu_torch.io import render_trajectory, square_loop_scans, write_kitti_
 from loam_tpu_torch.loop_closure import (
     closure_edges, join_edges, optimize_trajectory_with_closures, propose_candidates, verify_closures)
 from loam_tpu_torch.pose_graph import odometry_edges, optimize_pose_graph
-from loam_tpu_torch.profiling import kernel_times, launch_calls
+from loam_tpu_torch import program
+from loam_tpu_torch.profiling import host_reads, kernel_times, launch_calls
 from loam_tpu_torch.registration import azimuth_sort_features, loop
 
 #: Shards of the GPU in the ``scan_to_map_sharded`` driver's mesh.
@@ -189,8 +193,9 @@ def main() -> int:
             return optimize_trajectory_with_closures(traj, feats, rp, **LOOP_CLOSURE_KW)
         if args.driver == "scan_to_scan":
             state = T.scan_to_scan_init(lidar, fp, device=dev)
-            for f in range(args.frames):
-                state, _, _ = T.scan_to_scan_step(state, scans[f], lidar, fp, rp, dewarp=True)
+            with torch.profiler.record_function(program.DRIVER_RANGE):
+                for f in range(args.frames):
+                    state, _, _ = T.scan_to_scan_step(state, scans[f], lidar, fp, rp, dewarp=True)
             return state
         return T.odometry_offline(scans, lidar, fp, rp, chunk_pairs=4, motion_init=True)
 
@@ -215,6 +220,8 @@ def main() -> int:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     loop_iterations = loop.iterations - iters0
     host_calls, loop_calls = launch_calls(prof.events())
+    _, driver_calls = launch_calls(prof.events(), within=program.DRIVER_RANGE)
+    reads = host_reads(prof.events())
     kernel_us = kernel_times(prof.events())
     launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.device_time > 0 and e.name in kernel_us)
@@ -242,6 +249,8 @@ def main() -> int:
     print(f"host launch calls: {n_calls} a run {host_calls}; inside the ICF loop {n_loop} {loop_calls} "
           f"over {loop_iterations} outer iterations"
           + (f", {n_loop / loop_iterations:.2f} an iteration" if loop_iterations else ""))
+    print(f"inside the driver's loop over frames or chunks: launch calls {driver_calls}, host reads "
+          f"{reads or 'none'}")
     for name, us in top[:12]:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
     print(json.dumps({
@@ -250,7 +259,8 @@ def main() -> int:
         "chunks": chunks, "stages": stages, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
         "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms, "icf_iterations": iterations,
         "host_launch_calls": host_calls, "host_launch_calls_in_loop": loop_calls,
-        "loop_iterations": loop_iterations, "icf_graphs": loop.graph_stats(),
+        "loop_iterations": loop_iterations, "host_launch_calls_in_driver_loop": driver_calls,
+        "host_reads_in_driver_loop": reads, "programs": loop.graph_stats(),
         "knn_seed": os.environ.get("LOAM_KNN_SEED", "1"),
         "s2m_prep_cache": os.environ.get("LOAM_S2M_PREP_CACHE", "1"),
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},

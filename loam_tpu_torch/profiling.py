@@ -8,9 +8,11 @@ Counterpart of ``loam_tpu.profiling``:
   * :func:`force` -- a completion barrier for the devices a result lives on;
   * :func:`device_time` -- average time per call of a function: CUDA events
     around the calls on the card, the host clock after a barrier on the CPU;
-  * :func:`kernel_times` / :func:`launch_calls` -- a ``torch.profiler``
-    trace's device time by kernel, and the host's kernel and graph launch
-    calls, all of them and those inside the ICF loop.
+  * :func:`kernel_times` / :func:`launch_calls` / :func:`host_reads` -- a
+    ``torch.profiler`` trace's device time by kernel, the host's kernel and
+    graph launch calls (all of them, and those inside a range: the ICF
+    loop's or a driver's loop over frames or chunks), and the host's reads
+    of the device inside a range.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable
 import torch
 
 from .checkpoint import _flatten
+from .program import DRIVER_RANGE
 from .registration.loop import LOOP_RANGE
 
 
@@ -95,26 +98,61 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
 
 def kernel_times(events) -> dict:
     """Device microseconds by kernel name in a ``torch.profiler`` trace's
-    ``events()``: the card's kernels only, not the device-side spans of
-    ``record_function`` ranges (the ICF loop's), which cover kernels."""
+    ``events()``: the card's kernels (those a CUDA graph launches, its IF
+    nodes' bodies included, as the trace records them), not the
+    device-side spans of ``record_function`` ranges (the ICF loop's, the
+    drivers'), which cover kernels."""
     out = {}
     for e in events:
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0
-                and not getattr(e, "is_user_annotation", False) and e.name != LOOP_RANGE):
+                and not getattr(e, "is_user_annotation", False)
+                and e.name not in (LOOP_RANGE, DRIVER_RANGE)):
             out[e.name] = out.get(e.name, 0.0) + e.device_time
     return out
+
+
+def _inside(events, within: str):
+    """Whether a host event starts inside a host range named ``within``."""
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == within and e.device_type == torch.autograd.DeviceType.CPU]
+    return lambda e: any(a <= e.time_range.start <= b for a, b in spans)
 
 
 def launch_calls(events, within: str = LOOP_RANGE) -> tuple:
     """Host launch calls in a ``torch.profiler`` trace's ``events()``, by
     name: ``(all, inside)``, ``inside`` those that start within a range
-    named ``within`` (by default the ICF loop's, around its iterations)."""
-    spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == within and e.device_type == torch.autograd.DeviceType.CPU]
+    named ``within`` (by default the ICF loop's; ``program.DRIVER_RANGE``
+    for a driver's loop, where a frame or chunk is one ``cudaGraphLaunch``)."""
+    inside_range = _inside(events, within)
     every, inside = {}, {}
     for e in events:
         if e.name in LAUNCH_CALLS:
             every[e.name] = every.get(e.name, 0) + 1
-            if any(a <= e.time_range.start <= b for a, b in spans):
+            if inside_range(e):
                 inside[e.name] = inside.get(e.name, 0) + 1
     return every, inside
+
+
+#: Host calls that wait for the device: a scalar read (``.item()``,
+#: ``bool()``) and the synchronisations a blocking copy to the host makes.
+HOST_WAITS = ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def host_reads(events, within: str = DRIVER_RANGE) -> dict:
+    """The host's reads of the device inside the ranges named ``within``,
+    by name: the calls of :data:`HOST_WAITS`, and under ``"DtoH copies"``
+    the host operations whose device work is a device-to-host copy
+    (``Memcpy DtoH``, a ``cudaMemcpyAsync`` to the host). Empty where the
+    range reads nothing back."""
+    inside_range = _inside(events, within)
+    out = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not inside_range(e):
+            continue
+        name = e.name if e.name in HOST_WAITS else None
+        if name is None and any(k.name.startswith("Memcpy DtoH") for k in getattr(e, "kernels", ())):
+            name = "DtoH copies"
+        if name is not None:
+            out[name] = out.get(name, 0) + 1
+    return out

@@ -14,11 +14,11 @@ are a batch axis. Every outer iteration runs the body for all pairs, computes
 both the solve and the insufficient-associations branch and selects between
 them, and commits the result only for pairs still running (``torch.where``),
 so a finished pair's state stays as it was. The loop stops when every pair
-is done or ``max_iterations`` is reached: one host sync per iteration. The
-body is ``loop.py``'s step over buffers of its own: eager on the CPU, on
-the card a CUDA graph replayed once an iteration for the kNN paths
-(``lax.while_loop``'s compiled body), eager for the grid, a
-``custom_knn``, float64 and ``LOAM_DEBUG_NANS=1``.
+is done or ``max_iterations`` is reached. The body is ``loop.py``'s step
+over a carry of its own, scheduled as ``lax.while_loop`` runs it; the whole
+registration (sort, preps, loop) is one program on the kNN paths: eager on
+the CPU, one CUDA-graph replay on the card with the later iterations under
+IF nodes; eager for the grid, a ``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
 
 Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,
@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import program
 from ..debug import debug_nans_enabled
 from ..features.types import FeatureSet
 from ..geometry import Pose3
@@ -56,7 +57,7 @@ from ..ops.knn_cuda import kernel_takes, knn_dual_prep, knn_prep
 from ..ops.morton import morton_key
 from ..params import RegistrationParams, TerminationType
 from .detail import RegistrationDetail, tree_map
-from .loop import _eager, run_loop
+from .loop import CAPTURED_PATHS, _Loop, _eager, knob_key
 
 
 def _permute_features(fs: FeatureSet, e_perm: torch.Tensor, p_perm: torch.Tensor) -> FeatureSet:
@@ -179,48 +180,77 @@ def _register_impl(
     """
     if reorder_mode not in ("auto", "none"):
         raise ValueError(f"reorder_mode must be 'auto' or 'none', got {reorder_mode!r}")
+    dtype, dev = source.edge_points.dtype, source.edge_points.device
     reorder = (reorder_mode == "auto" and custom_knn is None and target_preps is None
                and kernel_takes(source.edge_points) and kernel_takes(target.edge_points)
                and params.search_backend == "bruteforce"
                and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
+    # The grid needs both radii (its cell sizes); without them the "grid"
+    # backend searches by brute force, as loam_tpu's does.
+    radii = params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0
+    if custom_knn is not None:
+        path = "custom"
+    elif target_preps is None and params.search_backend == "grid" and radii:
+        path = "grid"
+    elif target_preps is None and _use_dual_knn(params, dtype):
+        path = "dual"
+    else:
+        path = "preps" if target_preps is not None else "single"
+    # where loam_tpu's carry runs: its kernel with both radii (icf.py:
+    # 268-275, 392-400), here computed by the kernel itself; the plain search
+    # (a CPU tensor, float64) visits everything, so there is nothing to prune
+    t_f32 = (target_preps[0].tT.dtype if target_preps is not None else target.edge_points.dtype) \
+        != torch.float64
+    kernel_seed = path in ("single", "preps") and dev.type == "cuda" and t_f32 and radii and _use_seed()
+    tgt = tuple(target_preps) if target_preps is not None else target
+
+    def body(source, init, tgt):
+        return _register_body(source, tgt, init, params, with_matches, path, custom_knn, reorder,
+                              kernel_seed)
+
+    if path not in CAPTURED_PATHS or debug_nans_enabled() or program.nested():
+        return body(source, init, tgt)
+    inputs = (source, init, tgt)
+    key = ("registration", path, kernel_seed, with_matches, reorder, params,
+           program.signature(inputs), knob_key())
+    prog = program.cached(dev, key, inputs, path=path, seeded=kernel_seed, dtype=str(dtype),
+                          pairs=source.edge_mask.shape[0], edge_slots=source.edge_mask.shape[1],
+                          planar_slots=source.planar_mask.shape[1])
+    return prog.own(prog.run(lambda b: body(*b), inputs))
+
+
+def _register_body(source: FeatureSet, target, init: Pose3, params: RegistrationParams,
+                   with_matches: bool, path: str, custom_knn, reorder: bool, kernel_seed: bool):
+    """:func:`_register_impl`'s work once its path is chosen: the feature
+    sort, the search's preparation, the loop and the matches mapped back.
+    ``target`` is the target :class:`FeatureSet`, or on the ``preps`` path
+    the ``(edge, planar)`` :class:`TargetPrep`."""
     if reorder:
         source, se, sp = _sort_features(source, _azimuth_key, with_perms=True)
         target, te, tp = _sort_features(target, _azimuth_key, with_perms=True)
-    dtype = source.edge_points.dtype
-
-    # the targets are fixed across outer iterations: prepare them once.
-    # The grid needs both radii (its cell sizes); without them the "grid"
-    # backend searches by brute force, as loam_tpu's does.
-    use_grid = (custom_knn is None and target_preps is None and params.search_backend == "grid"
-                and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
-    dual = custom_knn is None and target_preps is None and _use_dual_knn(params, dtype)
-    gathered = (target.edge_points, target.edge_mask, target.planar_points, target.planar_mask)
-    kernel_seed = False
-    if custom_knn is not None:
-        windows = custom_knn[2] if len(custom_knn) > 2 and _use_seed() else None
-        path, search, tgt = "custom", (custom_knn[0], custom_knn[1], windows), gathered
-    elif use_grid:
-        path, tgt = "grid", gathered
-        search = (build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist),
-                  build_grid(target.planar_points, target.planar_mask, params.max_plane_neighbor_dist))
-    elif dual:
-        path, tgt = "dual", gathered
-        search = (knn_dual_prep(target.edge_points, target.edge_mask,
-                                target.planar_points, target.planar_mask),)
-    else:
+    # the targets are fixed across outer iterations: prepare them once
+    if path == "preps":
         # the packed fits read no target: the preps are the search's whole input
-        path, tgt = ("preps" if target_preps is not None else "single"), None
-        search = tuple(target_preps) if target_preps is not None else (
-            knn_prep(target.edge_points, target.edge_mask),
-            knn_prep(target.planar_points, target.planar_mask))
-        # where loam_tpu's carry runs: its kernel with both radii (icf.py:
-        # 268-275, 392-400), here computed by the kernel itself; on a CPU
-        # tensor the plain search visits everything, so there is nothing to prune
-        kernel_seed = (kernel_takes(search[0].tT) and params.max_edge_neighbor_dist > 0
-                       and params.max_plane_neighbor_dist > 0 and _use_seed())
-    est, status, it, detail = run_loop(path, params, with_matches, kernel_seed, source, init,
-                                       search, tgt, debug_nans_enabled())
-
+        search, tgt = target, None
+    else:
+        gathered = (target.edge_points, target.edge_mask, target.planar_points, target.planar_mask)
+        tgt = gathered
+        if path == "custom":
+            windows = custom_knn[2] if len(custom_knn) > 2 and _use_seed() else None
+            search = (custom_knn[0], custom_knn[1], windows)
+        elif path == "grid":
+            search = (build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist),
+                      build_grid(target.planar_points, target.planar_mask,
+                                 params.max_plane_neighbor_dist))
+        elif path == "dual":
+            search = (knn_dual_prep(*gathered),)
+        else:
+            search, tgt = (knn_prep(target.edge_points, target.edge_mask),
+                           knn_prep(target.planar_points, target.planar_mask)), None
+    src = (source.edge_points, source.edge_mask, source.planar_points, source.planar_mask)
+    loop = _Loop(path, params, with_matches, kernel_seed, src, init, search, tgt)
+    loop.schedule()
+    est, status, it, detail = loop.results()
     if reorder and with_matches:
         detail = detail._replace(edge_match=_unpermute_matches(detail.edge_match, se, te),
                                  plane_match=_unpermute_matches(detail.plane_match, sp, tp))

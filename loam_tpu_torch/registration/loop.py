@@ -1,110 +1,99 @@
-"""The ICF loop's state in buffers of its own, stepped eagerly or replayed as
-CUDA graphs.
+"""The ICF loop: ``lax.while_loop`` as a schedule of steps over the loop's
+own carry, one program with the registration around it.
 
 ``loam_tpu`` runs a registration's outer iterations as one compiled
 ``lax.while_loop`` (``loam_tpu/registration/icf.py:612``). The port's loop
 body is :meth:`_Loop.step`: one outer iteration of every pair, reading the
 loop's inputs and its carry (estimate, iteration count, status, done flags,
-the detail rows, the kNN warm start) from tensors the loop owns and writing
-the new carry back into them with ``copy_``, so the same step runs eagerly or
-as a captured graph.
+the detail rows, the kNN warm start) and writing the new carry back into the
+carry's tensors with ``copy_``, its last write the device flag
+``any_running``. :meth:`_Loop.schedule` is the while loop bounded by
+``max_iterations``: the first iteration, then ``max_iterations - 1``
+iterations each under ``program.when(any_running)`` -- a host branch
+eagerly (it stops at the first false flag, as the while loop does), a
+CUDA-graph IF node in a capture, so the device runs exactly the iterations
+the while loop runs with no host read.
 
-* On a CPU tensor the step runs eagerly, one host sync an iteration (the
-  ``running.any()`` read), as the loop always did.
-* On a CUDA tensor of a captured path (the single kNN, seeded or not, on
-  preps built here or handed over by scan-to-map's cache, and the dual kNN)
-  the step is captured once per key into a ``torch.cuda.CUDAGraph``: graph A
-  for the first iteration (on the seeded path the kernel's cold seed, no
-  warm start yet), graph B for every later one (the warm start from the last
-  result; the same graph as A where nothing differs). Each iteration is one
-  replay and one read of ``running.any()``: the device runs the iterations
-  the eager loop runs, with the same kernels on the same buffers.
-* The grid search, a ``custom_knn`` (the sharded registration, whose search
-  has collectives inside), a float64 registration on the card (its plain
-  search) and ``LOAM_DEBUG_NANS=1`` (its checks read values on the host)
-  stay on the eager loop. The choice is made by path; a failed capture or
-  replay raises.
+The registration around it (``icf._register_impl``: the feature sort, the
+kNN preps, the loop, the matches mapped back) is one ``program.Program``
+per key on the kNN paths (the single kNN, seeded or not, on preps built
+inside or handed over by scan-to-map's cache, and the dual kNN; float32 or,
+with the plain search, float64): eager on the CPU, one CUDA graph on the
+card, one replay a registration. Inside another program (a scan-to-map or
+scan-to-scan frame, a streaming chunk) it runs inline, into that program.
+The grid search, a ``custom_knn`` (the sharded registration, whose search
+has collectives inside) and ``LOAM_DEBUG_NANS=1`` (its checks read values
+on the host) run eagerly on a loop made for the call. The choice is made by
+path; a failed capture or replay raises.
 
-A captured loop is cached per key: device, dtype, the shapes of every input
-buffer (pairs, feature slots, target slots and boxes), the path, whether
-the seeds run, ``with_matches``, the ``RegistrationParams``, and what the
-kNN wrappers read while they are captured (``LOAM_KNN_LIST_PRUNE``, the
-split planner's constants, the build flags). A call copies its inputs into
-the buffers and resets the carry; results are returned as clones, so the
-next call cannot overwrite what a caller holds. Warming a graph up runs the
-step twice eagerly first (kernel build and load, cuBLAS's workspace, the
-associations' constants); neither the warm-up nor the capture counts a
-kernel launch, and each replay adds the launches its capture recorded.
+A cached program's key holds the device, the path, whether the seeds run,
+``with_matches``, the ``RegistrationParams``, the shapes of every input and
+what the kNN wrappers read while they are captured (:func:`knob_key`). The
+outer iterations are counted by :data:`ITERATIONS` (``iterations`` reads
+it), on the device inside IF bodies (``program.Counter``).
 """
 
 from __future__ import annotations
 
-import collections
-import contextlib
-import time
+import os
 
 import torch
 
-from ..debug import tap_finite
+from .. import program
+from ..debug import debug_nans_enabled, tap_finite
 from ..geometry import Pose3, norm, quat_multiply, quat_normalize, quat_rotate
 from ..neighbors.grid import knn_grid
 from ..ops import _build, knn_cuda
 from ..ops.knn_cuda import PackedKnn, knn_dual_run, knn_run, seed_bound_from_packed, seed_bound_from_window
 from ..params import RegistrationParams, TerminationType
+from ..program import CACHE_KEYS, _cache, clear_cache, graph_stats  # noqa: F401  (the loop's API)
+from ..program import eager as _eager  # noqa: F401
 from .associate import associate_edges, associate_planes
 from .detail import IterationInfo
 from .solver import _Problem, _select, lm_solve
 
-#: The paths whose loop runs as CUDA graphs on the card.
+#: The paths whose registration is one cached program (one CUDA graph on the card).
 CAPTURED_PATHS = ("single", "preps", "dual")
 
-#: Captured loops kept per device, least recently used dropped first.
-CACHE_KEYS = 6
-
-#: The kernel wrappers a step may launch; their launch counts move on replays.
+#: The kernel wrappers a step may launch.
 COUNTED = (knn_run, knn_dual_run)
 
-_cache: dict = {}  # device -> OrderedDict(key -> _Loop)
-_eager_only = False
+#: Outer ICF iterations run (eager steps and replays); ``iterations`` reads it.
+ITERATIONS = program.Counter("icf_iterations")
 
-#: Outer ICF iterations run since the last reset (eager steps and replays).
-iterations = 0
-
-#: The ``torch.profiler`` range around each call's iterations.
+#: The ``torch.profiler`` range around each registration's iterations.
 LOOP_RANGE = "icf_loop"
 
 
-@contextlib.contextmanager
-def _eager():
-    """Run every registration inside on the eager loop: the plain version
-    that the graphs are held against (``chip_smoke.py``, the ``cuda``
-    tests), as a kernel is held against its plain version."""
-    global _eager_only
-    was, _eager_only = _eager_only, True
-    try:
-        yield
-    finally:
-        _eager_only = was
+def __getattr__(name):
+    if name == "iterations":
+        return ITERATIONS.value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def clear_cache() -> None:
-    """Drop every cached loop and its graphs."""
-    _cache.clear()
+def knob_key() -> tuple:
+    """What a capture bakes in besides shapes and parameters: the
+    environment's algorithm switches (``LOAM_ICF_DUAL_KNN``,
+    ``LOAM_KNN_SEED``, ``LOAM_S2M_PREP_CACHE``, ``LOAM_KNN_LIST_PRUNE``),
+    the kNN split planner's constants and the kernels' build flags."""
+    env = tuple(os.environ.get(k) for k in ("LOAM_ICF_DUAL_KNN", "LOAM_KNN_SEED",
+                                            "LOAM_S2M_PREP_CACHE", "LOAM_KNN_LIST_PRUNE"))
+    return (env, (knn_cuda.TARGET_BLOCKS, knn_cuda.MIN_CHUNK, knn_cuda.MAX_SPLITS),
+            _build._extra_flags)
 
 
-def graph_stats() -> list:
-    """One dict per cached loop: its path, shapes, the graphs' count,
-    capture seconds (warm-up included), the graphs' memory pool in bytes
-    and the replays since it was captured."""
-    out = []
-    for dev, loops in _cache.items():
-        for loop in loops.values():
-            if loop.graphs is not None:
-                out.append({"device": str(dev), "path": loop.path, "seeded": loop.kernel_seed,
-                            "pairs": loop.B, "edge_slots": loop.E, "planar_slots": loop.Q,
-                            "graphs": len(loop.graphs), "capture_s": loop.capture_seconds,
-                            "pool_bytes": loop.pool_bytes, "replays": loop.replays})
-    return out
+def driver_program(dev: torch.device, key: tuple, inputs, reg_params: RegistrationParams,
+                   **info) -> program.Program:
+    """The program of a driver call (a frame, a chunk) whose registration
+    takes ``reg_params``: cached under ``key`` (with :func:`knob_key`) where
+    the registration is captured; eager, made for the call, for the grid
+    search and ``LOAM_DEBUG_NANS=1``, which stay eager by path."""
+    grid = (reg_params.search_backend == "grid" and reg_params.max_edge_neighbor_dist > 0
+            and reg_params.max_plane_neighbor_dist > 0)
+    if grid or debug_nans_enabled():
+        return program.Program(dev, inputs, capturable=False)
+    return program.cached(dev, key + (reg_params, program.signature(inputs), knob_key()), inputs,
+                          **info)
 
 
 def _angle_from_identity(q: torch.Tensor) -> torch.Tensor:
@@ -112,70 +101,29 @@ def _angle_from_identity(q: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.atan2(norm(q[..., 1:]), torch.abs(q[..., 0]))
 
 
-def _alloc_like(tree):
-    """Contiguous buffers shaped as ``tree``'s tensors; other leaves kept."""
-    if isinstance(tree, torch.Tensor):
-        return torch.empty(tree.shape, dtype=tree.dtype, device=tree.device)
-    if isinstance(tree, tuple):
-        parts = [_alloc_like(x) for x in tree]
-        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
-    return tree
-
-
-def _copy_into(dst, src) -> None:
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, tuple):
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
-def _signature(tree):
-    """Shapes and dtypes of ``tree``'s tensors, its other leaves as they are:
-    the part of a cache key that a capture bakes in from the inputs."""
-    if isinstance(tree, torch.Tensor):
-        return tuple(tree.shape), tree.dtype
-    if isinstance(tree, tuple):
-        return tuple(_signature(x) for x in tree)
-    return tree
-
-
-def _capture_key(dev, path: str, kernel_seed: bool, with_matches: bool,
-                 params: RegistrationParams, inputs) -> tuple:
-    """Everything a capture bakes in besides the buffers' addresses."""
-    return (dev, path, kernel_seed, with_matches, params, knn_cuda._list_prune(1.0),
-            (knn_cuda.TARGET_BLOCKS, knn_cuda.MIN_CHUNK, knn_cuda.MAX_SPLITS),
-            _build._extra_flags, _signature(inputs))
-
-
 class _Loop:
-    """One registration's loop: inputs, constants and carry in tensors of
-    its own, :meth:`step` over them, and (on the card) its graphs.
+    """One registration's loop: its carry in tensors of its own and
+    :meth:`step` over them, reading the call's tensors where they lie.
 
-    ``search`` is the path's search state: ``(edge_prep, planar_prep)``
-    (``single``, ``preps``), ``(dual_prep,)`` (``dual``), ``(edge_grid,
-    planar_grid)`` (``grid``) or ``(edge_fn, planar_fn, seed_windows)``
-    (``custom``). ``target``: the target's ``(edge_points, edge_mask,
-    planar_points, planar_mask)`` where the fits gather neighbours by index
-    (``dual``, ``grid``, ``custom``), else None. With ``static`` the inputs
-    are copied into buffers at :meth:`load` (a cached loop); without, the
-    loop reads the caller's tensors (a loop made for one call)."""
+    ``source``: the source ``(edge_points, edge_mask, planar_points,
+    planar_mask)``; ``init``: the (B,) starting poses. ``search`` is the
+    path's search state: ``(edge_prep, planar_prep)`` (``single``,
+    ``preps``), ``(dual_prep,)`` (``dual``), ``(edge_grid, planar_grid)``
+    (``grid``) or ``(edge_fn, planar_fn, seed_windows)`` (``custom``).
+    ``target``: the target's ``(edge_points, edge_mask, planar_points,
+    planar_mask)`` where the fits gather neighbours by index (``dual``,
+    ``grid``, ``custom``), else None."""
 
-    def __init__(self, path, params, with_matches, kernel_seed, source, search, target, static):
-        self.path, self.params, self.kernel_seed, self.static = path, params, kernel_seed, static
-        dtype, dev = source.edge_points.dtype, source.edge_points.device
-        self.dev = dev
-        self.B, self.E = source.edge_mask.shape
-        self.Q = source.planar_mask.shape[1]
+    def __init__(self, path, params, with_matches, kernel_seed, source, init: Pose3, search, target):
+        self.path, self.params, self.kernel_seed = path, params, kernel_seed
+        self.src, self.init, self.search, self.target = source, init, search, target
+        dtype, dev = source[0].dtype, source[0].device
+        self.B, self.E = source[1].shape
+        self.Q = source[3].shape[1]
         B, I = self.B, params.max_iterations
         Em, Qm = (self.E, self.Q) if with_matches else (0, 0)
         f = dict(dtype=dtype, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
-        src = (source.edge_points, source.edge_mask, source.planar_points, source.planar_mask)
-        self.src = _alloc_like(src) if static else None
-        self.search = _alloc_like(search) if static else None
-        self.target = _alloc_like(target) if static else None
-        self.init = (torch.empty((B, 4), **f), torch.empty((B, 3), **f))
         self.iters = torch.arange(I, **i32)
         self.identity = Pose3.identity(dtype, (B,), dev)
         # the carry
@@ -210,28 +158,12 @@ class _Loop:
             self.seeds = tuple((*(torch.empty((B, k, n), **f) for _ in range(3)),
                                 torch.empty((B, k, n), dtype=torch.bool, device=dev))
                                for k, n in ((kE, self.E), (kP, self.Q)))
-        self.graphs = None  # [(CUDAGraph, launch deltas)], once captured
-        self.capture_seconds = 0.0
-        self.pool_bytes = 0
-        self.replays = 0
-
-    def load(self, source, init: Pose3, search, target) -> None:
-        """The call's inputs: copied into the buffers (``static``) or read
-        where they are."""
-        src = (source.edge_points, source.edge_mask, source.planar_points, source.planar_mask)
-        if self.static:
-            _copy_into(self.src, src)
-            _copy_into(self.search, search)
-            _copy_into(self.target, target)
-        else:
-            self.src, self.search, self.target = src, search, target
-        _copy_into(self.init, (init.rotation, init.translation))
 
     def reset(self) -> None:
         """The carry at the loop's start: the estimate at ``init``, no
         iteration, every pair running, the detail rows empty."""
-        self.est.rotation.copy_(self.init[0])
-        self.est.translation.copy_(self.init[1])
+        self.est.rotation.copy_(self.init.rotation)
+        self.est.translation.copy_(self.init.translation)
         inv = self.est.inverse()
         self.init_inv.rotation.copy_(inv.rotation)
         self.init_inv.translation.copy_(inv.translation)
@@ -270,8 +202,8 @@ class _Loop:
             eb = torch.minimum(seed_bound_from_packed(qe, *es), seed_bound_from_window(qe, *ew, kE))
             pb = torch.minimum(seed_bound_from_packed(qp, *ps), seed_bound_from_window(qp, *pw, kP))
             e_res, p_res = edge_knn(qe, eb), plane_knn(qp, pb)
-            _copy_into(es, (e_res.xs, e_res.ys, e_res.zs, e_res.mask))
-            _copy_into(ps, (p_res.xs, p_res.ys, p_res.zs, p_res.mask))
+            program.copy_into(es, (e_res.xs, e_res.ys, e_res.zs, e_res.mask))
+            program.copy_into(ps, (p_res.xs, p_res.ys, p_res.zs, p_res.mask))
             return e_res, p_res, None, None
         if self.path == "grid":
             # indices into the unsorted targets: the gathered fits
@@ -295,7 +227,7 @@ class _Loop:
         p_res = knn_run(p_prep, qp, kP, rP, with_coords=True, query_mask=pm,
                         seed_prev=self.prev[1] if warm else None, seed_window=self.kernel_seed)
         if self.kernel_seed:
-            _copy_into(self.prev, (e_res, p_res))
+            program.copy_into(self.prev, (e_res, p_res))
         return e_res, p_res, None, None
 
     def step(self, first: bool) -> None:
@@ -367,90 +299,22 @@ class _Loop:
             buf.copy_(val)
         running.copy_(~self.done & (self.it < I))
         self.any_running.copy_(running.any())
+        ITERATIONS.add()
 
-    def capture(self) -> None:
-        """Warm the step up on a side stream, then capture graph A (the first
-        iteration) and, where the warm start makes the later ones differ,
-        graph B, in one memory pool. The launch counters are as before."""
-        dev = self.dev
-        saved = [fn.launches for fn in COUNTED]
-        t0 = time.perf_counter()
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self.reset()
-            self.step(True)
-            self.step(False)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = []
-        for first in (True, False) if self.kernel_seed else (True,):
-            g = torch.cuda.CUDAGraph()
-            before = [fn.launches for fn in COUNTED]
-            with torch.cuda.graph(g, pool=pool, stream=stream):
-                self.step(first)
-            graphs.append((g, [fn.launches - n for fn, n in zip(COUNTED, before)]))
-        torch.cuda.synchronize(dev)
-        for fn, n in zip(COUNTED, saved):
-            fn.launches = n
-        self.graphs = graphs
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                              if tuple(s.get("segment_pool_id", ())) == tuple(pool))
-
-    def run(self, graph: bool):
-        """The loop from its start: ``(est, status, it, detail)``, clones of
-        the carry. ``graph``: replay the captured step (captured first if it
-        is not yet)."""
-        global iterations
-        if graph and self.graphs is None:
-            self.capture()
+    def schedule(self) -> None:
+        """``lax.while_loop`` from the start: the carry reset, the first
+        iteration, then ``max_iterations - 1`` iterations each under
+        ``program.when(any_running)`` (eagerly it stops at the first false
+        flag, as the while loop does; in a capture each is an IF node)."""
         self.reset()
-        go, first = self.B > 0 and self.params.max_iterations > 0, True
+        if self.B == 0 or self.params.max_iterations == 0:
+            return
         with torch.profiler.record_function(LOOP_RANGE):
-            while go:
-                if graph:
-                    g, deltas = self.graphs[0 if first else -1]
-                    g.replay()
-                    self.replays += 1
-                    for fn, n in zip(COUNTED, deltas):
-                        fn.launches += n
-                else:
-                    self.step(first)
-                iterations += 1
-                first = False
-                go = bool(self.any_running)
-        clone = lambda x: x.clone()
-        return (Pose3(self.est.rotation.clone(), self.est.translation.clone()), self.status.clone(),
-                self.it.clone(), IterationInfo(
-                    Pose3(*map(clone, self.detail.target_T_source_init)),
-                    Pose3(*map(clone, self.detail.estimate_update)),
-                    *map(clone, self.detail[2:])))
+            self.step(True)
+            for _ in range(self.params.max_iterations - 1):
+                if program.when(self.any_running, lambda: self.step(False)) is False:
+                    break
 
-
-def run_loop(path, params, with_matches, kernel_seed, source, init, search, target, debug: bool):
-    """Run the ICF loop on a path: a cached loop (eager on the CPU, CUDA
-    graphs on the card) where the path is captured, else a loop made for
-    this call and stepped eagerly."""
-    dev = source.edge_points.device
-    # on the card only a kernel search is captured: the plain search (float64)
-    # copies a constant from the host
-    cached = (path in CAPTURED_PATHS and not debug and not _eager_only
-              and (dev.type == "cpu" or knn_cuda.kernel_takes(search[0].tT)))
-    if not cached:
-        loop = _Loop(path, params, with_matches, kernel_seed, source, search, target, static=False)
-        loop.load(source, init, search, target)
-        return loop.run(graph=False)
-    key = _capture_key(dev, path, kernel_seed, with_matches, params,
-                       ((source.edge_points, source.edge_mask, source.planar_points, source.planar_mask),
-                        search, target))
-    loops = _cache.setdefault(dev, collections.OrderedDict())
-    loop = loops.pop(key, None)
-    if loop is None:
-        loop = _Loop(path, params, with_matches, kernel_seed, source, search, target, static=True)
-    loops[key] = loop
-    while len(loops) > CACHE_KEYS:
-        loops.popitem(last=False)
-    loop.load(source, init, search, target)
-    return loop.run(graph=dev.type == "cuda")
+    def results(self):
+        """``(est, status, it, detail)``: the carry's own tensors."""
+        return self.est, self.status, self.it, self.detail

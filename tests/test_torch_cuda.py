@@ -1177,23 +1177,23 @@ def test_icf_graph_matches_eager_loop(dev, monkeypatch, path, max_iterations):
     assert max_iterations == 10 or TerminationType.MAX_ITER in term
     (stats,) = loop.graph_stats()
     assert stats["path"] == ("single" if path in ("seeded", "unseeded") else path)
-    assert stats["graphs"] == (2 if path in ("seeded", "preps") else 1)
-    assert stats["replays"] == 2 * int(eager[1].num_iterations.max())  # one an outer iteration a call
+    assert stats["seeded"] == (path in ("seeded", "preps"))
+    # one graph a registration: the later iterations under IF nodes
+    assert stats["if_nodes"] == max_iterations - 1
+    assert stats["replays"] == 2  # one a call
     assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
 
 
 def test_icf_eager_paths_capture_nothing(dev, monkeypatch):
-    """The grid search, float64 (the plain search on the card) and
-    ``LOAM_DEBUG_NANS=1`` stay on the eager loop: no graph is captured, and
-    the debug run equals the graphs' bit for bit."""
+    """The grid search and ``LOAM_DEBUG_NANS=1`` stay on the eager loop: no
+    graph is captured, and the debug run equals the graph's bit for bit.
+    float64 (the plain search on the card) is captured like float32."""
     from loam_tpu_torch.params import RegistrationParams
     from loam_tpu_torch.registration import icf, loop
 
     src, tgt, init = _icf_chunk(dev)
     loop.clear_cache()
     icf._register_impl(src, tgt, init, RegistrationParams(search_backend="grid"), False)
-    f64 = lambda fs: fs.map(lambda x: x.double() if x.is_floating_point() else x)
-    icf._register_impl(f64(src), f64(tgt), init, RegistrationParams(), False)
     monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
     debug = icf._register_impl(src, tgt, init, RegistrationParams(), True)
     assert loop.graph_stats() == []
@@ -1201,4 +1201,123 @@ def test_icf_eager_paths_capture_nothing(dev, monkeypatch):
     graph = icf._register_impl(src, tgt, init, RegistrationParams(), True)
     assert len(loop.graph_stats()) == 1
     for a, b in zip(_tensor_leaves(graph), _tensor_leaves(debug)):
+        assert torch.equal(a, b)
+    f64 = lambda fs: fs.map(lambda x: x.double() if x.is_floating_point() else x)
+    icf._register_impl(f64(src), f64(tgt), _pose64(init), RegistrationParams(), False)
+    assert [s["seeded"] for s in loop.graph_stats()] == [True, False]
+
+
+def _pose64(pose):
+    return type(pose)(pose.rotation.double(), pose.translation.double())
+
+
+def test_if_node_runs_its_body_only_where_the_flag_holds(dev):
+    """``program.when`` captured as a CUDA-graph IF node: a replay with the
+    flag true runs the body, one with it false leaves the body's buffer as
+    it was; one graph, one IF node."""
+    from loam_tpu_torch import program
+
+    out = torch.zeros(4, device=dev)
+
+    def fn(bufs):
+        flag, v = bufs
+        program.when(flag, lambda: out.copy_(v * 2.0))
+
+    v = torch.arange(4.0, device=dev)
+    yes, no = torch.tensor(True, device=dev), torch.tensor(False, device=dev)
+    prog = program.Program(dev, (yes, v))
+    prog.run(fn, (yes, v))
+    torch.cuda.synchronize()
+    assert prog.graph is not None and prog.if_nodes == 1 and torch.equal(out, 2.0 * v)
+    out.fill_(-1.0)
+    prog.run(fn, (no, v + 1.0))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, -1.0))
+    prog.run(fn, (yes, v + 1.0))
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2.0 * (v + 1.0)) and prog.replays == 3
+
+
+DRIVER_CELLS = ("s2m", "s2m-dewarp", "s2s-dewarp-dual", "offline-c4", "offline-c4-dual", "stream-k8")
+
+
+def _driver_run(dev, cell):
+    """A driver's run on 9 frames of 16x360 on the card, and how many
+    program launches its loop makes (one a frame or a chunk)."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch import program
+    from loam_tpu_torch.io import render_trajectory
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    F = 9
+    scans_np, _ = render_trajectory(lidar, F, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                    noise=0.003, seed=11, dtype=np.float32)
+    scans = torch.from_numpy(scans_np).to(dev)
+    cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+    if cell.startswith("s2m"):
+        return (lambda: T.scan_to_map_offline(scans, lidar, config=cfg, dewarp=cell == "s2m-dewarp")), F
+    if cell.startswith("offline"):
+        return (lambda: T.odometry_offline(scans, lidar, chunk_pairs=4, motion_init=True)), 2
+    if cell == "stream-k8":
+        return (lambda: T.odometry_streaming(scans_np, lidar, chunk_frames=8, device=dev)), 2
+
+    def s2s():
+        s, out = T.scan_to_scan_init(lidar, device=dev), []
+        with torch.profiler.record_function(program.DRIVER_RANGE):
+            for f in range(F):
+                s, pose, det = T.scan_to_scan_step(s, scans[f], lidar, dewarp=True)
+                out.append((pose, det))
+        return s, out
+    return s2s, F
+
+
+@pytest.mark.parametrize("cell", DRIVER_CELLS)
+def test_one_program_drivers_match_the_eager_loop(dev, monkeypatch, cell):
+    """Each driver with one program a frame or chunk (one CUDA-graph launch,
+    the ICF loop's later iterations and the keyframe insert under IF nodes)
+    against the same driver eager (``program.eager``: host branches, the
+    graphs' plain version): every output tensor bit-equal (poses,
+    terminations, iteration counts, detail rows, maps, the prep cache),
+    every kernel's launches and the outer iterations equal; inside the
+    driver's loop one ``cudaGraphLaunch`` a frame or chunk and no read of
+    the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch import program
+    from loam_tpu_torch.profiling import host_reads, launch_calls
+    from loam_tpu_torch.registration import loop
+
+    monkeypatch.setenv("LOAM_ICF_DUAL_KNN", "1" if "dual" in cell else "0")
+    run, launches = _driver_run(dev, cell)
+    counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
+               knn_cuda.knn_run, knn_cuda.knn_dual_run)
+
+    def counts(fn):
+        for c in counted:
+            c.launches = 0
+        n0 = loop.iterations
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [c.launches for c in counted] + [loop.iterations - n0]
+
+    loop.clear_cache()
+    graph, n_graph = counts(run)
+    with loop._eager():
+        eager, n_eager = counts(run)
+    assert n_graph == n_eager and n_graph[-1] > 0, (n_graph, n_eager)
+    got, want = _tensor_leaves(graph), _tensor_leaves(eager)
+    assert len(got) == len(want) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    stats = loop.graph_stats()
+    assert stats and all(s["if_nodes"] > 0 for s in stats)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    _, inside = launch_calls(events, within=program.DRIVER_RANGE)
+    assert inside.get("cudaGraphLaunch", 0) == launches, inside
+    assert host_reads(events) == {}
+    for a, b in zip(_tensor_leaves(again), want):
         assert torch.equal(a, b)

@@ -142,7 +142,7 @@ def test_chunks_reuse_the_loop_bit_equal_to_fresh_calls(feats):
     loop.clear_cache()
     first, second = run(a), run(b)
     (only,) = loop._cache[torch.device("cpu")].values()
-    assert only.static and only.graphs is None  # one loop served both; the CPU steps eagerly
+    assert only.graph is None  # one program served both; the CPU runs it eagerly
     assert _same(first, fresh[0]) and _same(second, fresh[1])
     assert _same(second, icf._register_eager(*b, ident, params, True, reorder_mode="none"))
     assert second[1].num_iterations[1] == 0 and first[1].num_iterations[1] > 0
@@ -159,10 +159,9 @@ def test_results_do_not_alias_the_buffers(feats):
     out = T.register_features_batch(*_chunk(feats, [(0, 1), (1, 2)]), ident, params,
                                     with_matches=True, reorder_mode="none")
     kept = jax.tree.map(lambda x: x.clone(), out)
-    (lp,) = loop._cache[torch.device("cpu")].values()
-    buffers = {x.untyped_storage().data_ptr() for x in jax.tree.leaves(
-        (lp.src, lp.search, lp.init, lp.est, lp.init_inv, lp.it, lp.status, lp.done, lp.running,
-         lp.any_running, lp.detail)) if isinstance(x, torch.Tensor)}
+    (prog,) = loop._cache[torch.device("cpu")].values()
+    buffers = {x.untyped_storage().data_ptr() for x in jax.tree.leaves(prog.buffers)
+               if isinstance(x, torch.Tensor)}
     got = [x.untyped_storage().data_ptr() for x in jax.tree.leaves(out) if isinstance(x, torch.Tensor)]
     assert got and not buffers.intersection(got)
     T.register_features_batch(*_chunk(feats, [(3, 4), (2, 3)]), ident, params, with_matches=True,
@@ -219,7 +218,7 @@ def test_eager_paths_are_not_cached(feats, monkeypatch):
     single = T.register_features_batch(*f32, ident)
     monkeypatch.setenv("LOAM_ICF_DUAL_KNN", "1")
     dual = T.register_features_batch(*f32, ident)
-    assert {lp.path for lp in loop._cache[cpu].values()} == {"single", "dual"}
+    assert {p.info["path"] for p in loop._cache[cpu].values()} == {"single", "dual"}
     assert len(loop._cache[cpu]) == 3
     np.testing.assert_allclose(dual[0].translation.numpy(), single[0].translation.numpy(), atol=1e-5)
     for iters in range(1, loop.CACHE_KEYS + 2):
