@@ -69,8 +69,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of 16x360 (candidates and accepted closures equal, poses within 1e-2 m);
      ``optimize_pose_graph`` in float64 on a 60-node graph (poses within
      1e-8); a float64 ``register_features`` (the plain kNN on the card, one
-     captured program with its later iterations under IF nodes, bit-equal to
-     the eager loop, within 1e-9 m of the CPU, no kNN kernel launched) and a
+     captured program with its later iterations under one WHILE node,
+     bit-equal to the eager loop, within 1e-9 m of the CPU, no kNN kernel
+     launched) and a
      k = 9 search (the kernel's wide form, equal to the plain one).
   5. ``odometry_offline`` with ``LOAM_ICF_DUAL_KNN=1``: the dual kNN instead
      of the single one, the same terminations and iteration counts as phase
@@ -168,23 +169,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      their defaults on the card, side by side, each exiting 0 (their own
      asserts included).
  15. One program a driver call (``program.py``; phases 3-14 already ran
-     through them): each registration, scan-to-map frame, scan-to-scan frame
-     and streaming chunk one CUDA graph, ``lax.while_loop``'s later
-     iterations and the keyframe ``lax.cond`` under IF nodes, against the
-     same drivers eager (``program.eager``, the graphs' plain version), at
-     full width on offline-64x1024-c4, its dual-kNN twin, scan-to-map, scan-to-map
-     with dewarping (first driven alone: the ATE gate, ``dropped`` 0),
+     through them): each call of ``odometry_offline`` and
+     ``scan_to_map_offline`` one CUDA graph (``lax.scan`` over chunks or
+     frames and each registration's ``lax.while_loop`` as WHILE nodes, the
+     keyframe ``lax.cond`` as an IF node), each scan-to-scan frame and
+     streaming chunk one CUDA graph, against the same drivers eager
+     (``program.eager``, the graphs' plain version), at full width on
+     offline-64x1024-c4, its dual-kNN twin, scan-to-map, scan-to-map with
+     dewarping (first driven alone: the ATE gate, ``dropped`` 0),
      scan-to-scan with dewarping and streaming in chunks of 8: every output
      tensor bit-equal (poses, terminations, iteration counts, detail rows,
      maps, the prep cache), every kernel's launches and the outer ICF
-     iterations equal; each program's IF nodes, capture seconds (warm-up
-     included), pool bytes and replays; scans/s of both in turns (graph,
-     eager, eager, graph). A ``torch.profiler`` trace of each graph run:
-     inside the driver's loop (``program.DRIVER_RANGE``) the
-     ``cudaGraphLaunch`` calls and the host's reads of the device a frame
-     or chunk (required 1 and 0), the host's launch calls a run, device
-     kernel ms and the idle share. Prints them as a ``{"one_program": ...}``
-     line.
+     iterations equal; each program's conditional nodes by type, graph
+     nodes (bodies counted once), capture seconds (warm-up included), pool
+     bytes and replays; scans/s of both in turns (graph, eager, eager,
+     graph). A ``torch.profiler`` trace of each graph run: inside the
+     driver's range (``program.DRIVER_RANGE``) the ``cudaGraphLaunch``
+     calls and the host's reads of the device a unit -- a call for the
+     trajectory drivers, a frame or chunk for the others -- (required 1 and
+     0), the host's launch calls a run, device kernel ms and the idle share;
+     the graph run's device span by CUDA events and, for the trajectory
+     drivers, a trace of the eager run (device kernel ms: a trace counts a
+     WHILE body's kernels once, not each time the body runs). Then
+     offline-64x1024-c4 and scan-to-map on 16 and on 64 frames: the
+     graph's nodes, conditional nodes by type, capture seconds, pool bytes
+     and ms a call at each, the node counts and conditional nodes required
+     equal. Prints them as a ``{"one_program": ...}`` line.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -1151,18 +1161,39 @@ def _profile_run(torch, run, units: int):
             "loop_iterations": loop.iterations - n0}
 
 
+def _device_span_ms(torch, run, reps: int = 2) -> float:
+    """Mean device span of ``run`` by CUDA events, no profiler: from the
+    call (the host's work before the first launch included) to its last
+    kernel. For a graph with WHILE nodes this is the device figure to
+    read: a ``torch.profiler`` trace does not count the kernels of a body
+    once each time the body runs."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
-    """Phase 15: every driver at full width with one program a frame or
-    chunk (one CUDA graph, the ICF loop's later iterations and the keyframe
-    insert under IF nodes) against the same driver eager
-    (``program.eager``: host branches, the graphs' plain version): all
-    output tensors bit-equal (poses, terminations, iteration counts, detail
-    rows, maps, the prep cache), every kernel's launches and the outer ICF
-    iterations equal; one ``cudaGraphLaunch`` and no host read a frame or
-    chunk inside the driver's loop; capture seconds and pool bytes a key;
-    scans/s of both in turns (graph, eager, eager, graph); a trace
-    of the graph run (host launch calls a run, device kernel ms, idle
-    share)."""
+    """Phase 15: every driver at full width with one program a unit (a call
+    of the trajectory drivers, a frame or a chunk of the others: one CUDA
+    graph, the scans over chunks or frames and the ICF loop's later
+    iterations under WHILE nodes, the keyframe insert under an IF node)
+    against the same driver eager (``program.eager``: host branches and
+    loops, the graphs' plain version): all output tensors bit-equal (poses,
+    terminations, iteration counts, detail rows, maps, the prep cache),
+    every kernel's launches and the outer ICF iterations equal; one
+    ``cudaGraphLaunch`` and no host read a unit inside the driver's range;
+    capture seconds, nodes and pool bytes a key; scans/s of both in turns
+    (graph, eager, eager, graph); a trace of the graph run (host launch
+    calls a run, device kernel ms, idle share) and its device span by CUDA
+    events; for a trajectory call (one unit), a trace of the eager run too,
+    whose device kernel ms are the same kernels', each counted."""
     from loam_tpu_torch.registration import loop
 
     out = {}
@@ -1175,7 +1206,7 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
             n_graph = loop.iterations - n0
             stats = loop.graph_stats()
             if not stats or not all(g["if_nodes"] > 0 for g in stats):
-                raise AssertionError(f"{cell}: no program with IF nodes was captured: {stats}")
+                raise AssertionError(f"{cell}: no program with conditional nodes was captured: {stats}")
             with loop._eager():
                 n0 = loop.iterations
                 want = drive(f"eager_{cell}", run, must, must_not)
@@ -1199,23 +1230,60 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
             # the trace of the graph run only: a trace's cost grows with its
             # events, and the eager run's scans/s are in the turns above
             pg = row["profile_graph"] = _profile_run(torch, run, units)
+            row["graph_device_span_ms"] = _device_span_ms(torch, run)
+            if units == 1:
+                with loop._eager():
+                    row["profile_eager"] = _profile_run(torch, run, units)
+                print(f"{cell} (eager): device kernels {row['profile_eager']['device_kernel_ms']:.3f} ms of "
+                      f"{row['profile_eager']['wall_ms']:.3f} ms; the graph's device span "
+                      f"{row['graph_device_span_ms']:.3f} ms (CUDA events), on {smi}")
             print(f"{cell} (graph): {pg['graph_launches_per_unit']:.2f} cudaGraphLaunch and "
-                  f"{pg['host_reads_per_unit']:.2f} host reads a frame or chunk inside the driver's loop "
+                  f"{pg['host_reads_per_unit']:.2f} host reads a unit inside the driver's range "
                   f"({units} units; launch calls there {pg['host_launch_calls_in_driver_loop']}, reads "
                   f"{pg['host_reads_in_driver_loop'] or 'none'}); {sum(pg['host_launch_calls'].values())} "
                   f"host launch calls a run; device kernels {pg['device_kernel_ms']:.3f} ms of "
                   f"{pg['wall_ms']:.3f} ms, idle share {pg['idle_share']:.4f}, on {smi}")
             if pg["graph_launches_per_unit"] != 1 or pg["host_reads_per_unit"] != 0:
                 raise AssertionError(f"{cell}: {pg['graph_launches_per_unit']} cudaGraphLaunch and "
-                                     f"{pg['host_reads_per_unit']} host reads a frame or chunk")
+                                     f"{pg['host_reads_per_unit']} host reads a unit")
             out[cell] = row
             print(f"{cell}: graph vs eager bit-equal ({len(a)} output tensors), launches equal "
                   f"{path_launches[f'graph_{cell}']}, {n_graph} ICF iterations; "
                   f"{row['graph_scans_s']:.3f} scans/s through the graphs, {row['eager_scans_s']:.3f} eager "
                   f"(turns graph/eager/eager/graph {', '.join(f'{x:.3f}' for x in ms)} ms a {frames}-frame "
                   f"run); captured " + "; ".join(
-                      f"{g['path']}: {g['if_nodes']} IF nodes in {g['capture_s']:.3f} s, pool "
-                      f"{g['pool_bytes']} B, {g['replays']} replays" for g in row["programs"]) + f", on {smi}")
+                      f"{g['path']}: conditional nodes {g['conditional_nodes']}, {g['nodes']} nodes in "
+                      f"{g['capture_s']:.3f} s, pool {g['pool_bytes']} B, {g['replays']} replays"
+                      for g in row["programs"]) + f", on {smi}")
+    return out
+
+
+def _graph_size_phase(smi, cells) -> dict:
+    """Phase 15's last row: a trajectory call's graph at two lengths
+    (``cells``: cell -> {frames: run}), captured afresh at each: its nodes
+    (bodies counted once), conditional nodes by type, capture seconds, pool
+    bytes and ms a call (the mean of 2 replays after the capture); the
+    nodes and conditional nodes required equal at every length."""
+    from loam_tpu_torch.registration import loop
+
+    out = {}
+    for cell, runs in cells.items():
+        rows = {}
+        for frames, run in runs.items():
+            _stamp(f"phase 15: {cell} at {frames} frames")
+            loop.clear_cache()
+            run()
+            (g,) = loop.graph_stats()
+            rows[frames] = {k: g[k] for k in ("nodes", "conditional_nodes", "capture_s", "pool_bytes")}
+            rows[frames]["ms_per_call"] = _seconds_per_run(run, 2) * 1e3
+            print(f"{cell} at {frames} frames: {g['nodes']} graph nodes, conditional nodes "
+                  f"{g['conditional_nodes']}, captured in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B, "
+                  f"{rows[frames]['ms_per_call']:.3f} ms a call, on {smi}")
+        sizes = {(r["nodes"], str(r["conditional_nodes"])) for r in rows.values()}
+        if len(sizes) != 1:
+            raise AssertionError(f"{cell}: the graph's size depends on the frames: {rows}")
+        out[cell] = rows
+    loop.clear_cache()
     return out
 
 
@@ -1753,9 +1821,9 @@ def main() -> int:
     est_g, det_g64 = T.register_features(src64, tgt64, params=rp)
     if knn_cuda.knn_run.launches or knn_cuda.knn_dual_run.launches:
         raise AssertionError("a float64 registration launched the kNN kernel")
-    # ... through the one-program loop: one graph, its later iterations under IF nodes
+    # ... through the one-program loop: one graph, its later iterations under one WHILE node
     f64_programs = [g for g in icf_loop.graph_stats() if g.get("dtype") == "torch.float64"]
-    if len(f64_programs) != 1 or f64_programs[0]["if_nodes"] != rp.max_iterations - 1:
+    if len(f64_programs) != 1 or f64_programs[0]["conditional_nodes"] != {"if": 0, "while": 1}:
         raise AssertionError(f"the float64 registration was not one captured program: {icf_loop.graph_stats()}")
     with icf_loop._eager():
         est_e, det_e64 = T.register_features(src64, tgt64, params=rp)
@@ -1775,8 +1843,8 @@ def main() -> int:
     for what in ("indices", "distances"):
         _require_equal(f"k = 9 search {what} vs the plain one", getattr(k9, what)[p9.mask],
                        getattr(p9, what)[p9.mask])
-    print(f"small input, float64 register_features: one captured program ({f64_programs[0]['if_nodes']} IF "
-          f"nodes), bit-equal to the eager loop; GPU vs CPU {gap:.3e} m (limit {ATOL_F64_M}), "
+    print(f"small input, float64 register_features: one captured program (one WHILE node, "
+          f"{f64_programs[0]['nodes']} nodes), bit-equal to the eager loop; GPU vs CPU {gap:.3e} m (limit {ATOL_F64_M}), "
           f"{int(det_g64.num_iterations)} iterations, no kNN kernel launched; k = 9 search (the kernel's "
           f"wide form) equal to the plain one")
     if not gap < ATOL_F64_M:
@@ -2087,18 +2155,29 @@ def main() -> int:
     if int(st_w.dropped) != 0:
         raise AssertionError(f"scan_to_map dewarp dropped {int(st_w.dropped)} voxels")
     print(f"scan_to_map dewarp: ATE {ate_w:.6f} m (limit {limit_w:.6f} m), dropped 0")
-    chunks = -(-(frames - 1) // 4)
+    # units: one a call for the trajectory drivers, a frame or chunk for the others
     graph_cells = {
-        "offline-64x1024-c4": (run_offline, chunks, dict(LOAM_ICF_DUAL_KNN="0"), *single),
-        "offline-64x1024-c4-dual": (run_offline, chunks, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
-        "s2m-64x1024": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"), *single),
-        "s2m-64x1024-dewarp": (run_s2m_dewarp, frames, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "offline-64x1024-c4": (run_offline, 1, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "offline-64x1024-c4-dual": (run_offline, 1, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
+        "s2m-64x1024": (run_s2m, 1, dict(LOAM_ICF_DUAL_KNN="0"), *single),
+        "s2m-64x1024-dewarp": (run_s2m_dewarp, 1, dict(LOAM_ICF_DUAL_KNN="0"), *single),
         "s2s-64x1024-dewarp": (run_s2s, frames, dict(LOAM_ICF_DUAL_KNN="1"), *dual),
         "stream-64x1024-k8": (lambda: run_stream(True), -(-frames // chunk), dict(LOAM_ICF_DUAL_KNN="0"),
                               *single),
     }
-    print(json.dumps({"one_program": _graph_phase(torch, smi, frames, drive, path_launches, graph_cells,
-                                                  reps)}))
+    one_program = _graph_phase(torch, smi, frames, drive, path_launches, graph_cells, reps)
+    # the same trajectory, 64 frames long: 16 and 64 frames (15 and 63 pairs) through one graph each
+    long_np, _ = render_trajectory(lidar, 64, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01,
+                                   noise=0.005, seed=0, dtype=np.float32)
+    long = torch.from_numpy(long_np).to(dev)
+    with _dual_knn(False):
+        one_program["graph_size"] = _graph_size_phase(smi, {
+            "offline-64x1024-c4": {n: (lambda n=n: T.odometry_offline(long[:n], lidar, fp, rp, chunk_pairs=4,
+                                                                      motion_init=True)) for n in (16, 64)},
+            "s2m-64x1024": {n: (lambda n=n: T.scan_to_map_offline(long[:n], lidar, fp, s2m_reg, s2m_cfg))
+                            for n in (16, 64)},
+        })
+    print(json.dumps({"one_program": one_program}))
 
     _stamp("phases done")
     for kd in kernels:

@@ -17,6 +17,10 @@ needed.
 
 Frames are a batch dimension written out: the three kernels of this module
 (sector sort, greedy NMS, copy-out) each run once for all frames x lines.
+:func:`extract_features_batch` called on its own is one program
+(``program.py``: one CUDA-graph launch on the card, eager on the CPU), as
+``loam_tpu``'s is one jitted call; inside another program (a trajectory, a
+frame, a chunk) it runs inline.
 The sector layout (``loam_tpu``'s ``_sector_layout``) is
 ``ops.bitonic_cuda.sector_layout``, beside the sort that uses it.
 """
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import program
 from ..ops.assemble_cuda import select_points
 from ..ops.bitonic_cuda import sector_sort
 from ..ops.nms_cuda import greedy_nms
@@ -85,10 +90,21 @@ def extract_features_batch(
 ) -> FeatureSet:
     """Extract features of every frame of ``scans`` (F, L, P, 3) or
     (F, L*P, 3); ``post`` (e.g. ``azimuth_sort_features``) is applied to the
-    batched result. Returns a FeatureSet with (F, ...) leaves."""
+    batched result. Returns a FeatureSet with (F, ...) leaves. One program
+    cached under the shapes, ``lidar``, ``params`` and ``post`` (a new
+    ``post`` object, such as a fresh lambda, is a new key)."""
     pts = validate_scan(scans, lidar)
     if pts.ndim != 4:
         raise ValueError(f"expected a batch of scans, got shape {tuple(scans.shape)}")
+    if program.nested():
+        return _extract_batch(pts, lidar, params, post)
+    prog = program.cached(pts.device, ("extract", lidar, params, post, program.signature(pts)), pts,
+                          path="extract", frames=pts.shape[0])
+    return prog.own(prog.run(lambda p: _extract_batch(p, lidar, params, post), pts))
+
+
+def _extract_batch(pts, lidar: LidarParams, params: FeatureExtractionParams, post) -> FeatureSet:
+    """:func:`extract_features_batch`'s work on (F, L, P, 3) scans."""
     curv = compute_curvature(pts, lidar, params)
     valid = compute_valid_points(pts, lidar, params)
     fs = _extract_core(pts, curv, valid, lidar, params)

@@ -43,7 +43,9 @@ def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 
 def quat_identity(dtype=torch.float32, batch_shape: Tuple[int, ...] = (), device=None) -> torch.Tensor:
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    # a fill, not ``q[..., 0] = 1.0``: with no batch axes that copies from
+    # the host, which a CUDA-graph capture refuses
+    q.narrow(-1, 0, 1).fill_(1.0)
     return q
 
 
@@ -243,27 +245,49 @@ def _compose_pairs(a: Pose3, b: Pose3) -> Pose3:
 def _associative_scan(elems: Pose3) -> Pose3:
     """Inclusive scan of :func:`_compose_pairs` along the leading axis in
     ``lax.associative_scan``'s own combination tree (the odd/even recursion
-    of ``jax/_src/lax/control_flow/loops.py``, ``associative_scan``): the
+    of ``jax/_src/lax/control_flow/loops.py``, ``associative_scan``: the
     adjacent pairs combined, their scan by recursion giving the odd outputs,
-    each even output its odd predecessor combined with its own element,
-    then the two interleaved. Log-depth, a few batched operations a level."""
+    each even output its odd predecessor combined with its own element),
+    computed in place on the whole array, one recursion level at a time.
+    Level ``d`` of the recursion holds the element ending at each position
+    ``j`` with ``j + 1`` a multiple of ``s = 2**d``. Going down, each
+    position with ``j + 1`` a multiple of ``2s`` combines with the one ``s``
+    before it (the adjacent pairs); coming back, each with ``j + 1 = s``
+    mod ``2s`` and ``j + 1 >= 3s`` combines with the finished prefix ``s``
+    before it (the even outputs). Every level is the same operations on the
+    whole array with the stride a device value, so each sweep is one
+    ``program.scan`` over the ``floor(log2 n)`` levels: a program's graph
+    holds the same nodes whatever ``n`` is. The same combinations of the
+    same values as the recursion, so the same bits."""
+    from . import program
+
     n = elems.rotation.shape[0]
-    if n < 2:
+    levels = n.bit_length() - 1  # floor(log2 n): the levels with a pair
+    if levels <= 0:
         return elems
-    take = lambda tree, s: Pose3(tree.rotation[s], tree.translation[s])
-    odd = _associative_scan(_compose_pairs(take(elems, slice(0, -1, 2)), take(elems, slice(1, None, 2))))
-    rest = take(elems, slice(2, None, 2))
-    even = _compose_pairs(take(odd, slice(0, -1)) if n % 2 == 0 else odd, rest)
+    dev = elems.rotation.device
+    rot, trans = elems.rotation.clone(), elems.translation.clone()  # the carry
+    end = torch.arange(1, n + 1, device=dev)  # j + 1
+    rows = lambda m: m.reshape((n,) + (1,) * (rot.ndim - 1))
 
-    def interleave(first, ev, od):
-        out = torch.empty((n,) + first.shape[1:], dtype=first.dtype, device=first.device)
-        out[:1] = first[:1]
-        out[2::2] = ev
-        out[1::2] = od
-        return out
+    def combine(s, mask):
+        before = torch.clamp(end - 1 - s, min=0)
+        new = _compose_pairs(Pose3(rot.index_select(0, before), trans.index_select(0, before)),
+                             Pose3(rot, trans))
+        rot.copy_(torch.where(rows(mask), new.rotation, rot))
+        trans.copy_(torch.where(rows(mask), new.translation, trans))
 
-    return Pose3(interleave(elems.rotation, even.rotation, odd.rotation),
-                 interleave(elems.translation, even.translation, odd.translation))
+    def down(i):
+        s = torch.ones_like(i) << i
+        combine(s, end % (2 * s) == 0)
+
+    def up(i):
+        s = torch.ones_like(i) << (levels - 1 - i)
+        combine(s, (end % (2 * s) == s) & (end >= 3 * s))
+
+    program.scan(levels, down, dev)
+    program.scan(levels, up, dev)
+    return Pose3(rot, trans)
 
 
 def pose_cumcompose(rel: Pose3) -> Pose3:

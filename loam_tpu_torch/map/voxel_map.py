@@ -64,13 +64,15 @@ def voxel_map_empty(capacity: int, voxel_size: float, origin=(0.0, 0.0, 0.0),
                     dtype=torch.float32, device=None) -> VoxelMap:
     """An empty map, on the card unless ``device`` says otherwise
     (``device.py``). The addressable span around ``origin`` is
-    ``GRID_CELLS * voxel_size`` (e.g. 1024 * 0.5 m)."""
+    ``GRID_CELLS * voxel_size`` (e.g. 1024 * 0.5 m). Made with fills only
+    (no copy from the host), so a program's capture can make it."""
     device = resolve(device)
+    full = lambda v: torch.full((), float(v), dtype=dtype, device=device)
     return VoxelMap(
         points=torch.zeros((capacity, 3), dtype=dtype, device=device),
         mask=torch.zeros((capacity,), dtype=torch.bool, device=device),
-        voxel_size=torch.tensor(voxel_size, dtype=dtype, device=device),
-        origin=torch.tensor(origin, dtype=dtype, device=device),
+        voxel_size=full(voxel_size),
+        origin=torch.stack([full(o) for o in origin]),
     )
 
 

@@ -1,16 +1,18 @@
 """Batched offline odometry: the whole trajectory from stacked scans.
 
 Counterpart of ``loam_tpu.odometry.offline`` (the reference leaves the
-odometry loop to user code, ``README.md:44-60``):
+odometry loop to user code, ``README.md:44-60``). A call is one program
+(``program.py``: eager on the CPU, one CUDA-graph launch on the card), as
+``loam_tpu``'s is one ``jax.jit``:
 
   1. features of all frames extracted in one batch, each frame
      azimuth-sorted once (it serves as source and as target);
   2. the consecutive (source, target) pairs registered in lockstep chunks of
-     ``chunk_pairs``, a Python loop over chunks, each one registration
-     program (one CUDA-graph launch on the card); the last chunk is padded
+     ``chunk_pairs``, a ``program.scan`` over a device chunk index (one WHILE
+     node on the card, ``loam_tpu``'s ``lax.scan``); the last chunk is padded
      with copies of pair 0, whose results are dropped; with ``motion_init``
      every pair of a chunk starts from the last relative pose of the chunk
-     before (a constant-velocity prior);
+     before (a constant-velocity prior), carried in a buffer of the program;
   3. relative poses composed into world poses.
 """
 
@@ -23,10 +25,12 @@ import torch
 from .. import program
 from ..device import place
 from ..features import extract_features_batch
+from ..features.curvature import validate_scan
 from ..geometry import Pose3, pose_cumcompose
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
 from ..registration.detail import tree_map
+from ..registration.loop import driver_program
 
 
 def odometry_offline(
@@ -58,44 +62,58 @@ def odometry_offline(
     F = scans.shape[0]
     if F < 2:
         raise ValueError(f"odometry needs at least 2 frames, got {F}")
+    validate_scan(scans, lidar)
+    chunk_pairs = chunk_pairs if 0 < chunk_pairs < F - 1 else 0
+    prog = driver_program(scans.device, ("odometry_offline", lidar, feat_params, chunk_pairs,
+                                         motion_init), scans, reg_params, path="odometry_offline",
+                          frames=F)
+    with torch.profiler.record_function(program.DRIVER_RANGE):
+        out = prog.run(lambda s: _trajectory(s, lidar, feat_params, reg_params, chunk_pairs,
+                                             motion_init), scans)
+    return prog.own(out)
+
+
+def _trajectory(scans, lidar, feat_params, reg_params, chunk_pairs, motion_init):
+    """The program of :func:`odometry_offline`: ``chunk_pairs`` 0 registers
+    every pair in one batch."""
     feats = extract_features_batch(scans, lidar, feat_params, post=azimuth_sort_features)
     dtype, dev = feats.edge_points.dtype, feats.edge_points.device
     src = feats.map(lambda x: x[1:])
     tgt = feats.map(lambda x: x[:-1])
-    n_pairs = F - 1
-
-    if chunk_pairs <= 0 or n_pairs <= chunk_pairs:
+    n_pairs = scans.shape[0] - 1
+    if not chunk_pairs:
         init = Pose3.identity(dtype, (n_pairs,), dev)
         rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
-    else:
-        C = chunk_pairs
-        nc = -(-n_pairs // C)
-        pad = nc * C - n_pairs
+        return compose_trajectory(rel), details
 
-        def padded(x):
-            return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
+    C = chunk_pairs
+    nc = -(-n_pairs // C)
+    pad = nc * C - n_pairs
 
-        src_p, tgt_p = src.map(padded), tgt.map(padded)
-        carry = Pose3.identity(dtype, (), dev)
-        rels, dets = [], []
-        # one registration program a chunk (one CUDA-graph launch on the
-        # card), the motion_init carry on the device: no read between chunks
-        with torch.profiler.record_function(program.DRIVER_RANGE):
-            for c in range(nc):
-                part = lambda x: x[c * C : (c + 1) * C]
-                if motion_init:
-                    init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
-                else:
-                    init = Pose3.identity(dtype, (C,), dev)
-                rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init,
-                                                       reg_params, reorder_mode="none")
-                carry = Pose3(rel_c.rotation[-1], rel_c.translation[-1])
-                rels.append(rel_c)
-                dets.append(det_c)
-        rel = tree_map(lambda *xs: torch.cat(xs)[:n_pairs], *rels)
-        details = tree_map(lambda *xs: torch.cat(xs)[:n_pairs], *dets)
+    def padded(x):
+        return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
 
-    return compose_trajectory(rel), details
+    src_p, tgt_p = src.map(padded), tgt.map(padded)
+    carry = Pose3.identity(dtype, (), dev)  # the motion_init carry, before the scan
+    offsets = torch.arange(C, device=dev)
+
+    def chunk(c):
+        """Chunk ``c`` (a device index): its registration; the carry
+        updated once the registration has read it."""
+        rows = c * C + offsets
+        part = lambda x: x.index_select(0, rows)
+        if motion_init:
+            init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
+        else:
+            init = Pose3.identity(dtype, (C,), dev)
+        rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init, reg_params,
+                                               reorder_mode="none")
+        program.copy_into(carry, Pose3(rel_c.rotation[-1], rel_c.translation[-1]))
+        return rel_c, det_c
+
+    rel, details = program.scan(nc, chunk, dev)
+    pairs = lambda x: x.reshape((nc * C,) + x.shape[2:])[:n_pairs]
+    return compose_trajectory(tree_map(pairs, rel)), tree_map(pairs, details)
 
 
 def compose_trajectory(rel: Pose3) -> Pose3:

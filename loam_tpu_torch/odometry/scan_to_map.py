@@ -7,12 +7,12 @@ initial estimate is a constant-velocity prediction, which the solver also
 uses as a prior (``prior_weight``); a frame is inserted into the maps when
 it has moved far enough from the last keyframe.
 
-A frame is one program (``program.py``): eager on the CPU, one CUDA-graph
-launch on the card, the keyframe insert under an IF node where
-``loam_tpu`` has its ``lax.cond``. :func:`scan_to_map_offline` keeps the
-state in the program's buffers from frame to frame, as ``lax.scan`` keeps
-its carry; a call of :func:`scan_to_map_step` copies the state in and
-returns clones.
+A call of :func:`scan_to_map_step` is one program (``program.py``): eager
+on the CPU, one CUDA-graph launch on the card, the keyframe insert under an
+IF node where ``loam_tpu`` has its ``lax.cond``; it copies the state in and
+returns clones. A call of :func:`scan_to_map_offline` is one program for the
+whole trajectory: the frames a ``program.scan`` (one WHILE node) whose carry
+is the state, as ``loam_tpu``'s ``lax.scan`` carries it.
 
 Differences from ``loam_tpu``, none of which changes a result:
 
@@ -42,6 +42,7 @@ from .. import program
 from ..device import place, resolve
 from ..dewarp import dewarp_scan
 from ..features import FeatureSet, extract_features, extract_features_batch
+from ..features.curvature import validate_scan
 from ..geometry import Pose3, norm, quat_conjugate, quat_multiply
 from ..map import VoxelMap, voxel_map_empty, voxel_map_insert
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
@@ -171,7 +172,7 @@ def scan_to_map_init(
         world_T_current=Pose3.identity(dtype, device=device),
         prev_delta=Pose3.identity(dtype, device=device),
         world_T_keyframe=Pose3.identity(dtype, device=device),
-        frames_since_insert=torch.tensor(-1, dtype=torch.int32, device=device),
+        frames_since_insert=torch.full((), -1, dtype=torch.int32, device=device),
         knn_prep_cache=cache,
     )
 
@@ -385,33 +386,63 @@ def scan_to_map_offline(
     or (F, L*P, 3). A numpy array is moved to the card, or to ``device``; a
     tensor runs where it lies unless ``device`` names another (``device.py``).
 
-    The frames run in order (each registers against the maps built so far),
-    one program launch a frame with the state in the program's buffers and
-    no host read until the return. With ``hoist_extraction`` and no
-    ``dewarp`` the features of all frames are extracted in one batch first
-    (eagerly, once a call); dewarping needs each frame's motion, so it
-    extracts frame by frame, inside the frame's program.
+    The call is one program (one CUDA-graph launch on the card, no host read
+    until the return), as ``loam_tpu``'s is one ``jax.jit``: the state
+    (:func:`scan_to_map_init`'s, unless ``init_state`` is given), then the
+    frames in order as a ``program.scan`` whose carry is the state (one
+    WHILE node on the card, each frame registering against the maps built
+    so far, the keyframe insert an IF node inside it). With
+    ``hoist_extraction`` and no ``dewarp`` the features of all frames are
+    extracted in one batch before the scan; dewarping needs each frame's
+    motion, so it extracts frame by frame, inside the scan.
 
     Returns: (final state, trajectory Pose3 with (F, ...) leaves, per-frame
     RegistrationDetail stacked on a leading axis).
     """
     scans = place(scans, device)
-    state = _with_dropped(init_state if init_state is not None else scan_to_map_init(
-        config, lidar=lidar, feat_params=feat_params, device=scans.device))
-    if dewarp or not hoist_extraction:
-        frames, extract = scans, (lidar, feat_params, dewarp)
-    else:
-        frames = extract_features_batch(scans, lidar, feat_params, post=spatial_sort_features)
-        extract = None
-    frame = lambda f: frames[f] if extract is not None else frames.map(lambda x: x[f])
-    prog, fn = _frame_program(state, frame(0), extract, reg_params, config)
-    # the state lives in the program's buffers from frame to frame, as the
-    # carry of loam_tpu's lax.scan: copied in once, no read until the return
-    poses, details = [], []
+    validate_scan(scans, lidar)
+    if init_state is not None:
+        init_state = _with_dropped(init_state)
+    if reg_params is None:
+        reg_params = default_map_reg_params()
+    extract = (lidar, feat_params, dewarp or not hoist_extraction, dewarp)
+
+    def fn(bufs):
+        sc, st = bufs
+        made = st is None
+        if made:
+            st = _with_dropped(scan_to_map_init(config, lidar=lidar, feat_params=feat_params,
+                                                device=sc.device))
+        traj, det = _trajectory(st, sc, extract, reg_params, config)
+        return (st if made else None), traj, det
+
+    prog = driver_program(scans.device, ("scan_to_map_offline", extract, config),
+                          (scans, init_state), reg_params, path="scan_to_map_offline",
+                          frames=scans.shape[0])
     with torch.profiler.record_function(program.DRIVER_RANGE):
-        for f in range(scans.shape[0]):
-            pose, det = prog.own(prog.run(fn, (state if f == 0 else None, frame(f))))
-            poses.append(pose)
-            details.append(det)
-    traj = tree_map(lambda *xs: torch.stack(xs), *poses)
-    return program.clone(prog.buffers[0]), traj, tree_map(lambda *xs: torch.stack(xs), *details)
+        out = prog.run(fn, (scans, init_state))
+    state, traj, det = prog.own(out)
+    # a state handed over is carried in the program's buffers
+    return (state if init_state is None else program.clone(prog.buffers[1])), traj, det
+
+
+def _trajectory(state: ScanToMapState, scans, extract, reg_params, config):
+    """The frames of ``scans`` against ``state``, updated in place, as one
+    ``program.scan``: (trajectory, details) stacked. ``extract``: ``(lidar,
+    feat_params, per_frame, dewarp)``."""
+    lidar, feat_params, per_frame, dewarp = extract
+    if not per_frame:
+        feats = extract_features_batch(scans, lidar, feat_params, post=spatial_sort_features)
+
+    def frame(i):
+        one = lambda x: x.index_select(0, i.view(1))[0]
+        if per_frame:
+            scan = one(scans)
+            if dewarp:
+                scan = dewarp_scan(scan, state.prev_delta, lidar)
+            fr = spatial_sort_features(extract_features(scan, lidar, feat_params))
+        else:
+            fr = feats.map(one)
+        return _frame(state, fr, reg_params, config)
+
+    return program.scan(scans.shape[0], frame, scans.device)

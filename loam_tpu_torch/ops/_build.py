@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (the kernels, and ``graph_if.cu``: the
-CUDA-graph IF nodes of ``program.when``) are compiled with ``nvcc``, one
+CUDA-graph conditional nodes of ``program.when``, ``program.while_loop`` and
+``program.scan``) are compiled with ``nvcc``, one
 process per source and all at once, and linked into one shared library with a plain C
 interface, which is loaded with ``ctypes`` (no PyTorch headers, so the build
 takes seconds). The library lands in ``ops/_build/``, named by a hash of the
@@ -54,10 +55,13 @@ SIGNATURES = {
                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "loam_knn_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # CUDA-graph IF nodes (graph_if.cu, program.when)
+    # CUDA-graph conditional nodes (graph_if.cu; program.when, while_loop, scan)
     "loam_stream_create": (ctypes.POINTER(_P),),
     "loam_if_begin": (_P, _P, _P),
-    "loam_if_end": (_P,),
+    "loam_if_end": (_P, ctypes.POINTER(ctypes.c_size_t)),
+    "loam_while_begin": (_P, _P, ctypes.POINTER(ctypes.c_ulonglong), _P),
+    "loam_while_end": (_P, ctypes.c_ulonglong, _P, ctypes.POINTER(ctypes.c_size_t)),
+    "loam_capture_nodes": (_P, ctypes.POINTER(ctypes.c_size_t)),
 }
 
 _lib = None

@@ -19,7 +19,8 @@ then:
 
   * for ``offline``, stage times on the host clock with a device sync at
     each boundary: batched extraction, then each registration chunk (with
-    its ICF iteration count); for ``loop_closure`` likewise: the file-fed
+    its ICF iteration count), each called on its own (the driver runs them
+    all in one program); for ``loop_closure`` likewise: the file-fed
     odometry, the keyframes' extraction, the candidates' verification and
     the pose-graph solve;
   * one ``torch.profiler`` trace of a whole run: device time by kernel name,
@@ -31,8 +32,9 @@ then:
     the loop's outer iterations (only where the loop runs eagerly: on the
     kNN paths a registration is one graph replay and its iterations leave
     no host range), and those and the host's reads of the device inside the
-    driver's loop over frames or chunks (``program.DRIVER_RANGE``: one
-    ``cudaGraphLaunch`` a frame or chunk). ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
+    driver's range (``program.DRIVER_RANGE``: one ``cudaGraphLaunch`` a
+    call of ``odometry_offline`` and ``scan_to_map_offline``, a frame or
+    chunk of the others). ``LOAM_KNN_SEED=0 LOAM_S2M_PREP_CACHE=0`` in the
     environment profiles the run without the kNN seed bounds and the
     scan-to-map prep cache.
 

@@ -98,8 +98,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
 
 def kernel_times(events) -> dict:
     """Device microseconds by kernel name in a ``torch.profiler`` trace's
-    ``events()``: the card's kernels (those a CUDA graph launches, its IF
-    nodes' bodies included, as the trace records them), not the
+    ``events()``: the card's kernels (those a CUDA graph launches, its
+    conditional nodes' bodies included, as the trace records them), not the
     device-side spans of ``record_function`` ranges (the ICF loop's, the
     drivers'), which cover kernels."""
     out = {}

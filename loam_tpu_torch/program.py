@@ -1,45 +1,58 @@
 """One driver call, one program on the card.
 
-``loam_tpu`` compiles each driver call into one program: a registration is
-one ``lax.while_loop`` (``loam_tpu/registration/icf.py:612``), a
-scan-to-map frame one step of a ``lax.scan`` with the keyframe insert under
-``lax.cond`` (``loam_tpu/odometry/scan_to_map.py:374``), a scan-to-scan
-frame and a streaming chunk one jitted step. The port's twin is a
-:class:`Program`: a function over buffers of its own, run eagerly on the
-CPU and captured once into one CUDA graph on the card, then replayed, one
-``cudaGraphLaunch`` a call and no host read.
+``loam_tpu`` compiles each driver call into one program: a trajectory of
+``odometry_offline`` or ``scan_to_map_offline`` is one ``jax.jit`` around a
+``lax.scan`` over chunks or frames (``loam_tpu/odometry/offline.py:32-141``,
+``loam_tpu/odometry/scan_to_map.py:395-467``), a registration inside it one
+``lax.while_loop`` (``loam_tpu/registration/icf.py:612``), the keyframe
+insert a ``lax.cond``; a scan-to-scan frame and a streaming chunk are one
+jitted step each. The port's twin is a :class:`Program`: a function over
+buffers of its own, run eagerly on the CPU and captured once into one CUDA
+graph on the card, then replayed, one ``cudaGraphLaunch`` a call and no
+host read.
 
-* :func:`when` is ``lax.cond(pred, body, nothing)``: on the CPU (and on the
-  card under :func:`eager`, the graphs' plain version) a host branch on
-  ``bool(pred)``; under capture a CUDA-graph IF node on the device flag
-  ``pred`` (``ops/csrc/graph_if.cu`` adds it with the CUDA runtime; the
-  body is captured on a stream of its own into the node's body graph and
-  allocates from a second memory pool of the program's). ``lax.while_loop`` bounded by ``max_iterations`` is its first
-  iteration and then ``max_iterations - 1`` iterations, each under an IF
-  node on the loop's ``any_running`` flag (``registration/loop.py``), which
-  runs exactly the iterations the while loop runs.
-* A value made inside an IF body and read after the node is ``copy_``'d
-  into a buffer allocated before the node: a skipped body leaves the
-  tensors it would have made undefined.
+* :func:`when` is ``lax.cond(pred, body, nothing)``, :func:`while_loop` is
+  ``lax.while_loop`` on a device flag the body updates, :func:`scan` is
+  ``lax.scan`` over a device counter the body reads, its outputs stacked. On
+  the CPU (and on the card under :func:`eager`, the graphs' plain version)
+  they are host branches and host loops (a while loop reads its flag before
+  each iteration); under capture each is one CUDA-graph conditional node, an
+  IF node or a WHILE node, on a device flag (``ops/csrc/graph_if.cu`` adds
+  them with the CUDA runtime). The body is captured on a stream of its own
+  into the node's body graph and allocates from a second memory pool of the
+  program's. Conditional nodes nest (a registration's WHILE node and a
+  keyframe's IF node inside the WHILE node of a scan over frames): each depth
+  has its body stream, made before any capture; the depths share the body
+  pool, whose blocks the allocator keeps apart by stream.
+* A value made inside a body and read after the node, or carried from one
+  iteration to the next, lives in a buffer allocated before the node and is
+  ``copy_``'d: a skipped body leaves the tensors it would have made
+  undefined, and a WHILE body replays its allocations at the same addresses
+  every iteration. :func:`scan` writes its stacked outputs into buffers
+  that the capture's warm-up allocated (the warm-up's run of the same scan
+  knows their shapes), which the program keeps.
 * Capture warms every branch up first: the function runs once eagerly with
-  every :func:`when` body run regardless of its flag (kernel builds and
-  loads, cuBLAS's workspace, cached constants; nothing may copy from the
-  host inside a capture), then the inputs are copied in afresh.
-* A program inside another (a registration inside a frame) runs inline:
-  its work and its IF nodes land in the outer program.
+  every body run once regardless of its flag (kernel builds and loads,
+  cuBLAS's workspace, cached constants; nothing may copy from the host inside
+  a capture), then the inputs are copied in afresh.
+* A program inside another (a registration inside a frame, the extraction
+  inside a trajectory) runs inline: its work and its conditional nodes land
+  in the outer program.
 
 Counts. A kernel wrapper (:class:`Counted`) and the ICF loop's iteration
-count (a :class:`Counter`) stay exact through IF nodes: what runs
+count (a :class:`Counter`) stay exact through conditional nodes: what runs
 unconditionally is counted on the host (each replay adds what its capture
-counted outside any IF body), what runs inside an IF body is counted by the
-body itself, on the device, in a slot of that device's tally. A count is
-read (one device read a device) only when someone reads it.
+counted outside any body), what runs inside a body is counted by the body
+itself, on the device, in a slot of that device's tally, once each time the
+body runs. A count is read (one device read a device) only when someone
+reads it.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
 import time
 
@@ -51,24 +64,29 @@ TALLY_SLOTS = 16
 #: Programs kept per device, least recently used dropped first.
 CACHE_KEYS = 6
 
+#: Conditional bodies one inside another, at most (a body stream each).
+MAX_DEPTH = 4
+
 #: The ``torch.profiler`` range around a driver's loop over frames or
 #: chunks (one program launch each).
 DRIVER_RANGE = "driver_loop"
 
 _tallies: dict = {}  # device -> int64 (TALLY_SLOTS,) tensor
 _cache: dict = {}  # device -> OrderedDict(key -> Program)
-_mode = "eager"  # how when() runs a body: "eager", "warm" (always) or "capture" (an IF node)
+_mode = "eager"  # how bodies run: "eager", "warm" (once, always) or "capture" (a conditional node)
 _depth = 0  # programs running: one inside another runs inline
 _eager_only = False
-_if_nodes = 0  # IF nodes in the capture under way
-_body_pool = None  # the torch.cuda.MemPool the capture's IF bodies allocate from
-_body_streams: dict = {}  # device -> the raw stream IF bodies are captured on
-_in_body = False  # an IF body is being captured (IF nodes do not nest)
+_conditional: dict = {}  # conditional nodes by type in the capture under way
+_body_nodes = 0  # nodes of the capture under way's body graphs
+_body_pool = None  # the torch.cuda.MemPool the capture's bodies allocate from
+_body_streams: dict = {}  # device -> the raw streams bodies are captured on, one a depth
+_body_depth = 0  # bodies being captured, one inside another
+_scan_outputs: list = []  # the stacked outputs of a warm-up's scans, in call order
 
 
 class Counter:
     """A count: ``host`` what ran where the host knows it, plus the slot
-    ``slot`` of every device's tally, what IF-node bodies ran there."""
+    ``slot`` of every device's tally, what conditional bodies ran there."""
 
     all: list = []
 
@@ -152,22 +170,70 @@ def _running(mode: str):
         _depth -= 1
 
 
-def _make_body_stream(dev: torch.device) -> None:
-    """The stream IF bodies are captured on, made before any capture (a
-    stream cannot be created while one is under way). Bodies share it, and
-    with it their freed blocks: a body runs after the one before it ended."""
+def _make_body_streams(dev: torch.device) -> None:
+    """The streams bodies are captured on, one a nesting depth, made before
+    any capture (a stream cannot be created while one is under way). The
+    bodies of a depth share its stream, and with it their freed blocks: a
+    body runs after the one before it ended."""
     if dev in _body_streams:
         return
-    import ctypes
-
     from .ops import _build
 
-    handle = ctypes.c_void_p()
-    with torch.cuda.device(dev):
-        err = _build.lib().loam_stream_create(ctypes.byref(handle))
+    streams = []
+    for _ in range(MAX_DEPTH):
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            err = _build.lib().loam_stream_create(ctypes.byref(handle))
+        if err != 0:
+            raise RuntimeError(f"conditional node: creating a body stream failed with cudaError_t {err}")
+        streams.append(handle.value)
+    _body_streams[dev] = streams
+
+
+@contextlib.contextmanager
+def _body(kind: str, flag: torch.Tensor):
+    """Capture what runs inside as the body of one conditional node of
+    ``kind`` (``"if"`` or ``"while"``) on the scalar bool device ``flag``,
+    added to the graph the current stream captures; a WHILE body ends with
+    a kernel that copies ``flag`` (which the body updates) into the node's
+    condition. What the body launched is counted where it runs: on the
+    device. A node that cannot be added raises."""
+    global _body_depth, _body_nodes
+    from .ops import _build
+
+    if _body_depth >= MAX_DEPTH:
+        raise RuntimeError(f"conditional nodes nest at most {MAX_DEPTH} deep")
+    lib, dev = _build.lib(), flag.device
+    body_stream = _body_streams[dev][_body_depth]
+    before = [c.host for c in Counter.all]
+    handle, nodes = ctypes.c_ulonglong(), ctypes.c_size_t()
+    what = f"{kind.upper()} node"
+    if kind == "while":
+        _build.launch(lib.loam_while_begin, what, flag, flag.data_ptr(), body_stream, ctypes.byref(handle))
+    else:
+        _build.launch(lib.loam_if_begin, what, flag, flag.data_ptr(), body_stream)
+    # the body's capture is not the graph's: the outermost body routes its
+    # allocations, and those of the bodies inside it, to a pool of the program's
+    pool = torch.cuda.use_mem_pool(_body_pool, dev) if _body_depth == 0 else contextlib.nullcontext()
+    _body_depth += 1
+    try:
+        with torch.cuda.stream(torch.cuda.ExternalStream(body_stream, device=dev)), pool:
+            yield
+            tally = _tally(dev)
+            for c, n in zip(Counter.all, before):
+                if c.host != n:
+                    tally[c.slot].add_(c.host - n)
+                    c.host = n
+    finally:
+        _body_depth -= 1
+        if kind == "while":
+            err = lib.loam_while_end(flag.data_ptr(), handle, body_stream, ctypes.byref(nodes))
+        else:
+            err = lib.loam_if_end(body_stream, ctypes.byref(nodes))
     if err != 0:
-        raise RuntimeError(f"IF node: creating a body stream failed with cudaError_t {err}")
-    _body_streams[dev] = handle.value
+        raise RuntimeError(f"{what}: ending the body's capture failed with cudaError_t {err}")
+    _conditional[kind] += 1
+    _body_nodes += nodes.value
 
 
 def when(pred: torch.Tensor, body) -> bool | None:
@@ -177,43 +243,97 @@ def when(pred: torch.Tensor, body) -> bool | None:
     capture's warm-up the body runs regardless (``None``). ``body``
     returns nothing: what it makes for later it ``copy_``'s into buffers
     allocated before."""
-    global _if_nodes, _in_body
     if _mode == "warm":
         body()
         return None
     if _mode == "capture":
-        from .ops import _build
-
-        if _in_body:
-            raise RuntimeError("IF nodes do not nest")
-        lib, dev = _build.lib(), pred.device
-        body_stream = _body_streams[dev]
-        before = [c.host for c in Counter.all]
-        _build.launch(lib.loam_if_begin, "IF node", pred, pred.data_ptr(), body_stream)
-        _in_body = True
-        try:
-            # the body's capture is not the graph's: its allocations are
-            # routed to a pool of the program's own
-            with torch.cuda.stream(torch.cuda.ExternalStream(body_stream, device=dev)), \
-                    torch.cuda.use_mem_pool(_body_pool, dev):
-                body()
-                # what the body launched is counted where it runs: on the device
-                tally = _tally(dev)
-                for c, n in zip(Counter.all, before):
-                    if c.host != n:
-                        tally[c.slot].add_(c.host - n)
-                        c.host = n
-        finally:
-            _in_body = False
-            err = lib.loam_if_end(body_stream)
-        if err != 0:
-            raise RuntimeError(f"IF node: ending the body's capture failed with cudaError_t {err}")
-        _if_nodes += 1
+        with _body("if", pred):
+            body()
         return None
     if bool(pred):
         body()
         return True
     return False
+
+
+def while_loop(flag: torch.Tensor, body) -> None:
+    """``lax.while_loop``: ``body()`` as long as the scalar bool ``flag``
+    holds, checked before each iteration; ``body`` updates ``flag`` and its
+    carry in place (``copy_``) and returns nothing. Eagerly a host loop
+    that reads the flag before each iteration and stops at the first false;
+    in a capture one WHILE node; during a capture's warm-up the body runs
+    once, regardless."""
+    if _mode == "warm":
+        body()
+    elif _mode == "capture":
+        with _body("while", flag):
+            body()
+    else:
+        while bool(flag):
+            body()
+
+
+def scan(n: int, body, device: torch.device):
+    """``lax.scan`` over ``n`` iterations: ``body(i)`` with ``i`` the
+    iteration's index, an int64 scalar on ``device`` that the body reads
+    (``index_select``, arithmetic), never on the host. What ``body``
+    returns (a tensor, or tuples of them) is stacked on a new leading axis
+    of ``n``; its carry it keeps in buffers allocated before and updates in
+    place. Eagerly a host loop (no read of the device); in a capture one
+    WHILE node on ``i < n``, writing into the buffers that the same scan
+    allocated in the capture's warm-up. Returns the stacked outputs, or
+    None for ``n <= 0`` (nothing ran to take their shapes from)."""
+    if n <= 0:
+        return None
+    i = torch.zeros((), dtype=torch.int64, device=device)
+    if _mode == "warm":
+        slot = len(_scan_outputs)
+        _scan_outputs.append(None)
+    # allocated in the body, the buffers would share addresses with the
+    # body's temporaries, which each iteration writes anew
+    ys = _scan_outputs.pop(0) if _mode == "capture" else None
+
+    def step():
+        nonlocal ys
+        y = body(i)
+        if ys is None:
+            ys = _stacked(y, n)
+        _put(ys, i, y)
+        i.add_(1)
+
+    if _mode == "eager":
+        for _ in range(n):
+            step()
+        return ys
+    going = torch.ones((), dtype=torch.bool, device=device)
+
+    def looped():
+        step()
+        torch.lt(i, n, out=going)
+
+    while_loop(going, looped)
+    if _mode == "warm":
+        _scan_outputs[slot] = ys
+    return ys
+
+
+def _stacked(tree, n: int):
+    """Buffers for ``n`` of ``tree``'s tensors stacked; other leaves kept."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
+    if isinstance(tree, tuple):
+        parts = [_stacked(x, n) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree
+
+
+def _put(ys, i: torch.Tensor, y) -> None:
+    """Row ``i`` (a device scalar) of ``ys``'s tensors from ``y``'s."""
+    if isinstance(ys, torch.Tensor):
+        ys.index_copy_(0, i.view(1), y.unsqueeze(0))
+    elif isinstance(ys, tuple):
+        for a, b in zip(ys, y):
+            _put(a, i, b)
 
 
 def alloc_like(tree):
@@ -248,6 +368,15 @@ def clone(tree):
     return tree
 
 
+def _tensors(tree) -> list:
+    """``tree``'s tensors, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [x for part in tree for x in _tensors(part)]
+    return []
+
+
 def signature(tree):
     """Shapes and dtypes of ``tree``'s tensors, its other leaves as they are:
     the part of a cache key that a capture bakes in from the inputs."""
@@ -271,12 +400,14 @@ class Program:
         self.dev, self.capturable, self.info = dev, capturable, info
         self.buffers = alloc_like(inputs)
         self.graph = None
-        self.pools = None  # the graph's and its IF bodies' torch.cuda.MemPool
+        self.pools = None  # the graph's and its bodies' torch.cuda.MemPool
         self.out = None
         self.deltas = None  # host counts a replay adds
         self.capture_seconds = 0.0
         self.pool_bytes = 0
-        self.if_nodes = 0
+        self.conditional = {}  # conditional nodes by type: "if", "while"
+        self.nodes = 0  # the graph's nodes, its bodies' counted once each
+        self.scan_outputs = []  # what the graph's scans write, allocated in the warm-up
         self.replays = 0
 
     def run(self, fn, inputs):
@@ -298,50 +429,69 @@ class Program:
             c.host += n
         return self.out
 
+    @property
+    def if_nodes(self) -> int:
+        """Conditional nodes of either type (IF and WHILE)."""
+        return sum(self.conditional.values())
+
     def own(self, out):
         """``out`` as the caller may keep it: the graph's own tensors
         cloned (the next replay overwrites them), fresh ones as they are."""
         return clone(out) if self.graph is not None and out is self.out else out
 
     def _capture(self, fn, inputs) -> None:
-        """Warm ``fn`` up on a side stream with every IF body run, then
+        """Warm ``fn`` up on a side stream with every body run once, then
         capture it on that stream into one graph and pool. The counters
         are as before; ``deltas`` keeps what the capture counted outside
-        any IF body."""
-        global _if_nodes, _body_pool
+        any body."""
+        global _conditional, _body_nodes, _body_pool
+        from .ops import _build
+
         dev = self.dev
         saved = [c.host for c in Counter.all]
         t0 = time.perf_counter()
         _tally(dev)
-        _make_body_stream(dev)
+        _make_body_streams(dev)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        _scan_outputs.clear()
         try:
             with torch.cuda.stream(stream):
                 copy_into(self.buffers, inputs)
                 with _running("warm"):
                     fn(self.buffers)
             torch.cuda.synchronize(dev)
+            scan_outputs = list(_scan_outputs)
             for c, n in zip(Counter.all, saved):
                 c.host = n
-            # a memory pool for the graph, and one for its IF bodies
-            # (captured on streams of their own, into captures of their own)
+            # a memory pool for the graph, and one for its bodies (captured
+            # on streams of their own, into captures of their own)
             pool, body_pool = torch.cuda.MemPool(), torch.cuda.MemPool()
             graph = torch.cuda.CUDAGraph()
-            _if_nodes, _body_pool = 0, body_pool
+            _conditional, _body_nodes, _body_pool = {"if": 0, "while": 0}, 0, body_pool
+            top = ctypes.c_size_t()
             with torch.cuda.graph(graph, pool=pool.id, stream=stream), _running("capture"):
                 out = fn(self.buffers)
+                err = _build.lib().loam_capture_nodes(stream.cuda_stream, ctypes.byref(top))
+            if err != 0:
+                raise RuntimeError(f"counting the graph's nodes failed with cudaError_t {err}")
+            if _scan_outputs:
+                raise RuntimeError("the capture ran fewer scans than its warm-up")
             torch.cuda.synchronize(dev)
             self.deltas = [c.host - n for c, n in zip(Counter.all, saved)]
         finally:
             _body_pool = None
+            _scan_outputs.clear()
             for c, n in zip(Counter.all, saved):
                 c.host = n
-        self.graph, self.pools, self.out, self.if_nodes = graph, (pool, body_pool), out, _if_nodes
+        self.graph, self.pools, self.out = graph, (pool, body_pool), out
+        self.conditional, self.nodes = dict(_conditional), top.value + _body_nodes
+        self.scan_outputs = scan_outputs
         self.capture_seconds = time.perf_counter() - t0
         ids = {tuple(pool.id), tuple(body_pool.id)}
         self.pool_bytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                               if tuple(s.get("segment_pool_id", ())) in ids)
+        self.pool_bytes += sum(x.numel() * x.element_size() for x in _tensors(scan_outputs))
 
 
 def cached(dev: torch.device, key, inputs, **info) -> Program:
@@ -365,9 +515,13 @@ def clear_cache() -> None:
 
 def graph_stats() -> list:
     """One dict per captured program: what it is (``info``: its path and
-    shapes), its IF nodes, capture seconds (warm-up included), the graph's
-    memory pool in bytes and the replays since it was captured."""
+    shapes), its conditional nodes (``if_nodes``: IF and WHILE together;
+    ``conditional_nodes``: by type), its nodes (``nodes``: the graph's and
+    each body's once, however often a body runs), capture seconds (warm-up
+    included), the bytes of its memory pools and of its scans' outputs, and
+    the replays since it was captured."""
     return [{"device": str(dev), **prog.info, "if_nodes": prog.if_nodes,
+             "conditional_nodes": prog.conditional, "nodes": prog.nodes,
              "capture_s": prog.capture_seconds, "pool_bytes": prog.pool_bytes,
              "replays": prog.replays}
             for dev, progs in _cache.items() for prog in progs.values() if prog.graph is not None]

@@ -18,7 +18,7 @@ is done or ``max_iterations`` is reached. The body is ``loop.py``'s step
 over a carry of its own, scheduled as ``lax.while_loop`` runs it; the whole
 registration (sort, preps, loop) is one program on the kNN paths: eager on
 the CPU, one CUDA-graph replay on the card with the later iterations under
-IF nodes; eager for the grid, a ``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
+one WHILE node; eager for the grid, a ``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
 
 Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,

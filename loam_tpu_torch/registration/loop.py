@@ -8,11 +8,12 @@ loop's inputs and its carry (estimate, iteration count, status, done flags,
 the detail rows, the kNN warm start) and writing the new carry back into the
 carry's tensors with ``copy_``, its last write the device flag
 ``any_running``. :meth:`_Loop.schedule` is the while loop bounded by
-``max_iterations``: the first iteration, then ``max_iterations - 1``
-iterations each under ``program.when(any_running)`` -- a host branch
-eagerly (it stops at the first false flag, as the while loop does), a
-CUDA-graph IF node in a capture, so the device runs exactly the iterations
-the while loop runs with no host read.
+``max_iterations``: the first iteration, then
+``program.while_loop(any_running, step)`` -- a host loop eagerly (it stops
+at the first false flag, as the while loop does), one CUDA-graph WHILE node
+in a capture, so the device runs exactly the iterations the while loop runs
+with no host read, and the graph holds one step whatever
+``max_iterations`` is.
 
 The registration around it (``icf._register_impl``: the feature sort, the
 kNN preps, the loop, the matches mapped back) is one ``program.Program``
@@ -30,7 +31,7 @@ A cached program's key holds the device, the path, whether the seeds run,
 ``with_matches``, the ``RegistrationParams``, the shapes of every input and
 what the kNN wrappers read while they are captured (:func:`knob_key`). The
 outer iterations are counted by :data:`ITERATIONS` (``iterations`` reads
-it), on the device inside IF bodies (``program.Counter``).
+it), on the device inside the WHILE body (``program.Counter``).
 """
 
 from __future__ import annotations
@@ -303,17 +304,17 @@ class _Loop:
 
     def schedule(self) -> None:
         """``lax.while_loop`` from the start: the carry reset, the first
-        iteration, then ``max_iterations - 1`` iterations each under
-        ``program.when(any_running)`` (eagerly it stops at the first false
-        flag, as the while loop does; in a capture each is an IF node)."""
+        iteration, then the later ones under
+        ``program.while_loop(any_running)``, which holds ``it <
+        max_iterations`` (eagerly a host loop that stops at the first false
+        flag; in a capture one WHILE node)."""
         self.reset()
         if self.B == 0 or self.params.max_iterations == 0:
             return
         with torch.profiler.record_function(LOOP_RANGE):
             self.step(True)
-            for _ in range(self.params.max_iterations - 1):
-                if program.when(self.any_running, lambda: self.step(False)) is False:
-                    break
+            if self.params.max_iterations > 1:
+                program.while_loop(self.any_running, lambda: self.step(False))
 
     def results(self):
         """``(est, status, it, detail)``: the carry's own tensors."""

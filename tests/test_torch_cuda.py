@@ -15,6 +15,8 @@ The scan-to-map run on the GPU agrees with the same run on the CPU within
 1e-2 m (the ICF position convergence threshold).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1178,8 +1180,8 @@ def test_icf_graph_matches_eager_loop(dev, monkeypatch, path, max_iterations):
     (stats,) = loop.graph_stats()
     assert stats["path"] == ("single" if path in ("seeded", "unseeded") else path)
     assert stats["seeded"] == (path in ("seeded", "preps"))
-    # one graph a registration: the later iterations under IF nodes
-    assert stats["if_nodes"] == max_iterations - 1
+    # one graph a registration: the later iterations under one WHILE node
+    assert stats["if_nodes"] == 1 and stats["conditional_nodes"] == {"if": 0, "while": 1}
     assert stats["replays"] == 2  # one a call
     assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
 
@@ -1238,26 +1240,64 @@ def test_if_node_runs_its_body_only_where_the_flag_holds(dev):
     assert torch.equal(out, 2.0 * (v + 1.0)) and prog.replays == 3
 
 
+def test_while_node_with_a_nested_if_matches_eager(dev):
+    """``program.while_loop`` captured as a CUDA-graph WHILE node with an IF
+    node inside its body: replays with 7, 0, 1 and 7 iterations (the limit a
+    buffer of the program) equal the eager run bit for bit, the IF body
+    running only in the iterations whose flag holds; one graph, one WHILE
+    and one IF node."""
+    from loam_tpu_torch import program
+
+    def fn(bufs):
+        n, v = bufs
+        acc = torch.zeros(4, device=dev)
+        k = torch.zeros((), dtype=torch.int64, device=dev)
+        going = k < n
+
+        def body():
+            acc.mul_(0.5).add_(v)
+            program.when(acc.sum() > 10.0, lambda: acc.sub_(3.0))
+            k.add_(1)
+            torch.lt(k, n, out=going)
+
+        program.while_loop(going, body)
+        return acc, k
+
+    v = torch.arange(4.0, device=dev) + 1.5
+    prog = program.Program(dev, (torch.zeros((), dtype=torch.int64, device=dev), v))
+    for i, limit in enumerate((7, 0, 1, 7)):
+        n = torch.full((), limit, dtype=torch.int64, device=dev)
+        got = prog.own(prog.run(fn, (n, v * (i + 1))))
+        with program.eager():
+            want = program.Program(dev, (n, v)).run(fn, (n, v * (i + 1)))
+        torch.cuda.synchronize()
+        assert int(got[1]) == limit
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (limit, a, b)
+    assert prog.graph is not None and prog.conditional == {"if": 1, "while": 1} and prog.replays == 4
+    assert prog.nodes > 4  # the graph's and both bodies'
+
+
 DRIVER_CELLS = ("s2m", "s2m-dewarp", "s2s-dewarp-dual", "offline-c4", "offline-c4-dual", "stream-k8")
 
 
-def _driver_run(dev, cell):
-    """A driver's run on 9 frames of 16x360 on the card, and how many
-    program launches its loop makes (one a frame or a chunk)."""
+def _driver_run(dev, cell, F=9):
+    """A driver's run on ``F`` frames of 16x360 on the card, and how many
+    program launches its loop makes: one a call for the trajectory drivers,
+    one a frame or a chunk for scan-to-scan and streaming."""
     import loam_tpu_torch as T
     from loam_tpu_torch import program
     from loam_tpu_torch.io import render_trajectory
 
     lidar = T.LidarParams(16, 360, 0.5, 80.0)
-    F = 9
     scans_np, _ = render_trajectory(lidar, F, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
                                     noise=0.003, seed=11, dtype=np.float32)
     scans = torch.from_numpy(scans_np).to(dev)
     cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
     if cell.startswith("s2m"):
-        return (lambda: T.scan_to_map_offline(scans, lidar, config=cfg, dewarp=cell == "s2m-dewarp")), F
+        return (lambda: T.scan_to_map_offline(scans, lidar, config=cfg, dewarp=cell == "s2m-dewarp")), 1
     if cell.startswith("offline"):
-        return (lambda: T.odometry_offline(scans, lidar, chunk_pairs=4, motion_init=True)), 2
+        return (lambda: T.odometry_offline(scans, lidar, chunk_pairs=4, motion_init=True)), 1
     if cell == "stream-k8":
         return (lambda: T.odometry_streaming(scans_np, lidar, chunk_frames=8, device=dev)), 2
 
@@ -1273,14 +1313,16 @@ def _driver_run(dev, cell):
 
 @pytest.mark.parametrize("cell", DRIVER_CELLS)
 def test_one_program_drivers_match_the_eager_loop(dev, monkeypatch, cell):
-    """Each driver with one program a frame or chunk (one CUDA-graph launch,
-    the ICF loop's later iterations and the keyframe insert under IF nodes)
-    against the same driver eager (``program.eager``: host branches, the
-    graphs' plain version): every output tensor bit-equal (poses,
-    terminations, iteration counts, detail rows, maps, the prep cache),
-    every kernel's launches and the outer iterations equal; inside the
-    driver's loop one ``cudaGraphLaunch`` a frame or chunk and no read of
-    the device."""
+    """Each driver with one program a call (``odometry_offline``,
+    ``scan_to_map_offline``) or a frame or chunk (scan-to-scan, streaming):
+    one CUDA-graph launch, the scan over chunks or frames and the ICF loop's
+    later iterations under WHILE nodes, the keyframe insert under an IF
+    node; against the same driver eager (``program.eager``: host branches
+    and loops, the graphs' plain version): every output tensor bit-equal
+    (poses, terminations, iteration counts, detail rows, maps, the prep
+    cache), every kernel's launches and the outer iterations equal; inside
+    the driver's range one ``cudaGraphLaunch`` a call, frame or chunk and no
+    read of the device."""
     from torch.profiler import ProfilerActivity, profile
 
     from loam_tpu_torch import program
@@ -1321,3 +1363,52 @@ def test_one_program_drivers_match_the_eager_loop(dev, monkeypatch, cell):
     assert host_reads(events) == {}
     for a, b in zip(_tensor_leaves(again), want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["offline-c4", "s2m"])
+def test_whole_call_graph_size_does_not_depend_on_frames(dev, cell):
+    """A trajectory call's graph at 9 and at 17 frames (8 and 16 pairs: no
+    padded chunk in either) holds the same nodes, counted with its bodies
+    once each, and one WHILE node for the scan, one for the ICF loop inside
+    it (offline: two more for the composition's tree; scan-to-map: the
+    keyframe's IF node); each run one
+    ``cudaGraphLaunch``, bit-equal to its eager run with the same launches
+    and ICF iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch import program
+    from loam_tpu_torch.profiling import host_reads, launch_calls
+    from loam_tpu_torch.registration import loop
+
+    counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
+               knn_cuda.knn_run, knn_cuda.knn_dual_run)
+    stats = []
+    for F in (9, 17):
+        run, _ = _driver_run(dev, cell, F)
+        outs = []
+        for eager in (False, True):
+            for c in counted:
+                c.launches = 0
+            n0 = loop.iterations
+            loop.clear_cache() if not eager else None
+            with program.eager() if eager else contextlib.nullcontext():
+                out = run()
+            torch.cuda.synchronize()
+            outs.append((out, [c.launches for c in counted] + [loop.iterations - n0]))
+            if not eager:
+                (g,) = loop.graph_stats()
+                stats.append(g)
+        (graph, n_graph), (want, n_eager) = outs
+        assert n_graph == n_eager and n_graph[-1] > 0
+        for a, b in zip(_tensor_leaves(graph), _tensor_leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        _, inside = launch_calls(prof.events(), within=program.DRIVER_RANGE)
+        assert inside.get("cudaGraphLaunch", 0) == 1 and host_reads(prof.events()) == {}
+    assert stats[0]["nodes"] == stats[1]["nodes"] > 0, stats
+    # the scan and the ICF loop; offline's composition is two scans more
+    want_nodes = {"if": 1, "while": 2} if cell == "s2m" else {"if": 0, "while": 4}
+    assert stats[0]["conditional_nodes"] == stats[1]["conditional_nodes"] == want_nodes, stats
+    assert stats[1]["pool_bytes"] >= stats[0]["pool_bytes"]

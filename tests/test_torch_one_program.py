@@ -1,18 +1,19 @@
 """One driver call, one program (``loam_tpu_torch/program.py``) on the CPU.
 
 On the card each registration, scan-to-map frame, scan-to-scan frame and
-streaming chunk is one CUDA graph, ``lax.while_loop``'s later iterations and
-the keyframe ``lax.cond`` under IF nodes; the CPU runs the same buffers and
-steps eagerly, with host branches (held against the graphs by
-``test_torch_cuda.py`` and ``chip_smoke.py`` phase 15). What the CPU shows:
-the unrolled, predicated loop schedule equals the while loop bit for bit;
-the scan-to-map runner, whose state stays in the program's buffers from
-frame to frame, equals fresh ``scan_to_map_step_features`` calls bit for
-bit (poses, details, maps, ``dropped``, the prep cache) on frames that
-insert and frames that do not; the drivers equal ``loam_tpu``'s; a
-``loam_tpu`` state continues through the runner as ``loam_tpu`` continues
-it; the counts that IF bodies keep on the device add up to the eager
-loop's.
+streaming chunk is one CUDA graph, and so is each call of the trajectory
+drivers, ``lax.while_loop``'s later iterations and ``lax.scan`` under WHILE
+nodes, the keyframe ``lax.cond`` under an IF node; the CPU runs the same
+buffers and steps eagerly, with host branches and loops (held against the
+graphs by ``test_torch_cuda.py`` and ``chip_smoke.py`` phase 15). What the
+CPU shows: the loop schedule (the first iteration, then a WHILE node on the
+loop's flag) equals the while loop bit for bit; the scan-to-map runner,
+whose state stays in the program's buffers from frame to frame, equals
+fresh ``scan_to_map_step_features`` calls bit for bit (poses, details, maps,
+``dropped``, the prep cache) on frames that insert and frames that do not;
+the drivers equal ``loam_tpu``'s; a ``loam_tpu`` state continues through
+the runner as ``loam_tpu`` continues it; the counts that WHILE bodies keep
+on the device add up to the eager loop's.
 
 Tolerances (those of the files named). Scan-to-map in float32 against
 ``loam_tpu``: 1e-2 m / 1e-3 rad, terminations equal
@@ -106,13 +107,13 @@ def _chunk_ending_three_ways(scans, max_iterations):
 
 @pytest.mark.parametrize("max_iterations", [1, 2, 10])
 def test_unrolled_schedule_equals_the_while_loop(scans, monkeypatch, max_iterations):
-    """``_Loop.schedule`` -- the first iteration, then ``max_iterations - 1``
-    steps each predicated on ``any_running`` -- against a while loop over
+    """``_Loop.schedule`` -- the first iteration, then
+    ``program.while_loop(any_running, step)`` -- against a while loop over
     ``_Loop.step`` that reads the flag after each iteration: estimates,
     terminations, iteration counts and every detail row bit-equal, and the
-    same outer iterations counted. The schedule runs predicated on every
-    step (as the IF nodes run: a false flag skips the body, the schedule
-    goes on) and as it runs eagerly (it stops at the first false flag)."""
+    same outer iterations counted. The schedule runs eagerly and as its
+    WHILE node runs (the flag read on entry and after each run of the body,
+    one node whatever ``max_iterations`` is, none for 1)."""
     src, tgt, init, params = _chunk_ending_three_ways(scans, max_iterations)
     parts = (src.edge_points, src.edge_mask, src.planar_points, src.planar_mask)
     search = (knn_cuda.knn_prep(tgt.edge_points, tgt.edge_mask),
@@ -137,20 +138,24 @@ def test_unrolled_schedule_equals_the_while_loop(scans, monkeypatch, max_iterati
     assert loop.iterations - n0 == n_while
     assert _same(eager.results(), want.results())
 
-    ran = []
+    ran, nodes = [], []
 
-    def predicated(pred, body):
-        """An IF node's semantics on the host: the body where the flag
-        holds, and the schedule continues either way."""
-        ran.append(bool(pred))
-        if ran[-1]:
+    def node(flag, body):
+        """A WHILE node's semantics on the host: the flag read on entry and
+        after each run of the body, the body run while it holds."""
+        nodes.append(flag)
+        while True:
+            ran.append(bool(flag))
+            if not ran[-1]:
+                break
             body()
 
-    monkeypatch.setattr(program, "when", predicated)
+    monkeypatch.setattr(program, "while_loop", node)
     unrolled = make()
     n0 = loop.iterations
     unrolled.schedule()
-    assert len(ran) == max_iterations - 1 and loop.iterations - n0 == n_while == 1 + sum(ran)
+    assert len(nodes) == (max_iterations > 1) and ran[-1:] == [False] * (max_iterations > 1)
+    assert loop.iterations - n0 == n_while == 1 + sum(ran)
     assert _same(unrolled.results(), want.results())
 
 
@@ -160,8 +165,8 @@ def test_scan_to_map_runner_equals_fresh_steps(scans, monkeypatch):
     ``scan_to_map_step_features`` calls (the state copied in and cloned out
     each frame), with the prep cache forced on so that the keyframe insert
     also rebuilds it: poses, details, maps, ``dropped``, the cache and the
-    carry bit-equal, on frames that insert and frames that do not. One
-    program serves both."""
+    carry bit-equal, on frames that insert and frames that do not. The
+    trajectory is one program, the extraction one and a step one."""
     monkeypatch.setattr(s2m, "_use_prep_cache", lambda points: True)
     lidar, cfg, reg = from_reference(LIDAR), from_reference(J_CFG), from_reference(J_REG)
     state0 = T.scan_to_map_init(cfg, lidar=lidar, device="cpu")
@@ -180,7 +185,8 @@ def test_scan_to_map_runner_equals_fresh_steps(scans, monkeypatch):
     assert int(final.dropped) == 0 and len(final.knn_prep_cache) == 16
     # the cache the inserts rebuilt is the one built afresh from the final maps
     assert _same(final.knn_prep_cache, s2m.scan_to_map_rebuild_cache(final, lidar).knn_prep_cache)
-    assert [p.info["path"] for p in loop._cache[CPU].values()] == ["scan_to_map"]
+    assert [p.info["path"] for p in loop._cache[CPU].values()] == ["scan_to_map_offline", "extract",
+                                                                   "scan_to_map"]
 
 
 def test_scan_to_map_runner_matches_loam_tpu(scans, jax_s2m):
@@ -218,7 +224,7 @@ def test_loam_tpu_state_continues_through_the_runner(scans, jax_s2m, tmp_path):
 
 def test_offline_and_scan_to_scan_match_loam_tpu(scans):
     """``odometry_offline(chunk_pairs=4, motion_init=True)`` (a full chunk
-    and a padded one, each one registration program) and a
+    and a padded one, one program for the call) and a
     ``scan_to_scan_step(dewarp=True)`` loop (each frame one program) in
     float64 against ``loam_tpu``'s."""
     x = scans.astype(np.float64)
@@ -227,7 +233,7 @@ def test_offline_and_scan_to_scan_match_loam_tpu(scans):
     loop.clear_cache()
     tt, dt = T.odometry_offline(torch.from_numpy(x), from_reference(LIDAR), from_reference(fp),
                                 from_reference(rp), chunk_pairs=4, motion_init=True)
-    assert [p.info["path"] for p in loop._cache[CPU].values()] == ["single"]
+    assert [p.info["path"] for p in loop._cache[CPU].values()] == ["odometry_offline"]
     np.testing.assert_allclose(tt.translation.numpy(), np.asarray(tj.translation), atol=1e-4, rtol=0)
     np.testing.assert_allclose(tt.rotation.numpy(), np.asarray(tj.rotation), atol=1e-4, rtol=0)
     np.testing.assert_array_equal(dt.termination.numpy(), np.asarray(dj.termination))
@@ -245,12 +251,12 @@ def test_offline_and_scan_to_scan_match_loam_tpu(scans):
 
 
 def test_device_counts_equal_the_eager_loops(scans, monkeypatch):
-    """The counts a replay keeps on the device: an IF body adds what it
-    launched to its device's tally and leaves the host's count as it was.
-    With a tally on the CPU and the IF nodes' semantics on the host, the
-    outer iterations (``loop.iterations``) and each kernel wrapper's
-    ``launches`` read the same as the eager loop's, and setting a count
-    zeroes its slot."""
+    """The counts a replay keeps on the device: a WHILE body adds what it
+    launched to its device's tally each time it runs and leaves the host's
+    count as it was. With a tally on the CPU and the WHILE node's semantics
+    on the host, the outer iterations (``loop.iterations``) and each kernel
+    wrapper's ``launches`` read the same as the eager loop's, and setting a
+    count zeroes its slot."""
     monkeypatch.setitem(program._tallies, CPU, torch.zeros(program.TALLY_SLOTS, dtype=torch.int64))
     tally = program._tallies[CPU]
     src, tgt, init, params = _chunk_ending_three_ways(scans, 10)
@@ -260,15 +266,15 @@ def test_device_counts_equal_the_eager_loops(scans, monkeypatch):
     eager = run()
     n_eager = loop.iterations - n0
 
-    def replayed(pred, body):
-        before = [c.host for c in program.Counter.all]
-        if bool(pred):
+    def replayed(flag, body):
+        while bool(flag):
+            before = [c.host for c in program.Counter.all]
             body()
-        for c, n in zip(program.Counter.all, before):
-            tally[c.slot] += c.host - n
-            c.host = n
+            for c, n in zip(program.Counter.all, before):
+                tally[c.slot] += c.host - n
+                c.host = n
 
-    monkeypatch.setattr(program, "when", replayed)
+    monkeypatch.setattr(program, "while_loop", replayed)
     host0, n0 = loop.ITERATIONS.host, loop.iterations
     got = run()
     assert _same(got, eager)
