@@ -139,7 +139,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      line) mesh equal to ``extract_features_batch``;
      ``optimize_pose_graph_sharded`` on phase 11's graph in float64, its
      edges padded with masked ones to a multiple of 4, within 1e-8 of phase
-     11's solve and 1e-5 m of the truth; ms per solve, peak memory.
+     11's solve and 1e-5 m of the truth; ms per solve, peak memory. Each
+     sharded call (a scan-to-map frame) is one program, its gathers inside
+     the CUDA graph; the meshes are released before the group is
+     destroyed.
  13. The card's full-width output against the float64 oracle
      (``loam_tpu_torch.oracle``, numpy on the host): ``extract_features_batch``
      on 4 of the 16 frames, every edge and planar pick index-exact with
@@ -194,7 +197,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      offline-64x1024-c4 and scan-to-map on 16 and on 64 frames: the
      graph's nodes, conditional nodes by type, capture seconds, pool bytes
      and ms a call at each, the node counts and conditional nodes required
-     equal. Prints them as a ``{"one_program": ...}`` line.
+     equal. Then the sharded cells, on 4 shards of this GPU in a
+     world-size-1 NCCL group started afresh: s2m-64x1024-sharded4
+     (``scan_to_map_step_sharded``, one program a frame: the sharded
+     search's gathers inside the ICF loop's WHILE node, the sharded insert
+     and its sum inside the keyframe's IF node), offline-64x1024-sharded4
+     (``odometry_offline_sharded``), extract-64x1024-2x2
+     (``extract_features_sharded`` on a 2 data x 2 line mesh; no
+     conditional node) and pairs-64x1024-sharded4
+     (``register_pairs_sharded``, 12 consecutive pairs), one program a call
+     each, through the same checks; then the sharded scan-to-map and
+     offline cells at 16 and 64 frames (offline's nodes may follow the
+     frames: its pairs are one lockstep batch, whose kNN split plan follows
+     the pairs; conditional nodes required equal). Prints them as a
+     ``{"one_program": ...}`` line.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -763,27 +779,35 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive, extraction,
-                   ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps) -> list:
-    """Phase 12: the multi-device surface on a mesh of 4 shards of this GPU
-    in a world-size-1 NCCL group (NCCL takes one rank a GPU, so this card
-    holds one rank). Returns the kernel rows ``knn_shard`` and
-    ``knn_shard_empty``."""
+@contextlib.contextmanager
+def _nccl_group():
+    """A world-size-1 NCCL group started in-process (TCP store on
+    127.0.0.1; NCCL takes one rank a GPU, so this card holds one rank),
+    destroyed on the way out."""
     import torch.distributed as dist
-
-    from loam_tpu_torch import parallel
-    from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
-    from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on the loopback
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
     try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive, extraction,
+                   ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps) -> list:
+    """Phase 12: the multi-device surface on a mesh of 4 shards of this GPU
+    in a world-size-1 NCCL group. Returns the kernel rows ``knn_shard`` and
+    ``knn_shard_empty``."""
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
+    from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
+
+    with _nccl_group() as group:
         return _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive,
                                extraction, ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps,
                                parallel, scan_to_map_init_sharded, scan_to_map_step_sharded,
-                               optimize_pose_graph_sharded, dist.group.WORLD)
-    finally:
-        dist.destroy_process_group()
+                               optimize_pose_graph_sharded, group)
 
 
 def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive, extraction,
@@ -926,6 +950,8 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
         raise AssertionError(f"pose graph sharded differs from optimize_pose_graph by {gap_pg}")
     if not err_pg < ATOL_GRAPH_TRUTH_M:
         raise AssertionError(f"pose graph sharded: {err_pg} m from the true poses")
+    mesh.release()  # their graphs replay the group's collectives: gone before the group is
+    mesh22.release()
     return rows
 
 
@@ -1197,16 +1223,19 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
     from loam_tpu_torch.registration import loop
 
     out = {}
-    for cell, (run, units, env, must, must_not) in cells.items():
+    for cell, (run, units, env, must, must_not, *branches) in cells.items():
         _stamp(f"phase 15: {cell}")
+        # a cell's programs have conditional nodes unless it says they have none
+        branches = branches[0] if branches else True
         with _env(**env):
             loop.clear_cache()
             n0 = loop.iterations
             got = drive(f"graph_{cell}", run, must, must_not)
             n_graph = loop.iterations - n0
             stats = loop.graph_stats()
-            if not stats or not all(g["if_nodes"] > 0 for g in stats):
-                raise AssertionError(f"{cell}: no program with conditional nodes was captured: {stats}")
+            if not stats or not all((g["if_nodes"] > 0) == branches for g in stats):
+                raise AssertionError(f"{cell}: no program {'with' if branches else 'without'} conditional "
+                                     f"nodes was captured: {stats}")
             with loop._eager():
                 n0 = loop.iterations
                 want = drive(f"eager_{cell}", run, must, must_not)
@@ -1258,12 +1287,70 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
     return out
 
 
-def _graph_size_phase(smi, cells) -> dict:
+def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames, drive, path_launches,
+                         extraction, reps) -> dict:
+    """Phase 15's sharded cells, on a mesh of 4 shards of this GPU in a
+    world-size-1 NCCL group (BASELINE config 5 cut to one card), each call
+    one program: ``scan_to_map_step_sharded`` a frame (the sharded search's
+    gathers inside the ICF loop's WHILE node, the sharded insert and its sum
+    inside the keyframe's IF node), ``odometry_offline_sharded``,
+    ``extract_features_sharded`` on a (2 data x 2 line) mesh and
+    ``register_pairs_sharded`` (12 consecutive pairs of the frames) a call:
+    through :func:`_graph_phase` against the same calls eager, then the
+    scan-to-map and offline cells' graphs at 16 and 64 frames
+    (:func:`_graph_size_phase`)."""
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
+
+    cfg, s2m_reg = T.ScanToMapConfig(), T.default_map_reg_params()
+    feats = T.extract_features_batch(scans, lidar, fp, post=T.registration.azimuth_sort_features)
+    pairs = 12
+    src, tgt = feats.map(lambda x: x[1:pairs + 1]), feats.map(lambda x: x[:pairs])
+    ident = T.Pose3.identity(torch.float32, (pairs,), dev)
+    no_knn = ("knn", "knn_dual")
+    with _nccl_group() as group:
+        mesh = parallel.make_mesh([dev] * 4, group=group)
+        mesh22 = parallel.make_mesh([dev] * 4, line_axis=2, group=group)
+
+        def run_s2m(x=scans, n=frames):
+            # one program a frame, no host read between the frames
+            st, out = scan_to_map_init_sharded(cfg, mesh), []
+            for f in range(n):
+                st, pose, det = scan_to_map_step_sharded(st, x[f], lidar, mesh, fp, s2m_reg, cfg)
+                out.append((pose, det))
+            return st, out
+
+        run_off = lambda x=scans: parallel.odometry_offline_sharded(x, lidar, mesh, fp, rp)
+        cells = {
+            "s2m-64x1024-sharded4": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("knn",),
+                                     ("knn_dual",)),
+            "offline-64x1024-sharded4": (run_off, 1, dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("knn",),
+                                         ("knn_dual",)),
+            "extract-64x1024-2x2": (lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp), 1,
+                                    dict(LOAM_ICF_DUAL_KNN="0"), extraction, no_knn, False),
+            "pairs-64x1024-sharded4": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1,
+                                       dict(LOAM_ICF_DUAL_KNN="0"), ("knn",), ("knn_dual",) + extraction),
+        }
+        out = _graph_phase(torch, smi, frames, drive, path_launches, cells, reps)
+        with _dual_knn(False):
+            out["graph_size_sharded"] = _graph_size_phase(smi, {
+                "s2m-64x1024-sharded4": {n: (lambda n=n: run_s2m(long, n)) for n in (16, 64)},
+                "offline-64x1024-sharded4": {n: (lambda n=n: run_off(long[:n])) for n in (16, 64)},
+            }, vary={"offline-64x1024-sharded4": "its pairs are one lockstep batch, and the kNN's split plan "
+                     "(knn_cuda._splits: a merge kernel where the targets split) follows the pairs"})
+        mesh.release()
+        mesh22.release()
+    return out
+
+
+def _graph_size_phase(smi, cells, vary=None) -> dict:
     """Phase 15's last row: a trajectory call's graph at two lengths
     (``cells``: cell -> {frames: run}), captured afresh at each: its nodes
     (bodies counted once), conditional nodes by type, capture seconds, pool
     bytes and ms a call (the mean of 2 replays after the capture); the
-    nodes and conditional nodes required equal at every length."""
+    nodes and conditional nodes required equal at every length, but for a
+    cell of ``vary`` (cell -> why), whose nodes may follow the length: its
+    conditional nodes are required equal and the reason is printed."""
     from loam_tpu_torch.registration import loop
 
     out = {}
@@ -1279,9 +1366,12 @@ def _graph_size_phase(smi, cells) -> dict:
             print(f"{cell} at {frames} frames: {g['nodes']} graph nodes, conditional nodes "
                   f"{g['conditional_nodes']}, captured in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B, "
                   f"{rows[frames]['ms_per_call']:.3f} ms a call, on {smi}")
-        sizes = {(r["nodes"], str(r["conditional_nodes"])) for r in rows.values()}
+        why = (vary or {}).get(cell)
+        sizes = {(None if why else r["nodes"], str(r["conditional_nodes"])) for r in rows.values()}
         if len(sizes) != 1:
             raise AssertionError(f"{cell}: the graph's size depends on the frames: {rows}")
+        if why and len({r["nodes"] for r in rows.values()}) > 1:
+            print(f"{cell}: the graph's nodes follow the frames: {why}")
         out[cell] = rows
     loop.clear_cache()
     return out
@@ -2177,6 +2267,8 @@ def main() -> int:
             "s2m-64x1024": {n: (lambda n=n: T.scan_to_map_offline(long[:n], lidar, fp, s2m_reg, s2m_cfg))
                             for n in (16, 64)},
         })
+    one_program.update(_sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames, drive,
+                                            path_launches, extraction, reps))
     print(json.dumps({"one_program": one_program}))
 
     _stamp("phases done")

@@ -59,6 +59,7 @@ def main():
         dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
                                 world_size=1, rank=0)
         group = dist.group.WORLD
+    mesh = None
     try:
         mesh = make_mesh([dev] * (4 if dev.type == "cuda" else 8), group=group)
         print(f"devices: {mesh.size} x {mesh.device.type}")
@@ -89,6 +90,8 @@ def main():
             print(f"frame {f}: sharded t={traj_s[-1].round(3)}  "
                   f"single t={traj_1[-1].round(3)}")
     finally:
+        if mesh is not None:
+            mesh.release()  # its programs replay the group's collectives: gone first
         if group is not None:
             dist.destroy_process_group()
 

@@ -292,7 +292,7 @@ def _frame_program(state, frame, extract, reg_params, config):
 
 
 def _frame(state: ScanToMapState, feats: FeatureSet, reg_params: RegistrationParams,
-           config: ScanToMapConfig) -> Tuple[Pose3, RegistrationDetail]:
+           config: ScanToMapConfig, register=None, insert_maps=None) -> Tuple[Pose3, RegistrationDetail]:
     """One frame against the maps, ``state``'s tensors updated in place
     (``loam_tpu``'s ``scan_to_map_step`` body): the constant-velocity init,
     the registration, the first-frame and keyframe logic, the insert of both
@@ -300,19 +300,14 @@ def _frame(state: ScanToMapState, feats: FeatureSet, reg_params: RegistrationPar
     host branch eagerly, an IF node in a capture: ``lax.cond`` at
     ``loam_tpu/odometry/scan_to_map.py:374``), and the carry. Every read of
     the old state comes before the write that replaces it. Returns the
-    frame's world pose and detail."""
+    frame's world pose and detail.
+
+    ``register(state, feats, init, reg_params)`` -> (pose, detail) and
+    ``insert_maps(state, feats, world_T_new, config)`` stand in for
+    :func:`_register_maps` and :func:`_insert_maps`: the sharded step's
+    (``parallel.distributed``)."""
     init = state.world_T_current.compose(state.prev_delta)  # constant velocity
-    target = _map_feature_set(state.edge_map, state.planar_map)
-    cache = state.knn_prep_cache
-    if (len(cache) == 16 and reg_params.search_backend == "bruteforce"
-            and reg_params.max_edge_neighbor_dist > 0 and reg_params.max_plane_neighbor_dist > 0
-            and _use_prep_cache(state.edge_map.points)):
-        world_T_new, detail = _register_cached(feats, target, init, reg_params, cache)
-    else:
-        # the maps' storage is spatially compact: no reordering (loam_tpu
-        # scan_to_map.py:270)
-        world_T_new, detail = register_features(feats, target, init, reg_params, with_matches=False,
-                                                reorder_mode="none")
+    world_T_new, detail = (register or _register_maps)(state, feats, init, reg_params)
     # first frame (empty map): registration bails at the init pose; the
     # trajectory starts at the state's pose instead of the prediction
     first = state.frames_since_insert < 0
@@ -325,21 +320,7 @@ def _frame(state: ScanToMapState, feats: FeatureSet, reg_params: RegistrationPar
     dist = norm(world_T_new.translation - state.world_T_keyframe.translation)
     insert = first | (dist > config.keyframe_dist) | (angle > config.keyframe_angle)
 
-    def insert_maps():
-        center = world_T_new.translation
-        em, de = voxel_map_insert(state.edge_map, world_T_new.act(feats.edge_points),
-                                  feats.edge_mask, center, config.keep_radius)
-        pm, dp = voxel_map_insert(state.planar_map, world_T_new.act(feats.planar_points),
-                                  feats.planar_mask, center, config.keep_radius)
-        state.dropped.add_(de + dp)
-        # the prep cache mirrors the maps: rebuilt here only, in its own shape
-        if cache:
-            qe, qp = (feats.edge_mask.shape[0], feats.planar_mask.shape[0]) if len(cache) == 16 \
-                else (None, None)
-            program.copy_into(cache, _build_prep_cache(em, pm, qe, qp))
-        program.copy_into((state.edge_map[:2], state.planar_map[:2]), (em[:2], pm[:2]))
-
-    program.when(insert, insert_maps)
+    program.when(insert, lambda: (insert_maps or _insert_maps)(state, feats, world_T_new, config))
 
     prev_delta = state.world_T_current.inverse().compose(world_T_new).normalize()
     carry = (world_T_new.normalize(), prev_delta,
@@ -349,6 +330,41 @@ def _frame(state: ScanToMapState, feats: FeatureSet, reg_params: RegistrationPar
     program.copy_into((state.world_T_current, state.prev_delta, state.world_T_keyframe,
                        state.frames_since_insert), carry)
     return world_T_new, detail
+
+
+def _register_maps(state: ScanToMapState, feats: FeatureSet, init: Pose3,
+                   reg_params: RegistrationParams) -> Tuple[Pose3, RegistrationDetail]:
+    """:func:`_frame`'s registration against the maps: from the prep cache
+    where it is carried, else with the maps prepared inside."""
+    target = _map_feature_set(state.edge_map, state.planar_map)
+    cache = state.knn_prep_cache
+    if (len(cache) == 16 and reg_params.search_backend == "bruteforce"
+            and reg_params.max_edge_neighbor_dist > 0 and reg_params.max_plane_neighbor_dist > 0
+            and _use_prep_cache(state.edge_map.points)):
+        return _register_cached(feats, target, init, reg_params, cache)
+    # the maps' storage is spatially compact: no reordering (loam_tpu
+    # scan_to_map.py:270)
+    return register_features(feats, target, init, reg_params, with_matches=False,
+                             reorder_mode="none")
+
+
+def _insert_maps(state: ScanToMapState, feats: FeatureSet, world_T_new: Pose3,
+                 config: ScanToMapConfig) -> None:
+    """:func:`_frame`'s keyframe insert (the body of its ``program.when``):
+    both maps, ``dropped`` and the prep cache updated in place."""
+    center = world_T_new.translation
+    em, de = voxel_map_insert(state.edge_map, world_T_new.act(feats.edge_points),
+                              feats.edge_mask, center, config.keep_radius)
+    pm, dp = voxel_map_insert(state.planar_map, world_T_new.act(feats.planar_points),
+                              feats.planar_mask, center, config.keep_radius)
+    state.dropped.add_(de + dp)
+    # the prep cache mirrors the maps: rebuilt here only, in its own shape
+    cache = state.knn_prep_cache
+    if cache:
+        qe, qp = (feats.edge_mask.shape[0], feats.planar_mask.shape[0]) if len(cache) == 16 \
+            else (None, None)
+        program.copy_into(cache, _build_prep_cache(em, pm, qe, qp))
+    program.copy_into((state.edge_map[:2], state.planar_map[:2]), (em[:2], pm[:2]))
 
 
 def _register_cached(feats: FeatureSet, target: FeatureSet, init: Pose3,

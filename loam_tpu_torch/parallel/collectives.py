@@ -17,6 +17,12 @@ flow above needs: the ICF loop's ``running.any()``, the keyframe decision and
 the pose graph's accept test branch on reduced values, and two ranks that
 branch apart wait on each other's next collective forever. The same order
 makes a run on 2 ranks of 2 shards equal to one on 1 rank of 4 shards.
+
+Both are capture-safe: one output allocated before the collective and
+written by ``all_gather_into_tensor``, no host value, so a sharded driver's
+program (``program.py``) captures them into its CUDA graph on the card, in
+the bodies of its conditional nodes too. On the CPU (gloo) they run eagerly,
+as every program does there.
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ def gather(mesh, x: torch.Tensor) -> torch.Tensor:
         return x
     # bool travels as uint8: not every backend reduces or gathers bool
     wire = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
-    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(mesh.group))]
-    dist.all_gather(parts, wire, group=mesh.group)
-    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    world = dist.get_world_size(mesh.group)
+    out = torch.empty((world * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype,
+                      device=wire.device)
+    dist.all_gather_into_tensor(out, wire, group=mesh.group)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 

@@ -11,9 +11,14 @@ is split over the mesh's shards):
     on every rank, in global shard order, which is global index order, by
     ``topk_min``'s first-index rule: exactly the single-device search.
   * **Sharded registration**: ``_register_impl`` -- the whole single-device
-    loop and its ``RegistrationDetail`` -- with its kNN hook bound to the
-    sharded search. Association, fits and solve run replicated on the same
-    bits on every rank, so every rank's loop ends at the same iteration.
+    loop and its ``RegistrationDetail`` -- on a path of its own,
+    ``"sharded"``, whose kNN is the sharded search. Association, fits and
+    solve run replicated on the same bits on every rank, so every rank's
+    loop ends at the same iteration. The path is captured like the
+    single-device ones: one program a registration (inline in a
+    scan-to-map frame), the search's gathers inside the loop's WHILE node on
+    the card; its key holds the mesh's token. A caller's own ``custom_knn``
+    still runs eagerly, since it may read the host.
   * **Sharded voxel map**: a voxel's owner is its Morton key mod the shard
     count, so each voxel has one owner, insertion and dedup stay local, and
     the shards together hold the single-device map's voxels.
@@ -23,6 +28,13 @@ C, ...)`` (or flat ``(L*C, ...)`` where a target is passed), ``loam_tpu``'s
 ``(D, C, ...)`` when one rank holds every shard. Global index of slot ``c``
 of shard ``g``: ``g * C + c``. These functions shard the mesh's ``axis``
 and need its other axis to be 1.
+
+:func:`scan_to_map_step_sharded` is one program a frame, as the
+single-device step's: extraction, the Morton sort, the registration inline,
+the first-frame and keyframe logic, the insert of both maps under
+``program.when(insert)`` (``lax.cond``, ``loam_tpu``'s
+``distributed.py:352``), an IF node on the card whose body holds the
+inserts' fixed-order sum of ``dropped``.
 """
 
 from __future__ import annotations
@@ -31,18 +43,20 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import program
 from ..features import FeatureSet, extract_features
-from ..geometry import Pose3, norm, quat_conjugate, quat_multiply
+from ..geometry import Pose3
 from ..map import VoxelMap, voxel_map_empty, voxel_map_insert
 from ..map.voxel_map import _voxel_key
 from ..neighbors.bruteforce import KnnResult, topk_min
-from ..odometry.scan_to_map import ScanToMapConfig, ScanToMapState, _map_feature_set
+from ..odometry.scan_to_map import (ScanToMapConfig, ScanToMapState, _frame, _map_feature_set,
+                                    _with_dropped)
 from ..ops.knn_cuda import TargetPrep, _init_d2, knn_prep, knn_slots, pack_slots
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration.detail import RegistrationDetail, tree_map
 from ..registration.icf import _register_impl, spatial_sort_features
 from . import collectives
-from .sharding import Mesh
+from .sharding import Mesh, require_live, run_program
 
 
 class _ShardTargets(NamedTuple):
@@ -57,7 +71,10 @@ def _shard_targets(t_points, t_mask, mesh: Mesh, axis: str) -> _ShardTargets:
     L = len(mine)
     tp = t_points.to(mesh.device).reshape(L, -1, 3)
     S = tp.shape[1]
-    offset = torch.tensor(mine, dtype=torch.int32, device=mesh.device).reshape(L, 1, 1) * S
+    # a rank's shards are consecutive: the offsets made on the device, no
+    # copy from the host (which a capture refuses)
+    offset = torch.arange(mine[0] * S, (mine[0] + L) * S, S, dtype=torch.int32,
+                          device=mesh.device).reshape(L, 1, 1)
     return _ShardTargets(knn_prep(tp, t_mask.to(mesh.device).reshape(L, S)), offset)
 
 
@@ -112,6 +129,39 @@ def sharded_knn(
     return KnnResult(*(x[0] for x in res)), torch.stack(coords, dim=-1).transpose(0, 1)
 
 
+class ShardedSearch(NamedTuple):
+    """The sharded registration's search (``_register_impl(sharded=)``):
+    the target's leaves are this rank's shards of ``mesh``'s ``axis``."""
+
+    mesh: Mesh
+    axis: str
+
+    @property
+    def key(self) -> tuple:
+        """What a registration program's key holds of it."""
+        return self.mesh.token, self.axis
+
+    def hooks(self, source: FeatureSet, target: FeatureSet, params: RegistrationParams):
+        """The loop's edge and planar searches, each mapping the moved
+        (1, Q, 3) queries to a ``PackedKnn``, against ``target``'s shards
+        ((1, L*C, ...) leaves), prepared here once a registration; the
+        queries masked by ``source``'s masks."""
+
+        def hook(points, mask, k, r, query_mask):
+            st = _shard_targets(points[0], mask[0], self.mesh, self.axis)
+
+            def search(q):
+                idx, d2, coords = _shard_search(st, q[0], k, r, self.mesh, query_mask[0])
+                return pack_slots(idx[None], d2[None], [c[None] for c in coords], r, with_coords=True)
+
+            return search
+
+        return (hook(target.edge_points, target.edge_mask, params.num_edge_neighbors,
+                     params.max_edge_neighbor_dist, source.edge_mask),
+                hook(target.planar_points, target.planar_mask, params.num_plane_neighbors,
+                     params.max_plane_neighbor_dist, source.planar_mask))
+
+
 def register_features_sharded(
     source: FeatureSet,
     target: FeatureSet,
@@ -125,29 +175,16 @@ def register_features_sharded(
     sharded over ``axis``: ``target``'s leaves are this rank's shards
     ((L*C, ...), capacities multiples of the shard count), ``source`` and
     the init are replicated. Runs the whole single-device loop
-    (``_register_impl``) with its kNN hook bound to the sharded search, so
-    it returns what ``register_features`` returns: (pose, full
+    (``_register_impl``) on its sharded path, one program a call, so it
+    returns what ``register_features`` returns: (pose, full
     RegistrationDetail), with match indices global."""
+    require_live(mesh)
     dev = mesh.device
-    src = source.map(lambda x: x.to(dev)[None])
-
-    def hook(points, mask, k, r, query_mask):
-        st = _shard_targets(points, mask, mesh, axis)
-
-        def search(q):  # the loop's (1, Q, 3) moved queries
-            idx, d2, coords = _shard_search(st, q[0], k, r, mesh, query_mask)
-            return pack_slots(idx[None], d2[None], [c[None] for c in coords], r, with_coords=True)
-
-        return search
-
+    add = lambda x: x.to(dev)[None]
     est, det = _register_impl(
-        src, target.map(lambda x: x.to(dev)[None]),
-        Pose3(target_T_source_init.rotation.to(dev)[None], target_T_source_init.translation.to(dev)[None]),
-        params, with_matches,
-        custom_knn=(hook(target.edge_points, target.edge_mask, params.num_edge_neighbors,
-                         params.max_edge_neighbor_dist, source.edge_mask),
-                    hook(target.planar_points, target.planar_mask, params.num_plane_neighbors,
-                         params.max_plane_neighbor_dist, source.planar_mask)))
+        source.map(add), target.map(add),
+        Pose3(add(target_T_source_init.rotation), add(target_T_source_init.translation)),
+        params, with_matches, sharded=ShardedSearch(mesh, axis))
     return Pose3(est.rotation[0], est.translation[0]), tree_map(lambda x: x[0], det)
 
 
@@ -223,7 +260,7 @@ def scan_to_map_init_sharded(
         world_T_current=Pose3.identity(dtype, device=dev),
         prev_delta=Pose3.identity(dtype, device=dev),
         world_T_keyframe=Pose3.identity(dtype, device=dev),
-        frames_since_insert=torch.tensor(-1, dtype=torch.int32, device=dev),
+        frames_since_insert=torch.full((), -1, dtype=torch.int32, device=dev),
     )
 
 
@@ -240,10 +277,12 @@ def scan_to_map_step_sharded(
     """One scan-to-map step against sharded voxel maps.
 
     The flow of the single-device ``scan_to_map_step`` (constant-velocity
-    init, first-frame hold, keyframe-gated insert): extraction, the Morton
-    sort, :func:`register_features_sharded` against the maps, and
-    :func:`sharded_map_insert` on a keyframe. Every rank passes the same
-    scan. Returns (state, world pose, full RegistrationDetail).
+    init, first-frame hold, keyframe-gated insert; its ``_frame``):
+    extraction, the Morton sort, :func:`register_features_sharded` against
+    the maps, and :func:`sharded_map_insert` on a keyframe, one program a
+    call (the module docstring) that copies the state in and returns
+    clones. Every rank passes the same scan. Returns (state, world pose,
+    full RegistrationDetail).
 
     ``loam_tpu``'s sharded step sorts the source by azimuth where its
     single-device step sorts by Morton key; the order only moves the pose
@@ -252,42 +291,34 @@ def scan_to_map_step_sharded(
     the merged neighbour lists are the single search's, except that
     equidistant map points come in shard order, not map order.
     """
-    feats = spatial_sort_features(extract_features(scan.to(mesh.device), lidar, feat_params))
-    init = state.world_T_current.compose(state.prev_delta)
-    em, pm = state.edge_map, state.planar_map
-    target = _map_feature_set(
-        VoxelMap(em.points.reshape(-1, 3), em.mask.reshape(-1), em.voxel_size, em.origin),
-        VoxelMap(pm.points.reshape(-1, 3), pm.mask.reshape(-1), pm.voxel_size, pm.origin))
-    world_T_new, detail = register_features_sharded(feats, target, init, mesh, reg_params, axis)
-    # first frame (empty maps): the trajectory starts at the state's pose
-    first = state.frames_since_insert < 0
-    world_T_new = Pose3(torch.where(first, state.world_T_current.rotation, world_T_new.rotation),
-                        torch.where(first, state.world_T_current.translation, world_T_new.translation))
+    state = _with_dropped(state)
 
-    rel_q = quat_multiply(quat_conjugate(state.world_T_keyframe.rotation), world_T_new.rotation)
-    angle = 2.0 * torch.atan2(norm(rel_q[1:]), torch.abs(rel_q[0]))
-    dist = norm(world_T_new.translation - state.world_T_keyframe.translation)
-    insert = first | (dist > config.keyframe_dist) | (angle > config.keyframe_angle)
+    def register(st, feats, init, params):
+        em, pm = st.edge_map, st.planar_map
+        target = _map_feature_set(
+            VoxelMap(em.points.reshape(-1, 3), em.mask.reshape(-1), em.voxel_size, em.origin),
+            VoxelMap(pm.points.reshape(-1, 3), pm.mask.reshape(-1), pm.voxel_size, pm.origin))
+        return register_features_sharded(feats, target, init, mesh, params, axis)
 
-    dropped = state.dropped
-    if bool(insert):  # the same bits on every rank: every rank inserts, or none
+    def insert(st, feats, world_T_new, cfg):
+        # under program.when: every rank holds the same flag, so every rank
+        # inserts, or none, and the sum's gather runs on all or on none
         center = world_T_new.translation
-        em, de = sharded_map_insert(em, world_T_new.act(feats.edge_points), feats.edge_mask, mesh,
-                                    center, config.keep_radius, axis)
-        pm, dp = sharded_map_insert(pm, world_T_new.act(feats.planar_points), feats.planar_mask,
-                                    mesh, center, config.keep_radius, axis)
-        dropped = dropped + de + dp
+        em, de = sharded_map_insert(st.edge_map, world_T_new.act(feats.edge_points), feats.edge_mask,
+                                    mesh, center, cfg.keep_radius, axis)
+        pm, dp = sharded_map_insert(st.planar_map, world_T_new.act(feats.planar_points),
+                                    feats.planar_mask, mesh, center, cfg.keep_radius, axis)
+        st.dropped.add_(de + dp)
+        program.copy_into((st.edge_map[:2], st.planar_map[:2]), (em[:2], pm[:2]))
 
-    new_state = ScanToMapState(
-        edge_map=em,
-        planar_map=pm,
-        world_T_current=world_T_new.normalize(),
-        prev_delta=state.world_T_current.inverse().compose(world_T_new).normalize(),
-        world_T_keyframe=Pose3(
-            torch.where(insert, world_T_new.rotation, state.world_T_keyframe.rotation),
-            torch.where(insert, world_T_new.translation, state.world_T_keyframe.translation)),
-        frames_since_insert=torch.where(
-            insert, 0, torch.clamp(state.frames_since_insert, min=0) + 1).to(torch.int32),
-        dropped=dropped,
-    )
-    return new_state, world_T_new, detail
+    def fn(bufs):
+        st, sc = bufs
+        feats = spatial_sort_features(extract_features(sc, lidar, feat_params))
+        return _frame(st, feats, reg_params, config, register, insert)
+
+    # the sharded search is the registration's whatever ``search_backend``
+    # says: no grid to keep eager
+    prog, out = run_program(mesh, ("scan_to_map_sharded", axis, lidar, feat_params, reg_params, config),
+                            (state, scan.to(mesh.device)), fn, None, path="scan_to_map_sharded")
+    pose, det = prog.own(out)
+    return program.clone(prog.buffers[0]), pose, det

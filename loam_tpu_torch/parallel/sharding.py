@@ -18,16 +18,28 @@ Axes, as in ``loam_tpu``:
   * ``line`` -- scan lines within extraction. Curvature and validity are
     stencils along a line only (``features/curvature.py``), so a line block
     needs no halo; its picks count flat scan indices from its first line.
+
+Each call of an entry point here and in ``distributed`` is one program
+(``program.py``), as ``loam_tpu`` jits each: eager on the CPU (and over
+gloo), on the card one CUDA graph with the gathers inside it, in the bodies
+of its conditional nodes too (the ICF loop's WHILE node holds the sharded
+search, the keyframe's IF node the sharded insert), one ``cudaGraphLaunch``
+a call and no host read. A program is cached under its mesh's ``token``,
+unique in the process: a mesh made on another group never replays it, a
+call on a mesh whose group was destroyed raises, and :meth:`Mesh.release`
+drops the mesh's programs before its group goes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from .. import program
 from ..device import place
 from ..features import FeatureSet
 from ..features.curvature import compute_curvature, compute_valid_points, validate_scan
@@ -37,7 +49,10 @@ from ..odometry.offline import compose_trajectory
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
 from ..registration.detail import tree_map
+from ..registration.loop import driver_program
 from .collectives import gather
+
+_TOKENS = itertools.count()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -58,6 +73,8 @@ class Mesh:
     shape: Dict[str, int]
     #: Global index of each of this rank's shards.
     shard_ids: Tuple[int, ...]
+    #: Unique in this process: the key of the mesh's cached programs.
+    token: int = dataclasses.field(default_factory=lambda: next(_TOKENS))
 
     axis_names = ("data", "line")
 
@@ -85,6 +102,35 @@ class Mesh:
             raise ValueError(f"sharding over {axis!r} needs the other mesh axis to be 1, "
                              f"got {self.shape}")
         return self.shape[axis], self.shard_ids
+
+    def release(self) -> None:
+        """Drop the programs cached for this mesh: their graphs replay
+        collectives on the group's communicator, so release the mesh before
+        destroying its group."""
+        program.forget(mesh=self.token)
+
+
+def require_live(mesh: Mesh) -> None:
+    """Raise if the mesh's process group was destroyed: a program of the
+    mesh would replay collectives on a freed communicator."""
+    if mesh.group is None:
+        return
+    try:
+        dist.get_rank(mesh.group)
+    except ValueError as e:  # a destroyed group is no longer registered
+        raise RuntimeError("the mesh's process group was destroyed; make a new mesh on a live "
+                           "group") from e
+
+
+def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[RegistrationParams], **info):
+    """``fn(buffers)`` as the one program of a sharded driver call on
+    ``mesh`` (``loop.driver_program``: cached, its key holding the mesh's
+    token; eager for the grid search and ``LOAM_DEBUG_NANS=1``), inside
+    ``program.DRIVER_RANGE``. Returns ``(program, output)``."""
+    require_live(mesh)
+    prog = driver_program(mesh.device, key + (mesh.token,), inputs, reg_params, mesh=mesh.token, **info)
+    with torch.profiler.record_function(program.DRIVER_RANGE):
+        return prog, prog.run(fn, inputs)
 
 
 def _device(d) -> torch.device:
@@ -170,11 +216,17 @@ def extract_features_sharded(
     lines over "line": equal to ``extract_features_batch`` of ``scans``
     (F, L, P, 3) or (F, L*P, 3), which every rank passes whole. The frame
     count must be a multiple of the data axis, the line count of the line
-    axis."""
+    axis. One program a call (the module docstring)."""
     pts = _scans(scans, lidar, mesh)
     lo, hi = _blocks(pts.shape[0], "frames", mesh)
-    return tree_map(lambda x: gather(mesh, x),
-                    _extract_lines(pts[lo:hi], lidar, params, mesh.shape["line"]))
+
+    def fn(p):
+        return tree_map(lambda x: gather(mesh, x),
+                        _extract_lines(p[lo:hi], lidar, params, mesh.shape["line"]))
+
+    prog, out = run_program(mesh, ("extract_sharded", lidar, params), pts, fn, None,
+                            path="extract_sharded", frames=pts.shape[0])
+    return prog.own(out)
 
 
 def register_pairs_sharded(
@@ -187,12 +239,20 @@ def register_pairs_sharded(
     """Batched pair registration with the pair axis sharded over "data":
     each rank registers its block of pairs in one ``register_features_batch``
     and the blocks are gathered. Every rank passes all pairs; the pair count
-    must be a multiple of the data axis."""
+    must be a multiple of the data axis. One program a call (the module
+    docstring)."""
     lo, hi = _blocks(source.edge_mask.shape[0], "pairs", mesh)
-    block = lambda x: x.to(mesh.device)[lo:hi]
-    pose, detail = register_features_batch(source.map(block), target.map(block), tree_map(block, init),
-                                           params)
-    return tree_map(lambda x: gather(mesh, x), pose), tree_map(lambda x: gather(mesh, x), detail)
+    on = lambda x: x.to(mesh.device)
+
+    def fn(bufs):
+        block = lambda x: x[lo:hi]
+        src, tgt, ini = (tree_map(block, x) for x in bufs)
+        pose, detail = register_features_batch(src, tgt, ini, params)
+        return tree_map(lambda x: gather(mesh, x), pose), tree_map(lambda x: gather(mesh, x), detail)
+
+    prog, out = run_program(mesh, ("pairs_sharded",), (source.map(on), target.map(on), tree_map(on, init)),
+                            fn, params, path="pairs_sharded", pairs=source.edge_mask.shape[0])
+    return prog.own(out)
 
 
 def odometry_offline_sharded(
@@ -210,24 +270,31 @@ def odometry_offline_sharded(
     a multiple of it), lines over "line". Each rank extracts its block and
     registers the pairs that start in it, the last one against the first
     frame of the block to its right (the halo); the relative poses are
-    gathered and composed on every rank.
+    gathered and composed on every rank. One program a call (the module
+    docstring), as ``odometry_offline``'s.
     """
     pts = _scans(scans, lidar, mesh)
     F = pts.shape[0]
     if F < 2:
         raise ValueError(f"odometry needs at least 2 frames, got {F}")
     lo, hi = _blocks(F, "frames", mesh)
-    feats = azimuth_sort_features(_extract_lines(pts[lo:hi], lidar, feat_params, mesh.shape["line"]))
-    n = hi - lo
-    heads = tree_map(lambda x: gather(mesh, x[:1]), feats)  # every rank's first frame
-    if hi < F:
-        frames = tree_map(lambda x, h: torch.cat([x, h[hi // n:hi // n + 1]]), feats, heads)
-    else:
-        # the last block has one pair fewer: pad with its last frame against
-        # itself, so every rank gathers n pairs; the pad is cut below
-        frames = feats.map(lambda x: torch.cat([x, x[-1:]]))
-    src, tgt = frames.map(lambda x: x[1:]), frames.map(lambda x: x[:-1])
-    init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
-    rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
-    cut = lambda x: gather(mesh, x)[:F - 1]
-    return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)
+
+    def fn(p):
+        feats = azimuth_sort_features(_extract_lines(p[lo:hi], lidar, feat_params, mesh.shape["line"]))
+        n = hi - lo
+        heads = tree_map(lambda x: gather(mesh, x[:1]), feats)  # every rank's first frame
+        if hi < F:
+            frames = tree_map(lambda x, h: torch.cat([x, h[hi // n:hi // n + 1]]), feats, heads)
+        else:
+            # the last block has one pair fewer: pad with its last frame
+            # against itself, so every rank gathers n pairs; the pad is cut below
+            frames = feats.map(lambda x: torch.cat([x, x[-1:]]))
+        src, tgt = frames.map(lambda x: x[1:]), frames.map(lambda x: x[:-1])
+        init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
+        rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
+        cut = lambda x: gather(mesh, x)[:F - 1]
+        return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)
+
+    prog, out = run_program(mesh, ("offline_sharded", lidar, feat_params), pts, fn, reg_params,
+                            path="offline_sharded", frames=F)
+    return prog.own(out)

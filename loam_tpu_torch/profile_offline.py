@@ -14,7 +14,8 @@ loader into ``odometry_streaming``, then ``extract_features_batch`` on the
 keyframes and ``optimize_trajectory_with_closures``), or
 ``scan_to_map_sharded``: ``scan_to_map_step_sharded`` frame by frame against
 maps of the default capacities split over a mesh of 4 shards of the GPU, in
-a world-size-1 NCCL group; ``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` --
+a world-size-1 NCCL group (one program a frame, its gathers inside the
+graph); ``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` --
 then:
 
   * for ``offline``, stage times on the host clock with a device sync at
@@ -268,6 +269,7 @@ def main() -> int:
         "top_kernels_ms": {n[:80]: us / 1e3 for n, us in top[:8]},
     }))
     if args.driver == "scan_to_map_sharded":
+        mesh.release()  # the programs replay the group's collectives: gone before the group is
         dist.destroy_process_group()
     return 0
 

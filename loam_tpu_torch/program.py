@@ -513,6 +513,14 @@ def clear_cache() -> None:
     _cache.clear()
 
 
+def forget(**info) -> None:
+    """Drop the cached programs whose ``info`` holds every item of ``info``
+    (a mesh's, by its token, before its process group is destroyed)."""
+    for progs in _cache.values():
+        for key in [k for k, p in progs.items() if all(p.info.get(n) == v for n, v in info.items())]:
+            del progs[key]
+
+
 def graph_stats() -> list:
     """One dict per captured program: what it is (``info``: its path and
     shapes), its conditional nodes (``if_nodes``: IF and WHILE together;

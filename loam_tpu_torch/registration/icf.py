@@ -16,9 +16,10 @@ them, and commits the result only for pairs still running (``torch.where``),
 so a finished pair's state stays as it was. The loop stops when every pair
 is done or ``max_iterations`` is reached. The body is ``loop.py``'s step
 over a carry of its own, scheduled as ``lax.while_loop`` runs it; the whole
-registration (sort, preps, loop) is one program on the kNN paths: eager on
-the CPU, one CUDA-graph replay on the card with the later iterations under
-one WHILE node; eager for the grid, a ``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
+registration (sort, preps, loop) is one program on the kNN paths and the
+sharded path: eager on the CPU, one CUDA-graph replay on the card with the
+later iterations under one WHILE node; eager for the grid, a caller's
+``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
 
 Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,
@@ -150,20 +151,27 @@ def _register_impl(
     custom_knn=None,
     target_preps=None,
     reorder_mode: str = "auto",
+    sharded=None,
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Register batched feature sets ((B, ...) leaves) from ``init`` (B poses).
 
     ``custom_knn``: optional ``(edge_fn, plane_fn)``, each mapping the moved
     queries (B, Q, 3) to a ``PackedKnn`` with (B, k, Q) leaves (or a
-    ``KnnResult``, whose indices then address ``target``): the hook the
-    sharded registration (``parallel.distributed``) binds to its search, as
-    ``loam_tpu``'s ``custom_knn`` (``icf.py:222-250``). With it, the target
-    is neither prepared nor searched here. The 3-element form ``(edge_fn,
+    ``KnnResult``, whose indices then address ``target``): a caller's own
+    search, as ``loam_tpu``'s ``custom_knn`` (``icf.py:222-250``), run
+    eagerly (it may read the host). With it, the target is neither
+    prepared nor searched here. The 3-element form ``(edge_fn,
     plane_fn, seed_windows)`` is ``loam_tpu``'s too: ``seed_windows`` is the
     ``(edge, planar)`` pair of :func:`window_candidates` tuples, each leaf
     (B, w, Q); the callables then take a second argument, the (B, Q) seed
     bound, and return a ``PackedKnn`` (its coordinates feed the next
     iteration's warm start).
+
+    ``sharded``: optional ``parallel.distributed.ShardedSearch``, the
+    sharded registration's path (``"sharded"``): ``target``'s leaves are
+    this rank's shards of its mesh, searched by the sharded kNN (``hooks``,
+    prepared inside the program), the neighbour lists merged over the
+    mesh; cached as the kNN paths are, its key holding the mesh's token.
 
     ``target_preps``: optional ``(edge, planar)`` :class:`TargetPrep` of
     ``target`` already built (the scan-to-map prep cache): the single
@@ -181,14 +189,17 @@ def _register_impl(
     if reorder_mode not in ("auto", "none"):
         raise ValueError(f"reorder_mode must be 'auto' or 'none', got {reorder_mode!r}")
     dtype, dev = source.edge_points.dtype, source.edge_points.device
-    reorder = (reorder_mode == "auto" and custom_knn is None and target_preps is None
+    reorder = (reorder_mode == "auto" and custom_knn is None and sharded is None
+               and target_preps is None
                and kernel_takes(source.edge_points) and kernel_takes(target.edge_points)
                and params.search_backend == "bruteforce"
                and params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0)
     # The grid needs both radii (its cell sizes); without them the "grid"
     # backend searches by brute force, as loam_tpu's does.
     radii = params.max_edge_neighbor_dist > 0 and params.max_plane_neighbor_dist > 0
-    if custom_knn is not None:
+    if sharded is not None:
+        path = "sharded"
+    elif custom_knn is not None:
         path = "custom"
     elif target_preps is None and params.search_backend == "grid" and radii:
         path = "grid"
@@ -205,26 +216,29 @@ def _register_impl(
     tgt = tuple(target_preps) if target_preps is not None else target
 
     def body(source, init, tgt):
-        return _register_body(source, tgt, init, params, with_matches, path, custom_knn, reorder,
-                              kernel_seed)
+        return _register_body(source, tgt, init, params, with_matches, path,
+                              sharded if sharded is not None else custom_knn, reorder, kernel_seed)
 
     if path not in CAPTURED_PATHS or debug_nans_enabled() or program.nested():
         return body(source, init, tgt)
     inputs = (source, init, tgt)
     key = ("registration", path, kernel_seed, with_matches, reorder, params,
-           program.signature(inputs), knob_key())
+           program.signature(inputs), knob_key()) + (sharded.key if sharded is not None else ())
+    mesh = dict(mesh=sharded.mesh.token) if sharded is not None else {}
     prog = program.cached(dev, key, inputs, path=path, seeded=kernel_seed, dtype=str(dtype),
                           pairs=source.edge_mask.shape[0], edge_slots=source.edge_mask.shape[1],
-                          planar_slots=source.planar_mask.shape[1])
+                          planar_slots=source.planar_mask.shape[1], **mesh)
     return prog.own(prog.run(lambda b: body(*b), inputs))
 
 
 def _register_body(source: FeatureSet, target, init: Pose3, params: RegistrationParams,
-                   with_matches: bool, path: str, custom_knn, reorder: bool, kernel_seed: bool):
+                   with_matches: bool, path: str, search_with, reorder: bool, kernel_seed: bool):
     """:func:`_register_impl`'s work once its path is chosen: the feature
     sort, the search's preparation, the loop and the matches mapped back.
     ``target`` is the target :class:`FeatureSet`, or on the ``preps`` path
-    the ``(edge, planar)`` :class:`TargetPrep`."""
+    the ``(edge, planar)`` :class:`TargetPrep`. ``search_with``: the
+    ``custom_knn`` of the ``custom`` path, the ``ShardedSearch`` of the
+    ``sharded`` path."""
     if reorder:
         source, se, sp = _sort_features(source, _azimuth_key, with_perms=True)
         target, te, tp = _sort_features(target, _azimuth_key, with_perms=True)
@@ -236,8 +250,10 @@ def _register_body(source: FeatureSet, target, init: Pose3, params: Registration
         gathered = (target.edge_points, target.edge_mask, target.planar_points, target.planar_mask)
         tgt = gathered
         if path == "custom":
-            windows = custom_knn[2] if len(custom_knn) > 2 and _use_seed() else None
-            search = (custom_knn[0], custom_knn[1], windows)
+            windows = search_with[2] if len(search_with) > 2 and _use_seed() else None
+            search = (search_with[0], search_with[1], windows)
+        elif path == "sharded":
+            search = (*search_with.hooks(source, target, params), None)
         elif path == "grid":
             search = (build_grid(target.edge_points, target.edge_mask, params.max_edge_neighbor_dist),
                       build_grid(target.planar_points, target.planar_mask,

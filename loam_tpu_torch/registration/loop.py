@@ -19,17 +19,21 @@ The registration around it (``icf._register_impl``: the feature sort, the
 kNN preps, the loop, the matches mapped back) is one ``program.Program``
 per key on the kNN paths (the single kNN, seeded or not, on preps built
 inside or handed over by scan-to-map's cache, and the dual kNN; float32 or,
-with the plain search, float64): eager on the CPU, one CUDA graph on the
-card, one replay a registration. Inside another program (a scan-to-map or
-scan-to-scan frame, a streaming chunk) it runs inline, into that program.
-The grid search, a ``custom_knn`` (the sharded registration, whose search
-has collectives inside) and ``LOAM_DEBUG_NANS=1`` (its checks read values
-on the host) run eagerly on a loop made for the call. The choice is made by
-path; a failed capture or replay raises.
+with the plain search, float64) and on the sharded path (the sharded
+registration, ``parallel.distributed``: the search's gathers and merge
+inside the step, so inside the WHILE node): eager on the CPU, one CUDA
+graph on the card, one replay a registration. Inside another program (a
+scan-to-map or scan-to-scan frame, a streaming chunk, a sharded step) it
+runs inline, into that program. The grid search, a caller's ``custom_knn``
+(which may read the host) and ``LOAM_DEBUG_NANS=1`` (its checks read
+values on the host) run eagerly on a loop made for the call. The choice is
+made by path; a failed capture or replay raises.
 
 A cached program's key holds the device, the path, whether the seeds run,
 ``with_matches``, the ``RegistrationParams``, the shapes of every input and
-what the kNN wrappers read while they are captured (:func:`knob_key`). The
+what the kNN wrappers read while they are captured (:func:`knob_key`), and
+on the sharded path the mesh's token (unique in the process, so a program
+captured on one process group is never replayed on another). The
 outer iterations are counted by :data:`ITERATIONS` (``iterations`` reads
 it), on the device inside the WHILE body (``program.Counter``).
 """
@@ -54,7 +58,7 @@ from .detail import IterationInfo
 from .solver import _Problem, _select, lm_solve
 
 #: The paths whose registration is one cached program (one CUDA graph on the card).
-CAPTURED_PATHS = ("single", "preps", "dual")
+CAPTURED_PATHS = ("single", "preps", "dual", "sharded")
 
 #: The kernel wrappers a step may launch.
 COUNTED = (knn_run, knn_dual_run)
@@ -86,11 +90,12 @@ def knob_key() -> tuple:
 def driver_program(dev: torch.device, key: tuple, inputs, reg_params: RegistrationParams,
                    **info) -> program.Program:
     """The program of a driver call (a frame, a chunk) whose registration
-    takes ``reg_params``: cached under ``key`` (with :func:`knob_key`) where
-    the registration is captured; eager, made for the call, for the grid
-    search and ``LOAM_DEBUG_NANS=1``, which stay eager by path."""
-    grid = (reg_params.search_backend == "grid" and reg_params.max_edge_neighbor_dist > 0
-            and reg_params.max_plane_neighbor_dist > 0)
+    takes ``reg_params`` (None: a call that registers nothing): cached under
+    ``key`` (with :func:`knob_key`) where the registration is captured;
+    eager, made for the call, for the grid search and
+    ``LOAM_DEBUG_NANS=1``, which stay eager by path."""
+    grid = (reg_params is not None and reg_params.search_backend == "grid"
+            and reg_params.max_edge_neighbor_dist > 0 and reg_params.max_plane_neighbor_dist > 0)
     if grid or debug_nans_enabled():
         return program.Program(dev, inputs, capturable=False)
     return program.cached(dev, key + (reg_params, program.signature(inputs), knob_key()), inputs,
@@ -110,10 +115,11 @@ class _Loop:
     planar_mask)``; ``init``: the (B,) starting poses. ``search`` is the
     path's search state: ``(edge_prep, planar_prep)`` (``single``,
     ``preps``), ``(dual_prep,)`` (``dual``), ``(edge_grid, planar_grid)``
-    (``grid``) or ``(edge_fn, planar_fn, seed_windows)`` (``custom``).
-    ``target``: the target's ``(edge_points, edge_mask, planar_points,
-    planar_mask)`` where the fits gather neighbours by index (``dual``,
-    ``grid``, ``custom``), else None."""
+    (``grid``) or ``(edge_fn, planar_fn, seed_windows)`` (``custom``;
+    ``sharded``, whose windows are None). ``target``: the target's
+    ``(edge_points, edge_mask, planar_points, planar_mask)`` where the fits
+    may gather neighbours by index (``dual``, ``grid``, ``custom``,
+    ``sharded``), else None."""
 
     def __init__(self, path, params, with_matches, kernel_seed, source, init: Pose3, search, target):
         self.path, self.params, self.kernel_seed = path, params, kernel_seed
@@ -193,7 +199,7 @@ class _Loop:
         p = self.params
         kE, kP = p.num_edge_neighbors, p.num_plane_neighbors
         rE, rP = p.max_edge_neighbor_dist, p.max_plane_neighbor_dist
-        if self.path == "custom":
+        if self.path in ("custom", "sharded"):
             edge_knn, plane_knn, windows = self.search
             if windows is None:
                 return edge_knn(qe), plane_knn(qp), None, None

@@ -1412,3 +1412,161 @@ def test_whole_call_graph_size_does_not_depend_on_frames(dev, cell):
     want_nodes = {"if": 1, "while": 2} if cell == "s2m" else {"if": 0, "while": 4}
     assert stats[0]["conditional_nodes"] == stats[1]["conditional_nodes"] == want_nodes, stats
     assert stats[1]["pool_bytes"] >= stats[0]["pool_bytes"]
+
+
+# ---- the sharded drivers as one program each, collectives inside the graph ----------
+
+
+@pytest.fixture(scope="module")
+def nccl_meshes():
+    """A mesh of 4 shards of the card, and a (2 data x 2 line) one, in a
+    world-size-1 NCCL group started in this process (NCCL takes one rank a
+    GPU); the meshes' programs are released before the group is destroyed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from loam_tpu_torch import parallel
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    dev = torch.device("cuda", 0)
+    meshes = (parallel.make_mesh([dev] * 4, group=dist.group.WORLD),
+              parallel.make_mesh([dev] * 4, line_axis=2, group=dist.group.WORLD))
+    yield meshes
+    for mesh in meshes:
+        mesh.release()
+    dist.destroy_process_group()
+
+
+SHARDED_CELLS = ("s2m", "offline", "extract", "pairs", "register")
+
+
+def _sharded_run(meshes, cell, F=8, max_iterations=10):
+    """A sharded driver's run on ``F`` frames of 16x360 on the card, and how
+    many program launches it makes: one a frame for scan-to-map, one a call
+    for the others."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch import parallel, program
+    from loam_tpu_torch.io import render_trajectory
+    from loam_tpu_torch.parallel import distributed as tdist
+    from loam_tpu_torch.registration import azimuth_sort_features, spatial_sort_features
+
+    mesh, mesh22 = meshes
+    dev = mesh.device
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans_np, _ = render_trajectory(lidar, F, step=np.array([0.2, 0.05, 0.0]), yaw_rate=0.02,
+                                    noise=0.003, seed=11, dtype=np.float32)
+    scans = torch.from_numpy(scans_np).to(dev)
+    reg = T.RegistrationParams(max_iterations=max_iterations)
+    if cell == "s2m":
+        cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+        s2m_reg = T.RegistrationParams(max_iterations=max_iterations, prior_weight=300.0)
+
+        def s2m():
+            st, out = tdist.scan_to_map_init_sharded(cfg, mesh), []
+            for f in range(F):
+                st, pose, det = tdist.scan_to_map_step_sharded(st, scans[f], lidar, mesh, config=cfg,
+                                                               reg_params=s2m_reg)
+                out.append((pose, det))
+            return st, out
+        return s2m, F
+    if cell == "offline":
+        return (lambda: parallel.odometry_offline_sharded(scans, lidar, mesh, reg_params=reg)), 1
+    if cell == "extract":
+        return (lambda: parallel.extract_features_sharded(scans, lidar, mesh22)), 1
+    feats = T.extract_features_batch(scans, lidar, post=azimuth_sort_features)
+    if cell == "pairs":
+        src, tgt = feats.map(lambda x: x[1:5]), feats.map(lambda x: x[:4])
+        ident = T.Pose3.identity(torch.float32, (4,), dev)
+        return (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, reg)), 1
+    src = spatial_sort_features(feats.map(lambda x: x[1]))
+    tgt = feats.map(lambda x: x[0])  # 192 / 384 slots: 48 / 96 a shard
+
+    def register():
+        with torch.profiler.record_function(program.DRIVER_RANGE):
+            return tdist.register_features_sharded(src, tgt, T.Pose3.identity(torch.float32, device=dev), mesh,
+                                                   reg, with_matches=True)
+    return register, 1
+
+
+@pytest.mark.parametrize("cell", SHARDED_CELLS)
+def test_sharded_program_matches_eager(nccl_meshes, cell):
+    """Each sharded driver call (a scan-to-map frame) one CUDA graph with
+    its gathers inside, on a world-size-1 NCCL group: every output tensor
+    bit-equal to the same calls eager (``program.eager``), every kernel's
+    launches and the outer ICF iterations equal; conditional nodes in every
+    program but extraction's; inside the driver's range one
+    ``cudaGraphLaunch`` a call or frame and no read of the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch import program
+    from loam_tpu_torch.profiling import host_reads, launch_calls
+    from loam_tpu_torch.registration import loop
+
+    run, launches = _sharded_run(nccl_meshes, cell)
+    counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
+               knn_cuda.knn_run, knn_cuda.knn_dual_run)
+
+    def counts(fn):
+        for c in counted:
+            c.launches = 0
+        n0 = loop.iterations
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [c.launches for c in counted] + [loop.iterations - n0]
+
+    loop.clear_cache()
+    graph, n_graph = counts(run)
+    with loop._eager():
+        eager, n_eager = counts(run)
+    assert n_graph == n_eager and sum(n_graph) > 0, (n_graph, n_eager)
+    assert (n_graph[-1] > 0) == (cell != "extract")
+    got, want = _tensor_leaves(graph), _tensor_leaves(eager)
+    assert len(got) == len(want) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    stats = loop.graph_stats()
+    assert len(stats) == 1 and (stats[0]["if_nodes"] > 0) == (cell != "extract"), stats
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    _, inside = launch_calls(events, within=program.DRIVER_RANGE)
+    assert inside.get("cudaGraphLaunch", 0) == launches, inside
+    assert host_reads(events) == {}
+    for a, b in zip(_tensor_leaves(again), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["s2m", "offline"])
+def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes, cell):
+    """The sharded scan-to-map frame's and offline call's graphs hold the
+    same conditional nodes at 4 and 8 frames and at 2 and 10 ICF
+    iterations: the loop one WHILE node with the sharded search inside,
+    scan-to-map's keyframe insert one IF node, offline's composition two
+    WHILE nodes more. Their nodes (bodies once) are the same at 2 and 10
+    iterations, and scan-to-map's (a program a frame) at 4 and 8 frames;
+    offline registers all its pairs in one lockstep batch, whose kNN split
+    plan (``knn_cuda._splits``: a merge kernel where the targets split)
+    follows the number of pairs, so its nodes may follow the frames."""
+    from loam_tpu_torch.registration import loop
+
+    stats = []
+    for F, iters in ((4, 2), (8, 2), (8, 10)):
+        run, _ = _sharded_run(nccl_meshes, cell, F, iters)
+        loop.clear_cache()
+        run()
+        torch.cuda.synchronize()
+        (g,) = loop.graph_stats()
+        stats.append((g["nodes"], g["conditional_nodes"]))
+    want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 3}
+    assert [c for _, c in stats] == [want] * 3 and stats[1][0] == stats[2][0], stats
+    assert cell != "s2m" or stats[0][0] == stats[1][0], stats
