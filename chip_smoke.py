@@ -209,8 +209,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      each, through the same checks; then the sharded scan-to-map and
      offline cells at 16 and 64 frames (offline's nodes may follow the
      frames: its pairs are one lockstep batch, whose kNN split plan follows
-     the pairs; conditional nodes required equal). Prints them as a
-     ``{"one_program": ...}`` line.
+     the pairs; conditional nodes required equal). The grid, pose-graph and
+     closure cells, through the same checks, each also held to its phase's
+     gates:
+     s2m-64x1024-grid (phase 8's call: the grids built inside the frames'
+     scan, searched inside the ICF loop's WHILE node; the ATE gate,
+     ``dropped`` 0, overflow (0, 0); graph nodes equal at 16 and 64 frames),
+     posegraph-1000-f64 and -f32 (phase 11's solve, the LM iterations one
+     WHILE node; the cost falls, float64 within 1e-5 m of the truth; nodes
+     equal at 10 and 40 iterations), loop-64x1024-closures
+     (``optimize_trajectory_with_closures`` on phase 10's 33 keyframes: the
+     proposal, the verification's ICF loop and ``closure_quality``'s kNN
+     launches, the edges and the solve in one graph; the start/end revisit
+     accepted, the end gap halved, the ATE no worse) and, in the fresh NCCL
+     group, posegraph-1000-sharded4 (phase 12's solve on 4 shards, within
+     1e-8 of phase 11's). For each call-sized cell the graph's calls back to
+     back and the eager run's device span by CUDA events, no profiler, beside
+     the eager trace's kernel sum. Prints them as a ``{"one_program": ...}``
+     line.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -248,7 +264,7 @@ ATOL_STREAM_M = 1e-2
 # other orders
 ATOL_F64_M = 1e-9
 # the float64 pose graph, card vs CPU: index_put_(accumulate=True) adds into
-# H in no fixed order on the card
+# H in another order on the card
 ATOL_GRAPH = 1e-8
 # the float64 pose-graph solve of noise-free edges vs the truth (the
 # tolerance of tests/test_pose_graph.py::test_recovers_exact_graph)
@@ -925,14 +941,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     # the pose graph of phase 11, its 1,049 edges padded with masked ones to a
     # multiple of 4 and split over the shards, float64
     init_d, edges_d = _to(init1k, dev, torch.float64), _to(edges1k, dev, torch.float64)
-    pad = (-edges_d.i.shape[0]) % D
-    edges_p = type(edges_d)(
-        torch.cat([edges_d.i, torch.zeros(pad, dtype=torch.int32, device=dev)]),
-        torch.cat([edges_d.j, torch.ones(pad, dtype=torch.int32, device=dev)]),
-        type(edges_d.measurement)(*(torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
-                                    for x in edges_d.measurement)),
-        torch.cat([edges_d.weight, torch.zeros(pad, dtype=torch.float64, device=dev)]),
-        torch.cat([edges_d.mask, torch.zeros(pad, dtype=torch.bool, device=dev)]))
+    edges_p, pad = _padded_edges(torch, edges_d, D)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -953,6 +962,19 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     mesh.release()  # their graphs replay the group's collectives: gone before the group is
     mesh22.release()
     return rows
+
+
+def _padded_edges(torch, edges, D: int):
+    """``edges`` padded with masked ones (weight 0) to a multiple of ``D``,
+    and the padding's length."""
+    pad, dev = (-edges.i.shape[0]) % D, edges.i.device
+    return type(edges)(
+        torch.cat([edges.i, torch.zeros(pad, dtype=torch.int32, device=dev)]),
+        torch.cat([edges.j, torch.ones(pad, dtype=torch.int32, device=dev)]),
+        type(edges.measurement)(*(torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+                                  for x in edges.measurement)),
+        torch.cat([edges.weight, torch.zeros(pad, dtype=edges.weight.dtype, device=dev)]),
+        torch.cat([edges.mask, torch.zeros(pad, dtype=torch.bool, device=dev)])), pad
 
 
 def _oracle_phase(T, torch, dev, smi, scans_np, lidar, fp, rp, oracle_knn, counters):
@@ -1205,6 +1227,23 @@ def _device_span_ms(torch, run, reps: int = 2) -> float:
     return total / reps
 
 
+def _back_to_back_ms(torch, run, reps: int = 3) -> float:
+    """Mean ms a call of ``run`` called ``reps`` times back to back between
+    two CUDA events, no sync between the calls: the host's work for a call
+    overlaps the device's for the one before, and the device's runs follow
+    each other on one stream, so this bounds a run's device time from
+    above with no profiler attached."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    run()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
     """Phase 15: every driver at full width with one program a unit (a call
     of the trajectory drivers, a frame or a chunk of the others: one CUDA
@@ -1223,15 +1262,20 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
     from loam_tpu_torch.registration import loop
 
     out = {}
-    for cell, (run, units, env, must, must_not, *branches) in cells.items():
+    for cell, (run, units, env, must, must_not, *opts) in cells.items():
         _stamp(f"phase 15: {cell}")
-        # a cell's programs have conditional nodes unless it says they have none
-        branches = branches[0] if branches else True
+        # a cell's programs have conditional nodes unless it says they have
+        # none; ``check`` holds the graph's output to its phase's gates;
+        # ``rate``: a run is the 16 frames (scans/s), else another unit
+        opts = opts[0] if opts else {}
+        branches, check, rate = opts.get("branches", True), opts.get("check"), opts.get("rate", True)
         with _env(**env):
             loop.clear_cache()
             n0 = loop.iterations
             got = drive(f"graph_{cell}", run, must, must_not)
             n_graph = loop.iterations - n0
+            if check is not None:
+                check(got)
             stats = loop.graph_stats()
             if not stats or not all((g["if_nodes"] > 0) == branches for g in stats):
                 raise AssertionError(f"{cell}: no program {'with' if branches else 'without'} conditional "
@@ -1261,11 +1305,18 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
             pg = row["profile_graph"] = _profile_run(torch, run, units)
             row["graph_device_span_ms"] = _device_span_ms(torch, run)
             if units == 1:
+                # no profiler: back-to-back graph calls bound the graph's
+                # device time a run from above (one stream: runs cannot
+                # overlap); the eager run's span from its call to its last kernel
+                row["graph_back_to_back_ms"] = _back_to_back_ms(torch, run)
                 with loop._eager():
                     row["profile_eager"] = _profile_run(torch, run, units)
+                    row["eager_device_span_ms"] = _device_span_ms(torch, run)
                 print(f"{cell} (eager): device kernels {row['profile_eager']['device_kernel_ms']:.3f} ms of "
-                      f"{row['profile_eager']['wall_ms']:.3f} ms; the graph's device span "
-                      f"{row['graph_device_span_ms']:.3f} ms (CUDA events), on {smi}")
+                      f"{row['profile_eager']['wall_ms']:.3f} ms (profiler trace); by CUDA events: the eager "
+                      f"run's device span {row['eager_device_span_ms']:.3f} ms, the graph's "
+                      f"{row['graph_device_span_ms']:.3f} ms, the graph's calls back to back "
+                      f"{row['graph_back_to_back_ms']:.3f} ms a run, on {smi}")
             print(f"{cell} (graph): {pg['graph_launches_per_unit']:.2f} cudaGraphLaunch and "
                   f"{pg['host_reads_per_unit']:.2f} host reads a unit inside the driver's range "
                   f"({units} units; launch calls there {pg['host_launch_calls_in_driver_loop']}, reads "
@@ -1276,11 +1327,15 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
                 raise AssertionError(f"{cell}: {pg['graph_launches_per_unit']} cudaGraphLaunch and "
                                      f"{pg['host_reads_per_unit']} host reads a unit")
             out[cell] = row
+            if not rate:
+                del row["graph_scans_s"], row["eager_scans_s"]
+            speed = (f"{row['graph_scans_s']:.3f} scans/s through the graphs, {row['eager_scans_s']:.3f} eager "
+                     f"(turns graph/eager/eager/graph {', '.join(f'{x:.3f}' for x in ms)} ms a {frames}-frame "
+                     f"run)" if rate else f"{row['graph_ms']:.3f} ms a call through the graph, "
+                     f"{row['eager_ms']:.3f} eager (turns graph/eager/eager/graph "
+                     f"{', '.join(f'{x:.3f}' for x in ms)} ms)")
             print(f"{cell}: graph vs eager bit-equal ({len(a)} output tensors), launches equal "
-                  f"{path_launches[f'graph_{cell}']}, {n_graph} ICF iterations; "
-                  f"{row['graph_scans_s']:.3f} scans/s through the graphs, {row['eager_scans_s']:.3f} eager "
-                  f"(turns graph/eager/eager/graph {', '.join(f'{x:.3f}' for x in ms)} ms a {frames}-frame "
-                  f"run); captured " + "; ".join(
+                  f"{path_launches[f'graph_{cell}']}, {n_graph} ICF iterations; {speed}; captured " + "; ".join(
                       f"{g['path']}: conditional nodes {g['conditional_nodes']}, {g['nodes']} nodes in "
                       f"{g['capture_s']:.3f} s, pool {g['pool_bytes']} B, {g['replays']} replays"
                       for g in row["programs"]) + f", on {smi}")
@@ -1288,21 +1343,34 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
 
 
 def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames, drive, path_launches,
-                         extraction, reps) -> dict:
+                         extraction, reps, pg64, gt1k, opt64) -> dict:
     """Phase 15's sharded cells, on a mesh of 4 shards of this GPU in a
     world-size-1 NCCL group (BASELINE config 5 cut to one card), each call
     one program: ``scan_to_map_step_sharded`` a frame (the sharded search's
     gathers inside the ICF loop's WHILE node, the sharded insert and its sum
     inside the keyframe's IF node), ``odometry_offline_sharded``,
     ``extract_features_sharded`` on a (2 data x 2 line) mesh and
-    ``register_pairs_sharded`` (12 consecutive pairs of the frames) a call:
+    ``register_pairs_sharded`` (12 consecutive pairs of the frames) a call,
+    and ``optimize_pose_graph_sharded`` on phase 11's float64 graph (its
+    edges padded to a multiple of 4; the shards' sums inside the LM loop's
+    WHILE node; within 1e-8 of phase 11's solve and 1e-5 m of the truth):
     through :func:`_graph_phase` against the same calls eager, then the
     scan-to-map and offline cells' graphs at 16 and 64 frames
     (:func:`_graph_size_phase`)."""
     from loam_tpu_torch import parallel
     from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
+    from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
 
     cfg, s2m_reg = T.ScanToMapConfig(), T.default_map_reg_params()
+    edges_p, _ = _padded_edges(torch, pg64[1], 4)
+
+    def check_graph(out):
+        opt, _ = out
+        gap = max(_max_err(opt.translation, opt64.translation), _max_err(opt.rotation, opt64.rotation))
+        err = _max_err(opt.translation.cpu(), gt1k.translation)
+        if not (gap < ATOL_GRAPH and err < ATOL_GRAPH_TRUTH_M):
+            raise AssertionError(f"posegraph-1000-sharded4: {gap} from phase 11's solve, {err} m from the truth")
+
     feats = T.extract_features_batch(scans, lidar, fp, post=T.registration.azimuth_sort_features)
     pairs = 12
     src, tgt = feats.map(lambda x: x[1:pairs + 1]), feats.map(lambda x: x[:pairs])
@@ -1327,9 +1395,11 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
             "offline-64x1024-sharded4": (run_off, 1, dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("knn",),
                                          ("knn_dual",)),
             "extract-64x1024-2x2": (lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp), 1,
-                                    dict(LOAM_ICF_DUAL_KNN="0"), extraction, no_knn, False),
+                                    dict(LOAM_ICF_DUAL_KNN="0"), extraction, no_knn, dict(branches=False)),
             "pairs-64x1024-sharded4": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1,
                                        dict(LOAM_ICF_DUAL_KNN="0"), ("knn",), ("knn_dual",) + extraction),
+            "posegraph-1000-sharded4": (lambda: optimize_pose_graph_sharded(pg64[0], edges_p, mesh, 10), 1, {},
+                                        (), no_knn + extraction, dict(check=check_graph, rate=False)),
         }
         out = _graph_phase(torch, smi, frames, drive, path_launches, cells, reps)
         with _dual_knn(False):
@@ -1343,33 +1413,36 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
     return out
 
 
-def _graph_size_phase(smi, cells, vary=None) -> dict:
+def _graph_size_phase(smi, cells, vary=None, unit=None) -> dict:
     """Phase 15's last row: a trajectory call's graph at two lengths
-    (``cells``: cell -> {frames: run}), captured afresh at each: its nodes
-    (bodies counted once), conditional nodes by type, capture seconds, pool
-    bytes and ms a call (the mean of 2 replays after the capture); the
-    nodes and conditional nodes required equal at every length, but for a
-    cell of ``vary`` (cell -> why), whose nodes may follow the length: its
-    conditional nodes are required equal and the reason is printed."""
+    (``cells``: cell -> {frames: run}; ``unit``: cell -> what a length
+    counts where it is not frames, e.g. the pose graph's LM iterations),
+    captured afresh at each: its nodes (bodies counted once), conditional
+    nodes by type, capture seconds, pool bytes and ms a call (the mean of 2
+    replays after the capture); the nodes and conditional nodes required
+    equal at every length, but for a cell of ``vary`` (cell -> why), whose
+    nodes may follow the length: its conditional nodes are required equal
+    and the reason is printed."""
     from loam_tpu_torch.registration import loop
 
     out = {}
     for cell, runs in cells.items():
         rows = {}
+        what = (unit or {}).get(cell, "frames")
         for frames, run in runs.items():
-            _stamp(f"phase 15: {cell} at {frames} frames")
+            _stamp(f"phase 15: {cell} at {frames} {what}")
             loop.clear_cache()
             run()
             (g,) = loop.graph_stats()
             rows[frames] = {k: g[k] for k in ("nodes", "conditional_nodes", "capture_s", "pool_bytes")}
             rows[frames]["ms_per_call"] = _seconds_per_run(run, 2) * 1e3
-            print(f"{cell} at {frames} frames: {g['nodes']} graph nodes, conditional nodes "
+            print(f"{cell} at {frames} {what}: {g['nodes']} graph nodes, conditional nodes "
                   f"{g['conditional_nodes']}, captured in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B, "
                   f"{rows[frames]['ms_per_call']:.3f} ms a call, on {smi}")
         why = (vary or {}).get(cell)
         sizes = {(None if why else r["nodes"], str(r["conditional_nodes"])) for r in rows.values()}
         if len(sizes) != 1:
-            raise AssertionError(f"{cell}: the graph's size depends on the frames: {rows}")
+            raise AssertionError(f"{cell}: the graph's size depends on the {what}: {rows}")
         if why and len({r["nodes"] for r in rows.values()}) > 1:
             print(f"{cell}: the graph's nodes follow the frames: {why}")
         out[cell] = rows
@@ -2255,6 +2328,52 @@ def main() -> int:
         "stream-64x1024-k8": (lambda: run_stream(True), -(-frames // chunk), dict(LOAM_ICF_DUAL_KNN="0"),
                               *single),
     }
+    # the grid and the loop-closed back end: phase 8's grid call, phase
+    # 11's graph, phase 10's closures, each held to its phase's gates
+    no_kernel = extraction + ("knn", "knn_dual")
+    pg64 = (_to(init1k, dev, torch.float64), _to(edges1k, dev, torch.float64))
+    pg32 = (_to(init1k, dev, torch.float32), _to(edges1k, dev, torch.float32))
+    pg_cost0 = {torch.float64: float(_cost(*pg64)), torch.float32: float(_cost(*pg32))}
+
+    def check_grid(out):
+        st, traj_, det_ = out
+        _check_trajectory("s2m-64x1024-grid", traj_.translation, traj_.rotation, frames, gt, ate_rmse)
+        info = det_.iteration_info
+        ovf = int(info.edge_knn_overflow.sum()), int(info.plane_knn_overflow.sum())
+        if int(st.dropped) != 0 or ovf != (0, 0):
+            raise AssertionError(f"s2m-64x1024-grid: dropped {int(st.dropped)}, overflow {ovf}")
+
+    def check_graph(out):
+        opt, cost = out
+        dtype = opt.translation.dtype
+        if not float(cost) < pg_cost0[dtype]:
+            raise AssertionError(f"posegraph-1000 {dtype}: the cost did not fall")
+        err = _max_err(opt.translation.cpu(), gt1k.translation)
+        if dtype == torch.float64 and not err < ATOL_GRAPH_TRUTH_M:
+            raise AssertionError(f"posegraph-1000 float64: {err} m from the true poses")
+
+    def check_closures(out):
+        opt, clo = out
+        got = [p for p, a in zip(zip(clo.i.tolist(), clo.j.tolist()), clo.accepted.tolist()) if a]
+        t = opt.translation.cpu().numpy()
+        ate, _, _ = _check_trajectory("loop-64x1024-closures", opt.translation, opt.rotation, n_kf,
+                                      loop_pos, ate_rmse)
+        end = float(np.linalg.norm(t[-1] - t[0]))
+        if (0, n_kf - 1) not in got or not (end < 0.5 * end0 or end < 0.02) or not ate <= ate_o:
+            raise AssertionError(f"loop-64x1024-closures: accepted {got}, end gap {end0} -> {end} m, "
+                                 f"ATE {ate_o} -> {ate} m")
+
+    loop_closures = lambda: optimize_trajectory_with_closures(traj_l, feats_l, rp, **LOOP_CLOSURE_KW)
+    graph_cells.update({
+        "s2m-64x1024-grid": (run_s2m_grid, 1, dict(LOAM_ICF_DUAL_KNN="0"), extraction, ("knn", "knn_dual"),
+                             dict(check=check_grid)),
+        "posegraph-1000-f64": (lambda: optimize_pose_graph(*pg64, 10), 1, {}, (), no_kernel,
+                               dict(check=check_graph, rate=False)),
+        "posegraph-1000-f32": (lambda: optimize_pose_graph(*pg32, 10), 1, {}, (), no_kernel,
+                               dict(check=check_graph, rate=False)),
+        "loop-64x1024-closures": (loop_closures, 1, dict(LOAM_ICF_DUAL_KNN="0"), ("knn",),
+                                  extraction + ("knn_dual",), dict(check=check_closures, rate=False)),
+    })
     one_program = _graph_phase(torch, smi, frames, drive, path_launches, graph_cells, reps)
     # the same trajectory, 64 frames long: 16 and 64 frames (15 and 63 pairs) through one graph each
     long_np, _ = render_trajectory(lidar, 64, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01,
@@ -2266,9 +2385,12 @@ def main() -> int:
                                                                       motion_init=True)) for n in (16, 64)},
             "s2m-64x1024": {n: (lambda n=n: T.scan_to_map_offline(long[:n], lidar, fp, s2m_reg, s2m_cfg))
                             for n in (16, 64)},
-        })
+            "s2m-64x1024-grid": {n: (lambda n=n: T.scan_to_map_offline(long[:n], lidar, fp, grid_reg, s2m_cfg))
+                                 for n in (16, 64)},
+            "posegraph-1000-f64": {n: (lambda n=n: optimize_pose_graph(*pg64, n)) for n in (10, 40)},
+        }, unit={"posegraph-1000-f64": "iterations"})
     one_program.update(_sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames, drive,
-                                            path_launches, extraction, reps))
+                                            path_launches, extraction, reps, pg64, gt1k, opt64))
     print(json.dumps({"one_program": one_program}))
 
     _stamp("phases done")

@@ -12,6 +12,14 @@ lockstep (``loam_tpu`` runs one registration per candidate under ``vmap``;
 the lockstep loop leaves a finished pair as it was, so every pair ends with
 the same termination and iteration count), and a rejected closure becomes a
 masked pose-graph edge, with no branch on the host.
+
+:func:`propose_candidates` and :func:`optimize_trajectory_with_closures` are
+one program a call each (``program.py``), as ``loam_tpu`` jits them: eager
+on the CPU, one CUDA-graph launch on the card. The end-to-end call runs its
+four pieces inline in its one program -- the proposal, the verification
+(the registration's ICF loop a WHILE node, ``closure_quality``'s two kNN
+launches), the edges (N - 1 + K, static) and the pose-graph solve (its LM
+iterations a WHILE node) -- and equals calling them one after another.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from . import program
 from .features.types import FeatureSet
 from .geometry import Pose3, norm, quat_conjugate, quat_multiply, quat_rotate
 from .neighbors.bruteforce import topk_min
@@ -28,6 +37,7 @@ from .params import RegistrationParams, TerminationType
 from .pose_graph import PoseGraphEdges, odometry_edges, optimize_pose_graph
 from .registration.associate import associate_edges, associate_planes
 from .registration.icf import register_features_batch
+from .registration.loop import driver_program
 from .registration.solver import _act, _Problem, _residuals
 
 
@@ -51,7 +61,22 @@ def propose_candidates(
     """Top-K closest (i, j) keyframe pairs with ``j - i >= min_separation``.
 
     Returns (i, j, valid), each (K,) on the trajectory's device; i < j.
+    One program a call, cached on the trajectory's shape and the arguments.
     """
+    if program.nested():
+        return _propose(trajectory, max_candidates, min_separation, max_distance)
+    inputs = (trajectory,)
+    prog = program.cached(trajectory.translation.device,
+                          ("propose_candidates", max_candidates, min_separation, max_distance,
+                           program.signature(inputs)), inputs, path="propose_candidates",
+                          keyframes=trajectory.translation.shape[0])
+    with torch.profiler.record_function(program.DRIVER_RANGE):
+        return prog.own(prog.run(lambda b: _propose(b[0], max_candidates, min_separation, max_distance),
+                                 inputs))
+
+
+def _propose(trajectory: Pose3, max_candidates: int, min_separation: int, max_distance: float):
+    """:func:`propose_candidates`' work."""
     t = trajectory.translation  # (N, 3)
     N = t.shape[0]
     d = norm(t[:, None, :] - t[None, :, :])
@@ -186,11 +211,27 @@ def optimize_trajectory_with_closures(
     max_mean_residual: float = 0.25,
 ) -> Tuple[Pose3, LoopClosures]:
     """End to end: propose -> verify -> pose-graph optimize, on the
-    trajectory's device. Returns (optimized trajectory, the closures used)."""
-    ci, cj, cv = propose_candidates(trajectory, max_candidates, min_separation, max_distance)
-    closures = verify_closures(trajectory, features, ci, cj, cv, reg_params,
-                               min_inlier_frac=min_inlier_frac,
-                               max_mean_residual=max_mean_residual)
-    edges = join_edges(odometry_edges(trajectory), closure_edges(closures, closure_weight))
-    opt, _ = optimize_pose_graph(trajectory, edges, iterations=iterations)
-    return opt, closures
+    trajectory's device. Returns (optimized trajectory, the closures used).
+    One program a call (``loop.driver_program``: cached on the shapes and
+    the arguments; eager under ``LOAM_DEBUG_NANS=1``), the four pieces
+    inline in it."""
+
+    def run(bufs):
+        trajectory, features = bufs
+        ci, cj, cv = propose_candidates(trajectory, max_candidates, min_separation, max_distance)
+        closures = verify_closures(trajectory, features, ci, cj, cv, reg_params,
+                                   min_inlier_frac=min_inlier_frac,
+                                   max_mean_residual=max_mean_residual)
+        edges = join_edges(odometry_edges(trajectory), closure_edges(closures, closure_weight))
+        opt, _ = optimize_pose_graph(trajectory, edges, iterations=iterations)
+        return opt, closures
+
+    inputs = (trajectory, features)
+    if program.nested():
+        return run(inputs)
+    key = ("loop_closure", max_candidates, min_separation, max_distance, closure_weight, iterations,
+           min_inlier_frac, max_mean_residual)
+    prog = driver_program(trajectory.translation.device, key, inputs, reg_params, path="loop_closure",
+                          keyframes=trajectory.translation.shape[0], candidates=max_candidates)
+    with torch.profiler.record_function(program.DRIVER_RANGE):
+        return prog.own(prog.run(run, inputs))

@@ -17,6 +17,10 @@ records it, it is never dropped.
 Plain tensor code with no kernel of its own (``loam_tpu``'s has none either):
 it runs where its tensors lie. Distances are direct coordinate differences.
 Every function takes leading batch axes: one grid per pair of a batch.
+Nothing here reads or copies from the host (the tile loop is over shapes,
+the scalars are kernel arguments), so a registration program captures the
+grid's build and its searches into its CUDA graph, the searches inside the
+ICF loop's WHILE node, as ``loam_tpu`` jits them into its registration.
 """
 
 from __future__ import annotations

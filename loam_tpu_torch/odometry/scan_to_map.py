@@ -218,8 +218,10 @@ def default_map_reg_params() -> RegistrationParams:
     kNN kernel) with the solver prior, ``loam_tpu``'s choice on its
     accelerator. ``loam_tpu`` picks its voxel grid off the accelerator; the
     port's is there for the asking, ``RegistrationParams(search_backend=
-    "grid", prior_weight=300.0)``, and is plain tensor code on either
-    device."""
+    "grid", prior_weight=300.0)``: plain tensor code on either device, and
+    on the card captured like the kNN path, each frame's grids built and
+    searched inside the trajectory's one CUDA graph (the searches inside
+    the ICF loop's WHILE node)."""
     return RegistrationParams(search_backend="bruteforce", prior_weight=300.0)
 
 

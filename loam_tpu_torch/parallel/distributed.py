@@ -316,8 +316,7 @@ def scan_to_map_step_sharded(
         feats = spatial_sort_features(extract_features(sc, lidar, feat_params))
         return _frame(st, feats, reg_params, config, register, insert)
 
-    # the sharded search is the registration's whatever ``search_backend``
-    # says: no grid to keep eager
+    # the sharded search is the registration's whatever ``search_backend`` says
     prog, out = run_program(mesh, ("scan_to_map_sharded", axis, lidar, feat_params, reg_params, config),
                             (state, scan.to(mesh.device)), fn, None, path="scan_to_map_sharded")
     pose, det = prog.own(out)

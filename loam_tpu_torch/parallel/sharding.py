@@ -125,8 +125,9 @@ def require_live(mesh: Mesh) -> None:
 def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[RegistrationParams], **info):
     """``fn(buffers)`` as the one program of a sharded driver call on
     ``mesh`` (``loop.driver_program``: cached, its key holding the mesh's
-    token; eager for the grid search and ``LOAM_DEBUG_NANS=1``), inside
-    ``program.DRIVER_RANGE``. Returns ``(program, output)``."""
+    token; eager only under ``LOAM_DEBUG_NANS=1``, which reads the host by
+    design), inside ``program.DRIVER_RANGE``. Returns ``(program,
+    output)``."""
     require_live(mesh)
     prog = driver_program(mesh.device, key + (mesh.token,), inputs, reg_params, mesh=mesh.token, **info)
     with torch.profiler.record_function(program.DRIVER_RANGE):

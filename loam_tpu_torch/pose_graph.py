@@ -15,13 +15,26 @@ capacity; node 0 is the gauge.
 The loop runs a fixed number of iterations with no host sync: the Cholesky
 is ``torch.linalg.cholesky_ex``, whose failure flag joins the accept test
 instead of raising (``loam_tpu``'s Cholesky returns NaNs there, which the
-accept test rejects alike), and accept/reject is a ``torch.where``.
+accept test rejects alike), and accept/reject is a ``torch.where``. A
+solve is one program (``program.py``), as ``loam_tpu`` jits
+``optimize_pose_graph``: the iterations a ``program.scan`` over the carry
+``(poses, lam, cost)``, ``loam_tpu``'s ``lax.scan(length=iterations)``;
+eager on the CPU, one CUDA-graph launch on the card with the iterations
+under one WHILE node, whose nodes do not depend on ``iterations``. The
+factorisation is cuSOLVER's ``potrf`` (``cholesky_ex``: PyTorch takes it for
+one matrix, with no host read) and the solve two cuBLAS triangular solves
+(``solve_triangular``): cuSOLVER's ``potrs`` (``cholesky_solve``) is
+refused inside a CUDA-graph WHILE body, where ``potrf`` and ``trsm`` are
+not. ``loam_tpu`` leaves the same work to XLA's library. The sharded solve
+is one program too, its sums over the mesh inside the WHILE node.
 
-Assembly uses ``index_put_(accumulate=True)``. On a CUDA tensor its
-additions into one entry run in no fixed order, so a diagonal block of a node
-with three or more edges, and the gradient, may differ in their last bits
-from run to run (two terms added to zero are exact in either order); the
-solution moves by that rounding only.
+Assembly uses ``index_put_(accumulate=True)``. On a CUDA tensor PyTorch
+sorts the indices (a stable radix sort) and adds each entry's terms in that
+order, so a solve repeats bit for bit on the card, through its graph and
+eagerly alike; the order is not the CPU's, so a diagonal block of a node with
+three or more edges, and the gradient, may differ from the CPU's in their
+last bits (two terms added to zero are exact in either order), and the
+solution by that rounding only.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from . import program
 from .device import place
 from .geometry import (
     Pose3,
@@ -189,7 +203,7 @@ def _assemble(poses: Pose3, edges: PoseGraphEdges, dim: int):
 
 def _apply_update(poses: Pose3, dx: torch.Tensor) -> Pose3:
     xi = dx.reshape(-1, 6).clone()
-    xi[0] = 0.0  # gauge
+    xi[0].zero_()  # gauge
     dq = quat_exp(xi[:, :3])
     return Pose3(quat_normalize(quat_multiply(dq, poses.rotation)),
                  quat_rotate(dq, poses.translation) + xi[:, 3:])
@@ -208,30 +222,48 @@ def _cast(initial: Pose3, edges: PoseGraphEdges):
 
 def _levenberg_marquardt(poses: Pose3, iterations: int, assemble, cost):
     """The LM loop over ``assemble(poses) -> (H, b)`` and ``cost(poses)``:
-    a fixed count of damped Cholesky steps, each kept only if it lowers the
-    cost, with no host sync."""
+    ``iterations`` damped Cholesky steps, each kept only if it lowers the
+    cost, as ``program.scan`` over the carry ``(poses, lam, cost)`` -- a
+    host loop eagerly, one WHILE node in a capture -- with no host read.
+    The carry lives in buffers made before the scan and is updated in
+    place; nothing inside copies from the host."""
     dtype, dev = poses.translation.dtype, poses.translation.device
     dim = 6 * poses.translation.shape[0]
     gauge = torch.zeros(dim, dtype=dtype, device=dev)
-    gauge[:6] = 1e12  # clamp node 0
-    lam = torch.tensor(1e-6, dtype=dtype, device=dev)
+    gauge[:6].fill_(1e12)  # clamp node 0
+    poses = Pose3(poses.rotation.clone(), poses.translation.clone())
+    lam = torch.full((), 1e-6, dtype=dtype, device=dev)
     c = cost(poses)
-    for _ in range(iterations):
+
+    def step(i):
         H, b = assemble(poses)
         diag = H.diagonal()
         diag.add_(lam * diag + 1e-8 + gauge)
         L, info = torch.linalg.cholesky_ex(H)
-        del H
-        dx = -torch.cholesky_solve(b[:, None], L)[:, 0]
-        del L
+        del H, diag
+        # L L^T dx = -b as two triangular solves (cuBLAS trsm): cuSOLVER's
+        # potrs (``torch.cholesky_solve``) cannot be captured into a WHILE body
+        y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+        dx = -torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+        del L, y
         candidate = _apply_update(poses, dx)
         new_cost = cost(candidate)
         accept = (new_cost < c) & (info == 0)
-        poses = Pose3(torch.where(accept, candidate.rotation, poses.rotation),
-                      torch.where(accept, candidate.translation, poses.translation))
-        c = torch.where(accept, new_cost, c)
-        lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-12), torch.clamp(lam * 4.0, max=1e8))
+        program.copy_into(poses, Pose3(torch.where(accept, candidate.rotation, poses.rotation),
+                                       torch.where(accept, candidate.translation, poses.translation)))
+        lam.copy_(torch.where(accept, torch.clamp(lam / 3.0, min=1e-12), torch.clamp(lam * 4.0, max=1e8)))
+        c.copy_(torch.where(accept, new_cost, c))
+
+    program.scan(iterations, step, dev)
     return poses, c
+
+
+def _solve(initial: Pose3, edges: PoseGraphEdges, iterations: int) -> Tuple[Pose3, torch.Tensor]:
+    """:func:`optimize_pose_graph`'s work on its program's buffers."""
+    poses, edges = _cast(initial, edges)
+    dim = 6 * poses.translation.shape[0]
+    return _levenberg_marquardt(poses, iterations, lambda p: _assemble(p, edges, dim),
+                                lambda p: _cost(p, edges))
 
 
 def optimize_pose_graph(
@@ -241,6 +273,11 @@ def optimize_pose_graph(
 ) -> Tuple[Pose3, torch.Tensor]:
     """Gauss-Newton/LM pose-graph solve on the device of ``initial``.
 
+    One program a call (``program.py``), cached on the device, the node and
+    edge counts, the dtypes and ``iterations``: eager on the CPU, one
+    CUDA-graph launch on the card. Inside another program (the loop-closed
+    call) it runs inline.
+
     Args:
       initial: (N, ...) world poses (node 0 is the fixed gauge).
       edges: padded constraint set.
@@ -248,10 +285,15 @@ def optimize_pose_graph(
 
     Returns: (optimized trajectory, final total weighted squared error).
     """
-    poses, edges = _cast(initial, edges)
-    dim = 6 * poses.translation.shape[0]
-    return _levenberg_marquardt(poses, iterations, lambda p: _assemble(p, edges, dim),
-                                lambda p: _cost(p, edges))
+    inputs = (initial, edges)
+    if program.nested():
+        return _solve(initial, edges, iterations)
+    dev = initial.translation.device
+    prog = program.cached(dev, ("pose_graph", iterations, program.signature(inputs)), inputs,
+                          path="pose_graph", nodes=initial.translation.shape[0], edges=edges.i.shape[0],
+                          dtype=str(initial.translation.dtype), iterations=iterations)
+    with torch.profiler.record_function(program.DRIVER_RANGE):
+        return prog.own(prog.run(lambda b: _solve(*b, iterations), inputs))
 
 
 def optimize_pose_graph_sharded(
@@ -267,14 +309,19 @@ def optimize_pose_graph_sharded(
 
     ``initial`` and ``edges`` are replicated: every rank passes the whole
     graph. Each shard assembles the normal equations and the cost of its
-    contiguous block of edges (shard g holds edges ``g*E/D .. (g+1)*E/D - 1``);
-    ``parallel.collectives.sum`` adds the partials in global shard order, so
-    every rank holds the same system bit for bit, and the LM loop of
-    :func:`optimize_pose_graph` runs replicated on it. Results match the
-    single-device solve up to the order of the additions. The edge count
-    must be a multiple of the shard count: pad with masked edges.
+    contiguous block of edges (shard g holds edges ``g*E/D .. (g+1)*E/D - 1``)
+    into a stack made before the LM loop; ``parallel.collectives.sum`` adds
+    the partials in global shard order, so every rank holds the same system
+    bit for bit, and the LM loop of :func:`optimize_pose_graph` runs
+    replicated on it. Results match the single-device solve up to the order
+    of the additions. The edge count must be a multiple of the shard count:
+    pad with masked edges. One program a call (``sharding.run_program``,
+    keyed on the mesh's token): on the card one CUDA-graph launch, the
+    shards' assemblies and the sums' gathers inside the LM loop's WHILE
+    node; eager on the CPU and over gloo.
     """
     from .parallel import collectives
+    from .parallel.sharding import run_program
     from .registration.detail import tree_map
 
     D, mine = mesh.shards_along(axis)
@@ -283,19 +330,28 @@ def optimize_pose_graph_sharded(
         raise ValueError(f"{E} edges do not split evenly over the {D} shards of mesh axis "
                          f"{axis!r}: pad with masked edges")
     to_mesh = lambda x: x.to(mesh.device)
-    poses, edges = _cast(tree_map(to_mesh, initial), tree_map(to_mesh, edges))
-    dim = 6 * poses.translation.shape[0]
+    inputs = (tree_map(to_mesh, initial), tree_map(to_mesh, edges))
     n = E // D
-    blocks = [tree_map(lambda x, g=g: x[g * n:(g + 1) * n], edges) for g in mine]
 
-    def assemble(p):
-        H = torch.empty((len(blocks), dim, dim), dtype=p.translation.dtype, device=mesh.device)
-        b = torch.empty((len(blocks), dim), dtype=p.translation.dtype, device=mesh.device)
-        for s, e in enumerate(blocks):  # one partial H at a time beside the stack
-            H[s], b[s] = _assemble(p, e, dim)
-        return collectives.sum(mesh, H), collectives.sum(mesh, b)
+    def solve(bufs):
+        poses, edges = _cast(*bufs)
+        dtype, dim = poses.translation.dtype, 6 * poses.translation.shape[0]
+        blocks = [tree_map(lambda x, g=g: x[g * n:(g + 1) * n], edges) for g in mine]
+        # the shards' partial systems, one at a time beside the stack
+        H = torch.empty((len(blocks), dim, dim), dtype=dtype, device=mesh.device)
+        b = torch.empty((len(blocks), dim), dtype=dtype, device=mesh.device)
 
-    def cost(p):
-        return collectives.sum(mesh, torch.stack([_cost(p, e) for e in blocks]))
+        def assemble(p):
+            for s, e in enumerate(blocks):
+                H[s], b[s] = _assemble(p, e, dim)
+            return collectives.sum(mesh, H), collectives.sum(mesh, b)
 
-    return _levenberg_marquardt(poses, iterations, assemble, cost)
+        def cost(p):
+            return collectives.sum(mesh, torch.stack([_cost(p, e) for e in blocks]))
+
+        return _levenberg_marquardt(poses, iterations, assemble, cost)
+
+    prog, out = run_program(mesh, ("pose_graph_sharded", axis, iterations), inputs, solve, None,
+                            path="pose_graph_sharded", nodes=initial.translation.shape[0], edges=E,
+                            dtype=str(initial.translation.dtype), iterations=iterations)
+    return prog.own(out)

@@ -15,8 +15,13 @@ keyframes and ``optimize_trajectory_with_closures``), or
 ``scan_to_map_sharded``: ``scan_to_map_step_sharded`` frame by frame against
 maps of the default capacities split over a mesh of 4 shards of the GPU, in
 a world-size-1 NCCL group (one program a frame, its gathers inside the
-graph); ``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` --
-then:
+graph), or ``posegraph``: ``optimize_pose_graph`` in float64 on
+``io.random_pose_graph(1000, 50)`` (H 6,000 x 6,000, 10 LM iterations);
+``--dual-knn`` sets ``LOAM_ICF_DUAL_KNN=1`` -- then:
+
+  * the wall time of a run through the programs' CUDA graphs (every driver
+    call one graph launch, ``scan_to_map_grid``'s and ``posegraph``'s too)
+    beside the same run eager (``program.eager()``);
 
   * for ``offline``, stage times on the host clock with a device sync at
     each boundary: batched extraction, then each registration chunk (with
@@ -58,13 +63,14 @@ import torch
 
 import loam_tpu_torch as T
 from loam_tpu_torch.geometry import Pose3
-from loam_tpu_torch.io import render_trajectory, square_loop_scans, write_kitti_bins
+from loam_tpu_torch.io import random_pose_graph, render_trajectory, square_loop_scans, write_kitti_bins
 from loam_tpu_torch.loop_closure import (
     closure_edges, join_edges, optimize_trajectory_with_closures, propose_candidates, verify_closures)
 from loam_tpu_torch.pose_graph import odometry_edges, optimize_pose_graph
 from loam_tpu_torch import program
 from loam_tpu_torch.profiling import host_reads, kernel_times, launch_calls
 from loam_tpu_torch.registration import azimuth_sort_features, loop
+from loam_tpu_torch.registration.detail import tree_map
 
 #: Shards of the GPU in the ``scan_to_map_sharded`` driver's mesh.
 SHARDS = 4
@@ -107,16 +113,18 @@ def _offline_stages(scans, lidar, fp, rp, frames, dev):
 
 
 def _loop_closure_stages(paths, scans, lidar, fp, rp):
-    """The loop-closed path's steps, each closed by a device sync."""
+    """The loop-closed path's steps, each closed by a device sync: the
+    second of two passes (the first captures each step's program)."""
     kw = LOOP_CLOSURE_KW
-    (traj, _), odo_ms = _sync_time(
-        lambda: T.odometry_streaming(paths, lidar, fp, rp, chunk_frames=8, packed=True))
-    feats, extract_ms = _sync_time(lambda: T.extract_features_batch(scans, lidar, fp))
-    cand, propose_ms = _sync_time(lambda: propose_candidates(
-        traj, kw["max_candidates"], kw["min_separation"], kw["max_distance"]))
-    clo, verify_ms = _sync_time(lambda: verify_closures(traj, feats, *cand, rp))
-    edges = join_edges(odometry_edges(traj), closure_edges(clo))
-    _, solve_ms = _sync_time(lambda: optimize_pose_graph(traj, edges, kw["iterations"]))
+    for _ in range(2):
+        (traj, _), odo_ms = _sync_time(
+            lambda: T.odometry_streaming(paths, lidar, fp, rp, chunk_frames=8, packed=True))
+        feats, extract_ms = _sync_time(lambda: T.extract_features_batch(scans, lidar, fp))
+        cand, propose_ms = _sync_time(lambda: propose_candidates(
+            traj, kw["max_candidates"], kw["min_separation"], kw["max_distance"]))
+        clo, verify_ms = _sync_time(lambda: verify_closures(traj, feats, *cand, rp))
+        edges = join_edges(odometry_edges(traj), closure_edges(clo))
+        _, solve_ms = _sync_time(lambda: optimize_pose_graph(traj, edges, kw["iterations"]))
     return {"odometry_ms": odo_ms, "extract_ms": extract_ms, "propose_ms": propose_ms,
             "verify_ms": verify_ms, "solve_ms": solve_ms}
 
@@ -135,7 +143,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--driver", default="offline",
                     choices=("offline", "scan_to_map", "scan_to_map_grid", "scan_to_scan", "streaming",
-                             "loop_closure", "scan_to_map_sharded"))
+                             "loop_closure", "scan_to_map_sharded", "posegraph"))
     ap.add_argument("--dual-knn", action="store_true", help="set LOAM_ICF_DUAL_KNN=1")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--out", default="profile_out")
@@ -155,6 +163,10 @@ def main() -> int:
         args.frames = len(scans_np)
         tmp = tempfile.TemporaryDirectory()
         paths = write_kitti_bins(scans_np, tmp.name)
+    elif args.driver == "posegraph":
+        _, init, edges = random_pose_graph(1000, 50, seed=2)
+        init, edges = (tree_map(lambda x: x.to(dev), t) for t in (init, edges))
+        scans_np = np.zeros((1, 1, 1, 3), np.float32)  # no scans: the solve alone
     else:
         scans_np, _ = render_trajectory(lidar, args.frames, step=np.array([0.08, 0.02, 0.0]),
                                         yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32)
@@ -177,6 +189,8 @@ def main() -> int:
         mesh = parallel.make_mesh([dev] * SHARDS, group=dist.group.WORLD)
 
     def run():
+        if args.driver == "posegraph":
+            return optimize_pose_graph(init, edges, 10)
         if args.driver == "scan_to_map_sharded":
             cfg, reg = T.ScanToMapConfig(), T.default_map_reg_params()
             state = scan_to_map_init_sharded(cfg, mesh)
@@ -202,8 +216,11 @@ def main() -> int:
             return state
         return T.odometry_offline(scans, lidar, fp, rp, chunk_pairs=4, motion_init=True)
 
-    run()  # build + warm-up
+    run()  # build + warm-up (and the programs' captures)
     _, wall_ms = _sync_time(run)
+    with program.eager():
+        run()
+        _, eager_wall_ms = _sync_time(run)
 
     extract_ms, chunks, stages = None, [], None
     if args.driver == "offline":
@@ -237,7 +254,9 @@ def main() -> int:
 
     print(f"gpu: {smi}")
     print(f"{args.driver}{' (dual kNN)' if args.dual_knn else ''}: wall {wall_ms:.3f} ms per "
-          f"{args.frames}-frame run ({args.frames / wall_ms * 1e3:.3f} scans/s)")
+          + ("solve (10 iterations) through its graph" if args.driver == "posegraph" else
+             f"{args.frames}-frame run ({args.frames / wall_ms * 1e3:.3f} scans/s) through the graphs")
+          + f", {eager_wall_ms:.3f} ms eager")
     if extract_ms is not None:
         print(f"extraction {extract_ms:.3f} ms; registration chunks {chunks}")
     if stages is not None:
@@ -258,7 +277,7 @@ def main() -> int:
         print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
     print(json.dumps({
         "gpu": smi, "driver": args.driver, "dual_knn": args.dual_knn,
-        "frames": args.frames, "wall_ms": wall_ms, "extract_ms": extract_ms,
+        "frames": args.frames, "wall_ms": wall_ms, "eager_wall_ms": eager_wall_ms, "extract_ms": extract_ms,
         "chunks": chunks, "stages": stages, "profiled_wall_ms": prof_wall_ms, "device_kernel_ms": device_ms,
         "launches": launches, "idle_share": 1 - device_ms / prof_wall_ms, "icf_iterations": iterations,
         "host_launch_calls": host_calls, "host_launch_calls_in_loop": loop_calls,

@@ -282,7 +282,9 @@ def scan(n: int, body, device: torch.device):
     place. Eagerly a host loop (no read of the device); in a capture one
     WHILE node on ``i < n``, writing into the buffers that the same scan
     allocated in the capture's warm-up. Returns the stacked outputs, or
-    None for ``n <= 0`` (nothing ran to take their shapes from)."""
+    None for ``n <= 0`` (nothing ran to take their shapes from). A body
+    that returns None scans its carry only and stacks nothing (the pose
+    graph's LM iterations)."""
     if n <= 0:
         return None
     i = torch.zeros((), dtype=torch.int64, device=device)

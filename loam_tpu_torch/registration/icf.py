@@ -16,10 +16,10 @@ them, and commits the result only for pairs still running (``torch.where``),
 so a finished pair's state stays as it was. The loop stops when every pair
 is done or ``max_iterations`` is reached. The body is ``loop.py``'s step
 over a carry of its own, scheduled as ``lax.while_loop`` runs it; the whole
-registration (sort, preps, loop) is one program on the kNN paths and the
-sharded path: eager on the CPU, one CUDA-graph replay on the card with the
-later iterations under one WHILE node; eager for the grid, a caller's
-``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
+registration (sort, preps or grids, loop) is one program on the kNN paths,
+the grid path and the sharded path: eager on the CPU, one CUDA-graph replay
+on the card with the later iterations under one WHILE node; eager, by
+design, only for a caller's ``custom_knn`` and ``LOAM_DEBUG_NANS=1``.
 
 Each iteration searches the edge and the planar targets either with two
 single kNN runs (neighbour coordinates packed, fits without a gather) or,
@@ -37,9 +37,10 @@ searches, ``reorder_mode="auto"`` (``loam_tpu``'s default, ``icf.py:256-290``)
 azimuth-sorts both feature sets first, so that the gate has wedges to prune;
 the drivers whose features are stored sorted pass ``"none"``. With ``search_backend="grid"`` and
 both radii positive the searches go through voxel grids built once per
-registration (``neighbors/grid.py``; ``loam_tpu`` ``icf.py:315-360``): their
-indices feed the gathered fits too, and every iteration's count of cells over
-``grid_max_per_cell`` is recorded in the detail.
+registration (``neighbors/grid.py``; ``loam_tpu`` ``icf.py:315-360``), before
+the loop's WHILE node: their indices feed the gathered fits too, and every
+iteration's count of cells over ``grid_max_per_cell`` is recorded in the
+detail, inside the node.
 """
 
 from __future__ import annotations

@@ -16,17 +16,20 @@ with no host read, and the graph holds one step whatever
 ``max_iterations`` is.
 
 The registration around it (``icf._register_impl``: the feature sort, the
-kNN preps, the loop, the matches mapped back) is one ``program.Program``
-per key on the kNN paths (the single kNN, seeded or not, on preps built
-inside or handed over by scan-to-map's cache, and the dual kNN; float32 or,
-with the plain search, float64) and on the sharded path (the sharded
+kNN preps or the voxel grids, the loop, the matches mapped back) is one
+``program.Program`` per key on the kNN paths (the single kNN, seeded or
+not, on preps built inside or handed over by scan-to-map's cache, and the
+dual kNN; float32 or, with the plain search, float64), on the grid path
+(both grids built before the WHILE node, as ``loam_tpu`` builds them before
+its ``lax.while_loop``, and searched inside it, the overflow counts written
+into the carry's detail rows) and on the sharded path (the sharded
 registration, ``parallel.distributed``: the search's gathers and merge
 inside the step, so inside the WHILE node): eager on the CPU, one CUDA
 graph on the card, one replay a registration. Inside another program (a
 scan-to-map or scan-to-scan frame, a streaming chunk, a sharded step) it
-runs inline, into that program. The grid search, a caller's ``custom_knn``
-(which may read the host) and ``LOAM_DEBUG_NANS=1`` (its checks read
-values on the host) run eagerly on a loop made for the call. The choice is
+runs inline, into that program. Two paths stay eager by design, on a loop
+made for the call: a caller's ``custom_knn`` (which may read the host) and
+``LOAM_DEBUG_NANS=1`` (its checks read values on the host). The choice is
 made by path; a failed capture or replay raises.
 
 A cached program's key holds the device, the path, whether the seeds run,
@@ -58,7 +61,7 @@ from .detail import IterationInfo
 from .solver import _Problem, _select, lm_solve
 
 #: The paths whose registration is one cached program (one CUDA graph on the card).
-CAPTURED_PATHS = ("single", "preps", "dual", "sharded")
+CAPTURED_PATHS = ("single", "preps", "dual", "grid", "sharded")
 
 #: The kernel wrappers a step may launch.
 COUNTED = (knn_run, knn_dual_run)
@@ -91,12 +94,10 @@ def driver_program(dev: torch.device, key: tuple, inputs, reg_params: Registrati
                    **info) -> program.Program:
     """The program of a driver call (a frame, a chunk) whose registration
     takes ``reg_params`` (None: a call that registers nothing): cached under
-    ``key`` (with :func:`knob_key`) where the registration is captured;
-    eager, made for the call, for the grid search and
-    ``LOAM_DEBUG_NANS=1``, which stay eager by path."""
-    grid = (reg_params is not None and reg_params.search_backend == "grid"
-            and reg_params.max_edge_neighbor_dist > 0 and reg_params.max_plane_neighbor_dist > 0)
-    if grid or debug_nans_enabled():
+    ``key`` (with :func:`knob_key`), the brute-force and the grid search
+    alike; eager, made for the call, under ``LOAM_DEBUG_NANS=1``, which
+    reads values on the host by design."""
+    if debug_nans_enabled():
         return program.Program(dev, inputs, capturable=False)
     return program.cached(dev, key + (reg_params, program.signature(inputs), knob_key()), inputs,
                           **info)

@@ -560,7 +560,7 @@ def test_registration_reorders_where_the_kernel_searches(dev):
 def test_pose_graph_gpu_matches_cpu(dev):
     """``optimize_pose_graph`` on a 60-node chain with 6 closures: in float64
     the card's solve equals the CPU's within 1e-8 (the card's
-    ``index_put_(accumulate=True)`` adds in no fixed order) and recovers the
+    ``index_put_(accumulate=True)`` adds in another order than the CPU's) and recovers the
     true poses; in float32 it stays finite and lowers the cost."""
     from loam_tpu_torch.pose_graph import _cost, optimize_pose_graph
     from loam_tpu_torch.io import random_pose_graph
@@ -1187,26 +1187,52 @@ def test_icf_graph_matches_eager_loop(dev, monkeypatch, path, max_iterations):
 
 
 def test_icf_eager_paths_capture_nothing(dev, monkeypatch):
-    """The grid search and ``LOAM_DEBUG_NANS=1`` stay on the eager loop: no
-    graph is captured, and the debug run equals the graph's bit for bit.
-    float64 (the plain search on the card) is captured like float32."""
+    """Two paths stay on the eager loop by design: ``LOAM_DEBUG_NANS=1``
+    (its checks read values on the host) and a caller's own ``custom_knn``
+    (which may read the host): no graph is captured, and each equals the
+    graph of the same search bit for bit. The grid search is a captured
+    path (one graph, bit-equal to its eager run), and float64 (the plain
+    search on the card) is captured like float32."""
     from loam_tpu_torch.params import RegistrationParams
     from loam_tpu_torch.registration import icf, loop
 
     src, tgt, init = _icf_chunk(dev)
+    rp = RegistrationParams()
     loop.clear_cache()
-    icf._register_impl(src, tgt, init, RegistrationParams(search_backend="grid"), False)
     monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
-    debug = icf._register_impl(src, tgt, init, RegistrationParams(), True)
+    debug = icf._register_impl(src, tgt, init, rp, True)
     assert loop.graph_stats() == []
     monkeypatch.delenv("LOAM_DEBUG_NANS")
-    graph = icf._register_impl(src, tgt, init, RegistrationParams(), True)
-    assert len(loop.graph_stats()) == 1
+    # the caller's own search: the single kNN on preps made outside, unseeded
+    e_prep = knn_cuda.knn_prep(tgt.edge_points, tgt.edge_mask)
+    p_prep = knn_cuda.knn_prep(tgt.planar_points, tgt.planar_mask)
+    custom = (lambda q: knn_cuda.knn_run(e_prep, q, rp.num_edge_neighbors, rp.max_edge_neighbor_dist,
+                                         with_coords=True, query_mask=src.edge_mask),
+              lambda q: knn_cuda.knn_run(p_prep, q, rp.num_plane_neighbors, rp.max_plane_neighbor_dist,
+                                         with_coords=True, query_mask=src.planar_mask))
+    mine = icf._register_impl(src, tgt, init, rp, True, custom_knn=custom)
+    assert loop.graph_stats() == []
+    monkeypatch.setenv("LOAM_KNN_SEED", "0")
+    unseeded = icf._register_impl(src, tgt, init, rp, True, reorder_mode="none")
+    monkeypatch.delenv("LOAM_KNN_SEED")
+    graph = icf._register_impl(src, tgt, init, rp, True)
+    assert [s["seeded"] for s in loop.graph_stats()] == [False, True]
     for a, b in zip(_tensor_leaves(graph), _tensor_leaves(debug)):
+        assert torch.equal(a, b)
+    for a, b in zip(_tensor_leaves(unseeded), _tensor_leaves(mine)):
+        assert torch.equal(a, b)
+    grid = RegistrationParams(search_backend="grid")
+    loop.clear_cache()
+    got = icf._register_impl(src, tgt, init, grid, True)
+    (g,) = loop.graph_stats()
+    assert g["path"] == "grid" and g["conditional_nodes"] == {"if": 0, "while": 1}
+    with loop._eager():
+        want = icf._register_impl(src, tgt, init, grid, True)
+    for a, b in zip(_tensor_leaves(got), _tensor_leaves(want)):
         assert torch.equal(a, b)
     f64 = lambda fs: fs.map(lambda x: x.double() if x.is_floating_point() else x)
     icf._register_impl(f64(src), f64(tgt), _pose64(init), RegistrationParams(), False)
-    assert [s["seeded"] for s in loop.graph_stats()] == [True, False]
+    assert [s["seeded"] for s in loop.graph_stats()] == [False, False]
 
 
 def _pose64(pose):
@@ -1570,3 +1596,147 @@ def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes
     want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 3}
     assert [c for _, c in stats] == [want] * 3 and stats[1][0] == stats[2][0], stats
     assert cell != "s2m" or stats[0][0] == stats[1][0], stats
+
+
+# ---- the grid search and the loop-closed back end as one program each -------------
+
+LAST_CELLS = ("grid_register", "grid_s2m", "posegraph64", "posegraph32", "posegraph_sharded", "closures")
+
+
+def _to_dev(tree, dev, dtype=None):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, dtype if dtype is not None and tree.is_floating_point() else tree.dtype)
+    return type(tree)(*(_to_dev(x, dev, dtype) for x in tree))
+
+
+def _last_run(dev, cell, request, length=None):
+    """A run of one of the last paths made programs, on the card, at a small
+    size: the run, and the conditional nodes its one program holds.
+    ``length``: frames (grid_s2m) or LM iterations (the pose graph)."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch import program
+    from loam_tpu_torch.geometry import Pose3, quat_exp
+    from loam_tpu_torch.io import random_pose_graph, render_trajectory, square_loop_scans
+    from loam_tpu_torch.loop_closure import optimize_trajectory_with_closures
+    from loam_tpu_torch.pose_graph import optimize_pose_graph, optimize_pose_graph_sharded
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    grid = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
+    if cell == "grid_register":
+        src, tgt, init = _icf_chunk(dev)
+
+        def register():
+            with torch.profiler.record_function(program.DRIVER_RANGE):
+                return T.register_features_batch(src, tgt, init, grid, with_matches=True)
+        return register, {"if": 0, "while": 1}
+    if cell == "grid_s2m":
+        F = length or 9
+        scans_np, _ = render_trajectory(lidar, F, step=np.array([0.10, 0.03, 0.0]), yaw_rate=0.02,
+                                        noise=0.003, seed=11, dtype=np.float32)
+        scans = torch.from_numpy(scans_np).to(dev)
+        cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+        return (lambda: T.scan_to_map_offline(scans, lidar, reg_params=grid, config=cfg)), {"if": 1, "while": 2}
+    if cell.startswith("posegraph"):
+        _, init, edges = random_pose_graph(200, 20, seed=4)
+        dtype = torch.float32 if cell == "posegraph32" else torch.float64
+        init, edges = _to_dev(init, dev, dtype), _to_dev(edges, dev, dtype)
+        iterations = length or 10
+        if cell != "posegraph_sharded":
+            return (lambda: optimize_pose_graph(init, edges, iterations)), {"if": 0, "while": 1}
+        mesh, _ = request.getfixturevalue("nccl_meshes")
+        # 199 + 20 edges and masked ones (weight 0) to a multiple of the 4 shards
+        n = (-edges.i.shape[0]) % 4
+        pad = lambda x, v: torch.cat([x, x[:1].expand((n,) + x.shape[1:]) if v is None else v])
+        fill = lambda dtype, v: torch.full((n,), v, dtype=dtype, device=dev)
+        padded = type(edges)(pad(edges.i, fill(torch.int32, 0)), pad(edges.j, fill(torch.int32, 1)),
+                             type(edges.measurement)(*(pad(x, None) for x in edges.measurement)),
+                             pad(edges.weight, fill(dtype, 0.0)), pad(edges.mask, fill(torch.bool, False)))
+
+        def sharded():
+            with torch.profiler.record_function(program.DRIVER_RANGE):
+                return optimize_pose_graph_sharded(init, padded, mesh, iterations)
+        return sharded, {"if": 0, "while": 1}
+    lo_np, lo_pos, lo_yaw = square_loop_scans(lidar, n_side=4, step=0.4)
+    drift = np.cumsum(np.random.default_rng(0).normal(0, 0.01, lo_pos.shape) * [1, 1, 0.2], axis=0)
+    traj = Pose3(quat_exp(torch.tensor([[0.0, 0.0, y] for y in lo_yaw])).float().to(dev),
+                 torch.from_numpy(lo_pos + drift).float().to(dev))
+    feats = T.extract_features_batch(torch.from_numpy(lo_np).to(dev), lidar)
+    kw = dict(max_candidates=4, min_separation=8, max_distance=1.5, iterations=8)
+    return (lambda: optimize_trajectory_with_closures(traj, feats, T.RegistrationParams(), **kw)), \
+        {"if": 0, "while": 2}
+
+
+@pytest.mark.parametrize("cell", LAST_CELLS)
+def test_last_programs_match_eager(dev, request, cell):
+    """The grid registration, scan-to-map through the grid, the pose-graph
+    solve (float64, float32, on a mesh of 4 shards in a world-size-1 NCCL
+    group) and the loop-closed call, each one CUDA graph (the grid's
+    searches and the sharded sums inside WHILE nodes, the LM iterations a
+    WHILE node): inside the driver's range one ``cudaGraphLaunch`` a call
+    and no read of the device; every output tensor bit-equal to the same
+    call eager, every kernel's launches and the ICF iterations equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch import program
+    from loam_tpu_torch.profiling import host_reads, launch_calls
+    from loam_tpu_torch.registration import loop
+
+    run, want_nodes = _last_run(dev, cell, request)
+    counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
+               knn_cuda.knn_run, knn_cuda.knn_dual_run)
+
+    def counts(fn):
+        for c in counted:
+            c.launches = 0
+        n0 = loop.iterations
+        out = program.clone(fn())
+        torch.cuda.synchronize()
+        return out, [c.launches for c in counted] + [loop.iterations - n0]
+
+    loop.clear_cache()
+    graph, n_graph = counts(run)
+    with loop._eager():
+        eager, n_eager = counts(run)
+    assert n_graph == n_eager, (n_graph, n_eager)
+    assert (n_graph[-1] > 0) == (not cell.startswith("posegraph"))
+    got, want = _tensor_leaves(graph), _tensor_leaves(eager)
+    assert len(got) == len(want) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    (stats,) = loop.graph_stats()
+    assert stats["conditional_nodes"] == want_nodes and stats["replays"] == 1, stats
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    _, inside = launch_calls(events, within=program.DRIVER_RANGE)
+    assert inside.get("cudaGraphLaunch", 0) == 1, inside
+    assert host_reads(events) == {}
+    for a, b in zip(_tensor_leaves(again), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["grid_s2m", "posegraph"])
+def test_last_programs_nodes_do_not_depend_on_length(dev, request, cell):
+    """Scan-to-map through the grid at 9 and 17 frames, and the float64
+    pose-graph solve at 10 and 40 LM iterations: the same graph nodes
+    (bodies counted once) and conditional nodes, each run bit-equal to its
+    eager run."""
+    from loam_tpu_torch import program
+    from loam_tpu_torch.registration import loop
+
+    stats = []
+    name = "posegraph64" if cell == "posegraph" else cell
+    for length in ((9, 17) if cell == "grid_s2m" else (10, 40)):
+        run, want_nodes = _last_run(dev, name, request, length)
+        loop.clear_cache()
+        got = program.clone(run())
+        (g,) = loop.graph_stats()
+        stats.append(g)
+        assert g["conditional_nodes"] == want_nodes
+        with loop._eager():
+            want = run()
+        for a, b in zip(_tensor_leaves(got), _tensor_leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert stats[0]["nodes"] == stats[1]["nodes"] > 0, stats

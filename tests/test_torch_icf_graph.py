@@ -197,29 +197,42 @@ def test_offline_chunks_share_one_key_and_match_loam_tpu(feats):
 
 
 def test_eager_paths_are_not_cached(feats, monkeypatch):
-    """The grid search and ``LOAM_DEBUG_NANS=1`` run on a loop made for the
-    call (the card would not capture them), with the cached runner's
-    results; the single and the dual search each get a key of their own,
-    and the cache keeps at most ``CACHE_KEYS`` loops a device."""
+    """``LOAM_DEBUG_NANS=1`` and a caller's own ``custom_knn`` run on a loop
+    made for the call (the card would not capture them: both may read the
+    host), with the cached runner's results; the grid search is a captured
+    path with a key of its own, as are the single and the dual search, and
+    the cache keeps at most ``CACHE_KEYS`` loops a device."""
+    from loam_tpu_torch.ops import knn_cuda
+
     src, tgt = _chunk(feats, [(0, 1)])
     ident = _init([[1.0, 0, 0, 0]], [[0.0, 0, 0]])
     cpu = torch.device("cpu")
+    rp = T.RegistrationParams()
     loop.clear_cache()
-    grid = T.RegistrationParams(search_backend="grid")
-    T.register_features_batch(src, tgt, ident, grid)
+    monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
+    debug = T.register_features_batch(src, tgt, ident)
+    monkeypatch.delenv("LOAM_DEBUG_NANS")
+    e_prep = knn_cuda.knn_prep(tgt.edge_points, tgt.edge_mask)
+    p_prep = knn_cuda.knn_prep(tgt.planar_points, tgt.planar_mask)
+    custom = (lambda q: knn_cuda.knn_run(e_prep, q, rp.num_edge_neighbors, rp.max_edge_neighbor_dist,
+                                         with_coords=True, query_mask=src.edge_mask),
+              lambda q: knn_cuda.knn_run(p_prep, q, rp.num_plane_neighbors, rp.max_plane_neighbor_dist,
+                                         with_coords=True, query_mask=src.planar_mask))
+    mine = icf._register_impl(src, tgt, ident, rp, False, custom_knn=custom)
     assert cpu not in loop._cache or not loop._cache[cpu]
     plain = T.register_features_batch(src, tgt, ident)
-    monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
-    assert _same(T.register_features_batch(src, tgt, ident), plain)
+    assert _same(debug, plain) and _same(mine, plain)
     assert len(loop._cache[cpu]) == 1
-    monkeypatch.delenv("LOAM_DEBUG_NANS")
+    grid = T.RegistrationParams(search_backend="grid")
+    T.register_features_batch(src, tgt, ident, grid)
+    assert [p.info["path"] for p in loop._cache[cpu].values()] == ["single", "grid"]
     f32 = (src.map(lambda x: x.float() if x.is_floating_point() else x),
            tgt.map(lambda x: x.float() if x.is_floating_point() else x))
     single = T.register_features_batch(*f32, ident)
     monkeypatch.setenv("LOAM_ICF_DUAL_KNN", "1")
     dual = T.register_features_batch(*f32, ident)
-    assert {p.info["path"] for p in loop._cache[cpu].values()} == {"single", "dual"}
-    assert len(loop._cache[cpu]) == 3
+    assert {p.info["path"] for p in loop._cache[cpu].values()} == {"single", "grid", "dual"}
+    assert len(loop._cache[cpu]) == 4
     np.testing.assert_allclose(dual[0].translation.numpy(), single[0].translation.numpy(), atol=1e-5)
     for iters in range(1, loop.CACHE_KEYS + 2):
         T.register_features_batch(src, tgt, ident, T.RegistrationParams(max_iterations=iters))
