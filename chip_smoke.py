@@ -120,7 +120,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  11. ``optimize_pose_graph`` at drive scale: a chain of 1,000 nodes plus 50
      closures, noise-free measurements, a perturbed start (H is 6,000 x
      6,000), in float64 and float32 on the card. Requires the float64 solve
-     to recover the true poses within 1e-5 m and both costs to fall; prints
+     to recover the true poses within 1e-5 m, both costs to fall, and the
+     float32 solve within 2e-3 m of the float64 solve and of the truth (the
+     float32 tolerance ``tests/test_torch_pose_graph.py`` states); prints
      ms per solve and the peak device memory.
  12. The multi-device surface (``loam_tpu_torch.parallel``) on a mesh of 4
      shards of this GPU, in a world-size-1 NCCL group started in-process
@@ -197,7 +199,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      offline-64x1024-c4 and scan-to-map on 16 and on 64 frames: the
      graph's nodes, conditional nodes by type, capture seconds, pool bytes
      and ms a call at each, the node counts and conditional nodes required
-     equal. Then the sharded cells, on 4 shards of this GPU in a
+     equal (at 16, 64 and 256 frames in phase 16). Then the sharded cells,
+     on 4 shards of this GPU in a
      world-size-1 NCCL group started afresh: s2m-64x1024-sharded4
      (``scan_to_map_step_sharded``, one program a frame: the sharded
      search's gathers inside the ICF loop's WHILE node, the sharded insert
@@ -227,6 +230,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      back and the eager run's device span by CUDA events, no profiler, beside
      the eager trace's kernel sum. Prints them as a ``{"one_program": ...}``
      line.
+ 16. The drive at a user's length: the trajectory's 256 frames (25.6 s of
+     an Ouster-64 at 10 Hz; every shorter run above is its first frames),
+     ``odometry_offline`` (``chunk_pairs=4``, ``motion_init``) and
+     ``scan_to_map_offline`` (default config and registration) each one
+     program, in float32 and in float64 (the plain kNN on the card, the
+     dtype rule; scan-to-map from float64 maps and poses): every pair's
+     relative pose in float32 within 2 mm and
+     1e-3 rad of float64's (F6 per pair; the largest and median gaps, the
+     mean gap vector and the absolute gap by frames 64, 128 and 256
+     printed), the pairs whose termination codes differ named, the ATE gate
+     for every run and float32's ATE within 10% of float64's. Scan-to-map
+     on the float64 scans from its default state (float32 maps, searched
+     and fitted in float32) is held to the float32 run the same way until
+     the two runs' keyframe decisions part (the frame and both runs'
+     distances from the last keyframe printed), and float32 on the scans
+     nudged by 1e-6 m is printed beside it: how near the drive's keyframe
+     decisions lie to their threshold. The maps' live slots, ``dropped``
+     0, overflow (0, 0), the kNN's visit share at the last frame. Then
+     offline-c4, s2m and s2m-grid captured afresh at 16, 64 and 256
+     frames: graph nodes and conditional nodes equal at every length, the
+     pool growing no faster than 1.25x what the call must hold (outputs
+     and hoisted features) plus 64 MiB; ms a call (the mean of 2 replays
+     after one), peak device memory. A ``{"drive": ...}`` line.
+     ``--drive-only`` runs phase 1 and this phase alone.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -273,6 +300,28 @@ ATOL_GRAPH_TRUTH_M = 1e-5
 # scan-to-map merge is exact; equidistant map points may come in shard
 # order), offline pairs in one lockstep batch against one pair a call
 ATOL_SHARD = 1e-5
+# the float32 pose-graph solve: within 2e-3 m of the float64 solve and of the
+# truth (the bound tests/test_torch_pose_graph.py holds the port's float32
+# solve to against loam_tpu's: float32's own rounding sets it)
+ATOL_GRAPH_F32_M = 2e-3
+# phase 16: one drive of an Ouster-64 at 10 Hz, 25.6 s
+DRIVE_FRAMES = 256
+# the shorter lengths each whole-call program is also captured at
+DRIVE_SIZES = (16, 64)
+# F6 on the card, every pair's relative pose float32 vs float64: 2x and 3.7x
+# loam_tpu's own float32 error per pair at 32x512 on the CPU (0.95 mm,
+# 2.7e-4 rad; tests/test_torch_odometry.py states the CPU tolerance)
+DRIVE_PAIR_M, DRIVE_PAIR_RAD = 2e-3, 1e-3
+# float32's ATE within 10% of float64's (3.8-5.1% at 40 frames of 32x512 on
+# the CPU, both packages)
+DRIVE_ATE_RATIO = 0.10
+# the scan perturbation (m, Gaussian, seed 7) of phase 16's float32 run
+# that shows how near its keyframe decisions lie to the threshold
+DRIVE_NUDGE_M = 1e-6
+# a whole-call program's pool grows with the frames no faster than what the
+# call must hold (its outputs and the hoisted feature batch), give or take the
+# allocator's rounding of each buffer
+POOL_GROWTH_RATIO, POOL_SLACK_B = 1.25, 64 << 20
 
 
 def _smi() -> str:
@@ -1413,40 +1462,289 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
     return out
 
 
-def _graph_size_phase(smi, cells, vary=None, unit=None) -> dict:
-    """Phase 15's last row: a trajectory call's graph at two lengths
-    (``cells``: cell -> {frames: run}; ``unit``: cell -> what a length
-    counts where it is not frames, e.g. the pose graph's LM iterations),
-    captured afresh at each: its nodes (bodies counted once), conditional
-    nodes by type, capture seconds, pool bytes and ms a call (the mean of 2
-    replays after the capture); the nodes and conditional nodes required
-    equal at every length, but for a cell of ``vary`` (cell -> why), whose
-    nodes may follow the length: its conditional nodes are required equal
-    and the reason is printed."""
+def _graph_size_phase(smi, cells, vary=None, unit=None, held=None, phase=15) -> dict:
+    """A trajectory call's graph at several lengths (``cells``: cell ->
+    {frames: run}; ``unit``: cell -> what a length counts where it is not
+    frames, e.g. the pose graph's LM iterations), captured afresh at each:
+    its nodes (bodies counted once), conditional nodes by type, capture
+    seconds, pool bytes and ms a call (the mean of 2 replays after the
+    capture); the nodes and conditional nodes required equal at every
+    length, but for a cell of ``vary`` (cell -> why), whose nodes may follow
+    the length: its conditional nodes are required equal and the reason is
+    printed. ``held`` (cell -> f(output, frames)): the bytes the call must
+    hold at that length, printed beside the pool, whose growth from the
+    shortest length to the longest is held to ``POOL_GROWTH_RATIO`` times
+    theirs plus ``POOL_SLACK_B``. Gates that fail raise after every cell
+    is printed."""
     from loam_tpu_torch.registration import loop
 
-    out = {}
+    out, failed = {}, []
     for cell, runs in cells.items():
         rows = {}
         what = (unit or {}).get(cell, "frames")
+        need = (held or {}).get(cell)
         for frames, run in runs.items():
-            _stamp(f"phase 15: {cell} at {frames} {what}")
+            _stamp(f"phase {phase}: {cell} at {frames} {what}")
             loop.clear_cache()
-            run()
+            got = run()
             (g,) = loop.graph_stats()
             rows[frames] = {k: g[k] for k in ("nodes", "conditional_nodes", "capture_s", "pool_bytes")}
+            beside = ""
+            if need:
+                rows[frames]["need_bytes"] = need(got, frames)
+                beside = f" beside {rows[frames]['need_bytes']} B the call must hold"
+            del got
             rows[frames]["ms_per_call"] = _seconds_per_run(run, 2) * 1e3
             print(f"{cell} at {frames} {what}: {g['nodes']} graph nodes, conditional nodes "
-                  f"{g['conditional_nodes']}, captured in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B, "
-                  f"{rows[frames]['ms_per_call']:.3f} ms a call, on {smi}")
+                  f"{g['conditional_nodes']}, captured in {g['capture_s']:.3f} s, pool {g['pool_bytes']} B"
+                  f"{beside}, {rows[frames]['ms_per_call']:.3f} ms a call, on {smi}")
         why = (vary or {}).get(cell)
         sizes = {(None if why else r["nodes"], str(r["conditional_nodes"])) for r in rows.values()}
         if len(sizes) != 1:
-            raise AssertionError(f"{cell}: the graph's size depends on the {what}: {rows}")
+            failed.append(f"{cell}: the graph's size depends on the {what}: {rows}")
         if why and len({r["nodes"] for r in rows.values()}) > 1:
             print(f"{cell}: the graph's nodes follow the frames: {why}")
+        if need:
+            n0, n1 = min(rows), max(rows)
+            grow = rows[n1]["pool_bytes"] - rows[n0]["pool_bytes"]
+            must = rows[n1]["need_bytes"] - rows[n0]["need_bytes"]
+            print(f"{cell}: from {n0} to {n1} {what} the pool grew {grow} B ({grow / (n1 - n0):.0f} B a "
+                  f"frame), what it must hold {must} B ({must / (n1 - n0):.0f} B a frame)")
+            if grow > POOL_GROWTH_RATIO * must + POOL_SLACK_B:
+                failed.append(f"{cell}: the pool grew {grow} B from {n0} to {n1} {what}, what it must hold "
+                              f"{must} B")
         out[cell] = rows
     loop.clear_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _keyframes(traj, config):
+    """Scan-to-map's keyframe decisions, from a trajectory on the host (the
+    rule of ``odometry.scan_to_map._frame``: the first frame, and each
+    frame farther than ``keyframe_dist`` or turned more than
+    ``keyframe_angle`` from the last keyframe): (F,) bools and the (F,)
+    distances from the last keyframe."""
+    t = traj.translation.cpu().double().numpy()
+    q = traj.rotation.cpu().double().numpy()
+    ins, dist = np.zeros(len(t), bool), np.zeros(len(t))
+    ins[0], k = True, 0
+    for f in range(1, len(t)):
+        w1, x1, y1, z1 = q[k] * np.array([1.0, -1.0, -1.0, -1.0])
+        w2, x2, y2, z2 = q[f]
+        v = np.array([w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2, w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                      w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+        w = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2
+        dist[f] = np.linalg.norm(t[f] - t[k])
+        if dist[f] > config.keyframe_dist or 2.0 * np.arctan2(np.linalg.norm(v), abs(w)) > config.keyframe_angle:
+            ins[f], k = True, f
+    return ins, dist
+
+
+def _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg, s2m_cfg, grid_reg, drive,
+                 extraction, knn_cuda, ate_rmse) -> dict:
+    """Phase 16: the drive at a user's length, each call one program.
+    ``odometry_offline`` (``chunk_pairs=4``, ``motion_init``) and
+    ``scan_to_map_offline`` over the drive in float32 and in float64 (which
+    takes the plain kNN on the card, as ``loam_tpu`` takes its plain search
+    for float64; scan-to-map's float64 run starts from float64 maps and
+    poses, ``scan_to_map_init(dtype=float64)``), and scan-to-map on the
+    float64 scans from its default state, whose float32 maps its search
+    and fits work in (the kernel), and float32 on the scans nudged by
+    ``DRIVE_NUDGE_M``: every pair's relative pose within ``DRIVE_PAIR_M`` /
+    ``DRIVE_PAIR_RAD`` of float64's for the float32 runs, and of float32's
+    for the default-state run until the two runs' keyframe decisions
+    (:func:`_keyframes`) part, after which their maps differ (the frame and
+    both runs' distances from the last keyframe printed; the nudged run,
+    printed only, shows how near the threshold the drive's decisions lie);
+    the pairs whose termination codes differ named, the ATE gate for every
+    run and the ATE within ``DRIVE_ATE_RATIO`` of the run it is held to
+    where the keyframes never part; the maps' live slots, ``dropped`` 0,
+    overflow (0, 0) and the kNN's visit share at the last frame. Then each
+    whole-call program (offline-c4, s2m and s2m-grid) captured afresh at
+    16, 64 and all the frames (:func:`_graph_size_phase`): graph nodes and
+    conditional nodes equal at every length, and the pool growing no faster
+    than what the call must hold (its outputs and the hoisted feature
+    batch; ``POOL_GROWTH_RATIO``, ``POOL_SLACK_B``). Peak device memory and
+    ms a call. Gates that fail raise after everything is printed."""
+    from loam_tpu_torch.evaluation import relative_pose_gaps
+    from loam_tpu_torch.registration import loop
+
+    D = drive_np.shape[0]
+    scans = torch.from_numpy(drive_np).to(dev)
+    scans64 = scans.double()
+    nudge = np.random.default_rng(7).normal(0.0, DRIVE_NUDGE_M, drive_np.shape)
+    nudged = torch.from_numpy((drive_np + nudge).astype(np.float32)).to(dev)
+    state64 = T.scan_to_map_init(s2m_cfg, dtype=torch.float64, lidar=lidar, feat_params=fp, device=dev)
+    kernel = (extraction + ("knn",), ("knn_dual",))
+    plain_knn = ((), ("knn", "knn_dual"))
+    failed = []
+    out = {"frames": D, "runs": {}, "pairs": {}, "sizes": {}}
+    cells = {
+        "offline_f32": (lambda: T.odometry_offline(scans, lidar, fp, rp, chunk_pairs=4, motion_init=True),
+                        D, kernel),
+        "offline_f64": (lambda: T.odometry_offline(scans64, lidar, fp, rp, chunk_pairs=4, motion_init=True),
+                        D, plain_knn),
+        "s2m_f32": (lambda: T.scan_to_map_offline(scans, lidar, fp, s2m_reg, s2m_cfg), D, kernel),
+        "s2m_f64": (lambda: T.scan_to_map_offline(scans64, lidar, fp, s2m_reg, s2m_cfg, init_state=state64), D,
+                    plain_knn),
+        "s2m_f64_default": (lambda: T.scan_to_map_offline(scans64, lidar, fp, s2m_reg, s2m_cfg), D, kernel),
+        "s2m_f32_nudged": (lambda: T.scan_to_map_offline(nudged, lidar, fp, s2m_reg, s2m_cfg), D, kernel),
+    }
+    res = {}
+    with _dual_knn(False):
+        for name, (run, n, (must, must_not)) in cells.items():
+            _stamp(f"phase 16: {name}, {n} frames")
+            loop.clear_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = drive(f"drive_{name}", run, must, must_not)
+            first_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - held
+            (g,) = [x for x in loop.graph_stats() if x["path"] in ("odometry_offline", "scan_to_map_offline")]
+            state, traj, det = got if name.startswith("s2m") else (None, *got)
+            ate, limit, _ = _check_trajectory(f"drive {name}", traj.translation, traj.rotation, n,
+                                              drive_gt[:n], ate_rmse)
+            row = {"frames": n, "ate_m": ate, "ate_limit_m": limit, "first_call_s": first_s,
+                   "peak_bytes": peak, "pool_bytes": g["pool_bytes"], "nodes": g["nodes"],
+                   "conditional_nodes": g["conditional_nodes"], "capture_s": g["capture_s"],
+                   "iterations": int(det.num_iterations.sum())}
+            res[name] = (state, traj, det)
+            if state is not None:
+                info = det.iteration_info
+                row.update(edge_live=int(state.edge_map.size), edge_slots=state.edge_map.points.shape[0],
+                           planar_live=int(state.planar_map.size), planar_slots=state.planar_map.points.shape[0],
+                           dropped=int(state.dropped), overflow=[int(info.edge_knn_overflow.sum()),
+                                                                 int(info.plane_knn_overflow.sum())])
+                if row["dropped"] != 0 or row["overflow"] != [0, 0]:
+                    failed.append(f"{name}: dropped {row['dropped']}, overflow {row['overflow']}")
+            out["runs"][name] = row
+            maps = (f"; maps {row['edge_live']} / {row['edge_slots']} edge, {row['planar_live']} / "
+                    f"{row['planar_slots']} planar slots live, dropped {row['dropped']}, overflow "
+                    f"{tuple(row['overflow'])}" if state is not None else "")
+            print(f"drive {name}: {n} frames of 64x1024, ATE {ate:.6f} m (limit {limit:.6f} m), "
+                  f"{row['iterations']} ICF iterations, first call {first_s:.3f} s (capture "
+                  f"{g['capture_s']:.3f} s); pool {g['pool_bytes']} B, {g['nodes']} nodes, conditional "
+                  f"nodes {g['conditional_nodes']}; peak device memory {peak} B above the {held} B held "
+                  f"before{maps}, on {smi}")
+
+    # F6 per pair: float32 against float64, every pair; scan-to-map's
+    # float64 scans from the default state (float32 maps, which its search
+    # and fits work in) against float32, every pair until the two runs'
+    # keyframes part (after, the maps differ), and against float64, printed;
+    # float32 on scans nudged by DRIVE_NUDGE_M against float32, printed
+    keyframes = {name: _keyframes(r[1], s2m_cfg) for name, r in res.items() if r[0] is not None}
+    for label, a_name, b_name, gate in (("offline", "offline_f32", "offline_f64", "every pair"),
+                                        ("s2m", "s2m_f32", "s2m_f64", "every pair"),
+                                        ("s2m-default-f64", "s2m_f64_default", "s2m_f32", "until keyframes part"),
+                                        ("s2m-default-f64 vs f64", "s2m_f64_default", "s2m_f64", None),
+                                        ("s2m-nudged", "s2m_f32_nudged", "s2m_f32", None)):
+        a, b = res[a_name], res[b_name]
+        n = min(a[1].translation.shape[0], b[1].translation.shape[0])
+        ta, qa = a[1].translation.cpu().double().numpy()[:n], a[1].rotation.cpu().double().numpy()[:n]
+        tb, qb = b[1].translation.cpu().double().numpy()[:n], b[1].rotation.cpu().double().numpy()[:n]
+        dt, ang = relative_pose_gaps(ta, qa, tb, qb)
+        nt = np.linalg.norm(dt, axis=1)
+        absgap = np.linalg.norm(ta - tb, axis=1)
+        # the terminations of the pairs (offline) or frames (scan-to-map) both runs made
+        m = min(len(a[2].termination), len(b[2].termination))
+        term_a, term_b = a[2].termination.cpu().numpy()[:m], b[2].termination.cpu().numpy()[:m]
+        differ = np.flatnonzero(term_a != term_b).tolist()
+        # offline's i-th code is pair (i, i + 1)'s, scan-to-map's f-th frame f's: pair (f - 1, f)
+        first = 0 if label == "offline" else -1
+        ate_a, ate_b = ate_rmse(ta, drive_gt[:n], align=False), ate_rmse(tb, drive_gt[:n], align=False)
+        # the first frame whose keyframe decision differs: its pose comes
+        # before the insert, so pairs up to (split - 1, split) share the maps
+        split = None
+        if a_name in keyframes:
+            ka, kb = keyframes[a_name][0][:n], keyframes[b_name][0][:n]
+            parted = np.flatnonzero(ka != kb)
+            split = int(parted[0]) if parted.size else None
+        row = {"runs": [a_name, b_name], "frames": n, "translation_max_m": float(nt.max()),
+               "translation_median_m": float(np.median(nt)),
+               "rotation_max_rad": float(ang.max()), "rotation_median_rad": float(np.median(ang)),
+               "mean_gap_vector_m": dt.mean(axis=0).tolist(),
+               "absolute_gap_m": {f: float(absgap[:f].max()) for f in (64, 128, 256) if f <= n},
+               "termination_differs": [{"pair": [i + first, i + first + 1], a_name: int(term_a[i]),
+                                        b_name: int(term_b[i]),
+                                        "translation_m": float(nt[i + first]) if i + first >= 0 else 0.0,
+                                        "rotation_rad": float(ang[i + first]) if i + first >= 0 else 0.0}
+                                       for i in differ],
+               "ate_a_m": ate_a, "ate_b_m": ate_b, "ate_ratio": ate_a / ate_b, "keyframes_part_at": split}
+        parted = ""
+        if split is not None:
+            da, db = keyframes[a_name][1][split], keyframes[b_name][1][split]
+            row["keyframe_distance_at_split_m"] = [float(da), float(db)]
+            row["before_split"] = {"translation_max_m": float(nt[:split].max()) if split else 0.0,
+                                   "rotation_max_rad": float(ang[:split].max()) if split else 0.0}
+            parted = (f"; keyframes part at frame {split} (distance since the last keyframe {da:.6f} m in "
+                      f"{a_name}, {db:.6f} m in {b_name}, threshold {s2m_cfg.keyframe_dist} m): before it "
+                      f"translation max {row['before_split']['translation_max_m']:.4e} m, rotation max "
+                      f"{row['before_split']['rotation_max_rad']:.4e} rad")
+        out["pairs"][label] = row
+        limits = gate is not None
+        worst = int(np.argmax(nt / DRIVE_PAIR_M + ang / DRIVE_PAIR_RAD))
+        print(f"drive {label} per pair, {a_name} vs {b_name} over {n} frames ({n - 1} pairs; gated: "
+              f"{gate or 'no'}): translation max {row['translation_max_m']:.4e} m, median "
+              f"{row['translation_median_m']:.4e} m (limit {DRIVE_PAIR_M if limits else 'none'}); rotation max "
+              f"{row['rotation_max_rad']:.4e} rad, median {row['rotation_median_rad']:.4e} rad (limit "
+              f"{DRIVE_PAIR_RAD if limits else 'none'}); mean gap vector "
+              f"({', '.join(f'{x * 1e3:.4f}' for x in row['mean_gap_vector_m'])}) mm; largest absolute gap "
+              + ", ".join(f"{v:.4e} m by frame {f}" for f, v in row["absolute_gap_m"].items())
+              + f"; ATE {a_name} {ate_a:.6f} m, {b_name} {ate_b:.6f} m (ratio {row['ate_ratio']:.4f}); "
+              f"termination codes differ at {len(differ)} of {m}: {row['termination_differs'] or 'none'}; "
+              f"worst pair ({worst}, {worst + 1}){parted}")
+        if gate is None:
+            continue
+        upto = n - 1 if gate == "every pair" or split is None else split
+        bad = np.flatnonzero((nt[:upto] > DRIVE_PAIR_M) | (ang[:upto] > DRIVE_PAIR_RAD)).tolist()
+        if bad:
+            failed.append(f"{label}: pairs past the per-pair tolerance: "
+                          + ", ".join(f"{i}->{i + 1} {nt[i]:.3e} m {ang[i]:.3e} rad" for i in bad))
+        if upto == n - 1 and abs(row["ate_ratio"] - 1) > DRIVE_ATE_RATIO:
+            failed.append(f"{label}: {a_name} ATE {ate_a} m against {b_name}'s {ate_b} m")
+
+    # the kNN's visit share at the last frame: its planar queries at the
+    # final pose against the final planar map, the cold seed bound
+    st, traj = res["s2m_f32"][0], res["s2m_f32"][1]
+    last = T.registration.spatial_sort_features(T.extract_features(scans[-1], lidar, fp))
+    pose = T.Pose3(traj.rotation[-1], traj.translation[-1])
+    q = pose.act(last.planar_points)[None].contiguous()
+    prep = knn_cuda.knn_prep(st.planar_map.points[None], st.planar_map.mask[None])
+    k = s2m_reg.num_plane_neighbors
+    _, visits = knn_cuda.knn_run(prep, q, k, s2m_reg.max_plane_neighbor_dist,
+                                 query_mask=last.planar_mask[None].contiguous(), return_visits=True,
+                                 seed_window=True)
+    live = knn_cuda._plain_visits(prep.n_live, prep.tt, q.shape[1], k)
+    out["last_frame_visit_share"] = int(visits.sum()) / max(int(live.sum()), 1)
+    print(f"drive s2m_f32: the last frame's planar search visits {int(visits.sum())} of {int(live.sum())} "
+          f"live boxes (share {out['last_frame_visit_share']:.4f}; phase 2's mapfull, every slot live, "
+          f"is the dense case) against {int(st.planar_map.size)} live map slots")
+
+    # each whole-call program at 16, 64 and all the frames: its size, and
+    # its pool against what it must hold: its outputs (the trajectory and
+    # the details) and the hoisted feature batch
+    per_frame = _nbytes(*_leaves(T.extract_features_batch(scans[:1], lidar, fp)))
+    calls = {
+        "offline-64x1024-c4": lambda n: T.odometry_offline(scans[:n], lidar, fp, rp, chunk_pairs=4,
+                                                           motion_init=True),
+        "s2m-64x1024": lambda n: T.scan_to_map_offline(scans[:n], lidar, fp, s2m_reg, s2m_cfg)[1:],
+        "s2m-64x1024-grid": lambda n: T.scan_to_map_offline(scans[:n], lidar, fp, grid_reg, s2m_cfg)[1:],
+    }
+    held = {cell: (lambda got, n: _nbytes(*_leaves(got)) + per_frame * n) for cell in calls}
+    try:
+        with _dual_knn(False):
+            out["sizes"] = _graph_size_phase(
+                smi, {cell: {n: (lambda n=n, call=call: call(n)) for n in (*DRIVE_SIZES, D)}
+                      for cell, call in calls.items()}, held=held, phase=16)
+    except AssertionError as e:
+        failed.append(str(e))
+    print(json.dumps({"drive": out}))
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
     return out
 
 
@@ -1457,8 +1755,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     extraction_only = sys.argv[1:] == ["--extraction-only"]
-    if sys.argv[1:] and not extraction_only:
-        print("usage: chip_smoke.py [--extraction-only]", file=sys.stderr)
+    drive_only = sys.argv[1:] == ["--drive-only"]
+    if sys.argv[1:] and not (extraction_only or drive_only):
+        print("usage: chip_smoke.py [--extraction-only | --drive-only]", file=sys.stderr)
         return 2
 
     import loam_tpu_torch as T
@@ -1496,11 +1795,57 @@ def main() -> int:
     fp = T.FeatureExtractionParams(precise_selection=True)
     rp = T.RegistrationParams(search_backend="bruteforce")
     frames = 16
-    scans_np, poses = render_trajectory(
-        lidar, frames, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01,
-        noise=0.005, seed=0, dtype=np.float32,
+    # the drive of phase 16, rendered once: render_trajectory seeds frame f
+    # with seed + f, so the shorter runs' scans are its first frames
+    drive_np, drive_poses = render_trajectory(
+        lidar, frames if extraction_only else DRIVE_FRAMES, step=np.array([0.08, 0.02, 0.0]),
+        yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32,
     )
+    drive_gt = np.stack([t for (_, t) in drive_poses])
+    scans_np, poses = drive_np[:frames], drive_poses[:frames]
     scans = torch.from_numpy(scans_np).to(dev)
+    counters = {
+        "sector_sort": bitonic_cuda.sector_sort,
+        "greedy_nms": nms_cuda.greedy_nms,
+        "select_points": assemble_cuda.select_points,
+        "knn": knn_cuda.knn_run,
+        "knn_dual": knn_cuda.knn_dual_run,
+    }
+    extraction = ("sector_sort", "greedy_nms", "select_points")
+    path_launches = {}
+
+    def drive(path, run, must, must_not):
+        """One counted run of a path: every counter at 0 just before it,
+        read just after; ``must`` kernels launched, ``must_not`` not."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        path_launches[path] = launches
+        print(f"{path} launches: {launches} (first run {first_s:.3f} s)")
+        missing = [k for k in must if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{path} did not launch: {missing}")
+        extra = [k for k in must_not if launches[k] != 0]
+        if extra:
+            raise AssertionError(f"{path} launched {extra}, which it must not")
+        return out
+
+    s2m_cfg = T.ScanToMapConfig()
+    s2m_reg = T.default_map_reg_params()
+    grid_reg = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
+    if drive_only:
+        # phase 16 alone, after the build
+        _stamp("phase 16")
+        _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg, s2m_cfg, grid_reg,
+                     drive, extraction, knn_cuda, ate_rmse)
+        _stamp("phases done")
+        print(smi)
+        return 0
     kernels = _extraction_kernels(scans, lidar, fp, "")
     # ... and at one frame's shape, what scan-to-scan launches once a frame
     kernels += _extraction_kernels(scans[:1], lidar, fp, "_frame")
@@ -1680,8 +2025,6 @@ def main() -> int:
     # dual kNN, map scale: the voxel maps after the first frames at the
     # default ScanToMapConfig, searched by the next frame's features at the
     # constant-velocity prediction
-    s2m_cfg = T.ScanToMapConfig()
-    s2m_reg = T.default_map_reg_params()
     n_map = 4
     with _dual_knn(True):
         st, _, _ = T.scan_to_map_offline(scans[:n_map], lidar, fp, s2m_reg, s2m_cfg)
@@ -1830,37 +2173,7 @@ def main() -> int:
 
     # ---- 3. the offline driver (single kNN) ----------------------------------
     _stamp("phase 3")
-    counters = {
-        "sector_sort": bitonic_cuda.sector_sort,
-        "greedy_nms": nms_cuda.greedy_nms,
-        "select_points": assemble_cuda.select_points,
-        "knn": knn_cuda.knn_run,
-        "knn_dual": knn_cuda.knn_dual_run,
-    }
-    extraction = ("sector_sort", "greedy_nms", "select_points")
-    gt = np.stack([t for (_, t) in poses])
-    path_launches = {}
-
-    def drive(path, run, must, must_not):
-        """One counted run of a path: every counter at 0 just before it,
-        read just after; ``must`` kernels launched, ``must_not`` not."""
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        path_launches[path] = launches
-        print(f"{path} launches: {launches} (first run {first_s:.3f} s)")
-        missing = [k for k in must if launches[k] <= 0]
-        if missing:
-            raise AssertionError(f"{path} did not launch: {missing}")
-        extra = [k for k in must_not if launches[k] != 0]
-        if extra:
-            raise AssertionError(f"{path} launched {extra}, which it must not")
-        return out
+    gt = drive_gt[:frames]
 
     def run_offline():
         # the renderer's numpy array, no device: odometry_offline moves it to the GPU
@@ -1899,7 +2212,6 @@ def main() -> int:
                                 noise=0.003, seed=11, dtype=np.float32)
     s_gpu, s_cpu = torch.from_numpy(s_np).to(dev), torch.from_numpy(s_np)
     small_cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
-    grid_reg = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
 
     def s2s_loop(x, lid):
         state = T.scan_to_scan_init(lid, fp, device=x.device)
@@ -2289,6 +2601,13 @@ def main() -> int:
             raise AssertionError(f"pose graph float64: {err} m from the true poses")
         if dtype == torch.float64:
             opt64 = opt_k
+    # float32's rounding against the float64 solve and the truth
+    gap_t = _max_err(opt_k.translation.double(), opt64.translation)
+    gap_q = _max_err(opt_k.rotation.double(), opt64.rotation)
+    print(f"pose graph float32 vs float64: {gap_t:.3e} m, {gap_q:.3e} (quaternion); vs the truth {err:.3e} m "
+          f"(limit {ATOL_GRAPH_F32_M} m)")
+    if not (gap_t <= ATOL_GRAPH_F32_M and err <= ATOL_GRAPH_F32_M):
+        raise AssertionError(f"pose graph float32: {gap_t} m from the float64 solve, {err} m from the truth")
 
     # ---- 12. the sharded paths on a mesh of four shards of this GPU ----------------------
     _stamp("phase 12")
@@ -2375,23 +2694,20 @@ def main() -> int:
                                   extraction + ("knn_dual",), dict(check=check_closures, rate=False)),
     })
     one_program = _graph_phase(torch, smi, frames, drive, path_launches, graph_cells, reps)
-    # the same trajectory, 64 frames long: 16 and 64 frames (15 and 63 pairs) through one graph each
-    long_np, _ = render_trajectory(lidar, 64, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01,
-                                   noise=0.005, seed=0, dtype=np.float32)
-    long = torch.from_numpy(long_np).to(dev)
-    with _dual_knn(False):
-        one_program["graph_size"] = _graph_size_phase(smi, {
-            "offline-64x1024-c4": {n: (lambda n=n: T.odometry_offline(long[:n], lidar, fp, rp, chunk_pairs=4,
-                                                                      motion_init=True)) for n in (16, 64)},
-            "s2m-64x1024": {n: (lambda n=n: T.scan_to_map_offline(long[:n], lidar, fp, s2m_reg, s2m_cfg))
-                            for n in (16, 64)},
-            "s2m-64x1024-grid": {n: (lambda n=n: T.scan_to_map_offline(long[:n], lidar, fp, grid_reg, s2m_cfg))
-                                 for n in (16, 64)},
-            "posegraph-1000-f64": {n: (lambda n=n: optimize_pose_graph(*pg64, n)) for n in (10, 40)},
-        }, unit={"posegraph-1000-f64": "iterations"})
+    # the drive's first 64 frames: the sharded cells at 16 and 64 frames
+    # (offline-c4, s2m and s2m-grid at 16, 64 and 256: phase 16)
+    long = torch.from_numpy(drive_np[:64]).to(dev)
+    one_program["graph_size"] = _graph_size_phase(smi, {
+        "posegraph-1000-f64": {n: (lambda n=n: optimize_pose_graph(*pg64, n)) for n in (10, 40)},
+    }, unit={"posegraph-1000-f64": "iterations"})
     one_program.update(_sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames, drive,
                                             path_launches, extraction, reps, pg64, gt1k, opt64))
     print(json.dumps({"one_program": one_program}))
+
+    # ---- 16. the drive: 256 frames, float32 against float64, each call one program ----
+    _stamp("phase 16")
+    _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg, s2m_cfg, grid_reg, drive,
+                 extraction, knn_cuda, ate_rmse)
 
     _stamp("phases done")
     for kd in kernels:

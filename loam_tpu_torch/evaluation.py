@@ -1,6 +1,9 @@
 """Trajectory evaluation: ATE / RPE metrics (host-side NumPy).
 
-A JAX-free copy of ``loam_tpu.evaluation``.
+A JAX-free copy of ``loam_tpu.evaluation``, plus the port's
+:func:`relative_pose_gaps` (how far two trajectories' pair motions differ:
+the float32 tolerance against float64 and against ``loam_tpu`` is stated per
+pair).
 
 The reference publishes no quantitative accuracy (SURVEY §6); BASELINE.json
 scores this framework on ATE vs the reference on held-out segments. These
@@ -148,3 +151,50 @@ def rpe_rmse(
     err = (est[delta:] - est[:-delta]) - (ref[delta:] - ref[:-delta])
     n = np.linalg.norm(err, axis=1)
     return float(np.sqrt((n * n).mean()))
+
+
+def _quat_multiply(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Hamilton product of (..., 4) wxyz quaternions."""
+    w1, x1, y1, z1 = np.moveaxis(a, -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(b, -1, 0)
+    return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], axis=-1)
+
+
+def _pair_motions(positions: np.ndarray, rotations: np.ndarray):
+    """``T_i^-1 o T_{i+1}`` of each consecutive pair: translations (F-1, 3)
+    in the frame of pose i and unit wxyz quaternions (F-1, 4), float64."""
+    t = np.asarray(positions, np.float64)
+    q = np.asarray(rotations, np.float64)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    R = _as_rotmats(q)
+    dt = np.einsum("fji,fj->fi", R[:-1], t[1:] - t[:-1])
+    conj = q[:-1] * np.array([1.0, -1.0, -1.0, -1.0])
+    return dt, _quat_multiply(conj, q[1:])
+
+
+def relative_pose_gaps(
+    est_positions: np.ndarray,
+    est_rotations: np.ndarray,
+    ref_positions: np.ndarray,
+    ref_rotations: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """How far each consecutive pair's motion differs between two
+    trajectories of the same frames, in float64: ``E_i = est_i^-1 o
+    est_{i+1}`` against ``G_i = ref_i^-1 o ref_{i+1}``.
+
+    Returns ``(dt, angle)``: ``dt`` (F-1, 3) is ``trans(E_i) - trans(G_i)``,
+    both in the frame of pose i (m; its mean over the pairs shows a bias);
+    ``angle`` (F-1,) the rotation between ``rot(E_i)`` and ``rot(G_i)``
+    (rad), read from the vector part ``v`` of ``q(G_i)^* q(E_i)`` as
+    ``2 atan2(|v|, |w|)``: a reading from the quaternions' dot product
+    leaves ~1e-3 rad unresolved once the dot is within a float32 rounding
+    of 1.
+    """
+    te, qe = _pair_motions(est_positions, est_rotations)
+    tg, qg = _pair_motions(ref_positions, ref_rotations)
+    g = _quat_multiply(qg * np.array([1.0, -1.0, -1.0, -1.0]), qe)
+    angle = 2.0 * np.arctan2(np.linalg.norm(g[:, 1:], axis=-1), np.abs(g[:, 0]))
+    return te - tg, angle

@@ -16,7 +16,8 @@ thresholds are plain f64 comparisons and no ``-0.0`` canonicalisation is
 needed.
 
 Frames are a batch dimension written out: the three kernels of this module
-(sector sort, greedy NMS, copy-out) each run once for all frames x lines.
+(sector sort, greedy NMS, copy-out) each run once for all frames x lines
+(the trajectory drivers': of a block of frames, :func:`extract_in_blocks`).
 :func:`extract_features_batch` called on its own is one program
 (``program.py``: one CUDA-graph launch on the card, eager on the CPU), as
 ``loam_tpu``'s is one jitted call; inside another program (a trajectory, a
@@ -36,6 +37,12 @@ from ..ops.nms_cuda import greedy_nms
 from ..params import FeatureExtractionParams, LidarParams
 from .curvature import compute_curvature, compute_valid_points, validate_scan
 from .types import FeatureSet
+
+#: Frames a block of :func:`extract_in_blocks`: the trajectory drivers
+#: extract their frames a block at a time, so the extraction's workspace
+#: (curvature, sort keys, candidate lists: ~8 MB a 64x1024 frame) is one
+#: block's whatever the trajectory's length, and only the features stay.
+EXTRACT_BLOCK = 16
 
 
 def _extract_core(pts, curv, valid, lidar: LidarParams, params: FeatureExtractionParams,
@@ -109,6 +116,31 @@ def _extract_batch(pts, lidar: LidarParams, params: FeatureExtractionParams, pos
     valid = compute_valid_points(pts, lidar, params)
     fs = _extract_core(pts, curv, valid, lidar, params)
     return post(fs) if post is not None else fs
+
+
+def extract_in_blocks(scans: torch.Tensor, lidar: LidarParams,
+                      params: FeatureExtractionParams = FeatureExtractionParams(),
+                      post=None) -> FeatureSet:
+    """:func:`extract_features_batch`'s features of (F, L, P, 3) or (F, L*P,
+    3) ``scans``, inside a program: the frames in blocks of
+    ``min(F, EXTRACT_BLOCK)`` as one ``program.scan`` (one WHILE node on
+    the card whatever F, one block too: the trajectory drivers' graphs do
+    not depend on their length), ``post`` applied to each block (it batches
+    over frames). The last block repeats the last frame where it runs past F;
+    those rows are cut. Each frame's features equal the one-batch
+    extraction's bit for bit: the kernels and their plain versions work
+    line by line."""
+    pts = validate_scan(scans, lidar)
+    F, dev = pts.shape[0], pts.device
+    B = min(F, EXTRACT_BLOCK)
+    n = -(-F // B)
+    offsets = torch.arange(B, device=dev)
+
+    def block(i):
+        rows = torch.clamp(i * B + offsets, max=F - 1)
+        return _extract_batch(pts.index_select(0, rows), lidar, params, post)
+
+    return program.scan(n, block, dev).map(lambda x: x.reshape((n * B,) + x.shape[2:])[:F])
 
 
 def extract_features_given(

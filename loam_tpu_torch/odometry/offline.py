@@ -5,12 +5,14 @@ odometry loop to user code, ``README.md:44-60``). A call is one program
 (``program.py``: eager on the CPU, one CUDA-graph launch on the card), as
 ``loam_tpu``'s is one ``jax.jit``:
 
-  1. features of all frames extracted in one batch, each frame
-     azimuth-sorted once (it serves as source and as target);
+  1. features of all frames extracted before the registrations, a block
+     of frames at a time (``features.extract.extract_in_blocks``), each
+     frame azimuth-sorted once (it serves as source and as target);
   2. the consecutive (source, target) pairs registered in lockstep chunks of
      ``chunk_pairs``, a ``program.scan`` over a device chunk index (one WHILE
-     node on the card, ``loam_tpu``'s ``lax.scan``); the last chunk is padded
-     with copies of pair 0, whose results are dropped; with ``motion_init``
+     node on the card, ``loam_tpu``'s ``lax.scan``), each chunk's features
+     gathered from the frames' by index; the last chunk is padded with pair
+     0, whose results are dropped; with ``motion_init``
      every pair of a chunk starts from the last relative pose of the chunk
      before (a constant-velocity prior), carried in a buffer of the program;
   3. relative poses composed into world poses.
@@ -24,7 +26,7 @@ import torch
 
 from .. import program
 from ..device import place
-from ..features import extract_features_batch
+from ..features.extract import extract_in_blocks
 from ..features.curvature import validate_scan
 from ..geometry import Pose3, pose_cumcompose
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
@@ -76,38 +78,34 @@ def odometry_offline(
 def _trajectory(scans, lidar, feat_params, reg_params, chunk_pairs, motion_init):
     """The program of :func:`odometry_offline`: ``chunk_pairs`` 0 registers
     every pair in one batch."""
-    feats = extract_features_batch(scans, lidar, feat_params, post=azimuth_sort_features)
+    feats = extract_in_blocks(scans, lidar, feat_params, post=azimuth_sort_features)
     dtype, dev = feats.edge_points.dtype, feats.edge_points.device
-    src = feats.map(lambda x: x[1:])
-    tgt = feats.map(lambda x: x[:-1])
     n_pairs = scans.shape[0] - 1
     if not chunk_pairs:
+        src = feats.map(lambda x: x[1:])
+        tgt = feats.map(lambda x: x[:-1])
         init = Pose3.identity(dtype, (n_pairs,), dev)
         rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
         return compose_trajectory(rel), details
 
     C = chunk_pairs
     nc = -(-n_pairs // C)
-    pad = nc * C - n_pairs
-
-    def padded(x):
-        return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])]) if pad else x
-
-    src_p, tgt_p = src.map(padded), tgt.map(padded)
     carry = Pose3.identity(dtype, (), dev)  # the motion_init carry, before the scan
     offsets = torch.arange(C, device=dev)
 
     def chunk(c):
-        """Chunk ``c`` (a device index): its registration; the carry
-        updated once the registration has read it."""
+        """Chunk ``c`` (a device index): its registration, pair p taking
+        frame p + 1 as source and frame p as target (a padding row pair
+        0); the carry updated once the registration has read it."""
         rows = c * C + offsets
-        part = lambda x: x.index_select(0, rows)
+        rows = torch.where(rows < n_pairs, rows, torch.zeros_like(rows))
+        src = feats.map(lambda x: x.index_select(0, rows + 1))
+        tgt = feats.map(lambda x: x.index_select(0, rows))
         if motion_init:
             init = Pose3(carry.rotation.expand(C, 4), carry.translation.expand(C, 3))
         else:
             init = Pose3.identity(dtype, (C,), dev)
-        rel_c, det_c = register_features_batch(src_p.map(part), tgt_p.map(part), init, reg_params,
-                                               reorder_mode="none")
+        rel_c, det_c = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
         program.copy_into(carry, Pose3(rel_c.rotation[-1], rel_c.translation[-1]))
         return rel_c, det_c
 

@@ -41,8 +41,9 @@ import torch
 from .. import program
 from ..device import place, resolve
 from ..dewarp import dewarp_scan
-from ..features import FeatureSet, extract_features, extract_features_batch
+from ..features import FeatureSet, extract_features
 from ..features.curvature import validate_scan
+from ..features.extract import extract_in_blocks
 from ..geometry import Pose3, norm, quat_conjugate, quat_multiply
 from ..map import VoxelMap, voxel_map_empty, voxel_map_insert
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
@@ -337,7 +338,10 @@ def _frame(state: ScanToMapState, feats: FeatureSet, reg_params: RegistrationPar
 def _register_maps(state: ScanToMapState, feats: FeatureSet, init: Pose3,
                    reg_params: RegistrationParams) -> Tuple[Pose3, RegistrationDetail]:
     """:func:`_frame`'s registration against the maps: from the prep cache
-    where it is carried, else with the maps prepared inside."""
+    where it is carried, else with the maps prepared inside. The search
+    runs in the maps' dtype: a float64 frame searches float32 maps and fits
+    their neighbours in float32, as ``loam_tpu``'s does, its pose and solve
+    in float64."""
     target = _map_feature_set(state.edge_map, state.planar_map)
     cache = state.knn_prep_cache
     if (len(cache) == 16 and reg_params.search_backend == "bruteforce"
@@ -411,7 +415,8 @@ def scan_to_map_offline(
     WHILE node on the card, each frame registering against the maps built
     so far, the keyframe insert an IF node inside it). With
     ``hoist_extraction`` and no ``dewarp`` the features of all frames are
-    extracted in one batch before the scan; dewarping needs each frame's
+    extracted before the scan, a block of frames at a time
+    (``features.extract.extract_in_blocks``); dewarping needs each frame's
     motion, so it extracts frame by frame, inside the scan.
 
     Returns: (final state, trajectory Pose3 with (F, ...) leaves, per-frame
@@ -450,7 +455,7 @@ def _trajectory(state: ScanToMapState, scans, extract, reg_params, config):
     feat_params, per_frame, dewarp)``."""
     lidar, feat_params, per_frame, dewarp = extract
     if not per_frame:
-        feats = extract_features_batch(scans, lidar, feat_params, post=spatial_sort_features)
+        feats = extract_in_blocks(scans, lidar, feat_params, post=spatial_sort_features)
 
     def frame(i):
         one = lambda x: x.index_select(0, i.view(1))[0]

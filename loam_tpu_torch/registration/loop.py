@@ -153,12 +153,14 @@ class _Loop:
             plane_knn_overflow=torch.empty((B, I), **i32),
         )
         # the warm-start carries: the kernel's last result (seeded single
-        # search), or the 3-element custom_knn's neighbours
+        # search; its coordinates in the targets' dtype, which the search
+        # rounds the queries to), or the 3-element custom_knn's neighbours
         kE, kP = params.num_edge_neighbors, params.num_plane_neighbors
 
         def packed(k, n):
             return PackedKnn(torch.empty((B, n), **i32), torch.empty((B, k, n), dtype=torch.bool, device=dev),
-                             *(torch.empty((B, k, n), **f) for _ in range(3)))
+                             *(torch.empty((B, k, n), dtype=search[0].tT.dtype, device=dev)
+                               for _ in range(3)))
 
         self.prev = (packed(kE, self.E), packed(kP, self.Q)) if kernel_seed else None
         self.seeds = None

@@ -144,6 +144,58 @@ def test_extract_features_batch_with_azimuth_sort_matches():
         np.testing.assert_array_equal(x, y[1])
 
 
+@pytest.mark.parametrize("frames", [5, 16, 37])
+def test_extract_in_blocks_matches_loam_tpu_batch(frames):
+    """The trajectory drivers' extraction, a block of at most
+    ``EXTRACT_BLOCK`` frames at a time (F12), equals ``loam_tpu``'s one-batch
+    extraction with the azimuth sort bit for bit, at fewer frames than a
+    block, exactly one block, and a last block that runs past the frames."""
+    from loam_tpu.features import extract_features_batch as j_batch
+    from loam_tpu_torch.features.extract import EXTRACT_BLOCK, extract_in_blocks
+
+    assert EXTRACT_BLOCK == 16
+    lidar = JLP(4, 64, 0.5, 80.0)
+    scans = np.stack([render_scan(lidar, noise=0.01, seed=s, dtype=np.float32) for s in range(frames)])
+    fj = j_batch(jnp.asarray(scans), lidar, JFP(), post=j_azimuth)
+    ft = extract_in_blocks(torch.from_numpy(scans), from_reference(lidar), post=t_azimuth)
+    _leaves_equal(fj, ft)
+
+
+@pytest.mark.parametrize("driver", ["offline", "scan_to_map"])
+def test_f12_drivers_extract_a_block_at_a_time(driver, monkeypatch):
+    """F12: ``odometry_offline`` and ``scan_to_map_offline`` extracted all
+    their frames in one batch, so on the card the call's memory pool held
+    the extraction's workspace (~8 MB a 64x1024 frame) for every frame and
+    grew 20x faster with the frames than the features it keeps. They
+    extract a block of at most ``EXTRACT_BLOCK`` frames at a time: a
+    20-frame call's extraction never sees more than 16 frames."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.features import extract as t_extract
+
+    class Seen(Exception):
+        pass
+
+    core = t_extract._extract_core
+    batches = []
+
+    def spy(pts, *args, **kwargs):
+        batches.append(pts.shape[0])
+        if len(batches) == 2:  # both blocks seen: the registrations are not the question
+            raise Seen
+        return core(pts, *args, **kwargs)
+
+    monkeypatch.setattr(t_extract, "_extract_core", spy)
+    lidar = T.LidarParams(4, 64, 0.5, 80.0)
+    scans = torch.from_numpy(np.stack([render_scan(JLP(4, 64, 0.5, 80.0), noise=0.01, seed=s,
+                                                   dtype=np.float32) for s in range(20)]))
+    run = (lambda: T.odometry_offline(scans, lidar, chunk_pairs=4)) if driver == "offline" else \
+        (lambda: T.scan_to_map_offline(scans, lidar, config=T.ScanToMapConfig(edge_capacity=256,
+                                                                               planar_capacity=1024)))
+    with pytest.raises(Seen):
+        run()
+    assert batches == [16, 16], batches
+
+
 @pytest.mark.slow
 def test_f32_full_scale_oracle_parity():
     # the scan of test_features.py::TestOracleParity::test_f32_full_scale_oracle_parity

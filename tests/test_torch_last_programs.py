@@ -223,7 +223,8 @@ def jax_grid_s2m(scans):
 def test_grid_scan_to_map_is_one_program(scans, jax_grid_s2m, monkeypatch):
     """``scan_to_map_offline`` through the grid: one cached program (the
     extraction, each frame's grids, registration and keyframe insert inline),
-    its frames one ``scan``, each frame's ICF loop one ``while_loop`` and
+    its extraction's blocks one ``scan`` and its frames one, each frame's
+    ICF loop one ``while_loop`` and
     its insert one ``when``, nothing read on the host inside; bit-equal
     under ``program.eager()``; ``loam_tpu``'s terminations, iterations and
     overflow counts, poses within 1e-4; the brute-force run's within 1e-12."""
@@ -234,7 +235,7 @@ def test_grid_scan_to_map_is_one_program(scans, jax_grid_s2m, monkeypatch):
     with _watched(monkeypatch) as calls:
         got = T.scan_to_map_offline(x, lidar, reg_params=reg, config=cfg, init_state=state0)
     assert _paths() == ["scan_to_map_offline"]
-    assert calls == {"while_loop": N_FRAMES, "when": N_FRAMES, "scan": 1}
+    assert calls == {"while_loop": N_FRAMES, "when": N_FRAMES, "scan": 2}
     with program.eager():
         eager = T.scan_to_map_offline(x, lidar, reg_params=reg, config=cfg, init_state=state0)
     assert _same(got, eager)

@@ -31,7 +31,8 @@ from loam_tpu.odometry import scan_to_map as j_s2m
 from loam_tpu.registration.icf import spatial_sort_features as j_spatial
 
 import loam_tpu_torch as T
-from loam_tpu_torch.evaluation import ate_rmse
+from loam_tpu_torch.evaluation import ate_rmse, relative_pose_gaps
+from loam_tpu_torch.odometry import scan_to_map as t_s2m
 from loam_tpu_torch.ops import morton
 from loam_tpu_torch.params import from_reference
 from loam_tpu_torch.registration import spatial_sort_features
@@ -45,6 +46,7 @@ N_FRAMES = 6
 J_CFG = j_s2m.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
 J_REG = J.RegistrationParams(search_backend="bruteforce", prior_weight=300.0)
 POS_TOL, ROT_TOL = 1e-2, 1e-3
+MIXED_PAIR_M, MIXED_PAIR_RAD = 2e-3, 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -205,3 +207,88 @@ def test_scan_to_map_api():
     assert s.edge_map.points.shape == (16, 3) and s.planar_map.points.shape == (32, 3)
     assert T.scan_to_map_strip_cache(s).knn_prep_cache == ()
     assert T.scan_to_map_rebuild_cache(s, T.LidarParams(16, 360, 0.5, 80.0)).knn_prep_cache == ()
+
+
+def test_f11_float64_frames_seed_the_kernel_in_the_maps_dtype(trajectory, monkeypatch):
+    """F11: float64 frames against float32 maps (``scan_to_map_offline`` on
+    float64 scans from its default state, as ``loam_tpu``'s step makes it)
+    raised on the card. The search runs in the maps' dtype, the queries
+    rounded to it, as on the CPU; on the card that is the float32 kernel,
+    and the ICF loop's seeded search carried its last neighbours for the
+    kernel's warm start in the frames' float64, which the kernel refuses
+    (``TypeError`` on ``seed_prev``). The carry holds the search's dtype
+    now. On the CPU the card's dispatch (``kernel_takes``: float32) and the
+    kernel's launch are stood in for, the stand-in refusing what the
+    kernel refuses and otherwise searching plainly: the seeded loop runs
+    and equals the unseeded one bit for bit (the seeds only prune)."""
+    from loam_tpu_torch.ops import knn_cuda
+    from loam_tpu_torch.registration import icf
+
+    scans, _ = trajectory
+    lidar = from_reference(LIDAR)
+    cfg = T.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
+    state, traj, _ = T.scan_to_map_offline(torch.from_numpy(scans[:3]), lidar, config=cfg)
+    assert state.planar_map.points.dtype == torch.float32
+    src = spatial_sort_features(T.extract_features(torch.from_numpy(scans[3].astype(np.float64)), lidar))
+    tgt = t_s2m._map_feature_set(state.edge_map, state.planar_map)
+    init = T.Pose3(traj.rotation[-1].double(), traj.translation[-1].double())
+    launched = []
+
+    def kernel(prep, queries, k, init_d2, query_mask, seed=None, visits=False, bound=False, prev=None,
+               window=False):
+        for name, x in [("targets", prep.tT), ("queries", queries)] + \
+                list(zip(("seed_prev xs", "seed_prev ys", "seed_prev zs"), prev or ())):
+            if x.dtype != torch.float32:
+                raise TypeError(f"{name} has dtype {x.dtype}, expected float32")
+        launched.append(prev is not None)
+        idx, d2, coords = knn_cuda._search_planes(prep.tT, queries, k, init_d2, query_mask)
+        return idx, d2, coords, None, None
+
+    monkeypatch.setattr(knn_cuda, "kernel_takes", lambda t: t.dtype == torch.float32)
+    monkeypatch.setattr(knn_cuda, "_search_kernel", kernel)
+    add = lambda x: x[None]
+    runs = [icf._register_body(src.map(add), tgt.map(add), T.Pose3(add(init.rotation), add(init.translation)),
+                               T.default_map_reg_params(), False, "single", None, False, seeded)
+            for seeded in (True, False)]
+    assert any(launched) and not all(launched)  # warm-started launches, then unseeded ones
+    (est, det), (est0, det0) = runs
+    assert est.translation.dtype == torch.float64
+    assert torch.equal(est.translation, est0.translation) and torch.equal(est.rotation, est0.rotation)
+    assert torch.equal(det.termination, det0.termination) and int(det.num_iterations[0]) > 1
+
+
+def test_f14_float64_scans_from_the_default_state_follow_loam_tpu():
+    """F14: float64 scans through ``scan_to_map_offline`` from the default
+    state (float32 maps and poses) against ``loam_tpu``'s nearest run.
+    ``loam_tpu``'s own call refuses that state for float64 scans (its scan
+    carry would turn float64); its step makes the poses float64 after a
+    frame and keeps the maps float32, so its run starts there. In both
+    packages the search and the neighbour fits run in the maps' float32,
+    the frame's pose and solve in float64. The port had promoted the maps
+    into float64 for the registration, so its run followed its float64
+    path instead: 2.03 mm and 1.74e-3 rad from ``loam_tpu``'s at pair 10
+    here, three pairs past the gate. The gate: every pair's relative pose
+    within ``MIXED_PAIR_M`` (2 mm) and ``MIXED_PAIR_RAD`` (1e-3 rad) of
+    ``loam_tpu``'s, the per-pair float32 gate ``chip_smoke.py`` holds the
+    card's float32 drive to, and equal termination codes. 16 frames of
+    16x360 on phase 16's trajectory, maps of 4,096 / 16,384 slots."""
+    lidar = J.LidarParams(16, 360, 0.5, 80.0)
+    fp = J.FeatureExtractionParams(precise_selection=True)
+    scans, _ = render_trajectory(lidar, 16, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01, noise=0.005,
+                                 seed=0, dtype=np.float32)
+    scans = scans.astype(np.float64)
+    j_cfg = j_s2m.ScanToMapConfig(edge_capacity=4096, planar_capacity=16384)
+    st0 = j_s2m.scan_to_map_init(j_cfg, lidar=lidar, feat_params=fp)
+    f64 = lambda p: J.Pose3(p.rotation.astype(jnp.float64), p.translation.astype(jnp.float64))
+    st0 = st0._replace(world_T_current=f64(st0.world_T_current), prev_delta=f64(st0.prev_delta),
+                       world_T_keyframe=f64(st0.world_T_keyframe))
+    _, jt, jd = J.scan_to_map_offline(jnp.asarray(scans), lidar, fp, config=j_cfg, init_state=st0)
+    st, tt, td = T.scan_to_map_offline(torch.from_numpy(scans), from_reference(lidar), from_reference(fp),
+                                       config=T.ScanToMapConfig(edge_capacity=4096, planar_capacity=16384))
+    assert st.planar_map.points.dtype == torch.float32 and tt.translation.dtype == torch.float64
+    dt, angle = relative_pose_gaps(tt.translation.numpy(), tt.rotation.numpy(), np.asarray(jt.translation),
+                                   np.asarray(jt.rotation))
+    gap = np.linalg.norm(dt, axis=1)
+    print(f"float64 scans, float32 maps, port vs loam_tpu per pair: {gap.max():.4e} m, {angle.max():.4e} rad")
+    assert gap.max() <= MIXED_PAIR_M and angle.max() <= MIXED_PAIR_RAD, (gap.max(), angle.max())
+    np.testing.assert_array_equal(td.termination.numpy(), np.asarray(jd.termination))
