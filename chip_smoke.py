@@ -129,16 +129,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (TCP store on 127.0.0.1; NCCL takes one rank a GPU). Drives
      ``scan_to_map_step_sharded`` over the 16 frames at the default
      capacities (8,192 / 32,768 slots a shard) beside the single-device
-     ``scan_to_map_step`` (single kNN): keyframes and terminations equal,
-     poses within 1e-5, map sizes within 1%, ``dropped`` 0, the ATE gate,
-     every extraction kernel and the kNN launched; scans/s of both. Holds
+     ``scan_to_map_step`` (single kNN): the sharded step sorts its source by
+     azimuth (``loam_tpu``'s sharded step), ``scan_to_map_step`` by Morton
+     key (F15), so the sharded step is held to the single-device steps fed
+     the same azimuth-sorted features (``scan_to_map_step_features``: the
+     same neighbours): keyframes and terminations equal, poses within 1e-5;
+     its gap per pair to ``scan_to_map_step`` printed; map sizes within 1%,
+     ``dropped`` 0, the ATE gate, every extraction kernel and the kNN
+     launched; scans/s of both. Holds
      the kNN at the sharded shape (one frame's planar queries against the 4
      shards of the planar map in one launch) against its plain version on
      the final maps and on the empty maps of frame 0 (rows ``knn_shard``,
-     ``knn_shard_empty``). ``odometry_offline_sharded`` against
-     ``odometry_offline`` with its defaults (terminations equal, poses within
-     1e-5 m, the ATE gate); ``extract_features_sharded`` on a (2 data x 2
-     line) mesh equal to ``extract_features_batch``;
+     ``knn_shard_empty``). ``odometry_offline_sharded`` (each shard's 4
+     pairs one lockstep batch) against ``odometry_offline`` in chunks of 4
+     pairs without the motion prior (terminations equal, poses within 1e-5
+     m, the ATE gate) and against one pair a call (poses within 1e-4 m);
+     ``extract_features_sharded`` on a (2 data x 2 line) mesh equal to
+     ``extract_features_batch``;
      ``optimize_pose_graph_sharded`` on phase 11's graph in float64, its
      edges padded with masked ones to a multiple of 4, within 1e-8 of phase
      11's solve and 1e-5 m of the truth; ms per solve, peak memory. Each
@@ -254,6 +261,46 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and hoisted features) plus 64 MiB; ms a call (the mean of 2 replays
      after one), peak device memory. A ``{"drive": ...}`` line.
      ``--drive-only`` runs phase 1 and this phase alone.
+ 17. One rank a card. N ranks, N the largest power of two no greater than
+     ``min(torch.cuda.device_count(), 8)`` (one on a one-card machine: the
+     whole path but the cross-card traffic), each this script started again
+     as a worker (``--rank-worker``) on ``cuda:<rank>``
+     (``torch.cuda.set_device``) in an NCCL group made eagerly on that card
+     (``init_process_group(device_id=)``), the README's recipe. First the
+     collective probe, each case N throwaway ranks of its own (a refusal
+     ends them, and the case records it as measured): one gather
+     (``parallel.collectives``) captured into a WHILE body and into an IF
+     body, replayed and checked, after ``make_mesh``'s eager gather; and
+     a rank's first gather on a side stream, then captured into a plain
+     graph and replayed (the order in which a four-card run once hung).
+     Where NCCL refuses the bodies (past world size 1), the cells whose
+     collectives run in one (scan-to-map, the pose graph) run eagerly by
+     ``collectives.in_conditional_bodies``, untraced. Then each rank, on
+     ``make_mesh()`` (one shard on its card) at full width on
+     phase 12's 16 frames of 64x1024: ``scan_to_map_step_sharded`` over the
+     16 frames (default ``ScanToMapConfig``, ``default_map_reg_params()``),
+     ``odometry_offline_sharded``, ``extract_features_sharded``,
+     ``register_pairs_sharded`` on 8 pairs and ``optimize_pose_graph_sharded``
+     on phase 11's float64 graph (edges padded to a multiple of N): each a
+     counted run (every counter at 0 just before, read just after: the
+     extraction kernels and the kNN launched, the dual kNN not), a traced
+     run of each cell that is one program (inside ``program.DRIVER_RANGE``:
+     1 ``cudaGraphLaunch`` and 0 host reads a call or frame, required) and
+     ms a run; then the cards it holds
+     a CUDA context on (the driver API) and ``torch.cuda.memory_reserved``
+     on every other card, both required to be its card alone and 0. A rank
+     past ``RANKS_TIMEOUT_S`` or failing kills every rank, and the phase
+     fails naming it and its last stamp. Then every rank's outputs are
+     required bit-equal to rank 0's (scan-to-map's maps aside: each rank
+     holds its own rows of them), and rank 0's to the same calls in this
+     process on N shards of ``cuda:0`` in a world-size-1 NCCL group, the
+     ranks' rows of the maps in rank order to its maps (the
+     fixed sum order and a batch a shard make N ranks x 1 shard equal 1
+     rank x N shards); the ATE gate and ``dropped`` 0. Ms a call or frame
+     and scans/s on N ranks beside 1 rank x N shards, and a ``{"ranks":
+     ...}`` line (``cards``, ``ranks``, ``cross_card``, the probe, the
+     contexts, the cells). ``--ranks-only`` runs phase 1 and this phase
+     alone; ``--ranks-only <cell> ...`` the cells named, without the probe.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -264,6 +311,7 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import os
 import re
@@ -298,8 +346,13 @@ ATOL_GRAPH = 1e-8
 ATOL_GRAPH_TRUTH_M = 1e-5
 # the sharded drivers vs the single-device ones: the same neighbours (the
 # scan-to-map merge is exact; equidistant map points may come in shard
-# order), offline pairs in one lockstep batch against one pair a call
+# order), offline pairs in a shard's lockstep batch against the same
+# batches of odometry_offline's chunks
 ATOL_SHARD = 1e-5
+# odometry_offline_sharded against odometry_offline one pair a call: each
+# shard's pairs are one batch of 4, whose float32 sums round apart from a
+# batch of one (phase 12 read 2.831e-05 m on an H100 80GB HBM3 at 700 W)
+ATOL_OFFLINE_ONE_PAIR_M = 1e-4
 # the float32 pose-graph solve: within 2e-3 m of the float64 solve and of the
 # truth (the bound tests/test_torch_pose_graph.py holds the port's float32
 # solve to against loam_tpu's: float32's own rounding sets it)
@@ -878,6 +931,8 @@ def _sharded_phase(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frame
 def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, frames, drive, extraction,
                     ate_rmse, knn_cuda, gt1k, init1k, edges1k, opt64, reps, parallel, init_sharded,
                     step_sharded, solve_sharded, group) -> list:
+    from loam_tpu_torch.evaluation import relative_pose_gaps
+
     D = 4
     mesh = parallel.make_mesh([dev] * D, group=group)
     cfg, reg = T.ScanToMapConfig(), T.default_map_reg_params()
@@ -893,37 +948,55 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
             out.append((pose, det, int(st.frames_since_insert)))
         return st, out
 
-    def run_single():
+    def run_single(sort=None):
+        # ``sort``: the steps fed features sorted so (the sharded step's
+        # azimuth order), else ``scan_to_map_step`` (Morton)
         st = T.scan_to_map_init(cfg)
         out = []
         for f in range(frames):
-            st, pose, det = T.scan_to_map_step(st, scans[f], lidar, fp, reg, cfg)
+            if sort is None:
+                st, pose, det = T.scan_to_map_step(st, scans[f], lidar, fp, reg, cfg)
+            else:
+                feats = sort(T.extract_features(scans[f], lidar, fp))
+                st, pose, det = T.scan_to_map_step_features(st, feats, reg, cfg)
             out.append((pose, det, int(st.frames_since_insert)))
         return st, out
 
     with _dual_knn(False):
         st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn",), ("knn_dual",))
         st_1, out_1 = run_single()
+        st_az, out_az = run_single(T.registration.azimuth_sort_features)
         dt_sh = _seconds_per_run(run_sharded, reps)
         dt_1 = _seconds_per_run(run_single, reps)
     t_sh = torch.stack([p.translation for p, _, _ in out_sh])
     t_1 = torch.stack([p.translation for p, _, _ in out_1])
     q_sh = torch.stack([p.rotation for p, _, _ in out_sh])
+    q_1 = torch.stack([p.rotation for p, _, _ in out_1])
     ate, limit, _ = _check_trajectory("scan_to_map_sharded", t_sh, q_sh, frames, gt, ate_rmse)
-    gap = max(_max_err(t_sh, t_1), _max_err(q_sh, torch.stack([p.rotation for p, _, _ in out_1])))
-    fsi_sh, fsi_1 = [f for _, _, f in out_sh], [f for _, _, f in out_1]
-    term_sh = [int(d.termination) for _, d, _ in out_sh]
-    term_1 = [int(d.termination) for _, d, _ in out_1]
+    # F15: the sharded step sorts its source by azimuth (loam_tpu's sharded
+    # step), scan_to_map_step by Morton key: held to the single-device steps
+    # fed the same azimuth-sorted features (the same neighbours); against
+    # the Morton steps the gap per pair is printed
+    t_az = torch.stack([p.translation for p, _, _ in out_az])
+    q_az = torch.stack([p.rotation for p, _, _ in out_az])
+    gap = max(_max_err(t_sh, t_az), _max_err(q_sh, q_az))
+    host = lambda x: x.cpu().double().numpy()
+    d_t, d_ang = relative_pose_gaps(host(t_sh), host(q_sh), host(t_1), host(q_1))
+    pair_m, pair_rad = float(np.linalg.norm(d_t, axis=1).max()), float(d_ang.max())
+    fsi_sh, fsi_1, fsi_az = ([f for _, _, f in out] for out in (out_sh, out_1, out_az))
+    term_sh, term_1, term_az = ([int(d.termination) for _, d, _ in out] for out in (out_sh, out_1, out_az))
     n_sh = int(st_sh.edge_map.mask.sum()) + int(st_sh.planar_map.mask.sum())
-    n_1 = int(st_1.edge_map.size) + int(st_1.planar_map.size)
+    n_1 = int(st_az.edge_map.size) + int(st_az.planar_map.size)
     print(f"scan_to_map_sharded: {D} shards of {dev} ({cfg.edge_capacity // D} / {cfg.planar_capacity // D} "
-          f"slots a shard); ATE {ate:.6f} m (limit {limit:.6f} m); pose gap to the single-device steps "
-          f"{gap:.3e} (limit {ATOL_SHARD}); keyframes {fsi_sh}; termination {term_sh}; map voxels "
-          f"{n_sh} vs {n_1} single; dropped {int(st_sh.dropped)}")
-    if fsi_sh != fsi_1:
-        raise AssertionError(f"scan_to_map_sharded keyframes {fsi_sh} != single {fsi_1}")
-    if term_sh != term_1:
-        raise AssertionError(f"scan_to_map_sharded termination {term_sh} != single {term_1}")
+          f"slots a shard); ATE {ate:.6f} m (limit {limit:.6f} m); pose gap to the single-device steps on the "
+          f"same azimuth-sorted features {gap:.3e} (limit {ATOL_SHARD}); to scan_to_map_step (Morton) "
+          f"{pair_m:.4e} m, {pair_rad:.4e} rad a pair at most, absolute {_max_err(t_sh, t_1):.4e} m, keyframes "
+          f"{'equal' if fsi_1 == fsi_sh else fsi_1}, termination {term_1}; keyframes {fsi_sh}; termination "
+          f"{term_sh}; map voxels {n_sh} vs {n_1} single; dropped {int(st_sh.dropped)}")
+    if fsi_sh != fsi_az:
+        raise AssertionError(f"scan_to_map_sharded keyframes {fsi_sh} != single {fsi_az}")
+    if term_sh != term_az:
+        raise AssertionError(f"scan_to_map_sharded termination {term_sh} != single {term_az}")
     if not gap < ATOL_SHARD:
         raise AssertionError(f"scan_to_map_sharded differs from the single-device steps by {gap}")
     if abs(n_sh - n_1) > max(5, n_1 // 100):
@@ -938,7 +1011,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     # each 32,768-slot shard of the planar map (the four shards one launch),
     # on the final maps and on the empty maps of frame 0
     k, r = reg.num_plane_neighbors, reg.max_plane_neighbor_dist
-    feats = T.registration.spatial_sort_features(T.extract_features(scans[frames - 1], lidar, fp))
+    feats = T.registration.azimuth_sort_features(T.extract_features(scans[frames - 1], lidar, fp))
     guess = st_sh.world_T_current.compose(st_sh.prev_delta)
     q = guess.act(feats.planar_points).expand(D, -1, -1).contiguous()
     qm = feats.planar_mask.expand(D, -1).contiguous()
@@ -957,25 +1030,32 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
                              f"{pm.points.shape[1]} slots a shard, k={k}, n_live {prep.n_live.tolist()}"))
     _print_kernels(rows)
 
-    # offline odometry with the frames split 4 ways, against odometry_offline
-    # with the same defaults (chunk_pairs=1, no motion prior)
+    # offline odometry with the frames split 4 ways (each shard's pairs one
+    # lockstep batch), against odometry_offline in chunks of the same pairs
+    # (no motion prior) and one pair a call (its defaults)
     with _dual_knn(False):
         run_off = lambda: parallel.odometry_offline_sharded(scans_np, lidar, mesh, fp, rp)
         traj_sh, det_sh = drive("offline_sharded", run_off, extraction + ("knn",), ("knn_dual",))
-        run_off1 = lambda: T.odometry_offline(scans_np, lidar, fp, rp)
+        run_off1 = lambda: T.odometry_offline(scans_np, lidar, fp, rp, chunk_pairs=frames // D)
         traj_1, det_1 = run_off1()
+        traj_p, _ = T.odometry_offline(scans_np, lidar, fp, rp)
         dt_off = _seconds_per_run(run_off, reps)
         dt_off1 = _seconds_per_run(run_off1, reps)
     ate_o, limit_o, _ = _check_trajectory("offline_sharded", traj_sh.translation, traj_sh.rotation, frames,
                                           gt, ate_rmse)
     gap_o = _max_err(traj_sh.translation, traj_1.translation)
-    print(f"offline_sharded: ATE {ate_o:.6f} m (limit {limit_o:.6f} m); pose gap to odometry_offline "
-          f"{gap_o:.3e} m (limit {ATOL_SHARD}); termination {det_sh.termination.tolist()}; "
-          f"{frames / dt_off:.3f} scans/s ({dt_off * 1e3:.3f} ms per {frames}-frame run) beside "
-          f"odometry_offline's {frames / dt_off1:.3f} (one pair a call), on {smi}")
+    gap_p = _max_err(traj_sh.translation, traj_p.translation)
+    print(f"offline_sharded: ATE {ate_o:.6f} m (limit {limit_o:.6f} m); pose gap to odometry_offline in "
+          f"chunks of {frames // D} pairs {gap_o:.3e} m (limit {ATOL_SHARD}), to one pair a call "
+          f"{gap_p:.3e} m (limit {ATOL_OFFLINE_ONE_PAIR_M}); termination "
+          f"{det_sh.termination.tolist()}; {frames / dt_off:.3f} scans/s ({dt_off * 1e3:.3f} ms per "
+          f"{frames}-frame run) beside odometry_offline's {frames / dt_off1:.3f} (chunks of {frames // D} "
+          f"pairs), on {smi}")
     _require_equal("offline_sharded termination", det_sh.termination, det_1.termination)
     if not gap_o < ATOL_SHARD:
         raise AssertionError(f"offline_sharded differs from odometry_offline by {gap_o} m")
+    if not gap_p < ATOL_OFFLINE_ONE_PAIR_M:
+        raise AssertionError(f"offline_sharded differs from odometry_offline one pair a call by {gap_p} m")
 
     # extraction on a (2 data x 2 line) mesh: index-exact
     mesh22 = parallel.make_mesh([dev] * D, line_axis=2, group=group)
@@ -1748,16 +1828,539 @@ def _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg,
     return out
 
 
+# ---- phase 17: one rank a card ---------------------------------------------------------
+
+# a rank's wall-clock limit in phase 17: past it every rank is killed and the
+# phase fails, naming the rank and its last stamp (a rank whose control flow
+# parted from the others' would wait in a collective with no watchdog)
+RANKS_TIMEOUT_S = 600
+# a rank's NCCL watchdog: a collective launched outside a graph that has not
+# completed after this long aborts its communicator and ends the rank with
+# the collective's name (phase 17's ranks)
+RANKS_COLLECTIVE_TIMEOUT_S = 120
+# a probe case's wall-clock limit, and its ranks' NCCL watchdog
+PROBE_TIMEOUT_S = 45
+PROBE_COLLECTIVE_TIMEOUT_S = 60
+# register_pairs_sharded's pairs in phase 17: a multiple of every rank count
+# up to 8
+RANKS_PAIRS = 8
+# phase 17's cells, in the order they run
+RANKS_CELLS = ("s2m", "offline", "extract", "pairs", "posegraph")
+
+
+def _rank_count(torch) -> int:
+    """Phase 17's ranks: the largest power of two no greater than
+    ``min(torch.cuda.device_count(), 8)``."""
+    return 1 << (min(torch.cuda.device_count(), 8).bit_length() - 1)
+
+
+def _primary_contexts() -> list:
+    """The cards on which this process holds an active CUDA primary context
+    (the driver API's ``cuDevicePrimaryCtxGetState``)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_int()
+    if cu.cuDeviceGetCount(ctypes.byref(count)) != 0:
+        raise RuntimeError("cuDeviceGetCount failed")
+    held = []
+    for j in range(count.value):
+        dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        if cu.cuDeviceGet(ctypes.byref(dev), j) != 0 or cu.cuDevicePrimaryCtxGetState(
+                dev, ctypes.byref(flags), ctypes.byref(active)) != 0:
+            raise RuntimeError(f"cuDevicePrimaryCtxGetState failed for card {j}")
+        if active.value:
+            held.append(j)
+    return held
+
+
+def _stamper(out_dir: str, name: str, rank: int):
+    """A rank's ``stamp(what)``: prints its progress and keeps the last line
+    in ``<name><rank>.stamp``, where the parent names it if the rank fails."""
+    t0 = time.perf_counter()
+
+    def stamp(what):
+        line = f"[{name} {rank}, {time.perf_counter() - t0:.1f} s] {what}"
+        print(line, flush=True)
+        with open(os.path.join(out_dir, f"{name}{rank}.stamp"), "w") as f:
+            f.write(line)
+
+    return stamp
+
+
+def _rank_group(torch, rank: int, world: int, port: int, timeout_s: int):
+    """The README's recipe for rank ``rank`` of ``world``: ``cuda:<rank>``
+    current and an NCCL group made eagerly on it (``device_id``), whose
+    collectives launched outside a graph abort after ``timeout_s``. Returns
+    the rank's device."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on the loopback
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                            device_id=dev, timeout=datetime.timedelta(seconds=timeout_s))
+    return dev
+
+
+def _probe_worker(case: str, rank: int, world: int, port: int, out_dir: str) -> int:
+    """One throwaway rank of the collective probe's ``case``. ``"while"``
+    and ``"if"``: after ``make_mesh``'s eager gather, one
+    ``all_gather_into_tensor`` (NCCL's own, not ``collectives.gather``,
+    which refuses a body past world size 1) captured into the body of a
+    WHILE node (``program.while_loop``, 3 and 2 iterations) or an IF node
+    (``program.when``, taken and not), replayed 3 times and checked.
+    ``"side_first"``: this rank's first gather on a side stream, then one
+    captured into a plain CUDA graph, replayed twice and checked. A refusal
+    raises and ends the rank: its error is the case's record."""
+    import torch
+    import torch.distributed as dist
+
+    from loam_tpu_torch import parallel, program
+
+    stamp = _stamper(out_dir, f"probe_{case}_", rank)
+    stamp("init_process_group")
+    dev = _rank_group(torch, rank, world, port, PROBE_COLLECTIVE_TIMEOUT_S)
+    x = torch.full((1, 4), float(rank + 1), device=dev)
+    total = 4.0 * world * (world + 1) / 2  # the sum of every rank's x
+
+    def gathered(xb):
+        out = torch.empty((world, 4), device=dev)
+        dist.all_gather_into_tensor(out, xb)
+        return out.sum()
+
+    if case == "side_first":
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        stamp("the first gather, on a side stream")
+        with torch.cuda.stream(side):
+            first = gathered(x)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        got = [float(first)]
+        stamp("a plain graph")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = gathered(x)
+        for _ in range(2):
+            graph.replay()
+            got.append(float(y))
+        want, nodes = [total] * 3, None
+    else:
+        parallel.make_mesh(group=dist.group.WORLD)
+
+        def fn(bufs):
+            xb, n = bufs
+            acc = torch.zeros((), device=dev)
+            if case == "while":
+                i = torch.zeros((), dtype=torch.int64, device=dev)
+                going = i < n
+
+                def body():
+                    acc.add_(gathered(xb))
+                    i.add_(1)
+                    going.copy_(i < n)
+
+                program.while_loop(going, body)
+            else:
+                program.when(n > 2, lambda: acc.add_(gathered(xb)))
+            return acc
+
+        count = lambda k: torch.full((), k, dtype=torch.int64, device=dev)
+        prog = program.Program(dev, (x, count(3)))
+        stamp(f"a gather in a {case.upper()} body: capture and replays")
+        got = [float(prog.run(fn, (x, count(k)))) for k in (3, 2, 3)]
+        want = [3 * total, 2 * total, 3 * total] if case == "while" else [total, 0.0, total]
+        nodes = prog.conditional if prog.graph is not None else None
+        if nodes != dict({"if": 0, "while": 0}, **{case: 1}):
+            raise AssertionError(f"probe {case}: conditional nodes {nodes}")
+    if got != want:
+        raise AssertionError(f"probe {case}: gathered sums {got}, want {want}")
+    # a refusal above ends the rank with its group alive: NCCL aborts it at exit
+    dist.destroy_process_group()
+    stamp("accepted" if nodes is not None else "completed")
+    return 0
+
+
+def _start_ranks(argv: list, name: str, world: int, out_dir: str, limit_s: int, tail=()) -> list:
+    """``world`` copies of this script, ``argv + [rank, world, port,
+    out_dir] + tail`` each, logging to ``<name><rank>.log``; waits for all, and
+    past ``limit_s``, or once one fails, kills every rank still running.
+    Returns per rank (exit code, None where killed; its last stamp; the end
+    of its log)."""
+    port = _free_port()
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    here = os.path.abspath(__file__)
+    logs = [open(os.path.join(out_dir, f"{name}{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, here] + argv + [str(r), str(world), str(port), out_dir]
+                              + list(tail),
+                              stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=os.path.dirname(here))
+             for r in range(world)]
+    deadline = time.perf_counter() + limit_s
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or time.perf_counter() > deadline:
+                break
+            if any(c not in (None, 0) for c in codes):
+                time.sleep(2.0)  # the others' own errors, where they have one
+                codes = [p.poll() for p in procs]
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        for f in logs:
+            f.close()
+    out = []
+    for r, c in enumerate(codes):
+        stamp_path = os.path.join(out_dir, f"{name}{r}.stamp")
+        last = open(stamp_path).read() if os.path.exists(stamp_path) else "no stamp"
+        out.append((c, last, open(os.path.join(out_dir, f"{name}{r}.log")).read()[-3000:]))
+    return out
+
+
+def _probe_case(case: str, world: int, out_dir: str) -> str:
+    """The collective probe's ``case`` on ``world`` throwaway ranks: what
+    happened, as rank 0 saw it (``"accepted"``, ``"completed"``, the error
+    that ended it, or where it hung)."""
+    ends = _start_ranks(["--probe-worker", case], f"probe_{case}_", world, out_dir, PROBE_TIMEOUT_S)
+    code, last, tail = ends[0]
+    if code == 0:
+        return last.rsplit("] ", 1)[-1]
+    if code is None:
+        return f"hung: killed after {PROBE_TIMEOUT_S} s at \"{last.rsplit('] ', 1)[-1]}\""
+    errors = [ln.strip() for ln in tail.splitlines() if re.search(r"\b\w*(Error|Exception)\b:", ln)]
+    return f"raised at \"{last.rsplit('] ', 1)[-1]}\": {errors[-1] if errors else f'exit code {code}'}"
+
+
+def _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph, cells=RANKS_CELLS):
+    """Phase 17's calls on ``mesh`` at full width: ``{cell: (run, units,
+    kernels it must launch, whether it runs eagerly)}``: scan-to-map and
+    the pose graph, whose collectives run inside conditional bodies, are
+    eager where ``collectives.in_conditional_bodies`` says no (world size >
+    1). ``graph``: the pose graph's (initial, edges) on the mesh's card, its
+    edges padded to a multiple of the shards. ``cells``: those to run."""
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.parallel.collectives import in_conditional_bodies
+    from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
+    from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
+    from loam_tpu_torch.registration import azimuth_sort_features
+
+    cfg, s2m_reg = T.ScanToMapConfig(), T.default_map_reg_params()
+    frames = scans.shape[0]
+    eager = not in_conditional_bodies(mesh)
+
+    def s2m():
+        st, out = scan_to_map_init_sharded(cfg, mesh), []
+        for f in range(frames):
+            st, pose, det = scan_to_map_step_sharded(st, scans[f], lidar, mesh, fp, s2m_reg, cfg)
+            out.append((pose, det))
+        return st, out
+
+    feats = T.extract_features_batch(scans, lidar, fp, post=azimuth_sort_features)
+    src = feats.map(lambda x: x[1:RANKS_PAIRS + 1])
+    tgt = feats.map(lambda x: x[:RANKS_PAIRS])
+    ident = T.Pose3.identity(torch.float32, (RANKS_PAIRS,), mesh.device)
+    extraction = ("sector_sort", "greedy_nms", "select_points")
+    every = {
+        "s2m": (s2m, frames, extraction + ("knn",), eager),
+        "offline": (lambda: parallel.odometry_offline_sharded(scans, lidar, mesh, fp, rp), 1,
+                    extraction + ("knn",), False),
+        "extract": (lambda: parallel.extract_features_sharded(scans, lidar, mesh, fp), 1, extraction, False),
+        "pairs": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1, ("knn",), False),
+        "posegraph": (lambda: optimize_pose_graph_sharded(*graph, mesh, 10), 1, (), eager),
+    }
+    return {cell: every[cell] for cell in cells}
+
+
+def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
+    """Each of ``cells`` on its mesh: a counted first run (every counter at
+    0 just before, read just after; the kernels it must launch, and never
+    the dual kNN), where ``traced`` and the cell is one program a
+    ``torch.profiler`` run
+    (``cudaGraphLaunch`` calls and host reads a unit inside
+    ``program.DRIVER_RANGE``), then ms a run over ``reps`` after a warm-up.
+    Returns (the first run's output tensors on the host, a cell's a list,
+    scan-to-map's maps under ``"s2m_maps"``; a row a cell; the
+    trajectories' summary)."""
+    outputs, rows, summary = {}, {}, {}
+    for cell, (run, units, must, eager) in cells.items():
+        stamp(f"{cell}: first run")
+        for fn in counters.values():
+            fn.launches = 0
+        got = run()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        missing = [k for k in must if launches[k] <= 0]
+        if missing or launches["knn_dual"]:
+            raise AssertionError(f"phase 17 {cell}: launches {launches}, must launch {list(must)} and not "
+                                 f"knn_dual")
+        if cell == "s2m":
+            # this rank's rows of the maps, apart: the ranks' rows in rank
+            # order are the maps of 1 rank x N shards
+            st, out = got
+            maps = (st.edge_map.points, st.edge_map.mask, st.planar_map.points, st.planar_map.mask)
+            outputs["s2m_maps"] = [x.cpu() for x in maps]
+            got = (st._replace(edge_map=st.edge_map._replace(points=None, mask=None),
+                               planar_map=st.planar_map._replace(points=None, mask=None)), out)
+        outputs[cell] = [x.cpu() for x in _leaves(got)]
+        if cell == "s2m":
+            summary[cell] = {"t": torch.stack([p.translation for p, _ in out]).cpu(),
+                             "q": torch.stack([p.rotation for p, _ in out]).cpu(),
+                             "dropped": int(st.dropped),
+                             "termination": [int(d.termination) for _, d in out]}
+        elif cell == "offline":
+            traj, det = got
+            summary[cell] = {"t": traj.translation.cpu(), "q": traj.rotation.cpu(),
+                             "termination": det.termination.tolist()}
+        rows[cell] = {"units": units, "launches": launches, "eager": eager}
+        if traced and not eager:  # an eager cell captures nothing: no graph launch to count
+            stamp(f"{cell}: traced run")
+            pg = _profile_run(torch, run, units)
+            rows[cell].update({k: pg[k] for k in ("graph_launches_per_unit", "host_reads_per_unit",
+                                                  "host_reads_in_driver_loop", "idle_share")})
+        stamp(f"{cell}: timed runs")
+        ms = _seconds_per_run(run, reps) * 1e3
+        rows[cell].update(ms=ms, ms_per_unit=ms / units)
+    return outputs, rows, summary
+
+
+def _ranks_inputs(T, torch, dev, out_dir, world):
+    """Phase 12's inputs on ``dev``: the 16 frames the parent wrote, the
+    parameters, and phase 11's pose graph in float64, its edges padded to
+    a multiple of the ``world`` ranks."""
+    from loam_tpu_torch.io import random_pose_graph
+
+    lidar = T.LidarParams(64, 1024, 0.5, 120.0)
+    fp = T.FeatureExtractionParams(precise_selection=True)
+    rp = T.RegistrationParams(search_backend="bruteforce")
+    scans = torch.from_numpy(np.load(os.path.join(out_dir, "scans.npy"))).to(dev)
+    _, init1k, edges1k = random_pose_graph(1000, 50, seed=2)
+    edges, _ = _padded_edges(torch, _to(edges1k, dev, torch.float64), world)
+    return scans, lidar, fp, rp, (_to(init1k, dev, torch.float64), edges)
+
+
+def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CELLS) -> int:
+    """Phase 17's rank ``rank`` of ``world``: ``cuda:<rank>`` and an NCCL
+    group made eagerly on it (:func:`_rank_group`, the README's recipe),
+    then :func:`_rank_cells` on ``make_mesh()`` (one shard on this card);
+    its outputs, rows, the cards it holds a context on and the bytes it
+    reserved on every other card to ``rank<r>.pt``. Stamps its progress to
+    ``rank<r>.stamp``."""
+    import torch
+    import torch.distributed as dist
+
+    import loam_tpu_torch as T
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
+
+    stamp = _stamper(out_dir, "rank", rank)
+    stamp("init_process_group")
+    dev = _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
+    counters = {"sector_sort": bitonic_cuda.sector_sort, "greedy_nms": nms_cuda.greedy_nms,
+                "select_points": assemble_cuda.select_points, "knn": knn_cuda.knn_run,
+                "knn_dual": knn_cuda.knn_dual_run}
+    try:
+        stamp("make_mesh")
+        mesh = parallel.make_mesh(group=dist.group.WORLD)
+        if mesh.device != dev or mesh.shape != {"data": world, "line": 1} or mesh.shard_ids != (rank,):
+            raise AssertionError(f"rank {rank}: make_mesh() gave {mesh.shape} shards {mesh.shard_ids} on "
+                                 f"{mesh.device}")
+        scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, world)
+        with _env(LOAM_ICF_DUAL_KNN="0"):
+            outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
+                                                                   cells), counters, 2, stamp)
+        mesh.release()  # its graphs replay the group's collectives: gone before the group is
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    others = [j for j in range(torch.cuda.device_count()) if j != rank]
+    contexts = _primary_contexts()
+    reserved = {j: torch.cuda.memory_reserved(j) for j in others}
+    torch.save({"outputs": outputs, "rows": rows, "summary": summary, "contexts": contexts,
+                "reserved": reserved, "device": str(dev), "nccl": ".".join(map(str, torch.cuda.nccl.version()))},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    stamp(f"done: contexts on cards {contexts}, reserved on the others {reserved}")
+    return 0
+
+
+def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS) -> None:
+    """Start phase 17's ranks (this script as the worker) and wait for all;
+    past ``RANKS_TIMEOUT_S``, or when one fails, kill every rank and raise,
+    naming each rank that did not end well and its last stamp."""
+    failed = []
+    for r, (c, last, tail) in enumerate(_start_ranks(["--rank-worker"], "rank", world, out_dir,
+                                                     RANKS_TIMEOUT_S, cells)):
+        if c == 0:
+            continue
+        why = f"killed after {RANKS_TIMEOUT_S} s" if c is None else f"exit code {c}"
+        failed.append(f"rank {r} {why}, last stamp: {last}")
+        print(f"phase 17: rank {r} {why}; its log ends:\n{tail}", flush=True)
+    if failed:
+        raise AssertionError("phase 17: " + "; ".join(failed))
+
+
+def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse, reps,
+                 cells=RANKS_CELLS) -> dict:
+    """Phase 17: one rank a card. ``N = _rank_count()`` ranks, each
+    :func:`_rank_worker` on its own card; every rank's outputs bit-equal to
+    rank 0's, and rank 0's to the same calls in this process on N shards of
+    ``cuda:0`` in a world-size-1 NCCL group; every call or frame one
+    ``cudaGraphLaunch`` with no host read on every rank, except the cells
+    eager by ``collectives.in_conditional_bodies`` (world size > 1:
+    scan-to-map, the pose graph); no rank holds a context or reserves
+    memory on another card; the ATE gate and
+    ``dropped == 0``. Before the ranks, the collective probe
+    (:func:`_probe_case`): at world size 1 NCCL must accept the bodies, as
+    the captured cells need; past it what NCCL did is recorded beside the
+    rule. Ms a unit and scans/s of both. ``cells``: those to run; fewer
+    than all skips the probe (a focused run, ``--ranks-only <cell> ...``).
+    Returns the ``{"ranks": ...}`` record."""
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.registration import loop
+
+    N = _rank_count(torch)
+    cards = torch.cuda.device_count()
+    out_dir = tempfile.mkdtemp(prefix="loam_ranks_")
+    np.save(os.path.join(out_dir, "scans.npy"), scans_np)
+    # this process's programs and cached blocks off the card before the ranks start
+    loop.clear_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rule_captures = N == 1  # collectives.in_conditional_bodies on a mesh of N ranks
+    failed, probe = [], None
+    if tuple(cells) == RANKS_CELLS:
+        probe = {}
+        for case in ("while", "if", "side_first"):
+            _stamp(f"phase 17: collective probe, {case}, {N} rank(s)")
+            probe[case] = _probe_case(case, N, out_dir)
+        print(f"phase 17: collective probe at {N} rank(s), NCCL: WHILE body {probe['while']}; IF body "
+              f"{probe['if']}; first gather on a side stream, then a plain graph: {probe['side_first']}; the "
+              f"port {'captures' if rule_captures else 'does not capture'} collectives in conditional bodies "
+              f"here (collectives.in_conditional_bodies)", flush=True)
+        bodies_accepted = probe["while"] == probe["if"] == "accepted"
+        if rule_captures and not bodies_accepted:
+            failed.append(f"collective probe at world size 1: WHILE {probe['while']}, IF {probe['if']}")
+        if not rule_captures and bodies_accepted:
+            print(f"phase 17: NCCL accepted a collective in WHILE and IF bodies at {N} ranks: the rule of "
+                  f"collectives.in_conditional_bodies could admit them", flush=True)
+    t0 = time.perf_counter()
+    _spawn_ranks(N, out_dir, cells)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(N)]
+    for r in range(N):
+        print(open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip(), flush=True)
+    for r, res in enumerate(ranks):
+        if res["contexts"] != [r] or any(res["reserved"].values()):
+            failed.append(f"rank {r}: contexts on cards {res['contexts']}, reserved on the others "
+                          f"{res['reserved']}")
+        for cell, row in res["rows"].items():
+            # an eager cell (the rule: world size > 1) is not traced
+            if row["eager"] != (not rule_captures and cell in ("s2m", "posegraph")):
+                failed.append(f"rank {r} {cell}: eager {row['eager']} at {N} rank(s)")
+            if not row["eager"] and (row["graph_launches_per_unit"] != 1 or row["host_reads_per_unit"] != 0):
+                failed.append(f"rank {r} {cell}: {row['graph_launches_per_unit']} cudaGraphLaunch and "
+                              f"{row['host_reads_per_unit']} host reads a unit (one program a unit)")
+        for cell, leaves in res["outputs"].items():
+            if cell == "s2m_maps":  # each rank holds its own rows of the maps
+                continue
+            want = ranks[0]["outputs"][cell]
+            if len(leaves) != len(want) or not all(a.dtype == b.dtype and torch.equal(a, b)
+                                                   for a, b in zip(leaves, want)):
+                failed.append(f"rank {r} {cell}: outputs differ from rank 0's")
+
+    # the same calls in this process: N shards of cuda:0, a world-size-1 group
+    dev = torch.device("cuda", 0)
+    scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, N)
+    with _nccl_group() as group, _dual_knn(False):
+        mesh = parallel.make_mesh([dev] * N, group=group)
+        stamp = lambda what: _stamp(f"phase 17, 1 rank x {N} shard(s): {what}")
+        one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
+                                                                 cells), counters, reps, stamp, traced=False)
+        mesh.release()
+    for cell, leaves in one_outputs.items():
+        want = ranks[0]["outputs"][cell]
+        if cell == "s2m_maps":
+            want = [torch.cat([res["outputs"][cell][i] for res in ranks]) for i in range(len(want))]
+        same = len(leaves) == len(want) and all(a.dtype == b.dtype and torch.equal(a, b)
+                                                for a, b in zip(leaves, want))
+        if not same:
+            what = "the ranks' rows of the maps" if cell == "s2m_maps" else "rank 0's outputs"
+            failed.append(f"{cell}: {what} differ from 1 rank x {N} shards of cuda:0")
+    summary = ranks[0]["summary"]
+    for cell, s in summary.items():
+        ate, limit, _ = _check_trajectory(f"phase 17 {cell}", s["t"], s["q"], scans_np.shape[0], gt, ate_rmse)
+        s.update(ate_m=ate, ate_limit_m=limit)
+    if summary.get("s2m", {}).get("dropped", 0) != 0:
+        failed.append(f"s2m dropped {summary['s2m']['dropped']} voxels")
+    frames = scans_np.shape[0]
+    record = {"cards": cards, "ranks": N, "cross_card": N > 1, "shards_a_rank": 1, "nccl": ranks[0]["nccl"],
+              "probe": probe, "bodies_captured": rule_captures, "spawn_s": spawn_s,
+              "contexts": {r: res["contexts"] for r, res in enumerate(ranks)},
+              "reserved_elsewhere": {r: res["reserved"] for r, res in enumerate(ranks)},
+              "ate_m": {c: s["ate_m"] for c, s in summary.items()},
+              "dropped": summary.get("s2m", {}).get("dropped"), "cells": {}}
+    for cell, row in ranks[0]["rows"].items():
+        path_launches[f"ranks_{cell}"] = row["launches"]
+        one = one_rows[cell]
+        slowest = max(res["rows"][cell]["ms"] for res in ranks)
+        rec = {"units": row["units"], "launches_rank0": row["launches"],
+               "ms_rank0": row["ms"], "ms_slowest_rank": slowest, "ms_a_unit": slowest / row["units"],
+               "one_rank_ms": one["ms"], "one_rank_ms_a_unit": one["ms_per_unit"],
+               "eager": row["eager"],
+               "graph_launches_per_unit": [res["rows"][cell].get("graph_launches_per_unit") for res in ranks],
+               "host_reads_per_unit": [res["rows"][cell].get("host_reads_per_unit") for res in ranks],
+               "idle_share_rank0": row.get("idle_share")}
+        if cell in ("s2m", "offline", "extract"):
+            rec["scans_s"], rec["one_rank_scans_s"] = frames / slowest * 1e3, frames / one["ms"] * 1e3
+        record["cells"][cell] = rec
+        rate = (f"; {rec['scans_s']:.3f} scans/s on {N} x 1, {rec['one_rank_scans_s']:.3f} on 1 x {N}"
+                if "scans_s" in rec else "")
+        print(f"phase 17 {cell}: ranks x shards {N} x 1, one a card: {rec['ms_a_unit']:.3f} ms a "
+              f"{'frame' if row['units'] > 1 else 'call'} (slowest rank; rank 0 {row['ms']:.3f} ms a run), "
+              f"1 x {N} shards of cuda:0 {one['ms_per_unit']:.3f}{rate}; "
+              + ("eager (collectives in a conditional body at world size > 1), not traced"
+                 if row["eager"] else f"one program: cudaGraphLaunch a unit {rec['graph_launches_per_unit']}, "
+                 f"host reads {rec['host_reads_per_unit']}")
+              + f"; rank 0's launches "
+              f"{row['launches']}, on {smi}")
+    print(f"phase 17: {N} rank(s) on {cards} card(s) (cross-card traffic: {'yes' if N > 1 else 'no'}), NCCL "
+          f"{record['nccl']}; every rank's outputs bit-equal to "
+          f"rank 0's and to 1 rank x {N} shard(s): {'no' if any('differ' in f for f in failed) else 'yes'}; "
+          f"contexts "
+          f"{record['contexts']}; ATE {record['ate_m']} m; dropped {record['dropped']}", flush=True)
+    print(json.dumps({"ranks": record}))
+    if failed:
+        raise AssertionError("phase 17: " + "; ".join(failed))
+    return record
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:
+        # phase 17's rank: <rank> <world> <port> <out_dir> <cell> ...
+        return _rank_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                            tuple(sys.argv[6:]))
+    if sys.argv[1:2] == ["--probe-worker"]:
+        # phase 17's probe: <case> <rank> <world> <port> <out_dir>
+        return _probe_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
     extraction_only = sys.argv[1:] == ["--extraction-only"]
     drive_only = sys.argv[1:] == ["--drive-only"]
-    if sys.argv[1:] and not (extraction_only or drive_only):
-        print("usage: chip_smoke.py [--extraction-only | --drive-only]", file=sys.stderr)
+    ranks_only = sys.argv[1:2] == ["--ranks-only"]
+    ranks_cells = tuple(sys.argv[2:]) if ranks_only and sys.argv[2:] else RANKS_CELLS
+    if sys.argv[1:] and not (extraction_only or drive_only or ranks_only) or set(ranks_cells) - set(RANKS_CELLS):
+        print(f"usage: chip_smoke.py [--extraction-only | --drive-only | --ranks-only [cell ...]], cells "
+              f"{' '.join(RANKS_CELLS)}", file=sys.stderr)
         return 2
 
     import loam_tpu_torch as T
@@ -1798,7 +2401,7 @@ def main() -> int:
     # the drive of phase 16, rendered once: render_trajectory seeds frame f
     # with seed + f, so the shorter runs' scans are its first frames
     drive_np, drive_poses = render_trajectory(
-        lidar, frames if extraction_only else DRIVE_FRAMES, step=np.array([0.08, 0.02, 0.0]),
+        lidar, frames if extraction_only or ranks_only else DRIVE_FRAMES, step=np.array([0.08, 0.02, 0.0]),
         yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32,
     )
     drive_gt = np.stack([t for (_, t) in drive_poses])
@@ -1838,6 +2441,14 @@ def main() -> int:
     s2m_cfg = T.ScanToMapConfig()
     s2m_reg = T.default_map_reg_params()
     grid_reg = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
+    if ranks_only:
+        # phase 17 alone, after the build
+        _stamp("phase 17")
+        _ranks_phase(T, torch, smi, scans_np, drive_gt[:frames], counters, path_launches, ate_rmse, 2,
+                     ranks_cells)
+        _stamp("phases done")
+        print(smi)
+        return 0
     if drive_only:
         # phase 16 alone, after the build
         _stamp("phase 16")
@@ -2708,6 +3319,10 @@ def main() -> int:
     _stamp("phase 16")
     _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg, s2m_cfg, grid_reg, drive,
                  extraction, knn_cuda, ate_rmse)
+
+    # ---- 17. one rank a card: the sharded drivers over NCCL across the cards ----
+    _stamp("phase 17")
+    _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse, reps)
 
     _stamp("phases done")
     for kd in kernels:

@@ -105,6 +105,9 @@ class ScanToMapState(NamedTuple):
         if mesh is not None:
             device = mesh.device
             rows = list(mesh.shard_ids)
+            shards = np.shape(state.edge_map.mask)[0]
+            if shards != mesh.size:
+                raise ValueError(f"the state's maps hold {shards} shards, the mesh {mesh.size}")
             state = state._replace(**{
                 name: VoxelMap(np.asarray(m.points)[rows], np.asarray(m.mask)[rows], m.voxel_size,
                                m.origin)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve
 from ..program import Counted
 from . import _build
 
@@ -92,7 +93,7 @@ def kernel_form(npad: int, dtype, device, form=None) -> str:
     """The form the kernel takes for slices padded to ``npad`` slots of
     ``dtype`` on ``device``: the first of :data:`FORMS` that holds such a
     slice, or ``form`` where it does (else ``ValueError``)."""
-    return _form(npad, _key_bytes(dtype), torch.device(device).index or 0, form)
+    return _form(npad, _key_bytes(dtype), resolve(device).index, form)
 
 
 @functools.lru_cache(maxsize=None)  # a device's answer never changes

@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from ..device import resolve
 from ..program import Counted
 from . import _build
 
@@ -68,7 +69,7 @@ def kernel_form(P: int, device, form=None) -> str:
     """The form the kernel takes for lines of ``P`` points on ``device``:
     the first of :data:`FORMS` that holds such a line, or ``form`` where it
     does (else ``ValueError``)."""
-    return _form(P, torch.device(device).index or 0, form)
+    return _form(P, resolve(device).index, form)
 
 
 @functools.lru_cache(maxsize=None)  # a device's answer never changes

@@ -20,15 +20,30 @@ makes a run on 2 ranks of 2 shards equal to one on 1 rank of 4 shards.
 
 Both are capture-safe: one output allocated before the collective and
 written by ``all_gather_into_tensor``, no host value, so a sharded driver's
-program (``program.py``) captures them into its CUDA graph on the card, in
-the bodies of its conditional nodes too. On the CPU (gloo) they run eagerly,
-as every program does there.
+program (``program.py``) captures them into its CUDA graph on the card. In
+the bodies of its conditional nodes only at world size 1: with more ranks
+NCCL's collective is accepted in a plain graph but refused in a WHILE body
+(the capture's end fails with ``cudaErrorInvalidValue``; NCCL 2.28.9, CUDA
+12.8, 4 ranks; ``chip_smoke.py`` phase 17 probes it on every run), so a
+program whose collectives run inside such a body runs eagerly at world
+size > 1 (:func:`in_conditional_bodies`), as ``LOAM_DEBUG_NANS=1`` runs
+eagerly by design, and :func:`gather` raises if one is captured there. On
+the CPU (gloo) they run eagerly, as every program does there.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from .. import program
+
+
+def in_conditional_bodies(mesh) -> bool:
+    """Whether a program may capture the collectives of ``mesh`` inside
+    the body of a conditional node: at world size 1 only (module
+    docstring)."""
+    return mesh.group is None or dist.get_world_size(mesh.group) == 1
 
 
 def gather(mesh, x: torch.Tensor) -> torch.Tensor:
@@ -37,9 +52,14 @@ def gather(mesh, x: torch.Tensor) -> torch.Tensor:
     (global shards, ...) in global order. ``x`` itself without a group."""
     if mesh.group is None:
         return x
+    world = dist.get_world_size(mesh.group)
+    if world > 1 and program.capturing_body():
+        # a program that forgot to run eagerly here (sharding.run_program's
+        # ``bodies``) fails now, not at the capture's end on some ranks
+        raise RuntimeError(f"a collective captured inside a conditional body at world size {world}: NCCL "
+                           f"refuses it there, so the program must run eagerly (in_conditional_bodies)")
     # bool travels as uint8: not every backend reduces or gathers bool
     wire = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
-    world = dist.get_world_size(mesh.group)
     out = torch.empty((world * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype,
                       device=wire.device)
     dist.all_gather_into_tensor(out, wire, group=mesh.group)

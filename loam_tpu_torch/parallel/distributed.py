@@ -17,8 +17,11 @@ is split over the mesh's shards):
     loop ends at the same iteration. The path is captured like the
     single-device ones: one program a registration (inline in a
     scan-to-map frame), the search's gathers inside the loop's WHILE node on
-    the card; its key holds the mesh's token. A caller's own ``custom_knn``
-    still runs eagerly, since it may read the host.
+    the card; its key holds the mesh's token. At world size > 1 it runs
+    eagerly, as the scan-to-map frame does: NCCL refuses a collective in a
+    conditional body there (``collectives.in_conditional_bodies``). A
+    caller's own ``custom_knn`` still runs eagerly, since it may read the
+    host.
   * **Sharded voxel map**: a voxel's owner is its Morton key mod the shard
     count, so each voxel has one owner, insertion and dedup stay local, and
     the shards together hold the single-device map's voxels.
@@ -30,11 +33,13 @@ of shard ``g``: ``g * C + c``. These functions shard the mesh's ``axis``
 and need its other axis to be 1.
 
 :func:`scan_to_map_step_sharded` is one program a frame, as the
-single-device step's: extraction, the Morton sort, the registration inline,
-the first-frame and keyframe logic, the insert of both maps under
-``program.when(insert)`` (``lax.cond``, ``loam_tpu``'s
-``distributed.py:352``), an IF node on the card whose body holds the
-inserts' fixed-order sum of ``dropped``.
+single-device step's: extraction, the azimuth sort (``loam_tpu``'s sharded
+step's, ``distributed.py:301``), the registration inline, the first-frame
+and keyframe logic, the insert of both maps under ``program.when(insert)``
+(``lax.cond``, ``loam_tpu``'s ``distributed.py:352``), an IF node on the
+card whose body holds the inserts' fixed-order sum of ``dropped``. At world
+size > 1 it runs eagerly: NCCL refuses a collective in a conditional body
+there (``collectives.in_conditional_bodies``).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from ..odometry.scan_to_map import (ScanToMapConfig, ScanToMapState, _frame, _ma
 from ..ops.knn_cuda import TargetPrep, _init_d2, knn_prep, knn_slots, pack_slots
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration.detail import RegistrationDetail, tree_map
-from ..registration.icf import _register_impl, spatial_sort_features
+from ..registration.icf import _register_impl, azimuth_sort_features
 from . import collectives
 from .sharding import Mesh, require_live, run_program
 
@@ -140,6 +145,13 @@ class ShardedSearch(NamedTuple):
     def key(self) -> tuple:
         """What a registration program's key holds of it."""
         return self.mesh.token, self.axis
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a registration's program may capture the search's
+        gathers inside the ICF loop's WHILE node
+        (``collectives.in_conditional_bodies``)."""
+        return collectives.in_conditional_bodies(self.mesh)
 
     def hooks(self, source: FeatureSet, target: FeatureSet, params: RegistrationParams):
         """The loop's edge and planar searches, each mapping the moved
@@ -274,22 +286,27 @@ def scan_to_map_step_sharded(
     config: ScanToMapConfig = ScanToMapConfig(),
     axis: str = "data",
 ):
-    """One scan-to-map step against sharded voxel maps.
+    """One scan-to-map step against sharded voxel maps: ``loam_tpu``'s
+    ``scan_to_map_step_sharded``.
 
     The flow of the single-device ``scan_to_map_step`` (constant-velocity
     init, first-frame hold, keyframe-gated insert; its ``_frame``):
-    extraction, the Morton sort, :func:`register_features_sharded` against
-    the maps, and :func:`sharded_map_insert` on a keyframe, one program a
-    call (the module docstring) that copies the state in and returns
-    clones. Every rank passes the same scan. Returns (state, world pose,
-    full RegistrationDetail).
+    extraction, the azimuth sort, :func:`register_features_sharded` against
+    the maps (no reordering, ``loam_tpu``'s ``reorder_mode="none"``), and
+    :func:`sharded_map_insert` on a keyframe, one program a call (the module
+    docstring) that copies the state in and returns clones. Every rank
+    passes the same scan. Returns (state, world pose, full
+    RegistrationDetail).
 
-    ``loam_tpu``'s sharded step sorts the source by azimuth where its
-    single-device step sorts by Morton key; the order only moves the pose
-    within the ICF's convergence thresholds (a few mm at 32x512). Here both
-    sort alike, so the sharded step returns the single-device step's pose:
-    the merged neighbour lists are the single search's, except that
-    equidistant map points come in shard order, not map order.
+    The source is sorted by azimuth, as ``loam_tpu``'s sharded step sorts
+    it, where both packages' single-device steps sort it by Morton key. The
+    order of the source changes the order of the ICF's sums, so the sharded
+    step follows ``loam_tpu``'s sharded step and not the single-device one:
+    the two land within the ICF's convergence thresholds of each other (a
+    few mm at 32x512). Fed the same azimuth-sorted features
+    (``scan_to_map_step_features``), the single-device step finds the same
+    neighbours, except that equidistant map points come in shard order, not
+    map order.
     """
     state = _with_dropped(state)
 
@@ -313,11 +330,11 @@ def scan_to_map_step_sharded(
 
     def fn(bufs):
         st, sc = bufs
-        feats = spatial_sort_features(extract_features(sc, lidar, feat_params))
+        feats = azimuth_sort_features(extract_features(sc, lidar, feat_params))
         return _frame(st, feats, reg_params, config, register, insert)
 
     # the sharded search is the registration's whatever ``search_backend`` says
     prog, out = run_program(mesh, ("scan_to_map_sharded", axis, lidar, feat_params, reg_params, config),
-                            (state, scan.to(mesh.device)), fn, None, path="scan_to_map_sharded")
+                            (state, scan.to(mesh.device)), fn, None, bodies=True, path="scan_to_map_sharded")
     pose, det = prog.own(out)
     return program.clone(prog.buffers[0]), pose, det

@@ -24,7 +24,9 @@ Each call of an entry point here and in ``distributed`` is one program
 gloo), on the card one CUDA graph with the gathers inside it, in the bodies
 of its conditional nodes too (the ICF loop's WHILE node holds the sharded
 search, the keyframe's IF node the sharded insert), one ``cudaGraphLaunch``
-a call and no host read. A program is cached under its mesh's ``token``,
+a call and no host read. A program with collectives inside a conditional
+body is captured at world size 1 only, eager with more ranks
+(``collectives.in_conditional_bodies``: NCCL refuses them there). A program is cached under its mesh's ``token``,
 unique in the process: a mesh made on another group never replays it, a
 call on a mesh whose group was destroyed raises, and :meth:`Mesh.release`
 drops the mesh's programs before its group goes.
@@ -40,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from .. import program
-from ..device import place
+from ..device import place, resolve
 from ..features import FeatureSet
 from ..features.curvature import compute_curvature, compute_valid_points, validate_scan
 from ..features.extract import _extract_core
@@ -50,7 +52,7 @@ from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
 from ..registration.detail import tree_map
 from ..registration.loop import driver_program
-from .collectives import gather
+from .collectives import gather, in_conditional_bodies
 
 _TOKENS = itertools.count()
 
@@ -122,23 +124,23 @@ def require_live(mesh: Mesh) -> None:
                            "group") from e
 
 
-def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[RegistrationParams], **info):
+def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[RegistrationParams],
+                bodies: bool = False, **info):
     """``fn(buffers)`` as the one program of a sharded driver call on
     ``mesh`` (``loop.driver_program``: cached, its key holding the mesh's
     token; eager only under ``LOAM_DEBUG_NANS=1``, which reads the host by
-    design), inside ``program.DRIVER_RANGE``. Returns ``(program,
+    design), inside ``program.DRIVER_RANGE``. ``bodies``: ``fn`` runs
+    collectives inside a conditional node's body, so the program is eager
+    where the mesh's collectives cannot be captured there
+    (``collectives.in_conditional_bodies``). Returns ``(program,
     output)``."""
     require_live(mesh)
-    prog = driver_program(mesh.device, key + (mesh.token,), inputs, reg_params, mesh=mesh.token, **info)
+    if bodies and not in_conditional_bodies(mesh):
+        prog = program.Program(mesh.device, inputs, capturable=False)
+    else:
+        prog = driver_program(mesh.device, key + (mesh.token,), inputs, reg_params, mesh=mesh.token, **info)
     with torch.profiler.record_function(program.DRIVER_RANGE):
         return prog, prog.run(fn, inputs)
-
-
-def _device(d) -> torch.device:
-    d = torch.device(d)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
 
 
 def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) -> Mesh:
@@ -152,11 +154,13 @@ def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) ->
     ``line_axis`` of each rank's shards go to the line axis, the rest to the
     data axis: ``shape = {"data": world * local / line_axis, "line":
     line_axis}``. ``group``: the ranks' ``torch.distributed`` group (the
-    caller initialises it), or None for one process.
+    caller initialises it), or None for one process. With a group every
+    rank calls it: one eager gather, on this rank's device, checks that the
+    ranks agree on the shards a rank and ``line_axis`` (the shape assumes
+    it), and so opens the group's communicator on the current stream
+    before any program captures a collective.
     """
-    if devices is None:
-        devices = [torch.device("cuda", torch.cuda.current_device())]
-    devs = tuple(_device(d) for d in devices)
+    devs = tuple(resolve(d) for d in ([None] if devices is None else devices))
     if not devs:
         raise ValueError("a mesh needs at least one shard")
     if any(d != devs[0] for d in devs):
@@ -167,6 +171,13 @@ def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) ->
         raise ValueError(f"{n} shards not divisible by line_axis={line_axis}")
     world = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
+    if group is not None:
+        mine = torch.tensor([[n, line_axis]], dtype=torch.int64, device=devs[0])
+        every = torch.empty((world, 2), dtype=torch.int64, device=devs[0])
+        dist.all_gather_into_tensor(every, mine, group=group)
+        if (every != mine).any():
+            raise ValueError(f"the ranks' meshes differ: (shards, line_axis) of each rank "
+                             f"{every.tolist()}")
     return Mesh(devs, group, {"data": world * n // line_axis, "line": line_axis},
                 tuple(rank * n + j for j in range(n)))
 
@@ -180,6 +191,19 @@ def _blocks(count: int, what: str, mesh: Mesh) -> Tuple[int, int]:
     first, rows = mesh.rows()
     per = count // data
     return first * per, (first + rows) * per
+
+
+def _per_row(fn, count: int, mesh: Mesh, *trees) -> tuple:
+    """``fn`` of each data row's block of this rank's ``count`` items (the
+    leading axis of ``trees``' leaves), a tuple of trees, each concatenated
+    in row order. Every shard's block is one call at one shape, whatever
+    the rank holds besides, as each device runs its own block in
+    ``loam_tpu``'s ``shard_map``: a batch's sums (the ICF's normal
+    equations) round alike on one rank of N shards and on N ranks of one."""
+    _, rows = mesh.rows()
+    n = count // rows
+    parts = [fn(*(tree_map(lambda x, i=i: x[i * n:(i + 1) * n], t) for t in trees)) for i in range(rows)]
+    return tuple(tree_map(lambda *xs: torch.cat(xs), *outs) for outs in zip(*parts))
 
 
 def _extract_lines(pts: torch.Tensor, lidar: LidarParams, params: FeatureExtractionParams,
@@ -238,9 +262,9 @@ def register_pairs_sharded(
     params: RegistrationParams = RegistrationParams(),
 ) -> Tuple[Pose3, RegistrationDetail]:
     """Batched pair registration with the pair axis sharded over "data":
-    each rank registers its block of pairs in one ``register_features_batch``
-    and the blocks are gathered. Every rank passes all pairs; the pair count
-    must be a multiple of the data axis. One program a call (the module
+    each shard registers its block of pairs in one
+    ``register_features_batch`` and the blocks are gathered. Every rank
+    passes all pairs; the pair count must be a multiple of the data axis. One program a call (the module
     docstring)."""
     lo, hi = _blocks(source.edge_mask.shape[0], "pairs", mesh)
     on = lambda x: x.to(mesh.device)
@@ -248,7 +272,7 @@ def register_pairs_sharded(
     def fn(bufs):
         block = lambda x: x[lo:hi]
         src, tgt, ini = (tree_map(block, x) for x in bufs)
-        pose, detail = register_features_batch(src, tgt, ini, params)
+        pose, detail = _per_row(lambda *b: register_features_batch(*b, params), hi - lo, mesh, src, tgt, ini)
         return tree_map(lambda x: gather(mesh, x), pose), tree_map(lambda x: gather(mesh, x), detail)
 
     prog, out = run_program(mesh, ("pairs_sharded",), (source.map(on), target.map(on), tree_map(on, init)),
@@ -270,9 +294,9 @@ def odometry_offline_sharded(
     The frames split into contiguous blocks over "data" (their count must be
     a multiple of it), lines over "line". Each rank extracts its block and
     registers the pairs that start in it, the last one against the first
-    frame of the block to its right (the halo); the relative poses are
-    gathered and composed on every rank. One program a call (the module
-    docstring), as ``odometry_offline``'s.
+    frame of the block to its right (the halo), one batch a data row of its
+    shards; the relative poses are gathered and composed on every rank. One
+    program a call (the module docstring), as ``odometry_offline``'s.
     """
     pts = _scans(scans, lidar, mesh)
     F = pts.shape[0]
@@ -292,7 +316,8 @@ def odometry_offline_sharded(
             frames = feats.map(lambda x: torch.cat([x, x[-1:]]))
         src, tgt = frames.map(lambda x: x[1:]), frames.map(lambda x: x[:-1])
         init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
-        rel, details = register_features_batch(src, tgt, init, reg_params, reorder_mode="none")
+        rel, details = _per_row(lambda *b: register_features_batch(*b, reg_params, reorder_mode="none"), n,
+                                mesh, src, tgt, init)
         cut = lambda x: gather(mesh, x)[:F - 1]
         return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)
 

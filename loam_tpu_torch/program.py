@@ -158,6 +158,11 @@ def nested() -> bool:
     return _depth > 0
 
 
+def capturing_body() -> bool:
+    """Whether the body of a conditional node is being captured now."""
+    return _mode == "capture" and _body_depth > 0
+
+
 @contextlib.contextmanager
 def _running(mode: str):
     global _mode, _depth
@@ -423,7 +428,10 @@ class Program:
             with _running("eager"):
                 return fn(self.buffers)
         if self.graph is None:
-            self._capture(fn, inputs)
+            # the capture's syncs, streams and pools on the program's card,
+            # whichever card is current (a rank touches no other card)
+            with torch.cuda.device(self.dev):
+                self._capture(fn, inputs)
         copy_into(self.buffers, inputs)
         self.graph.replay()
         self.replays += 1

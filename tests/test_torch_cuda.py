@@ -1652,12 +1652,14 @@ def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes
     """The sharded scan-to-map frame's and offline call's graphs hold the
     same conditional nodes at 4 and 8 frames and at 2 and 10 ICF
     iterations: the loop one WHILE node with the sharded search inside,
-    scan-to-map's keyframe insert one IF node, offline's composition two
-    WHILE nodes more. Their nodes (bodies once) are the same at 2 and 10
-    iterations, and scan-to-map's (a program a frame) at 4 and 8 frames;
-    offline registers all its pairs in one lockstep batch, whose kNN split
-    plan (``knn_cuda._splits``: a merge kernel where the targets split)
-    follows the number of pairs, so its nodes may follow the frames."""
+    scan-to-map's keyframe insert one IF node; offline's loop one WHILE
+    node a shard (each shard registers its block of pairs in one batch,
+    ``sharding._per_row``) and its composition two WHILE nodes more. Their
+    nodes (bodies once) are the same at 2 and 10 iterations, and
+    scan-to-map's (a program a frame) at 4 and 8 frames; a shard's batch
+    of pairs has a kNN split plan (``knn_cuda._splits``: a merge kernel
+    where the targets split) that follows the number of pairs, so
+    offline's nodes may follow the frames."""
     from loam_tpu_torch.registration import loop
 
     stats = []
@@ -1668,7 +1670,7 @@ def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes
         torch.cuda.synchronize()
         (g,) = loop.graph_stats()
         stats.append((g["nodes"], g["conditional_nodes"]))
-    want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 3}
+    want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 2 + nccl_meshes[0].size}
     assert [c for _, c in stats] == [want] * 3 and stats[1][0] == stats[2][0], stats
     assert cell != "s2m" or stats[0][0] == stats[1][0], stats
 
@@ -1815,3 +1817,44 @@ def test_last_programs_nodes_do_not_depend_on_length(dev, request, cell):
         for a, b in zip(_tensor_leaves(got), _tensor_leaves(want)):
             assert a.dtype == b.dtype and torch.equal(a, b)
     assert stats[0]["nodes"] == stats[1]["nodes"] > 0, stats
+
+
+# ---- one rank a card: chip_smoke.py phase 17 ------------------------------------------
+
+
+def test_one_rank_a_card(dev):
+    """``chip_smoke.py --ranks-only`` (the build, then phase 17) at this
+    machine's card count: N ranks, the largest power of two no greater than
+    min(cards, 8), each on its own card in an NCCL group made with
+    ``device_id``, running the sharded drivers at full width; every rank's
+    outputs bit-equal to rank 0's and to 1 rank x N shards of ``cuda:0``,
+    one ``cudaGraphLaunch`` and no host read a call or frame on every rank
+    (past one rank, scan-to-map and the pose graph eager and untraced: the
+    port does not capture collectives in a conditional body there), no rank
+    holding a context or reserving memory on another card; at one rank the
+    collective probe's WHILE and IF bodies accepted."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--ranks-only"], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0, run.stdout[-6000:] + run.stderr[-6000:]
+    (line,) = [x for x in run.stdout.splitlines() if x.startswith('{"ranks"')]
+    rec = json.loads(line)["ranks"]
+    n = 1 << (min(torch.cuda.device_count(), 8).bit_length() - 1)
+    assert rec["ranks"] == n and rec["cards"] == torch.cuda.device_count() and rec["cross_card"] == (n > 1)
+    assert rec["contexts"] == {str(r): [r] for r in range(n)}
+    assert sorted(rec["cells"]) == ["extract", "offline", "pairs", "posegraph", "s2m"]
+    assert rec["bodies_captured"] == (n == 1)
+    if n == 1:
+        assert rec["probe"]["while"] == rec["probe"]["if"] == "accepted"
+    for name, cell in rec["cells"].items():
+        # collectives inside a conditional body run eagerly past world size 1
+        assert cell["eager"] == (n > 1 and name in ("s2m", "posegraph"))
+        if cell["eager"]:
+            assert cell["graph_launches_per_unit"] == [None] * n
+        else:
+            assert cell["graph_launches_per_unit"] == [1.0] * n and cell["host_reads_per_unit"] == [0.0] * n

@@ -32,6 +32,10 @@ PORT_RUNS = {
     # six keyframes on a loop of 0.5 m: 60 degrees a frame, still registered
     "full_slam": ["torch_full_slam.py", "--frames", "6", "--radius", "0.5"],
     "distributed_mapping": ["torch_distributed_mapping.py"],
+    # two ranks of one shard each over gloo
+    "distributed_mapping_ranks": ["torch_distributed_mapping.py", "--ranks", "2"],
+    "sharded_offline": ["torch_sharded_offline.py", "--shards", "2", "--frames", "4", "--beams", "16",
+                        "--points", "256", "--reps", "1"],
 }
 #: name -> the loam_tpu twin at the same arguments, for the ATE
 JAX_RUNS = {
@@ -47,6 +51,8 @@ PRINTS = {
     "streaming": "end position error:",
     "full_slam": "mean error:",
     "distributed_mapping": "max |sharded - single-device| translation:",
+    "distributed_mapping_ranks": "max |sharded - single-device| translation:",
+    "sharded_offline": "offline_sharded:",
 }
 #: the ATE line of each example with a twin: regex -> metres per unit
 ATE = {
@@ -100,6 +106,8 @@ def test_example_runs_on_the_cpu(runs, name):
     assert PRINTS[name] in text, text[-3000:]
     if name == "distributed_mapping":
         assert "devices: 8 x cpu" in text and text.rstrip().endswith("OK")
+    if name == "distributed_mapping_ranks":
+        assert "devices: 2 x cpu, 2 ranks" in text and "OK" in text.splitlines()
 
 
 @pytest.mark.parametrize("name", sorted(ATE))

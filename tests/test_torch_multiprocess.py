@@ -1,7 +1,7 @@
-"""The port's mesh across processes: two ranks of a gloo group on the CPU,
-the twin of ``test_multiprocess.py``.
+"""The port's mesh across processes: ranks of a gloo group on the CPU, the
+twin of ``test_multiprocess.py``.
 
-Each test starts two processes running this file as a script,
+Each test starts two or four processes running this file as a script,
 
     python tests/test_torch_multiprocess.py <rank> <world> <port> <mode> <out_dir>
 
@@ -11,26 +11,38 @@ sharded path, check it against the rank's own single-device run, and write
 the result to ``<out_dir>/rank<r>.npz``. The script imports no JAX and runs
 on the CPU.
 
-  * ``pose_graph``: 2 ranks x 2 shards, ``optimize_pose_graph_sharded`` on a
-    60-node graph padded with masked edges to a multiple of 4; within 1e-8
-    of ``optimize_pose_graph``.
-  * ``scan_to_map``: 2 ranks x 1 shard, ``scan_to_map_step_sharded`` over 6
-    frames of ``test_multiprocess.py``'s 8x256 scans; the keyframe decision
-    equal every frame and poses within 1e-5 (m, and quaternion components)
-    of the rank's single-device
-    ``scan_to_map_step`` (the same neighbours and fits; equidistant map
-    points may come in another order).
+  * ``pose_graph``: 2 ranks x 2 shards and 4 ranks x 1,
+    ``optimize_pose_graph_sharded`` on a 60-node graph padded with masked
+    edges to a multiple of 4; within 1e-8 of ``optimize_pose_graph``.
+  * ``scan_to_map``: 2 ranks x 1 shard and 4 x 1,
+    ``scan_to_map_step_sharded`` over 6 frames of ``test_multiprocess.py``'s
+    8x256 scans; the keyframe decision equal every frame and poses within
+    1e-5 (m, and quaternion components) of the rank's single-device step
+    fed the same azimuth-sorted features (``scan_to_map_step_features``:
+    the same neighbours and fits; equidistant map points may come in
+    another order). The sharded step sorts its source by azimuth, as
+    ``loam_tpu``'s does, where ``scan_to_map_step`` sorts by Morton key.
+  * ``offline``: 2 ranks x 2 shards and 4 x 1, ``odometry_offline_sharded``
+    over 8 frames of ``test_parallel.py``'s 8x128 scans, each rank's last
+    pair against the next rank's first frame (the halo); terminations equal
+    and poses within 1e-5 m of ``odometry_offline``. And
+    ``extract_features_sharded``, each rank a row of a (2 data x 2 line)
+    mesh, or of a (4 data x 1 line) one: equal to ``extract_features_batch``.
+  * ``from_numpy``: 2 ranks x 1 shard load ``loam_tpu``'s sharded
+    scan-to-map state of two shards, which the test writes with JAX after 4
+    frames (``ScanToMapState.from_numpy(mesh=)``): each rank holds its own
+    rows, and two more frames from it are bit-equal across the ranks and to
+    one rank of two shards.
 
-  * ``offline``: 2 ranks x 2 shards, ``odometry_offline_sharded`` over 8
-    frames of ``test_parallel.py``'s 8x128 scans, each rank's last pair
-    against the next rank's first frame (the halo); terminations equal and
-    poses within 1e-5 m of ``odometry_offline``. And
-    ``extract_features_sharded`` on a (2 data x 2 line) mesh, each rank a
-    row: equal to ``extract_features_batch``.
+Every rank of every case also checks the port's rules past one rank: the
+programs with collectives in a conditional body are not cached
+(``collectives.in_conditional_bodies``), a gather captured inside such a
+body raises, and ranks that disagree on their shards make no mesh.
 
 Every rank's result must equal every other rank's and an in-process run on
 one rank holding all the shards (1 x 4, 1 x 2) bit for bit: the collectives
-add in global shard order (``parallel/collectives.py``).
+add in global shard order (``parallel/collectives.py``), and each data
+row's block is registered on its own (``sharding._per_row``).
 """
 
 import os
@@ -39,27 +51,35 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
+import torch.distributed as dist
 
-from loam_tpu_torch import parallel
+from loam_tpu_torch import parallel, program
 from loam_tpu_torch.io import random_pose_graph, render_trajectory
 from loam_tpu_torch.params import FeatureExtractionParams, LidarParams, RegistrationParams
 from loam_tpu_torch.parallel import collectives
 from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
 from loam_tpu_torch.pose_graph import optimize_pose_graph, optimize_pose_graph_sharded
-from loam_tpu_torch.features import extract_features_batch
-from loam_tpu_torch.odometry import ScanToMapConfig, odometry_offline, scan_to_map_init, scan_to_map_step
+from loam_tpu_torch.features import extract_features, extract_features_batch
+from loam_tpu_torch.geometry import Pose3
+from loam_tpu_torch.map import VoxelMap
+from loam_tpu_torch.odometry import (ScanToMapConfig, ScanToMapState, odometry_offline, scan_to_map_init,
+                                     scan_to_map_step_features)
+from loam_tpu_torch.registration import azimuth_sort_features
 
 torch.set_num_threads(1)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SHARDS = {"pose_graph": 2, "scan_to_map": 1, "offline": 2}  # per rank, with 2 ranks
+# shards a rank holds, by mode and ranks
+SHARDS = {("pose_graph", 2): 2, ("scan_to_map", 2): 1, ("offline", 2): 2, ("from_numpy", 2): 1,
+          ("pose_graph", 4): 1, ("scan_to_map", 4): 1, ("offline", 4): 1}
 GRAPH_TOL = 1e-8
 POS_TOL = 1e-5
 TIMEOUT_S = 300
 
 
-def _pose_graph(mesh):
+def _pose_graph(mesh, line, out_dir):
     """The sharded solve and its single-device twin on the same graph."""
     _, init, edges = random_pose_graph(60, 6, seed=7)  # 65 edges
     pad = (-edges.i.shape[0]) % mesh.size
@@ -79,23 +99,36 @@ def _pose_graph(mesh):
                  cost=want_cost.numpy()))
 
 
-def _scan_to_map(mesh):
-    """Six sharded steps and the single-device ones on the same frames;
-    the sharded maps gathered whole."""
-    lidar = LidarParams(8, 256, 0.5, 80.0)
-    feat = FeatureExtractionParams(precise_selection=False)
-    reg = RegistrationParams(max_iterations=2, min_associations=10, prior_weight=300.0)
-    cfg = ScanToMapConfig(edge_capacity=512 * mesh.size, planar_capacity=2048 * mesh.size)
-    scans, _ = render_trajectory(lidar, 6, step=np.array([0.05, 0.0, 0.0]), noise=0.003, seed=5,
+S2M_LIDAR = LidarParams(8, 256, 0.5, 80.0)
+S2M_FEAT = FeatureExtractionParams(precise_selection=False)
+S2M_REG = RegistrationParams(max_iterations=2, min_associations=10, prior_weight=300.0)
+
+
+def _s2m_scans(frames):
+    scans, _ = render_trajectory(S2M_LIDAR, frames, step=np.array([0.05, 0.0, 0.0]), noise=0.003, seed=5,
                                  dtype=np.float32)
-    sh = scan_to_map_init_sharded(cfg, mesh)
-    one = scan_to_map_init(cfg, device="cpu")
+    return scans
+
+
+def _s2m_config(shards):
+    return ScanToMapConfig(edge_capacity=512 * shards, planar_capacity=2048 * shards)
+
+
+def _s2m_frames(mesh, sh, one, scans):
+    """Sharded steps from ``sh`` and, when ``one`` is a state, the
+    single-device steps on the same azimuth-sorted features; the sharded
+    maps gathered whole."""
+    cfg = _s2m_config(mesh.size)
     got, want = {"t": [], "q": [], "fsi": []}, {"t": [], "q": [], "fsi": []}
     for f in range(scans.shape[0]):
         x = torch.from_numpy(scans[f])
-        sh, pose, _ = scan_to_map_step_sharded(sh, x, lidar, mesh, feat, reg, cfg)
-        one, pose1, _ = scan_to_map_step(one, x, lidar, feat, reg, cfg)
-        for out, p, s in ((got, pose, sh), (want, pose1, one)):
+        sh, pose, _ = scan_to_map_step_sharded(sh, x, S2M_LIDAR, mesh, S2M_FEAT, S2M_REG, cfg)
+        outs = [(got, pose, sh)]
+        if one is not None:
+            feats = azimuth_sort_features(extract_features(x, S2M_LIDAR, S2M_FEAT))
+            one, pose1, _ = scan_to_map_step_features(one, feats, S2M_REG, cfg)
+            outs.append((want, pose1, one))
+        for out, p, s in outs:
             out["t"].append(p.translation.numpy())
             out["q"].append(p.rotation.numpy())
             out["fsi"].append(int(s.frames_since_insert))
@@ -107,7 +140,36 @@ def _scan_to_map(mesh):
     return res, {k: np.asarray(v) for k, v in want.items()}
 
 
-def _offline(mesh):
+def _scan_to_map(mesh, line, out_dir):
+    """Six sharded steps and the single-device ones on the same frames."""
+    cfg = _s2m_config(mesh.size)
+    return _s2m_frames(mesh, scan_to_map_init_sharded(cfg, mesh), scan_to_map_init(cfg, device="cpu"),
+                       _s2m_scans(6))
+
+
+def _from_numpy(mesh, line, out_dir):
+    """``loam_tpu``'s sharded state of ``mesh.size`` shards, as the test
+    wrote it (``<out_dir>/state.npz``), loaded onto this rank's shards; its
+    own rows, and two more frames from it."""
+    with np.load(os.path.join(out_dir, "state.npz")) as z:
+        v = {k: z[k] for k in z.files}
+    vmap = lambda n: VoxelMap(v[f"{n}_points"], v[f"{n}_mask"], v[f"{n}_voxel_size"], v[f"{n}_origin"])
+    pose = lambda n: Pose3(v[f"{n}_rotation"], v[f"{n}_translation"])
+    state = ScanToMapState(vmap("edge"), vmap("planar"), pose("current"), pose("delta"), pose("keyframe"),
+                           v["frames_since_insert"])
+    st = ScanToMapState.from_numpy(state, mesh=mesh)
+    rows = list(mesh.shard_ids)
+    for n in ("edge", "planar"):
+        m = getattr(st, f"{n}_map")
+        assert m.points.shape[0] == len(rows)
+        np.testing.assert_array_equal(m.points.numpy(), v[f"{n}_points"][rows])
+        np.testing.assert_array_equal(m.mask.numpy(), v[f"{n}_mask"][rows])
+    res, _ = _s2m_frames(mesh, st, None, _s2m_scans(6)[4:])
+    res["rows"] = np.asarray(rows)
+    return res, None
+
+
+def _offline(mesh, line, out_dir):
     """Sharded offline odometry and extraction beside the single-device
     runs; the features compared here, the poses in :func:`_check_single`."""
     lidar = LidarParams(8, 128, 0.5, 80.0)
@@ -117,7 +179,7 @@ def _offline(mesh):
                                  dtype=np.float32)
     traj, det = parallel.odometry_offline_sharded(scans, lidar, mesh, feat, reg)
     one, det1 = odometry_offline(scans, lidar, feat, reg, device="cpu")
-    rows = parallel.make_mesh(list(mesh.devices), line_axis=2, group=mesh.group)
+    rows = parallel.make_mesh(list(mesh.devices), line_axis=line, group=mesh.group)
     feats = parallel.extract_features_sharded(scans, lidar, rows, feat)
     for a, b in zip(feats, extract_features_batch(torch.from_numpy(scans), lidar, feat)):
         assert torch.equal(a, b)
@@ -128,6 +190,8 @@ def _offline(mesh):
 
 def _check_single(mode, got, want):
     """The sharded result against the single-device one."""
+    if mode == "from_numpy":
+        return
     if mode == "pose_graph":
         for key in ("translation", "rotation"):
             np.testing.assert_allclose(got[key], want[key], atol=GRAPH_TOL, rtol=0, err_msg=key)
@@ -141,7 +205,41 @@ def _check_single(mode, got, want):
             assert int(got["dropped"]) == 0
 
 
-RUN = {"pose_graph": _pose_graph, "scan_to_map": _scan_to_map, "offline": _offline}
+def _check_programs(mode, mesh):
+    """The rule of ``collectives.in_conditional_bodies`` past one rank: the
+    programs whose gathers run inside a conditional body (scan-to-map, its
+    registration, the pose graph) are eager and uncached; the others are
+    cached programs of the mesh as at world size 1."""
+    assert not collectives.in_conditional_bodies(mesh)
+    paths = {p.info.get("path") for progs in program._cache.values() for p in progs.values()
+             if p.info.get("mesh") == mesh.token}
+    assert not paths & {"scan_to_map_sharded", "sharded", "pose_graph_sharded"}, paths
+    if mode == "offline":
+        assert paths == {"offline_sharded"}, paths
+
+
+def _check_mesh_rules(mesh):
+    """Past one rank: ranks that disagree on their shards a rank make no
+    mesh (``make_mesh``'s gather), and a collective captured inside a
+    conditional body raises before it reaches the group."""
+    rank = dist.get_rank(mesh.group)
+    with pytest.raises(ValueError, match="meshes differ"):
+        parallel.make_mesh(["cpu"] * (1 + rank), group=mesh.group)
+    was = program.capturing_body
+    program.capturing_body = lambda: True
+    try:
+        with pytest.raises(RuntimeError, match="conditional body"):
+            collectives.gather(mesh, torch.zeros(1))
+    finally:
+        program.capturing_body = was
+
+
+RUN = {"pose_graph": _pose_graph, "scan_to_map": _scan_to_map, "offline": _offline, "from_numpy": _from_numpy}
+
+
+def _line(mode, world) -> int:
+    """The extraction mesh's line axis: a rank's two shards a row, else 1."""
+    return 2 if SHARDS[mode, world] % 2 == 0 else 1
 
 
 def _free_port() -> int:
@@ -175,12 +273,15 @@ def _run_ranks(mode, out_dir, world=2):
 
 def _bit_equal_to_one_rank(mode, tmp_path, world=2):
     ranks = _run_ranks(mode, tmp_path, world)
-    mine, want = RUN[mode](parallel.make_mesh(["cpu"] * (world * SHARDS[mode])))
+    mine, want = RUN[mode](parallel.make_mesh(["cpu"] * (world * SHARDS[mode, world])), _line(mode, world),
+                           str(tmp_path))
     _check_single(mode, mine, want)
     for r, res in enumerate(ranks):
         assert sorted(res) == sorted(mine)
         for key in mine:
-            np.testing.assert_array_equal(res[key], mine[key], err_msg=f"rank {r} {key}")
+            if key != "rows":  # the shards a rank loaded (from_numpy)
+                np.testing.assert_array_equal(res[key], mine[key], err_msg=f"rank {r} {key}")
+    return ranks
 
 
 def test_two_ranks_pose_graph(tmp_path):
@@ -195,15 +296,63 @@ def test_two_ranks_offline_and_extraction(tmp_path):
     _bit_equal_to_one_rank("offline", tmp_path)
 
 
-def main(rank: int, world: int, port: int, mode: str, out_dir: str) -> None:
-    import torch.distributed as dist
+@pytest.mark.parametrize("mode", ["pose_graph", "scan_to_map", "offline"])
+def test_four_ranks_of_one_shard(tmp_path, mode):
+    """4 ranks x 1 shard, bit-equal to each other and to 1 rank x 4 shards."""
+    _bit_equal_to_one_rank(mode, tmp_path, world=4)
 
+
+def test_two_ranks_load_loam_tpu_sharded_state(tmp_path):
+    """``loam_tpu``'s (D, C, ...) sharded state, written with JAX after 4
+    frames on 2 virtual devices, loads onto 2 ranks of one shard each:
+    rank r holds row r, and the next 2 frames agree bit for bit with one
+    rank of two shards and within 1e-2 m / 1e-3 rad (F6) of ``loam_tpu``'s
+    sharded step from the same state."""
+    import jax
+    import jax.numpy as jnp
+
+    import loam_tpu as J
+    import loam_tpu.parallel as jpar
+    from loam_tpu.odometry import scan_to_map as j_s2m
+    from loam_tpu.parallel import distributed as jdist
+
+    lidar = J.LidarParams(8, 256, 0.5, 80.0)
+    feat = J.FeatureExtractionParams(precise_selection=False)
+    reg = J.RegistrationParams(max_iterations=2, min_associations=10, prior_weight=300.0)
+    cfg = j_s2m.ScanToMapConfig(edge_capacity=512 * 2, planar_capacity=2048 * 2)
+    jmesh = jpar.make_mesh(jax.devices()[:2])
+    scans = _s2m_scans(6)
+    st = jdist.scan_to_map_init_sharded(cfg, jmesh)
+    step = lambda s, x: jdist.scan_to_map_step_sharded(s, jnp.asarray(x), lidar, jmesh, feat_params=feat,
+                                                       reg_params=reg, config=cfg)
+    for f in range(4):
+        st, _, _ = step(st, scans[f])
+    leaves = {"frames_since_insert": np.asarray(st.frames_since_insert)}
+    for n, m in (("edge", st.edge_map), ("planar", st.planar_map)):
+        leaves.update({f"{n}_{k}": np.asarray(getattr(m, k)) for k in ("points", "mask", "voxel_size", "origin")})
+    for n, p in (("current", st.world_T_current), ("delta", st.prev_delta), ("keyframe", st.world_T_keyframe)):
+        leaves.update({f"{n}_rotation": np.asarray(p.rotation), f"{n}_translation": np.asarray(p.translation)})
+    assert leaves["edge_points"].shape[0] == 2 and leaves["edge_mask"].any()
+    np.savez(tmp_path / "state.npz", **leaves)
+    ranks = _bit_equal_to_one_rank("from_numpy", tmp_path)
+    assert [res["rows"].tolist() for res in ranks] == [[0], [1]]
+    for f in range(4, 6):
+        st, jpose, _ = step(st, scans[f])
+        got = ranks[0]
+        assert got["fsi"][f - 4] == int(st.frames_since_insert)
+        np.testing.assert_allclose(got["t"][f - 4], np.asarray(jpose.translation), atol=1e-2, rtol=0)
+        np.testing.assert_allclose(got["q"][f - 4], np.asarray(jpose.rotation), atol=1e-3, rtol=0)
+
+
+def main(rank: int, world: int, port: int, mode: str, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
                             rank=rank)
     try:
-        mesh = parallel.make_mesh(["cpu"] * SHARDS[mode], group=dist.group.WORLD)
-        got, want = RUN[mode](mesh)
+        mesh = parallel.make_mesh(["cpu"] * SHARDS[mode, world], group=dist.group.WORLD)
+        got, want = RUN[mode](mesh, _line(mode, world), out_dir)
         _check_single(mode, got, want)
+        _check_programs(mode, mesh)
+        _check_mesh_rules(mesh)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **got)
     finally:
         dist.destroy_process_group()
