@@ -8,10 +8,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
   0. Require CUDA; print the GPU's name and power limit (``nvidia-smi``),
      and the torch and CUDA versions; turn TF32 off.
-  1. Build the five CUDA kernels and the CUDA-graph IF nodes
-     (``graph_if.cu``) from ``loam_tpu_torch/ops/csrc`` (one ``nvcc`` per
-     source, all at once) and print the build time and what
-     ``ptxas`` reports (registers, shared memory, spills).
+  1. Build the five CUDA kernels, the mesh's gather over peer memory
+     (``peer_gather.cu``) and the CUDA-graph IF nodes (``graph_if.cu``)
+     from ``loam_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at
+     once) and print the build time and what ``ptxas`` reports
+     (registers, shared memory, spills).
   2. Run every kernel and its plain PyTorch version on the same inputs at
      the paths' shapes (16 synthetic 64x1024 scans: all 1,024 lines for the
      extraction kernels, one frame's 64 lines, which is what scan-to-scan
@@ -149,9 +150,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``optimize_pose_graph_sharded`` on phase 11's graph in float64, its
      edges padded with masked ones to a multiple of 4, within 1e-8 of phase
      11's solve and 1e-5 m of the truth; ms per solve, peak memory. Each
-     sharded call (a scan-to-map frame) is one program, its gathers inside
-     the CUDA graph; the meshes are released before the group is
-     destroyed.
+     sharded call (a scan-to-map frame) is one program, its gathers (the
+     kernel's over peer memory, ``peer_gather.cu``; launched on every
+     sharded path) inside the CUDA graph. Then the gather at the main
+     path's shapes (the sharded search's planar and edge values, (4, 4, 5,
+     Q) float32, and the pose graph's normal matrix, (4, 6,000, 6,000)
+     float64; the indices too, unrowed) bit-equal to NCCL's
+     ``all_gather_into_tensor``, timed beside it and beside its bound (the
+     peers' bytes over NVLink at 450 GB/s a direction plus the local read
+     and write at 3.35 TB/s): rows ``peer_gather_*``. The meshes are
+     released before the group is destroyed.
  13. The card's full-width output against the float64 oracle
      (``loam_tpu_torch.oracle``, numpy on the host): ``extract_features_batch``
      on 4 of the 16 frames, every edge and planar pick index-exact with
@@ -268,14 +276,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (``torch.cuda.set_device``) in an NCCL group made eagerly on that card
      (``init_process_group(device_id=)``), the README's recipe. First the
      collective probe, each case N throwaway ranks of its own (a refusal
-     ends them, and the case records it as measured): one gather
-     (``parallel.collectives``) captured into a WHILE body and into an IF
-     body, replayed and checked, after ``make_mesh``'s eager gather; and
-     a rank's first gather on a side stream, then captured into a plain
-     graph and replayed (the order in which a four-card run once hung).
-     Where NCCL refuses the bodies (past world size 1), the cells whose
-     collectives run in one (scan-to-map, the pose graph) run eagerly by
-     ``collectives.in_conditional_bodies``, untraced. Then each rank, on
+     ends them, and the case records it): the kernel's gather
+     (``collectives.gather``, over peer memory) captured into a WHILE body
+     (3 and 2 iterations), an IF body (taken and not) and a plain graph,
+     replayed, each output bit-equal to NCCL's eager gather of the same
+     blocks (required); and NCCL's own gather in the same WHILE and IF
+     bodies, and a rank's first NCCL gather on a side stream then captured
+     into a plain graph (the order in which a four-card run once hung),
+     printed as measured: NCCL 2.28.9 refuses the bodies past world size 1,
+     which is why the port gathers with its own kernel. Then each rank, on
      ``make_mesh()`` (one shard on its card) at full width on
      phase 12's 16 frames of 64x1024: ``scan_to_map_step_sharded`` over the
      16 frames (default ``ScanToMapConfig``, ``default_map_reg_params()``),
@@ -283,24 +292,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``register_pairs_sharded`` on 8 pairs and ``optimize_pose_graph_sharded``
      on phase 11's float64 graph (edges padded to a multiple of N): each a
      counted run (every counter at 0 just before, read just after: the
-     extraction kernels and the kNN launched, the dual kNN not), a traced
-     run of each cell that is one program (inside ``program.DRIVER_RANGE``:
-     1 ``cudaGraphLaunch`` and 0 host reads a call or frame, required) and
-     ms a run; then the cards it holds
-     a CUDA context on (the driver API) and ``torch.cuda.memory_reserved``
-     on every other card, both required to be its card alone and 0. A rank
-     past ``RANKS_TIMEOUT_S`` or failing kills every rank, and the phase
-     fails naming it and its last stamp. Then every rank's outputs are
-     required bit-equal to rank 0's (scan-to-map's maps aside: each rank
-     holds its own rows of them), and rank 0's to the same calls in this
-     process on N shards of ``cuda:0`` in a world-size-1 NCCL group, the
-     ranks' rows of the maps in rank order to its maps (the
-     fixed sum order and a batch a shard make N ranks x 1 shard equal 1
-     rank x N shards); the ATE gate and ``dropped`` 0. Ms a call or frame
-     and scans/s on N ranks beside 1 rank x N shards, and a ``{"ranks":
+     extraction kernels, the kNN and the gather launched, the dual kNN not),
+     a traced run (inside ``program.DRIVER_RANGE``: 1 ``cudaGraphLaunch``
+     and 0 host reads a call or frame, required of every cell) and ms a run;
+     then the kernel's gather against NCCL's at the cells' own shapes (the
+     sharded search's indices and values, the pose graph's normal matrix;
+     bit-equal required, both timed); then the cards it holds a CUDA context
+     on (the driver API) and ``torch.cuda.memory_reserved`` on every other
+     card, both required to be its card alone and 0. A rank past
+     ``RANKS_TIMEOUT_S`` or failing kills every rank, and the phase fails
+     naming it and its last stamp. Then every rank's outputs are required
+     bit-equal to rank 0's (scan-to-map's maps aside: each rank holds its
+     own rows of them), and rank 0's to the same calls in this process on N
+     shards of ``cuda:0`` in a world-size-1 NCCL group, the ranks' rows of
+     the maps in rank order to its maps (the fixed sum order and a batch a
+     shard make N ranks x 1 shard equal 1 rank x N shards); the ATE gate
+     and ``dropped`` 0. Ms a call or frame and scans/s on N ranks beside 1
+     rank x N shards, the gather's ms beside NCCL's, and a ``{"ranks":
      ...}`` line (``cards``, ``ranks``, ``cross_card``, the probe, the
-     contexts, the cells). ``--ranks-only`` runs phase 1 and this phase
-     alone; ``--ranks-only <cell> ...`` the cells named, without the probe.
+     contexts, the cells, the gather). ``--ranks-only`` runs phase 1 and
+     this phase alone; ``--ranks-only <cell> ...`` the cells named, without
+     the probe and the gather check.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -963,7 +975,8 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
         return st, out
 
     with _dual_knn(False):
-        st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn",), ("knn_dual",))
+        st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn", "peer_gather"),
+                              ("knn_dual",))
         st_1, out_1 = run_single()
         st_az, out_az = run_single(T.registration.azimuth_sort_features)
         dt_sh = _seconds_per_run(run_sharded, reps)
@@ -1035,7 +1048,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     # (no motion prior) and one pair a call (its defaults)
     with _dual_knn(False):
         run_off = lambda: parallel.odometry_offline_sharded(scans_np, lidar, mesh, fp, rp)
-        traj_sh, det_sh = drive("offline_sharded", run_off, extraction + ("knn",), ("knn_dual",))
+        traj_sh, det_sh = drive("offline_sharded", run_off, extraction + ("knn", "peer_gather"), ("knn_dual",))
         run_off1 = lambda: T.odometry_offline(scans_np, lidar, fp, rp, chunk_pairs=frames // D)
         traj_1, det_1 = run_off1()
         traj_p, _ = T.odometry_offline(scans_np, lidar, fp, rp)
@@ -1060,7 +1073,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     # extraction on a (2 data x 2 line) mesh: index-exact
     mesh22 = parallel.make_mesh([dev] * D, line_axis=2, group=group)
     got = drive("extract_sharded", lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp),
-                extraction, ("knn", "knn_dual"))
+                extraction + ("peer_gather",), ("knn", "knn_dual"))
     want = T.extract_features_batch(scans, lidar, fp)
     for field, a, b in zip(want._fields, got, want):
         _require_equal(f"extract_features_sharded {field}", a, b)
@@ -1088,8 +1101,54 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
         raise AssertionError(f"pose graph sharded differs from optimize_pose_graph by {gap_pg}")
     if not err_pg < ATOL_GRAPH_TRUTH_M:
         raise AssertionError(f"pose graph sharded: {err_pg} m from the true poses")
-    mesh.release()  # their graphs replay the group's collectives: gone before the group is
+    peer_rows = _peer_rows(T, torch, mesh, scans, lidar, fp)
+    _print_kernels(peer_rows)
+    mesh.release()  # their graphs replay the mesh's gathers: gone before the group is
     mesh22.release()
+    return rows + peer_rows
+
+
+NVLINK_BYTES_S = 450e9  # H100 SXM NVLink, each way (published)
+
+
+def _gather_bound(nbytes: int, world: int) -> dict:
+    """The least time a gather of ``nbytes`` a rank could take on ``world``
+    ranks: the larger of the peers' blocks pulled over NVLink and the rank's
+    own block read and the output written at the memory rate (the two
+    overlap)."""
+    ms = max((world - 1) * nbytes / NVLINK_BYTES_S, (1 + world) * nbytes / PEAK_BYTES_S) * 1e3
+    return {"bound_ms": ms, "bound_by": "bytes"}
+
+
+def _peer_rows(T, torch, mesh, scans, lidar, fp) -> list:
+    """The kernel rows of the mesh's gather over peer memory on ``mesh``
+    (phase 12's 4 shards, a world-size-1 NCCL group) at the main path's
+    shapes (:func:`_peer_shapes`, every one checked bit-equal to NCCL's by
+    :func:`_peer_check`): the sharded search's values, planar and edge, and
+    the pose graph's normal matrix. The plain version is NCCL's
+    ``all_gather_into_tensor``, which is also the one PyTorch call for the
+    same function: ``plain_ms`` and ``library_ms`` are its time back to
+    back, ``library_launch_ms`` inside a graph, beside the kernel's."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(mesh.group)
+    shapes = _peer_shapes(T, torch, mesh, scans, lidar, fp)
+    check = _peer_check(torch, mesh, shapes, 10)
+    unequal = [name for name, row in check.items() if not row["equal"]]
+    if unequal:
+        raise AssertionError(f"peer_gather differs from NCCL's all_gather_into_tensor at {unequal}")
+    rows = []
+    for name, replaces in (("knn_planar_val", "loam_tpu/parallel/distributed.py:83"),
+                           ("knn_edge_val", "loam_tpu/parallel/distributed.py:83"),
+                           ("H", "loam_tpu/pose_graph.py:281")):
+        x, row = shapes[name], check[name]
+        rows.append(dict(
+            name=f"peer_gather_{name}", counter="peer_gather", route="cuda",
+            source="loam_tpu_torch/ops/csrc/peer_gather.cu",
+            replaces=f"{replaces} (an XLA collective: no pallas_call)",
+            shape=f"{row['dtype']} {tuple(row['shape'])} a rank, {world} rank(s)", max_abs_err=0.0,
+            ms=row["ms"], launch_ms=row["graph_us"] / 1e3, plain_ms=row["nccl_ms"], library_ms=row["nccl_ms"],
+            library_launch_ms=row["nccl_graph_us"] / 1e3, **_gather_bound(x.numel() * x.element_size(), world)))
     return rows
 
 
@@ -1332,6 +1391,7 @@ def _profile_run(torch, run, units: int):
     _, inside = launch_calls(events, within=program.DRIVER_RANGE)
     reads = host_reads(events)
     return {"wall_ms": wall, "device_kernel_ms": device, "idle_share": 1 - device / wall,
+            "kernel_us": kernel_times(events),
             "host_launch_calls": every, "host_launch_calls_in_driver_loop": inside,
             "graph_launches_per_unit": inside.get("cudaGraphLaunch", 0) / units,
             "host_reads_in_driver_loop": reads, "host_reads_per_unit": sum(reads.values()) / units,
@@ -1519,16 +1579,19 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
 
         run_off = lambda x=scans: parallel.odometry_offline_sharded(x, lidar, mesh, fp, rp)
         cells = {
-            "s2m-64x1024-sharded4": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("knn",),
-                                     ("knn_dual",)),
-            "offline-64x1024-sharded4": (run_off, 1, dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("knn",),
-                                         ("knn_dual",)),
+            "s2m-64x1024-sharded4": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"),
+                                     extraction + ("knn", "peer_gather"), ("knn_dual",)),
+            "offline-64x1024-sharded4": (run_off, 1, dict(LOAM_ICF_DUAL_KNN="0"),
+                                         extraction + ("knn", "peer_gather"), ("knn_dual",)),
             "extract-64x1024-2x2": (lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp), 1,
-                                    dict(LOAM_ICF_DUAL_KNN="0"), extraction, no_knn, dict(branches=False)),
+                                    dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("peer_gather",), no_knn,
+                                    dict(branches=False)),
             "pairs-64x1024-sharded4": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1,
-                                       dict(LOAM_ICF_DUAL_KNN="0"), ("knn",), ("knn_dual",) + extraction),
+                                       dict(LOAM_ICF_DUAL_KNN="0"), ("knn", "peer_gather"),
+                                       ("knn_dual",) + extraction),
             "posegraph-1000-sharded4": (lambda: optimize_pose_graph_sharded(pg64[0], edges_p, mesh, 10), 1, {},
-                                        (), no_knn + extraction, dict(check=check_graph, rate=False)),
+                                        ("peer_gather",), no_knn + extraction,
+                                        dict(check=check_graph, rate=False)),
         }
         out = _graph_phase(torch, smi, frames, drive, path_launches, cells, reps)
         with _dual_knn(False):
@@ -1906,32 +1969,77 @@ def _rank_group(torch, rank: int, world: int, port: int, timeout_s: int):
 
 
 def _probe_worker(case: str, rank: int, world: int, port: int, out_dir: str) -> int:
-    """One throwaway rank of the collective probe's ``case``. ``"while"``
-    and ``"if"``: after ``make_mesh``'s eager gather, one
-    ``all_gather_into_tensor`` (NCCL's own, not ``collectives.gather``,
-    which refuses a body past world size 1) captured into the body of a
-    WHILE node (``program.while_loop``, 3 and 2 iterations) or an IF node
-    (``program.when``, taken and not), replayed 3 times and checked.
+    """One throwaway rank of the collective probe's ``case``. NCCL's cases,
+    the record of why the port gathers with its own kernel: ``"while"`` and
+    ``"if"``: after ``make_mesh``'s eager gather, one NCCL
+    ``all_gather_into_tensor`` captured into the body of a WHILE node
+    (``program.while_loop``, 3 and 2 iterations) or an IF node
+    (``program.when``, taken and not), replayed 3 times and checked;
     ``"side_first"``: this rank's first gather on a side stream, then one
-    captured into a plain CUDA graph, replayed twice and checked. A refusal
-    raises and ends the rank: its error is the case's record."""
+    captured into a plain CUDA graph, replayed twice and checked. The
+    kernel's cases, ``"peer_while"``, ``"peer_if"`` and ``"peer_plain"``:
+    ``collectives.gather`` (the gather over peer memory) of a random block
+    of this rank captured in the same WHILE and IF bodies and in a plain
+    graph, each replay's output bit-equal to NCCL's eager gather of the
+    same blocks; past one rank ``"peer_plain"`` then gathers a block past
+    the mailbox, which must raise inside a capture, grow the mailbox
+    eagerly and equal NCCL's, and replays the graph captured before. A
+    refusal raises and ends the rank: its error is the case's record."""
     import torch
     import torch.distributed as dist
 
     from loam_tpu_torch import parallel, program
+    from loam_tpu_torch.ops.peer_cuda import peer_gather_reference
+    from loam_tpu_torch.parallel import collectives
 
     stamp = _stamper(out_dir, f"probe_{case}_", rank)
     stamp("init_process_group")
     dev = _rank_group(torch, rank, world, port, PROBE_COLLECTIVE_TIMEOUT_S)
     x = torch.full((1, 4), float(rank + 1), device=dev)
     total = 4.0 * world * (world + 1) / 2  # the sum of every rank's x
+    peer = case.startswith("peer_")
+    if peer:
+        mesh = parallel.make_mesh(group=dist.group.WORLD)
+        x = torch.randn((2, 3001), generator=torch.Generator(dev).manual_seed(rank), device=dev)
+        want = torch.empty((2 * world, 3001), device=dev)
+        dist.all_gather_into_tensor(want, x)
 
     def gathered(xb):
+        if peer:
+            return collectives.gather(mesh, xb)
         out = torch.empty((world, 4), device=dev)
         dist.all_gather_into_tensor(out, xb)
         return out.sum()
 
-    if case == "side_first":
+    if case == "peer_plain":
+        stamp("the kernel's gather in a plain graph: capture and replays")
+        out = torch.zeros_like(want)
+        out.copy_(gathered(x))  # the eager warm-up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out.copy_(gathered(x))
+        got, nodes = [], {"if": 0, "while": 0}
+        for _ in range(3):
+            out.zero_()
+            graph.replay()
+            got.append(torch.equal(out, want))
+        want_got = [True] * 3
+        if world > 1:
+            stamp("a gather past the mailbox: in a capture, then eager, then the earlier graph again")
+            big = torch.randn((1, mesh.peer.cap // 4 + 1), generator=torch.Generator(dev).manual_seed(rank),
+                              device=dev)
+            try:
+                with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                    gathered(big)
+                raised = "no error"
+            except RuntimeError as err:
+                raised = "inside a capture" in str(err)
+            grown = torch.equal(gathered(big), peer_gather_reference(big, mesh.group))
+            out.zero_()
+            graph.replay()  # captured on the first mailbox, which the mesh keeps
+            got += [raised, grown, torch.equal(out, want)]
+            want_got += [True] * 3
+    elif case == "side_first":
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         stamp("the first gather, on a side stream")
@@ -1946,37 +2054,54 @@ def _probe_worker(case: str, rank: int, world: int, port: int, out_dir: str) -> 
         for _ in range(2):
             graph.replay()
             got.append(float(y))
-        want, nodes = [total] * 3, None
+        want_got, nodes = [total] * 3, None
     else:
-        parallel.make_mesh(group=dist.group.WORLD)
+        kind = case.removeprefix("peer_")
+        if not peer:
+            parallel.make_mesh(group=dist.group.WORLD)
 
         def fn(bufs):
             xb, n = bufs
+            # NCCL's cases: the sum of the gathers; the kernel's: the last
+            # gather and how many ran
             acc = torch.zeros((), device=dev)
-            if case == "while":
+            out = torch.zeros_like(want) if peer else None
+            record = (lambda: (out.copy_(gathered(xb)), acc.add_(1))) if peer else \
+                (lambda: acc.add_(gathered(xb)))
+            if kind == "while":
                 i = torch.zeros((), dtype=torch.int64, device=dev)
                 going = i < n
 
                 def body():
-                    acc.add_(gathered(xb))
+                    record()
                     i.add_(1)
                     going.copy_(i < n)
 
                 program.while_loop(going, body)
             else:
-                program.when(n > 2, lambda: acc.add_(gathered(xb)))
-            return acc
+                program.when(n > 2, record)
+            return (acc, out) if peer else acc
 
         count = lambda k: torch.full((), k, dtype=torch.int64, device=dev)
         prog = program.Program(dev, (x, count(3)))
-        stamp(f"a gather in a {case.upper()} body: capture and replays")
-        got = [float(prog.run(fn, (x, count(k)))) for k in (3, 2, 3)]
-        want = [3 * total, 2 * total, 3 * total] if case == "while" else [total, 0.0, total]
+        stamp(f"a {'kernel' if peer else 'NCCL'} gather in a {kind.upper()} body: capture and replays")
+        ran = lambda k: (k if kind == "while" else int(k > 2))
+        got = []
+        for k in (3, 2, 3):  # read each replay's output before the next overwrites it
+            res = prog.run(fn, (x, count(k)))
+            if peer:
+                acc, out = res
+                got.append((int(acc), torch.equal(out, want) if ran(k) else not out.any()))
+            else:
+                got.append(float(res))
+        want_got = [(ran(k), True) if peer else ran(k) * total for k in (3, 2, 3)]
         nodes = prog.conditional if prog.graph is not None else None
-        if nodes != dict({"if": 0, "while": 0}, **{case: 1}):
+        if nodes != dict({"if": 0, "while": 0}, **{kind: 1}):
             raise AssertionError(f"probe {case}: conditional nodes {nodes}")
-    if got != want:
-        raise AssertionError(f"probe {case}: gathered sums {got}, want {want}")
+    if got != want_got:
+        raise AssertionError(f"probe {case}: got {got}, want {want_got}")
+    if peer:
+        mesh.release()  # its buffers, which the other ranks map, freed after every rank's last read
     # a refusal above ends the rank with its group alive: NCCL aborts it at exit
     dist.destroy_process_group()
     stamp("accepted" if nodes is not None else "completed")
@@ -2041,20 +2166,17 @@ def _probe_case(case: str, world: int, out_dir: str) -> str:
 
 def _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph, cells=RANKS_CELLS):
     """Phase 17's calls on ``mesh`` at full width: ``{cell: (run, units,
-    kernels it must launch, whether it runs eagerly)}``: scan-to-map and
-    the pose graph, whose collectives run inside conditional bodies, are
-    eager where ``collectives.in_conditional_bodies`` says no (world size >
-    1). ``graph``: the pose graph's (initial, edges) on the mesh's card, its
-    edges padded to a multiple of the shards. ``cells``: those to run."""
+    kernels it must launch)}``, every one a program whose gathers are the
+    kernel's over peer memory. ``graph``: the pose graph's (initial, edges)
+    on the mesh's card, its edges padded to a multiple of the shards.
+    ``cells``: those to run."""
     from loam_tpu_torch import parallel
-    from loam_tpu_torch.parallel.collectives import in_conditional_bodies
     from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
     from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
     from loam_tpu_torch.registration import azimuth_sort_features
 
     cfg, s2m_reg = T.ScanToMapConfig(), T.default_map_reg_params()
     frames = scans.shape[0]
-    eager = not in_conditional_bodies(mesh)
 
     def s2m():
         st, out = scan_to_map_init_sharded(cfg, mesh), []
@@ -2069,14 +2191,58 @@ def _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph, cells=RANKS_CELLS):
     ident = T.Pose3.identity(torch.float32, (RANKS_PAIRS,), mesh.device)
     extraction = ("sector_sort", "greedy_nms", "select_points")
     every = {
-        "s2m": (s2m, frames, extraction + ("knn",), eager),
+        "s2m": (s2m, frames, extraction + ("knn", "peer_gather")),
         "offline": (lambda: parallel.odometry_offline_sharded(scans, lidar, mesh, fp, rp), 1,
-                    extraction + ("knn",), False),
-        "extract": (lambda: parallel.extract_features_sharded(scans, lidar, mesh, fp), 1, extraction, False),
-        "pairs": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1, ("knn",), False),
-        "posegraph": (lambda: optimize_pose_graph_sharded(*graph, mesh, 10), 1, (), eager),
+                    extraction + ("knn", "peer_gather")),
+        "extract": (lambda: parallel.extract_features_sharded(scans, lidar, mesh, fp), 1,
+                    extraction + ("peer_gather",)),
+        "pairs": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1, ("knn", "peer_gather")),
+        "posegraph": (lambda: optimize_pose_graph_sharded(*graph, mesh, 10), 1, ("peer_gather",)),
     }
     return {cell: every[cell] for cell in cells}
+
+
+def _peer_shapes(T, torch, mesh, scans, lidar, fp, nodes: int = 1000) -> dict:
+    """The gathers of phase 17's cells at their own shapes on ``mesh``
+    (``L`` = this rank's shards), random, seeded by this rank's first
+    shard: the ICF's sharded search's indices (L, k, Q) int32 and values
+    (L, 4, k, Q) float32 for a 64x1024 frame's planar and edge slots
+    (``distributed._shard_search``), and the pose graph's normal matrix
+    (L, 6 nodes, 6 nodes) float64 (``optimize_pose_graph_sharded``)."""
+    L, dev = len(mesh.shard_ids), mesh.device
+    feats = T.extract_features(scans[0], lidar, fp)
+    reg = T.default_map_reg_params()
+    g = torch.Generator(dev).manual_seed(mesh.shard_ids[0])
+    out = {}
+    for cls, Q, k in (("planar", feats.planar_mask.shape[0], reg.num_plane_neighbors),
+                      ("edge", feats.edge_mask.shape[0], reg.num_edge_neighbors)):
+        out[f"knn_{cls}_idx"] = torch.randint(0, 2**31 - 1, (L, k, Q), generator=g, dtype=torch.int32, device=dev)
+        out[f"knn_{cls}_val"] = torch.randn((L, 4, k, Q), generator=g, device=dev)
+    out["H"] = torch.randn((L, 6 * nodes, 6 * nodes), generator=g, dtype=torch.float64, device=dev)
+    return out
+
+
+def _peer_check(torch, mesh, shapes: dict, reps: int) -> dict:
+    """Each of ``shapes`` gathered by the kernel (``collectives.gather``)
+    and by NCCL's eager ``all_gather_into_tensor`` (the plain version):
+    whether they are bit-equal, ms a gather of each called back to back,
+    and us a gather of each inside a plain CUDA graph of 20 (the normal
+    matrix: 2) replayed (CUDA events)."""
+    from loam_tpu_torch.ops.peer_cuda import peer_gather_reference
+    from loam_tpu_torch.parallel import collectives
+
+    rows = {}
+    for name, x in shapes.items():
+        a, b = collectives.gather(mesh, x), peer_gather_reference(x, mesh.group)
+        torch.cuda.synchronize()
+        rows[name] = {"shape": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
+                      "equal": a.dtype == b.dtype and torch.equal(a, b)}
+        del a, b
+        kernel, nccl = lambda: collectives.gather(mesh, x), lambda: peer_gather_reference(x, mesh.group)
+        n = 2 if name == "H" else 20
+        rows[name].update(ms=_time_ms(kernel, reps), nccl_ms=_time_ms(nccl, reps),
+                          graph_us=_graph_ms(kernel, n, 3) * 1e3, nccl_graph_us=_graph_ms(nccl, n, 3) * 1e3)
+    return rows
 
 
 def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
@@ -2086,11 +2252,23 @@ def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
     ``torch.profiler`` run
     (``cudaGraphLaunch`` calls and host reads a unit inside
     ``program.DRIVER_RANGE``), then ms a run over ``reps`` after a warm-up.
-    Returns (the first run's output tensors on the host, a cell's a list,
-    scan-to-map's maps under ``"s2m_maps"``; a row a cell; the
-    trajectories' summary)."""
+    Where the pose graph follows scan-to-map, the frames run once more at
+    the end and must equal their first run (their program replayed after
+    the pose graph's larger gathers grew the mesh's mailbox). Returns (the
+    first run's output tensors on the host, a cell's a list, scan-to-map's
+    maps under ``"s2m_maps"``; a row a cell; the trajectories' summary)."""
+
+    def s2m_leaves(got):
+        # this rank's rows of the maps, apart: the ranks' rows in rank order
+        # are the maps of 1 rank x N shards
+        st, out = got
+        maps = (st.edge_map.points, st.edge_map.mask, st.planar_map.points, st.planar_map.mask)
+        rest = (st._replace(edge_map=st.edge_map._replace(points=None, mask=None),
+                            planar_map=st.planar_map._replace(points=None, mask=None)), out)
+        return [x.cpu() for x in maps], [x.cpu() for x in _leaves(rest)]
+
     outputs, rows, summary = {}, {}, {}
-    for cell, (run, units, must, eager) in cells.items():
+    for cell, (run, units, must) in cells.items():
         stamp(f"{cell}: first run")
         for fn in counters.values():
             fn.launches = 0
@@ -2102,14 +2280,10 @@ def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
             raise AssertionError(f"phase 17 {cell}: launches {launches}, must launch {list(must)} and not "
                                  f"knn_dual")
         if cell == "s2m":
-            # this rank's rows of the maps, apart: the ranks' rows in rank
-            # order are the maps of 1 rank x N shards
             st, out = got
-            maps = (st.edge_map.points, st.edge_map.mask, st.planar_map.points, st.planar_map.mask)
-            outputs["s2m_maps"] = [x.cpu() for x in maps]
-            got = (st._replace(edge_map=st.edge_map._replace(points=None, mask=None),
-                               planar_map=st.planar_map._replace(points=None, mask=None)), out)
-        outputs[cell] = [x.cpu() for x in _leaves(got)]
+            outputs["s2m_maps"], outputs[cell] = s2m_leaves(got)
+        else:
+            outputs[cell] = [x.cpu() for x in _leaves(got)]
         if cell == "s2m":
             summary[cell] = {"t": torch.stack([p.translation for p, _ in out]).cpu(),
                              "q": torch.stack([p.rotation for p, _ in out]).cpu(),
@@ -2119,15 +2293,29 @@ def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
             traj, det = got
             summary[cell] = {"t": traj.translation.cpu(), "q": traj.rotation.cpu(),
                              "termination": det.termination.tolist()}
-        rows[cell] = {"units": units, "launches": launches, "eager": eager}
-        if traced and not eager:  # an eager cell captures nothing: no graph launch to count
+        rows[cell] = {"units": units, "launches": launches}
+        if traced:
             stamp(f"{cell}: traced run")
             pg = _profile_run(torch, run, units)
             rows[cell].update({k: pg[k] for k in ("graph_launches_per_unit", "host_reads_per_unit",
-                                                  "host_reads_in_driver_loop", "idle_share")})
+                                                  "host_reads_in_driver_loop", "idle_share", "wall_ms",
+                                                  "device_kernel_ms")})
+            # the gather's kernels in the trace (a conditional body's counted once)
+            rows[cell]["peer_kernel_us"] = {k: us for k, us in pg["kernel_us"].items() if "peer_" in k}
         stamp(f"{cell}: timed runs")
         ms = _seconds_per_run(run, reps) * 1e3
         rows[cell].update(ms=ms, ms_per_unit=ms / units)
+    if "s2m" in cells and "posegraph" in list(cells)[list(cells).index("s2m"):]:
+        # the frames' program replayed after the pose graph's larger gathers
+        # grew the mesh's mailbox: the same bits as its first run
+        stamp("s2m again, after the pose graph")
+        maps, rest = s2m_leaves(cells["s2m"][0]())
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(maps + rest, outputs["s2m_maps"] + outputs["s2m"]))
+        if not same:
+            raise AssertionError("phase 17 s2m: the frames run again after the pose graph differ from their "
+                                 "first run")
+        rows["s2m"]["again_after_posegraph_equal"] = True
     return outputs, rows, summary
 
 
@@ -2149,23 +2337,25 @@ def _ranks_inputs(T, torch, dev, out_dir, world):
 def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CELLS) -> int:
     """Phase 17's rank ``rank`` of ``world``: ``cuda:<rank>`` and an NCCL
     group made eagerly on it (:func:`_rank_group`, the README's recipe),
-    then :func:`_rank_cells` on ``make_mesh()`` (one shard on this card);
-    its outputs, rows, the cards it holds a context on and the bytes it
-    reserved on every other card to ``rank<r>.pt``. Stamps its progress to
-    ``rank<r>.stamp``."""
+    then :func:`_rank_cells` on ``make_mesh()`` (one shard on this card)
+    and, with every cell, :func:`_peer_check` at the cells' shapes; its
+    outputs, rows, the gather's check, the cards it holds a context on and
+    the bytes it reserved on every other card to ``rank<r>.pt``. Stamps its
+    progress to ``rank<r>.stamp``."""
     import torch
     import torch.distributed as dist
 
     import loam_tpu_torch as T
     from loam_tpu_torch import parallel
-    from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
+    from loam_tpu_torch.ops import assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda, peer_cuda
 
     stamp = _stamper(out_dir, "rank", rank)
     stamp("init_process_group")
     dev = _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
     counters = {"sector_sort": bitonic_cuda.sector_sort, "greedy_nms": nms_cuda.greedy_nms,
                 "select_points": assemble_cuda.select_points, "knn": knn_cuda.knn_run,
-                "knn_dual": knn_cuda.knn_dual_run}
+                "knn_dual": knn_cuda.knn_dual_run, "peer_gather": peer_cuda.peer_gather}
+    peer = None
     try:
         stamp("make_mesh")
         mesh = parallel.make_mesh(group=dist.group.WORLD)
@@ -2176,14 +2366,17 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
         with _env(LOAM_ICF_DUAL_KNN="0"):
             outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
                                                                    cells), counters, 2, stamp)
-        mesh.release()  # its graphs replay the group's collectives: gone before the group is
+        if tuple(cells) == RANKS_CELLS:
+            stamp("the kernel's gather against NCCL's at the cells' shapes")
+            peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 5)
+        mesh.release()  # its graphs replay the mesh's gathers, its buffers mapped by the others
     finally:
         dist.destroy_process_group()
     torch.cuda.synchronize()
     others = [j for j in range(torch.cuda.device_count()) if j != rank]
     contexts = _primary_contexts()
     reserved = {j: torch.cuda.memory_reserved(j) for j in others}
-    torch.save({"outputs": outputs, "rows": rows, "summary": summary, "contexts": contexts,
+    torch.save({"outputs": outputs, "rows": rows, "summary": summary, "peer": peer, "contexts": contexts,
                 "reserved": reserved, "device": str(dev), "nccl": ".".join(map(str, torch.cuda.nccl.version()))},
                os.path.join(out_dir, f"rank{rank}.pt"))
     stamp(f"done: contexts on cards {contexts}, reserved on the others {reserved}")
@@ -2211,17 +2404,18 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     """Phase 17: one rank a card. ``N = _rank_count()`` ranks, each
     :func:`_rank_worker` on its own card; every rank's outputs bit-equal to
     rank 0's, and rank 0's to the same calls in this process on N shards of
-    ``cuda:0`` in a world-size-1 NCCL group; every call or frame one
-    ``cudaGraphLaunch`` with no host read on every rank, except the cells
-    eager by ``collectives.in_conditional_bodies`` (world size > 1:
-    scan-to-map, the pose graph); no rank holds a context or reserves
-    memory on another card; the ATE gate and
-    ``dropped == 0``. Before the ranks, the collective probe
-    (:func:`_probe_case`): at world size 1 NCCL must accept the bodies, as
-    the captured cells need; past it what NCCL did is recorded beside the
-    rule. Ms a unit and scans/s of both. ``cells``: those to run; fewer
-    than all skips the probe (a focused run, ``--ranks-only <cell> ...``).
-    Returns the ``{"ranks": ...}`` record."""
+    ``cuda:0`` in a world-size-1 NCCL group; every call or frame of every
+    cell one ``cudaGraphLaunch`` with no host read on every rank, the
+    gathers the kernel's over peer memory; the kernel's gather bit-equal to
+    NCCL's at the cells' shapes on every rank (:func:`_peer_check`); no
+    rank holds a context or reserves memory on another card; the ATE gate
+    and ``dropped == 0``. Before the ranks, the collective probe
+    (:func:`_probe_case`): the kernel's gather in a WHILE body, an IF body
+    and a plain graph must be accepted and equal to NCCL's (a gate); NCCL's
+    own cases are printed as measured, the record of why the kernel exists.
+    Ms a unit and scans/s of both. ``cells``: those to run; fewer than all
+    skips the probe and the gather check (a focused run, ``--ranks-only
+    <cell> ...``). Returns the ``{"ranks": ...}`` record."""
     from loam_tpu_torch import parallel
     from loam_tpu_torch.registration import loop
 
@@ -2233,23 +2427,20 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     loop.clear_cache()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    rule_captures = N == 1  # collectives.in_conditional_bodies on a mesh of N ranks
     failed, probe = [], None
-    if tuple(cells) == RANKS_CELLS:
+    full = tuple(cells) == RANKS_CELLS
+    if full:
         probe = {}
-        for case in ("while", "if", "side_first"):
+        for case in ("peer_while", "peer_if", "peer_plain", "while", "if", "side_first"):
             _stamp(f"phase 17: collective probe, {case}, {N} rank(s)")
             probe[case] = _probe_case(case, N, out_dir)
-        print(f"phase 17: collective probe at {N} rank(s), NCCL: WHILE body {probe['while']}; IF body "
-              f"{probe['if']}; first gather on a side stream, then a plain graph: {probe['side_first']}; the "
-              f"port {'captures' if rule_captures else 'does not capture'} collectives in conditional bodies "
-              f"here (collectives.in_conditional_bodies)", flush=True)
-        bodies_accepted = probe["while"] == probe["if"] == "accepted"
-        if rule_captures and not bodies_accepted:
-            failed.append(f"collective probe at world size 1: WHILE {probe['while']}, IF {probe['if']}")
-        if not rule_captures and bodies_accepted:
-            print(f"phase 17: NCCL accepted a collective in WHILE and IF bodies at {N} ranks: the rule of "
-                  f"collectives.in_conditional_bodies could admit them", flush=True)
+        print(f"phase 17: collective probe at {N} rank(s): the kernel's gather (peer memory) in a WHILE body "
+              f"{probe['peer_while']}, an IF body {probe['peer_if']}, a plain graph {probe['peer_plain']}; NCCL's "
+              f"(the record): WHILE body {probe['while']}; IF body {probe['if']}; first gather on a side stream, "
+              f"then a plain graph: {probe['side_first']}", flush=True)
+        refused = {c: probe[c] for c in ("peer_while", "peer_if", "peer_plain") if probe[c] != "accepted"}
+        if refused:
+            failed.append(f"the kernel's gather probe at {N} rank(s): {refused}")
     t0 = time.perf_counter()
     _spawn_ranks(N, out_dir, cells)
     spawn_s = time.perf_counter() - t0
@@ -2261,12 +2452,12 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
             failed.append(f"rank {r}: contexts on cards {res['contexts']}, reserved on the others "
                           f"{res['reserved']}")
         for cell, row in res["rows"].items():
-            # an eager cell (the rule: world size > 1) is not traced
-            if row["eager"] != (not rule_captures and cell in ("s2m", "posegraph")):
-                failed.append(f"rank {r} {cell}: eager {row['eager']} at {N} rank(s)")
-            if not row["eager"] and (row["graph_launches_per_unit"] != 1 or row["host_reads_per_unit"] != 0):
+            if row["graph_launches_per_unit"] != 1 or row["host_reads_per_unit"] != 0:
                 failed.append(f"rank {r} {cell}: {row['graph_launches_per_unit']} cudaGraphLaunch and "
                               f"{row['host_reads_per_unit']} host reads a unit (one program a unit)")
+        if full and not all(row["equal"] for row in res["peer"].values()):
+            failed.append(f"rank {r}: the kernel's gather differs from NCCL's at "
+                          f"{[n for n, row in res['peer'].items() if not row['equal']]}")
         for cell, leaves in res["outputs"].items():
             if cell == "s2m_maps":  # each rank holds its own rows of the maps
                 continue
@@ -2278,11 +2469,16 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     # the same calls in this process: N shards of cuda:0, a world-size-1 group
     dev = torch.device("cuda", 0)
     scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, N)
+    one_peer = None
     with _nccl_group() as group, _dual_knn(False):
         mesh = parallel.make_mesh([dev] * N, group=group)
         stamp = lambda what: _stamp(f"phase 17, 1 rank x {N} shard(s): {what}")
         one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
                                                                  cells), counters, reps, stamp, traced=False)
+        if full:
+            one_peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 5)
+            if not all(row["equal"] for row in one_peer.values()):
+                failed.append(f"1 rank x {N} shards: the kernel's gather differs from NCCL's")
         mesh.release()
     for cell, leaves in one_outputs.items():
         want = ranks[0]["outputs"][cell]
@@ -2300,8 +2496,27 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     if summary.get("s2m", {}).get("dropped", 0) != 0:
         failed.append(f"s2m dropped {summary['s2m']['dropped']} voxels")
     frames = scans_np.shape[0]
+    peer = None
+    if full:
+        peer = {"equal_nccl": [all(row["equal"] for row in res["peer"].values()) for res in ranks],
+                "ms_slowest_rank": {n: max(res["peer"][n]["ms"] for res in ranks) for n in ranks[0]["peer"]},
+                "nccl_ms_slowest_rank": {n: max(res["peer"][n]["nccl_ms"] for res in ranks) for n in ranks[0]["peer"]},
+                "graph_us_slowest_rank": {n: max(res["peer"][n]["graph_us"] for res in ranks)
+                                          for n in ranks[0]["peer"]},
+                "nccl_graph_us_slowest_rank": {n: max(res["peer"][n]["nccl_graph_us"] for res in ranks)
+                                               for n in ranks[0]["peer"]},
+                "one_rank": one_peer, "rank0": ranks[0]["peer"]}
+        for n, row in ranks[0]["peer"].items():
+            print(f"phase 17 gather {n} {row['dtype']} {row['shape']} a rank: the kernel "
+                  f"{peer['ms_slowest_rank'][n]:.4f} ms back to back, {peer['graph_us_slowest_rank'][n]:.2f} us in "
+                  f"a graph; NCCL {peer['nccl_ms_slowest_rank'][n]:.4f} ms, "
+                  f"{peer['nccl_graph_us_slowest_rank'][n]:.2f} us, on {N} x 1 (slowest rank); on 1 x {N} the kernel {one_peer[n]['ms']:.4f} ms, "
+                  f"{one_peer[n]['graph_us']:.2f} us, NCCL {one_peer[n]['nccl_ms']:.4f} ms, "
+                  f"{one_peer[n]['nccl_graph_us']:.2f} us; bit-equal on every rank: {all(peer['equal_nccl'])}",
+                  flush=True)
     record = {"cards": cards, "ranks": N, "cross_card": N > 1, "shards_a_rank": 1, "nccl": ranks[0]["nccl"],
-              "probe": probe, "bodies_captured": rule_captures, "spawn_s": spawn_s,
+              "probe": probe, "peer_equal_nccl": peer and peer["equal_nccl"], "peer_gather": peer,
+              "spawn_s": spawn_s,
               "contexts": {r: res["contexts"] for r, res in enumerate(ranks)},
               "reserved_elsewhere": {r: res["reserved"] for r, res in enumerate(ranks)},
               "ate_m": {c: s["ate_m"] for c, s in summary.items()},
@@ -2313,10 +2528,13 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
         rec = {"units": row["units"], "launches_rank0": row["launches"],
                "ms_rank0": row["ms"], "ms_slowest_rank": slowest, "ms_a_unit": slowest / row["units"],
                "one_rank_ms": one["ms"], "one_rank_ms_a_unit": one["ms_per_unit"],
-               "eager": row["eager"],
                "graph_launches_per_unit": [res["rows"][cell].get("graph_launches_per_unit") for res in ranks],
                "host_reads_per_unit": [res["rows"][cell].get("host_reads_per_unit") for res in ranks],
-               "idle_share_rank0": row.get("idle_share")}
+               "idle_share_rank0": row.get("idle_share"),
+               "traced_wall_ms_rank0": row.get("wall_ms"), "device_kernel_ms_rank0": row.get("device_kernel_ms"),
+               "peer_kernel_us_rank0": row.get("peer_kernel_us"),
+               "again_after_posegraph_equal": [res["rows"][cell].get("again_after_posegraph_equal")
+                                               for res in ranks] if cell == "s2m" else None}
         if cell in ("s2m", "offline", "extract"):
             rec["scans_s"], rec["one_rank_scans_s"] = frames / slowest * 1e3, frames / one["ms"] * 1e3
         record["cells"][cell] = rec
@@ -2324,11 +2542,10 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
                 if "scans_s" in rec else "")
         print(f"phase 17 {cell}: ranks x shards {N} x 1, one a card: {rec['ms_a_unit']:.3f} ms a "
               f"{'frame' if row['units'] > 1 else 'call'} (slowest rank; rank 0 {row['ms']:.3f} ms a run), "
-              f"1 x {N} shards of cuda:0 {one['ms_per_unit']:.3f}{rate}; "
-              + ("eager (collectives in a conditional body at world size > 1), not traced"
-                 if row["eager"] else f"one program: cudaGraphLaunch a unit {rec['graph_launches_per_unit']}, "
-                 f"host reads {rec['host_reads_per_unit']}")
-              + f"; rank 0's launches "
+              f"1 x {N} shards of cuda:0 {one['ms_per_unit']:.3f}{rate}; one program: cudaGraphLaunch a unit "
+              f"{rec['graph_launches_per_unit']}, host reads {rec['host_reads_per_unit']}; rank 0's traced run "
+              f"{rec['traced_wall_ms_rank0']:.3f} ms, kernels {rec['device_kernel_ms_rank0']:.3f} ms, of which the "
+              f"gather's {rec['peer_kernel_us_rank0']} us (a conditional body's counted once); rank 0's launches "
               f"{row['launches']}, on {smi}")
     print(f"phase 17: {N} rank(s) on {cards} card(s) (cross-card traffic: {'yes' if N > 1 else 'no'}), NCCL "
           f"{record['nccl']}; every rank's outputs bit-equal to "
@@ -2368,7 +2585,7 @@ def main() -> int:
     from loam_tpu_torch.evaluation import ate_rmse
     from loam_tpu_torch.features.curvature import compute_curvature
     from loam_tpu_torch.io import render_trajectory
-    from loam_tpu_torch.ops import _build, assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda
+    from loam_tpu_torch.ops import _build, assemble_cuda, bitonic_cuda, knn_cuda, nms_cuda, peer_cuda
 
     smi = _smi()
     dev = torch.device("cuda", 0)
@@ -2413,6 +2630,7 @@ def main() -> int:
         "select_points": assemble_cuda.select_points,
         "knn": knn_cuda.knn_run,
         "knn_dual": knn_cuda.knn_dual_run,
+        "peer_gather": peer_cuda.peer_gather,
     }
     extraction = ("sector_sort", "greedy_nms", "select_points")
     path_launches = {}

@@ -8,6 +8,7 @@ device. The kernels are built from ``csrc/`` at first use (``_build``).
   * ``assemble_cuda.select_points`` -- the picked-coordinate copy-out
   * ``knn_cuda.knn_run``           -- exact brute-force kNN with coordinates
   * ``knn_cuda.knn_dual_run``      -- the edge and the planar kNN in one launch
+  * ``peer_cuda.peer_gather``      -- the mesh's gather over peer memory
 
 ``knn_pallas`` is ``loam_tpu.ops.knn_pallas``'s one-shot prep + search.
 

@@ -1,10 +1,11 @@
 """The two collectives of the port's mesh: gather and a sum in fixed order.
 
 ``loam_tpu`` leaves its collectives to XLA (``ppermute``, ``psum``, the
-all-gather of a sharded output). Here they are written out, over the
-``torch.distributed`` group of a :class:`~loam_tpu_torch.parallel.sharding.Mesh`
-(gloo for CPU tensors, NCCL for CUDA tensors); with no group nothing crosses
-a process.
+all-gather of a sharded output). Here they are written out over a
+:class:`~loam_tpu_torch.parallel.sharding.Mesh`: on the card through the
+mesh's gather over peer memory (``ops/peer_cuda.py``, a hand-written kernel,
+at every world size), for CPU tensors through ``all_gather_into_tensor`` on
+the mesh's gloo group; with no group nothing crosses a process.
 
 A per-shard tensor leads with this rank's shards, in the mesh's local order.
 Ranks hold consecutive blocks of global shards (``rank * local + j``), so
@@ -18,32 +19,17 @@ the pose graph's accept test branch on reduced values, and two ranks that
 branch apart wait on each other's next collective forever. The same order
 makes a run on 2 ranks of 2 shards equal to one on 1 rank of 4 shards.
 
-Both are capture-safe: one output allocated before the collective and
-written by ``all_gather_into_tensor``, no host value, so a sharded driver's
-program (``program.py``) captures them into its CUDA graph on the card. In
-the bodies of its conditional nodes only at world size 1: with more ranks
-NCCL's collective is accepted in a plain graph but refused in a WHILE body
-(the capture's end fails with ``cudaErrorInvalidValue``; NCCL 2.28.9, CUDA
-12.8, 4 ranks; ``chip_smoke.py`` phase 17 probes it on every run), so a
-program whose collectives run inside such a body runs eagerly at world
-size > 1 (:func:`in_conditional_bodies`), as ``LOAM_DEBUG_NANS=1`` runs
-eagerly by design, and :func:`gather` raises if one is captured there. On
-the CPU (gloo) they run eagerly, as every program does there.
+Both are capture-safe: one output allocated before the collective, no host
+value, so a sharded driver's program (``program.py``) captures them into its
+CUDA graph on the card, in the bodies of its conditional nodes too. On the
+CPU (gloo) they run eagerly, as every program does there.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
-from .. import program
-
-
-def in_conditional_bodies(mesh) -> bool:
-    """Whether a program may capture the collectives of ``mesh`` inside
-    the body of a conditional node: at world size 1 only (module
-    docstring)."""
-    return mesh.group is None or dist.get_world_size(mesh.group) == 1
+from ..ops.peer_cuda import peer_gather
 
 
 def gather(mesh, x: torch.Tensor) -> torch.Tensor:
@@ -52,18 +38,7 @@ def gather(mesh, x: torch.Tensor) -> torch.Tensor:
     (global shards, ...) in global order. ``x`` itself without a group."""
     if mesh.group is None:
         return x
-    world = dist.get_world_size(mesh.group)
-    if world > 1 and program.capturing_body():
-        # a program that forgot to run eagerly here (sharding.run_program's
-        # ``bodies``) fails now, not at the capture's end on some ranks
-        raise RuntimeError(f"a collective captured inside a conditional body at world size {world}: NCCL "
-                           f"refuses it there, so the program must run eagerly (in_conditional_bodies)")
-    # bool travels as uint8: not every backend reduces or gathers bool
-    wire = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
-    out = torch.empty((world * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype,
-                      device=wire.device)
-    dist.all_gather_into_tensor(out, wire, group=mesh.group)
-    return out.to(torch.bool) if x.dtype == torch.bool else out
+    return peer_gather(x, mesh.peer, mesh.group)
 
 
 def sum(mesh, x: torch.Tensor) -> torch.Tensor:  # noqa: A001 -- the collective's name

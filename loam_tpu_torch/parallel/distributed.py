@@ -17,9 +17,7 @@ is split over the mesh's shards):
     loop ends at the same iteration. The path is captured like the
     single-device ones: one program a registration (inline in a
     scan-to-map frame), the search's gathers inside the loop's WHILE node on
-    the card; its key holds the mesh's token. At world size > 1 it runs
-    eagerly, as the scan-to-map frame does: NCCL refuses a collective in a
-    conditional body there (``collectives.in_conditional_bodies``). A
+    the card at every world size; its key holds the mesh's token. A
     caller's own ``custom_knn`` still runs eagerly, since it may read the
     host.
   * **Sharded voxel map**: a voxel's owner is its Morton key mod the shard
@@ -37,9 +35,7 @@ single-device step's: extraction, the azimuth sort (``loam_tpu``'s sharded
 step's, ``distributed.py:301``), the registration inline, the first-frame
 and keyframe logic, the insert of both maps under ``program.when(insert)``
 (``lax.cond``, ``loam_tpu``'s ``distributed.py:352``), an IF node on the
-card whose body holds the inserts' fixed-order sum of ``dropped``. At world
-size > 1 it runs eagerly: NCCL refuses a collective in a conditional body
-there (``collectives.in_conditional_bodies``).
+card whose body holds the inserts' fixed-order sum of ``dropped``.
 """
 
 from __future__ import annotations
@@ -145,13 +141,6 @@ class ShardedSearch(NamedTuple):
     def key(self) -> tuple:
         """What a registration program's key holds of it."""
         return self.mesh.token, self.axis
-
-    @property
-    def capturable(self) -> bool:
-        """Whether a registration's program may capture the search's
-        gathers inside the ICF loop's WHILE node
-        (``collectives.in_conditional_bodies``)."""
-        return collectives.in_conditional_bodies(self.mesh)
 
     def hooks(self, source: FeatureSet, target: FeatureSet, params: RegistrationParams):
         """The loop's edge and planar searches, each mapping the moved
@@ -335,6 +324,6 @@ def scan_to_map_step_sharded(
 
     # the sharded search is the registration's whatever ``search_backend`` says
     prog, out = run_program(mesh, ("scan_to_map_sharded", axis, lidar, feat_params, reg_params, config),
-                            (state, scan.to(mesh.device)), fn, None, bodies=True, path="scan_to_map_sharded")
+                            (state, scan.to(mesh.device)), fn, None, path="scan_to_map_sharded")
     pose, det = prog.own(out)
     return program.clone(prog.buffers[0]), pose, det

@@ -24,12 +24,11 @@ Each call of an entry point here and in ``distributed`` is one program
 gloo), on the card one CUDA graph with the gathers inside it, in the bodies
 of its conditional nodes too (the ICF loop's WHILE node holds the sharded
 search, the keyframe's IF node the sharded insert), one ``cudaGraphLaunch``
-a call and no host read. A program with collectives inside a conditional
-body is captured at world size 1 only, eager with more ranks
-(``collectives.in_conditional_bodies``: NCCL refuses them there). A program is cached under its mesh's ``token``,
-unique in the process: a mesh made on another group never replays it, a
-call on a mesh whose group was destroyed raises, and :meth:`Mesh.release`
-drops the mesh's programs before its group goes.
+a call and no host read, at every world size. A program is cached under its
+mesh's ``token``, unique in the process: a mesh made on another group never
+replays it, a call on a mesh whose group was destroyed raises, and
+:meth:`Mesh.release` drops the mesh's programs and frees its gather's
+buffers before its group goes.
 """
 
 from __future__ import annotations
@@ -52,7 +51,8 @@ from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
 from ..registration.detail import tree_map
 from ..registration.loop import driver_program
-from .collectives import gather, in_conditional_bodies
+from ..ops.peer_cuda import PeerMailbox
+from .collectives import gather
 
 _TOKENS = itertools.count()
 
@@ -75,6 +75,9 @@ class Mesh:
     shape: Dict[str, int]
     #: Global index of each of this rank's shards.
     shard_ids: Tuple[int, ...]
+    #: This rank's buffers of the gather over peer memory
+    #: (``ops/peer_cuda.py``) on a CUDA mesh with a group, else None.
+    peer: Optional[PeerMailbox] = None
     #: Unique in this process: the key of the mesh's cached programs.
     token: int = dataclasses.field(default_factory=lambda: next(_TOKENS))
 
@@ -106,39 +109,38 @@ class Mesh:
         return self.shape[axis], self.shard_ids
 
     def release(self) -> None:
-        """Drop the programs cached for this mesh: their graphs replay
-        collectives on the group's communicator, so release the mesh before
-        destroying its group."""
+        """Drop the programs cached for this mesh and free its gather's
+        buffers, which the other ranks map: every rank releases the mesh,
+        before destroying its group."""
         program.forget(mesh=self.token)
+        if self.peer is not None:
+            self.peer.release(wait=_live(self.group))
+
+
+def _live(group) -> bool:
+    """Whether ``group`` is still registered (not destroyed)."""
+    try:
+        dist.get_rank(group)
+    except ValueError:  # a destroyed group is no longer registered
+        return False
+    return True
 
 
 def require_live(mesh: Mesh) -> None:
-    """Raise if the mesh's process group was destroyed: a program of the
-    mesh would replay collectives on a freed communicator."""
-    if mesh.group is None:
-        return
-    try:
-        dist.get_rank(mesh.group)
-    except ValueError as e:  # a destroyed group is no longer registered
-        raise RuntimeError("the mesh's process group was destroyed; make a new mesh on a live "
-                           "group") from e
+    """Raise if the mesh's process group was destroyed: the mesh's gathers
+    would wait for ranks that left it."""
+    if mesh.group is not None and not _live(mesh.group):
+        raise RuntimeError("the mesh's process group was destroyed; make a new mesh on a live group")
 
 
-def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[RegistrationParams],
-                bodies: bool = False, **info):
+def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[RegistrationParams], **info):
     """``fn(buffers)`` as the one program of a sharded driver call on
     ``mesh`` (``loop.driver_program``: cached, its key holding the mesh's
     token; eager only under ``LOAM_DEBUG_NANS=1``, which reads the host by
-    design), inside ``program.DRIVER_RANGE``. ``bodies``: ``fn`` runs
-    collectives inside a conditional node's body, so the program is eager
-    where the mesh's collectives cannot be captured there
-    (``collectives.in_conditional_bodies``). Returns ``(program,
+    design), inside ``program.DRIVER_RANGE``. Returns ``(program,
     output)``."""
     require_live(mesh)
-    if bodies and not in_conditional_bodies(mesh):
-        prog = program.Program(mesh.device, inputs, capturable=False)
-    else:
-        prog = driver_program(mesh.device, key + (mesh.token,), inputs, reg_params, mesh=mesh.token, **info)
+    prog = driver_program(mesh.device, key + (mesh.token,), inputs, reg_params, mesh=mesh.token, **info)
     with torch.profiler.record_function(program.DRIVER_RANGE):
         return prog, prog.run(fn, inputs)
 
@@ -157,8 +159,12 @@ def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) ->
     caller initialises it), or None for one process. With a group every
     rank calls it: one eager gather, on this rank's device, checks that the
     ranks agree on the shards a rank and ``line_axis`` (the shape assumes
-    it), and so opens the group's communicator on the current stream
-    before any program captures a collective.
+    it), and so opens the group's communicator on the current stream (a
+    rank's first collective on a side stream hangs a later graph capture
+    under NCCL 2.28.9). On a CUDA device the ranks then set up the mesh's
+    gather over peer memory (``ops/peer_cuda.PeerMailbox``), which raises,
+    naming the pair, where two of the mesh's cards cannot reach each
+    other's memory.
     """
     devs = tuple(resolve(d) for d in ([None] if devices is None else devices))
     if not devs:
@@ -178,8 +184,9 @@ def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) ->
         if (every != mine).any():
             raise ValueError(f"the ranks' meshes differ: (shards, line_axis) of each rank "
                              f"{every.tolist()}")
+    peer = PeerMailbox(group, devs[0]) if group is not None and devs[0].type == "cuda" else None
     return Mesh(devs, group, {"data": world * n // line_axis, "line": line_axis},
-                tuple(rank * n + j for j in range(n)))
+                tuple(rank * n + j for j in range(n)), peer)
 
 
 def _blocks(count: int, what: str, mesh: Mesh) -> Tuple[int, int]:

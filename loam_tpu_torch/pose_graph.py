@@ -318,9 +318,7 @@ def optimize_pose_graph_sharded(
     pad with masked edges. One program a call (``sharding.run_program``,
     keyed on the mesh's token): on the card one CUDA-graph launch, the
     shards' assemblies and the sums' gathers inside the LM loop's WHILE
-    node (at world size 1; eager with more ranks, whose collectives NCCL
-    refuses in a conditional body: ``collectives.in_conditional_bodies``);
-    eager on the CPU and over gloo.
+    node, at every world size; eager on the CPU and over gloo.
     """
     from .parallel import collectives
     from .parallel.sharding import run_program
@@ -353,7 +351,7 @@ def optimize_pose_graph_sharded(
 
         return _levenberg_marquardt(poses, iterations, assemble, cost)
 
-    prog, out = run_program(mesh, ("pose_graph_sharded", axis, iterations), inputs, solve, None, bodies=True,
+    prog, out = run_program(mesh, ("pose_graph_sharded", axis, iterations), inputs, solve, None,
                             path="pose_graph_sharded", nodes=initial.translation.shape[0], edges=E,
                             dtype=str(initial.translation.dtype), iterations=iterations)
     return prog.own(out)

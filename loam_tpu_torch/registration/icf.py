@@ -172,9 +172,7 @@ def _register_impl(
     sharded registration's path (``"sharded"``): ``target``'s leaves are
     this rank's shards of its mesh, searched by the sharded kNN (``hooks``,
     prepared inside the program), the neighbour lists merged over the
-    mesh; cached as the kNN paths are, its key holding the mesh's token;
-    eager where the mesh's gathers cannot be captured inside the loop's
-    WHILE node (``ShardedSearch.capturable``).
+    mesh; cached as the kNN paths are, its key holding the mesh's token.
 
     ``target_preps``: optional ``(edge, planar)`` :class:`TargetPrep` of
     ``target`` already built (the scan-to-map prep cache): the single
@@ -222,8 +220,7 @@ def _register_impl(
         return _register_body(source, tgt, init, params, with_matches, path,
                               sharded if sharded is not None else custom_knn, reorder, kernel_seed)
 
-    if (path not in CAPTURED_PATHS or debug_nans_enabled() or program.nested()
-            or (sharded is not None and not sharded.capturable)):
+    if path not in CAPTURED_PATHS or debug_nans_enabled() or program.nested():
         return body(source, init, tgt)
     inputs = (source, init, tgt)
     key = ("registration", path, kernel_seed, with_matches, reorder, params,

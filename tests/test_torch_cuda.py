@@ -1611,9 +1611,11 @@ def test_sharded_program_matches_eager(nccl_meshes, cell):
     from loam_tpu_torch.profiling import host_reads, launch_calls
     from loam_tpu_torch.registration import loop
 
+    from loam_tpu_torch.ops import peer_cuda
+
     run, launches = _sharded_run(nccl_meshes, cell)
     counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
-               knn_cuda.knn_run, knn_cuda.knn_dual_run)
+               knn_cuda.knn_run, knn_cuda.knn_dual_run, peer_cuda.peer_gather)
 
     def counts(fn):
         for c in counted:
@@ -1627,7 +1629,7 @@ def test_sharded_program_matches_eager(nccl_meshes, cell):
     graph, n_graph = counts(run)
     with loop._eager():
         eager, n_eager = counts(run)
-    assert n_graph == n_eager and sum(n_graph) > 0, (n_graph, n_eager)
+    assert n_graph == n_eager and sum(n_graph) > 0 and n_graph[-2] > 0, (n_graph, n_eager)
     assert (n_graph[-1] > 0) == (cell != "extract")
     got, want = _tensor_leaves(graph), _tensor_leaves(eager)
     assert len(got) == len(want) > 0
@@ -1673,6 +1675,135 @@ def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes
     want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 2 + nccl_meshes[0].size}
     assert [c for _, c in stats] == [want] * 3 and stats[1][0] == stats[2][0], stats
     assert cell != "s2m" or stats[0][0] == stats[1][0], stats
+
+
+# ---- the mesh's gather over peer memory (ops/csrc/peer_gather.cu) ---------------------
+
+
+def _peer_inputs(dev):
+    """Per-shard blocks of 4 shards: float64 past the first mailbox slot (it
+    grows), odd sizes that take the kernel's byte path, int32, bool."""
+    g = torch.Generator().manual_seed(3)
+    return [torch.randn((4, 40_001), generator=g, dtype=torch.float64).to(dev),
+            torch.randn((4, 3, 7), generator=g).to(dev),
+            torch.randint(-2**31, 2**31 - 1, (4, 5, 33), generator=g, dtype=torch.int32).to(dev),
+            (torch.rand((4, 13), generator=g) > 0.5).to(dev)]
+
+
+@pytest.mark.parametrize("kind", ["while", "if", "if_not", "plain"])
+def test_peer_gather_captured_matches_nccl(nccl_meshes, kind):
+    """The kernel's gather on a world-size-1 NCCL group's mesh, captured in
+    a WHILE body (3 iterations), an IF body (taken and not) and a plain
+    graph, replayed: bit-equal to NCCL's ``all_gather_into_tensor`` of the
+    same blocks (float64 past the first mailbox slot, float32 and int32 of
+    odd sizes, bool), one counted launch a gather that ran."""
+    from loam_tpu_torch import program
+    from loam_tpu_torch.ops import peer_cuda
+    from loam_tpu_torch.parallel import collectives
+
+    mesh, _ = nccl_meshes
+    dev = mesh.device
+    for x in _peer_inputs(dev):
+        want = peer_cuda.peer_gather_reference(x, mesh.group)  # NCCL's all_gather_into_tensor
+
+        def fn(bufs):
+            xb, n = bufs
+            out = torch.zeros_like(want)
+            if kind == "while":
+                i = torch.zeros((), dtype=torch.int64, device=dev)
+                going = i < n
+
+                def body():
+                    out.copy_(collectives.gather(mesh, xb))
+                    i.add_(1)
+                    going.copy_(i < n)
+
+                program.while_loop(going, body)
+            elif kind == "plain":
+                out.copy_(collectives.gather(mesh, xb))
+            else:
+                program.when(n > 2, lambda: out.copy_(collectives.gather(mesh, xb)))
+            return out
+
+        n = torch.full((), 2 if kind == "if_not" else 3, dtype=torch.int64, device=dev)
+        prog = program.Program(dev, (x, n))
+        prog.run(fn, (x, n))  # the capture
+        peer_cuda.peer_gather.launches = 0
+        got = program.clone(prog.run(fn, (x, n)))
+        torch.cuda.synchronize()
+        ran = {"while": 3, "if": 1, "if_not": 0, "plain": 1}[kind]
+        assert peer_cuda.peer_gather.launches == ran
+        assert prog.graph is not None and prog.conditional == {
+            "if": int(kind.startswith("if")), "while": int(kind == "while")}
+        if ran:
+            assert got.dtype == want.dtype and torch.equal(got, want)
+        else:
+            assert not got.any()
+
+
+def test_peer_gather_at_one_rank_is_a_copy_without_a_mailbox(nccl_meshes):
+    """At world size 1 the gather is one copy kernel and the mesh makes no
+    mailbox: a gather of any size runs inside a capture and equals NCCL's.
+    (Past one rank, phase 17's probe checks that a gather past the mailbox
+    raises inside a capture and that a graph captured before the mailbox
+    grew still replays.)"""
+    from loam_tpu_torch.ops import peer_cuda
+    from loam_tpu_torch.parallel import collectives
+
+    mesh = nccl_meshes[0]
+    assert mesh.peer.cap == 0
+    x = torch.randn((4, peer_cuda.FIRST_SLOT_BYTES // 4 + 1), device=mesh.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = collectives.gather(mesh, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, peer_cuda.peer_gather_reference(x, mesh.group)) and mesh.peer.cap == 0
+
+
+def test_sharded_s2m_replays_after_the_pose_graph(dev, request):
+    """Scan-to-map frames, the sharded pose graph, then the same frames
+    again on one mesh: the second run replays the frames' cached program
+    after the pose graph's larger gathers, bit-equal to the first run and
+    to the eager loop."""
+    from loam_tpu_torch.registration import loop
+
+    s2m, _ = _sharded_run(request.getfixturevalue("nccl_meshes"), "s2m")
+    posegraph, _ = _last_run(dev, "posegraph_sharded", request)
+    first = _tensor_leaves(s2m())
+    posegraph()
+    again = _tensor_leaves(s2m())
+    with loop._eager():
+        eager = _tensor_leaves(s2m())
+    torch.cuda.synchronize()
+    assert len(first) == len(again) == len(eager) > 0
+    for a, b, c in zip(first, again, eager):
+        assert a.dtype == b.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("cell", ["s2m", "posegraph"])
+def test_sharded_drivers_through_the_peer_gather_one_launch_a_call(dev, request, cell):
+    """``scan_to_map_step_sharded`` (8 frames) and
+    ``optimize_pose_graph_sharded`` (3 calls) on a world-size-1 group's
+    mesh: one cached program, replayed once a frame or call
+    (``graph_stats``), its gathers the kernel's."""
+    from loam_tpu_torch.ops import peer_cuda
+    from loam_tpu_torch.registration import loop
+
+    if cell == "s2m":
+        run, calls = _sharded_run(request.getfixturevalue("nccl_meshes"), "s2m")
+        runs = [run]
+    else:
+        run, _ = _last_run(dev, "posegraph_sharded", request)
+        calls, runs = 3, [run] * 3
+    loop.clear_cache()
+    peer_cuda.peer_gather.launches = 0
+    for r in runs:
+        r()
+    torch.cuda.synchronize()
+    (stats,) = loop.graph_stats()
+    assert stats["replays"] == calls and stats["conditional_nodes"]["while"] >= 1, stats
+    assert peer_cuda.peer_gather.launches > 0
 
 
 # ---- the grid search and the loop-closed back end as one program each -------------
@@ -1758,9 +1889,11 @@ def test_last_programs_match_eager(dev, request, cell):
     from loam_tpu_torch.profiling import host_reads, launch_calls
     from loam_tpu_torch.registration import loop
 
+    from loam_tpu_torch.ops import peer_cuda
+
     run, want_nodes = _last_run(dev, cell, request)
     counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
-               knn_cuda.knn_run, knn_cuda.knn_dual_run)
+               knn_cuda.knn_run, knn_cuda.knn_dual_run, peer_cuda.peer_gather)
 
     def counts(fn):
         for c in counted:
@@ -1776,6 +1909,7 @@ def test_last_programs_match_eager(dev, request, cell):
         eager, n_eager = counts(run)
     assert n_graph == n_eager, (n_graph, n_eager)
     assert (n_graph[-1] > 0) == (not cell.startswith("posegraph"))
+    assert (n_graph[-2] > 0) == (cell == "posegraph_sharded")
     got, want = _tensor_leaves(graph), _tensor_leaves(eager)
     assert len(got) == len(want) > 0
     for i, (a, b) in enumerate(zip(got, want)):
@@ -1829,10 +1963,14 @@ def test_one_rank_a_card(dev):
     ``device_id``, running the sharded drivers at full width; every rank's
     outputs bit-equal to rank 0's and to 1 rank x N shards of ``cuda:0``,
     one ``cudaGraphLaunch`` and no host read a call or frame on every rank
-    (past one rank, scan-to-map and the pose graph eager and untraced: the
-    port does not capture collectives in a conditional body there), no rank
-    holding a context or reserving memory on another card; at one rank the
-    collective probe's WHILE and IF bodies accepted."""
+    and every cell (the gathers the kernel's over peer memory, in the
+    conditional bodies too), no rank holding a context or reserving memory
+    on another card; the probe's kernel cases (a gather in a WHILE body, an
+    IF body and a plain graph; past one rank a gather past the mailbox
+    raising inside a capture, and a graph captured before the mailbox grew
+    replayed) accepted and equal to NCCL's, the kernel's gather equal to
+    NCCL's at the cells' shapes on every rank, and the scan-to-map frames
+    run again after the pose graph equal to their first run."""
     import json
     import subprocess
     import sys
@@ -1848,13 +1986,8 @@ def test_one_rank_a_card(dev):
     assert rec["ranks"] == n and rec["cards"] == torch.cuda.device_count() and rec["cross_card"] == (n > 1)
     assert rec["contexts"] == {str(r): [r] for r in range(n)}
     assert sorted(rec["cells"]) == ["extract", "offline", "pairs", "posegraph", "s2m"]
-    assert rec["bodies_captured"] == (n == 1)
-    if n == 1:
-        assert rec["probe"]["while"] == rec["probe"]["if"] == "accepted"
+    assert all(rec["probe"][f"peer_{case}"] == "accepted" for case in ("while", "if", "plain")), rec["probe"]
+    assert rec["cells"]["s2m"]["again_after_posegraph_equal"] == [True] * n
+    assert rec["peer_equal_nccl"] == [True] * n
     for name, cell in rec["cells"].items():
-        # collectives inside a conditional body run eagerly past world size 1
-        assert cell["eager"] == (n > 1 and name in ("s2m", "posegraph"))
-        if cell["eager"]:
-            assert cell["graph_launches_per_unit"] == [None] * n
-        else:
-            assert cell["graph_launches_per_unit"] == [1.0] * n and cell["host_reads_per_unit"] == [0.0] * n
+        assert cell["graph_launches_per_unit"] == [1.0] * n and cell["host_reads_per_unit"] == [0.0] * n

@@ -34,10 +34,12 @@ on the CPU.
     rows, and two more frames from it are bit-equal across the ranks and to
     one rank of two shards.
 
-Every rank of every case also checks the port's rules past one rank: the
-programs with collectives in a conditional body are not cached
-(``collectives.in_conditional_bodies``), a gather captured inside such a
-body raises, and ranks that disagree on their shards make no mesh.
+Every rank of every case also checks the port's rules past one rank: every
+sharded call is a cached program of the mesh (scan-to-map, with its
+registration inline, and the pose graph too, whose gathers run inside
+conditional bodies on the card), a gather on a CPU mesh inside a
+conditional body's capture runs the plain gather, and ranks that disagree
+on their shards make no mesh.
 
 Every rank's result must equal every other rank's and an in-process run on
 one rank holding all the shards (1 x 4, 1 x 2) bit for bit: the collectives
@@ -59,6 +61,7 @@ from loam_tpu_torch import parallel, program
 from loam_tpu_torch.io import random_pose_graph, render_trajectory
 from loam_tpu_torch.params import FeatureExtractionParams, LidarParams, RegistrationParams
 from loam_tpu_torch.parallel import collectives
+from loam_tpu_torch.parallel import distributed as tdist
 from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
 from loam_tpu_torch.pose_graph import optimize_pose_graph, optimize_pose_graph_sharded
 from loam_tpu_torch.features import extract_features, extract_features_batch
@@ -205,33 +208,43 @@ def _check_single(mode, got, want):
             assert int(got["dropped"]) == 0
 
 
+# the programs a mode's run caches for its mesh, past one rank as at one:
+# scan-to-map's registration runs inline in its frame's program
+PROGRAMS = {"pose_graph": {"pose_graph_sharded"}, "scan_to_map": {"scan_to_map_sharded"},
+            "from_numpy": {"scan_to_map_sharded"}, "offline": {"offline_sharded"}}
+
+
 def _check_programs(mode, mesh):
-    """The rule of ``collectives.in_conditional_bodies`` past one rank: the
-    programs whose gathers run inside a conditional body (scan-to-map, its
-    registration, the pose graph) are eager and uncached; the others are
-    cached programs of the mesh as at world size 1."""
-    assert not collectives.in_conditional_bodies(mesh)
-    paths = {p.info.get("path") for progs in program._cache.values() for p in progs.values()
-             if p.info.get("mesh") == mesh.token}
-    assert not paths & {"scan_to_map_sharded", "sharded", "pose_graph_sharded"}, paths
-    if mode == "offline":
-        assert paths == {"offline_sharded"}, paths
+    """Past one rank every sharded call is a cached program of the mesh,
+    those whose gathers run inside a conditional body on the card
+    (scan-to-map, its registration, the pose graph) as the others: no rule
+    keeps them eager. A registration called on its own is one too."""
+    paths = lambda: {p.info.get("path") for progs in program._cache.values() for p in progs.values()
+                     if p.info.get("mesh") == mesh.token}
+    assert paths() == PROGRAMS[mode], paths()
+    if mode == "scan_to_map":
+        feats = extract_features(torch.from_numpy(_s2m_scans(1)[0]), S2M_LIDAR, S2M_FEAT)
+        local = lambda x: x.reshape((mesh.size, -1) + x.shape[1:])[list(mesh.shard_ids)].flatten(0, 1)
+        tdist.register_features_sharded(feats, feats.map(local), Pose3.identity(torch.float32), mesh, S2M_REG)
+        assert paths() == PROGRAMS[mode] | {"sharded"}, paths()
 
 
 def _check_mesh_rules(mesh):
     """Past one rank: ranks that disagree on their shards a rank make no
-    mesh (``make_mesh``'s gather), and a collective captured inside a
-    conditional body raises before it reaches the group."""
-    rank = dist.get_rank(mesh.group)
+    mesh (``make_mesh``'s gather), and a gather on a CPU mesh while a
+    conditional body is being captured runs the plain gather (the kernel's
+    gather is the card's, captured anywhere): every rank's block, in rank
+    order."""
+    rank, world = dist.get_rank(mesh.group), dist.get_world_size(mesh.group)
     with pytest.raises(ValueError, match="meshes differ"):
         parallel.make_mesh(["cpu"] * (1 + rank), group=mesh.group)
     was = program.capturing_body
     program.capturing_body = lambda: True
     try:
-        with pytest.raises(RuntimeError, match="conditional body"):
-            collectives.gather(mesh, torch.zeros(1))
+        got = collectives.gather(mesh, torch.full((2, 3), float(rank)))
     finally:
         program.capturing_body = was
+    assert torch.equal(got, torch.arange(world, dtype=torch.float32).repeat_interleave(2)[:, None].expand(-1, 3))
 
 
 RUN = {"pose_graph": _pose_graph, "scan_to_map": _scan_to_map, "offline": _offline, "from_numpy": _from_numpy}
