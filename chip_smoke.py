@@ -150,16 +150,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``optimize_pose_graph_sharded`` on phase 11's graph in float64, its
      edges padded with masked ones to a multiple of 4, within 1e-8 of phase
      11's solve and 1e-5 m of the truth; ms per solve, peak memory. Each
-     sharded call (a scan-to-map frame) is one program, its gathers (the
-     kernel's over peer memory, ``peer_gather.cu``; launched on every
-     sharded path) inside the CUDA graph. Then the gather at the main
-     path's shapes (the sharded search's planar and edge values, (4, 4, 5,
-     Q) float32, and the pose graph's normal matrix, (4, 6,000, 6,000)
-     float64; the indices too, unrowed) bit-equal to NCCL's
-     ``all_gather_into_tensor``, timed beside it and beside its bound (the
-     peers' bytes over NVLink at 450 GB/s a direction plus the local read
-     and write at 3.35 TB/s): rows ``peer_gather_*``. The meshes are
-     released before the group is destroyed.
+     sharded call (a scan-to-map frame) is one program, its gathers and
+     sums (the kernel's over peer memory, ``peer_gather.cu``; a gather
+     launched on every sharded path but the pose graph's, a sum on
+     scan-to-map's and the pose graph's) inside the CUDA graph. Then the
+     collectives at the main path's shapes: the sharded search's planar
+     and edge values, (4, 4, 5, Q) float32, and the search's planar
+     indices and values as one tree; a frame's features a shard and a
+     registration's poses and details as one tree each (offline's two
+     gathers); the pose graph's normal matrix, (4, 6,000, 6,000) float64,
+     gathered; the sums of the normal matrix and of the right-hand side
+     (the indices too, unrowed): every gather bit-equal to NCCL's
+     ``all_gather_into_tensor`` a leaf, every sum to that gather then the
+     adds in shard order; each one node of a graph that captures it alone,
+     and a sum's eager call allocating under twice its output (no gathered
+     blocks); timed beside the plain version, the library's call
+     (for a sum, timed only: ``x.sum(0)`` at one rank, ``all_reduce`` of a
+     block past one) and the bound (the
+     larger of the bytes received over NVLink at 450 GB/s a direction and
+     the local reads and writes at 3.35 TB/s): rows ``peer_gather_*`` and
+     ``peer_sum_*``. The meshes are released before the group is
+     destroyed.
  13. The card's full-width output against the float64 oracle
      (``loam_tpu_torch.oracle``, numpy on the host): ``extract_features_batch``
      on 4 of the 16 frames, every edge and planar pick index-exact with
@@ -292,12 +303,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``register_pairs_sharded`` on 8 pairs and ``optimize_pose_graph_sharded``
      on phase 11's float64 graph (edges padded to a multiple of N): each a
      counted run (every counter at 0 just before, read just after: the
-     extraction kernels, the kNN and the gather launched, the dual kNN not),
+     extraction kernels, the kNN and the gather or the sum launched, the
+     dual kNN not),
      a traced run (inside ``program.DRIVER_RANGE``: 1 ``cudaGraphLaunch``
      and 0 host reads a call or frame, required of every cell) and ms a run;
-     then the kernel's gather against NCCL's at the cells' own shapes (the
-     sharded search's indices and values, the pose graph's normal matrix;
-     bit-equal required, both timed); then the cards it holds a CUDA context
+     then the kernel's collectives against their plain versions at the
+     cells' own shapes (phase 12's, one shard a rank; bit-equal and one
+     graph node each required, both timed); then the cards it holds a CUDA context
      on (the driver API) and ``torch.cuda.memory_reserved`` on every other
      card, both required to be its card alone and 0. A rank past
      ``RANKS_TIMEOUT_S`` or failing kills every rank, and the phase fails
@@ -307,12 +319,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      shards of ``cuda:0`` in a world-size-1 NCCL group, the ranks' rows of
      the maps in rank order to its maps (the fixed sum order and a batch a
      shard make N ranks x 1 shard equal 1 rank x N shards); the ATE gate
-     and ``dropped`` 0. Ms a call or frame and scans/s on N ranks beside 1
-     rank x N shards, the gather's ms beside NCCL's, and a ``{"ranks":
-     ...}`` line (``cards``, ``ranks``, ``cross_card``, the probe, the
-     contexts, the cells, the gather). ``--ranks-only`` runs phase 1 and
+     and ``dropped`` 0. Past one rank, every cell's collectives' time
+     split into the wait for the slowest rank and the transfer
+     (``examples/torch_gather_split.py``, each collective between two
+     ``%globaltimer`` stamps on every rank). Ms a call or frame and
+     scans/s on N ranks beside 1 rank x N shards, the collectives' ms
+     beside their plain versions', and a ``{"ranks": ...}`` line
+     (``cards``, ``ranks``, ``cross_card``, the probe, the contexts, the
+     cells, the collectives, the split). ``--ranks-only`` runs phase 1 and
      this phase alone; ``--ranks-only <cell> ...`` the cells named, without
-     the probe and the gather check.
+     the probe, the collectives' check and the split.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -887,6 +903,8 @@ def _print_kernels(kernels):
                  f"{kd['bound_ms'] / kd['launch_ms']:.4f})")
         if "host_us" in kd:
             line += f", wrapper {kd['host_us']:.2f} us of host time a call"
+        if "graph_nodes" in kd:
+            line += f", {kd['graph_nodes']} graph node(s) captured alone"
         if "visits" in kd:
             earlier = kd["earlier_launch_ms"]
             line += (f", visits {kd['visits']} of {kd['live_boxes']} live boxes (share "
@@ -975,7 +993,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
         return st, out
 
     with _dual_knn(False):
-        st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn", "peer_gather"),
+        st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn", "peer_gather", "peer_sum"),
                               ("knn_dual",))
         st_1, out_1 = run_single()
         st_az, out_az = run_single(T.registration.azimuth_sort_features)
@@ -1113,22 +1131,52 @@ NVLINK_BYTES_S = 450e9  # H100 SXM NVLink, each way (published)
 
 def _gather_bound(nbytes: int, world: int) -> dict:
     """The least time a gather of ``nbytes`` a rank could take on ``world``
-    ranks: the larger of the peers' blocks pulled over NVLink and the rank's
-    own block read and the output written at the memory rate (the two
-    overlap)."""
+    ranks: the larger of the peers' blocks received over NVLink and the
+    rank's own block read and the output written at the memory rate (the
+    two overlap)."""
     ms = max((world - 1) * nbytes / NVLINK_BYTES_S, (1 + world) * nbytes / PEAK_BYTES_S) * 1e3
     return {"bound_ms": ms, "bound_by": "bytes"}
 
 
+def _sum_bound(block: int, L: int, world: int) -> dict:
+    """The least time the fixed-order sum of ``L`` blocks of ``block`` bytes
+    a rank could take on ``world`` ranks: the larger of what a
+    reduce-scatter and an all-gather receive over NVLink ((world - 1) /
+    world of the L blocks, then of the sums; an all-reduce can take no
+    less) and the rank's L blocks read and the one block written at the
+    memory rate."""
+    ms = max((world - 1) / world * (L + 1) * block / NVLINK_BYTES_S, (L + 1) * block / PEAK_BYTES_S) * 1e3
+    return {"bound_ms": ms, "bound_by": "bytes"}
+
+
+# the rows of the mesh's collectives: (name in _peer_shapes, the XLA
+# collective it stands for)
+PEER_ROWS = (("knn_planar_val", "loam_tpu/parallel/distributed.py:83"),
+             ("knn_edge_val", "loam_tpu/parallel/distributed.py:83"),
+             ("search_planar", "loam_tpu/parallel/distributed.py:83"),
+             ("heads", "loam_tpu/parallel/sharding.py (the all-gather of a sharded output)"),
+             ("details", "loam_tpu/parallel/sharding.py (the all-gather of a sharded output)"),
+             ("H", "loam_tpu/pose_graph.py:281"),
+             ("sum_H", "loam_tpu/pose_graph.py:281"),
+             ("sum_b", "loam_tpu/pose_graph.py:282"))
+
+
 def _peer_rows(T, torch, mesh, scans, lidar, fp) -> list:
-    """The kernel rows of the mesh's gather over peer memory on ``mesh``
-    (phase 12's 4 shards, a world-size-1 NCCL group) at the main path's
-    shapes (:func:`_peer_shapes`, every one checked bit-equal to NCCL's by
-    :func:`_peer_check`): the sharded search's values, planar and edge, and
-    the pose graph's normal matrix. The plain version is NCCL's
-    ``all_gather_into_tensor``, which is also the one PyTorch call for the
-    same function: ``plain_ms`` and ``library_ms`` are its time back to
-    back, ``library_launch_ms`` inside a graph, beside the kernel's."""
+    """The kernel rows of the mesh's collectives over peer memory on
+    ``mesh`` (phase 12's 4 shards, a world-size-1 NCCL group) at the main
+    path's shapes (:func:`_peer_shapes`, every one checked bit-equal to its
+    plain version by :func:`_peer_check`, one graph node each): the sharded
+    search's values, planar and edge, and its tree (indices and values, one
+    gather), the tree of a frame's features a shard (offline's gather of
+    heads), the tree of poses and details (a registration's output), the
+    pose graph's normal matrix gathered, and the sums of H and b. A
+    gather's plain version is NCCL's ``all_gather_into_tensor`` a leaf,
+    which is also the library's (a single tensor: one PyTorch call); a
+    sum's is that gather and the adds in shard order, its library call
+    ``x.sum(0)`` over the L blocks at one rank and ``dist.all_reduce`` of
+    one block past one (another order of adds: timed only).
+    ``plain_ms`` is the plain version back to back, ``library_launch_ms``
+    the library's in a graph, beside the kernel's ``launch_ms``."""
     import torch.distributed as dist
 
     world = dist.get_world_size(mesh.group)
@@ -1136,19 +1184,28 @@ def _peer_rows(T, torch, mesh, scans, lidar, fp) -> list:
     check = _peer_check(torch, mesh, shapes, 10)
     unequal = [name for name, row in check.items() if not row["equal"]]
     if unequal:
-        raise AssertionError(f"peer_gather differs from NCCL's all_gather_into_tensor at {unequal}")
+        raise AssertionError(f"the peer collectives differ from their plain versions at {unequal}")
+    nodes = {name: row["graph_nodes"] for name, row in check.items() if row["graph_nodes"] != 1}
+    if nodes:
+        raise AssertionError(f"a peer collective is more than one graph node: {nodes}")
+    heavy = {name: row["peak_bytes"] for name, row in check.items()
+             if row["kind"] == "sum" and row["peak_bytes"] >= 2 * row["out_bytes"]}
+    if heavy:
+        raise AssertionError(f"a peer sum allocated more than its output (the gathered blocks?): {heavy}")
     rows = []
-    for name, replaces in (("knn_planar_val", "loam_tpu/parallel/distributed.py:83"),
-                           ("knn_edge_val", "loam_tpu/parallel/distributed.py:83"),
-                           ("H", "loam_tpu/pose_graph.py:281")):
-        x, row = shapes[name], check[name]
+    for name, replaces in PEER_ROWS:
+        kind, x = shapes[name]
+        row = check[name]
+        L, nbytes = row["L"], row["bytes"]
+        bound = _gather_bound(nbytes, world) if kind == "gather" else _sum_bound(nbytes // L, L, world)
         rows.append(dict(
-            name=f"peer_gather_{name}", counter="peer_gather", route="cuda",
+            name=f"peer_{kind}_{name.removeprefix('sum_')}", counter=f"peer_{kind}", route="cuda",
             source="loam_tpu_torch/ops/csrc/peer_gather.cu",
             replaces=f"{replaces} (an XLA collective: no pallas_call)",
-            shape=f"{row['dtype']} {tuple(row['shape'])} a rank, {world} rank(s)", max_abs_err=0.0,
-            ms=row["ms"], launch_ms=row["graph_us"] / 1e3, plain_ms=row["nccl_ms"], library_ms=row["nccl_ms"],
-            library_launch_ms=row["nccl_graph_us"] / 1e3, **_gather_bound(x.numel() * x.element_size(), world)))
+            shape=f"{row['what']} a rank, {world} rank(s)", max_abs_err=0.0,
+            ms=row["ms"], launch_ms=row["graph_us"] / 1e3, plain_ms=row["plain_ms"],
+            library_ms=row["library_ms"], library_launch_ms=row["library_graph_us"] / 1e3,
+            graph_nodes=row["graph_nodes"], **bound))
     return rows
 
 
@@ -1580,7 +1637,7 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
         run_off = lambda x=scans: parallel.odometry_offline_sharded(x, lidar, mesh, fp, rp)
         cells = {
             "s2m-64x1024-sharded4": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"),
-                                     extraction + ("knn", "peer_gather"), ("knn_dual",)),
+                                     extraction + ("knn", "peer_gather", "peer_sum"), ("knn_dual",)),
             "offline-64x1024-sharded4": (run_off, 1, dict(LOAM_ICF_DUAL_KNN="0"),
                                          extraction + ("knn", "peer_gather"), ("knn_dual",)),
             "extract-64x1024-2x2": (lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp), 1,
@@ -1590,7 +1647,7 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
                                        dict(LOAM_ICF_DUAL_KNN="0"), ("knn", "peer_gather"),
                                        ("knn_dual",) + extraction),
             "posegraph-1000-sharded4": (lambda: optimize_pose_graph_sharded(pg64[0], edges_p, mesh, 10), 1, {},
-                                        ("peer_gather",), no_knn + extraction,
+                                        ("peer_sum",), no_knn + extraction + ("peer_gather",),
                                         dict(check=check_graph, rate=False)),
         }
         out = _graph_phase(torch, smi, frames, drive, path_launches, cells, reps)
@@ -2191,57 +2248,148 @@ def _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph, cells=RANKS_CELLS):
     ident = T.Pose3.identity(torch.float32, (RANKS_PAIRS,), mesh.device)
     extraction = ("sector_sort", "greedy_nms", "select_points")
     every = {
-        "s2m": (s2m, frames, extraction + ("knn", "peer_gather")),
+        "s2m": (s2m, frames, extraction + ("knn", "peer_gather", "peer_sum")),
         "offline": (lambda: parallel.odometry_offline_sharded(scans, lidar, mesh, fp, rp), 1,
                     extraction + ("knn", "peer_gather")),
         "extract": (lambda: parallel.extract_features_sharded(scans, lidar, mesh, fp), 1,
                     extraction + ("peer_gather",)),
         "pairs": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1, ("knn", "peer_gather")),
-        "posegraph": (lambda: optimize_pose_graph_sharded(*graph, mesh, 10), 1, ("peer_gather",)),
+        "posegraph": (lambda: optimize_pose_graph_sharded(*graph, mesh, 10), 1, ("peer_sum",)),
     }
     return {cell: every[cell] for cell in cells}
 
 
+def _noise(torch, tree, g):
+    """A tree of the same shapes and dtypes as ``tree``, random from the
+    generator ``g`` (NamedTuples kept, ``None`` leaves too)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        parts = [_noise(torch, x, g) for x in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    dev = tree.device
+    if tree.dtype == torch.bool:
+        return torch.rand(tree.shape, generator=g, device=dev) > 0.5
+    if tree.is_floating_point():
+        return torch.randn(tree.shape, generator=g, dtype=tree.dtype, device=dev)
+    return torch.randint(-2**31, 2**31 - 1, tree.shape, generator=g, dtype=torch.int64, device=dev).to(tree.dtype)
+
+
 def _peer_shapes(T, torch, mesh, scans, lidar, fp, nodes: int = 1000) -> dict:
-    """The gathers of phase 17's cells at their own shapes on ``mesh``
-    (``L`` = this rank's shards), random, seeded by this rank's first
-    shard: the ICF's sharded search's indices (L, k, Q) int32 and values
-    (L, 4, k, Q) float32 for a 64x1024 frame's planar and edge slots
-    (``distributed._shard_search``), and the pose graph's normal matrix
-    (L, 6 nodes, 6 nodes) float64 (``optimize_pose_graph_sharded``)."""
+    """The collectives of the sharded cells at their own shapes on ``mesh``
+    (``L`` = this rank's shards), ``{name: (kind, tensor or tree)}``,
+    random, seeded by this rank's first shard: the ICF's sharded search's
+    indices (L, k, Q) int32 and values (L, 4, k, Q) float32 for a 64x1024
+    frame's planar and edge slots, and the planar pair as one tree
+    (``distributed._shard_search``); a frame's features a shard, as
+    ``odometry_offline_sharded`` gathers its heads; a registration's poses
+    and details for L pairs, as offline and the pairs gather them; the pose
+    graph's normal matrix (L, 6 nodes, 6 nodes) float64 gathered (the
+    large gather's row) and summed, and its right-hand side (L, 6 nodes) summed
+    (``optimize_pose_graph_sharded``)."""
+    from loam_tpu_torch.registration import azimuth_sort_features
+
     L, dev = len(mesh.shard_ids), mesh.device
-    feats = T.extract_features(scans[0], lidar, fp)
+    feats = azimuth_sort_features(T.extract_features_batch(scans[:L + 1], lidar, fp))
     reg = T.default_map_reg_params()
     g = torch.Generator(dev).manual_seed(mesh.shard_ids[0])
     out = {}
-    for cls, Q, k in (("planar", feats.planar_mask.shape[0], reg.num_plane_neighbors),
-                      ("edge", feats.edge_mask.shape[0], reg.num_edge_neighbors)):
-        out[f"knn_{cls}_idx"] = torch.randint(0, 2**31 - 1, (L, k, Q), generator=g, dtype=torch.int32, device=dev)
-        out[f"knn_{cls}_val"] = torch.randn((L, 4, k, Q), generator=g, device=dev)
-    out["H"] = torch.randn((L, 6 * nodes, 6 * nodes), generator=g, dtype=torch.float64, device=dev)
+    for cls, Q, k in (("planar", feats.planar_mask.shape[1], reg.num_plane_neighbors),
+                      ("edge", feats.edge_mask.shape[1], reg.num_edge_neighbors)):
+        out[f"knn_{cls}_idx"] = ("gather", torch.randint(0, 2**31 - 1, (L, k, Q), generator=g, dtype=torch.int32,
+                                                         device=dev))
+        out[f"knn_{cls}_val"] = ("gather", torch.randn((L, 4, k, Q), generator=g, device=dev))
+    out["search_planar"] = ("gather", (out["knn_planar_idx"][1], out["knn_planar_val"][1]))
+    out["heads"] = ("gather", _noise(torch, feats.map(lambda x: x[:L]), g))
+    src, tgt = feats.map(lambda x: x[1:L + 1]), feats.map(lambda x: x[:L])
+    pose, detail = T.register_features_batch(src, tgt, T.Pose3.identity(torch.float32, (L,), dev),
+                                             T.RegistrationParams(search_backend="bruteforce"),
+                                             reorder_mode="none")
+    out["details"] = ("gather", _noise(torch, (pose, detail), g))
+    H = torch.randn((L, 6 * nodes, 6 * nodes), generator=g, dtype=torch.float64, device=dev)
+    out["H"] = ("gather", H)
+    out["sum_H"] = ("sum", H)
+    out["sum_b"] = ("sum", torch.randn((L, 6 * nodes), generator=g, dtype=torch.float64, device=dev))
     return out
 
 
+def _graph_nodes(torch, fn) -> int:
+    """The nodes of a CUDA graph that captures ``fn`` alone (after an eager
+    warm-up)."""
+    import ctypes
+
+    from loam_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    stream, n = torch.cuda.Stream(), ctypes.c_size_t()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+        err = _build.lib().loam_capture_nodes(stream.cuda_stream, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"counting a graph's nodes failed with cudaError_t {err}")
+    torch.cuda.synchronize()
+    return n.value
+
+
 def _peer_check(torch, mesh, shapes: dict, reps: int) -> dict:
-    """Each of ``shapes`` gathered by the kernel (``collectives.gather``)
-    and by NCCL's eager ``all_gather_into_tensor`` (the plain version):
-    whether they are bit-equal, ms a gather of each called back to back,
-    and us a gather of each inside a plain CUDA graph of 20 (the normal
-    matrix: 2) replayed (CUDA events)."""
-    from loam_tpu_torch.ops.peer_cuda import peer_gather_reference
+    """Each of ``shapes`` through the kernel (``collectives.gather`` of the
+    tensor or tree, ``collectives.sum``) and through its plain version
+    (``peer_gather_reference``: NCCL's eager ``all_gather_into_tensor`` a
+    leaf; ``peer_sum_reference``: that gather, then the adds in global shard
+    order): whether they are bit-equal, ms a call of each back to back, us
+    a call of each inside a plain CUDA graph of 20 (the normal matrix: 2)
+    replayed (CUDA events), and the kernel's graph nodes when captured
+    alone. A sum also: the bytes its eager call allocated at its peak
+    beside its output's, and the library's yardstick timed (``x.sum(0)``
+    at world size 1, where ``all_reduce`` adds nothing; ``dist.all_reduce``
+    of one block past one rank; another order of adds, so never compared)."""
+    import torch.distributed as dist
+
+    from loam_tpu_torch.ops.peer_cuda import peer_gather_reference, peer_sum_reference
     from loam_tpu_torch.parallel import collectives
 
     rows = {}
-    for name, x in shapes.items():
-        a, b = collectives.gather(mesh, x), peer_gather_reference(x, mesh.group)
+    for name, (kind, x) in shapes.items():
+        leaves = _leaves(x)
+        if kind == "gather":
+            kernel = lambda x=x: collectives.gather(mesh, x)
+            plain = lambda x=x: peer_gather_reference(_leaves(x), mesh.group)
+            what = (f"{str(x.dtype).removeprefix('torch.')} {tuple(x.shape)}" if len(leaves) == 1 else
+                    f"a tree of {len(leaves)} leaves")
+        else:
+            kernel = lambda x=x: collectives.sum(mesh, x)
+            plain = lambda x=x: peer_sum_reference(x, mesh.group)
+            what = f"the sum of {str(x.dtype).removeprefix('torch.')} {tuple(x.shape)}"
+        a, b = _leaves(kernel()), _leaves(plain())
         torch.cuda.synchronize()
-        rows[name] = {"shape": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
-                      "equal": a.dtype == b.dtype and torch.equal(a, b)}
+        nbytes = _nbytes(*leaves)
+        row = {"kind": kind, "what": what, "shape": list(leaves[0].shape), "leaves": len(leaves),
+               "dtype": str(leaves[0].dtype).removeprefix("torch."), "bytes": nbytes, "L": leaves[0].shape[0],
+               "equal": len(a) == len(b) and all(p.dtype == q.dtype and torch.equal(p, q) for p, q in zip(a, b))}
         del a, b
-        kernel, nccl = lambda: collectives.gather(mesh, x), lambda: peer_gather_reference(x, mesh.group)
-        n = 2 if name == "H" else 20
-        rows[name].update(ms=_time_ms(kernel, reps), nccl_ms=_time_ms(nccl, reps),
-                          graph_us=_graph_ms(kernel, n, 3) * 1e3, nccl_graph_us=_graph_ms(nccl, n, 3) * 1e3)
+        n = 2 if nbytes > 64 << 20 else 20
+        row.update(ms=_time_ms(kernel, reps), plain_ms=_time_ms(plain, reps), graph_us=_graph_ms(kernel, n, 3) * 1e3,
+                   plain_graph_us=_graph_ms(plain, n, 3) * 1e3, graph_nodes=_graph_nodes(torch, kernel))
+        if kind == "gather":
+            row.update(library_ms=row["plain_ms"], library_graph_us=row["plain_graph_us"])
+        else:
+            block = x[0].clone()
+            if dist.get_world_size(mesh.group) > 1:
+                library = lambda: dist.all_reduce(block, group=mesh.group)
+            else:  # one rank: all_reduce adds nothing; the sum of its L blocks is x.sum(0)
+                library = lambda x=x: x.sum(0)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernel()
+            torch.cuda.synchronize()
+            row.update(library_ms=_time_ms(library, reps), library_graph_us=_graph_ms(library, n, 3) * 1e3,
+                       peak_bytes=torch.cuda.max_memory_allocated() - before, out_bytes=nbytes // row["L"])
+            del block
+        rows[name] = row
     return rows
 
 
@@ -2354,7 +2502,8 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
     dev = _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
     counters = {"sector_sort": bitonic_cuda.sector_sort, "greedy_nms": nms_cuda.greedy_nms,
                 "select_points": assemble_cuda.select_points, "knn": knn_cuda.knn_run,
-                "knn_dual": knn_cuda.knn_dual_run, "peer_gather": peer_cuda.peer_gather}
+                "knn_dual": knn_cuda.knn_dual_run, "peer_gather": peer_cuda.peer_gather,
+                "peer_sum": peer_cuda.peer_sum}
     peer = None
     try:
         stamp("make_mesh")
@@ -2397,6 +2546,30 @@ def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS) -> None:
         print(f"phase 17: rank {r} {why}; its log ends:\n{tail}", flush=True)
     if failed:
         raise AssertionError("phase 17: " + "; ".join(failed))
+
+
+def _gather_split(N: int, out_dir: str, smi: str) -> dict:
+    """Where each four-rank cell's collectives spend their time:
+    ``examples/torch_gather_split.py`` on every cell at ``N`` ranks (each
+    collective's time on each rank from two ``%globaltimer`` stamps around
+    it, the least rank's the transfer, the rest the wait), printed a cell a
+    line; its summaries by cell."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    _stamp(f"phase 17: the collectives' time split, {N} ranks")
+    done = subprocess.run([sys.executable, os.path.join(here, "examples", "torch_gather_split.py"), "--trees", here,
+                           "--cells", *RANKS_CELLS, "--ranks", str(N), "--reps", "3",
+                           "--out", os.path.join(out_dir, "split")],
+                          capture_output=True, text=True, timeout=RANKS_TIMEOUT_S, cwd=here)
+    if done.returncode != 0:
+        raise AssertionError(f"phase 17: the split of the collectives' time failed:\n{done.stdout[-3000:]}"
+                             f"{done.stderr[-3000:]}")
+    cells = json.loads(done.stdout.strip().splitlines()[-1])["gather_split"][0]["cells"]
+    for cell, c in cells.items():
+        print(f"phase 17 {cell}: collectives' time split at {N} ranks: {len(c['collectives'])} collectives a call "
+              f"(a conditional body's once), us a rank {[round(x, 1) for x in c['sum_us_a_rank']]}, of which the "
+              f"wait for the slowest rank {[round(x, 1) for x in c['wait_us_a_rank']]} and the transfer "
+              f"{c['sum_transfer_us']:.1f}; {c['ms_a_call']:.3f} ms a call with the stamps, on {smi}", flush=True)
+    return cells
 
 
 def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse, reps,
@@ -2444,6 +2617,7 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     t0 = time.perf_counter()
     _spawn_ranks(N, out_dir, cells)
     spawn_s = time.perf_counter() - t0
+    split = _gather_split(N, out_dir, smi) if full and N > 1 else None
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(N)]
     for r in range(N):
         print(open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip(), flush=True)
@@ -2498,29 +2672,32 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     frames = scans_np.shape[0]
     peer = None
     if full:
+        slowest = lambda key: {n: max(res["peer"][n][key] for res in ranks) for n in ranks[0]["peer"]}
         peer = {"equal_nccl": [all(row["equal"] for row in res["peer"].values()) for res in ranks],
-                "ms_slowest_rank": {n: max(res["peer"][n]["ms"] for res in ranks) for n in ranks[0]["peer"]},
-                "nccl_ms_slowest_rank": {n: max(res["peer"][n]["nccl_ms"] for res in ranks) for n in ranks[0]["peer"]},
-                "graph_us_slowest_rank": {n: max(res["peer"][n]["graph_us"] for res in ranks)
-                                          for n in ranks[0]["peer"]},
-                "nccl_graph_us_slowest_rank": {n: max(res["peer"][n]["nccl_graph_us"] for res in ranks)
-                                               for n in ranks[0]["peer"]},
+                "graph_nodes": [{n: row["graph_nodes"] for n, row in res["peer"].items()} for res in ranks],
+                **{f"{key}_slowest_rank": slowest(key) for key in ("ms", "plain_ms", "graph_us", "plain_graph_us",
+                                                                   "library_graph_us")},
                 "one_rank": one_peer, "rank0": ranks[0]["peer"]}
         for n, row in ranks[0]["peer"].items():
-            print(f"phase 17 gather {n} {row['dtype']} {row['shape']} a rank: the kernel "
+            one = one_peer[n]
+            print(f"phase 17 {row['kind']} {n}, {row['what']} a rank: the kernel "
                   f"{peer['ms_slowest_rank'][n]:.4f} ms back to back, {peer['graph_us_slowest_rank'][n]:.2f} us in "
-                  f"a graph; NCCL {peer['nccl_ms_slowest_rank'][n]:.4f} ms, "
-                  f"{peer['nccl_graph_us_slowest_rank'][n]:.2f} us, on {N} x 1 (slowest rank); on 1 x {N} the kernel {one_peer[n]['ms']:.4f} ms, "
-                  f"{one_peer[n]['graph_us']:.2f} us, NCCL {one_peer[n]['nccl_ms']:.4f} ms, "
-                  f"{one_peer[n]['nccl_graph_us']:.2f} us; bit-equal on every rank: {all(peer['equal_nccl'])}",
-                  flush=True)
+                  f"a graph ({row['graph_nodes']} node); plain {peer['plain_ms_slowest_rank'][n]:.4f} ms, "
+                  f"{peer['plain_graph_us_slowest_rank'][n]:.2f} us; library "
+                  f"{peer['library_graph_us_slowest_rank'][n]:.2f} us in a graph, on {N} x 1 (slowest rank); on 1 x "
+                  f"{N} the kernel {one['ms']:.4f} ms, {one['graph_us']:.2f} us, plain {one['plain_ms']:.4f} ms, "
+                  f"{one['plain_graph_us']:.2f} us, library {one['library_graph_us']:.2f} us; bit-equal on every "
+                  f"rank: {all(peer['equal_nccl'])}", flush=True)
+        many = {r: {n: k for n, k in nodes.items() if k != 1} for r, nodes in enumerate(peer["graph_nodes"])}
+        if any(many.values()):
+            failed.append(f"a peer collective is more than one graph node: {many}")
     record = {"cards": cards, "ranks": N, "cross_card": N > 1, "shards_a_rank": 1, "nccl": ranks[0]["nccl"],
               "probe": probe, "peer_equal_nccl": peer and peer["equal_nccl"], "peer_gather": peer,
               "spawn_s": spawn_s,
               "contexts": {r: res["contexts"] for r, res in enumerate(ranks)},
               "reserved_elsewhere": {r: res["reserved"] for r, res in enumerate(ranks)},
               "ate_m": {c: s["ate_m"] for c, s in summary.items()},
-              "dropped": summary.get("s2m", {}).get("dropped"), "cells": {}}
+              "dropped": summary.get("s2m", {}).get("dropped"), "gather_split": split, "cells": {}}
     for cell, row in ranks[0]["rows"].items():
         path_launches[f"ranks_{cell}"] = row["launches"]
         one = one_rows[cell]
@@ -2631,6 +2808,7 @@ def main() -> int:
         "knn": knn_cuda.knn_run,
         "knn_dual": knn_cuda.knn_dual_run,
         "peer_gather": peer_cuda.peer_gather,
+        "peer_sum": peer_cuda.peer_sum,
     }
     extraction = ("sector_sort", "greedy_nms", "select_points")
     path_launches = {}
@@ -3559,7 +3737,7 @@ def main() -> int:
         {k: kd[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                             "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_ms", "launches_by_path",
                             "shape")}
-        | {k: kd[k] for k in ("host_us", "library_launch_ms", "accepts_max",
+        | {k: kd[k] for k in ("host_us", "library_launch_ms", "graph_nodes", "accepts_max",
                               "accepts_mean", "visits", "live_boxes", "visits_share", "evaluations",
                               "seeded") if k in kd}
         for kd in kernels

@@ -8,7 +8,8 @@ device. The kernels are built from ``csrc/`` at first use (``_build``).
   * ``assemble_cuda.select_points`` -- the picked-coordinate copy-out
   * ``knn_cuda.knn_run``           -- exact brute-force kNN with coordinates
   * ``knn_cuda.knn_dual_run``      -- the edge and the planar kNN in one launch
-  * ``peer_cuda.peer_gather``      -- the mesh's gather over peer memory
+  * ``peer_cuda.peer_gather``      -- the mesh's gather of a list of tensors over peer memory
+  * ``peer_cuda.peer_sum``         -- the mesh's sum in global shard order, the same kernel
 
 ``knn_pallas`` is ``loam_tpu.ops.knn_pallas``'s one-shot prep + search.
 

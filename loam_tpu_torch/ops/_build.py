@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (the kernels; ``peer_gather.cu``: the mesh's
-gather over peer memory, ``ops/peer_cuda.py``; and ``graph_if.cu``: the
+gather and sum over peer memory, ``ops/peer_cuda.py``; and ``graph_if.cu``: the
 CUDA-graph conditional nodes of ``program.when``, ``program.while_loop`` and
 ``program.scan``) are compiled with ``nvcc``, one
 process per source and all at once, and linked into one shared library with a plain C
@@ -40,8 +40,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types; every one returns cudaError_t
-# (the *_form queries, loam_knn_*_queries / _max_boxes and loam_peer_max_ranks
-# return a number)
+# (the *_form queries, loam_knn_*_queries / _max_boxes and loam_peer_max_ranks /
+# _segments return a number)
 SIGNATURES = {
     "loam_sector_sort_form": (_I, _I, _I, _I),
     "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -57,8 +57,9 @@ SIGNATURES = {
                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "loam_knn_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # the mesh's gather over peer memory (peer_gather.cu; ops/peer_cuda.py)
+    # the mesh's gather and sum over peer memory (peer_gather.cu; ops/peer_cuda.py)
     "loam_peer_max_ranks": (),
+    "loam_peer_max_segments": (),
     "loam_peer_create": (_I, _I, ctypes.c_double, ctypes.POINTER(_P)),
     "loam_peer_bus_id": (ctypes.c_char_p, _I),
     "loam_peer_can_reach": (ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(_I)),
@@ -67,7 +68,7 @@ SIGNATURES = {
     "loam_peer_open": (_P, ctypes.c_char_p, ctypes.POINTER(_I)),
     "loam_peer_close": (_P,),
     "loam_peer_free": (_P,),
-    "loam_peer_gather": (_P, _P, _P, ctypes.c_longlong, _P),
+    "loam_peer_run": (_P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P),
     # CUDA-graph conditional nodes (graph_if.cu; program.when, while_loop, scan)
     "loam_stream_create": (ctypes.POINTER(_P),),
     "loam_if_begin": (_P, _P, _P),

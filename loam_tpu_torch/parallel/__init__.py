@@ -7,9 +7,9 @@ the collectives. Here a rank is one process with one device, holding one or
 more shards of the mesh on it; the ranks form the mesh's process group
 (gloo for CPU tensors, NCCL for CUDA ones, which sets the mesh up), and the
 two collectives the entry points need, a gather and a sum in fixed order,
-are written out in ``collectives``: on the card a hand-written gather over
-peer memory (``ops/peer_cuda.py``), which every pair of the mesh's cards
-must be able to reach.
+are written out in ``collectives``: on the card one hand-written kernel over
+peer memory (``ops/peer_cuda.py``) for both, which every pair of the mesh's
+cards must be able to reach.
 
 Axes (``sharding``): ``data`` -- frames, pairs, map and edge shards;
 ``line`` -- scan lines within extraction. ``sharding`` holds the batch entry

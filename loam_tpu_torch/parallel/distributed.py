@@ -87,9 +87,8 @@ def _shard_search(st: _ShardTargets, queries, k: int, max_dist: float, mesh: Mes
     q = queries.to(mesh.device).expand(L, -1, -1)
     qm = None if query_mask is None else query_mask.to(mesh.device).expand(L, -1)
     idx, d2, coords = knn_slots(st.prep, q, k, max_dist, qm)
-    # the lists of every shard, global shard order: (D, k, Q)
-    g_idx = collectives.gather(mesh, idx + st.offset)
-    g_val = collectives.gather(mesh, torch.stack([d2, *coords], dim=1))
+    # the lists of every shard, global shard order: (D, k, Q), one gather
+    g_idx, g_val = collectives.gather(mesh, (idx + st.offset, torch.stack([d2, *coords], dim=1)))
     D, Q = g_idx.shape[0], g_idx.shape[-1]
     init = _init_d2(max_dist)
     # per query, shard-major then slot: global index order, so the first of

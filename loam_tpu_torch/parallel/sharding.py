@@ -75,7 +75,7 @@ class Mesh:
     shape: Dict[str, int]
     #: Global index of each of this rank's shards.
     shard_ids: Tuple[int, ...]
-    #: This rank's buffers of the gather over peer memory
+    #: This rank's buffers of the collectives over peer memory
     #: (``ops/peer_cuda.py``) on a CUDA mesh with a group, else None.
     peer: Optional[PeerMailbox] = None
     #: Unique in this process: the key of the mesh's cached programs.
@@ -253,8 +253,7 @@ def extract_features_sharded(
     lo, hi = _blocks(pts.shape[0], "frames", mesh)
 
     def fn(p):
-        return tree_map(lambda x: gather(mesh, x),
-                        _extract_lines(p[lo:hi], lidar, params, mesh.shape["line"]))
+        return gather(mesh, _extract_lines(p[lo:hi], lidar, params, mesh.shape["line"]))
 
     prog, out = run_program(mesh, ("extract_sharded", lidar, params), pts, fn, None,
                             path="extract_sharded", frames=pts.shape[0])
@@ -280,7 +279,7 @@ def register_pairs_sharded(
         block = lambda x: x[lo:hi]
         src, tgt, ini = (tree_map(block, x) for x in bufs)
         pose, detail = _per_row(lambda *b: register_features_batch(*b, params), hi - lo, mesh, src, tgt, ini)
-        return tree_map(lambda x: gather(mesh, x), pose), tree_map(lambda x: gather(mesh, x), detail)
+        return gather(mesh, (pose, detail))
 
     prog, out = run_program(mesh, ("pairs_sharded",), (source.map(on), target.map(on), tree_map(on, init)),
                             fn, params, path="pairs_sharded", pairs=source.edge_mask.shape[0])
@@ -314,7 +313,7 @@ def odometry_offline_sharded(
     def fn(p):
         feats = azimuth_sort_features(_extract_lines(p[lo:hi], lidar, feat_params, mesh.shape["line"]))
         n = hi - lo
-        heads = tree_map(lambda x: gather(mesh, x[:1]), feats)  # every rank's first frame
+        heads = gather(mesh, feats.map(lambda x: x[:1]))  # every rank's first frame
         if hi < F:
             frames = tree_map(lambda x, h: torch.cat([x, h[hi // n:hi // n + 1]]), feats, heads)
         else:
@@ -325,7 +324,8 @@ def odometry_offline_sharded(
         init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
         rel, details = _per_row(lambda *b: register_features_batch(*b, reg_params, reorder_mode="none"), n,
                                 mesh, src, tgt, init)
-        cut = lambda x: gather(mesh, x)[:F - 1]
+        rel, details = gather(mesh, (rel, details))
+        cut = lambda x: x[:F - 1]
         return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)
 
     prog, out = run_program(mesh, ("offline_sharded", lidar, feat_params), pts, fn, reg_params,

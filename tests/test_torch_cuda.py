@@ -1615,7 +1615,7 @@ def test_sharded_program_matches_eager(nccl_meshes, cell):
 
     run, launches = _sharded_run(nccl_meshes, cell)
     counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
-               knn_cuda.knn_run, knn_cuda.knn_dual_run, peer_cuda.peer_gather)
+               knn_cuda.knn_run, knn_cuda.knn_dual_run, peer_cuda.peer_sum, peer_cuda.peer_gather)
 
     def counts(fn):
         for c in counted:
@@ -1741,6 +1741,82 @@ def test_peer_gather_captured_matches_nccl(nccl_meshes, kind):
             assert not got.any()
 
 
+@pytest.mark.parametrize("kind", ["while", "if", "if_not", "plain"])
+def test_peer_tree_and_sum_captured_match_plain(nccl_meshes, kind):
+    """The kernel's tree gather (every leaf of ``_peer_inputs`` in one
+    launch, and a 0-length leaf) and its fixed-order sum (float32, float64,
+    int32 and int64 blocks of 4 shards, magnitudes far apart) on a
+    world-size-1 NCCL group's mesh, captured in a WHILE body (3
+    iterations), an IF body (taken and not) and a plain graph, replayed:
+    each leaf bit-equal to NCCL's gather of it, each sum to the gather then
+    the adds in shard order; one counted launch a collective that ran, and
+    one graph node each when captured alone."""
+    from loam_tpu_torch import program
+    from loam_tpu_torch.ops import peer_cuda
+    from loam_tpu_torch.parallel import collectives
+
+    mesh, _ = nccl_meshes
+    dev = mesh.device
+    g = torch.Generator().manual_seed(5)
+    tree = tuple(_peer_inputs(dev)) + (torch.zeros((4, 0, 3), dtype=torch.int32, device=dev),)
+    sums = [(torch.randn((4, 1001), generator=g, dtype=d) * 10.0 ** torch.randint(-6, 7, (4, 1001), generator=g)
+             ).to(dev, d) for d in (torch.float32, torch.float64)]
+    sums += [torch.randint(-2**30, 2**30, (4, 7, 5), generator=g, dtype=d).to(dev) for d in (torch.int32, torch.int64)]
+    want_tree = peer_cuda.peer_gather_reference(list(tree), mesh.group)
+    want_sums = [peer_cuda.peer_sum_reference(x, mesh.group) for x in sums]
+
+    def fn(bufs):
+        xs, ys, n = bufs
+        outs = [torch.zeros_like(w) for w in want_tree] + [torch.zeros_like(w) for w in want_sums]
+
+        def record():
+            for o, v in zip(outs, list(collectives.gather(mesh, xs)) + [collectives.sum(mesh, y) for y in ys]):
+                o.copy_(v)
+
+        if kind == "while":
+            i = torch.zeros((), dtype=torch.int64, device=dev)
+            going = i < n
+
+            def body():
+                record()
+                i.add_(1)
+                going.copy_(i < n)
+
+            program.while_loop(going, body)
+        elif kind == "plain":
+            record()
+        else:
+            program.when(n > 2, record)
+        return tuple(outs)
+
+    n = torch.full((), 2 if kind == "if_not" else 3, dtype=torch.int64, device=dev)
+    inputs = (tree, tuple(sums), n)
+    prog = program.Program(dev, inputs)
+    prog.run(fn, inputs)  # the capture
+    peer_cuda.peer_gather.launches = peer_cuda.peer_sum.launches = 0
+    got = program.clone(prog.run(fn, inputs))
+    torch.cuda.synchronize()
+    ran = {"while": 3, "if": 1, "if_not": 0, "plain": 1}[kind]
+    assert (peer_cuda.peer_gather.launches, peer_cuda.peer_sum.launches) == (ran, ran * len(sums))
+    assert prog.graph is not None and prog.conditional == {
+        "if": int(kind.startswith("if")), "while": int(kind == "while")}
+    for a, b in zip(got, want_tree + want_sums):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b) if ran else not a.any()
+
+    import ctypes
+
+    from loam_tpu_torch.ops import _build
+
+    for one in (lambda: collectives.gather(mesh, tree), lambda: collectives.sum(mesh, sums[1])):
+        stream, nodes = torch.cuda.Stream(), ctypes.c_size_t()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+            one()
+            assert _build.lib().loam_capture_nodes(stream.cuda_stream, ctypes.byref(nodes)) == 0
+        assert nodes.value == 1
+
+
 def test_peer_gather_at_one_rank_is_a_copy_without_a_mailbox(nccl_meshes):
     """At world size 1 the gather is one copy kernel and the mesh makes no
     mailbox: a gather of any size runs inside a capture and equals NCCL's.
@@ -1786,7 +1862,8 @@ def test_sharded_drivers_through_the_peer_gather_one_launch_a_call(dev, request,
     """``scan_to_map_step_sharded`` (8 frames) and
     ``optimize_pose_graph_sharded`` (3 calls) on a world-size-1 group's
     mesh: one cached program, replayed once a frame or call
-    (``graph_stats``), its gathers the kernel's."""
+    (``graph_stats``), its gathers (scan-to-map) and sums (the pose graph)
+    the kernel's."""
     from loam_tpu_torch.ops import peer_cuda
     from loam_tpu_torch.registration import loop
 
@@ -1797,13 +1874,16 @@ def test_sharded_drivers_through_the_peer_gather_one_launch_a_call(dev, request,
         run, _ = _last_run(dev, "posegraph_sharded", request)
         calls, runs = 3, [run] * 3
     loop.clear_cache()
-    peer_cuda.peer_gather.launches = 0
+    peer_cuda.peer_gather.launches = peer_cuda.peer_sum.launches = 0
     for r in runs:
         r()
     torch.cuda.synchronize()
     (stats,) = loop.graph_stats()
     assert stats["replays"] == calls and stats["conditional_nodes"]["while"] >= 1, stats
-    assert peer_cuda.peer_gather.launches > 0
+    if cell == "posegraph":  # the pose graph's collectives are sums: no gather
+        assert peer_cuda.peer_sum.launches > 0 and peer_cuda.peer_gather.launches == 0
+    else:
+        assert peer_cuda.peer_gather.launches > 0
 
 
 # ---- the grid search and the loop-closed back end as one program each -------------
@@ -1893,7 +1973,7 @@ def test_last_programs_match_eager(dev, request, cell):
 
     run, want_nodes = _last_run(dev, cell, request)
     counted = (bitonic_cuda.sector_sort, nms_cuda.greedy_nms, assemble_cuda.select_points,
-               knn_cuda.knn_run, knn_cuda.knn_dual_run, peer_cuda.peer_gather)
+               knn_cuda.knn_run, knn_cuda.knn_dual_run, peer_cuda.peer_gather, peer_cuda.peer_sum)
 
     def counts(fn):
         for c in counted:
@@ -1968,9 +2048,10 @@ def test_one_rank_a_card(dev):
     on another card; the probe's kernel cases (a gather in a WHILE body, an
     IF body and a plain graph; past one rank a gather past the mailbox
     raising inside a capture, and a graph captured before the mailbox grew
-    replayed) accepted and equal to NCCL's, the kernel's gather equal to
-    NCCL's at the cells' shapes on every rank, and the scan-to-map frames
-    run again after the pose graph equal to their first run."""
+    replayed) accepted and equal to NCCL's, the kernel's gathers and sums
+    equal to their plain versions at the cells' shapes on every rank, one
+    graph node each, and the scan-to-map frames run again after the pose
+    graph equal to their first run."""
     import json
     import subprocess
     import sys
@@ -1989,5 +2070,6 @@ def test_one_rank_a_card(dev):
     assert all(rec["probe"][f"peer_{case}"] == "accepted" for case in ("while", "if", "plain")), rec["probe"]
     assert rec["cells"]["s2m"]["again_after_posegraph_equal"] == [True] * n
     assert rec["peer_equal_nccl"] == [True] * n
+    assert all(k == 1 for nodes in rec["peer_gather"]["graph_nodes"] for k in nodes.values())
     for name, cell in rec["cells"].items():
         assert cell["graph_launches_per_unit"] == [1.0] * n and cell["host_reads_per_unit"] == [0.0] * n
