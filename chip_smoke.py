@@ -225,7 +225,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      offline-64x1024-c4 and scan-to-map on 16 and on 64 frames: the
      graph's nodes, conditional nodes by type, capture seconds, pool bytes
      and ms a call at each, the node counts and conditional nodes required
-     equal (at 16, 64 and 256 frames in phase 16). Then the sharded cells,
+     equal (at 16, 64 and 128 frames in phase 16). Then the sharded cells,
      on 4 shards of this GPU in a
      world-size-1 NCCL group started afresh: s2m-64x1024-sharded4
      (``scan_to_map_step_sharded``, one program a frame: the sharded
@@ -256,7 +256,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      back and the eager run's device span by CUDA events, no profiler, beside
      the eager trace's kernel sum. Prints them as a ``{"one_program": ...}``
      line.
- 16. The drive at a user's length: the trajectory's 256 frames (25.6 s of
+ 16. The drive at a user's length: the trajectory's 128 frames (12.8 s of
      an Ouster-64 at 10 Hz; every shorter run above is its first frames),
      ``odometry_offline`` (``chunk_pairs=4``, ``motion_init``) and
      ``scan_to_map_offline`` (default config and registration) each one
@@ -264,7 +264,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      dtype rule; scan-to-map from float64 maps and poses): every pair's
      relative pose in float32 within 2 mm and
      1e-3 rad of float64's (F6 per pair; the largest and median gaps, the
-     mean gap vector and the absolute gap by frames 64, 128 and 256
+     mean gap vector and the absolute gap by frames 64 and 128
      printed), the pairs whose termination codes differ named, the ATE gate
      for every run and float32's ATE within 10% of float64's. Scan-to-map
      on the float64 scans from its default state (float32 maps, searched
@@ -274,7 +274,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      nudged by 1e-6 m is printed beside it: how near the drive's keyframe
      decisions lie to their threshold. The maps' live slots, ``dropped``
      0, overflow (0, 0), the kNN's visit share at the last frame. Then
-     offline-c4, s2m and s2m-grid captured afresh at 16, 64 and 256
+     offline-c4, s2m and s2m-grid captured afresh at 16, 64 and 128
      frames: graph nodes and conditional nodes equal at every length, the
      pool growing no faster than 1.25x what the call must hold (outputs
      and hoisted features) plus 64 MiB; ms a call (the mean of 2 replays
@@ -328,7 +328,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (``cards``, ``ranks``, ``cross_card``, the probe, the contexts, the
      cells, the collectives, the split). ``--ranks-only`` runs phase 1 and
      this phase alone; ``--ranks-only <cell> ...`` the cells named, without
-     the probe, the collectives' check and the split.
+     the probe, the collectives' check and the split. Across hosts (BASELINE
+     config 5): past one rank the same ranks also run every cell on each mesh
+     of ``_host_splits`` -- at 4 ranks 2 hosts x 2 (``make_mesh(hosts=[0,
+     0, 1, 1])``: two islands over NVLink, the cross-host leg between them)
+     and 4 x 1 (every pair through the host proxies over loopback TCP) --
+     through the same gates (1 ``cudaGraphLaunch`` and 0 host reads a unit,
+     every rank bit-equal to rank 0's and to 1 rank x N shards, every
+     collective bit-equal to its plain version and one graph node, timed
+     beside its bound: NVLink within the island, PCIe at 64 GB/s each way
+     to the staging for the remote peers); the probe's kernel cases in a
+     WHILE and an IF body on each split (required accepted); and the wire's
+     own rate beside each collective (``--wire-worker``: a plain socket
+     copy of the bytes the kernel sends each remote peer, between the same
+     kind of processes, and NCCL's gather or all-reduce over its network
+     transport, the ranks' hosts named by ``NCCL_HOSTID``). On one card: two
+     ranks on ``cuda:0`` in a gloo group, each its own host
+     (``--share-worker``: the cross-host leg with the card time-sliced
+     between the two processes), every cell through the same gates against
+     1 rank x 2 shards.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -385,8 +403,8 @@ ATOL_OFFLINE_ONE_PAIR_M = 1e-4
 # truth (the bound tests/test_torch_pose_graph.py holds the port's float32
 # solve to against loam_tpu's: float32's own rounding sets it)
 ATOL_GRAPH_F32_M = 2e-3
-# phase 16: one drive of an Ouster-64 at 10 Hz, 25.6 s
-DRIVE_FRAMES = 256
+# phase 16: one drive of an Ouster-64 at 10 Hz, 12.8 s
+DRIVE_FRAMES = 128
 # the shorter lengths each whole-call program is also captured at
 DRIVE_SIZES = (16, 64)
 # F6 on the card, every pair's relative pose float32 vs float64: 2x and 3.7x
@@ -1127,25 +1145,33 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
 
 
 NVLINK_BYTES_S = 450e9  # H100 SXM NVLink, each way (published)
+PCIE_BYTES_S = 64e9  # PCIe Gen5 x16, each way (published): the cross-host leg's staging
 
 
-def _gather_bound(nbytes: int, world: int) -> dict:
+def _gather_bound(nbytes: int, world: int, island: int = None) -> dict:
     """The least time a gather of ``nbytes`` a rank could take on ``world``
-    ranks: the larger of the peers' blocks received over NVLink and the
-    rank's own block read and the output written at the memory rate (the
-    two overlap)."""
-    ms = max((world - 1) * nbytes / NVLINK_BYTES_S, (1 + world) * nbytes / PEAK_BYTES_S) * 1e3
+    ranks, ``island`` of them on this rank's island (all by default): the
+    largest of the island peers' blocks received over NVLink, the remote
+    peers' blocks staged out and in over PCIe (each way at once) and the
+    rank's own block read and the output written at the memory rate (they
+    overlap)."""
+    island = world if island is None else island
+    ms = max((island - 1) * nbytes / NVLINK_BYTES_S, (world - island) * nbytes / PCIE_BYTES_S,
+             (1 + world) * nbytes / PEAK_BYTES_S) * 1e3
     return {"bound_ms": ms, "bound_by": "bytes"}
 
 
-def _sum_bound(block: int, L: int, world: int) -> dict:
+def _sum_bound(block: int, L: int, world: int, island: int = None) -> dict:
     """The least time the fixed-order sum of ``L`` blocks of ``block`` bytes
-    a rank could take on ``world`` ranks: the larger of what a
-    reduce-scatter and an all-gather receive over NVLink ((world - 1) /
-    world of the L blocks, then of the sums; an all-reduce can take no
-    less) and the rank's L blocks read and the one block written at the
-    memory rate."""
-    ms = max((world - 1) / world * (L + 1) * block / NVLINK_BYTES_S, (L + 1) * block / PEAK_BYTES_S) * 1e3
+    a rank could take on ``world`` ranks, ``island`` of them on this rank's
+    island (all by default): the largest of what a reduce-scatter and an
+    all-gather receive over NVLink from the island peers and over PCIe from
+    the remote ones (a slice of the L blocks, then of the sums, from each;
+    an all-reduce can take no less) and the rank's L blocks read and the
+    one block written at the memory rate."""
+    island = world if island is None else island
+    ms = max((island - 1) / world * (L + 1) * block / NVLINK_BYTES_S,
+             (world - island) / world * (L + 1) * block / PCIE_BYTES_S, (L + 1) * block / PEAK_BYTES_S) * 1e3
     return {"bound_ms": ms, "bound_by": "bytes"}
 
 
@@ -1205,7 +1231,7 @@ def _peer_rows(T, torch, mesh, scans, lidar, fp) -> list:
             shape=f"{row['what']} a rank, {world} rank(s)", max_abs_err=0.0,
             ms=row["ms"], launch_ms=row["graph_us"] / 1e3, plain_ms=row["plain_ms"],
             library_ms=row["library_ms"], library_launch_ms=row["library_graph_us"] / 1e3,
-            graph_nodes=row["graph_nodes"], **bound))
+            host_us=row["host_us"], graph_nodes=row["graph_nodes"], **bound))
     return rows
 
 
@@ -1968,6 +1994,19 @@ RANKS_PAIRS = 8
 RANKS_CELLS = ("s2m", "offline", "extract", "pairs", "posegraph")
 
 
+def _host_splits(world: int) -> dict:
+    """Phase 17's meshes across hosts on ``world`` ranks of this machine,
+    by name (hosts x ranks a host): one host label a rank
+    (``make_mesh(hosts=)``), the ranks of a label an island over NVLink,
+    every other rank across the proxy over loopback TCP. Hosts of two
+    ranks (from 4 ranks on) and hosts of one."""
+    if world < 2:
+        return {}
+    out = {f"{world // 2}x2": [r // 2 for r in range(world)]} if world >= 4 else {}
+    out[f"{world}x1"] = list(range(world))
+    return out
+
+
 def _rank_count(torch) -> int:
     """Phase 17's ranks: the largest power of two no greater than
     ``min(torch.cuda.device_count(), 8)``."""
@@ -2041,7 +2080,9 @@ def _probe_worker(case: str, rank: int, world: int, port: int, out_dir: str) -> 
     same blocks; past one rank ``"peer_plain"`` then gathers a block past
     the mailbox, which must raise inside a capture, grow the mailbox
     eagerly and equal NCCL's, and replays the graph captured before. A
-    refusal raises and ends the rank: its error is the case's record."""
+    refusal raises and ends the rank: its error is the case's record.
+    ``"peer_bodies@across"``: the kernel's WHILE and IF cases on each mesh
+    across hosts of :func:`_host_splits`, one after another."""
     import torch
     import torch.distributed as dist
 
@@ -2052,6 +2093,7 @@ def _probe_worker(case: str, rank: int, world: int, port: int, out_dir: str) -> 
     stamp = _stamper(out_dir, f"probe_{case}_", rank)
     stamp("init_process_group")
     dev = _rank_group(torch, rank, world, port, PROBE_COLLECTIVE_TIMEOUT_S)
+    case, _, split = case.partition("@")
     x = torch.full((1, 4), float(rank + 1), device=dev)
     total = 4.0 * world * (world + 1) / 2  # the sum of every rank's x
     peer = case.startswith("peer_")
@@ -2113,48 +2155,63 @@ def _probe_worker(case: str, rank: int, world: int, port: int, out_dir: str) -> 
             got.append(float(y))
         want_got, nodes = [total] * 3, None
     else:
-        kind = case.removeprefix("peer_")
         if not peer:
             parallel.make_mesh(group=dist.group.WORLD)
 
-        def fn(bufs):
-            xb, n = bufs
-            # NCCL's cases: the sum of the gathers; the kernel's: the last
-            # gather and how many ran
-            acc = torch.zeros((), device=dev)
-            out = torch.zeros_like(want) if peer else None
-            record = (lambda: (out.copy_(gathered(xb)), acc.add_(1))) if peer else \
-                (lambda: acc.add_(gathered(xb)))
-            if kind == "while":
-                i = torch.zeros((), dtype=torch.int64, device=dev)
-                going = i < n
+        def bodies(kind):
+            """(what the replays gave, what they must give, the conditional
+            nodes) of a gather in a ``kind`` body on ``mesh``."""
+            def fn(bufs):
+                xb, n = bufs
+                # NCCL's cases: the sum of the gathers; the kernel's: the last
+                # gather and how many ran
+                acc = torch.zeros((), device=dev)
+                out = torch.zeros_like(want) if peer else None
+                record = (lambda: (out.copy_(gathered(xb)), acc.add_(1))) if peer else \
+                    (lambda: acc.add_(gathered(xb)))
+                if kind == "while":
+                    i = torch.zeros((), dtype=torch.int64, device=dev)
+                    going = i < n
 
-                def body():
-                    record()
-                    i.add_(1)
-                    going.copy_(i < n)
+                    def body():
+                        record()
+                        i.add_(1)
+                        going.copy_(i < n)
 
-                program.while_loop(going, body)
-            else:
-                program.when(n > 2, record)
-            return (acc, out) if peer else acc
+                    program.while_loop(going, body)
+                else:
+                    program.when(n > 2, record)
+                return (acc, out) if peer else acc
 
-        count = lambda k: torch.full((), k, dtype=torch.int64, device=dev)
-        prog = program.Program(dev, (x, count(3)))
-        stamp(f"a {'kernel' if peer else 'NCCL'} gather in a {kind.upper()} body: capture and replays")
-        ran = lambda k: (k if kind == "while" else int(k > 2))
-        got = []
-        for k in (3, 2, 3):  # read each replay's output before the next overwrites it
-            res = prog.run(fn, (x, count(k)))
-            if peer:
-                acc, out = res
-                got.append((int(acc), torch.equal(out, want) if ran(k) else not out.any()))
-            else:
-                got.append(float(res))
-        want_got = [(ran(k), True) if peer else ran(k) * total for k in (3, 2, 3)]
-        nodes = prog.conditional if prog.graph is not None else None
-        if nodes != dict({"if": 0, "while": 0}, **{kind: 1}):
-            raise AssertionError(f"probe {case}: conditional nodes {nodes}")
+            count = lambda k: torch.full((), k, dtype=torch.int64, device=dev)
+            prog = program.Program(dev, (x, count(3)))
+            stamp(f"a {'kernel' if peer else 'NCCL'} gather in a {kind.upper()} body: capture and replays")
+            ran = lambda k: (k if kind == "while" else int(k > 2))
+            got = []
+            for k in (3, 2, 3):  # read each replay's output before the next overwrites it
+                res = prog.run(fn, (x, count(k)))
+                if peer:
+                    acc, out = res
+                    got.append((int(acc), torch.equal(out, want) if ran(k) else not out.any()))
+                else:
+                    got.append(float(res))
+            want_got = [(ran(k), True) if peer else ran(k) * total for k in (3, 2, 3)]
+            nodes = prog.conditional if prog.graph is not None else None
+            if nodes != dict({"if": 0, "while": 0}, **{kind: 1}):
+                raise AssertionError(f"probe {case}: conditional nodes {nodes}")
+            return got, want_got, nodes
+
+        if split == "across":  # a WHILE body, then an IF body, on each mesh across hosts
+            got, want_got = [], []
+            for name, labels in _host_splits(world).items():
+                mesh.release()
+                mesh = parallel.make_mesh(group=dist.group.WORLD, hosts=labels)
+                for kind in ("while", "if"):
+                    stamp(f"across hosts {name}")
+                    g, w, nodes = bodies(kind)
+                    got, want_got = got + [(name, kind, g)], want_got + [(name, kind, w)]
+        else:
+            got, want_got, nodes = bodies(case.removeprefix("peer_"))
     if got != want_got:
         raise AssertionError(f"probe {case}: got {got}, want {want_got}")
     if peer:
@@ -2334,7 +2391,7 @@ def _graph_nodes(torch, fn) -> int:
     return n.value
 
 
-def _peer_check(torch, mesh, shapes: dict, reps: int) -> dict:
+def _peer_check(torch, mesh, shapes: dict, reps: int, big: int = 2) -> dict:
     """Each of ``shapes`` through the kernel (``collectives.gather`` of the
     tensor or tree, ``collectives.sum``) and through its plain version
     (``peer_gather_reference``: NCCL's eager ``all_gather_into_tensor`` a
@@ -2345,7 +2402,10 @@ def _peer_check(torch, mesh, shapes: dict, reps: int) -> dict:
     alone. A sum also: the bytes its eager call allocated at its peak
     beside its output's, and the library's yardstick timed (``x.sum(0)``
     at world size 1, where ``all_reduce`` adds nothing; ``dist.all_reduce``
-    of one block past one rank; another order of adds, so never compared)."""
+    of one block past one rank; another order of adds, so never compared).
+    Host us: a kernel call enqueued, no sync (:func:`_host_us`). A row past
+    64 MB: ``big`` calls captured into the graph (at 1, replayed once), and
+    as many host calls."""
     import torch.distributed as dist
 
     from loam_tpu_torch.ops.peer_cuda import peer_gather_reference, peer_sum_reference
@@ -2370,9 +2430,11 @@ def _peer_check(torch, mesh, shapes: dict, reps: int) -> dict:
                "dtype": str(leaves[0].dtype).removeprefix("torch."), "bytes": nbytes, "L": leaves[0].shape[0],
                "equal": len(a) == len(b) and all(p.dtype == q.dtype and torch.equal(p, q) for p, q in zip(a, b))}
         del a, b
-        n = 2 if nbytes > 64 << 20 else 20
-        row.update(ms=_time_ms(kernel, reps), plain_ms=_time_ms(plain, reps), graph_us=_graph_ms(kernel, n, 3) * 1e3,
-                   plain_graph_us=_graph_ms(plain, n, 3) * 1e3, graph_nodes=_graph_nodes(torch, kernel))
+        n = big if nbytes > 64 << 20 else 20
+        replays = 1 if n == 1 else 3
+        row.update(ms=_time_ms(kernel, reps), plain_ms=_time_ms(plain, reps),
+                   graph_us=_graph_ms(kernel, n, replays) * 1e3, plain_graph_us=_graph_ms(plain, n, replays) * 1e3,
+                   graph_nodes=_graph_nodes(torch, kernel), host_us=_host_us(kernel, 2 * n if n < 20 else 100))
         if kind == "gather":
             row.update(library_ms=row["plain_ms"], library_graph_us=row["plain_graph_us"])
         else:
@@ -2482,14 +2544,31 @@ def _ranks_inputs(T, torch, dev, out_dir, world):
     return scans, lidar, fp, rp, (_to(init1k, dev, torch.float64), edges)
 
 
-def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CELLS) -> int:
+def _share_group(torch, rank: int, world: int, port: int):
+    """Rank ``rank`` of ``world`` ranks that share ``cuda:0``: that card
+    current and a gloo group (NCCL takes one rank a card). Returns the
+    device."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=RANKS_COLLECTIVE_TIMEOUT_S))
+    return torch.device("cuda", 0)
+
+
+def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CELLS, share: bool = False) -> int:
     """Phase 17's rank ``rank`` of ``world``: ``cuda:<rank>`` and an NCCL
     group made eagerly on it (:func:`_rank_group`, the README's recipe),
     then :func:`_rank_cells` on ``make_mesh()`` (one shard on this card)
-    and, with every cell, :func:`_peer_check` at the cells' shapes; its
-    outputs, rows, the gather's check, the cards it holds a context on and
-    the bytes it reserved on every other card to ``rank<r>.pt``. Stamps its
-    progress to ``rank<r>.stamp``."""
+    and, with every cell, :func:`_peer_check` at the cells' shapes; then
+    the same on each mesh across hosts of :func:`_host_splits`
+    (``make_mesh(hosts=)``). ``share``: the ranks share ``cuda:0`` in a gloo
+    group, each its own host (the cross-host leg on one card), the cells
+    alone. Its outputs, rows, the gather's check, the cards it holds a
+    context on and the bytes it reserved on every other card to
+    ``rank<r>.pt``. Stamps its progress to ``rank<r>.stamp``."""
     import torch
     import torch.distributed as dist
 
@@ -2499,46 +2578,60 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
 
     stamp = _stamper(out_dir, "rank", rank)
     stamp("init_process_group")
-    dev = _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
+    dev = _share_group(torch, rank, world, port) if share else \
+        _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
     counters = {"sector_sort": bitonic_cuda.sector_sort, "greedy_nms": nms_cuda.greedy_nms,
                 "select_points": assemble_cuda.select_points, "knn": knn_cuda.knn_run,
                 "knn_dual": knn_cuda.knn_dual_run, "peer_gather": peer_cuda.peer_gather,
                 "peer_sum": peer_cuda.peer_sum}
-    peer = None
+    full = tuple(cells) == RANKS_CELLS and not share
+    meshes = {f"{world}x1 on one card": list(range(world))} if share else {"one host": None, **_host_splits(world)}
+    results = {}
     try:
-        stamp("make_mesh")
-        mesh = parallel.make_mesh(group=dist.group.WORLD)
-        if mesh.device != dev or mesh.shape != {"data": world, "line": 1} or mesh.shard_ids != (rank,):
-            raise AssertionError(f"rank {rank}: make_mesh() gave {mesh.shape} shards {mesh.shard_ids} on "
-                                 f"{mesh.device}")
         scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, world)
-        with _env(LOAM_ICF_DUAL_KNN="0"):
-            outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
-                                                                   cells), counters, 2, stamp)
-        if tuple(cells) == RANKS_CELLS:
-            stamp("the kernel's gather against NCCL's at the cells' shapes")
-            peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 5)
-        mesh.release()  # its graphs replay the mesh's gathers, its buffers mapped by the others
+        for name, hosts in meshes.items():
+            stamp(f"{name}: make_mesh(hosts={hosts})")
+            mesh = parallel.make_mesh([dev] if share else None, group=dist.group.WORLD, hosts=hosts)
+            if mesh.device != dev or mesh.shape != {"data": world, "line": 1} or mesh.shard_ids != (rank,):
+                raise AssertionError(f"rank {rank}: make_mesh() gave {mesh.shape} shards {mesh.shard_ids} on "
+                                     f"{mesh.device}")
+            mark = lambda what, name=name: stamp(f"{name}: {what}")
+            # across hosts the wire bounds the large collectives: one timed run a cell, fewer calls of them
+            across = hosts is not None
+            with _env(LOAM_ICF_DUAL_KNN="0"):
+                outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
+                                                                       cells), counters, 1 if across else 2, mark)
+            peer = None
+            if full:
+                mark("the kernel's collectives against their plain versions at the cells' shapes")
+                peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 2 if across else 5,
+                                   1 if across else 2)
+            results[name] = {"outputs": outputs, "rows": rows, "summary": summary, "peer": peer, "hosts": hosts,
+                             "islands": mesh.islands, "remote": list(mesh.peer.remote)}
+            mesh.release()  # its graphs replay the mesh's collectives, its buffers mapped by the others
     finally:
         dist.destroy_process_group()
     torch.cuda.synchronize()
-    others = [j for j in range(torch.cuda.device_count()) if j != rank]
+    others = [j for j in range(torch.cuda.device_count()) if j != dev.index]
     contexts = _primary_contexts()
     reserved = {j: torch.cuda.memory_reserved(j) for j in others}
-    torch.save({"outputs": outputs, "rows": rows, "summary": summary, "peer": peer, "contexts": contexts,
+    first = results[next(iter(meshes))]
+    torch.save({"outputs": first["outputs"], "rows": first["rows"], "summary": first["summary"], "peer": first["peer"],
+                "splits": {k: v for k, v in results.items() if k != "one host"}, "contexts": contexts,
                 "reserved": reserved, "device": str(dev), "nccl": ".".join(map(str, torch.cuda.nccl.version()))},
                os.path.join(out_dir, f"rank{rank}.pt"))
     stamp(f"done: contexts on cards {contexts}, reserved on the others {reserved}")
     return 0
 
 
-def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS) -> None:
-    """Start phase 17's ranks (this script as the worker) and wait for all;
-    past ``RANKS_TIMEOUT_S``, or when one fails, kill every rank and raise,
-    naming each rank that did not end well and its last stamp."""
+def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS, share: bool = False) -> None:
+    """Start phase 17's ranks (this script as the worker; ``share``: the
+    ranks on ``cuda:0``) and wait for all; past ``RANKS_TIMEOUT_S``, or when
+    one fails, kill every rank and raise, naming each rank that did not end
+    well and its last stamp."""
     failed = []
-    for r, (c, last, tail) in enumerate(_start_ranks(["--rank-worker"], "rank", world, out_dir,
-                                                     RANKS_TIMEOUT_S, cells)):
+    for r, (c, last, tail) in enumerate(_start_ranks(["--share-worker" if share else "--rank-worker"], "rank", world,
+                                                     out_dir, RANKS_TIMEOUT_S, cells)):
         if c == 0:
             continue
         why = f"killed after {RANKS_TIMEOUT_S} s" if c is None else f"exit code {c}"
@@ -2546,6 +2639,122 @@ def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS) -> None:
         print(f"phase 17: rank {r} {why}; its log ends:\n{tail}", flush=True)
     if failed:
         raise AssertionError("phase 17: " + "; ".join(failed))
+
+
+# the collectives whose wire rate phase 17 measures: a small gather, a tree,
+# the large sum and a small one
+WIRE_ROWS = ("knn_planar_val", "details", "sum_H", "sum_b")
+
+
+def _wire_worker(split: str, rank: int, world: int, port: int, out_dir: str) -> int:
+    """The wire's own rate beside the cross-host rows of phase 17's mesh
+    ``split``: rank ``rank`` on ``cuda:<rank>`` in an NCCL group whose
+    ranks name their hosts by the split's labels (``NCCL_HOSTID``, read at
+    the communicator's start: NCCL then joins ranks of two labels through
+    its network transport, over sockets here, and a label's ranks over
+    NVLink). For each row of ``wire_rows.json`` (kind, bytes a rank, L):
+    NCCL's ``all_gather_into_tensor`` (a gather) or ``all_reduce`` of a
+    block (a sum) back to back (CUDA events, mean of 3 after one), and a
+    plain socket copy between the same processes of what the kernel sends
+    each remote peer (a gather: the rank's block; a sum: (L + 1) slices),
+    to every remote peer at once while receiving theirs (host clock, the
+    median of 3 after a barrier). Writes ``wire<r>.json``."""
+    import socket
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from loam_tpu_torch.ops.peer_cuda import sum_slice
+
+    labels = _host_splits(world)[split]
+    os.environ["NCCL_HOSTID"] = f"loam-host-{labels[rank]}"
+    os.environ["NCCL_DEBUG"], os.environ["NCCL_DEBUG_SUBSYS"] = "INFO", "INIT,NET"
+    dev = _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
+    remote = [t for t in range(world) if labels[t] != labels[rank]]
+    # plain sockets to every remote peer: connect to those above, accept those below
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(world)
+    ports = torch.zeros(world, dtype=torch.int64, device=dev)
+    ports[rank] = listener.getsockname()[1]
+    dist.all_reduce(ports)
+    socks = {}
+    for t in remote:
+        if t > rank:
+            sock = socket.create_connection(("127.0.0.1", int(ports[t])), timeout=60)
+            sock.sendall(rank.to_bytes(4, "little"))
+            socks[t] = sock
+    while len(socks) < len(remote):
+        sock, _ = listener.accept()
+        socks[int.from_bytes(sock.recv(4, socket.MSG_WAITALL), "little")] = sock
+    listener.close()
+    for sock in socks.values():
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+    def copy(n: int) -> float:
+        out, ins = bytes(n), {t: bytearray(n) for t in socks}
+
+        def recv(t):
+            view, got = memoryview(ins[t]), 0
+            while got < n:
+                got += socks[t].recv_into(view[got:], min(n - got, 4 << 20))
+
+        threads = [threading.Thread(target=socks[t].sendall, args=(out,)) for t in socks]
+        threads += [threading.Thread(target=recv, args=(t,)) for t in socks]
+        dist.barrier()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows = json.load(open(os.path.join(out_dir, "wire_rows.json")))
+    out = {}
+    for name, (kind, nbytes, L) in rows.items():
+        block = nbytes // L
+        x = torch.zeros(nbytes if kind == "gather" else block, dtype=torch.uint8, device=dev)
+        if kind == "gather":
+            every = torch.empty(world * nbytes, dtype=torch.uint8, device=dev)
+            nccl = lambda: dist.all_gather_into_tensor(every, x)
+        else:
+            y = x.view(torch.float64) if block % 8 == 0 else x.float()
+            nccl = lambda: dist.all_reduce(y)
+        sent = nbytes if kind == "gather" else (L + 1) * sum_slice(block, world)
+        ms = sorted(copy(sent) for _ in range(3))[1] if socks else 0.0
+        out[name] = {"nccl_ms": _time_ms(nccl, 3), "socket_ms": ms, "socket_bytes_a_peer": sent,
+                     "socket_peers": len(socks)}
+    for sock in socks.values():
+        sock.close()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"wire{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _wire_rates(N: int, out_dir: str, peer_rows: dict) -> dict:
+    """:func:`_wire_worker` on every mesh across hosts at ``N`` ranks, for
+    the rows ``peer_rows`` (``_peer_check``'s, rank 0's): ``{split: {row:
+    the slowest rank's NCCL ms and socket ms, the bytes a peer, whether
+    NCCL logged its socket transport}}``, or ``{split: "the error"}``."""
+    spec = {n: (row["kind"], row["bytes"], row["L"]) for n, row in peer_rows.items() if n in WIRE_ROWS}
+    with open(os.path.join(out_dir, "wire_rows.json"), "w") as f:
+        json.dump(spec, f)
+    out = {}
+    for split in _host_splits(N):
+        _stamp(f"phase 17: the wire's rate, {split}")
+        ends = _start_ranks(["--wire-worker", split], f"wire_{split}_", N, out_dir, RANKS_TIMEOUT_S)
+        if any(c != 0 for c, _, _ in ends):
+            out[split] = f"failed: {[(c, last) for c, last, _ in ends]}; {ends[0][2][-800:]}"
+            continue
+        ranks = [json.load(open(os.path.join(out_dir, f"wire{r}.json"))) for r in range(N)]
+        log = open(os.path.join(out_dir, f"wire_{split}_0.log")).read()
+        out[split] = {n: {"nccl_ms": max(r[n]["nccl_ms"] for r in ranks),
+                          "socket_ms": max(r[n]["socket_ms"] for r in ranks),
+                          "socket_bytes_a_peer": ranks[0][n]["socket_bytes_a_peer"],
+                          "nccl_socket_transport": "NET/Socket" in log} for n in spec}
+    return out
 
 
 def _gather_split(N: int, out_dir: str, smi: str) -> dict:
@@ -2586,9 +2795,13 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     (:func:`_probe_case`): the kernel's gather in a WHILE body, an IF body
     and a plain graph must be accepted and equal to NCCL's (a gate); NCCL's
     own cases are printed as measured, the record of why the kernel exists.
-    Ms a unit and scans/s of both. ``cells``: those to run; fewer than all
-    skips the probe and the gather check (a focused run, ``--ranks-only
-    <cell> ...``). Returns the ``{"ranks": ...}`` record."""
+    Ms a unit and scans/s of both. The meshes across hosts
+    (:func:`_host_splits`, run by the same ranks) through
+    :func:`_split_checks`, the probe's kernel cases on each, and the wire's
+    rate (:func:`_wire_rates`); on one card two ranks of two hosts sharing
+    it (:func:`_share_phase`). ``cells``: those to run; fewer than all
+    skips the probe, the gather check and the wire (a focused run,
+    ``--ranks-only <cell> ...``). Returns the ``{"ranks": ...}`` record."""
     from loam_tpu_torch import parallel
     from loam_tpu_torch.registration import loop
 
@@ -2604,14 +2817,16 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     full = tuple(cells) == RANKS_CELLS
     if full:
         probe = {}
-        for case in ("peer_while", "peer_if", "peer_plain", "while", "if", "side_first"):
+        across = ["peer_bodies@across"] if N > 1 else []
+        for case in ("peer_while", "peer_if", "peer_plain", "while", "if", "side_first", *across):
             _stamp(f"phase 17: collective probe, {case}, {N} rank(s)")
             probe[case] = _probe_case(case, N, out_dir)
         print(f"phase 17: collective probe at {N} rank(s): the kernel's gather (peer memory) in a WHILE body "
-              f"{probe['peer_while']}, an IF body {probe['peer_if']}, a plain graph {probe['peer_plain']}; NCCL's "
+              f"{probe['peer_while']}, an IF body {probe['peer_if']}, a plain graph {probe['peer_plain']}; across "
+              f"hosts {({c: probe[c] for c in across})}; NCCL's "
               f"(the record): WHILE body {probe['while']}; IF body {probe['if']}; first gather on a side stream, "
               f"then a plain graph: {probe['side_first']}", flush=True)
-        refused = {c: probe[c] for c in ("peer_while", "peer_if", "peer_plain") if probe[c] != "accepted"}
+        refused = {c: probe[c] for c in ("peer_while", "peer_if", "peer_plain", *across) if probe[c] != "accepted"}
         if refused:
             failed.append(f"the kernel's gather probe at {N} rank(s): {refused}")
     t0 = time.perf_counter()
@@ -2729,10 +2944,130 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
           f"rank 0's and to 1 rank x {N} shard(s): {'no' if any('differ' in f for f in failed) else 'yes'}; "
           f"contexts "
           f"{record['contexts']}; ATE {record['ate_m']} m; dropped {record['dropped']}", flush=True)
+    record["splits"] = _split_checks(torch, ranks, one_outputs, failed, smi)
+    if full and N > 1:
+        wire = _wire_rates(N, out_dir, ranks[0]["splits"][next(iter(_host_splits(N)))]["peer"])
+        for split, rates in wire.items():
+            record["splits"][split]["wire"] = rates
+            if isinstance(rates, str):
+                print(f"phase 17 {split}: the wire's rate {rates}", flush=True)
+                continue
+            for n, w in rates.items():
+                row = record["splits"][split]["peer"][n]
+                print(f"phase 17 {split} {row['kind']} {n}, {row['what']} a rank: the kernel {row['graph_us']:.1f} us "
+                      f"in a graph (slowest rank), bound {row['bound_ms'] * 1e3:.1f} us; the wire alone: a socket "
+                      f"copy of {w['socket_bytes_a_peer']} B to each remote peer at once {w['socket_ms'] * 1e3:.1f} us, "
+                      f"NCCL over its network transport {w['nccl_ms'] * 1e3:.1f} us (NET/Socket logged: "
+                      f"{w['nccl_socket_transport']}), on {smi}", flush=True)
+    if N == 1 and cells == RANKS_CELLS:
+        record["one_card_two_hosts"] = _share_phase(T, torch, counters, out_dir, failed, smi)
     print(json.dumps({"ranks": record}))
     if failed:
         raise AssertionError("phase 17: " + "; ".join(failed))
     return record
+
+
+def _same(torch, a: list, b: list) -> bool:
+    """Two lists of tensors bit-equal, leaf by leaf."""
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _split_checks(torch, ranks: list, one_outputs: dict, failed: list, smi: str) -> dict:
+    """Phase 17's gates on every mesh across hosts the ranks ran
+    (``splits`` of each rank's record): every cell one ``cudaGraphLaunch``
+    and no host read a unit on every rank, every rank's outputs bit-equal to
+    rank 0's and rank 0's to 1 rank x N shards (``one_outputs``; the maps:
+    the ranks' rows in rank order), every collective bit-equal to its plain
+    version and one graph node; failures appended to ``failed``. Prints a
+    line a cell and a collective; returns the splits' records (ms of the
+    slowest rank, the collectives' rows with their bounds)."""
+    N = len(ranks)
+    out = {}
+    for split in ranks[0]["splits"]:
+        mine = [res["splits"][split] for res in ranks]
+        first = mine[0]
+        island = len(next(i for i in first["islands"] if 0 in i))
+        rec = {"hosts": first["hosts"], "islands": [list(i) for i in first["islands"]],
+               "remote_rank0": first["remote"], "cells": {}, "peer": None}
+        for r, res in enumerate(mine):
+            for cell, row in res["rows"].items():
+                if row["graph_launches_per_unit"] != 1 or row["host_reads_per_unit"] != 0:
+                    failed.append(f"{split} rank {r} {cell}: {row['graph_launches_per_unit']} cudaGraphLaunch and "
+                                  f"{row['host_reads_per_unit']} host reads a unit (one program a unit)")
+            for cell, leaves in res["outputs"].items():
+                if cell != "s2m_maps" and not _same(torch, leaves, first["outputs"][cell]):
+                    failed.append(f"{split} rank {r} {cell}: outputs differ from rank 0's")
+            if res["peer"] is not None and not all(row["equal"] and row["graph_nodes"] == 1
+                                                   for row in res["peer"].values()):
+                failed.append(f"{split} rank {r}: a collective differs from its plain version or is more than one "
+                              f"graph node")
+        for cell, leaves in one_outputs.items():
+            want = first["outputs"][cell]
+            if cell == "s2m_maps":
+                want = [torch.cat([res["outputs"][cell][i] for res in mine]) for i in range(len(want))]
+            if not _same(torch, leaves, want):
+                failed.append(f"{split} {cell}: rank 0's outputs differ from 1 rank x {N} shards")
+        for cell, row in first["rows"].items():
+            slowest = max(res["rows"][cell]["ms"] for res in mine)
+            rec["cells"][cell] = {"units": row["units"], "ms_slowest_rank": slowest, "ms_a_unit": slowest / row["units"],
+                                  "graph_launches_per_unit": [res["rows"][cell]["graph_launches_per_unit"]
+                                                              for res in mine],
+                                  "host_reads_per_unit": [res["rows"][cell]["host_reads_per_unit"] for res in mine],
+                                  "launches_rank0": row["launches"], "idle_share_rank0": row.get("idle_share"),
+                                  "peer_kernel_us_rank0": row.get("peer_kernel_us")}
+            print(f"phase 17 {cell} across hosts {split} (islands {rec['islands']}): {slowest / row['units']:.3f} ms a "
+                  f"{'frame' if row['units'] > 1 else 'call'} (slowest rank); cudaGraphLaunch a unit "
+                  f"{rec['cells'][cell]['graph_launches_per_unit']}, host reads "
+                  f"{rec['cells'][cell]['host_reads_per_unit']}; rank 0's launches {row['launches']}, on {smi}",
+                  flush=True)
+        if first["peer"] is not None:
+            rec["peer"] = {}
+            for n, row in first["peer"].items():
+                slow = {k: max(res["peer"][n][k] for res in mine) for k in ("ms", "graph_us", "plain_ms",
+                                                                            "plain_graph_us", "host_us")}
+                L, nbytes = row["L"], row["bytes"]
+                bound = (_gather_bound(nbytes, N, island) if row["kind"] == "gather" else
+                         _sum_bound(nbytes // L, L, N, island))
+                rec["peer"][n] = {"kind": row["kind"], "what": row["what"], "bytes": nbytes, "L": L,
+                                  "equal_every_rank": all(res["peer"][n]["equal"] for res in mine),
+                                  "graph_nodes": row["graph_nodes"], **slow, **bound}
+                print(f"phase 17 {row['kind']} {n} across hosts {split}, {row['what']} a rank: the kernel "
+                      f"{slow['ms']:.4f} ms back to back, {slow['graph_us']:.2f} us in a graph, host {slow['host_us']:.2f}"
+                      f" us a call; plain (NCCL) {slow['plain_ms']:.4f} ms, {slow['plain_graph_us']:.2f} us; bound "
+                      f"{bound['bound_ms'] * 1e3:.2f} us (island of {island}, PCIe to {N - island}); bit-equal on "
+                      f"every rank: {rec['peer'][n]['equal_every_rank']}; slowest rank, on {smi}", flush=True)
+        out[split] = rec
+    return out
+
+
+def _share_phase(T, torch, counters, out_dir: str, failed: list, smi: str) -> dict:
+    """Two ranks on ``cuda:0``, each its own host (``--share-worker``: a
+    gloo group, ``make_mesh(hosts=[0, 1])``): the cross-host leg with the
+    card time-sliced between the two processes. Every cell through
+    :func:`_split_checks` against 1 rank x 2 shards of ``cuda:0``."""
+    from loam_tpu_torch import parallel
+
+    _stamp("phase 17: two ranks on one card, two hosts")
+    t0 = time.perf_counter()
+    _spawn_ranks(2, out_dir, RANKS_CELLS, share=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+    for r in range(2):
+        print(open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip(), flush=True)
+    dev = torch.device("cuda", 0)
+    scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, 2)
+    with _nccl_group() as group, _dual_knn(False):
+        mesh = parallel.make_mesh([dev] * 2, group=group)
+        stamp = lambda what: _stamp(f"phase 17, 1 rank x 2 shards: {what}")
+        one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph),
+                                              counters, 1, stamp, traced=False)
+        mesh.release()
+    rec = _split_checks(torch, ranks, one_outputs, failed, smi)
+    (split,) = rec
+    rec[split]["spawn_s"] = spawn_s
+    rec[split]["one_rank_ms_a_unit"] = {cell: row["ms_per_unit"] for cell, row in one_rows.items()}
+    return rec
+
 
 
 def main() -> int:
@@ -2745,6 +3080,13 @@ def main() -> int:
         # phase 17's rank: <rank> <world> <port> <out_dir> <cell> ...
         return _rank_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                             tuple(sys.argv[6:]))
+    if sys.argv[1:2] == ["--share-worker"]:
+        # phase 17's ranks on one card: <rank> <world> <port> <out_dir> <cell> ...
+        return _rank_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                            tuple(sys.argv[6:]), share=True)
+    if sys.argv[1:2] == ["--wire-worker"]:
+        # phase 17's wire rates: <split> <rank> <world> <port> <out_dir>
+        return _wire_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
     if sys.argv[1:2] == ["--probe-worker"]:
         # phase 17's probe: <case> <rank> <world> <port> <out_dir>
         return _probe_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
@@ -3702,7 +4044,7 @@ def main() -> int:
     })
     one_program = _graph_phase(torch, smi, frames, drive, path_launches, graph_cells, reps)
     # the drive's first 64 frames: the sharded cells at 16 and 64 frames
-    # (offline-c4, s2m and s2m-grid at 16, 64 and 256: phase 16)
+    # (offline-c4, s2m and s2m-grid at 16, 64 and 128: phase 16)
     long = torch.from_numpy(drive_np[:64]).to(dev)
     one_program["graph_size"] = _graph_size_phase(smi, {
         "posegraph-1000-f64": {n: (lambda n=n: optimize_pose_graph(*pg64, n)) for n in (10, 40)},
@@ -3711,7 +4053,7 @@ def main() -> int:
                                             path_launches, extraction, reps, pg64, gt1k, opt64))
     print(json.dumps({"one_program": one_program}))
 
-    # ---- 16. the drive: 256 frames, float32 against float64, each call one program ----
+    # ---- 16. the drive: 128 frames, float32 against float64, each call one program ----
     _stamp("phase 16")
     _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg, s2m_cfg, grid_reg, drive,
                  extraction, knn_cuda, ate_rmse)

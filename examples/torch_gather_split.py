@@ -3,7 +3,7 @@ gather (and fixed-order sum) of the call timed on the card, split into the
 wait for the slowest rank and the transfer.
 
     python examples/torch_gather_split.py [--trees DIR ...] [--cells offline ...]
-                                          [--ranks N] [--reps 5] [--out DIR]
+                                          [--ranks N] [--hosts 2x2] [--reps 5] [--out DIR]
 
 Each entry of ``--trees`` is a checkout of this repository whose
 ``loam_tpu_torch`` is timed, in the order given (``A B B A`` times A and B
@@ -13,6 +13,10 @@ one shard a rank) run the cells on ``chip_smoke.py``'s 16 frames of 64x1024:
 ``offline`` (``odometry_offline_sharded``, the default), ``pairs`` (8 pairs),
 ``extract``, ``posegraph`` (``random_pose_graph(1000, 50)``, float64, 10
 LM iterations) and ``s2m`` (16 frames of ``scan_to_map_step_sharded``).
+``--hosts`` makes the mesh across hosts (``make_mesh(hosts=)``): one label a
+rank, comma-separated (``0,0,1,1``), or a split of ``chip_smoke.py``'s phase
+17 by name (``2x2``: hosts of two ranks, ``4x1``: of one), so the split reads
+the cross-host leg (the proxy over loopback TCP) beside the island's NVLink.
 
 Every call of ``collectives.gather`` and ``collectives.sum`` inside the call
 is wrapped in two stamps: a one-thread kernel that writes the card's
@@ -144,7 +148,15 @@ def _chip_smoke():
     return module
 
 
-def worker(tree, rank, world, port, out_dir, turn, cells, reps) -> None:
+def _labels(hosts, world, smoke):
+    """``--hosts`` as one label a rank, or None."""
+    if not hosts:
+        return None
+    splits = smoke._host_splits(world)
+    return splits[hosts] if hosts in splits else hosts.split(",")
+
+
+def worker(tree, rank, world, port, out_dir, turn, cells, reps, hosts=None) -> None:
     sys.path.insert(0, tree)
     import torch
     import torch.distributed as dist
@@ -158,7 +170,8 @@ def worker(tree, rank, world, port, out_dir, turn, cells, reps) -> None:
     smoke = _chip_smoke()
     dev = smoke._rank_group(torch, rank, world, port, smoke.RANKS_COLLECTIVE_TIMEOUT_S)
     try:
-        mesh = parallel.make_mesh(group=dist.group.WORLD)
+        labels = _labels(hosts, world, smoke)
+        mesh = parallel.make_mesh(group=dist.group.WORLD, **({"hosts": labels} if labels else {}))
         stamps = Stamps(torch, dev, out_dir)
         for mod in (collectives, sharding):
             if hasattr(mod, "gather"):
@@ -215,13 +228,15 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", default=[HERE])
     ap.add_argument("--cells", nargs="+", default=["offline"], choices=CELLS)
     ap.add_argument("--ranks", type=int, default=None, help="default: the largest power of two <= min(cards, 8)")
+    ap.add_argument("--hosts", default=None,
+                    help="the mesh across hosts: a label a rank, comma-separated, or 2x2 / 4x1 (chip_smoke.py's splits)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", nargs=5, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         tree, rank, world, port, turn = args.worker
-        worker(tree, int(rank), int(world), int(port), args.out, int(turn), args.cells, args.reps)
+        worker(tree, int(rank), int(world), int(port), args.out, int(turn), args.cells, args.reps, args.hosts)
         return 0
 
     sys.path.insert(0, HERE)
@@ -249,7 +264,8 @@ def main() -> int:
         env = dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
         env["PYTHONPATH"] = tree + os.pathsep + env.get("PYTHONPATH", "")
         cmd = lambda r: [sys.executable, os.path.abspath(__file__), "--worker", tree, str(r), str(world), str(port),
-                         str(turn), "--out", out_dir, "--reps", str(args.reps), "--cells", *args.cells]
+                         str(turn), "--out", out_dir, "--reps", str(args.reps), "--cells", *args.cells,
+                         *(["--hosts", args.hosts] if args.hosts else [])]
         logs = [open(os.path.join(out_dir, f"split_{turn}_{r}.log"), "w") for r in range(world)]
         procs = [subprocess.Popen(cmd(r), stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=tree)
                  for r in range(world)]
@@ -265,12 +281,13 @@ def main() -> int:
         turns.append({"turn": turn, "tree": tree, "cells": cells})
         for cell, s in cells.items():
             print(f"turn {turn} {tree} {cell}: {s['ms_a_call']:.3f} ms a call (slowest rank; {world} ranks, "
+                  f"hosts {args.hosts or 'one'}, "
                   f"{card}); {len(s['collectives'])} collectives, us a rank {np.round(s['sum_us_a_rank'], 1).tolist()}"
                   f" of which wait {np.round(s['wait_us_a_rank'], 1).tolist()}, transfer {s['sum_transfer_us']:.1f}")
             for c, slow, tr, w in zip(s["collectives"], s["us_slowest"], s["transfer_us"], s["wait_us_mean_rank"]):
                 print(f"    {c['kind']} {c['leaves']} leaves {c['bytes']} B ({c['first']}): slowest {slow:.2f} us, "
                       f"transfer {tr:.2f}, wait {w:.2f} (mean rank)")
-    print(json.dumps({"gather_split": turns, "ranks": world, "card": card}))
+    print(json.dumps({"gather_split": turns, "ranks": world, "hosts": args.hosts, "card": card}))
     return 0
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` (the kernels; ``peer_gather.cu``: the mesh's
-gather and sum over peer memory, ``ops/peer_cuda.py``; and ``graph_if.cu``: the
+gather and sum over peer memory, ``ops/peer_cuda.py``, and ``peer_proxy.cpp``,
+its host proxy across hosts, plain C++; and ``graph_if.cu``: the
 CUDA-graph conditional nodes of ``program.when``, ``program.while_loop`` and
 ``program.scan``) are compiled with ``nvcc``, one
 process per source and all at once, and linked into one shared library with a plain C
@@ -30,7 +31,10 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("sector_sort.cu", "greedy_nms.cu", "select_points.cu", "knn.cu", "peer_gather.cu", "graph_if.cu")
+SOURCES = ("sector_sort.cu", "greedy_nms.cu", "select_points.cu", "knn.cu", "peer_gather.cu", "peer_proxy.cpp",
+           "graph_if.cu")
+#: Headers the sources include (hashed with them).
+HEADERS = ("peer_link.h",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,8 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types; every one returns cudaError_t
-# (the *_form queries, loam_knn_*_queries / _max_boxes and loam_peer_max_ranks /
-# _segments return a number)
+# (the *_form queries, loam_knn_*_queries / _max_boxes, loam_peer_max_ranks /
+# _segments and loam_peer_aborted return a number)
 SIGNATURES = {
     "loam_sector_sort_form": (_I, _I, _I, _I),
     "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -64,8 +68,11 @@ SIGNATURES = {
     "loam_peer_bus_id": (ctypes.c_char_p, _I),
     "loam_peer_can_reach": (ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(_I)),
     "loam_peer_flags_handle": (_P, ctypes.c_char_p),
+    "loam_peer_routes": (_P, ctypes.POINTER(_I)),
     "loam_peer_mailbox": (_P, ctypes.c_longlong, ctypes.c_char_p),
     "loam_peer_open": (_P, ctypes.c_char_p, ctypes.POINTER(_I)),
+    "loam_peer_proxy": (_P, ctypes.POINTER(_I)),
+    "loam_peer_aborted": (_P, ctypes.c_char_p, _I),
     "loam_peer_close": (_P,),
     "loam_peer_free": (_P,),
     "loam_peer_run": (_P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P),
@@ -108,7 +115,7 @@ def _nvcc() -> str:
 def _source_hash() -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS + _extra_flags).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -136,7 +143,7 @@ def build() -> Path:
                  for c in cmds]
         results = [p.communicate() + (p.returncode,) for p in procs]  # waits for every one
         lib_tmp = os.path.join(tmp, "lib.so")
-        link = [nvcc, "-shared", "-o", lib_tmp, *objs]
+        link = [nvcc, "-shared", "-o", lib_tmp, *objs, "-lpthread"]
         if all(rc == 0 for _, _, rc in results):
             done = subprocess.run(link, capture_output=True, text=True)
             cmds.append(link)

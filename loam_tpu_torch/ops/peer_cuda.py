@@ -27,26 +27,57 @@ order and sends the sums to every peer, so each element's adds keep their
 order and each peer receives (L + 1) slices, not L blocks.
 
 A :class:`PeerMailbox` holds a mesh's buffers on this rank (``make_mesh``
-makes it, every rank at once; ``Mesh.release`` frees it): a mailbox of two
-slots of one region a rank, the control words (a flag a sender and chunk,
-an acknowledgement a rank, the epoch), made with ``cudaMalloc``, the peers'
-opened through CUDA IPC. Every pair of the mesh's cards must reach each
-other's memory (``cudaDeviceCanAccessPeer``): the setup raises, naming the
-pair, where two cannot. Where a payload outgrows the mailbox's region
-outside a capture, every rank makes a larger mailbox there in a collective
-exchange of the new handles (every rank reaches the same collective with
-the same shapes; a program's eager warm-up runs every collective before its
-capture); the earlier mailboxes stay mapped until the release, since graphs
-captured on them replay them. A payload larger than the region inside a
-capture raises. At one rank the gather is one copy kernel, the sum one
-kernel that reads the L blocks and writes one, and neither needs a mailbox.
-A rank that waits for another past :data:`WAIT_SECONDS` traps in the
-kernel, and the call raises.
+makes it, every rank at once; ``Mesh.release`` frees it). A rank's peers are
+on its island -- the ranks of its host whose cards reach each other's
+memory (``cudaDeviceCanAccessPeer``) -- or remote: every other rank, on
+another host or on a card this one cannot reach (:func:`islands`). A host is
+a rank's label: ``make_mesh(hosts=)``, one a rank, or by default its machine
+(:func:`machine`: the host name and the boot id), so PCI bus ids are
+compared, and CUDA IPC handles opened, only between ranks of one host.
+
+  * Island: a mailbox of two slots of one region an island member, in
+    device memory (``cudaMalloc``), mapped by the island's peers through
+    CUDA IPC, and the control words (a flag a sender and chunk, an
+    acknowledgement a rank, the epoch); the kernel pushes over NVLink.
+  * Remote: for each remote peer two slots out and two in of pinned host
+    memory mapped for the card (``cudaHostAlloc``), and the words of
+    ``csrc/peer_link.h``; the kernel stages its chunks there over PCIe and
+    the rank's proxy (``csrc/peer_proxy.cpp``, C++, no CUDA call, no
+    Python in its loops; a sending and a receiving thread a remote peer)
+    moves them over TCP to the peer's proxy, which lands them in that
+    rank's staging and raises their flags. A rank pins
+    4 x the region's bytes a remote peer and mailbox (the sum of the pose
+    graph's H, 288 MB a rank, takes a 144 MB region: 1.15 GB at 2 hosts x
+    2 ranks, 1.73 GB at 4 x 1), and 384 KB of words a remote peer.
+
+Each rank's proxy listens on an ephemeral TCP port at the address that
+``LOAM_PEER_ADDR`` names, else at 127.0.0.1 where every remote peer of the
+rank runs on its machine, else at the address its host name resolves to
+(which must not be a loopback address: set ``LOAM_PEER_ADDR`` then); the
+ranks exchange addresses and ports through the group, each rank connects to
+its remote peers above it and accepts those below (within
+:data:`CONNECT_SECONDS`, or ``make_mesh`` raises). Where a payload
+outgrows the regions outside a capture, every rank makes a larger mailbox
+and staging there in a collective exchange of the new handles (every rank
+reaches the same collective with the same shapes; a program's eager warm-up
+runs every collective before its capture); the earlier ones stay until the
+release, since graphs captured on them replay them. A payload larger than
+the region inside a capture raises. At one rank the gather is one copy
+kernel, the sum one kernel that reads the L blocks and writes one, and
+neither needs a mailbox. A rank that waits for another past
+:data:`WAIT_SECONDS` traps in the kernel, and the call raises; a proxy that
+loses its socket raises the rank's abort word, which the kernel's spin
+reads (it traps at once), and the next call raises naming the link. There
+is no fallback: a mesh across hosts never turns to eager NCCL or gloo.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import secrets
+import socket
+import struct
 
 import torch
 import torch.distributed as dist
@@ -71,8 +102,15 @@ ALIGN = 16
 #: The dtypes the sum takes, as the kernel names them.
 SUM_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
 
+#: Seconds ``make_mesh`` waits to connect to and be reached by the remote
+#: peers' proxies.
+CONNECT_SECONDS = 60.0
+
 _HANDLE = 64  # sizeof(cudaIpcMemHandle_t)
 _BUS = 16  # a PCI bus id, "0000:00:00.0" and its NUL
+_LABEL = 128  # a host's label or machine in the exchange
+_ADDR = 64  # a proxy's address
+_HELLO = b"loam peer proxy\0"  # a connection's first bytes, then the mesh's nonce and the rank
 _GATHER, _SUM = 0, 1
 
 
@@ -97,12 +135,18 @@ def sum_slice(block: int, world: int) -> int:
     return -(-(-(-block // world)) // ALIGN) * ALIGN
 
 
+def takes_device_tensors(group) -> bool:
+    """Whether ``group``'s collectives take CUDA tensors (NCCL's); gloo's
+    take host tensors."""
+    return "nccl" in str(dist.get_backend(group))
+
+
 def _exchange(group, dev: torch.device, mine: bytes) -> list:
     """Every rank's ``mine`` (the same length on each), in rank order: one
     eager ``all_gather_into_tensor`` over ``group``, on the current stream,
     through the card where the group is NCCL's."""
     world = dist.get_world_size(group)
-    on = dev if "nccl" in str(dist.get_backend(group)) else torch.device("cpu")
+    on = dev if takes_device_tensors(group) else torch.device("cpu")
     x = torch.frombuffer(bytearray(mine), dtype=torch.uint8).to(on)
     every = torch.empty(world * len(mine), dtype=torch.uint8, device=on)
     dist.all_gather_into_tensor(every, x, group=group)
@@ -117,23 +161,104 @@ def _gathered(x: torch.Tensor, world: int, dev=None) -> torch.Tensor:
     return torch.empty((world * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=dev or x.device)
 
 
-class PeerMailbox:
-    """This rank's buffers of a mesh's collectives on ``dev``, the peers'
-    mapped (module docstring). Made by every rank of ``group`` at once."""
+def machine() -> str:
+    """This machine: its host name and its boot id
+    (``/proc/sys/kernel/random/boot_id``). Two processes name the same
+    machine exactly when they run on one booted host: identical servers
+    share PCI bus ids, but not boot ids."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            boot = f.read().strip()
+    except OSError:
+        boot = "no boot id"
+    return f"{socket.gethostname()}/{boot}"
 
-    def __init__(self, group, dev: torch.device):
+
+def islands(labels, reach) -> tuple:
+    """The mesh's islands from each rank's host label and ``reach(a, b)``
+    (whether ranks a and b's cards reach each other's memory, both ways;
+    asked only of ranks with one label): a rank joins the first island of
+    its label whose every member it reaches, else starts one. Tuples of
+    ranks in rank order; every rank computes the same from the same
+    exchange."""
+    out = []
+    for r, label in enumerate(labels):
+        for isl in out:
+            if labels[isl[0]] == label and all(reach(r, m) for m in isl):
+                isl.append(r)
+                break
+        else:
+            out.append([r])
+    return tuple(tuple(isl) for isl in out)
+
+
+def check_hosts(hosts, world: int) -> tuple:
+    """``make_mesh``'s ``hosts`` as labels, one a rank: a sequence of
+    ``world`` labels (any values; equal labels, one host)."""
+    labels = tuple(str(h) for h in hosts)
+    if len(labels) != world:
+        raise ValueError(f"hosts= gives {len(labels)} labels for {world} ranks: one a rank")
+    if any(len(x.encode()) > _LABEL - 1 for x in labels):
+        raise ValueError(f"a host label takes at most {_LABEL - 1} bytes")
+    return labels
+
+
+def _field(text: str, size: int) -> bytes:
+    raw = text.encode()
+    if len(raw) >= size:
+        raise ValueError(f"{text!r} is longer than {size - 1} bytes")
+    return raw + b"\0" * (size - len(raw))
+
+
+def _text(raw: bytes) -> str:
+    return raw.split(b"\0", 1)[0].decode()
+
+
+def _address(machines: list, remote: list, me: str) -> str:
+    """Where this rank's proxy listens (the module docstring)."""
+    if os.environ.get("LOAM_PEER_ADDR"):
+        return os.environ["LOAM_PEER_ADDR"]
+    if all(machines[t] == me for t in remote):
+        return "127.0.0.1"
+    addr = socket.gethostbyname(socket.gethostname())
+    if addr.startswith("127."):
+        raise RuntimeError(f"peer gather: this rank's remote peers include another machine, and its host name "
+                           f"resolves to the loopback address {addr}: set LOAM_PEER_ADDR to this machine's address "
+                           f"on the network the ranks share")
+    return addr
+
+
+def _read(sock, n: int) -> bytes:
+    got = b""
+    while len(got) < n:
+        part = sock.recv(n - len(got))
+        if not part:
+            raise ConnectionError("the peer closed the connection")
+        got += part
+    return got
+
+
+class PeerMailbox:
+    """This rank's buffers of a mesh's collectives on ``dev``, the island
+    peers' mapped, and its proxy to the remote ones (module docstring).
+    Made by every rank of ``group`` at once; ``hosts``: one label a rank
+    (``make_mesh``), or None for each rank's machine."""
+
+    def __init__(self, group, dev: torch.device, hosts=None):
         self.group, self.dev = group, dev
         self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
         lib = _build.lib()
         if self.world > lib.loam_peer_max_ranks():
             raise ValueError(f"the peer gather takes at most {lib.loam_peer_max_ranks()} ranks, the group "
                              f"has {self.world}")
+        given = None if hosts is None else check_hosts(hosts, self.world)
         handle = ctypes.c_void_p()
         with torch.cuda.device(dev):
             _check(lib.loam_peer_create(self.world, self.rank, WAIT_SECONDS, ctypes.byref(handle)), "creating")
-        self.handle, self.cap, self.buses = handle.value, 0, [b"?"] * self.world
+        self.handle, self.cap = handle.value, 0
+        self.buses, self.hosts, self.islands, self.remote = [b"?"] * self.world, (machine(),), ((0,),), []
         try:
-            self._setup(lib)
+            self._setup(lib, given)
         except BaseException:
             with torch.cuda.device(dev):
                 lib.loam_peer_close(self.handle)
@@ -141,33 +266,106 @@ class PeerMailbox:
             self.handle = None
             raise
 
-    def _setup(self, lib) -> None:
+    def _setup(self, lib, given) -> None:
         if self.world == 1:
+            self.hosts = given or self.hosts
             return
-        bus, ctl = ctypes.create_string_buffer(_BUS), ctypes.create_string_buffer(_HANDLE)
+        me, world, rank = machine(), self.world, self.rank
+        bus = ctypes.create_string_buffer(_BUS)
         with torch.cuda.device(self.dev):
             _check(lib.loam_peer_bus_id(bus, _BUS), "reading the card's PCI bus id")
-            _check(lib.loam_peer_flags_handle(self.handle, ctl), "cudaIpcGetMemHandle of the control words")
-        box = self._new_mailbox(lib, FIRST_SLOT_BYTES)
-        every = _exchange(self.group, self.dev, bus.raw + ctl.raw + box)
-        self.buses = buses = [e[:_BUS] for e in every]
+        label = given[rank] if given else me
+        every = _exchange(self.group, self.dev, _field(label, _LABEL) + _field(me, _LABEL) + bus.raw +
+                          secrets.token_bytes(8))
+        labels = tuple(_text(e[:_LABEL]) for e in every)
+        machines = [_text(e[_LABEL:2 * _LABEL]) for e in every]
+        self.buses = [e[2 * _LABEL:2 * _LABEL + _BUS] for e in every]
+        nonce = every[0][-8:]
+        self.hosts = labels
+        if given and labels != given:
+            raise ValueError(f"the ranks' hosts= differ: this rank's {list(given)}, each rank's own label "
+                             f"{list(labels)}")
+        for a in range(world):
+            for b in range(a + 1, world):
+                if labels[a] == labels[b] and machines[a] != machines[b]:
+                    raise ValueError(f"host {labels[a]!r} names ranks {a} and {b}, which run on two machines "
+                                     f"({machines[a]}, {machines[b]})")
+        # this rank's card against every card of its host, both ways; -1
+        # (this process does not see one of them) leaves it to the IPC open
+        row = bytearray(world)
         with torch.cuda.device(self.dev):
-            for a in range(self.world):
-                for b in range(a + 1, self.world):
+            for t in range(world):
+                if labels[t] == label:
                     ok = ctypes.c_int()
-                    _check(lib.loam_peer_can_reach(buses[a], buses[b], ctypes.byref(ok)),
+                    _check(lib.loam_peer_can_reach(self.buses[rank], self.buses[t], ctypes.byref(ok)),
                            "cudaDeviceCanAccessPeer")
-                    if ok.value == 0:
-                        raise RuntimeError(
-                            f"the mesh's cards {_name(buses[a])} (rank {a}) and {_name(buses[b])} (rank {b}) "
-                            f"cannot reach each other's memory (cudaDeviceCanAccessPeer): the mesh's gather "
-                            f"needs every pair of its cards peer-reachable")
-        self._open(lib, b"".join(e[_BUS:] for e in every))
+                    row[t] = ok.value != 0
+        rows = _exchange(self.group, self.dev, bytes(row))
+        self.islands = islands(labels, lambda a, b: rows[a][b] and rows[b][a])
+        mine = next(isl for isl in self.islands if rank in isl)
+        self.remote = [t for t in range(world) if t not in mine]
+        with torch.cuda.device(self.dev):
+            _check(lib.loam_peer_routes(self.handle, (ctypes.c_int * world)(*(t in mine for t in range(world)))),
+                   "pinning the remote peers' words")
+        listener, addr, port = None, "", 0
+        try:
+            if self.remote:
+                addr = _address(machines, self.remote, me)
+                listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                listener.bind((addr, 0))
+                listener.listen(world)
+                port = listener.getsockname()[1]
+            ctl = ctypes.create_string_buffer(_HANDLE)
+            with torch.cuda.device(self.dev):
+                _check(lib.loam_peer_flags_handle(self.handle, ctl), "cudaIpcGetMemHandle of the control words")
+            box = self._new_mailbox(lib, FIRST_SLOT_BYTES)
+            every = _exchange(self.group, self.dev, ctl.raw + box + _field(addr, _ADDR) + struct.pack("<H", port))
+            self._open(lib, b"".join(e[:2 * _HANDLE] for e in every))
+            if self.remote:
+                where = [(_text(e[2 * _HANDLE:2 * _HANDLE + _ADDR]), struct.unpack("<H", e[-2:])[0]) for e in every]
+                fds = self._connect(listener, where, nonce)
+                with torch.cuda.device(self.dev):
+                    _check(lib.loam_peer_proxy(self.handle, (ctypes.c_int * world)(*fds)), "starting the proxy")
+        finally:
+            if listener is not None:
+                listener.close()
+
+    def _connect(self, listener, where: list, nonce: bytes) -> list:
+        """A connected socket to each remote peer's proxy (this rank
+        connects to those above it, accepts those below), as file
+        descriptors by rank (-1 elsewhere), handed to the proxy."""
+        socks, rank = {}, self.rank
+        try:
+            for t in self.remote:
+                if t > rank:
+                    sock = socket.create_connection(where[t], timeout=CONNECT_SECONDS)
+                    socks[t] = sock
+                    sock.sendall(_HELLO + nonce + struct.pack("<i", rank))
+            lower = {t for t in self.remote if t < rank}
+            listener.settimeout(CONNECT_SECONDS)
+            while lower:
+                sock, _ = listener.accept()
+                sock.settimeout(CONNECT_SECONDS)
+                hello = _read(sock, len(_HELLO) + len(nonce) + 4)
+                r = struct.unpack("<i", hello[-4:])[0]
+                if hello[:-4] != _HELLO + nonce or r not in lower:
+                    sock.close()  # not one of this mesh's ranks
+                    continue
+                socks[r] = sock
+                lower.discard(r)
+        except OSError as err:
+            for sock in socks.values():
+                sock.close()
+            missing = [t for t in self.remote if t not in socks]
+            raise RuntimeError(f"peer gather: rank {rank} (host {self.hosts[rank]!r}) could not connect to the "
+                               f"proxies of ranks {missing} ({[self.hosts[t] for t in missing]}): {err}") from err
+        return [socks[t].detach() if t in socks else -1 for t in range(self.world)]
 
     def _new_mailbox(self, lib, cap: int) -> bytes:
         box = ctypes.create_string_buffer(_HANDLE)
         with torch.cuda.device(self.dev):
-            _check(lib.loam_peer_mailbox(self.handle, cap, box), f"a mailbox of 2 x {self.world} x {cap} bytes")
+            _check(lib.loam_peer_mailbox(self.handle, cap, box),
+                   f"a mailbox of regions of {cap} bytes ({len(self.remote)} remote peers' staging)")
         self.cap = cap
         return box.raw
 
@@ -176,16 +374,16 @@ class PeerMailbox:
         with torch.cuda.device(self.dev):
             err = lib.loam_peer_open(self.handle, handles, ctypes.byref(failed))
         if err != 0:
-            r, buses = failed.value, self.buses
-            raise RuntimeError(f"peer gather: rank {self.rank} ({_name(buses[self.rank])}) could not map rank "
-                               f"{r}'s buffers ({_name(buses[r]) if r >= 0 else '?'}) with "
-                               f"cudaIpcOpenMemHandle: cudaError_t {err}; the mesh's gather needs every pair "
-                               f"of its cards peer-reachable")
+            r, me = failed.value, self.rank
+            them = f"{_name(self.buses[r])} on host {self.hosts[r]!r}" if r >= 0 else "?"
+            raise RuntimeError(f"peer gather: rank {me} ({_name(self.buses[me])} on host {self.hosts[me]!r}) could "
+                               f"not map rank {r}'s buffers ({them}) with cudaIpcOpenMemHandle: cudaError_t {err}; "
+                               f"ranks of one host whose cards reach each other's memory share it through CUDA IPC")
 
     def reserve(self, nbytes: int) -> None:
         """A mailbox region of at least ``nbytes`` past one rank: a larger
-        mailbox (every rank at once, outside a capture) where it is
-        smaller."""
+        mailbox and staging (every rank at once, outside a capture) where it
+        is smaller."""
         if self.world == 1 or nbytes <= self.cap:
             return
         if torch.cuda.is_current_stream_capturing():
@@ -197,6 +395,17 @@ class PeerMailbox:
         every = _exchange(self.group, self.dev, box)
         self._open(lib, b"".join(b"\0" * _HANDLE + e for e in every))
 
+    def check_links(self) -> None:
+        """Raise where the proxy lost a link (its abort word is up): the
+        kernel would trap at its first wait on a remote peer."""
+        if not self.remote:
+            return
+        msg = ctypes.create_string_buffer(256)
+        t = _build.lib().loam_peer_aborted(self.handle, msg, len(msg))
+        if t:
+            raise RuntimeError(f"peer gather: rank {self.rank} (host {self.hosts[self.rank]!r}) lost its link to "
+                               f"rank {t - 1} (host {self.hosts[t - 1]!r}): {msg.value.decode(errors='replace')}")
+
     def _run(self, what: str, t: torch.Tensor, segments: list, mode: int, dtype: int, total: int, L: int) -> None:
         if self.handle is None:
             raise RuntimeError("peer gather: the mesh was released")
@@ -204,6 +413,7 @@ class PeerMailbox:
         if len(segments) > lib.loam_peer_max_segments():
             raise ValueError(f"peer gather: {len(segments)} leaves in one gather, at most "
                              f"{lib.loam_peer_max_segments()}")
+        self.check_links()
         self.reserve(total if mode == _GATHER else (L + 1) * sum_slice(total, self.world))
         flat = (ctypes.c_longlong * (4 * len(segments)))(*(v for seg in segments for v in seg))
         _build.launch(lib.loam_peer_run, what, t, self.handle, flat, len(segments), mode, dtype, total, L)
@@ -234,9 +444,10 @@ class PeerMailbox:
         return out
 
     def release(self, wait: bool = True) -> None:
-        """Unmap the peers' buffers, wait for every rank to have unmapped
-        this rank's (every rank calls it, while the group lives; ``wait``
-        False skips that, for a group already destroyed), and free them."""
+        """Unmap the island peers' buffers, wait for every rank to have
+        unmapped this rank's and ended its last collective (every rank calls
+        it, while the group lives; ``wait`` False skips that, for a group
+        already destroyed), then stop the proxy and free them."""
         if self.handle is None:
             return
         lib = _build.lib()
@@ -263,6 +474,8 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
 
 def _one_reference(x: torch.Tensor, group) -> torch.Tensor:
     wire = _wire(x)
+    if wire.is_cuda and not takes_device_tensors(group):  # gloo gathers host tensors
+        return _one_reference(x.cpu(), group).to(x.device)
     out = _gathered(wire, dist.get_world_size(group))
     dist.all_gather_into_tensor(out, wire, group=group)
     return out.to(torch.bool) if x.dtype == torch.bool else out
@@ -270,7 +483,8 @@ def _one_reference(x: torch.Tensor, group) -> torch.Tensor:
 
 def peer_gather_reference(x, group):
     """Plain version: ``dist.all_gather_into_tensor`` over ``group``, a
-    leaf at a time (``x`` a tensor, or a list of them)."""
+    leaf at a time (``x`` a tensor, or a list of them; a CUDA leaf through
+    the host where the group is gloo's)."""
     if isinstance(x, torch.Tensor):
         return _one_reference(x, group)
     return [_one_reference(t, group) for t in x]

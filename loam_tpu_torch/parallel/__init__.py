@@ -7,9 +7,12 @@ the collectives. Here a rank is one process with one device, holding one or
 more shards of the mesh on it; the ranks form the mesh's process group
 (gloo for CPU tensors, NCCL for CUDA ones, which sets the mesh up), and the
 two collectives the entry points need, a gather and a sum in fixed order,
-are written out in ``collectives``: on the card one hand-written kernel over
-peer memory (``ops/peer_cuda.py``) for both, which every pair of the mesh's
-cards must be able to reach.
+are written out in ``collectives``: on the card one hand-written kernel for
+both (``ops/peer_cuda.py``), which reaches the ranks of its host whose
+cards reach each other's memory over NVLink and every other rank -- on
+another host (``make_mesh(hosts=)``, by default each rank's machine) or on
+a card it cannot reach -- through a host proxy over TCP, captured in CUDA
+graphs either way.
 
 Axes (``sharding``): ``data`` -- frames, pairs, map and edge shards;
 ``line`` -- scan lines within extraction. ``sharding`` holds the batch entry

@@ -3,8 +3,10 @@
 ``loam_tpu`` leaves its collectives to XLA (``ppermute``, ``psum``, the
 all-gather of a sharded output). Here they are written out over a
 :class:`~loam_tpu_torch.parallel.sharding.Mesh`: on the card through the
-mesh's kernel over peer memory (``ops/peer_cuda.py``, hand-written, at every
-world size), for CPU tensors through ``all_gather_into_tensor`` on the
+mesh's kernel (``ops/peer_cuda.py``, hand-written, at every world size:
+over NVLink to the ranks of its host whose cards reach each other's memory,
+through a host proxy over TCP to the others, on other hosts or on cards it
+cannot reach), for CPU tensors through ``all_gather_into_tensor`` on the
 mesh's gloo group; with no group nothing crosses a process.
 
 A per-shard tensor leads with this rank's shards, in the mesh's local order.

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import zlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -51,7 +52,7 @@ from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
 from ..registration import RegistrationDetail, azimuth_sort_features, register_features_batch
 from ..registration.detail import tree_map
 from ..registration.loop import driver_program
-from ..ops.peer_cuda import PeerMailbox
+from ..ops.peer_cuda import PeerMailbox, check_hosts, islands, takes_device_tensors
 from .collectives import gather
 
 _TOKENS = itertools.count()
@@ -64,7 +65,11 @@ class Mesh:
     Global shard ``g`` sits at ``(g // line, g % line)`` of the
     (data, line) grid, ``loam_tpu``'s process-major device order; rank ``r``
     holds shards ``r * local .. r * local + local - 1``, whole rows of the
-    grid.
+    grid. The ranks sit on hosts (:attr:`hosts`); the ranks of a host whose
+    cards reach each other's memory form an island (:attr:`islands`), and
+    on the card the collectives run over NVLink within an island and
+    through the ranks' host proxies over TCP between islands, the same bits
+    either way.
     """
 
     #: This rank's shards, one ``torch.device`` each, all the same device.
@@ -75,9 +80,13 @@ class Mesh:
     shape: Dict[str, int]
     #: Global index of each of this rank's shards.
     shard_ids: Tuple[int, ...]
-    #: This rank's buffers of the collectives over peer memory
-    #: (``ops/peer_cuda.py``) on a CUDA mesh with a group, else None.
+    #: This rank's buffers of the collectives over peer memory and its
+    #: proxy to other hosts (``ops/peer_cuda.py``) on a CUDA mesh with a
+    #: group, else None.
     peer: Optional[PeerMailbox] = None
+    #: Each rank's host label: ``make_mesh(hosts=)``, or on the card each
+    #: rank's machine; None for a CPU mesh made without ``hosts``.
+    hosts: Optional[Tuple[str, ...]] = None
     #: Unique in this process: the key of the mesh's cached programs.
     token: int = dataclasses.field(default_factory=lambda: next(_TOKENS))
 
@@ -108,10 +117,19 @@ class Mesh:
                              f"got {self.shape}")
         return self.shape[axis], self.shard_ids
 
+    @property
+    def islands(self) -> Optional[Tuple[Tuple[int, ...], ...]]:
+        """The ranks that reach each other's memory, a tuple a host's
+        island (``peer_cuda.islands``): on the card the mailbox's, which
+        also asks the cards; on the CPU the ranks of each host label."""
+        if self.peer is not None:
+            return self.peer.islands
+        return None if self.hosts is None else islands(self.hosts, lambda a, b: True)
+
     def release(self) -> None:
         """Drop the programs cached for this mesh and free its gather's
-        buffers, which the other ranks map: every rank releases the mesh,
-        before destroying its group."""
+        buffers, which the other ranks map, and stop its proxy: every rank
+        releases the mesh, before destroying its group."""
         program.forget(mesh=self.token)
         if self.peer is not None:
             self.peer.release(wait=_live(self.group))
@@ -145,7 +163,7 @@ def run_program(mesh: Mesh, key: tuple, inputs, fn, reg_params: Optional[Registr
         return prog, prog.run(fn, inputs)
 
 
-def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) -> Mesh:
+def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None, hosts=None) -> Mesh:
     """A ("data", "line") mesh of this rank's shards ``devices`` in the
     process group ``group``.
 
@@ -157,14 +175,24 @@ def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) ->
     data axis: ``shape = {"data": world * local / line_axis, "line":
     line_axis}``. ``group``: the ranks' ``torch.distributed`` group (the
     caller initialises it), or None for one process. With a group every
-    rank calls it: one eager gather, on this rank's device, checks that the
-    ranks agree on the shards a rank and ``line_axis`` (the shape assumes
-    it), and so opens the group's communicator on the current stream (a
-    rank's first collective on a side stream hangs a later graph capture
-    under NCCL 2.28.9). On a CUDA device the ranks then set up the mesh's
-    gather over peer memory (``ops/peer_cuda.PeerMailbox``), which raises,
-    naming the pair, where two of the mesh's cards cannot reach each
-    other's memory.
+    rank calls it: one eager gather, on this rank's device (on the host for
+    a gloo group), checks that the ranks agree on the shards a rank,
+    ``line_axis`` (the shape assumes it) and ``hosts``, and so opens the
+    group's communicator on the current stream (a rank's first collective
+    on a side stream hangs a later graph capture under NCCL 2.28.9). On a
+    CUDA device the ranks then set up the mesh's collectives
+    (``ops/peer_cuda.PeerMailbox``): over NVLink among the ranks of a host
+    whose cards reach each other's memory (an island), through each rank's
+    host proxy over TCP between islands; a socket that cannot be set up
+    raises.
+
+    ``hosts``: each rank's host, one label a rank (equal labels, one host),
+    the same sequence on every rank; by default each rank's machine (its
+    host name and boot id). Ranks of one machine labelled apart talk over
+    the proxy as if on two hosts: how the tests and ``chip_smoke.py`` run a
+    mesh across hosts on one machine. On the CPU it only names the mesh's
+    islands (:attr:`Mesh.islands`); the gloo group crosses processes and
+    hosts alike.
     """
     devs = tuple(resolve(d) for d in ([None] if devices is None else devices))
     if not devs:
@@ -177,16 +205,19 @@ def make_mesh(devices: Optional[list] = None, line_axis: int = 1, group=None) ->
         raise ValueError(f"{n} shards not divisible by line_axis={line_axis}")
     world = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
+    labels = None if hosts is None else check_hosts(hosts, world)
     if group is not None:
-        mine = torch.tensor([[n, line_axis]], dtype=torch.int64, device=devs[0])
-        every = torch.empty((world, 2), dtype=torch.int64, device=devs[0])
+        on = devs[0] if takes_device_tensors(group) else torch.device("cpu")
+        named = -1 if labels is None else zlib.crc32("\0".join(labels).encode())
+        mine = torch.tensor([[n, line_axis, named]], dtype=torch.int64, device=on)
+        every = torch.empty((world, 3), dtype=torch.int64, device=on)
         dist.all_gather_into_tensor(every, mine, group=group)
         if (every != mine).any():
-            raise ValueError(f"the ranks' meshes differ: (shards, line_axis) of each rank "
+            raise ValueError(f"the ranks' meshes differ: (shards, line_axis, a checksum of hosts) of each rank "
                              f"{every.tolist()}")
-    peer = PeerMailbox(group, devs[0]) if group is not None and devs[0].type == "cuda" else None
+    peer = PeerMailbox(group, devs[0], labels) if group is not None and devs[0].type == "cuda" else None
     return Mesh(devs, group, {"data": world * n // line_axis, "line": line_axis},
-                tuple(rank * n + j for j in range(n)), peer)
+                tuple(rank * n + j for j in range(n)), peer, peer.hosts if peer is not None else labels)
 
 
 def _blocks(count: int, what: str, mesh: Mesh) -> Tuple[int, int]:

@@ -1115,7 +1115,7 @@ def test_f12_whole_call_pool_follows_what_it_holds(dev, cell):
     frame) kept for every frame. At 16 and at 48 frames of 64x1024 the
     pool's growth is at most 1.25x the growth of the call's outputs and
     hoisted features plus 64 MiB (the allocator's rounding of each stacked
-    buffer), as ``chip_smoke.py`` phase 16 holds it at 256 frames."""
+    buffer), as ``chip_smoke.py`` phase 16 holds it at 128 frames."""
     import loam_tpu_torch as T
     from loam_tpu_torch.io import render_trajectory
     from loam_tpu_torch.registration import loop
@@ -1886,6 +1886,75 @@ def test_sharded_drivers_through_the_peer_gather_one_launch_a_call(dev, request,
         assert peer_cuda.peer_gather.launches > 0
 
 
+# ---- the mesh across hosts: the cross-host leg (peer_link.h, peer_proxy.cpp) ---------
+
+
+def _cross_host_ranks(tmp_path, world: int, hosts: str, mode: str) -> list:
+    """``world`` ranks of ``tests/torch_cross_host_worker.py`` (a gloo group,
+    rank r on card r % cards, one shard a rank, ``hosts``), each rank's
+    record."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    worker = Path(__file__).resolve().parent / "torch_cross_host_worker.py"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r), str(world), str(port), hosts, mode, str(tmp_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = range(world - 1) if mode == "lost" else range(world)  # the lost rank leaves without a record
+    for r in ranks:
+        assert (tmp_path / f"rank{r}.json").exists(), f"rank {r}:\n{logs[r][-4000:]}"
+    return [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in ranks]
+
+
+@pytest.mark.parametrize("world,hosts,islands", [(2, "0,1", [[0], [1]]), (2, "machine", [[0, 1]]),
+                                                 (4, "0,0,1,1", [[0, 1], [2, 3]]),
+                                                 (4, "0,1,2,3", [[0], [1], [2], [3]])])
+def test_cross_host_gather_and_sum_match_plain(dev, tmp_path, world, hosts, islands):
+    """The kernel's tree gather and fixed-order sum on ``world`` ranks of a
+    gloo group (rank r on card r % cards: ranks may share a card) whose
+    ``make_mesh(hosts=)`` puts them on hosts that talk through the proxy
+    over loopback TCP (``"0,1"``, 2 x 1; ``"0,0,1,1"``, 2 x 2 with an island
+    of two on each; ``"0,1,2,3"``, 4 x 1) or on one island (each rank's
+    machine): eager, in a plain graph, in a WHILE body and an IF body (taken
+    and not), each bit-equal to its plain version over the group, one
+    counted launch a collective that ran; a gather past the mailbox raising
+    inside a capture, growing eagerly, and the graph captured before still
+    replaying; the islands as ``hosts`` and the cards' reach make them."""
+    for r, rec in enumerate(_cross_host_ranks(tmp_path, world, hosts, "check")):
+        assert rec["islands"] == islands, rec
+        assert rec["remote"] == [t for t in range(world) if not any(r in i and t in i for i in islands)], rec
+        assert rec["eager"] and rec["eager_launches"] == [1, 4], rec
+        for name in ("while3", "if3", "if2", "plain1"):
+            assert rec[f"{name}_graph"] and rec[name], (name, rec)
+            assert rec[f"{name}_launches"] == rec[f"{name}_want_launches"], (name, rec)
+        assert rec["capture_past_mailbox"] is True and rec["grown"] and rec["replay_after_growth"], rec
+
+
+def test_cross_host_lost_peer_raises(dev, tmp_path):
+    """Two ranks on two hosts: the second leaves without releasing the mesh
+    while the first waits in a gather for it. The first rank's proxy loses
+    its socket, the kernel reads the abort word and traps, and the call
+    raises within ``peer_cuda.WAIT_SECONDS``: no hang, no eager fallback."""
+    from loam_tpu_torch.ops import peer_cuda
+
+    (rec,) = _cross_host_ranks(tmp_path, 2, "0,1", "lost")
+    assert rec["raised"] and rec["seconds"] < peer_cuda.WAIT_SECONDS, rec
+
+
 # ---- the grid search and the loop-closed back end as one program each -------------
 
 LAST_CELLS = ("grid_register", "grid_s2m", "posegraph64", "posegraph32", "posegraph_sharded", "closures")
@@ -2073,3 +2142,15 @@ def test_one_rank_a_card(dev):
     assert all(k == 1 for nodes in rec["peer_gather"]["graph_nodes"] for k in nodes.values())
     for name, cell in rec["cells"].items():
         assert cell["graph_launches_per_unit"] == [1.0] * n and cell["host_reads_per_unit"] == [0.0] * n
+    # across hosts: every split of the ranks (2 x 2 and 4 x 1 on four cards), or on one card two
+    # ranks of two hosts sharing it; phase 17 fails on any output that differs, so the record's
+    # cells are the ones that passed
+    splits = rec["splits"] if n > 1 else rec["one_card_two_hosts"]
+    assert sorted(splits) == (["2x2", "4x1"] if n == 4 else [f"{n}x1"] if n > 1 else ["2x1 on one card"])
+    for split in splits.values():
+        assert sorted(split["cells"]) == ["extract", "offline", "pairs", "posegraph", "s2m"]
+        for cell in split["cells"].values():
+            ranks = len(cell["graph_launches_per_unit"])
+            assert cell["graph_launches_per_unit"] == [1.0] * ranks and cell["host_reads_per_unit"] == [0.0] * ranks
+    if n > 1:
+        assert rec["probe"]["peer_bodies@across"] == "accepted"

@@ -261,12 +261,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_ranks(mode, out_dir, world=2):
+def _run_ranks(mode, out_dir, world=2, hosts=""):
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env["PYTHONPATH"] = os.path.dirname(_HERE) + os.pathsep + env.get("PYTHONPATH", "")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(r), str(world), str(port), mode, str(out_dir)],
+        [sys.executable, os.path.abspath(__file__), str(r), str(world), str(port), mode, str(out_dir), hosts],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
         cwd=os.path.dirname(_HERE)) for r in range(world)]
     outputs = []
@@ -284,13 +284,13 @@ def _run_ranks(mode, out_dir, world=2):
     return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(world)]
 
 
-def _bit_equal_to_one_rank(mode, tmp_path, world=2):
-    ranks = _run_ranks(mode, tmp_path, world)
+def _bit_equal_to_one_rank(mode, tmp_path, world=2, hosts=""):
+    ranks = _run_ranks(mode, tmp_path, world, hosts)
     mine, want = RUN[mode](parallel.make_mesh(["cpu"] * (world * SHARDS[mode, world])), _line(mode, world),
                            str(tmp_path))
     _check_single(mode, mine, want)
     for r, res in enumerate(ranks):
-        assert sorted(res) == sorted(mine)
+        assert sorted(k for k in res if k != "islands") == sorted(mine)
         for key in mine:
             if key != "rows":  # the shards a rank loaded (from_numpy)
                 np.testing.assert_array_equal(res[key], mine[key], err_msg=f"rank {r} {key}")
@@ -357,12 +357,16 @@ def test_two_ranks_load_loam_tpu_sharded_state(tmp_path):
         np.testing.assert_allclose(got["q"][f - 4], np.asarray(jpose.rotation), atol=1e-3, rtol=0)
 
 
-def main(rank: int, world: int, port: int, mode: str, out_dir: str) -> None:
+def main(rank: int, world: int, port: int, mode: str, out_dir: str, hosts: str = "") -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
                             rank=rank)
     try:
-        mesh = parallel.make_mesh(["cpu"] * SHARDS[mode, world], group=dist.group.WORLD)
+        mesh = parallel.make_mesh(["cpu"] * SHARDS[mode, world], group=dist.group.WORLD,
+                                  hosts=hosts.split(",") if hosts else None)
         got, want = RUN[mode](mesh, _line(mode, world), out_dir)
+        if hosts:  # each rank's island, as this rank's mesh sees them
+            got["islands"] = np.asarray([next(i for i, isl in enumerate(mesh.islands) if r in isl)
+                                         for r in range(world)])
         _check_single(mode, got, want)
         _check_programs(mode, mesh)
         _check_mesh_rules(mesh)
@@ -373,4 +377,4 @@ def main(rank: int, world: int, port: int, mode: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], *sys.argv[6:])

@@ -32,6 +32,15 @@ earlier ones: a graph captured on an earlier mailbox replays it after a
 later one was made. Each collective names the mailbox it uses (the same on
 every rank: they grow at the same collective and capture the same programs).
 
+Across hosts (ranks with another host label), a push goes into the
+sender's out staging for that peer and raises the peer's flag of the slot
+there; the sender's proxy, an actor of its own a link, sends each flag's
+chunk (the slot of the lower epoch first) and each acknowledgement over an
+ordered channel; the receiver's proxy lands the chunk in the receiver's in
+staging, then raises its flag of the slot there, or stores the
+acknowledgement. A flag a slot, not a chunk: the kernel may raise epoch
+e + 1's flag before the proxy sent epoch e's.
+
 ``hypothesis`` draws the interleavings of 2 and 4 ranks over several
 collectives, and each collective's kind, chunks (0 to 2) and mailbox. Every
 rank's output of every collective must be, chunk by chunk, that collective's
@@ -41,8 +50,15 @@ rank may write a region while a peer is reading it, no rank may touch a
 freed mailbox, and every rank must end (no deadlock). The same model
 without the credit wait, with one slot, with the flag stored before the
 data, or freeing a rank's earlier mailboxes when it makes a new one, must
-fail, which shows that the checks can fail.
+fail, which shows that the checks can fail. Across hosts it also draws
+2-16 ranks on 1-4 hosts; the model where a proxy raises a flag before it
+lands the chunk, where no acknowledgement crosses the wire, or where a
+rank reuses a slot before the remote acknowledgement (no credit wait for a
+remote peer) must fail on some interleavings that the whole protocol
+passes.
 """
+
+from collections import deque
 
 import random
 
@@ -58,8 +74,24 @@ class Mesh:
     """The ranks' device memory: mailboxes, flags, acknowledgements,
     epoch counters."""
 
-    def __init__(self, world: int, slots: int, mailboxes: int):
+    def __init__(self, world: int, slots: int, mailboxes: int, hosts=None):
         self.world, self.slots = world, slots
+        self.hosts = hosts or [0] * world
+        # across hosts: out staging out[s][t][m][slot][area][k] (at s, for
+        # t), its flags and chunk descriptions a slot (at s), the in
+        # staging's flags a slot iflags[t][s][slot][area][k] (at t; the in
+        # staging is mailbox[t][...][s]), the acknowledgement for the wire
+        # ack_out[s][t], the channels chan[s][t] and what each link sent
+        per = lambda f: [[f() for _ in range(world)] for _ in range(world)]
+        area_k = lambda: [[0] * CHUNKS for _ in range(2)]
+        self.out = per(lambda: [[[[None] * CHUNKS for _ in range(2)] for _ in range(slots)]
+                                for _ in range(mailboxes)])
+        self.oflags = per(lambda: [area_k() for _ in range(slots)])
+        self.odesc = per(lambda: [[[None] * CHUNKS for _ in range(2)] for _ in range(slots)])
+        self.iflags = per(lambda: [area_k() for _ in range(slots)])
+        self.sent = per(lambda: [area_k() for _ in range(slots)])
+        self.ack_out, self.ack_sent = per(int), per(int)
+        self.chan = per(deque)
         # mailbox[t][m][slot][s][area][k]: chunk k of region s (sender s) of
         # rank t's mailbox m; area 0 a gather's payload or a sum's slices,
         # area 1 a sum's sums
@@ -73,6 +105,9 @@ class Mesh:
         self.freed = set()  # (rank, mailbox)
         self.reading = {}  # (rank, mailbox, slot, region, area, chunk) -> the readers inside it
         self.overwrites, self.after_free = [], []
+
+    def remote(self, a: int, b: int) -> bool:
+        return self.hosts[a] != self.hosts[b]
 
     def write(self, t, m, slot, s, area, k, value):
         if self.reading.get((t, m, slot, s, area, k)):
@@ -88,19 +123,29 @@ class Mesh:
 
 
 def _rank(mesh: Mesh, r: int, out: dict, plan, credit: bool = True, flag_first: bool = False,
-          free_on_grow: bool = False):
+          free_on_grow: bool = False, remote_credit: bool = True):
     """Rank ``r``'s collectives as a generator: it yields before each atomic
     step, or a predicate that must hold before it goes on (a spin).
     Collective ``g`` is ``plan[g - 1]``: (kind, chunks, mailbox).
     ``free_on_grow`` frees a rank's earlier mailboxes when it makes a new
-    one."""
+    one; ``remote_credit`` False skips the credit wait for remote peers."""
     world, slots = mesh.world, mesh.slots
     peers = [t for t in range(world) if t != r]
 
     def push(m, slot, e, k, area, value):
-        """``value(t)`` into area ``area`` of every peer's region ``r``, then
-        the flags (or the flags first, where broken)."""
+        """``value(t)`` into area ``area`` of every peer's region ``r`` (a
+        remote peer's: this rank's out staging for it, its chunk
+        description, then its flag of the slot), then the island peers'
+        flags (or the flags first, where broken)."""
         for t in peers:
+            if mesh.remote(r, t):
+                yield
+                mesh.out[r][t][m][slot][area][k] = value(t)
+                yield
+                mesh.odesc[r][t][slot][area][k] = m
+                yield
+                mesh.oflags[r][t][slot][area][k] = e
+                continue
             if flag_first:
                 yield
                 mesh.flags[t][r][area][k] = e
@@ -108,12 +153,21 @@ def _rank(mesh: Mesh, r: int, out: dict, plan, credit: bool = True, flag_first: 
             mesh.write(t, m, slot, r, area, k, value(t))
         if not flag_first:
             for t in peers:
-                yield
-                mesh.flags[t][r][area][k] = e
+                if not mesh.remote(r, t):
+                    yield
+                    mesh.flags[t][r][area][k] = e
+
+    def arrived(q, slot, area, k, e):
+        """Whether peer ``q``'s chunk ``k`` of epoch ``e`` is here: its flag
+        (island) or its flag of the slot (remote)."""
+        if mesh.remote(r, q):
+            return mesh.iflags[r][q][slot][area][k] >= e
+        return mesh.flags[r][q][area][k] >= e
 
     def receive(m, slot, e, k, q, area, got):
         """Chunk ``k`` of area ``area`` of region ``q`` of the own mailbox
-        appended to ``got`` (its flag waited for by the caller)."""
+        (across hosts: the in staging from ``q``) appended to ``got`` (its
+        flag waited for by the caller)."""
         key = (r, m, slot, q, area, k)
         mesh.reading.setdefault(key, set()).add(r)
         yield
@@ -137,7 +191,8 @@ def _rank(mesh: Mesh, r: int, out: dict, plan, credit: bool = True, flag_first: 
             if k < chunks:
                 if k == 0 and credit:
                     for t in peers:
-                        yield lambda t=t: mesh.acks[r][t] >= e - 2
+                        if remote_credit or not mesh.remote(r, t):
+                            yield lambda t=t: mesh.acks[r][t] >= e - 2
                 # a gather's chunk k for every peer; a sum's, peer t's slice
                 yield from push(m, slot, e, k, 0, lambda t, k=k: (g, r, k) if kind == "gather" else (g, r, k, t))
             k1 = k - 1
@@ -146,13 +201,13 @@ def _rank(mesh: Mesh, r: int, out: dict, plan, credit: bool = True, flag_first: 
                     if q == r:
                         rows[k1][q] = (g, r, k1)
                         continue
-                    yield lambda q=q, k1=k1: mesh.flags[r][q][0][k1] >= e
+                    yield lambda q=q, k1=k1: arrived(q, slot, 0, k1, e)
                     got = []
                     yield from receive(m, slot, e, k1, q, 0, got)
                     rows[k1][q] = got[0]
             elif 0 <= k1 < chunks:
                 for s in peers:
-                    yield lambda s=s, k1=k1: mesh.flags[r][s][0][k1] >= e
+                    yield lambda s=s, k1=k1: arrived(s, slot, 0, k1, e)
                 parts = []
                 for q in range(world):
                     if q == r:
@@ -166,36 +221,107 @@ def _rank(mesh: Mesh, r: int, out: dict, plan, credit: bool = True, flag_first: 
             k2 = k - 2
             if 0 <= k2 < chunks and kind == "sum":
                 for q in peers:
-                    yield lambda q=q, k2=k2: mesh.flags[r][q][1][k2] >= e
+                    yield lambda q=q, k2=k2: arrived(q, slot, 1, k2, e)
                     got = []
                     yield from receive(m, slot, e, k2, q, 1, got)
                     rows[k2][q] = got[0]
         out[g, r] = rows
-        # the last block: the epoch, then the acknowledgements
+        # the last block: the epoch, then the acknowledgements (a remote
+        # peer's into this rank's word for the wire)
         yield
         mesh.epoch[r] = e
         for t in peers:
             yield
-            mesh.acks[t][r] = e
+            if mesh.remote(r, t):
+                mesh.ack_out[r][t] = e
+            else:
+                mesh.acks[t][r] = e
 
 
-def _run(world: int, schedule, plan, slots: int = 2, **broken):
+def _pending(mesh: Mesh, s: int, t: int, acks: bool):
+    """What link s -> t's proxy sends next: the raised flag of the lowest
+    epoch not yet sent, else an acknowledgement not yet sent, else None."""
+    best = None
+    for slot in range(mesh.slots):
+        for area in range(2):
+            for k in range(CHUNKS):
+                f = mesh.oflags[s][t][slot][area][k]
+                if f > mesh.sent[s][t][slot][area][k] and (best is None or f < best[1]):
+                    best = ("data", f, slot, area, k)
+    if best is None and acks and mesh.ack_out[s][t] > mesh.ack_sent[s][t]:
+        best = ("ack", mesh.ack_out[s][t])
+    return best
+
+
+def _send_link(mesh: Mesh, s: int, t: int, acks: bool = True):
+    """Rank s's proxy, its link to t: each raised flag's chunk (read from
+    the out staging of the generation its description names) and each
+    acknowledgement onto the channel, one message a step (``acks`` False:
+    no acknowledgement crosses the wire)."""
+    while True:
+        yield lambda: _pending(mesh, s, t, acks) is not None
+        item = _pending(mesh, s, t, acks)
+        if item[0] == "ack":
+            mesh.ack_sent[s][t] = item[1]
+            mesh.chan[s][t].append(item)
+            continue
+        _, e, slot, area, k = item
+        m = mesh.odesc[s][t][slot][area][k]
+        mesh.chan[s][t].append(("data", m, slot, area, k, e, mesh.out[s][t][m][slot][area][k]))
+        mesh.sent[s][t][slot][area][k] = e
+
+
+def _recv_link(mesh: Mesh, s: int, t: int, flag_first: bool = False):
+    """Rank t's proxy, its link from s: a chunk into t's in staging, then its
+    flag of the slot (``flag_first``: the flag, then the chunk); an
+    acknowledgement into t's word of s's acknowledgements."""
+    while True:
+        yield lambda: bool(mesh.chan[s][t])
+        msg = mesh.chan[s][t].popleft()
+        if msg[0] == "ack":
+            mesh.acks[t][s] = max(mesh.acks[t][s], msg[1])
+            continue
+        _, m, slot, area, k, e, value = msg
+        if flag_first:
+            mesh.iflags[t][s][slot][area][k] = e
+            yield
+        mesh.write(t, m, slot, s, area, k, value)
+        if not flag_first:
+            yield
+            mesh.iflags[t][s][slot][area][k] = e
+
+
+def _run(world: int, schedule, plan, slots: int = 2, hosts=None, proxy_flag_first: bool = False,
+         wire_acks: bool = True, **broken):
     """Every rank's collectives of ``plan``, interleaved by ``schedule`` (a
     rank index a step among the ranks that can step, then the first that
-    can). Returns (outputs, overwrites and touches of freed mailboxes,
+    can; with remote peers, the first rank or proxy link that can step from
+    the drawn one on) with ``hosts`` a label a rank (one host by default).
+    Returns (outputs, overwrites and touches of freed mailboxes,
     deadlocked)."""
-    mesh, out = Mesh(world, slots, max(m for _, _, m in plan) + 1), {}
-    gens = [_rank(mesh, r, out, plan, **broken) for r in range(world)]
-    pending = [None] * world
-    done = [False] * world
+    mesh, out = Mesh(world, slots, max(m for _, _, m in plan) + 1, hosts), {}
+    actors = [_rank(mesh, r, out, plan, **broken) for r in range(world)]
+    for a in range(world):
+        for b in range(world):
+            if a != b and mesh.remote(a, b):
+                actors.append(_send_link(mesh, a, b, wire_acks))
+                actors.append(_recv_link(mesh, a, b, proxy_flag_first))
+    n = len(actors)
+    pending = [None] * n
+    done = [False] * n
+    can = lambda r: not done[r] and (pending[r] is None or pending[r]())
     picks = iter(schedule)
-    while not all(done):
-        ready = [r for r in range(world) if not done[r] and (pending[r] is None or pending[r]())]
-        if not ready:
+    while not all(done[:world]):
+        if n == world:
+            ready = [r for r in range(n) if can(r)]
+            r = ready[next(picks, 0) % len(ready)] if ready else None
+        else:  # with the links' actors: the first that can step from a drawn one on
+            start = next(picks, 0) % n
+            r = next((i % n for i in range(start, start + n) if can(i % n)), None)
+        if r is None:
             return out, mesh.overwrites + mesh.after_free, True
-        r = ready[next(picks, 0) % len(ready)]
         try:
-            pending[r] = next(gens[r])
+            pending[r] = next(actors[r])
         except StopIteration:
             done[r] = True
     return out, mesh.overwrites + mesh.after_free, False
@@ -258,5 +384,58 @@ def test_the_model_catches_a_broken_protocol(broken, plan):
         out, overwrites, deadlocked = _run(2, schedule, plan, **broken)
         caught += bool(overwrites or _wrong(2, out, plan) or deadlocked)
         out, overwrites, deadlocked = _run(2, schedule, plan)
+        whole += bool(overwrites or _wrong(2, out, plan) or deadlocked)
+    assert caught > 0 and whole == 0
+
+
+def _check_across_hosts(data, worlds, max_schedule):
+    world = data.draw(worlds, label="world")
+    hosts = data.draw(st.lists(st.integers(0, 3), min_size=world, max_size=world), label="hosts")
+    plan = data.draw(_PLAN, label="plan")
+    schedule = data.draw(st.lists(st.integers(0, 63), max_size=max_schedule), label="schedule")
+    out, overwrites, deadlocked = _run(world, schedule, plan, hosts=hosts)
+    assert not deadlocked
+    assert overwrites == []
+    assert _wrong(world, out, plan) == []
+
+
+@settings(max_examples=200, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(data=st.data())
+def test_across_hosts_every_rank_gets_every_epochs_blocks(data):
+    """2-4 ranks on 1-4 hosts: island peers through the mailbox, remote ones
+    through the out staging, the proxies' ordered channels and the in
+    staging, flags a slot, acknowledgements over the wire; every
+    interleaving delivers each collective's blocks in rank order (a sum's
+    in global shard order) to every rank, no staging or region is written
+    while a peer reads it, and no rank or proxy waits forever."""
+    _check_across_hosts(data, st.integers(2, 4), 1500)
+
+
+@settings(max_examples=25, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(data=st.data())
+def test_across_hosts_many_ranks(data):
+    """The same with 5-16 ranks on 1-4 hosts (fewer interleavings: each
+    takes thousands of steps)."""
+    _check_across_hosts(data, st.sampled_from([5, 8, 16]), 4000)
+
+
+@pytest.mark.parametrize("broken,plan", [(dict(proxy_flag_first=True), _FULL), (dict(wire_acks=False), _FULL),
+                                         (dict(remote_credit=False), _EMPTY)],
+                         ids=["proxy_flag_before_chunk", "no_ack_over_the_wire", "slot_reuse_before_remote_ack"])
+def test_the_model_catches_a_broken_cross_host_protocol(broken, plan):
+    """Two ranks on two hosts. A proxy that raises a chunk's flag before it
+    lands the chunk lets the kernel read the slot's last epoch; a wire that
+    carries no acknowledgement leaves the credit wait forever; a rank that
+    rewrites a slot before the remote acknowledgement -- possible past an
+    empty collective -- has its proxy send the new chunk under the old
+    epoch's flag. Some of 300 random interleavings show it, and the whole
+    protocol passes the same interleavings."""
+    rng = random.Random(1)
+    caught = whole = 0
+    for _ in range(300):
+        schedule = [rng.randrange(64) for _ in range(1500)]
+        out, overwrites, deadlocked = _run(2, schedule, plan, hosts=[0, 1], **broken)
+        caught += bool(overwrites or _wrong(2, out, plan) or deadlocked)
+        out, overwrites, deadlocked = _run(2, schedule, plan, hosts=[0, 1])
         whole += bool(overwrites or _wrong(2, out, plan) or deadlocked)
     assert caught > 0 and whole == 0
