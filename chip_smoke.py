@@ -235,10 +235,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (``extract_features_sharded`` on a 2 data x 2 line mesh; no
      conditional node) and pairs-64x1024-sharded4
      (``register_pairs_sharded``, 12 consecutive pairs), one program a call
-     each, through the same checks; then the sharded scan-to-map and
-     offline cells at 16 and 64 frames (offline's nodes may follow the
-     frames: its pairs are one lockstep batch, whose kNN split plan follows
-     the pairs; conditional nodes required equal). The grid, pose-graph and
+     each, through the same checks; then the sharded scan-to-map cell at
+     16 and 64 frames (the offline one: phase 16). The grid, pose-graph and
      closure cells, through the same checks, each also held to its phase's
      gates:
      s2m-64x1024-grid (phase 8's call: the grids built inside the frames'
@@ -274,10 +272,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      nudged by 1e-6 m is printed beside it: how near the drive's keyframe
      decisions lie to their threshold. The maps' live slots, ``dropped``
      0, overflow (0, 0), the kNN's visit share at the last frame. Then
-     offline-c4, s2m and s2m-grid captured afresh at 16, 64 and 128
-     frames: graph nodes and conditional nodes equal at every length, the
-     pool growing no faster than 1.25x what the call must hold (outputs
-     and hoisted features) plus 64 MiB; ms a call (the mean of 2 replays
+     offline-c4, s2m, s2m-grid and offline-64x1024-sharded4 (F17: 4
+     shards of this card in a world-size-1 NCCL group; its nodes may
+     follow the frames, its pairs being one lockstep batch whose kNN split
+     plan follows the pairs) captured afresh at 16, 64 and 128 frames:
+     graph nodes and conditional nodes equal at every length, the pool
+     growing no faster than 1.25x what the call must hold (outputs and
+     hoisted features) plus 64 MiB; ms a call (the mean of 2 replays
      after one), peak device memory. A ``{"drive": ...}`` line.
      ``--drive-only`` runs phase 1 and this phase alone.
  17. One rank a card. N ranks, N the largest power of two no greater than
@@ -337,12 +338,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      every rank bit-equal to rank 0's and to 1 rank x N shards, every
      collective bit-equal to its plain version and one graph node, timed
      beside its bound: NVLink within the island, PCIe at 64 GB/s each way
-     to the staging for the remote peers); the probe's kernel cases in a
-     WHILE and an IF body on each split (required accepted); and the wire's
-     own rate beside each collective (``--wire-worker``: a plain socket
-     copy of the bytes the kernel sends each remote peer, between the same
-     kind of processes, and NCCL's gather or all-reduce over its network
-     transport, the ranks' hosts named by ``NCCL_HOSTID``). On one card: two
+     to the staging for the remote peers), and rank 0's proxy counters over
+     one eager call of each (a link's messages, chunks, bytes and
+     acknowledgements, its send / recv calls and the time blocked in them,
+     the sender's time finding runs and asleep: ``PeerMailbox.
+     link_counters``); the probe's kernel cases in a WHILE and an IF body on
+     each split (required accepted); and the wire's own rate beside each
+     collective (``--wire-worker``: a plain socket copy of the bytes the
+     kernel sends each remote peer, between the same kind of processes,
+     over 1, 2 and 4 sockets a peer, and NCCL's gather or all-reduce over
+     its network transport, the ranks' hosts named by ``NCCL_HOSTID``): the
+     kernel's time over the one-socket copy's, and the wire floor (those
+     bytes over the best socket rate measured) with the kernel's share of
+     it. ``--collectives-only`` runs phase 1 and, on every mesh of the N
+     ranks, the collectives' check with the counters and the wire's rate
+     alone (no cell). On one card: two
      ranks on ``cuda:0`` in a gloo group, each its own host
      (``--share-worker``: the cross-host leg with the card time-sliced
      between the two processes), every cell through the same gates against
@@ -417,6 +427,10 @@ DRIVE_ATE_RATIO = 0.10
 # the scan perturbation (m, Gaussian, seed 7) of phase 16's float32 run
 # that shows how near its keyframe decisions lie to the threshold
 DRIVE_NUDGE_M = 1e-6
+# phase 16's sharded cell (F17), whose graph nodes follow the frames
+SHARDED_CELL = "offline-64x1024-sharded4"
+SHARDED_VARY = ("its pairs are one lockstep batch, and the kNN's split plan (knn_cuda._splits: a merge kernel "
+                "where the targets split) follows the pairs")
 # a whole-call program's pool grows with the frames no faster than what the
 # call must hold (its outputs and the hoisted feature batch), give or take the
 # allocator's rounding of each buffer
@@ -1627,8 +1641,8 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
     edges padded to a multiple of 4; the shards' sums inside the LM loop's
     WHILE node; within 1e-8 of phase 11's solve and 1e-5 m of the truth):
     through :func:`_graph_phase` against the same calls eager, then the
-    scan-to-map and offline cells' graphs at 16 and 64 frames
-    (:func:`_graph_size_phase`)."""
+    scan-to-map cell's graphs at 16 and 64 frames (:func:`_graph_size_phase`;
+    the offline cell's: phase 16)."""
     from loam_tpu_torch import parallel
     from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
     from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
@@ -1678,11 +1692,10 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
         }
         out = _graph_phase(torch, smi, frames, drive, path_launches, cells, reps)
         with _dual_knn(False):
+            # offline-64x1024-sharded4's graph at 16, 64 and 128 frames: phase 16, with its pool
             out["graph_size_sharded"] = _graph_size_phase(smi, {
                 "s2m-64x1024-sharded4": {n: (lambda n=n: run_s2m(long, n)) for n in (16, 64)},
-                "offline-64x1024-sharded4": {n: (lambda n=n: run_off(long[:n])) for n in (16, 64)},
-            }, vary={"offline-64x1024-sharded4": "its pairs are one lockstep batch, and the kNN's split plan "
-                     "(knn_cuda._splits: a merge kernel where the targets split) follows the pairs"})
+            })
         mesh.release()
         mesh22.release()
     return out
@@ -1788,12 +1801,14 @@ def _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg,
     run and the ATE within ``DRIVE_ATE_RATIO`` of the run it is held to
     where the keyframes never part; the maps' live slots, ``dropped`` 0,
     overflow (0, 0) and the kNN's visit share at the last frame. Then each
-    whole-call program (offline-c4, s2m and s2m-grid) captured afresh at
-    16, 64 and all the frames (:func:`_graph_size_phase`): graph nodes and
-    conditional nodes equal at every length, and the pool growing no faster
+    whole-call program (offline-c4, s2m, s2m-grid and, on 4 shards of this
+    card, ``SHARDED_CELL``: F17) captured afresh at 16, 64 and all the
+    frames (:func:`_graph_size_phase`): graph nodes (but the sharded
+    cell's) and conditional nodes equal at every length, and the pool growing no faster
     than what the call must hold (its outputs and the hoisted feature
     batch; ``POOL_GROWTH_RATIO``, ``POOL_SLACK_B``). Peak device memory and
     ms a call. Gates that fail raise after everything is printed."""
+    from loam_tpu_torch import parallel
     from loam_tpu_torch.evaluation import relative_pose_gaps
     from loam_tpu_torch.registration import loop
 
@@ -1960,12 +1975,18 @@ def _drive_phase(T, torch, dev, smi, drive_np, drive_gt, lidar, fp, rp, s2m_reg,
         "s2m-64x1024": lambda n: T.scan_to_map_offline(scans[:n], lidar, fp, s2m_reg, s2m_cfg)[1:],
         "s2m-64x1024-grid": lambda n: T.scan_to_map_offline(scans[:n], lidar, fp, grid_reg, s2m_cfg)[1:],
     }
-    held = {cell: (lambda got, n: _nbytes(*_leaves(got)) + per_frame * n) for cell in calls}
+    held = {cell: (lambda got, n: _nbytes(*_leaves(got)) + per_frame * n) for cell in (*calls, SHARDED_CELL)}
     try:
-        with _dual_knn(False):
-            out["sizes"] = _graph_size_phase(
-                smi, {cell: {n: (lambda n=n, call=call: call(n)) for n in (*DRIVE_SIZES, D)}
-                      for cell, call in calls.items()}, held=held, phase=16)
+        with _dual_knn(False), _nccl_group() as group:
+            # F17: the sharded offline driver on 4 shards of this card (phase 12's mesh)
+            mesh = parallel.make_mesh([dev] * 4, group=group)
+            calls[SHARDED_CELL] = lambda n: parallel.odometry_offline_sharded(scans[:n], lidar, mesh, fp, rp)
+            try:
+                out["sizes"] = _graph_size_phase(
+                    smi, {cell: {n: (lambda n=n, call=call: call(n)) for n in (*DRIVE_SIZES, D)}
+                          for cell, call in calls.items()}, held=held, phase=16, vary={SHARDED_CELL: SHARDED_VARY})
+            finally:
+                mesh.release()
     except AssertionError as e:
         failed.append(str(e))
     print(json.dumps({"drive": out}))
@@ -2405,7 +2426,8 @@ def _peer_check(torch, mesh, shapes: dict, reps: int, big: int = 2) -> dict:
     of one block past one rank; another order of adds, so never compared).
     Host us: a kernel call enqueued, no sync (:func:`_host_us`). A row past
     64 MB: ``big`` calls captured into the graph (at 1, replayed once), and
-    as many host calls."""
+    as many host calls. On a mesh with remote peers, the proxy's counters
+    over one eager call (:func:`_link_split`)."""
     import torch.distributed as dist
 
     from loam_tpu_torch.ops.peer_cuda import peer_gather_reference, peer_sum_reference
@@ -2432,6 +2454,8 @@ def _peer_check(torch, mesh, shapes: dict, reps: int, big: int = 2) -> dict:
         del a, b
         n = big if nbytes > 64 << 20 else 20
         replays = 1 if n == 1 else 3
+        if mesh.peer is not None and mesh.peer.remote:
+            row["wire"] = _link_split(torch, mesh, kernel)
         row.update(ms=_time_ms(kernel, reps), plain_ms=_time_ms(plain, reps),
                    graph_us=_graph_ms(kernel, n, replays) * 1e3, plain_graph_us=_graph_ms(plain, n, replays) * 1e3,
                    graph_nodes=_graph_nodes(torch, kernel), host_us=_host_us(kernel, 2 * n if n < 20 else 100))
@@ -2453,6 +2477,42 @@ def _peer_check(torch, mesh, shapes: dict, reps: int, big: int = 2) -> dict:
             del block
         rows[name] = row
     return rows
+
+
+def _link_split(torch, mesh, fn) -> dict:
+    """Where one eager call of the collective ``fn`` spends the cross-host
+    leg's time on this rank: the proxy's counters of each remote peer's
+    link read just before and just after it (``PeerMailbox.link_counters``,
+    host memory, so outside any graph), by direction the largest over the
+    links (``a link``) and the sum over them, and the call's ms (host
+    clock, synchronized)."""
+    from loam_tpu_torch.ops.peer_cuda import LINK_COUNTERS
+
+    torch.cuda.synchronize()
+    before = mesh.peer.link_counters()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = mesh.peer.link_counters()
+    delta = {t: {side: {k: after[t][side][k] - before[t][side][k] for k in LINK_COUNTERS}
+                 for side in ("send", "recv")} for t in after}
+    return {"ms": ms, "links": len(delta),
+            **{f"{side}_a_link": {k: max(d[side][k] for d in delta.values()) for k in LINK_COUNTERS}
+               for side in ("send", "recv")},
+            **{f"{side}_sum": {k: sum(d[side][k] for d in delta.values()) for k in LINK_COUNTERS}
+               for side in ("send", "recv")}}
+
+
+def _wire_text(w: dict) -> str:
+    """One line of :func:`_link_split`'s record."""
+    s, r = w["send_a_link"], w["recv_a_link"]
+    return (f"one eager call {w['ms']:.3f} ms over {w['links']} link(s); a link sends {s['messages']:.0f} messages "
+            f"of {s['chunks']:.0f} chunks, {s['bytes']:.0f} B, in {s['syscalls']:.0f} send calls blocked "
+            f"{s['blocked_s'] * 1e3:.3f} ms, scanning {s['scan_s'] * 1e3:.3f} ms, asleep {s['sleep_s'] * 1e3:.3f} "
+            f"ms; receives {r['messages']:.0f} messages of {r['chunks']:.0f} chunks, {r['bytes']:.0f} B, in "
+            f"{r['syscalls']:.0f} recv calls blocked {r['blocked_s'] * 1e3:.3f} ms, asleep "
+            f"{r['sleep_s'] * 1e3:.3f} ms (the largest link's)")
 
 
 def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
@@ -2585,6 +2645,7 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
                 "knn_dual": knn_cuda.knn_dual_run, "peer_gather": peer_cuda.peer_gather,
                 "peer_sum": peer_cuda.peer_sum}
     full = tuple(cells) == RANKS_CELLS and not share
+    alone = not cells  # --collectives-only: the collectives' check on every mesh, no cell
     meshes = {f"{world}x1 on one card": list(range(world))} if share else {"one host": None, **_host_splits(world)}
     results = {}
     try:
@@ -2598,11 +2659,14 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
             mark = lambda what, name=name: stamp(f"{name}: {what}")
             # across hosts the wire bounds the large collectives: one timed run a cell, fewer calls of them
             across = hosts is not None
-            with _env(LOAM_ICF_DUAL_KNN="0"):
-                outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
-                                                                       cells), counters, 1 if across else 2, mark)
+            outputs, rows, summary = {}, {}, {}
+            if cells:
+                with _env(LOAM_ICF_DUAL_KNN="0"):
+                    outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp,
+                                                                           graph, cells), counters,
+                                                        1 if across else 2, mark)
             peer = None
-            if full:
+            if full or alone:
                 mark("the kernel's collectives against their plain versions at the cells' shapes")
                 peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 2 if across else 5,
                                    1 if across else 2)
@@ -2644,6 +2708,8 @@ def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS, share: bool = Fals
 # the collectives whose wire rate phase 17 measures: a small gather, a tree,
 # the large sum and a small one
 WIRE_ROWS = ("knn_planar_val", "details", "sum_H", "sum_b")
+# the socket copy's streams a peer: whether one TCP stream sets the wire's rate
+WIRE_STREAMS = (1, 2, 4)
 
 
 def _wire_worker(split: str, rank: int, world: int, port: int, out_dir: str) -> int:
@@ -2658,7 +2724,9 @@ def _wire_worker(split: str, rank: int, world: int, port: int, out_dir: str) -> 
     plain socket copy between the same processes of what the kernel sends
     each remote peer (a gather: the rank's block; a sum: (L + 1) slices),
     to every remote peer at once while receiving theirs (host clock, the
-    median of 3 after a barrier). Writes ``wire<r>.json``."""
+    median of 3 after a barrier), cut over 1, 2 and 4 sockets a peer
+    (``WIRE_STREAMS``: whether one TCP stream sets the rate). Writes
+    ``wire<r>.json``."""
     import socket
     import threading
 
@@ -2672,36 +2740,44 @@ def _wire_worker(split: str, rank: int, world: int, port: int, out_dir: str) -> 
     os.environ["NCCL_DEBUG"], os.environ["NCCL_DEBUG_SUBSYS"] = "INFO", "INIT,NET"
     dev = _rank_group(torch, rank, world, port, RANKS_COLLECTIVE_TIMEOUT_S)
     remote = [t for t in range(world) if labels[t] != labels[rank]]
-    # plain sockets to every remote peer: connect to those above, accept those below
+    # plain sockets to every remote peer, max(WIRE_STREAMS) a peer: connect to
+    # those above, accept those below
     listener = socket.socket()
     listener.bind(("127.0.0.1", 0))
-    listener.listen(world)
+    listener.listen(world * max(WIRE_STREAMS))
     ports = torch.zeros(world, dtype=torch.int64, device=dev)
     ports[rank] = listener.getsockname()[1]
     dist.all_reduce(ports)
-    socks = {}
+    socks = {t: [None] * max(WIRE_STREAMS) for t in remote}
     for t in remote:
         if t > rank:
-            sock = socket.create_connection(("127.0.0.1", int(ports[t])), timeout=60)
-            sock.sendall(rank.to_bytes(4, "little"))
-            socks[t] = sock
-    while len(socks) < len(remote):
+            for i in range(max(WIRE_STREAMS)):
+                sock = socket.create_connection(("127.0.0.1", int(ports[t])), timeout=60)
+                sock.sendall(rank.to_bytes(4, "little") + i.to_bytes(4, "little"))
+                socks[t][i] = sock
+    while any(None in v for v in socks.values()):
         sock, _ = listener.accept()
-        socks[int.from_bytes(sock.recv(4, socket.MSG_WAITALL), "little")] = sock
+        hello = sock.recv(8, socket.MSG_WAITALL)
+        socks[int.from_bytes(hello[:4], "little")][int.from_bytes(hello[4:], "little")] = sock
     listener.close()
-    for sock in socks.values():
+    for sock in (x for v in socks.values() for x in v):
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
-    def copy(n: int) -> float:
+    def copy(n: int, streams: int) -> float:
+        """n bytes to every remote peer at once while receiving theirs, cut
+        into ``streams`` parts, each over a socket of its own."""
+        cuts = [n * i // streams for i in range(streams + 1)]
         out, ins = bytes(n), {t: bytearray(n) for t in socks}
 
-        def recv(t):
-            view, got = memoryview(ins[t]), 0
-            while got < n:
-                got += socks[t].recv_into(view[got:], min(n - got, 4 << 20))
+        def recv(t, i):
+            view, got, end = memoryview(ins[t]), cuts[i], cuts[i + 1]
+            while got < end:
+                got += socks[t][i].recv_into(view[got:end], min(end - got, 4 << 20))
 
-        threads = [threading.Thread(target=socks[t].sendall, args=(out,)) for t in socks]
-        threads += [threading.Thread(target=recv, args=(t,)) for t in socks]
+        view = memoryview(out)
+        threads = [threading.Thread(target=socks[t][i].sendall, args=(view[cuts[i]:cuts[i + 1]],))
+                   for t in socks for i in range(streams)]
+        threads += [threading.Thread(target=recv, args=(t, i)) for t in socks for i in range(streams)]
         dist.barrier()
         t0 = time.perf_counter()
         for th in threads:
@@ -2722,10 +2798,10 @@ def _wire_worker(split: str, rank: int, world: int, port: int, out_dir: str) -> 
             y = x.view(torch.float64) if block % 8 == 0 else x.float()
             nccl = lambda: dist.all_reduce(y)
         sent = nbytes if kind == "gather" else (L + 1) * sum_slice(block, world)
-        ms = sorted(copy(sent) for _ in range(3))[1] if socks else 0.0
-        out[name] = {"nccl_ms": _time_ms(nccl, 3), "socket_ms": ms, "socket_bytes_a_peer": sent,
-                     "socket_peers": len(socks)}
-    for sock in socks.values():
+        ms = {k: sorted(copy(sent, k) for _ in range(3))[1] if socks else 0.0 for k in WIRE_STREAMS}
+        out[name] = {"nccl_ms": _time_ms(nccl, 3), "socket_ms": ms[1], "socket_ms_streams": ms,
+                     "socket_bytes_a_peer": sent, "socket_peers": len(socks)}
+    for sock in (x for v in socks.values() for x in v):
         sock.close()
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"wire{rank}.json"), "w") as f:
@@ -2752,6 +2828,8 @@ def _wire_rates(N: int, out_dir: str, peer_rows: dict) -> dict:
         log = open(os.path.join(out_dir, f"wire_{split}_0.log")).read()
         out[split] = {n: {"nccl_ms": max(r[n]["nccl_ms"] for r in ranks),
                           "socket_ms": max(r[n]["socket_ms"] for r in ranks),
+                          "socket_ms_streams": {k: max(r[n]["socket_ms_streams"][str(k)] for r in ranks)
+                                                for k in WIRE_STREAMS},
                           "socket_bytes_a_peer": ranks[0][n]["socket_bytes_a_peer"],
                           "nccl_socket_transport": "NET/Socket" in log} for n in spec}
     return out
@@ -2946,24 +3024,77 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
           f"{record['contexts']}; ATE {record['ate_m']} m; dropped {record['dropped']}", flush=True)
     record["splits"] = _split_checks(torch, ranks, one_outputs, failed, smi)
     if full and N > 1:
-        wire = _wire_rates(N, out_dir, ranks[0]["splits"][next(iter(_host_splits(N)))]["peer"])
-        for split, rates in wire.items():
-            record["splits"][split]["wire"] = rates
-            if isinstance(rates, str):
-                print(f"phase 17 {split}: the wire's rate {rates}", flush=True)
-                continue
-            for n, w in rates.items():
-                row = record["splits"][split]["peer"][n]
-                print(f"phase 17 {split} {row['kind']} {n}, {row['what']} a rank: the kernel {row['graph_us']:.1f} us "
-                      f"in a graph (slowest rank), bound {row['bound_ms'] * 1e3:.1f} us; the wire alone: a socket "
-                      f"copy of {w['socket_bytes_a_peer']} B to each remote peer at once {w['socket_ms'] * 1e3:.1f} us, "
-                      f"NCCL over its network transport {w['nccl_ms'] * 1e3:.1f} us (NET/Socket logged: "
-                      f"{w['nccl_socket_transport']}), on {smi}", flush=True)
+        _wire_phase(record, N, out_dir, ranks, smi)
     if N == 1 and cells == RANKS_CELLS:
         record["one_card_two_hosts"] = _share_phase(T, torch, counters, out_dir, failed, smi)
     print(json.dumps({"ranks": record}))
     if failed:
         raise AssertionError("phase 17: " + "; ".join(failed))
+    return record
+
+
+def _wire_phase(record: dict, N: int, out_dir: str, ranks: list, smi: str) -> None:
+    """The wire's own rate on every mesh across hosts (:func:`_wire_rates`)
+    beside each cross-host collective of ``record["splits"]``: the kernel's
+    time in a graph over the socket copy of the same bytes (its ratio), and
+    the wire floor: what the kernel sends each remote peer over the link's
+    best measured socket rate (any row, any number of streams)."""
+    wire = _wire_rates(N, out_dir, ranks[0]["splits"][next(iter(_host_splits(N)))]["peer"])
+    for split, rates in wire.items():
+        record["splits"][split]["wire"] = rates
+        if isinstance(rates, str):
+            print(f"phase 17 {split}: the wire's rate {rates}", flush=True)
+            continue
+        best = max(w["socket_bytes_a_peer"] / (ms * 1e-3) for w in rates.values()
+                   for ms in w["socket_ms_streams"].values() if ms > 0)
+        record["splits"][split]["wire_best_bytes_s"] = best
+        for n, w in rates.items():
+            row = record["splits"][split]["peer"][n]
+            row["wire_floor_ms"] = w["socket_bytes_a_peer"] / best * 1e3
+            row["socket_ratio"] = row["graph_us"] * 1e-3 / w["socket_ms"] if w["socket_ms"] > 0 else None
+            row["wire_share"] = row["wire_floor_ms"] / (row["graph_us"] * 1e-3)
+            streams = ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in w["socket_ms_streams"].items())
+            print(f"phase 17 {split} {row['kind']} {n}, {row['what']} a rank: the kernel {row['graph_us']:.1f} us "
+                  f"in a graph (slowest rank), bound {row['bound_ms'] * 1e3:.1f} us, wire floor "
+                  f"{row['wire_floor_ms'] * 1e3:.1f} us ({w['socket_bytes_a_peer']} B a peer at the best socket rate, "
+                  f"{best / 1e9:.4f} GB/s; share {row['wire_share']:.4f}); the wire alone: a socket copy to each remote "
+                  f"peer at once {w['socket_ms'] * 1e3:.1f} us (the kernel / the copy "
+                  f"{row['socket_ratio'] if row['socket_ratio'] is None else round(row['socket_ratio'], 3)}), over "
+                  f"streams a peer {streams}; NCCL over its network transport {w['nccl_ms'] * 1e3:.1f} us "
+                  f"(NET/Socket logged: {w['nccl_socket_transport']}), on {smi}", flush=True)
+
+
+def _collectives_phase(torch, smi, scans_np) -> dict:
+    """``--collectives-only``: phase 17's ranks on every mesh (one host and
+    each split across hosts) run only the collectives' check at the cells'
+    shapes (:func:`_peer_check`, with the proxy's counters a call across
+    hosts), then the wire's rate beside them (:func:`_wire_phase`). A
+    focused run of the cross-host leg; prints a ``{"collectives": ...}``
+    line and raises where a collective differs from its plain version or
+    is more than one graph node."""
+    N = _rank_count(torch)
+    if N < 2:
+        raise AssertionError("--collectives-only needs at least two cards")
+    out_dir = tempfile.mkdtemp(prefix="loam_ranks_")
+    np.save(os.path.join(out_dir, "scans.npy"), scans_np)
+    _spawn_ranks(N, out_dir, ())
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(N)]
+    for r in range(N):
+        print(open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip(), flush=True)
+    failed = []
+    for n, row in ranks[0]["peer"].items():
+        slow = max(res["peer"][n]["graph_us"] for res in ranks)
+        print(f"phase 17 {row['kind']} {n}, one host, {row['what']} a rank: the kernel {slow:.2f} us in a graph "
+              f"(slowest rank), bit-equal on every rank: {all(res['peer'][n]['equal'] for res in ranks)}, on {smi}",
+              flush=True)
+        if not all(res["peer"][n]["equal"] and res["peer"][n]["graph_nodes"] == 1 for res in ranks):
+            failed.append(f"one host {n}: differs from its plain version or is more than one graph node")
+    record = {"ranks": N, "one_host": {n: max(res["peer"][n]["graph_us"] for res in ranks) for n in ranks[0]["peer"]},
+              "splits": _split_checks(torch, ranks, {}, failed, smi)}
+    _wire_phase(record, N, out_dir, ranks, smi)
+    print(json.dumps({"collectives": record}))
+    if failed:
+        raise AssertionError("--collectives-only: " + "; ".join(failed))
     return record
 
 
@@ -3030,12 +3161,15 @@ def _split_checks(torch, ranks: list, one_outputs: dict, failed: list, smi: str)
                          _sum_bound(nbytes // L, L, N, island))
                 rec["peer"][n] = {"kind": row["kind"], "what": row["what"], "bytes": nbytes, "L": L,
                                   "equal_every_rank": all(res["peer"][n]["equal"] for res in mine),
-                                  "graph_nodes": row["graph_nodes"], **slow, **bound}
+                                  "graph_nodes": row["graph_nodes"], "wire_rank0": row.get("wire"), **slow, **bound}
                 print(f"phase 17 {row['kind']} {n} across hosts {split}, {row['what']} a rank: the kernel "
                       f"{slow['ms']:.4f} ms back to back, {slow['graph_us']:.2f} us in a graph, host {slow['host_us']:.2f}"
                       f" us a call; plain (NCCL) {slow['plain_ms']:.4f} ms, {slow['plain_graph_us']:.2f} us; bound "
                       f"{bound['bound_ms'] * 1e3:.2f} us (island of {island}, PCIe to {N - island}); bit-equal on "
                       f"every rank: {rec['peer'][n]['equal_every_rank']}; slowest rank, on {smi}", flush=True)
+                if row.get("wire"):
+                    print(f"phase 17 {row['kind']} {n} across hosts {split}, rank 0's proxy: {_wire_text(row['wire'])}",
+                          flush=True)
         out[split] = rec
     return out
 
@@ -3093,10 +3227,12 @@ def main() -> int:
     extraction_only = sys.argv[1:] == ["--extraction-only"]
     drive_only = sys.argv[1:] == ["--drive-only"]
     ranks_only = sys.argv[1:2] == ["--ranks-only"]
+    collectives_only = sys.argv[1:] == ["--collectives-only"]
     ranks_cells = tuple(sys.argv[2:]) if ranks_only and sys.argv[2:] else RANKS_CELLS
-    if sys.argv[1:] and not (extraction_only or drive_only or ranks_only) or set(ranks_cells) - set(RANKS_CELLS):
-        print(f"usage: chip_smoke.py [--extraction-only | --drive-only | --ranks-only [cell ...]], cells "
-              f"{' '.join(RANKS_CELLS)}", file=sys.stderr)
+    if sys.argv[1:] and not (extraction_only or drive_only or ranks_only or collectives_only) or \
+            set(ranks_cells) - set(RANKS_CELLS):
+        print(f"usage: chip_smoke.py [--extraction-only | --drive-only | --ranks-only [cell ...] | "
+              f"--collectives-only], cells {' '.join(RANKS_CELLS)}", file=sys.stderr)
         return 2
 
     import loam_tpu_torch as T
@@ -3137,7 +3273,8 @@ def main() -> int:
     # the drive of phase 16, rendered once: render_trajectory seeds frame f
     # with seed + f, so the shorter runs' scans are its first frames
     drive_np, drive_poses = render_trajectory(
-        lidar, frames if extraction_only or ranks_only else DRIVE_FRAMES, step=np.array([0.08, 0.02, 0.0]),
+        lidar, frames if extraction_only or ranks_only or collectives_only else DRIVE_FRAMES,
+        step=np.array([0.08, 0.02, 0.0]),
         yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32,
     )
     drive_gt = np.stack([t for (_, t) in drive_poses])
@@ -3184,6 +3321,13 @@ def main() -> int:
         _stamp("phase 17")
         _ranks_phase(T, torch, smi, scans_np, drive_gt[:frames], counters, path_launches, ate_rmse, 2,
                      ranks_cells)
+        _stamp("phases done")
+        print(smi)
+        return 0
+    if collectives_only:
+        # phase 17's collectives alone, after the build
+        _stamp("phase 17, the collectives")
+        _collectives_phase(torch, smi, scans_np)
         _stamp("phases done")
         print(smi)
         return 0
@@ -4043,8 +4187,8 @@ def main() -> int:
                                   extraction + ("knn_dual",), dict(check=check_closures, rate=False)),
     })
     one_program = _graph_phase(torch, smi, frames, drive, path_launches, graph_cells, reps)
-    # the drive's first 64 frames: the sharded cells at 16 and 64 frames
-    # (offline-c4, s2m and s2m-grid at 16, 64 and 128: phase 16)
+    # the drive's first 64 frames: the sharded scan-to-map at 16 and 64 frames
+    # (offline-c4, s2m, s2m-grid and offline-sharded4 at 16, 64 and 128: phase 16)
     long = torch.from_numpy(drive_np[:64]).to(dev)
     one_program["graph_size"] = _graph_size_phase(smi, {
         "posegraph-1000-f64": {n: (lambda n=n: optimize_pose_graph(*pg64, n)) for n in (10, 40)},

@@ -120,7 +120,7 @@ def _extract_batch(pts, lidar: LidarParams, params: FeatureExtractionParams, pos
 
 def extract_in_blocks(scans: torch.Tensor, lidar: LidarParams,
                       params: FeatureExtractionParams = FeatureExtractionParams(),
-                      post=None) -> FeatureSet:
+                      post=None, extract=None) -> FeatureSet:
     """:func:`extract_features_batch`'s features of (F, L, P, 3) or (F, L*P,
     3) ``scans``, inside a program: the frames in blocks of
     ``min(F, EXTRACT_BLOCK)`` as one ``program.scan`` (one WHILE node on
@@ -129,16 +129,20 @@ def extract_in_blocks(scans: torch.Tensor, lidar: LidarParams,
     over frames). The last block repeats the last frame where it runs past F;
     those rows are cut. Each frame's features equal the one-batch
     extraction's bit for bit: the kernels and their plain versions work
-    line by line."""
+    line by line. ``extract``: a block's features from its (B, L, P, 3)
+    frames in place of :func:`extract_features_batch`'s work and ``post``
+    (the sharded offline driver's line blocks)."""
     pts = validate_scan(scans, lidar)
     F, dev = pts.shape[0], pts.device
     B = min(F, EXTRACT_BLOCK)
     n = -(-F // B)
     offsets = torch.arange(B, device=dev)
+    if extract is None:
+        extract = lambda p: _extract_batch(p, lidar, params, post)
 
     def block(i):
         rows = torch.clamp(i * B + offsets, max=F - 1)
-        return _extract_batch(pts.index_select(0, rows), lidar, params, post)
+        return extract(pts.index_select(0, rows))
 
     return program.scan(n, block, dev).map(lambda x: x.reshape((n * B,) + x.shape[2:])[:F])
 

@@ -45,7 +45,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types; every one returns cudaError_t
 # (the *_form queries, loam_knn_*_queries / _max_boxes, loam_peer_max_ranks /
-# _segments and loam_peer_aborted return a number)
+# _segments, loam_peer_aborted and loam_peer_link_counters return a number)
 SIGNATURES = {
     "loam_sector_sort_form": (_I, _I, _I, _I),
     "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -73,6 +73,7 @@ SIGNATURES = {
     "loam_peer_open": (_P, ctypes.c_char_p, ctypes.POINTER(_I)),
     "loam_peer_proxy": (_P, ctypes.POINTER(_I)),
     "loam_peer_aborted": (_P, ctypes.c_char_p, _I),
+    "loam_peer_link_counters": (_P, _I, ctypes.POINTER(ctypes.c_ulonglong)),
     "loam_peer_close": (_P,),
     "loam_peer_free": (_P,),
     "loam_peer_run": (_P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P),

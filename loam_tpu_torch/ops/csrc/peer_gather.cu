@@ -52,8 +52,9 @@
 //            kernel stores a chunk into the out staging over PCIe, writes
 //            where it lies and raises its flag (release, system scope); the
 //            rank's proxy (peer_proxy.cpp) sends it over TCP to the
-//            peer's proxy, which lands it in that rank's in staging and
-//            raises the flag there; the peer's kernel waits on it (acquire,
+//            peer's proxy, each run of consecutive raised chunks one
+//            message, which lands it in that rank's in staging and
+//            raises the flags there; the peer's kernel waits on it (acquire,
 //            system scope, with a growing __nanosleep between reads, so the
 //            spin does not flood PCIe) and copies the chunk in (L2-only
 //            loads, never L1). Acknowledgements cross the same way. A rank
@@ -770,6 +771,17 @@ extern "C" int loam_peer_aborted(void* h, char* msg, int len) {
   for (int t = 0, j = 1; i && t < s->world; ++t)
     if (!s->island[t] && j++ == i) return t + 1;
   return 0;
+}
+
+// The proxy's counters of the link to remote rank t (loam_proxy_counters):
+// their number a direction, or -1 where t is not a remote peer or no proxy
+// runs.
+extern "C" int loam_peer_link_counters(void* h, int t, unsigned long long* out) {
+  LoamPeer* s = static_cast<LoamPeer*>(h);
+  if (!s->proxy || t < 0 || t >= s->world || s->island[t]) return -1;
+  int i = 0;
+  for (int r = 0; r < t; ++r) i += !s->island[r];
+  return loam_proxy_counters(s->proxy, i, out);
 }
 
 // Close every island peer's mapping here (first step of a release: the

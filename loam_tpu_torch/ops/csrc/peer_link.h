@@ -9,7 +9,12 @@
 // mailbox does):
 //   out_flags[s][k]  the kernel stores e here (release, system scope) once
 //                    chunk k of epoch e is in the out staging of slot s and
-//                    out_desc[s][k] says where; the proxy sends it
+//                    out_desc[s][k] says where; the proxy sends it, with
+//                    the consecutive chunks raised beside it (a run). An
+//                    epoch's chunks take flags 0, 1, ... of a half (a
+//                    gather's from 0 on, past LOAM_PEER_CHUNKS / 2 too; a
+//                    sum's first phase from 0, its second from
+//                    LOAM_PEER_CHUNKS / 2)
 //   out_desc[s][k]   {offset, bytes a piece, stride, (gen << 32) | pieces}:
 //                    the chunk's pieces, at offset + j * stride of the slot
 //                    (a sum's first phase sends L pieces a chunk), in the
@@ -48,6 +53,7 @@ extern "C" {
 void* loam_proxy_start(int n, const int* fds, struct LoamLink* const* links, unsigned long long* abort_word);
 int loam_proxy_stage(void* proxy, int gen, int i, char* out, char* in, unsigned long long cap);
 int loam_proxy_failed(void* proxy, char* msg, int len);
+int loam_proxy_counters(void* proxy, int link, unsigned long long* out);
 int loam_proxy_stop(void* proxy);
 int loam_proxy_link_bytes(void);
 #ifdef __cplusplus

@@ -6,19 +6,39 @@
 // For each remote peer (a link: a connected TCP socket and its LoamLink),
 // two threads, one a direction, so that no copy waits on another link's or
 // on the other direction's:
-//   send     polls out_flags: a flag above what was last sent for it is a
-//            chunk, sent as one message (a 56-byte header, then the pieces
-//            its out_desc names, read straight from the out staging); the
-//            slot of the lower epoch first, so chunks go in epoch order;
-//            ack_out above what was last sent: an acknowledgement message.
-//            Idle for 2 ms, it sleeps 20 us a round;
-//   receive  blocks on the socket: a chunk's header, then its pieces
-//            straight into the in staging at the same offsets, then
-//            in_flags[slot][k] = epoch (a release store: the bytes before
-//            the flag); an acknowledgement: ack_in.
+//   send     an acknowledgement first (ack_out above what was last sent: a
+//            header alone), then a run: consecutive chunks of one slot and
+//            epoch whose flags are up, found from a cursor a slot and half
+//            of the flags (a gather's chunks count from flag 0, a sum's
+//            first phase from 0 and its second from LOAM_PEER_CHUNKS / 2;
+//            a half's chunks of an epoch are raised from its first flag
+//            on, so the cursor starts there when that flag names a newer
+//            epoch), the slot of the lower epoch first and, in one
+//            epoch, the two halves in turn. A run's chunks lie
+//            a fixed step apart in each of its pieces (a gather's and a
+//            sum's second phase: one contiguous range; a sum's first
+//            phase: L ranges a stride apart), every one full but the last
+//            that holds bytes; it ends at the first flag not up, at a
+//            chunk that does not continue it, or at kRunBytes. One
+//            message: a header naming the slot, epoch, first chunk, count
+//            and byte ranges, then the bytes chunk by chunk, each chunk's
+//            pieces in order, in one sendmsg of an iovec a piece read
+//            straight from the out staging. Idle for 2 ms, it sleeps
+//            20 us a round;
+//   receive  blocks on the socket: a header, then a run's bytes straight
+//            into the in staging at the same offsets, kLandBytes at a
+//            time (a recvmsg over their pieces), each landing's chunks'
+//            in_flags[slot][k] = epoch after its bytes (a release store);
+//            an acknowledgement: ack_in.
 // The threads call no CUDA function and read and write only host memory:
 // the card reads and writes the same words over PCIe (release and acquire
-// at system scope on its side).
+// at system scope on its side). A run needs no order against the
+// acknowledgements: the peer acknowledges epoch e only after every chunk of
+// e arrived, so the kernel rewrites a slot only after its proxy sent it.
+//
+// Each direction of a link counts its messages, chunks, payload bytes and
+// acknowledgements, its send / recv calls and the time blocked in them, the
+// time spent finding runs and the time asleep (loam_proxy_counters).
 //
 // A socket that fails or closes, a message that names a slot or a staging
 // the rank does not have: the proxy stores 1 into the abort word, which the
@@ -36,6 +56,7 @@
 #include <netinet/tcp.h>
 #include <string.h>
 #include <sys/socket.h>
+#include <sys/uio.h>
 #include <unistd.h>
 
 #include <atomic>
@@ -52,12 +73,38 @@ namespace {
 
 constexpr unsigned kMagic = 0x4c4f414du;  // "LOAM"
 enum : unsigned { kData = 1, kAck = 2 };
+constexpr int kHalf = LOAM_PEER_CHUNKS / 2;  // a cursor's flags
+// a run's payload at most (a large collective's first chunks do not wait
+// behind all of it), and a landing's
+constexpr unsigned long long kRunBytes = 4ull << 20, kLandBytes = 1ull << 20;
+constexpr int kIov = 512;  // iovec entries a call at most (IOV_MAX is 1024)
 
+// a run: chunks k .. k + count - 1 of slot `slot`, epoch `epoch`; chunk i's
+// piece j is bytes [off + j * stride + i * step, + its bytes) of the slot,
+// a chunk's bytes min(step, bytes - i * step), none past `bytes`
 struct Header {
-  unsigned magic, type, k, slot;
-  unsigned long long epoch, off, bytes, stride, meta;  // meta: (gen << 32) | pieces
+  unsigned magic, type, slot, k;
+  unsigned count, pieces, gen, pad;
+  unsigned long long epoch, off, step, bytes, stride;
 };
-static_assert(sizeof(Header) == 56, "the wire's header is 56 bytes");
+static_assert(sizeof(Header) == 72, "the wire's header is 72 bytes");
+
+// what a link's direction did (loam_proxy_counters), written by its one
+// thread and read by any: messages (data), chunks and payload bytes they
+// carried, acknowledgements, send / recv calls and the nanoseconds blocked
+// in them, nanoseconds finding runs (the sender) and asleep
+enum { kMessages, kChunks, kBytes, kAcks, kSyscalls, kBlockedNs, kScanNs, kSleepNs, kCounters };
+
+struct Counters {
+  std::atomic<unsigned long long> v[kCounters] = {};
+  void add(int i, unsigned long long n) { v[i].fetch_add(n, std::memory_order_relaxed); }
+};
+
+using Clock = std::chrono::steady_clock;
+
+inline unsigned long long ns_since(Clock::time_point t0) {
+  return (unsigned long long)std::chrono::duration_cast<std::chrono::nanoseconds>(Clock::now() - t0).count();
+}
 
 struct Stage {
   char* out = nullptr;
@@ -65,10 +112,18 @@ struct Stage {
   unsigned long long cap = 0;
 };
 
+// where a slot and half's chunks were last sent: epoch e up to chunk k
+struct Cursor {
+  unsigned long long e = 0;
+  int k = 0;
+};
+
 struct Link {
   int fd = -1;
   LoamLink* w = nullptr;
-  unsigned long long sent[2][LOAM_PEER_CHUNKS] = {};  // the flag last sent, a slot and chunk
+  Counters out, in;  // the sender's, the receiver's
+  Cursor cur[2][2];  // [slot][half]
+  int last_half = 1;  // the half of the last run sent
   unsigned long long ack_sent = 0;
   Stage stage[LOAM_PEER_GENS];
   std::atomic<int> ready[LOAM_PEER_GENS];
@@ -84,12 +139,14 @@ struct Proxy {
   std::string error;
 };
 
-using Clock = std::chrono::steady_clock;
-
 inline unsigned long long load(const unsigned long long* p) { return __atomic_load_n(p, __ATOMIC_ACQUIRE); }
 inline void store(unsigned long long* p, unsigned long long v) { __atomic_store_n(p, v, __ATOMIC_RELEASE); }
 
-inline size_t payload(const Header& h) { return (size_t)h.bytes * (size_t)(h.meta & 0xffffffffu); }
+// chunk i's bytes in each piece of run h
+inline unsigned long long chunk_bytes(const Header& h, unsigned i) {
+  const unsigned long long lo = (unsigned long long)i * h.step;
+  return lo >= h.bytes ? 0 : (h.bytes - lo < h.step ? h.bytes - lo : h.step);
+}
 
 // the first failure: its reason kept, the abort word raised (none once the
 // proxy stops: its sockets are shut down on purpose)
@@ -102,138 +159,250 @@ void fail(Proxy* p, size_t i, const std::string& why) {
   store(p->abort_word, 1);
 }
 
-// where the pieces of a chunk start in a staging slot (*at), or why not:
-// later where the header's generation is not registered yet (a peer may
-// send its first chunks before this rank's registration ends), bad where it
-// names a generation, slot or range the staging cannot have
+// where run h's slot starts in a staging (*at), or why not: later where
+// the header's generation is not registered yet (a peer may send its first
+// chunks before this rank's registration ends), bad where it names a
+// generation, slot, chunk or range the staging cannot have
 enum Where { kHere, kLater, kBad };
 
 Where slot_base(Link& L, const Header& h, bool out, char** at) {
-  const unsigned gen = (unsigned)(h.meta >> 32), pieces = (unsigned)(h.meta & 0xffffffffu);
-  if (gen >= LOAM_PEER_GENS || h.slot > 1 || h.k >= LOAM_PEER_CHUNKS) return kBad;
-  if (!L.ready[gen].load(std::memory_order_acquire)) return kLater;
-  const Stage& s = L.stage[gen];
-  const unsigned long long end = pieces ? h.off + (pieces - 1ull) * h.stride + h.bytes : h.off;
+  if (h.gen >= LOAM_PEER_GENS || h.slot > 1 || h.k >= LOAM_PEER_CHUNKS || h.count < 1 ||
+      h.count > LOAM_PEER_CHUNKS - h.k || h.pieces < 1 || h.pieces > (1u << 20))
+    return kBad;
+  if (h.bytes > h.step * h.count || (h.bytes && h.step == 0)) return kBad;  // every byte in a chunk
+  if (!L.ready[h.gen].load(std::memory_order_acquire)) return kLater;
+  const Stage& s = L.stage[h.gen];
+  const unsigned long long span = (h.pieces - 1ull) * h.stride;
+  if (h.stride && span / h.stride != h.pieces - 1ull) return kBad;
+  const unsigned long long end = h.off + span + h.bytes;
   if (end > s.cap || end < h.off) return kBad;
-  *at = (out ? s.out : s.in) + h.slot * s.cap + h.off;
+  *at = (out ? s.out : s.in) + h.slot * s.cap;
   return kHere;
 }
 
-// all n bytes, or false
-bool send_all(int fd, const char* from, size_t n, bool more) {
-  while (n) {
-    const ssize_t got = send(fd, from, n, MSG_NOSIGNAL | (more ? MSG_MORE : 0));
+// run h's pieces from chunk i0 to i1, as iovec entries over the slot at
+// base (adjacent ones merged) appended to v
+void pieces(const Header& h, char* base, unsigned i0, unsigned i1, std::vector<iovec>& v) {
+  for (unsigned i = i0; i < i1; ++i) {
+    const unsigned long long n = chunk_bytes(h, i);
+    for (unsigned j = 0; n && j < h.pieces; ++j) {
+      char* at = base + h.off + j * h.stride + (unsigned long long)i * h.step;
+      if (!v.empty() && (char*)v.back().iov_base + v.back().iov_len == at)
+        v.back().iov_len += n;
+      else
+        v.push_back(iovec{at, (size_t)n});
+    }
+  }
+}
+
+// past n bytes of iovec list v from entry *i on
+void advance(std::vector<iovec>& v, size_t* i, size_t n) {
+  while (n && *i < v.size()) {
+    const size_t take = n < v[*i].iov_len ? n : v[*i].iov_len;
+    v[*i].iov_base = (char*)v[*i].iov_base + take;
+    v[*i].iov_len -= take;
+    n -= take;
+    if (v[*i].iov_len == 0) ++*i;
+  }
+}
+
+// every byte of v, kIov entries a sendmsg at most, or false
+bool send_all(int fd, std::vector<iovec>& v, Counters& c) {
+  size_t i = 0;
+  while (i < v.size()) {
+    if (v[i].iov_len == 0) {
+      ++i;
+      continue;
+    }
+    msghdr m{};
+    m.msg_iov = &v[i];
+    m.msg_iovlen = v.size() - i < (size_t)kIov ? v.size() - i : (size_t)kIov;
+    const auto t0 = Clock::now();
+    const ssize_t got = sendmsg(fd, &m, MSG_NOSIGNAL);
+    c.add(kSyscalls, 1);
+    c.add(kBlockedNs, ns_since(t0));
     if (got < 0 && errno == EINTR) continue;
     if (got <= 0) return false;
-    from += got;
-    n -= (size_t)got;
+    advance(v, &i, (size_t)got);
   }
   return true;
 }
 
-bool send_message(Link& L, const Header& h, const char* base) {
-  const unsigned pieces = (unsigned)(h.meta & 0xffffffffu);
-  const bool body = h.type == kData && payload(h) > 0;
-  if (!send_all(L.fd, reinterpret_cast<const char*>(&h), sizeof(h), body)) return false;
-  for (unsigned j = 0; body && j < pieces; ++j)
-    if (!send_all(L.fd, base + j * h.stride, h.bytes, j + 1 < pieces)) return false;
-  return true;
-}
-
-// one link's sender: the raised flags in epoch order, then the acknowledgement
-void send_loop(Proxy* p, size_t i) {
-  Link& L = *p->links[i];
-  auto last = Clock::now();
-  while (!p->stop.load(std::memory_order_acquire) && !p->failed.load(std::memory_order_acquire)) {
-    unsigned long long first[2] = {0, 0};  // a slot's epoch to send, 0: none
-    for (int s = 0; s < 2; ++s) {
-      if (!memcmp(L.w->out_flags[s], L.sent[s], sizeof(L.sent[s]))) continue;
-      for (int k = 0; k < LOAM_PEER_CHUNKS; ++k) {
-        const unsigned long long f = load(&L.w->out_flags[s][k]);
-        if (f > L.sent[s][k]) {
-          first[s] = f;
-          break;
-        }
-      }
+// every byte of v into place, or false (a closed socket: errno 0)
+bool recv_all(int fd, std::vector<iovec>& v, Counters& c) {
+  size_t i = 0;
+  while (i < v.size()) {
+    if (v[i].iov_len == 0) {
+      ++i;
+      continue;
     }
-    bool work = false;
-    const int lower = first[1] && (!first[0] || first[1] < first[0]) ? 1 : 0;
-    for (int s : {lower, 1 - lower}) {
-      for (int k = 0; first[s] && k < LOAM_PEER_CHUNKS; ++k) {
-        const unsigned long long f = load(&L.w->out_flags[s][k]);
-        if (f <= L.sent[s][k]) continue;
-        const unsigned long long* d = L.w->out_desc[s][k];
-        const Header h{kMagic, kData, (unsigned)k, (unsigned)s, f, d[0], d[1], d[2], d[3]};
-        char* base = nullptr;
-        const Where where = slot_base(L, h, true, &base);
-        if (where == kLater) continue;  // sent once its generation is registered
-        if (where == kBad)
-          return fail(p, i, "chunk " + std::to_string(k) + " of epoch " + std::to_string(f) +
-                                " names a staging or range this rank does not have");
-        if (!send_message(L, h, base)) return fail(p, i, std::string("send: ") + strerror(errno));
-        L.sent[s][k] = f;
-        work = true;
-      }
-    }
-    const unsigned long long a = load(&L.w->ack_out);
-    if (a > L.ack_sent) {
-      if (!send_message(L, Header{kMagic, kAck, 0, 0, a, 0, 0, 0, 0}, nullptr))
-        return fail(p, i, std::string("send: ") + strerror(errno));
-      L.ack_sent = a;
-      work = true;
-    }
-    if (work) {
-      last = Clock::now();
-    } else if (Clock::now() - last > std::chrono::milliseconds(2)) {
-      std::this_thread::sleep_for(std::chrono::microseconds(20));
-    }
-  }
-}
-
-// all n bytes into `to`, or false (a closed socket: errno 0)
-bool recv_all(int fd, char* to, size_t n) {
-  while (n) {
-    const ssize_t got = recv(fd, to, n, MSG_WAITALL);
+    msghdr m{};
+    m.msg_iov = &v[i];
+    m.msg_iovlen = v.size() - i < (size_t)kIov ? v.size() - i : (size_t)kIov;
+    const auto t0 = Clock::now();
+    const ssize_t got = recvmsg(fd, &m, MSG_WAITALL);
+    c.add(kSyscalls, 1);
+    c.add(kBlockedNs, ns_since(t0));
     if (got < 0 && errno == EINTR) continue;
     if (got <= 0) {
       if (got == 0) errno = 0;
       return false;
     }
-    to += got;
-    n -= (size_t)got;
+    advance(v, &i, (size_t)got);
   }
   return true;
 }
 
-// one link's receiver: each message landed, then its flag or acknowledgement
+// The run that starts at cursor c of slot s, half `half`, if one is up:
+// its epoch's first flag not yet sent; a newer epoch's first flag moves
+// the cursor to it. False where nothing is up.
+bool run_start(Link& L, int s, int half, Cursor* c) {
+  const int base = half * kHalf, end = base + kHalf;
+  const unsigned long long* f = L.w->out_flags[s];
+  if (c->k < end && c->e && load(&f[c->k]) == c->e) return true;
+  const unsigned long long first = load(&f[base]);
+  if (first > c->e) {
+    c->e = first;
+    c->k = base;
+    return true;
+  }
+  return false;
+}
+
+// the run from cursor c: the longest that continues (above) within the caps
+Header run_at(Link& L, int s, int half, const Cursor& c) {
+  const int end = (half + 1) * kHalf;
+  const unsigned long long* f = L.w->out_flags[s];
+  const unsigned long long* d = L.w->out_desc[s][c.k];
+  Header h{kMagic, kData, (unsigned)s, (unsigned)c.k, 1, (unsigned)(d[3] & 0xffffffffu), (unsigned)(d[3] >> 32), 0,
+           c.e, d[0], d[1] ? d[1] : 1, d[1], d[2]};
+  const unsigned long long pieces = h.pieces ? h.pieces : 1;
+  for (int k = c.k + 1; k < end; ++k) {
+    if (load(&f[k]) != c.e) break;
+    const unsigned long long* n = L.w->out_desc[s][k];
+    const unsigned i = h.count;
+    if (n[2] != d[2] || n[3] != d[3] || n[1] > (i == 1 ? n[0] - d[0] : h.step)) break;
+    if (i == 1) {  // the second chunk sets the step: the first one full
+      if (n[0] <= d[0] || d[1] != n[0] - d[0]) break;
+      h.step = n[0] - d[0];
+    } else if (n[0] != d[0] + i * h.step) {
+      break;
+    }
+    if (h.bytes != i * h.step && n[1] != 0) break;  // a chunk after a short one is empty
+    if ((h.bytes + n[1]) * pieces > kRunBytes) break;
+    h.bytes += n[1];
+    h.count = i + 1;
+  }
+  return h;
+}
+
+// one link's sender: the acknowledgement, then the raised runs in epoch order
+void send_loop(Proxy* p, size_t i) {
+  Link& L = *p->links[i];
+  auto last = Clock::now();
+  std::vector<iovec> v;
+  while (!p->stop.load(std::memory_order_acquire) && !p->failed.load(std::memory_order_acquire)) {
+    bool work = false;
+    const unsigned long long a = load(&L.w->ack_out);
+    if (a > L.ack_sent) {
+      Header h{kMagic, kAck, 0, 0, 0, 0, 0, 0, a, 0, 0, 0, 0};
+      v.assign(1, iovec{&h, sizeof(h)});
+      if (!send_all(L.fd, v, L.out)) return fail(p, i, std::string("send: ") + strerror(errno));
+      L.out.add(kAcks, 1);
+      L.ack_sent = a;
+      work = true;
+    }
+    const auto scan0 = Clock::now();
+    int best_s = -1, best_h = 0;
+    for (int s = 0; s < 2; ++s)
+      for (int half = 0; half < 2; ++half) {
+        Cursor c = L.cur[s][half];
+        if (!run_start(L, s, half, &c)) continue;
+        L.cur[s][half] = c;
+        const unsigned long long e = best_s < 0 ? 0 : L.cur[best_s][best_h].e;
+        // the lower epoch; in one epoch the half not served last (a sum's
+        // two phases take turns: the peer's second phase waits on ours)
+        if (best_s < 0 || c.e < e || (c.e == e && half != L.last_half)) best_s = s, best_h = half;
+      }
+    if (best_s >= 0) {
+      Cursor& c = L.cur[best_s][best_h];
+      L.last_half = best_h;
+      const Header h = run_at(L, best_s, best_h, c);
+      L.out.add(kScanNs, ns_since(scan0));
+      char* base = nullptr;
+      const Where where = slot_base(L, h, true, &base);
+      if (where == kBad)
+        return fail(p, i, "chunks " + std::to_string(h.k) + " to " + std::to_string(h.k + h.count - 1) +
+                              " of epoch " + std::to_string(h.epoch) +
+                              " name a staging or range this rank does not have");
+      if (where == kHere) {  // later: sent once its generation is registered
+        v.assign(1, iovec{const_cast<Header*>(&h), sizeof(h)});
+        pieces(h, base, 0, h.count, v);
+        if (!send_all(L.fd, v, L.out)) return fail(p, i, std::string("send: ") + strerror(errno));
+        L.out.add(kMessages, 1);
+        L.out.add(kChunks, h.count);
+        L.out.add(kBytes, h.bytes * h.pieces);
+        c.k += (int)h.count;
+        work = true;
+      }
+    } else {
+      L.out.add(kScanNs, ns_since(scan0));
+    }
+    if (work) {
+      last = Clock::now();
+    } else if (Clock::now() - last > std::chrono::milliseconds(2)) {
+      const auto t0 = Clock::now();
+      std::this_thread::sleep_for(std::chrono::microseconds(20));
+      L.out.add(kSleepNs, ns_since(t0));
+    }
+  }
+}
+
+// one link's receiver: each run landed a landing at a time, each landing's
+// flags after its bytes; each acknowledgement into ack_in
 void receive_loop(Proxy* p, size_t i) {
   Link& L = *p->links[i];
   const auto lost = [p, i](const char* what) {
     fail(p, i, errno ? std::string(what) + ": " + strerror(errno) : "the peer closed its socket");
   };
+  std::vector<iovec> v;
   while (!p->stop.load(std::memory_order_acquire)) {
     Header h;
-    if (!recv_all(L.fd, reinterpret_cast<char*>(&h), sizeof(h))) return lost("recv");
+    v.assign(1, iovec{&h, sizeof(h)});
+    if (!recv_all(L.fd, v, L.in)) return lost("recv");
     if (h.magic != kMagic || (h.type != kData && h.type != kAck))
       return fail(p, i, "a message that is not the proxy's");
     if (h.type == kAck) {
       if (h.epoch > load(&L.w->ack_in)) store(&L.w->ack_in, h.epoch);
-    } else {
-      char* base = nullptr;
-      Where where;
-      while ((where = slot_base(L, h, false, &base)) == kLater && !p->stop.load(std::memory_order_acquire))
-        std::this_thread::sleep_for(std::chrono::microseconds(20));  // its generation is being registered
-      if (where != kHere) {
-        if (where == kBad)
-          fail(p, i, "chunk " + std::to_string(h.k) + " of epoch " + std::to_string(h.epoch) +
-                         " names a staging or range this rank does not have");
-        return;
-      }
-      const unsigned pieces = (unsigned)(h.meta & 0xffffffffu);
-      for (unsigned j = 0; h.bytes && j < pieces; ++j)
-        if (!recv_all(L.fd, base + j * h.stride, h.bytes)) return lost("recv");
-      store(&L.w->in_flags[h.slot][h.k], h.epoch);  // after its bytes
+      L.in.add(kAcks, 1);
+      continue;
     }
+    char* base = nullptr;
+    Where where;
+    while ((where = slot_base(L, h, false, &base)) == kLater && !p->stop.load(std::memory_order_acquire)) {
+      const auto t0 = Clock::now();
+      std::this_thread::sleep_for(std::chrono::microseconds(20));  // its generation is being registered
+      L.in.add(kSleepNs, ns_since(t0));
+    }
+    if (where != kHere) {
+      if (where == kBad)
+        fail(p, i, "chunks " + std::to_string(h.k) + " to " + std::to_string(h.k + h.count - 1) + " of epoch " +
+                       std::to_string(h.epoch) + " name a staging or range this rank does not have");
+      return;
+    }
+    for (unsigned i0 = 0; i0 < h.count;) {
+      unsigned i1 = i0 + 1;
+      unsigned long long n = chunk_bytes(h, i0) * h.pieces;
+      while (i1 < h.count && n + chunk_bytes(h, i1) * h.pieces <= kLandBytes) n += chunk_bytes(h, i1++) * h.pieces;
+      v.clear();
+      pieces(h, base, i0, i1, v);
+      if (!recv_all(L.fd, v, L.in)) return lost("recv");
+      for (unsigned c = i0; c < i1; ++c) store(&L.w->in_flags[h.slot][h.k + c], h.epoch);  // after its bytes
+      i0 = i1;
+    }
+    L.in.add(kMessages, 1);
+    L.in.add(kChunks, h.count);
+    L.in.add(kBytes, h.bytes * h.pieces);
   }
 }
 
@@ -254,7 +423,9 @@ extern "C" void* loam_proxy_start(int n, const int* fds, LoamLink* const* links,
     L->w = links[i];
     for (auto& r : L->ready) r.store(0);
     // the flags already up are not this proxy's to send (a fresh link has none)
-    memcpy(L->sent, L->w->out_flags, sizeof(L->sent));
+    for (int s = 0; s < 2; ++s)
+      for (int half = 0; half < 2; ++half)
+        L->cur[s][half] = Cursor{load(&L->w->out_flags[s][half * kHalf]), (half + 1) * kHalf};
     const int one = 1, buf = 8 << 20;
     fcntl(L->fd, F_SETFL, fcntl(L->fd, F_GETFL) & ~O_NONBLOCK);  // each thread blocks on its own direction
     setsockopt(L->fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
@@ -281,6 +452,19 @@ extern "C" int loam_proxy_stage(void* h, int gen, int i, char* out, char* in, un
   L.stage[gen].cap = cap;
   L.ready[gen].store(1, std::memory_order_release);
   return 0;
+}
+
+// Link i's counters into out: the sender's kCounters words, then the
+// receiver's (the enum above). Returns kCounters, or -1 for no such link.
+extern "C" int loam_proxy_counters(void* h, int i, unsigned long long* out) {
+  Proxy* p = static_cast<Proxy*>(h);
+  if (!p || i < 0 || i >= (int)p->links.size()) return -1;
+  const Link& L = *p->links[i];
+  for (int k = 0; k < kCounters; ++k) {
+    out[k] = L.out.v[k].load(std::memory_order_relaxed);
+    out[kCounters + k] = L.in.v[k].load(std::memory_order_relaxed);
+  }
+  return kCounters;
 }
 
 // 0 while every link is well; else 1 + the failed link's index, and the

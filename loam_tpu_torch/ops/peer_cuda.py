@@ -44,8 +44,10 @@ compared, and CUDA IPC handles opened, only between ranks of one host.
     ``csrc/peer_link.h``; the kernel stages its chunks there over PCIe and
     the rank's proxy (``csrc/peer_proxy.cpp``, C++, no CUDA call, no
     Python in its loops; a sending and a receiving thread a remote peer)
-    moves them over TCP to the peer's proxy, which lands them in that
-    rank's staging and raises their flags. A rank pins
+    moves them over TCP to the peer's proxy, a run of consecutive raised
+    chunks a message (one ``sendmsg``), which lands them in that rank's
+    staging and raises their flags; each link counts its messages, bytes,
+    calls and time (:meth:`PeerMailbox.link_counters`). A rank pins
     4 x the region's bytes a remote peer and mailbox (the sum of the pose
     graph's H, 288 MB a rank, takes a 144 MB region: 1.15 GB at 2 hosts x
     2 ranks, 1.73 GB at 4 x 1), and 384 KB of words a remote peer.
@@ -105,6 +107,15 @@ SUM_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3
 #: Seconds ``make_mesh`` waits to connect to and be reached by the remote
 #: peers' proxies.
 CONNECT_SECONDS = 60.0
+
+#: What the proxy counts for each remote peer's link and direction
+#: (:meth:`PeerMailbox.link_counters`), in ``csrc/peer_proxy.cpp``'s order:
+#: data messages, the chunks and payload bytes they carried,
+#: acknowledgements, ``send`` / ``recv`` calls and the seconds blocked in
+#: them, the seconds the sender spent finding runs in the kernel's flags,
+#: and the seconds asleep (the sender idle; the receiver waiting for a
+#: mailbox generation to be registered).
+LINK_COUNTERS = ("messages", "chunks", "bytes", "acks", "syscalls", "blocked_s", "scan_s", "sleep_s")
 
 _HANDLE = 64  # sizeof(cudaIpcMemHandle_t)
 _BUS = 16  # a PCI bus id, "0000:00:00.0" and its NUL
@@ -405,6 +416,27 @@ class PeerMailbox:
         if t:
             raise RuntimeError(f"peer gather: rank {self.rank} (host {self.hosts[self.rank]!r}) lost its link to "
                                f"rank {t - 1} (host {self.hosts[t - 1]!r}): {msg.value.decode(errors='replace')}")
+
+    def link_counters(self) -> dict:
+        """The proxy's counters of every remote peer's link since the mesh
+        was made: ``{peer rank: {"send": {name: value}, "recv": {...}}}``
+        (:data:`LINK_COUNTERS`; seconds as floats). Read from host memory
+        after a call, never inside a graph; ``{}`` without a remote peer.
+        The difference of two reads is what the collectives between them
+        moved."""
+        out = {}
+        if not self.remote or self.handle is None:
+            return out
+        n = len(LINK_COUNTERS)
+        raw = (ctypes.c_ulonglong * (2 * n))()
+        lib = _build.lib()
+        for t in self.remote:
+            got = lib.loam_peer_link_counters(self.handle, t, raw)
+            if got != n:
+                raise RuntimeError(f"peer gather: the proxy keeps {got} counters a direction, the port names {n}")
+            out[t] = {side: {name: raw[j * n + i] * (1e-9 if name.endswith("_s") else 1)
+                             for i, name in enumerate(LINK_COUNTERS)} for j, side in enumerate(("send", "recv"))}
+        return out
 
     def _run(self, what: str, t: torch.Tensor, segments: list, mode: int, dtype: int, total: int, L: int) -> None:
         if self.handle is None:

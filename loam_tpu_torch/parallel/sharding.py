@@ -45,7 +45,7 @@ from .. import program
 from ..device import place, resolve
 from ..features import FeatureSet
 from ..features.curvature import compute_curvature, compute_valid_points, validate_scan
-from ..features.extract import _extract_core
+from ..features.extract import EXTRACT_BLOCK, _extract_core, extract_in_blocks
 from ..geometry import Pose3
 from ..odometry.offline import compose_trajectory
 from ..params import FeatureExtractionParams, LidarParams, RegistrationParams
@@ -262,6 +262,52 @@ def _extract_lines(pts: torch.Tensor, lidar: LidarParams, params: FeatureExtract
     return tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
 
 
+def _extract_rank(pts: torch.Tensor, lidar: LidarParams, params: FeatureExtractionParams,
+                  line: int) -> FeatureSet:
+    """A rank's block of frames (F, L, P, 3) extracted by line blocks
+    (:func:`_extract_lines`) and sorted by azimuth, ``EXTRACT_BLOCK``
+    frames at a time (``extract_in_blocks``: one WHILE node whatever F), so
+    a call's memory holds one block's extraction workspace and not every
+    frame's (F17); each frame's features equal the one-batch extraction's
+    bit for bit."""
+    return extract_in_blocks(pts, lidar, params,
+                             extract=lambda b: azimuth_sort_features(_extract_lines(b, lidar, params, line)))
+
+
+def _register_in_blocks(frames: FeatureSet, after: FeatureSet, params: RegistrationParams) -> tuple:
+    """The pairs of a data row's consecutive frames (their features stored
+    sorted): pair p registers frame p + 1 against frame p, the last pair
+    ``after``'s one frame (the frame past the row's last), each pair's
+    source picked from ``frames`` or ``after`` without a copy of them all,
+    ``EXTRACT_BLOCK`` pairs at a time as one ``program.scan`` (one WHILE
+    node whatever the pairs), so a call's memory holds one block's ICF
+    workspace and not every pair's (F17). The last block repeats the last
+    pair where it runs past them; those rows are cut. A block is one
+    lockstep batch of one shape on every layout of the mesh (1 rank x N
+    shards or N ranks x 1), so the ranks stay bit-equal."""
+    P, dev = frames.edge_mask.shape[0], frames.edge_mask.device
+    B = min(P, EXTRACT_BLOCK)
+    n = -(-P // B)
+    offsets = torch.arange(B, device=dev)
+
+    def block(i):
+        rows = torch.clamp(i * B + offsets, max=P - 1)
+        inside = rows + 1 < P
+
+        def source(x, a):
+            picked = x.index_select(0, torch.clamp(rows + 1, max=P - 1))
+            return torch.where(inside.view((-1,) + (1,) * (x.ndim - 1)), picked, a.expand_as(picked))
+
+        src = tree_map(source, frames, after)
+        tgt = frames.map(lambda x: x.index_select(0, rows))
+        init = Pose3.identity(frames.edge_points.dtype, (B,), dev)
+        return register_features_batch(src, tgt, init, params, reorder_mode="none")
+
+    pose, detail = program.scan(n, block, dev)
+    cut = lambda x: x.reshape((n * B,) + x.shape[2:])[:P]
+    return tree_map(cut, pose), tree_map(cut, detail)
+
+
 def _scans(scans, lidar: LidarParams, mesh: Mesh) -> torch.Tensor:
     pts = validate_scan(place(scans, mesh.device), lidar)
     if pts.ndim != 4:
@@ -329,10 +375,13 @@ def odometry_offline_sharded(
     prior), whose pairs are independent.
 
     The frames split into contiguous blocks over "data" (their count must be
-    a multiple of it), lines over "line". Each rank extracts its block and
+    a multiple of it), lines over "line". Each rank extracts its block,
+    ``EXTRACT_BLOCK`` frames at a time (:func:`_extract_rank`), and
     registers the pairs that start in it, the last one against the first
-    frame of the block to its right (the halo), one batch a data row of its
-    shards; the relative poses are gathered and composed on every rank. One
+    frame of the block to its right (the halo), a data row of its shards
+    at a time in batches of ``EXTRACT_BLOCK`` pairs
+    (:func:`_register_in_blocks`); the relative poses are gathered and
+    composed on every rank. One
     program a call (the module docstring), as ``odometry_offline``'s.
     """
     pts = _scans(scans, lidar, mesh)
@@ -342,19 +391,20 @@ def odometry_offline_sharded(
     lo, hi = _blocks(F, "frames", mesh)
 
     def fn(p):
-        feats = azimuth_sort_features(_extract_lines(p[lo:hi], lidar, feat_params, mesh.shape["line"]))
+        feats = _extract_rank(p[lo:hi], lidar, feat_params, mesh.shape["line"])
         n = hi - lo
         heads = gather(mesh, feats.map(lambda x: x[:1]))  # every rank's first frame
-        if hi < F:
-            frames = tree_map(lambda x, h: torch.cat([x, h[hi // n:hi // n + 1]]), feats, heads)
-        else:
-            # the last block has one pair fewer: pad with its last frame
-            # against itself, so every rank gathers n pairs; the pad is cut below
-            frames = feats.map(lambda x: torch.cat([x, x[-1:]]))
-        src, tgt = frames.map(lambda x: x[1:]), frames.map(lambda x: x[:-1])
-        init = Pose3.identity(feats.edge_points.dtype, (n,), mesh.device)
-        rel, details = _per_row(lambda *b: register_features_batch(*b, reg_params, reorder_mode="none"), n,
-                                mesh, src, tgt, init)
+        # the frame past this rank's last: the next rank's first; past the
+        # last rank's, its last frame again (a pair of it against itself, so
+        # every rank gathers n pairs; the pad is cut below)
+        after = heads.map(lambda x: x[hi // n:hi // n + 1]) if hi < F else feats.map(lambda x: x[-1:])
+        # each data row's pairs registered on their own, as _per_row does
+        _, rows = mesh.rows()
+        m = n // rows
+        row = lambda r: feats.map(lambda x: x[r * m:(r + 1) * m])
+        parts = [_register_in_blocks(row(r), row(r + 1).map(lambda x: x[:1]) if r + 1 < rows else after, reg_params)
+                 for r in range(rows)]
+        rel, details = (tree_map(lambda *xs: torch.cat(xs), *outs) for outs in zip(*parts))
         rel, details = gather(mesh, (rel, details))
         cut = lambda x: x[:F - 1]
         return compose_trajectory(tree_map(cut, rel)), tree_map(cut, details)

@@ -1655,8 +1655,10 @@ def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes
     same conditional nodes at 4 and 8 frames and at 2 and 10 ICF
     iterations: the loop one WHILE node with the sharded search inside,
     scan-to-map's keyframe insert one IF node; offline's loop one WHILE
-    node a shard (each shard registers its block of pairs in one batch,
-    ``sharding._per_row``) and its composition two WHILE nodes more. Their
+    node a shard inside one WHILE node a shard over its blocks of pairs
+    (each shard registers its pairs a block at a time, ``sharding._per_row``,
+    ``_register_in_blocks``: F17), its composition two WHILE nodes more and
+    its extraction, a block of frames at a time (F17), one more. Their
     nodes (bodies once) are the same at 2 and 10 iterations, and
     scan-to-map's (a program a frame) at 4 and 8 frames; a shard's batch
     of pairs has a kNN split plan (``knn_cuda._splits``: a merge kernel
@@ -1672,7 +1674,7 @@ def test_sharded_program_nodes_do_not_depend_on_frames_or_iterations(nccl_meshes
         torch.cuda.synchronize()
         (g,) = loop.graph_stats()
         stats.append((g["nodes"], g["conditional_nodes"]))
-    want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 2 + nccl_meshes[0].size}
+    want = {"if": 1, "while": 1} if cell == "s2m" else {"if": 0, "while": 3 + 2 * nccl_meshes[0].size}
     assert [c for _, c in stats] == [want] * 3 and stats[1][0] == stats[2][0], stats
     assert cell != "s2m" or stats[0][0] == stats[1][0], stats
 
@@ -1933,10 +1935,19 @@ def test_cross_host_gather_and_sum_match_plain(dev, tmp_path, world, hosts, isla
     and not), each bit-equal to its plain version over the group, one
     counted launch a collective that ran; a gather past the mailbox raising
     inside a capture, growing eagerly, and the graph captured before still
-    replaying; the islands as ``hosts`` and the cards' reach make them."""
+    replaying; the islands as ``hosts`` and the cards' reach make them;
+    each remote peer's link counted by the proxy both ways, its chunks in
+    at most as many messages (a run a message), every message in at least
+    one send call."""
     for r, rec in enumerate(_cross_host_ranks(tmp_path, world, hosts, "check")):
         assert rec["islands"] == islands, rec
         assert rec["remote"] == [t for t in range(world) if not any(r in i and t in i for i in islands)], rec
+        assert sorted(map(int, rec["links"])) == rec["remote"], rec["links"]
+        for t, link in rec["links"].items():
+            for side in ("send", "recv"):
+                c = link[side]
+                assert 1 <= c["messages"] <= c["chunks"] and c["bytes"] > 0 and c["acks"] >= 1, (t, side, c)
+            assert link["send"]["syscalls"] >= link["send"]["messages"], (t, link)
         assert rec["eager"] and rec["eager_launches"] == [1, 4], rec
         for name in ("while3", "if3", "if2", "plain1"):
             assert rec[f"{name}_graph"] and rec[name], (name, rec)

@@ -254,6 +254,70 @@ def test_indivisible_frames_and_lines_raise(scans):
                                           parallel.make_mesh(["cpu"] * 4, line_axis=4))
 
 
+# ---- F17: offline-sharded extracts a block of frames at a time -----------------
+
+F17_FRAMES = 20  # past EXTRACT_BLOCK, and not a multiple of it
+
+
+@pytest.fixture(scope="module")
+def long_scans():
+    s, _ = render_trajectory(LIDAR, F17_FRAMES, step=np.array([0.05, 0.0, 0.0]), noise=0.003, seed=5,
+                             dtype=np.float32)
+    return s
+
+
+@pytest.mark.parametrize("line_axis", [1, 2])
+def test_f17_offline_sharded_extracts_a_block_at_a_time(long_scans, line_axis, monkeypatch):
+    """F17: ``odometry_offline_sharded`` extracted a rank's whole block of
+    frames in one batch and registered a data row's pairs in one batch, so
+    on the card its pool held the extraction's and the ICF loop's
+    workspace for every frame. It extracts ``EXTRACT_BLOCK`` frames and
+    registers ``EXTRACT_BLOCK`` pairs at a time: on one data row (one shard,
+    or two on the line axis), 20 frames reach the extraction as two blocks
+    of 16, a block a line block each, and their 20 pairs the registration
+    as two batches of 16 (the last blocks repeat the last frame or pair),
+    both in the helper and in the sharded call; every frame's features equal the
+    one-batch extraction's (line blocks, then the azimuth sort) bit for
+    bit. The trajectory stays within 1e-2 m / 1e-3 rad of ``loam_tpu``'s
+    sharded twin on the same mesh (F6) with the terminations of
+    ``odometry_offline``."""
+    from loam_tpu_torch.features.extract import EXTRACT_BLOCK
+    from loam_tpu_torch.parallel import sharding
+    from loam_tpu_torch.registration import azimuth_sort_features
+
+    assert F17_FRAMES > EXTRACT_BLOCK and F17_FRAMES % EXTRACT_BLOCK
+    lidar, feat, reg = _t(LIDAR), _t(FEAT), _t(REG)
+    pts = torch.from_numpy(long_scans)
+    seen, pairs = [], []
+    core, batch = sharding._extract_core, sharding.register_features_batch
+
+    def spy(p, *args, **kwargs):
+        seen.append(p.shape[0])
+        return core(p, *args, **kwargs)
+
+    def spy_pairs(src, *args, **kwargs):
+        pairs.append(src.edge_mask.shape[0])
+        return batch(src, *args, **kwargs)
+
+    monkeypatch.setattr(sharding, "_extract_core", spy)
+    monkeypatch.setattr(sharding, "register_features_batch", spy_pairs)
+    blocked = sharding._extract_rank(pts, lidar, feat, line_axis)
+    assert seen == [EXTRACT_BLOCK] * (2 * line_axis), seen
+    one = azimuth_sort_features(sharding._extract_lines(pts, lidar, feat, line_axis))
+    for a, b in zip(blocked, one):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    seen.clear()
+    mesh = parallel.make_mesh(["cpu"] * line_axis, line_axis=line_axis)
+    assert mesh.shape == {"data": 1, "line": line_axis}
+    traj, det = parallel.odometry_offline_sharded(long_scans, lidar, mesh, feat, reg)
+    assert seen == [EXTRACT_BLOCK] * (2 * line_axis) and pairs == [EXTRACT_BLOCK] * 2, (seen, pairs)
+    _, det1 = T.odometry_offline(pts, lidar, feat, reg)
+    np.testing.assert_array_equal(det.termination.numpy(), det1.termination.numpy())
+    jt, _ = jpar.odometry_offline_sharded(jnp.asarray(long_scans), LIDAR,
+                                          jpar.make_mesh(jax.devices()[:line_axis], line_axis=line_axis), FEAT, REG)
+    _pose_close(traj, jt, POS_TOL, ROT_TOL)
+
+
 # ---- the sharded kNN -------------------------------------------------------------
 
 

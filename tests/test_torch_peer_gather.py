@@ -34,10 +34,13 @@ every rank: they grow at the same collective and capture the same programs).
 
 Across hosts (ranks with another host label), a push goes into the
 sender's out staging for that peer and raises the peer's flag of the slot
-there; the sender's proxy, an actor of its own a link, sends each flag's
-chunk (the slot of the lower epoch first) and each acknowledgement over an
-ordered channel; the receiver's proxy lands the chunk in the receiver's in
-staging, then raises its flag of the slot there, or stores the
+there; the sender's proxy, an actor of its own a link, sends each
+acknowledgement first, then a run: from a cursor of a slot and area, the
+consecutive chunks of one epoch whose flags are up (a newer epoch's first
+chunk moves the cursor to it; the slot of the lower epoch first), one
+message, over an ordered channel (or several, in turn); the receiver's
+proxy, an actor a channel, lands each chunk of the run in the receiver's
+in staging, then raises its flag of the slot there, or stores the
 acknowledgement. A flag a slot, not a chunk: the kernel may raise epoch
 e + 1's flag before the proxy sent epoch e's.
 
@@ -51,11 +54,13 @@ freed mailbox, and every rank must end (no deadlock). The same model
 without the credit wait, with one slot, with the flag stored before the
 data, or freeing a rank's earlier mailboxes when it makes a new one, must
 fail, which shows that the checks can fail. Across hosts it also draws
-2-16 ranks on 1-4 hosts; the model where a proxy raises a flag before it
-lands the chunk, where no acknowledgement crosses the wire, or where a
-rank reuses a slot before the remote acknowledgement (no credit wait for a
-remote peer) must fail on some interleavings that the whole protocol
-passes.
+2-16 ranks on 1-4 hosts, and two channels a link on which an
+acknowledgement may overtake a run (which is safe); the model where a
+proxy raises a flag before it lands the chunk or a run's flags before its
+bytes, where a run takes in a chunk of another epoch, where no
+acknowledgement crosses the wire, or where a rank reuses a slot before the
+remote acknowledgement (no credit wait for a remote peer) must fail on
+some interleavings that the whole protocol passes.
 """
 
 from collections import deque
@@ -74,14 +79,15 @@ class Mesh:
     """The ranks' device memory: mailboxes, flags, acknowledgements,
     epoch counters."""
 
-    def __init__(self, world: int, slots: int, mailboxes: int, hosts=None):
+    def __init__(self, world: int, slots: int, mailboxes: int, hosts=None, sockets: int = 1):
         self.world, self.slots = world, slots
         self.hosts = hosts or [0] * world
         # across hosts: out staging out[s][t][m][slot][area][k] (at s, for
         # t), its flags and chunk descriptions a slot (at s), the in
         # staging's flags a slot iflags[t][s][slot][area][k] (at t; the in
         # staging is mailbox[t][...][s]), the acknowledgement for the wire
-        # ack_out[s][t], the channels chan[s][t] and what each link sent
+        # ack_out[s][t], a link's channels chan[s][t][c] and its proxy's
+        # cursors cursor[s][t][slot][area] = (epoch, next chunk)
         per = lambda f: [[f() for _ in range(world)] for _ in range(world)]
         area_k = lambda: [[0] * CHUNKS for _ in range(2)]
         self.out = per(lambda: [[[[None] * CHUNKS for _ in range(2)] for _ in range(slots)]
@@ -89,9 +95,10 @@ class Mesh:
         self.oflags = per(lambda: [area_k() for _ in range(slots)])
         self.odesc = per(lambda: [[[None] * CHUNKS for _ in range(2)] for _ in range(slots)])
         self.iflags = per(lambda: [area_k() for _ in range(slots)])
-        self.sent = per(lambda: [area_k() for _ in range(slots)])
+        self.cursor = per(lambda: [[(0, CHUNKS)] * 2 for _ in range(slots)])
+        self.last_area = per(lambda: 1)
         self.ack_out, self.ack_sent = per(int), per(int)
-        self.chan = per(deque)
+        self.chan = per(lambda: [deque() for _ in range(sockets)])
         # mailbox[t][m][slot][s][area][k]: chunk k of region s (sender s) of
         # rank t's mailbox m; area 0 a gather's payload or a sum's slices,
         # area 1 a sum's sums
@@ -238,74 +245,121 @@ def _rank(mesh: Mesh, r: int, out: dict, plan, credit: bool = True, flag_first: 
                 mesh.acks[t][r] = e
 
 
-def _pending(mesh: Mesh, s: int, t: int, acks: bool):
-    """What link s -> t's proxy sends next: the raised flag of the lowest
-    epoch not yet sent, else an acknowledgement not yet sent, else None."""
+def _run_start(mesh: Mesh, s: int, t: int, slot: int, area: int):
+    """Where link s -> t's cursor of ``slot`` and ``area`` (a half of the
+    flags: a chunk counts from the first) has a run up, as the proxy finds
+    it: the cursor's epoch's next chunk raised, or a newer epoch's first
+    chunk; (epoch, first chunk) or None."""
+    e, k = mesh.cursor[s][t][slot][area]
+    flags = mesh.oflags[s][t][slot][area]
+    if k < CHUNKS and e and flags[k] == e:
+        return e, k
+    if flags[0] > e:
+        return flags[0], 0
+    return None
+
+
+def _pending(mesh: Mesh, s: int, t: int, acks: bool, run_flags=None):
+    """What link s -> t's proxy sends next: an acknowledgement not yet sent,
+    else the run of the lowest epoch (in one epoch, the area not served
+    last): from a cursor of a slot and area, its
+    consecutive chunks of that epoch whose flags are up (``run_flags``:
+    whether a chunk may join a run, given its flag and the run's epoch; a
+    broken proxy's rule), else None."""
+    if acks and mesh.ack_out[s][t] > mesh.ack_sent[s][t]:
+        return ("ack", mesh.ack_out[s][t])
     best = None
     for slot in range(mesh.slots):
         for area in range(2):
-            for k in range(CHUNKS):
-                f = mesh.oflags[s][t][slot][area][k]
-                if f > mesh.sent[s][t][slot][area][k] and (best is None or f < best[1]):
-                    best = ("data", f, slot, area, k)
-    if best is None and acks and mesh.ack_out[s][t] > mesh.ack_sent[s][t]:
-        best = ("ack", mesh.ack_out[s][t])
-    return best
+            start = _run_start(mesh, s, t, slot, area)
+            if start is None:
+                continue
+            # the lower epoch; in one epoch the area not served last
+            if best is None or start[0] < best[1] or (start[0] == best[1] and area != mesh.last_area[s][t]):
+                best = ("run", start[0], slot, area, start[1])
+    if best is None:
+        return None
+    _, e, slot, area, k0 = best
+    join = run_flags or (lambda f, e: f == e)
+    flags = mesh.oflags[s][t][slot][area]
+    ks = [k0]
+    while ks[-1] + 1 < CHUNKS and join(flags[ks[-1] + 1], e):
+        ks.append(ks[-1] + 1)
+    return ("run", e, slot, area, ks)
 
 
-def _send_link(mesh: Mesh, s: int, t: int, acks: bool = True):
-    """Rank s's proxy, its link to t: each raised flag's chunk (read from
-    the out staging of the generation its description names) and each
-    acknowledgement onto the channel, one message a step (``acks`` False:
-    no acknowledgement crosses the wire)."""
+def _send_link(mesh: Mesh, s: int, t: int, acks: bool = True, sockets: int = 1, run_flags=None):
+    """Rank s's proxy, its link to t: each acknowledgement, and each run of
+    raised chunks (read from the out staging of the generation each
+    chunk's description names) as one message, onto the link's
+    ``sockets`` channels in turn, one message a step (``acks`` False: no
+    acknowledgement crosses the wire)."""
+    turn = 0
     while True:
-        yield lambda: _pending(mesh, s, t, acks) is not None
-        item = _pending(mesh, s, t, acks)
+        yield lambda: _pending(mesh, s, t, acks, run_flags) is not None
+        item = _pending(mesh, s, t, acks, run_flags)
+        chan = mesh.chan[s][t][turn % sockets]
+        turn += 1
         if item[0] == "ack":
             mesh.ack_sent[s][t] = item[1]
-            mesh.chan[s][t].append(item)
+            chan.append(item)
             continue
-        _, e, slot, area, k = item
-        m = mesh.odesc[s][t][slot][area][k]
-        mesh.chan[s][t].append(("data", m, slot, area, k, e, mesh.out[s][t][m][slot][area][k]))
-        mesh.sent[s][t][slot][area][k] = e
+        _, e, slot, area, ks = item
+        chunks = []
+        for k in ks:
+            m = mesh.odesc[s][t][slot][area][k]
+            chunks.append((k, m, mesh.out[s][t][m][slot][area][k]))
+        chan.append(("run", slot, area, e, chunks))
+        mesh.cursor[s][t][slot][area] = (e, ks[-1] + 1)
+        mesh.last_area[s][t] = area
 
 
-def _recv_link(mesh: Mesh, s: int, t: int, flag_first: bool = False):
-    """Rank t's proxy, its link from s: a chunk into t's in staging, then its
-    flag of the slot (``flag_first``: the flag, then the chunk); an
-    acknowledgement into t's word of s's acknowledgements."""
+def _recv_link(mesh: Mesh, s: int, t: int, channel: int = 0, flag_first: bool = False,
+               run_flags_first: bool = False):
+    """Rank t's proxy, its link from s, one channel: each chunk of a run
+    into t's in staging, then its flag of the slot (``flag_first``: each
+    chunk's flag, then the chunk; ``run_flags_first``: every flag of the
+    run, then the chunks); an acknowledgement into t's word of s's
+    acknowledgements."""
+    queue = mesh.chan[s][t][channel]
     while True:
-        yield lambda: bool(mesh.chan[s][t])
-        msg = mesh.chan[s][t].popleft()
+        yield lambda: bool(queue)
+        msg = queue.popleft()
         if msg[0] == "ack":
             mesh.acks[t][s] = max(mesh.acks[t][s], msg[1])
             continue
-        _, m, slot, area, k, e, value = msg
-        if flag_first:
-            mesh.iflags[t][s][slot][area][k] = e
+        _, slot, area, e, chunks = msg
+        if run_flags_first:
+            for k, _, _ in chunks:
+                mesh.iflags[t][s][slot][area][k] = e
+                yield
+        for k, m, value in chunks:
+            if flag_first:
+                mesh.iflags[t][s][slot][area][k] = e
+                yield
+            mesh.write(t, m, slot, s, area, k, value)
+            if not flag_first and not run_flags_first:
+                yield
+                mesh.iflags[t][s][slot][area][k] = e
             yield
-        mesh.write(t, m, slot, s, area, k, value)
-        if not flag_first:
-            yield
-            mesh.iflags[t][s][slot][area][k] = e
 
 
 def _run(world: int, schedule, plan, slots: int = 2, hosts=None, proxy_flag_first: bool = False,
-         wire_acks: bool = True, **broken):
+         wire_acks: bool = True, sockets: int = 1, run_flags_first: bool = False, run_flags=None, **broken):
     """Every rank's collectives of ``plan``, interleaved by ``schedule`` (a
     rank index a step among the ranks that can step, then the first that
     can; with remote peers, the first rank or proxy link that can step from
-    the drawn one on) with ``hosts`` a label a rank (one host by default).
-    Returns (outputs, overwrites and touches of freed mailboxes,
-    deadlocked)."""
-    mesh, out = Mesh(world, slots, max(m for _, _, m in plan) + 1, hosts), {}
+    the drawn one on) with ``hosts`` a label a rank (one host by default),
+    ``sockets`` channels a link. Returns (outputs, overwrites and touches
+    of freed mailboxes, deadlocked)."""
+    mesh, out = Mesh(world, slots, max(m for _, _, m in plan) + 1, hosts, sockets), {}
     actors = [_rank(mesh, r, out, plan, **broken) for r in range(world)]
     for a in range(world):
         for b in range(world):
             if a != b and mesh.remote(a, b):
-                actors.append(_send_link(mesh, a, b, wire_acks))
-                actors.append(_recv_link(mesh, a, b, proxy_flag_first))
+                actors.append(_send_link(mesh, a, b, wire_acks, sockets, run_flags))
+                for c in range(sockets):
+                    actors.append(_recv_link(mesh, a, b, c, proxy_flag_first, run_flags_first))
     n = len(actors)
     pending = [None] * n
     done = [False] * n
@@ -388,12 +442,12 @@ def test_the_model_catches_a_broken_protocol(broken, plan):
     assert caught > 0 and whole == 0
 
 
-def _check_across_hosts(data, worlds, max_schedule):
+def _check_across_hosts(data, worlds, max_schedule, **wire):
     world = data.draw(worlds, label="world")
     hosts = data.draw(st.lists(st.integers(0, 3), min_size=world, max_size=world), label="hosts")
     plan = data.draw(_PLAN, label="plan")
     schedule = data.draw(st.lists(st.integers(0, 63), max_size=max_schedule), label="schedule")
-    out, overwrites, deadlocked = _run(world, schedule, plan, hosts=hosts)
+    out, overwrites, deadlocked = _run(world, schedule, plan, hosts=hosts, **wire)
     assert not deadlocked
     assert overwrites == []
     assert _wrong(world, out, plan) == []
@@ -419,17 +473,37 @@ def test_across_hosts_many_ranks(data):
     _check_across_hosts(data, st.sampled_from([5, 8, 16]), 4000)
 
 
+@settings(max_examples=100, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(data=st.data())
+def test_across_hosts_acks_may_overtake_runs(data):
+    """Two channels a link, as two sockets a peer would give, the sender's
+    messages on them in turn, so an acknowledgement may overtake a run of
+    its epoch: 2-4 ranks on 1-4 hosts still get every collective's blocks,
+    no staging is written while read, and nothing waits forever. An
+    acknowledgement of epoch e leaves a rank only after every chunk of e
+    sent to it landed, and the credit it gives (to rewrite the slot of e
+    at e + 2) needs nothing of what it overtakes: the proxy needs no order
+    between its runs and its acknowledgements."""
+    _check_across_hosts(data, st.integers(2, 4), 1500, sockets=2)
+
+
 @pytest.mark.parametrize("broken,plan", [(dict(proxy_flag_first=True), _FULL), (dict(wire_acks=False), _FULL),
-                                         (dict(remote_credit=False), _EMPTY)],
-                         ids=["proxy_flag_before_chunk", "no_ack_over_the_wire", "slot_reuse_before_remote_ack"])
+                                         (dict(remote_credit=False), _EMPTY), (dict(run_flags_first=True), _FULL),
+                                         (dict(run_flags=lambda f, e: f != 0), _FULL)],
+                         ids=["proxy_flag_before_chunk", "no_ack_over_the_wire", "slot_reuse_before_remote_ack",
+                              "run_flags_before_bytes", "run_joins_another_epoch"])
 def test_the_model_catches_a_broken_cross_host_protocol(broken, plan):
     """Two ranks on two hosts. A proxy that raises a chunk's flag before it
     lands the chunk lets the kernel read the slot's last epoch; a wire that
     carries no acknowledgement leaves the credit wait forever; a rank that
     rewrites a slot before the remote acknowledgement -- possible past an
     empty collective -- has its proxy send the new chunk under the old
-    epoch's flag. Some of 300 random interleavings show it, and the whole
-    protocol passes the same interleavings."""
+    epoch's flag; a receiving proxy that raises every flag of a run before
+    it lands the run's bytes lets the kernel read chunks of the slot's last
+    epoch; a sender whose run takes in any raised chunk after its first
+    (a flag up from another epoch, not the run's) sends an older epoch's
+    bytes under the run's epoch. Some of 300 random interleavings show it,
+    and the whole protocol passes the same interleavings."""
     rng = random.Random(1)
     caught = whole = 0
     for _ in range(300):

@@ -15,7 +15,8 @@ island). ``mode``:
     version over the group (a leaf at a time through the host; the sum that
     gather then the adds in shard order); past one rank a gather past the
     mailbox raising inside a capture, growing eagerly, and the graph
-    captured before replayed; a launch counted a collective that ran.
+    captured before replayed; a launch counted a collective that ran; the
+    proxy's counters of each remote peer's link at the end.
   * ``lost``: the last rank leaves without releasing the mesh 3 s after
     the others launched a gather that waits for it; the others' call must
     raise within ``peer_cuda.WAIT_SECONDS`` (its proxy loses the socket and
@@ -132,6 +133,8 @@ def _check(mesh, dev, rank) -> dict:
                                           all(_equal(a, b) for a, b in zip(totals, want_sums)))
     got["islands"] = [list(i) for i in mesh.islands]
     got["remote"] = list(mesh.peer.remote) if mesh.peer is not None else []
+    links = mesh.peer.link_counters() if mesh.peer is not None else {}
+    got["links"] = {str(t): c for t, c in links.items()}
     return got
 
 
