@@ -356,7 +356,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ranks on ``cuda:0`` in a gloo group, each its own host
      (``--share-worker``: the cross-host leg with the card time-sliced
      between the two processes), every cell through the same gates against
-     1 rank x 2 shards.
+     1 rank x 2 shards; then 18 ranks of 3 hosts x 6 on it, past the
+     kernel's old cap of 16 ranks: the planar and edge search values, the
+     planar search tree, the details tree and the sum of the pose graph's
+     b, each bit-equal to its plain version, one graph node, accepted and
+     equal in a WHILE and an IF body, every rank's output the same
+     (``_share_collectives``), with each rank's device and pinned bytes for
+     the mesh and its longest wait against ``WAIT_SECONDS``
+     (``--collectives-only`` on one card runs this alone). On four cards
+     and more, every cell at 8, 16 and 24 ranks that share the cards (2 x 4,
+     2 x 8, 3 x 8 hosts; rank r on card r % cards, a gloo group) through the
+     same gates against 1 rank x as many shards of ``cuda:0``, at the
+     counts rule 4 gives (``_counts``: 24 frames, 24 pairs and map
+     capacities of multiples of 24 at 24 ranks), then those collectives;
+     ``--ranks-only --world N`` runs one such world size alone.
 
 ``LOAM_ICF_DUAL_KNN``, ``LOAM_KNN_SEED`` and ``LOAM_S2M_PREP_CACHE`` are set
 and restored around the phases that use them.
@@ -367,7 +380,9 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
+import hashlib
 import json
 import os
 import re
@@ -2008,11 +2023,44 @@ RANKS_COLLECTIVE_TIMEOUT_S = 120
 # a probe case's wall-clock limit, and its ranks' NCCL watchdog
 PROBE_TIMEOUT_S = 45
 PROBE_COLLECTIVE_TIMEOUT_S = 60
-# register_pairs_sharded's pairs in phase 17: a multiple of every rank count
-# up to 8
+# phase 17's frames and register_pairs_sharded's pairs, each a multiple of
+# every rank count up to 8 (past it: _counts)
+RANKS_FRAMES = 16
 RANKS_PAIRS = 8
 # phase 17's cells, in the order they run
 RANKS_CELLS = ("s2m", "offline", "extract", "pairs", "posegraph")
+# phase 17 past one rank a card: ranks that share the cards (rank r on card
+# r % cards) in a gloo group (NCCL takes one rank a card), by world size,
+# hosts x ranks a host: on four cards 8, 16 and 24 ranks stand in for two
+# machines of four and of eight cards and three of eight
+MANY_SPLITS = {8: "2x4", 16: "2x8", 24: "3x8"}
+# on one card: 18 ranks of 3 hosts, past the kernel's old cap of 16 ranks
+ONE_CARD_WORLD, ONE_CARD_SPLIT = 18, "3x6"
+# the collectives that one-card check runs, by _peer_shapes' names: the
+# planar and edge search values, the planar search tree, the details tree,
+# the sum of the pose graph's b
+SHARE_ROWS = ("knn_planar_val", "knn_edge_val", "search_planar", "details", "sum_b")
+
+
+def _split_labels(split: str) -> list:
+    """``"HxR"``: H hosts of R ranks, one host label a rank."""
+    hosts, per = (int(x) for x in split.split("x"))
+    return [r // per for r in range(hosts * per)]
+
+
+def _counts(T, world: int) -> tuple:
+    """Phase 17's counts on a mesh of ``world`` shards, by rule 4:
+    ``loam_tpu`` places frames, pairs and map slots with
+    ``device_put(P("data"))``, which refuses a count its data axis does not
+    divide (the port's ``_blocks`` and ``scan_to_map_init_sharded`` refuse
+    alike), so each is the least multiple of the world at least phase 17's:
+    (frames, pairs, ``ScanToMapConfig``). 16, 8 and the defaults up to 8
+    ranks; 16 pairs at 16; 24 frames, 24 pairs and 32,784 / 131,088 map
+    slots at 24."""
+    up = lambda n: -(-n // world) * world
+    cfg = T.ScanToMapConfig()
+    return up(RANKS_FRAMES), up(RANKS_PAIRS), dataclasses.replace(
+        cfg, edge_capacity=up(cfg.edge_capacity), planar_capacity=up(cfg.planar_capacity))
 
 
 def _host_splits(world: int) -> dict:
@@ -2247,8 +2295,8 @@ def _start_ranks(argv: list, name: str, world: int, out_dir: str, limit_s: int, 
     """``world`` copies of this script, ``argv + [rank, world, port,
     out_dir] + tail`` each, logging to ``<name><rank>.log``; waits for all, and
     past ``limit_s``, or once one fails, kills every rank still running.
-    Returns per rank (exit code, None where killed; its last stamp; the end
-    of its log)."""
+    Returns per rank (exit code, None where killed; its last stamp; its
+    log's first traceback, if any, and its end)."""
     port = _free_port()
     env = dict(os.environ)
     env.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -2281,7 +2329,10 @@ def _start_ranks(argv: list, name: str, world: int, out_dir: str, limit_s: int, 
     for r, c in enumerate(codes):
         stamp_path = os.path.join(out_dir, f"{name}{r}.stamp")
         last = open(stamp_path).read() if os.path.exists(stamp_path) else "no stamp"
-        out.append((c, last, open(os.path.join(out_dir, f"{name}{r}.log")).read()[-3000:]))
+        log = open(os.path.join(out_dir, f"{name}{r}.log")).read()
+        first = log.find("Traceback")  # the first error, which a crash at exit buries under its own
+        head = log[first:first + 3000] + "\n...\n" if 0 <= first < len(log) - 3000 else ""
+        out.append((c, last, head + log[-3000:]))
     return out
 
 
@@ -2302,16 +2353,18 @@ def _probe_case(case: str, world: int, out_dir: str) -> str:
 def _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph, cells=RANKS_CELLS):
     """Phase 17's calls on ``mesh`` at full width: ``{cell: (run, units,
     kernels it must launch)}``, every one a program whose gathers are the
-    kernel's over peer memory. ``graph``: the pose graph's (initial, edges)
-    on the mesh's card, its edges padded to a multiple of the shards.
-    ``cells``: those to run."""
+    kernel's over peer memory, at the counts of :func:`_counts` for the
+    mesh's shards (``scans`` holds at least its frames and pairs + 1).
+    ``graph``: the pose graph's (initial, edges) on the mesh's card, its
+    edges padded to a multiple of the shards. ``cells``: those to run."""
     from loam_tpu_torch import parallel
     from loam_tpu_torch.parallel.distributed import scan_to_map_init_sharded, scan_to_map_step_sharded
     from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
     from loam_tpu_torch.registration import azimuth_sort_features
 
-    cfg, s2m_reg = T.ScanToMapConfig(), T.default_map_reg_params()
-    frames = scans.shape[0]
+    frames, pairs, cfg = _counts(T, mesh.size)
+    s2m_reg = T.default_map_reg_params()
+    pair_scans, scans = scans[:pairs + 1], scans[:frames]
 
     def s2m():
         st, out = scan_to_map_init_sharded(cfg, mesh), []
@@ -2320,10 +2373,10 @@ def _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph, cells=RANKS_CELLS):
             out.append((pose, det))
         return st, out
 
-    feats = T.extract_features_batch(scans, lidar, fp, post=azimuth_sort_features)
-    src = feats.map(lambda x: x[1:RANKS_PAIRS + 1])
-    tgt = feats.map(lambda x: x[:RANKS_PAIRS])
-    ident = T.Pose3.identity(torch.float32, (RANKS_PAIRS,), mesh.device)
+    feats = T.extract_features_batch(pair_scans, lidar, fp, post=azimuth_sort_features)
+    src = feats.map(lambda x: x[1:pairs + 1])
+    tgt = feats.map(lambda x: x[:pairs])
+    ident = T.Pose3.identity(torch.float32, (pairs,), mesh.device)
     extraction = ("sector_sort", "greedy_nms", "select_points")
     every = {
         "s2m": (s2m, frames, extraction + ("knn", "peer_gather", "peer_sum")),
@@ -2605,28 +2658,127 @@ def _ranks_inputs(T, torch, dev, out_dir, world):
 
 
 def _share_group(torch, rank: int, world: int, port: int):
-    """Rank ``rank`` of ``world`` ranks that share ``cuda:0``: that card
-    current and a gloo group (NCCL takes one rank a card). Returns the
-    device."""
+    """Rank ``rank`` of ``world`` ranks that share the cards: card ``rank
+    % cards`` current and a gloo group (NCCL takes one rank a card).
+    Returns the device."""
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
+    card = rank % torch.cuda.device_count()
+    torch.cuda.set_device(card)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=RANKS_COLLECTIVE_TIMEOUT_S))
-    return torch.device("cuda", 0)
+    return torch.device("cuda", card)
 
 
-def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CELLS, share: bool = False) -> int:
+def _digest(torch, leaves: list) -> str:
+    """A hash of the leaves' dtypes, shapes and bytes: ranks compare
+    outputs of hundreds of MB by it."""
+    h = hashlib.sha256()
+    for x in leaves:
+        h.update(f"{x.dtype} {tuple(x.shape)}".encode())
+        h.update(x.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bodies(torch, mesh, kernel, want: list) -> dict:
+    """``kernel()`` (a collective on ``mesh``) captured into a WHILE body
+    (``program.while_loop``: 3 then 2 iterations) and an IF body
+    (``program.when``: taken, not, taken), each program replayed: whether
+    every replay ran it as often as it must and its outputs, read after each
+    replay, equal ``want`` (zeros where it did not run), and the graph held
+    exactly the one conditional node."""
+    from loam_tpu_torch import program
+
+    dev = mesh.device
+    count = lambda k: torch.full((), k, dtype=torch.int64, device=dev)
+    out = {}
+    for kind in ("while", "if"):
+        def fn(bufs, kind=kind):
+            (n,) = bufs
+            outs = [torch.zeros_like(w) for w in want]
+            runs = torch.zeros((), dtype=torch.int64, device=dev)
+
+            def record():
+                for o, g in zip(outs, _leaves(kernel())):
+                    o.copy_(g)
+                runs.add_(1)
+
+            if kind == "while":
+                i = torch.zeros((), dtype=torch.int64, device=dev)
+                going = i < n
+
+                def body():
+                    record()
+                    i.add_(1)
+                    going.copy_(i < n)
+
+                program.while_loop(going, body)
+            else:
+                program.when(n > 2, record)
+            return runs, tuple(outs)
+
+        prog = program.Program(dev, (count(3),))
+        ok = True
+        for k in (3, 2, 3):
+            runs, outs = prog.run(fn, (count(k),))
+            ran = k if kind == "while" else int(k > 2)
+            ok = ok and int(runs) == ran and all(
+                torch.equal(o, w) if ran else not o.any() for o, w in zip(outs, want))
+        nodes = prog.conditional if prog.graph is not None else None
+        out[kind] = bool(ok and nodes == dict({"if": 0, "while": 0}, **{kind: 1}))
+    return out
+
+
+def _share_collectives(torch, mesh, shapes: dict, reps: int) -> dict:
+    """The one-card check past the old cap (:data:`SHARE_ROWS` of
+    ``shapes``, a gloo group, ranks time-sliced on the card): each
+    collective through the kernel and its plain version (eager, through the
+    host): bit-equal, the kernel's output's digest (every rank must hold
+    the same), one graph node, accepted and equal in a WHILE and an IF body
+    (:func:`_bodies`), ms a call back to back and us a call in a plain graph
+    of 5 replayed twice (ranks that share a card wait out each other's time
+    slices: a call takes 0.1-0.3 s at 18 ranks on one card)."""
+    from loam_tpu_torch.ops.peer_cuda import peer_gather_reference, peer_sum_reference
+    from loam_tpu_torch.parallel import collectives
+
+    rows = {}
+    for name in SHARE_ROWS:
+        kind, x = shapes[name]
+        leaves = _leaves(x)
+        if kind == "gather":
+            kernel = lambda x=x: collectives.gather(mesh, x)
+            want = peer_gather_reference(leaves, mesh.group)
+            what = (f"{str(x.dtype).removeprefix('torch.')} {tuple(x.shape)}" if len(leaves) == 1 else
+                    f"a tree of {len(leaves)} leaves")
+        else:
+            kernel = lambda x=x: collectives.sum(mesh, x)
+            want = [peer_sum_reference(x, mesh.group)]
+            what = f"the sum of {str(x.dtype).removeprefix('torch.')} {tuple(x.shape)}"
+        got = _leaves(kernel())
+        torch.cuda.synchronize()
+        row = {"kind": kind, "what": what, "bytes": _nbytes(*leaves), "L": leaves[0].shape[0],
+               "equal": len(got) == len(want) and all(a.dtype == b.dtype and torch.equal(a, b)
+                                                      for a, b in zip(got, want)),
+               "digest": _digest(torch, got), "graph_nodes": _graph_nodes(torch, kernel)}
+        row.update(_bodies(torch, mesh, kernel, want))
+        row.update(ms=_time_ms(kernel, reps), graph_us=_graph_ms(kernel, 5, 2) * 1e3)
+        rows[name] = row
+    return rows
+
+
+def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CELLS, share: str = None) -> int:
     """Phase 17's rank ``rank`` of ``world``: ``cuda:<rank>`` and an NCCL
     group made eagerly on it (:func:`_rank_group`, the README's recipe),
     then :func:`_rank_cells` on ``make_mesh()`` (one shard on this card)
     and, with every cell, :func:`_peer_check` at the cells' shapes; then
     the same on each mesh across hosts of :func:`_host_splits`
-    (``make_mesh(hosts=)``). ``share``: the ranks share ``cuda:0`` in a gloo
-    group, each its own host (the cross-host leg on one card), the cells
-    alone. Its outputs, rows, the gather's check, the cards it holds a
+    (``make_mesh(hosts=)``). ``share``: a split ``"HxR"`` of ranks that
+    share the cards (card ``rank % cards``) in a gloo group, the cells
+    then :func:`_share_collectives`. Each mesh's bytes
+    (``PeerMailbox.footprint``) and longest wait (``max_wait``) are kept.
+    Its outputs, rows, the gather's check, the cards it holds a
     context on and the bytes it reserved on every other card to
     ``rank<r>.pt``. Stamps its progress to ``rank<r>.stamp``."""
     import torch
@@ -2645,8 +2797,8 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
                 "knn_dual": knn_cuda.knn_dual_run, "peer_gather": peer_cuda.peer_gather,
                 "peer_sum": peer_cuda.peer_sum}
     full = tuple(cells) == RANKS_CELLS and not share
-    alone = not cells  # --collectives-only: the collectives' check on every mesh, no cell
-    meshes = {f"{world}x1 on one card": list(range(world))} if share else {"one host": None, **_host_splits(world)}
+    alone = not cells and not share  # --collectives-only: the collectives' check on every mesh, no cell
+    meshes = {share: _split_labels(share)} if share else {"one host": None, **_host_splits(world)}
     results = {}
     try:
         scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, world)
@@ -2665,13 +2817,18 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
                     outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp,
                                                                            graph, cells), counters,
                                                         1 if across else 2, mark)
-            peer = None
+            peer = shared = None
             if full or alone:
                 mark("the kernel's collectives against their plain versions at the cells' shapes")
                 peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 2 if across else 5,
                                    1 if across else 2)
-            results[name] = {"outputs": outputs, "rows": rows, "summary": summary, "peer": peer, "hosts": hosts,
-                             "islands": mesh.islands, "remote": list(mesh.peer.remote)}
+            elif share:
+                mark("the kernel's collectives against their plain versions, in WHILE and IF bodies")
+                shared = _share_collectives(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 2)
+            torch.cuda.synchronize()
+            results[name] = {"outputs": outputs, "rows": rows, "summary": summary, "peer": peer, "share": shared,
+                             "hosts": hosts, "islands": mesh.islands, "remote": list(mesh.peer.remote),
+                             "bytes": mesh.peer.footprint(), "wait": mesh.peer.max_wait()}
             mesh.release()  # its graphs replay the mesh's collectives, its buffers mapped by the others
     finally:
         dist.destroy_process_group()
@@ -2688,17 +2845,17 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
     return 0
 
 
-def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS, share: bool = False) -> None:
+def _spawn_ranks(world: int, out_dir: str, cells=RANKS_CELLS, share: str = None) -> None:
     """Start phase 17's ranks (this script as the worker; ``share``: the
-    ranks on ``cuda:0``) and wait for all; past ``RANKS_TIMEOUT_S``, or when
-    one fails, kill every rank and raise, naming each rank that did not end
-    well and its last stamp."""
+    split of ranks that share the cards) and wait for all; past
+    ``RANKS_TIMEOUT_S``, or when one fails, kill every rank and raise,
+    naming each rank that did not end well and its last stamp."""
     failed = []
-    for r, (c, last, tail) in enumerate(_start_ranks(["--share-worker" if share else "--rank-worker"], "rank", world,
-                                                     out_dir, RANKS_TIMEOUT_S, cells)):
+    argv = ["--share-worker", share] if share else ["--rank-worker"]
+    for r, (c, last, tail) in enumerate(_start_ranks(argv, "rank", world, out_dir, RANKS_TIMEOUT_S, cells)):
         if c == 0:
             continue
-        why = f"killed after {RANKS_TIMEOUT_S} s" if c is None else f"exit code {c}"
+        why = "killed (past RANKS_TIMEOUT_S, or when another rank failed)" if c is None else f"exit code {c}"
         failed.append(f"rank {r} {why}, last stamp: {last}")
         print(f"phase 17: rank {r} {why}; its log ends:\n{tail}", flush=True)
     if failed:
@@ -2860,7 +3017,7 @@ def _gather_split(N: int, out_dir: str, smi: str) -> dict:
 
 
 def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse, reps,
-                 cells=RANKS_CELLS) -> dict:
+                 cells=RANKS_CELLS, many_np=None) -> dict:
     """Phase 17: one rank a card. ``N = _rank_count()`` ranks, each
     :func:`_rank_worker` on its own card; every rank's outputs bit-equal to
     rank 0's, and rank 0's to the same calls in this process on N shards of
@@ -2877,8 +3034,12 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     (:func:`_host_splits`, run by the same ranks) through
     :func:`_split_checks`, the probe's kernel cases on each, and the wire's
     rate (:func:`_wire_rates`); on one card two ranks of two hosts sharing
-    it (:func:`_share_phase`). ``cells``: those to run; fewer than all
-    skips the probe, the gather check and the wire (a focused run,
+    it (:func:`_share_phase`), and 18 ranks of 3 hosts on it, past the
+    kernel's old cap of 16, the collectives alone; on four cards and more,
+    with ``many_np`` (frames enough for :func:`_counts` at 24), the cells
+    on 8, 16 and 24 ranks that share the cards (:data:`MANY_SPLITS`) against
+    1 rank x as many shards of ``cuda:0``. ``cells``: those to run; fewer
+    than all skips the probe, the gather check and the wire (a focused run,
     ``--ranks-only <cell> ...``). Returns the ``{"ranks": ...}`` record."""
     from loam_tpu_torch import parallel
     from loam_tpu_torch.registration import loop
@@ -3026,8 +3187,12 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
     if full and N > 1:
         _wire_phase(record, N, out_dir, ranks, smi)
     if N == 1 and cells == RANKS_CELLS:
-        record["one_card_two_hosts"] = _share_phase(T, torch, counters, out_dir, failed, smi)
-    print(json.dumps({"ranks": record}))
+        record["one_card_two_hosts"] = _share_phase(T, torch, counters, scans_np, "2x1", cells, failed, smi)
+        record["one_card_many"] = _share_phase(T, torch, counters, scans_np, ONE_CARD_SPLIT, (), failed, smi)
+    if full and cards >= 4 and many_np is not None:
+        record["many"] = {world: _share_phase(T, torch, counters, many_np, split, cells, failed, smi)
+                          for world, split in MANY_SPLITS.items()}
+    print(json.dumps({"ranks": record}, default=str))
     if failed:
         raise AssertionError("phase 17: " + "; ".join(failed))
     return record
@@ -3068,20 +3233,26 @@ def _collectives_phase(torch, smi, scans_np) -> dict:
     """``--collectives-only``: phase 17's ranks on every mesh (one host and
     each split across hosts) run only the collectives' check at the cells'
     shapes (:func:`_peer_check`, with the proxy's counters a call across
-    hosts), then the wire's rate beside them (:func:`_wire_phase`). A
-    focused run of the cross-host leg; prints a ``{"collectives": ...}``
-    line and raises where a collective differs from its plain version or
-    is more than one graph node."""
+    hosts), then the wire's rate beside them (:func:`_wire_phase`), then
+    on four cards and more :func:`_share_collectives` on 8, 16 and 24 ranks
+    sharing the cards (:data:`MANY_SPLITS`); on one card 18 ranks of 3
+    hosts on it. A focused run of the cross-host leg; prints a
+    ``{"collectives": ...}`` line and raises where a collective differs
+    from its plain version or is more than one graph node."""
     N = _rank_count(torch)
-    if N < 2:
-        raise AssertionError("--collectives-only needs at least two cards")
+    failed = []
+    if N < 2:  # one card: 18 ranks of 3 hosts
+        record = {"one_card_many": _share_phase(None, torch, None, scans_np, ONE_CARD_SPLIT, (), failed, smi)}
+        print(json.dumps({"collectives": record}, default=str))
+        if failed:
+            raise AssertionError("--collectives-only: " + "; ".join(failed))
+        return record
     out_dir = tempfile.mkdtemp(prefix="loam_ranks_")
     np.save(os.path.join(out_dir, "scans.npy"), scans_np)
     _spawn_ranks(N, out_dir, ())
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(N)]
     for r in range(N):
         print(open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip(), flush=True)
-    failed = []
     for n, row in ranks[0]["peer"].items():
         slow = max(res["peer"][n]["graph_us"] for res in ranks)
         print(f"phase 17 {row['kind']} {n}, one host, {row['what']} a rank: the kernel {slow:.2f} us in a graph "
@@ -3092,7 +3263,10 @@ def _collectives_phase(torch, smi, scans_np) -> dict:
     record = {"ranks": N, "one_host": {n: max(res["peer"][n]["graph_us"] for res in ranks) for n in ranks[0]["peer"]},
               "splits": _split_checks(torch, ranks, {}, failed, smi)}
     _wire_phase(record, N, out_dir, ranks, smi)
-    print(json.dumps({"collectives": record}))
+    if N >= 4:
+        record["many"] = {world: _share_phase(None, torch, None, scans_np, split, (), failed, smi)
+                          for world, split in MANY_SPLITS.items()}
+    print(json.dumps({"collectives": record}, default=str))
     if failed:
         raise AssertionError("--collectives-only: " + "; ".join(failed))
     return record
@@ -3109,9 +3283,14 @@ def _split_checks(torch, ranks: list, one_outputs: dict, failed: list, smi: str)
     and no host read a unit on every rank, every rank's outputs bit-equal to
     rank 0's and rank 0's to 1 rank x N shards (``one_outputs``; the maps:
     the ranks' rows in rank order), every collective bit-equal to its plain
-    version and one graph node; failures appended to ``failed``. Prints a
-    line a cell and a collective; returns the splits' records (ms of the
-    slowest rank, the collectives' rows with their bounds)."""
+    version and one graph node (the one-card check's too: accepted and equal
+    in WHILE and IF bodies, the same digest on every rank); failures
+    appended to ``failed``. Prints a line a cell and a collective, and the
+    mesh's bytes a rank and its longest wait against ``WAIT_SECONDS``;
+    returns the splits' records (ms of the slowest rank, the collectives'
+    rows with their bounds)."""
+    from loam_tpu_torch.ops.peer_cuda import WAIT_SECONDS
+
     N = len(ranks)
     out = {}
     for split in ranks[0]["splits"]:
@@ -3119,7 +3298,33 @@ def _split_checks(torch, ranks: list, one_outputs: dict, failed: list, smi: str)
         first = mine[0]
         island = len(next(i for i in first["islands"] if 0 in i))
         rec = {"hosts": first["hosts"], "islands": [list(i) for i in first["islands"]],
-               "remote_rank0": first["remote"], "cells": {}, "peer": None}
+               "remote_rank0": first["remote"], "cells": {}, "peer": None,
+               "device_bytes": [res["bytes"]["device"] for res in mine],
+               "pinned_bytes": [res["bytes"]["pinned"] for res in mine],
+               "wait_share": [res["wait"]["share"] for res in mine]}
+        longest = max(rec["wait_share"])
+        print(f"phase 17 across hosts {split} ({N} ranks on {torch.cuda.device_count()} card(s), islands "
+              f"{rec['islands']}): a rank holds {max(rec['device_bytes'])} B of device memory and "
+              f"{max(rec['pinned_bytes'])} B pinned for the mesh (the largest rank; the least "
+              f"{min(rec['device_bytes'])} / {min(rec['pinned_bytes'])}); the longest wait of any rank "
+              f"{longest * WAIT_SECONDS:.3f} s, {longest:.4f} of WAIT_SECONDS ({WAIT_SECONDS:.0f} s), on {smi}",
+              flush=True)
+        if first.get("share"):
+            rec["share"] = {}
+            for n, row in first["share"].items():
+                every = [res["share"][n] for res in mine]
+                ok = all(r["equal"] and r["graph_nodes"] == 1 and r["while"] and r["if"] for r in every)
+                same = all(r["digest"] == row["digest"] for r in every)
+                if not (ok and same):
+                    failed.append(f"{split} {n}: {'bit-equal to its plain version, one graph node, accepted in WHILE '
+                                                 'and IF bodies' if not ok else 'the same on every rank'} fails")
+                slow = {k: max(r[k] for r in every) for k in ("ms", "graph_us")}
+                rec["share"][n] = {"kind": row["kind"], "what": row["what"], "bytes": row["bytes"], "checks": ok,
+                                   "same_every_rank": same, **slow}
+                print(f"phase 17 {row['kind']} {n} across hosts {split}, {row['what']} a rank: bit-equal to its plain "
+                      f"version, one graph node, accepted and equal in a WHILE and an IF body on every rank: {ok}; "
+                      f"every rank bit-equal to rank 0: {same}; {slow['ms']:.3f} ms back to back, "
+                      f"{slow['graph_us']:.1f} us in a graph (slowest rank), on {smi}", flush=True)
         for r, res in enumerate(mine):
             for cell, row in res["rows"].items():
                 if row["graph_launches_per_unit"] != 1 or row["host_reads_per_unit"] != 0:
@@ -3174,32 +3379,46 @@ def _split_checks(torch, ranks: list, one_outputs: dict, failed: list, smi: str)
     return out
 
 
-def _share_phase(T, torch, counters, out_dir: str, failed: list, smi: str) -> dict:
-    """Two ranks on ``cuda:0``, each its own host (``--share-worker``: a
-    gloo group, ``make_mesh(hosts=[0, 1])``): the cross-host leg with the
-    card time-sliced between the two processes. Every cell through
-    :func:`_split_checks` against 1 rank x 2 shards of ``cuda:0``."""
+def _share_phase(T, torch, counters, scans_np, split: str, cells, failed: list, smi: str) -> dict:
+    """The ranks of ``split`` (``"HxR"``, :func:`_split_labels`) sharing the
+    cards, rank r on card r % cards (``--share-worker``: a gloo group,
+    ``make_mesh(hosts=)``; ranks of a card and host are one island over
+    IPC, the card time-sliced between them), on ``scans_np``: ``cells``,
+    each through :func:`_split_checks` against the same calls on 1 rank x
+    the ranks' shards of ``cuda:0`` (a world-size-1 NCCL group), then the
+    collectives of :func:`_share_collectives`. Prints
+    each rank's log (past 4 ranks rank 0's and the others' last stamps);
+    returns the split's record."""
     from loam_tpu_torch import parallel
 
-    _stamp("phase 17: two ranks on one card, two hosts")
+    world = len(_split_labels(split))
+    out_dir = tempfile.mkdtemp(prefix=f"loam_share{world}_")
+    np.save(os.path.join(out_dir, "scans.npy"), scans_np)
+    _stamp(f"phase 17: {world} ranks of {split} hosts on {torch.cuda.device_count()} card(s), "
+           f"{'the cells' if cells else 'the collectives'}")
     t0 = time.perf_counter()
-    _spawn_ranks(2, out_dir, RANKS_CELLS, share=True)
+    _spawn_ranks(world, out_dir, cells, share=split)
     spawn_s = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
-    for r in range(2):
-        print(open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip(), flush=True)
-    dev = torch.device("cuda", 0)
-    scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, 2)
-    with _nccl_group() as group, _dual_knn(False):
-        mesh = parallel.make_mesh([dev] * 2, group=group)
-        stamp = lambda what: _stamp(f"phase 17, 1 rank x 2 shards: {what}")
-        one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph),
-                                              counters, 1, stamp, traced=False)
-        mesh.release()
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(world)]
+    for r in range(world):
+        log = open(os.path.join(out_dir, f"rank{r}.log")).read().rstrip()
+        print(log if r == 0 or world <= 4 else log.splitlines()[-1], flush=True)
+    one_outputs, one_rows = {}, {}
+    if cells:
+        dev = torch.device("cuda", 0)
+        scans, lidar, fp, rp, graph = _ranks_inputs(T, torch, dev, out_dir, world)
+        with _nccl_group() as group, _dual_knn(False):
+            mesh = parallel.make_mesh([dev] * world, group=group)
+            stamp = lambda what: _stamp(f"phase 17, 1 rank x {world} shards: {what}")
+            one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
+                                                                     cells), counters, 1, stamp, traced=False)
+            mesh.release()
     rec = _split_checks(torch, ranks, one_outputs, failed, smi)
-    (split,) = rec
-    rec[split]["spawn_s"] = spawn_s
-    rec[split]["one_rank_ms_a_unit"] = {cell: row["ms_per_unit"] for cell, row in one_rows.items()}
+    rec[split].update(spawn_s=spawn_s, ranks=world, cards=torch.cuda.device_count(),
+                      one_rank_ms_a_unit={cell: row["ms_per_unit"] for cell, row in one_rows.items()})
+    for cell, row in one_rows.items():
+        print(f"phase 17 {cell}, 1 rank x {world} shards of cuda:0: {row['ms_per_unit']:.3f} ms a "
+              f"{'frame' if row['units'] > 1 else 'call'}, on {smi}", flush=True)
     return rec
 
 
@@ -3215,24 +3434,30 @@ def main() -> int:
         return _rank_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                             tuple(sys.argv[6:]))
     if sys.argv[1:2] == ["--share-worker"]:
-        # phase 17's ranks on one card: <rank> <world> <port> <out_dir> <cell> ...
-        return _rank_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
-                            tuple(sys.argv[6:]), share=True)
+        # phase 17's ranks that share the cards: <split> <rank> <world> <port> <out_dir> <cell> ...
+        return _rank_worker(int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6],
+                            tuple(sys.argv[7:]), share=sys.argv[2])
     if sys.argv[1:2] == ["--wire-worker"]:
         # phase 17's wire rates: <split> <rank> <world> <port> <out_dir>
         return _wire_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
     if sys.argv[1:2] == ["--probe-worker"]:
         # phase 17's probe: <case> <rank> <world> <port> <out_dir>
         return _probe_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
-    extraction_only = sys.argv[1:] == ["--extraction-only"]
-    drive_only = sys.argv[1:] == ["--drive-only"]
-    ranks_only = sys.argv[1:2] == ["--ranks-only"]
-    collectives_only = sys.argv[1:] == ["--collectives-only"]
-    ranks_cells = tuple(sys.argv[2:]) if ranks_only and sys.argv[2:] else RANKS_CELLS
-    if sys.argv[1:] and not (extraction_only or drive_only or ranks_only or collectives_only) or \
-            set(ranks_cells) - set(RANKS_CELLS):
-        print(f"usage: chip_smoke.py [--extraction-only | --drive-only | --ranks-only [cell ...] | "
-              f"--collectives-only], cells {' '.join(RANKS_CELLS)}", file=sys.stderr)
+    argv, world = sys.argv[1:], None
+    if argv[:1] in (["--ranks-only"], ["--collectives-only"]) and argv[1:2] == ["--world"] and argv[2:3]:
+        world = int(argv[2]) if argv[2].isdigit() else -1
+        del argv[1:3]
+    extraction_only = argv == ["--extraction-only"]
+    drive_only = argv == ["--drive-only"]
+    ranks_only = argv[:1] == ["--ranks-only"]
+    collectives_only = argv == ["--collectives-only"]
+    ranks_cells = tuple(argv[1:]) if ranks_only and argv[1:] else RANKS_CELLS
+    worlds = {ONE_CARD_WORLD: ONE_CARD_SPLIT, **MANY_SPLITS}
+    if argv and not (extraction_only or drive_only or ranks_only or collectives_only) or \
+            set(ranks_cells) - set(RANKS_CELLS) or (world is not None and world not in worlds):
+        print(f"usage: chip_smoke.py [--extraction-only | --drive-only | --ranks-only [--world N] [cell ...] | "
+              f"--collectives-only [--world N]], cells {' '.join(RANKS_CELLS)}, N "
+              f"{' '.join(map(str, worlds))} (ranks that share the cards)", file=sys.stderr)
         return 2
 
     import loam_tpu_torch as T
@@ -3263,17 +3488,23 @@ def main() -> int:
         slots = re.search(r"I([df])Li(\d+)E", fn)
         what = f"<{'f64' if slots.group(1) == 'd' else 'f32'}, {slots.group(2)} slots a lane>" if slots else fn
         print(f"ptxas sector_sort_kernel{what}: {regs} registers, {stack} B stack, {spill} B spill stores")
+    for stack, spill, regs in re.findall(
+            r"Function properties for \S*peer_kernel\S*\s+(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores.*\n.*Used (\d+) registers", _build.last_build_log):
+        print(f"ptxas peer_kernel: {regs} registers, {stack} B stack, {spill} B spill stores")
 
     # ---- 2. kernels vs plain versions at the main path's shapes -------------
     _stamp("phase 2")
     lidar = T.LidarParams(64, 1024, 0.5, 120.0)
     fp = T.FeatureExtractionParams(precise_selection=True)
     rp = T.RegistrationParams(search_backend="bruteforce")
-    frames = 16
+    frames = RANKS_FRAMES
+    # phase 17's runs past one rank a card take up to 24 frames and 24 pairs (_counts)
+    many_frames = max(max(f, p + 1) for f, p, _ in (_counts(T, w) for w in (ONE_CARD_WORLD, *MANY_SPLITS)))
     # the drive of phase 16, rendered once: render_trajectory seeds frame f
     # with seed + f, so the shorter runs' scans are its first frames
     drive_np, drive_poses = render_trajectory(
-        lidar, frames if extraction_only or ranks_only or collectives_only else DRIVE_FRAMES,
+        lidar, frames if extraction_only or collectives_only else many_frames if ranks_only else DRIVE_FRAMES,
         step=np.array([0.08, 0.02, 0.0]),
         yaw_rate=0.01, noise=0.005, seed=0, dtype=np.float32,
     )
@@ -3316,11 +3547,24 @@ def main() -> int:
     s2m_cfg = T.ScanToMapConfig()
     s2m_reg = T.default_map_reg_params()
     grid_reg = T.RegistrationParams(search_backend="grid", prior_weight=300.0)
+    many_np = drive_np[:many_frames] if torch.cuda.device_count() >= 4 else None
+    if (ranks_only or collectives_only) and world is not None:
+        # phase 17 at one world size of ranks that share the cards, after the build
+        _stamp(f"phase 17, {world} ranks")
+        failed = []
+        rec = _share_phase(T, torch, counters, drive_np[:many_frames] if ranks_only else scans_np, worlds[world],
+                           ranks_cells if ranks_only else (), failed, smi)
+        print(json.dumps({"ranks" if ranks_only else "collectives": {"many": {world: rec}}}, default=str))
+        if failed:
+            raise AssertionError(f"phase 17 at {world} ranks: " + "; ".join(failed))
+        _stamp("phases done")
+        print(smi)
+        return 0
     if ranks_only:
         # phase 17 alone, after the build
         _stamp("phase 17")
         _ranks_phase(T, torch, smi, scans_np, drive_gt[:frames], counters, path_launches, ate_rmse, 2,
-                     ranks_cells)
+                     ranks_cells, many_np)
         _stamp("phases done")
         print(smi)
         return 0
@@ -4204,7 +4448,7 @@ def main() -> int:
 
     # ---- 17. one rank a card: the sharded drivers over NCCL across the cards ----
     _stamp("phase 17")
-    _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse, reps)
+    _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse, reps, many_np=many_np)
 
     _stamp("phases done")
     for kd in kernels:

@@ -44,8 +44,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types; every one returns cudaError_t
-# (the *_form queries, loam_knn_*_queries / _max_boxes, loam_peer_max_ranks /
-# _segments, loam_peer_aborted and loam_peer_link_counters return a number)
+# (the *_form queries, loam_knn_*_queries / _max_boxes, loam_peer_world_max /
+# _max_segments, loam_proxy_link_bytes, loam_peer_aborted and
+# loam_peer_link_counters return a number)
 SIGNATURES = {
     "loam_sector_sort_form": (_I, _I, _I, _I),
     "loam_sector_sort_f64": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -62,9 +63,10 @@ SIGNATURES = {
     "loam_knn_dual": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # the mesh's gather and sum over peer memory (peer_gather.cu; ops/peer_cuda.py)
-    "loam_peer_max_ranks": (),
+    "loam_peer_world_max": (),
     "loam_peer_max_segments": (),
-    "loam_peer_create": (_I, _I, ctypes.c_double, ctypes.POINTER(_P)),
+    "loam_proxy_link_bytes": (),
+    "loam_peer_create": (_I, _I, ctypes.c_double, ctypes.c_longlong, ctypes.POINTER(_P)),
     "loam_peer_bus_id": (ctypes.c_char_p, _I),
     "loam_peer_can_reach": (ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(_I)),
     "loam_peer_flags_handle": (_P, ctypes.c_char_p),
@@ -74,6 +76,9 @@ SIGNATURES = {
     "loam_peer_proxy": (_P, ctypes.POINTER(_I)),
     "loam_peer_aborted": (_P, ctypes.c_char_p, _I),
     "loam_peer_link_counters": (_P, _I, ctypes.POINTER(ctypes.c_ulonglong)),
+    "loam_peer_bytes": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
+    "loam_peer_max_wait": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
+    "loam_peer_plan": (_P, _I, ctypes.c_longlong, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)),
     "loam_peer_close": (_P,),
     "loam_peer_free": (_P,),
     "loam_peer_run": (_P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _P),

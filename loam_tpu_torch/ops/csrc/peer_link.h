@@ -15,10 +15,12 @@
 //                    gather's from 0 on, past LOAM_PEER_CHUNKS / 2 too; a
 //                    sum's first phase from 0, its second from
 //                    LOAM_PEER_CHUNKS / 2)
-//   out_desc[s][k]   {offset, bytes a piece, stride, (gen << 32) | pieces}:
-//                    the chunk's pieces, at offset + j * stride of the slot
-//                    (a sum's first phase sends L pieces a chunk), in the
-//                    staging of mailbox generation `gen`
+//   out_desc[s][k]   {offset, bytes a piece, stride, pieces}: the chunk's
+//                    pieces, at offset + j * stride of the slot (a sum's
+//                    first phase sends L pieces a chunk). The staging is
+//                    two slots of a fixed window each way, made with the
+//                    mesh; the kernel sends a collective that outgrows a
+//                    slot in pieces, an epoch each
 //   in_flags[s][k]   the proxy stores e here once the peer's chunk k of
 //                    epoch e is in the in staging of slot s; the kernel
 //                    waits on it
@@ -35,7 +37,6 @@
 #define LOAM_PEER_LINK_H
 
 #define LOAM_PEER_CHUNKS 4096  // flags a sender (and slot); a sum's two phases take half each
-#define LOAM_PEER_GENS 32      // mailboxes a mesh may make (each at least twice the last)
 
 struct LoamLink {
   unsigned long long out_flags[2][LOAM_PEER_CHUNKS];
@@ -50,8 +51,8 @@ extern "C" {
 #endif
 // peer_proxy.cpp's interface (ops/peer_cuda.py; tests/test_torch_cross_host.py
 // drives it alone)
-void* loam_proxy_start(int n, const int* fds, struct LoamLink* const* links, unsigned long long* abort_word);
-int loam_proxy_stage(void* proxy, int gen, int i, char* out, char* in, unsigned long long cap);
+void* loam_proxy_start(int n, const int* fds, struct LoamLink* const* links, char* const* outs, char* const* ins,
+                       unsigned long long cap, unsigned long long* abort_word);
 int loam_proxy_failed(void* proxy, char* msg, int len);
 int loam_proxy_counters(void* proxy, int link, unsigned long long* out);
 int loam_proxy_stop(void* proxy);

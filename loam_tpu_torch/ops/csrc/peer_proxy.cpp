@@ -23,8 +23,11 @@
 //            message: a header naming the slot, epoch, first chunk, count
 //            and byte ranges, then the bytes chunk by chunk, each chunk's
 //            pieces in order, in one sendmsg of an iovec a piece read
-//            straight from the out staging. Idle for 2 ms, it sleeps
-//            20 us a round;
+//            straight from the out staging. Idle, it spins for 2 ms over
+//            the proxy's links (2 ms / links a link, at least 100 us: a
+//            rank of many remote peers does not keep a core a link busy),
+//            then sleeps a round 20 us, from 20 ms idle 100 us and from
+//            200 ms 1 ms (24 ranks on a machine are hundreds of senders);
 //   receive  blocks on the socket: a header, then a run's bytes straight
 //            into the in staging at the same offsets, kLandBytes at a
 //            time (a recvmsg over their pieces), each landing's chunks'
@@ -40,8 +43,8 @@
 // acknowledgements, its send / recv calls and the time blocked in them, the
 // time spent finding runs and the time asleep (loam_proxy_counters).
 //
-// A socket that fails or closes, a message that names a slot or a staging
-// the rank does not have: the proxy stores 1 into the abort word, which the
+// A socket that fails or closes, a message that names a slot or a range
+// the staging does not have: the proxy stores 1 into the abort word, which the
 // kernel's spin reads (it traps, and the call raises), and keeps the reason
 // (loam_proxy_failed). The stop shuts the sockets down, which ends every
 // thread's blocking call, and joins them.
@@ -59,6 +62,7 @@
 #include <sys/uio.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <memory>
@@ -84,7 +88,7 @@ constexpr int kIov = 512;  // iovec entries a call at most (IOV_MAX is 1024)
 // a chunk's bytes min(step, bytes - i * step), none past `bytes`
 struct Header {
   unsigned magic, type, slot, k;
-  unsigned count, pieces, gen, pad;
+  unsigned count, pieces, pad0, pad1;
   unsigned long long epoch, off, step, bytes, stride;
 };
 static_assert(sizeof(Header) == 72, "the wire's header is 72 bytes");
@@ -125,8 +129,7 @@ struct Link {
   Cursor cur[2][2];  // [slot][half]
   int last_half = 1;  // the half of the last run sent
   unsigned long long ack_sent = 0;
-  Stage stage[LOAM_PEER_GENS];
-  std::atomic<int> ready[LOAM_PEER_GENS];
+  Stage stage;
   std::thread sender, receiver;
 };
 
@@ -159,25 +162,20 @@ void fail(Proxy* p, size_t i, const std::string& why) {
   store(p->abort_word, 1);
 }
 
-// where run h's slot starts in a staging (*at), or why not: later where
-// the header's generation is not registered yet (a peer may send its first
-// chunks before this rank's registration ends), bad where it names a
-// generation, slot, chunk or range the staging cannot have
-enum Where { kHere, kLater, kBad };
-
-Where slot_base(Link& L, const Header& h, bool out, char** at) {
-  if (h.gen >= LOAM_PEER_GENS || h.slot > 1 || h.k >= LOAM_PEER_CHUNKS || h.count < 1 ||
-      h.count > LOAM_PEER_CHUNKS - h.k || h.pieces < 1 || h.pieces > (1u << 20))
-    return kBad;
-  if (h.bytes > h.step * h.count || (h.bytes && h.step == 0)) return kBad;  // every byte in a chunk
-  if (!L.ready[h.gen].load(std::memory_order_acquire)) return kLater;
-  const Stage& s = L.stage[h.gen];
+// where run h's slot starts in the staging (*at), or false where it names
+// a slot, chunk or range the staging cannot have
+bool slot_base(Link& L, const Header& h, bool out, char** at) {
+  if (h.slot > 1 || h.k >= LOAM_PEER_CHUNKS || h.count < 1 || h.count > LOAM_PEER_CHUNKS - h.k || h.pieces < 1 ||
+      h.pieces > (1u << 20))
+    return false;
+  if (h.bytes > h.step * h.count || (h.bytes && h.step == 0)) return false;  // every byte in a chunk
+  const Stage& s = L.stage;
   const unsigned long long span = (h.pieces - 1ull) * h.stride;
-  if (h.stride && span / h.stride != h.pieces - 1ull) return kBad;
+  if (h.stride && span / h.stride != h.pieces - 1ull) return false;
   const unsigned long long end = h.off + span + h.bytes;
-  if (end > s.cap || end < h.off) return kBad;
+  if (end > s.cap || end < h.off) return false;
   *at = (out ? s.out : s.in) + h.slot * s.cap;
-  return kHere;
+  return true;
 }
 
 // run h's pieces from chunk i0 to i1, as iovec entries over the slot at
@@ -274,8 +272,7 @@ Header run_at(Link& L, int s, int half, const Cursor& c) {
   const int end = (half + 1) * kHalf;
   const unsigned long long* f = L.w->out_flags[s];
   const unsigned long long* d = L.w->out_desc[s][c.k];
-  Header h{kMagic, kData, (unsigned)s, (unsigned)c.k, 1, (unsigned)(d[3] & 0xffffffffu), (unsigned)(d[3] >> 32), 0,
-           c.e, d[0], d[1] ? d[1] : 1, d[1], d[2]};
+  Header h{kMagic, kData, (unsigned)s, (unsigned)c.k, 1, (unsigned)d[3], 0, 0, c.e, d[0], d[1] ? d[1] : 1, d[1], d[2]};
   const unsigned long long pieces = h.pieces ? h.pieces : 1;
   for (int k = c.k + 1; k < end; ++k) {
     if (load(&f[k]) != c.e) break;
@@ -300,6 +297,8 @@ Header run_at(Link& L, int s, int half, const Cursor& c) {
 void send_loop(Proxy* p, size_t i) {
   Link& L = *p->links[i];
   auto last = Clock::now();
+  const auto spin = std::max(std::chrono::microseconds(100),
+                             std::chrono::microseconds(2000 / (long)p->links.size()));
   std::vector<iovec> v;
   while (!p->stop.load(std::memory_order_acquire) && !p->failed.load(std::memory_order_acquire)) {
     bool work = false;
@@ -330,30 +329,31 @@ void send_loop(Proxy* p, size_t i) {
       const Header h = run_at(L, best_s, best_h, c);
       L.out.add(kScanNs, ns_since(scan0));
       char* base = nullptr;
-      const Where where = slot_base(L, h, true, &base);
-      if (where == kBad)
+      if (!slot_base(L, h, true, &base))
         return fail(p, i, "chunks " + std::to_string(h.k) + " to " + std::to_string(h.k + h.count - 1) +
-                              " of epoch " + std::to_string(h.epoch) +
-                              " name a staging or range this rank does not have");
-      if (where == kHere) {  // later: sent once its generation is registered
-        v.assign(1, iovec{const_cast<Header*>(&h), sizeof(h)});
-        pieces(h, base, 0, h.count, v);
-        if (!send_all(L.fd, v, L.out)) return fail(p, i, std::string("send: ") + strerror(errno));
-        L.out.add(kMessages, 1);
-        L.out.add(kChunks, h.count);
-        L.out.add(kBytes, h.bytes * h.pieces);
-        c.k += (int)h.count;
-        work = true;
-      }
+                              " of epoch " + std::to_string(h.epoch) + " name a range the staging does not have");
+      v.assign(1, iovec{const_cast<Header*>(&h), sizeof(h)});
+      pieces(h, base, 0, h.count, v);
+      if (!send_all(L.fd, v, L.out)) return fail(p, i, std::string("send: ") + strerror(errno));
+      L.out.add(kMessages, 1);
+      L.out.add(kChunks, h.count);
+      L.out.add(kBytes, h.bytes * h.pieces);
+      c.k += (int)h.count;
+      work = true;
     } else {
       L.out.add(kScanNs, ns_since(scan0));
     }
     if (work) {
       last = Clock::now();
-    } else if (Clock::now() - last > std::chrono::milliseconds(2)) {
-      const auto t0 = Clock::now();
-      std::this_thread::sleep_for(std::chrono::microseconds(20));
-      L.out.add(kSleepNs, ns_since(t0));
+    } else {
+      const auto idle = Clock::now() - last;
+      if (idle > spin) {
+        const auto t0 = Clock::now();
+        std::this_thread::sleep_for(idle < std::chrono::milliseconds(20)    ? std::chrono::microseconds(20)
+                                    : idle < std::chrono::milliseconds(200) ? std::chrono::microseconds(100)
+                                                                            : std::chrono::microseconds(1000));
+        L.out.add(kSleepNs, ns_since(t0));
+      }
     }
   }
 }
@@ -378,18 +378,9 @@ void receive_loop(Proxy* p, size_t i) {
       continue;
     }
     char* base = nullptr;
-    Where where;
-    while ((where = slot_base(L, h, false, &base)) == kLater && !p->stop.load(std::memory_order_acquire)) {
-      const auto t0 = Clock::now();
-      std::this_thread::sleep_for(std::chrono::microseconds(20));  // its generation is being registered
-      L.in.add(kSleepNs, ns_since(t0));
-    }
-    if (where != kHere) {
-      if (where == kBad)
-        fail(p, i, "chunks " + std::to_string(h.k) + " to " + std::to_string(h.k + h.count - 1) + " of epoch " +
-                       std::to_string(h.epoch) + " name a staging or range this rank does not have");
-      return;
-    }
+    if (!slot_base(L, h, false, &base))
+      return fail(p, i, "chunks " + std::to_string(h.k) + " to " + std::to_string(h.k + h.count - 1) + " of epoch " +
+                            std::to_string(h.epoch) + " name a range the staging does not have");
     for (unsigned i0 = 0; i0 < h.count;) {
       unsigned i1 = i0 + 1;
       unsigned long long n = chunk_bytes(h, i0) * h.pieces;
@@ -411,9 +402,11 @@ void receive_loop(Proxy* p, size_t i) {
 extern "C" int loam_proxy_link_bytes(void) { return (int)sizeof(LoamLink); }
 
 // A proxy over n links: fds[i] a connected TCP socket (the proxy owns it from
-// now on and closes it at the stop), links[i] its words, abort_word the word
-// it raises on a failure. Null where n < 1.
-extern "C" void* loam_proxy_start(int n, const int* fds, LoamLink* const* links, unsigned long long* abort_word) {
+// now on and closes it at the stop), links[i] its words, outs[i] and ins[i]
+// its staging (two slots of `cap` bytes each way), abort_word the word it
+// raises on a failure. Null where n < 1.
+extern "C" void* loam_proxy_start(int n, const int* fds, LoamLink* const* links, char* const* outs, char* const* ins,
+                                  unsigned long long cap, unsigned long long* abort_word) {
   if (n < 1 || !abort_word) return nullptr;
   Proxy* p = new Proxy;
   p->abort_word = abort_word;
@@ -421,7 +414,7 @@ extern "C" void* loam_proxy_start(int n, const int* fds, LoamLink* const* links,
     std::unique_ptr<Link> L(new Link);
     L->fd = fds[i];
     L->w = links[i];
-    for (auto& r : L->ready) r.store(0);
+    L->stage = Stage{outs[i], ins[i], cap};
     // the flags already up are not this proxy's to send (a fresh link has none)
     for (int s = 0; s < 2; ++s)
       for (int half = 0; half < 2; ++half)
@@ -438,20 +431,6 @@ extern "C" void* loam_proxy_start(int n, const int* fds, LoamLink* const* links,
     p->links[i]->receiver = std::thread(receive_loop, p, i);
   }
   return p;
-}
-
-// Mailbox generation `gen`'s staging of link i: out and in, two slots of
-// `cap` bytes each. Registered before this rank's kernel uses it (a peer's
-// chunks of it may arrive first: they wait for it).
-extern "C" int loam_proxy_stage(void* h, int gen, int i, char* out, char* in, unsigned long long cap) {
-  Proxy* p = static_cast<Proxy*>(h);
-  if (!p || gen < 0 || gen >= LOAM_PEER_GENS || i < 0 || i >= (int)p->links.size()) return 1;
-  Link& L = *p->links[i];
-  L.stage[gen].out = out;
-  L.stage[gen].in = in;
-  L.stage[gen].cap = cap;
-  L.ready[gen].store(1, std::memory_order_release);
-  return 0;
 }
 
 // Link i's counters into out: the sender's kCounters words, then the

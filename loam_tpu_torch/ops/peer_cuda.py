@@ -39,18 +39,23 @@ compared, and CUDA IPC handles opened, only between ranks of one host.
     device memory (``cudaMalloc``), mapped by the island's peers through
     CUDA IPC, and the control words (a flag a sender and chunk, an
     acknowledgement a rank, the epoch); the kernel pushes over NVLink.
-  * Remote: for each remote peer two slots out and two in of pinned host
-    memory mapped for the card (``cudaHostAlloc``), and the words of
+  * Remote: for each remote peer two slots out and two in of
+    :data:`STAGE_BYTES` each of pinned host memory mapped for the card
+    (``cudaHostAlloc``), made once with the mesh, and the words of
     ``csrc/peer_link.h``; the kernel stages its chunks there over PCIe and
     the rank's proxy (``csrc/peer_proxy.cpp``, C++, no CUDA call, no
     Python in its loops; a sending and a receiving thread a remote peer)
     moves them over TCP to the peer's proxy, a run of consecutive raised
     chunks a message (one ``sendmsg``), which lands them in that rank's
     staging and raises their flags; each link counts its messages, bytes,
-    calls and time (:meth:`PeerMailbox.link_counters`). A rank pins
-    4 x the region's bytes a remote peer and mailbox (the sum of the pose
-    graph's H, 288 MB a rank, takes a 144 MB region: 1.15 GB at 2 hosts x
-    2 ranks, 1.73 GB at 4 x 1), and 384 KB of words a remote peer.
+    calls and time (:meth:`PeerMailbox.link_counters`). A collective that
+    would send a remote peer more than a slot holds runs in pieces, each
+    an epoch of the same protocol within the one launch, so a rank pins
+    4 x :data:`STAGE_BYTES` and 384 KB of words a remote peer whatever
+    the payloads (64 MB a remote peer: 1 GB at 3 hosts x 8 ranks), where
+    staging sized by the payload grew as remote peers x the largest
+    payload (a gather of the pose graph's H, 288 MB a rank, at 2 hosts x
+    8: 9.2 GB a rank).
 
 Each rank's proxy listens on an ephemeral TCP port at the address that
 ``LOAM_PEER_ADDR`` names, else at 127.0.0.1 where every remote peer of the
@@ -60,17 +65,27 @@ ranks exchange addresses and ports through the group, each rank connects to
 its remote peers above it and accepts those below (within
 :data:`CONNECT_SECONDS`, or ``make_mesh`` raises). Where a payload
 outgrows the regions outside a capture, every rank makes a larger mailbox
-and staging there in a collective exchange of the new handles (every rank
+there in a collective exchange of the new handles (every rank
 reaches the same collective with the same shapes; a program's eager warm-up
 runs every collective before its capture); the earlier ones stay until the
 release, since graphs captured on them replay them. A payload larger than
 the region inside a capture raises. At one rank the gather is one copy
 kernel, the sum one kernel that reads the L blocks and writes one, and
 neither needs a mailbox. A rank that waits for another past
-:data:`WAIT_SECONDS` traps in the kernel, and the call raises; a proxy that
+:data:`WAIT_SECONDS` traps in the kernel, and the call raises (the longest
+wait so far: :meth:`PeerMailbox.max_wait`); a proxy that
 loses its socket raises the rank's abort word, which the kernel's spin
 reads (it traps at once), and the next call raises naming the link. There
 is no fallback: a mesh across hosts never turns to eager NCCL or gloo.
+
+No constant caps the world: the kernel's routes are a table in device
+memory, its control words are sized by the island, and a block keeps 24
+bytes a rank in shared memory, so a mesh takes up to
+``loam_peer_world_max()`` ranks (2,048, the 48 KB of shared memory a launch
+takes without opting in). What a world needs is memory, which
+:meth:`PeerMailbox.footprint` reports and whose failure to allocate raises
+naming the bytes: the mailbox, 2 x the island's ranks x the largest
+payload of device memory, and the staging above.
 """
 
 from __future__ import annotations
@@ -88,14 +103,20 @@ from ..program import Counted
 from . import _build
 
 #: A rank's longest wait for another inside one collective before the
-#: kernel traps. A trap ends the process's CUDA context, so the wait outlasts
+#: kernel traps (ranks that share a card wait out each other's time slices
+#: too). A trap ends the process's CUDA context, so the wait outlasts
 #: by far how far the ranks drift apart between two collectives (one rank
 #: capturing a program while another replays it, host work between two
 #: calls); NCCL's watchdog in PyTorch waits 10 minutes.
 WAIT_SECONDS = 60.0
+#: Bytes of a remote peer's staging slot (two out and two in, pinned): what
+#: one epoch sends a remote peer at most; a collective that would send more
+#: runs in pieces of it.
+STAGE_BYTES = 16 << 20
 #: The first mailbox's region (a rank's payload) in bytes; a larger
 #: mailbox's region is a multiple of :data:`GROW_BYTES`, and at least twice
-#: the last (a mesh keeps them all). A mailbox holds 2 x world regions.
+#: the last (a mesh keeps them all). A mailbox holds 2 regions an island
+#: member.
 FIRST_SLOT_BYTES = 1 << 20
 GROW_BYTES = 2 << 20
 #: Where each leaf of a gather starts in the packed payload: a multiple of
@@ -113,8 +134,8 @@ CONNECT_SECONDS = 60.0
 #: data messages, the chunks and payload bytes they carried,
 #: acknowledgements, ``send`` / ``recv`` calls and the seconds blocked in
 #: them, the seconds the sender spent finding runs in the kernel's flags,
-#: and the seconds asleep (the sender idle; the receiver waiting for a
-#: mailbox generation to be registered).
+#: and the seconds asleep (the sender idle; the receiver, blocked in
+#: ``recv``, never sleeps).
 LINK_COUNTERS = ("messages", "chunks", "bytes", "acks", "syscalls", "blocked_s", "scan_s", "sleep_s")
 
 _HANDLE = 64  # sizeof(cudaIpcMemHandle_t)
@@ -259,13 +280,15 @@ class PeerMailbox:
         self.group, self.dev = group, dev
         self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
         lib = _build.lib()
-        if self.world > lib.loam_peer_max_ranks():
-            raise ValueError(f"the peer gather takes at most {lib.loam_peer_max_ranks()} ranks, the group "
-                             f"has {self.world}")
+        if self.world > lib.loam_peer_world_max():
+            raise ValueError(f"the peer gather takes at most {lib.loam_peer_world_max()} ranks (24 bytes a rank of a "
+                             f"block's 48 KB of shared memory), the group has {self.world}")
         given = None if hosts is None else check_hosts(hosts, self.world)
         handle = ctypes.c_void_p()
+        self.window = STAGE_BYTES
         with torch.cuda.device(dev):
-            _check(lib.loam_peer_create(self.world, self.rank, WAIT_SECONDS, ctypes.byref(handle)), "creating")
+            _check(lib.loam_peer_create(self.world, self.rank, WAIT_SECONDS, self.window, ctypes.byref(handle)),
+                   "creating")
         self.handle, self.cap = handle.value, 0
         self.buses, self.hosts, self.islands, self.remote = [b"?"] * self.world, (machine(),), ((0,),), []
         try:
@@ -316,8 +339,10 @@ class PeerMailbox:
         mine = next(isl for isl in self.islands if rank in isl)
         self.remote = [t for t in range(world) if t not in mine]
         with torch.cuda.device(self.dev):
+            pinned = len(self.remote) * (4 * self.window + lib.loam_proxy_link_bytes()) + (64 if self.remote else 0)
             _check(lib.loam_peer_routes(self.handle, (ctypes.c_int * world)(*(t in mine for t in range(world)))),
-                   "pinning the remote peers' words")
+                   f"the control words of an island of {len(mine)} and pinning {pinned} bytes for "
+                   f"{len(self.remote)} remote peers' staging and words")
         listener, addr, port = None, "", 0
         try:
             if self.remote:
@@ -374,9 +399,11 @@ class PeerMailbox:
 
     def _new_mailbox(self, lib, cap: int) -> bytes:
         box = ctypes.create_string_buffer(_HANDLE)
+        island = self.world - len(self.remote)
         with torch.cuda.device(self.dev):
             _check(lib.loam_peer_mailbox(self.handle, cap, box),
-                   f"a mailbox of regions of {cap} bytes ({len(self.remote)} remote peers' staging)")
+                   f"a mailbox of 2 x {island} regions of {cap} bytes ({2 * island * cap if island > 1 else 0} "
+                   f"bytes of device memory)")
         self.cap = cap
         return box.raw
 
@@ -393,8 +420,8 @@ class PeerMailbox:
 
     def reserve(self, nbytes: int) -> None:
         """A mailbox region of at least ``nbytes`` past one rank: a larger
-        mailbox and staging (every rank at once, outside a capture) where it
-        is smaller."""
+        mailbox (every rank at once, outside a capture) where it is
+        smaller."""
         if self.world == 1 or nbytes <= self.cap:
             return
         if torch.cuda.is_current_stream_capturing():
@@ -448,7 +475,45 @@ class PeerMailbox:
         self.check_links()
         self.reserve(total if mode == _GATHER else (L + 1) * sum_slice(total, self.world))
         flat = (ctypes.c_longlong * (4 * len(segments)))(*(v for seg in segments for v in seg))
-        _build.launch(lib.loam_peer_run, what, t, self.handle, flat, len(segments), mode, dtype, total, L)
+        try:
+            _build.launch(lib.loam_peer_run, what, t, self.handle, flat, len(segments), mode, dtype, total, L)
+        except RuntimeError:
+            self.plan(mode, total, L)  # raises where a chunk outgrows a remote peer's staging slot
+            raise
+
+    def plan(self, mode: int, total: int, L: int = 1) -> dict:
+        """How the kernel cuts a gather (``mode`` 0, ``total`` packed
+        bytes a rank) or a sum (1, ``total`` bytes a block, ``L`` blocks a
+        rank): bytes a chunk, chunks, pieces (an epoch each) and chunks a
+        piece."""
+        out = (ctypes.c_longlong * 4)()
+        if _build.lib().loam_peer_plan(self.handle, mode, total, L, out) != 0:
+            raise ValueError(f"peer gather: one chunk of a {'gather' if mode == _GATHER else f'sum of {L} blocks'} "
+                             f"of {total} bytes a rank outgrows a remote peer's staging slot of {self.window} bytes")
+        return dict(zip(("chunk", "chunks", "pieces", "piece_chunks"), out))
+
+    def footprint(self) -> dict:
+        """What this rank holds for the mesh: ``{"device": the control
+        words, every mailbox and the route tables, "pinned": the remote
+        peers' staging and words}`` in bytes."""
+        if self.handle is None:
+            return {"device": 0, "pinned": 0}
+        out = (ctypes.c_ulonglong * 2)()
+        _check(_build.lib().loam_peer_bytes(self.handle, out), "counting the buffers")
+        return {"device": out[0], "pinned": out[1]}
+
+    def max_wait(self) -> dict:
+        """The longest wait of any spin of this rank's collectives since
+        the mesh was made (a synchronous read: after a run, outside a
+        capture): ``{"seconds": ..., "share": of WAIT_SECONDS}``, from
+        cycles of ``clock64`` at the card's clock rate."""
+        if self.handle is None:
+            return {"seconds": 0.0, "share": 0.0}
+        out = (ctypes.c_ulonglong * 2)()
+        with torch.cuda.device(self.dev):
+            _check(_build.lib().loam_peer_max_wait(self.handle, out), "reading the longest wait")
+        share = out[0] / out[1] if out[1] else 0.0
+        return {"seconds": share * WAIT_SECONDS, "share": share}
 
     def gather(self, leaves: list) -> list:
         """The kernel's gather of the contiguous CUDA tensors ``leaves``

@@ -4,7 +4,8 @@ the cross-host leg, and a gloo mesh labelled as two hosts.
   * ``peer_cuda.islands``: the islands a mesh's host labels and its cards'
     reach give, asking the reach only of ranks with one label (identical
     servers share PCI bus ids: cards of two machines are never compared),
-    and ``check_hosts``'s refusals.
+    and ``check_hosts``'s refusals; 24 labels (3 hosts of 8, and 2 hosts
+    of 12 whose cards reach within pairs), past the kernel's old cap of 16.
   * ``csrc/peer_proxy.cpp`` built with ``g++`` and driven in two processes
     over loopback TCP (this file as the worker,
     ``python tests/test_torch_cross_host.py proxy <rank> <port> <lib> <out>``):
@@ -12,9 +13,9 @@ the cross-host leg, and a gloo mesh labelled as two hosts.
     staging, their descriptions and flags into the words of
     ``csrc/peer_link.h`` as the kernel does (the bytes, then the
     description, then the flag; an epoch's chunks of each half of the flags
-    dense from its first), over 7 epochs on two mailbox generations (each
-    slot rewritten after the peer's acknowledgement of the epoch before
-    last), gathers and sums by turns, flags raised in a shuffled order and
+    dense from its first), over 7 epochs (each slot rewritten after the
+    peer's acknowledgement of the epoch before last), gathers and sums by
+    turns, flags raised in a shuffled order and
     chunks of one piece, of several pieces a stride apart (a sum's first
     phase), short, empty and one that does not continue the chunk before
     (a run ends there); every byte the peer's proxy lands, every flag and
@@ -27,6 +28,9 @@ the cross-host leg, and a gloo mesh labelled as two hosts.
     one message in one ``sendmsg`` and land at their offsets with every
     flag raised (the counters show it); a peer that closes its socket in
     the middle of a run raises the abort word, no flag of the run up.
+  * Two proxies of one process over 20 links (socket pairs), more than
+    the 16 remote peers of a rank of 24 on 3 hosts of 8: every link's
+    chunks, bytes and acknowledgement, both ways, landed and counted.
   * 4 gloo ranks of ``tests/test_torch_multiprocess.py``'s harness with
     ``make_mesh(hosts=[0, 0, 1, 1])``: its islands, and
     ``scan_to_map_step_sharded`` bit-equal to 1 rank x 4 shards.
@@ -79,6 +83,13 @@ def _reach_within(labels, pairs):
     (("A",) * 4, {(0, 1), (2, 3)}, ((0, 1), (2, 3))),
     # a card that reaches only some of an island starts its own
     (("A",) * 3, {(0, 1), (1, 2)}, ((0, 1), (2,))),
+    # 24 ranks of 3 hosts of 8, past the kernel's old cap of 16: an island a host
+    (tuple(str(r // 8) for r in range(24)), {(a, b) for a in range(24) for b in range(24) if a // 8 == b // 8},
+     tuple(tuple(range(h * 8, h * 8 + 8)) for h in range(3))),
+    # 24 ranks of 2 hosts whose cards reach within pairs of cards only (6 ranks a card: rank r on card r % 4)
+    (tuple(str(r // 12) for r in range(24)),
+     {(a, b) for a in range(24) for b in range(24) if a // 12 == b // 12 and (a % 4) // 2 == (b % 4) // 2},
+     tuple(tuple(r for r in range(h * 12, h * 12 + 12) if (r % 4) // 2 == pair) for h in range(2) for pair in (0, 1))),
 ])
 def test_islands_follow_hosts_and_reach(labels, pairs, want):
     assert islands(labels, _reach_within(labels, pairs)) == want
@@ -99,28 +110,22 @@ def test_hosts_labels_and_machine():
 HALF = CHUNKS // 2  # a sum's second phase counts its flags from here
 # an epoch's chunks as the kernel raises them: (flag index, offset, bytes a
 # piece, stride, pieces), each half's from its first flag on. A gather's
-# payload: chunks a step apart, the last short (and one more on the larger
-# second generation), with a break where a chunk does not continue the one
-# before (a run ends there); a sum's first phase: 3 pieces a stride apart,
-# the last chunk short then an empty one; its second phase: contiguous from
-# flag HALF on
+# payload: chunks a step apart, the last short (and one more from epoch 4
+# on), with a break where a chunk does not continue the one before (a run
+# ends there); a sum's first phase: 3 pieces a stride apart, the last chunk
+# short then an empty one; its second phase: contiguous from flag HALF on
 _C, _S = 1000, 8192
 _GATHER = [(k, k * _C, _C, 0, 1) for k in range(3)] + [(3, 5000, 700, 0, 1), (4, 5700, 300, 0, 1)]
 _SUM = ([(k, k * _C, _C, _S, 3) for k in range(3)] + [(3, 3000, 500, _S, 3), (4, 4000, 0, _S, 3)] +
         [(HALF + k, 3 * _S + k * _C, _C, 0, 1) for k in range(4)])
-_GENS = ((1, 64 << 10), (4, 256 << 10))  # (first epoch, bytes a region)
-_BIG = (5, 70000, 150000, 0, 1)  # the second generation's gather, after chunk 4's end: a new run
-
-
-def _generation(e: int):
-    g = max(i for i, (first, _) in enumerate(_GENS) if e >= first)
-    return g, _GENS[g][1]
+_CAP = 256 << 10  # bytes a staging slot
+_BIG = (5, 70000, 150000, 0, 1)  # a gather's chunk after chunk 4's end: a new run
 
 
 def _chunks(e: int) -> list:
     if e % 2 == 0:
         return _SUM
-    return _GATHER + ([_BIG] if _generation(e)[0] else [])
+    return _GATHER + ([_BIG] if e >= 4 else [])
 
 
 def _bytes(rank: int, e: int, k: int, j: int, n: int) -> np.ndarray:
@@ -139,9 +144,8 @@ def _load_proxy(lib_path: str):
     lib = ctypes.CDLL(lib_path)
     lib.loam_proxy_start.restype = ctypes.c_void_p
     lib.loam_proxy_start.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
-                                     ctypes.c_void_p]
-    lib.loam_proxy_stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_ulonglong]
+                                     ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.c_ulonglong, ctypes.c_void_p]
     lib.loam_proxy_failed.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
     lib.loam_proxy_counters.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
     lib.loam_proxy_stop.argtypes = [ctypes.c_void_p]
@@ -162,9 +166,13 @@ class _Words:
         self.acks = self.link[12 * CHUNKS:]  # ack_out, ack_in
         self.abort = np.zeros(1, dtype=np.uint64)
 
-    def start(self, lib, fd: int):
-        return lib.loam_proxy_start(1, (ctypes.c_int * 1)(fd), (ctypes.c_void_p * 1)(self.link.ctypes.data),
-                                    self.abort.ctypes.data)
+    def start(self, lib, fd: int, cap: int):
+        """A proxy of this one link, with a staging of two slots of ``cap``
+        bytes each way (``self.stage``: out, in)."""
+        self.stage = (np.zeros(2 * cap, dtype=np.uint8), np.zeros(2 * cap, dtype=np.uint8))
+        one = lambda x: (ctypes.c_void_p * 1)(x.ctypes.data)
+        return lib.loam_proxy_start(1, (ctypes.c_int * 1)(fd), one(self.link), one(self.stage[0]),
+                                    one(self.stage[1]), cap, self.abort.ctypes.data)
 
 
 def _counters(lib, proxy) -> dict:
@@ -199,16 +207,11 @@ def _proxy_worker(rank: int, port: int, lib_path: str, out: str) -> None:
                 if time.perf_counter() - t0 > TIMEOUT_S:
                     raise
                 time.sleep(0.05)
-    proxy = w.start(lib, sock.detach())
-    stages = []
-    for g, (_, cap) in enumerate(_GENS):
-        st = (np.zeros(2 * cap, dtype=np.uint8), np.zeros(2 * cap, dtype=np.uint8))
-        stages.append(st)
-        assert lib.loam_proxy_stage(proxy, g, 0, st[0].ctypes.data, st[1].ctypes.data, cap) == 0
+    proxy = w.start(lib, sock.detach(), _CAP)
+    stage, cap = w.stage, _CAP
     rng = random.Random(rank)
     peer, checked, chunks = 1 - rank, 0, 0
     for e in range(1, EPOCHS + 1):
-        g, cap = _generation(e)
         slot = e & 1
         if e > 2:  # the credit: the peer read this slot at e - 2
             _wait(lambda: w.acks[1] >= e - 2, f"the peer's acknowledgement of epoch {e - 2}")
@@ -216,15 +219,15 @@ def _proxy_worker(rank: int, port: int, lib_path: str, out: str) -> None:
         for k, off, n, stride, pieces in rng.sample(plan, len(plan)):
             for j in range(pieces):
                 at = slot * cap + off + j * stride
-                stages[g][0][at:at + n] = _bytes(rank, e, k, j, n)
-            w.out_desc[slot, k] = (off, n, stride, (g << 32) | pieces)
+                stage[0][at:at + n] = _bytes(rank, e, k, j, n)
+            w.out_desc[slot, k] = (off, n, stride, pieces)
             w.out_flags[slot, k] = e  # after the bytes and the description
         for k, off, n, stride, pieces in plan:
             _wait(lambda: w.in_flags[slot, k] >= e, f"the peer's chunk {k} of epoch {e}")
             assert w.in_flags[slot, k] == e
             for j in range(pieces):
                 at = slot * cap + off + j * stride
-                got = stages[g][1][at:at + n]
+                got = stage[1][at:at + n]
                 assert np.array_equal(got, _bytes(peer, e, k, j, n)), (e, k, j)
                 checked += n
         chunks += len(plan)
@@ -296,15 +299,13 @@ _HEADER = struct.Struct("<8I5Q")  # peer_proxy.cpp's Header
 
 def _pair(lib, cap: int):
     """Two proxies of one process joined by a socket pair, each with its
-    link's words and one generation's staging of ``cap`` bytes a region."""
+    link's words and a staging of ``cap`` bytes a slot."""
     a, b = socket.socketpair()
     sides = []
     for sock in (a, b):
         w = _Words(lib)
-        proxy = w.start(lib, sock.detach())
-        st = (np.zeros(2 * cap, dtype=np.uint8), np.zeros(2 * cap, dtype=np.uint8))
-        assert lib.loam_proxy_stage(proxy, 0, 0, st[0].ctypes.data, st[1].ctypes.data, cap) == 0
-        sides.append((w, proxy, st))
+        proxy = w.start(lib, sock.detach(), cap)
+        sides.append((w, proxy, w.stage))
     return sides
 
 
@@ -360,11 +361,8 @@ def test_proxy_raises_the_abort_word_on_a_peer_lost_in_a_run(proxy_lib):
     lib = _load_proxy(proxy_lib)
     w = _Words(lib)
     mine, theirs = socket.socketpair()
-    proxy = w.start(lib, mine.detach())
-    cap = 1 << 20
-    st = (np.zeros(2 * cap, dtype=np.uint8), np.zeros(2 * cap, dtype=np.uint8))
+    proxy = w.start(lib, mine.detach(), 1 << 20)
     try:
-        assert lib.loam_proxy_stage(proxy, 0, 0, st[0].ctypes.data, st[1].ctypes.data, cap) == 0
         # a run of 8 chunks of 64 KB of epoch 1 into slot 1, a third of its bytes sent
         theirs.sendall(_HEADER.pack(0x4C4F414D, 1, 1, 0, 8, 1, 0, 0, 1, 0, 64 << 10, 8 * (64 << 10), 0))
         theirs.sendall(bytes(170_000))
@@ -376,6 +374,60 @@ def test_proxy_raises_the_abort_word_on_a_peer_lost_in_a_run(proxy_lib):
         assert _counters(lib, proxy)["recv"]["messages"] == 0
     finally:
         lib.loam_proxy_stop(proxy)
+
+
+@pytest.mark.parametrize("links", [20])
+def test_proxy_over_many_links(proxy_lib, links):
+    """Two proxies of one process joined by 20 socket pairs, past the
+    kernel's old cap of 16 ranks (a rank of 24 on 3 hosts of 8 has 16 remote
+    peers): every link of each side carries a gather's epoch of 6 chunks of
+    its own bytes into the other's staging and an acknowledgement; every
+    byte lands at its offset, every flag and acknowledgement is up, and each
+    link's counters show every chunk, byte and acknowledgement sent and
+    received."""
+    lib = _load_proxy(proxy_lib)
+    cap, C, K, e, slot = 64 << 10, 5000, 6, 1, 1
+    pairs = [socket.socketpair() for _ in range(links)]
+    sides = []
+    try:
+        for end in range(2):
+            words = [_Words(lib) for _ in range(links)]
+            abort = np.zeros(1, dtype=np.uint64)
+            stages = [(np.zeros(2 * cap, dtype=np.uint8), np.zeros(2 * cap, dtype=np.uint8)) for _ in range(links)]
+            each = lambda xs: (ctypes.c_void_p * links)(*(x.ctypes.data for x in xs))
+            proxy = lib.loam_proxy_start(links, (ctypes.c_int * links)(*(p[end].detach() for p in pairs)),
+                                         each(w.link for w in words), each(st[0] for st in stages),
+                                         each(st[1] for st in stages), cap, abort.ctypes.data)
+            sides.append((words, proxy, stages, abort))
+        for end, (words, _, stages, _) in enumerate(sides):
+            for i, (w, st) in enumerate(zip(words, stages)):
+                for k in range(K):
+                    st[0][slot * cap + k * C:slot * cap + (k + 1) * C] = _bytes(100 * end + i, e, k, 0, C)
+                    w.out_desc[slot, k] = (k * C, C, 0, 1)
+                for k in range(K):
+                    w.out_flags[slot, k] = e
+                w.acks[0] = e  # ack_out
+        for end, (words, proxy, stages, abort) in enumerate(sides):
+            other = 1 - end
+            for i, (w, st) in enumerate(zip(words, stages)):
+                for k in range(K):
+                    _wait(lambda: w.in_flags[slot, k] == e, f"side {end} link {i} chunk {k}")
+                    got = st[1][slot * cap + k * C:slot * cap + (k + 1) * C]
+                    assert np.array_equal(got, _bytes(100 * other + i, e, k, 0, C)), (end, i, k)
+                _wait(lambda: w.acks[1] == e, f"side {end} link {i}'s acknowledgement")
+            raw = (ctypes.c_ulonglong * 16)()
+            names = ("messages", "chunks", "bytes", "acks")
+            for i in range(links):
+                # the receiver counts a run after its flags
+                _wait(lambda: lib.loam_proxy_counters(proxy, i, raw) == 8 and raw[9] == K, "the receiver's count")
+                sent, got = dict(zip(names, raw[:4])), dict(zip(names, raw[8:12]))
+                assert sent["chunks"] == K and sent["bytes"] == K * C and 1 <= sent["messages"] <= K, (end, i, sent)
+                assert sent["acks"] == 1 and got["chunks"] == K and got["bytes"] == K * C and got["acks"] == 1, \
+                    (end, i, got)
+            assert int(abort[0]) == 0
+    finally:
+        for _, proxy, _, _ in sides:
+            lib.loam_proxy_stop(proxy)
 
 
 # ---- 4 gloo ranks on 2 hosts ---------------------------------------------------------------

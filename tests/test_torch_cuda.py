@@ -1891,9 +1891,10 @@ def test_sharded_drivers_through_the_peer_gather_one_launch_a_call(dev, request,
 # ---- the mesh across hosts: the cross-host leg (peer_link.h, peer_proxy.cpp) ---------
 
 
-def _cross_host_ranks(tmp_path, world: int, hosts: str, mode: str) -> list:
+def _cross_host_ranks(tmp_path, world: int, hosts: str, mode: str, window: int = 0) -> list:
     """``world`` ranks of ``tests/torch_cross_host_worker.py`` (a gloo group,
-    rank r on card r % cards, one shard a rank, ``hosts``), each rank's
+    rank r on card r % cards, one shard a rank, ``hosts``; ``window``: a
+    remote peer's staging slot in bytes, 0 for the default), each rank's
     record."""
     import json
     import socket
@@ -1905,8 +1906,9 @@ def _cross_host_ranks(tmp_path, world: int, hosts: str, mode: str) -> list:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    procs = [subprocess.Popen([sys.executable, str(worker), str(r), str(world), str(port), hosts, mode, str(tmp_path)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r), str(world), str(port), hosts, mode, str(tmp_path),
+                               str(window)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -1922,10 +1924,14 @@ def _cross_host_ranks(tmp_path, world: int, hosts: str, mode: str) -> list:
     return [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in ranks]
 
 
-@pytest.mark.parametrize("world,hosts,islands", [(2, "0,1", [[0], [1]]), (2, "machine", [[0, 1]]),
-                                                 (4, "0,0,1,1", [[0, 1], [2, 3]]),
-                                                 (4, "0,1,2,3", [[0], [1], [2], [3]])])
-def test_cross_host_gather_and_sum_match_plain(dev, tmp_path, world, hosts, islands):
+@pytest.mark.parametrize("world,hosts,islands,window", [
+    (2, "0,1", [[0], [1]], 0), (2, "machine", [[0, 1]], 0), (4, "0,0,1,1", [[0, 1], [2, 3]], 0),
+    (4, "0,1,2,3", [[0], [1], [2], [3]], 0),
+    # 8 ranks of 2 hosts on the cards present (two or more a card share it over IPC)
+    (8, "0,0,0,0,1,1,1,1", [[0, 1, 2, 3], [4, 5, 6, 7]], 0),
+    # a 64 KB staging slot: the larger collectives run in pieces, an epoch each
+    (4, "0,0,1,1", [[0, 1], [2, 3]], 64 << 10)])
+def test_cross_host_gather_and_sum_match_plain(dev, tmp_path, world, hosts, islands, window):
     """The kernel's tree gather and fixed-order sum on ``world`` ranks of a
     gloo group (rank r on card r % cards: ranks may share a card) whose
     ``make_mesh(hosts=)`` puts them on hosts that talk through the proxy
@@ -1938,8 +1944,13 @@ def test_cross_host_gather_and_sum_match_plain(dev, tmp_path, world, hosts, isla
     replaying; the islands as ``hosts`` and the cards' reach make them;
     each remote peer's link counted by the proxy both ways, its chunks in
     at most as many messages (a run a message), every message in at least
-    one send call."""
-    for r, rec in enumerate(_cross_host_ranks(tmp_path, world, hosts, "check")):
+    one send call; with a small staging slot the tree's largest leaf alone
+    takes several pieces; no wait near ``WAIT_SECONDS``, the pinned bytes
+    4 x the slot and the words a remote peer."""
+    from loam_tpu_torch.ops import _build, peer_cuda
+
+    slot = window or peer_cuda.STAGE_BYTES
+    for r, rec in enumerate(_cross_host_ranks(tmp_path, world, hosts, "check", window)):
         assert rec["islands"] == islands, rec
         assert rec["remote"] == [t for t in range(world) if not any(r in i and t in i for i in islands)], rec
         assert sorted(map(int, rec["links"])) == rec["remote"], rec["links"]
@@ -1953,6 +1964,11 @@ def test_cross_host_gather_and_sum_match_plain(dev, tmp_path, world, hosts, isla
             assert rec[f"{name}_graph"] and rec[name], (name, rec)
             assert rec[f"{name}_launches"] == rec[f"{name}_want_launches"], (name, rec)
         assert rec["capture_past_mailbox"] is True and rec["grown"] and rec["replay_after_growth"], rec
+        if rec["remote"]:
+            assert (rec["pieces"] > 1) == bool(window), rec
+            link = _build.lib().loam_proxy_link_bytes()
+            assert rec["bytes"]["pinned"] == len(rec["remote"]) * (4 * slot + link) + 64, rec
+            assert rec["wait_share"] < 0.5, rec
 
 
 def test_cross_host_lost_peer_raises(dev, tmp_path):
@@ -2131,15 +2147,21 @@ def test_one_rank_a_card(dev):
     replayed) accepted and equal to NCCL's, the kernel's gathers and sums
     equal to their plain versions at the cells' shapes on every rank, one
     graph node each, and the scan-to-map frames run again after the pose
-    graph equal to their first run."""
+    graph equal to their first run. Past the one-a-card ranks: on one card
+    18 ranks of 3 hosts x 6 sharing it (the collectives, each bit-equal to
+    its plain version, one graph node, in WHILE and IF bodies, the same on
+    every rank); on four cards every cell at 8, 16 and 24 ranks that share
+    the cards (2 x 4, 2 x 8, 3 x 8 hosts), the same gates against 1 rank x
+    N shards; no wait near ``WAIT_SECONDS``."""
     import json
     import subprocess
     import sys
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
+    cards = torch.cuda.device_count()
     run = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--ranks-only"], cwd=root,
-                         capture_output=True, text=True, timeout=900)
+                         capture_output=True, text=True, timeout=900 if cards < 4 else 2700)
     assert run.returncode == 0, run.stdout[-6000:] + run.stderr[-6000:]
     (line,) = [x for x in run.stdout.splitlines() if x.startswith('{"ranks"')]
     rec = json.loads(line)["ranks"]
@@ -2157,7 +2179,7 @@ def test_one_rank_a_card(dev):
     # ranks of two hosts sharing it; phase 17 fails on any output that differs, so the record's
     # cells are the ones that passed
     splits = rec["splits"] if n > 1 else rec["one_card_two_hosts"]
-    assert sorted(splits) == (["2x2", "4x1"] if n == 4 else [f"{n}x1"] if n > 1 else ["2x1 on one card"])
+    assert sorted(splits) == (["2x2", "4x1"] if n == 4 else [f"{n}x1"] if n > 1 else ["2x1"])
     for split in splits.values():
         assert sorted(split["cells"]) == ["extract", "offline", "pairs", "posegraph", "s2m"]
         for cell in split["cells"].values():
@@ -2165,3 +2187,13 @@ def test_one_rank_a_card(dev):
             assert cell["graph_launches_per_unit"] == [1.0] * ranks and cell["host_reads_per_unit"] == [0.0] * ranks
     if n > 1:
         assert rec["probe"]["peer_bodies@across"] == "accepted"
+    # past one rank a card: ranks that share the cards
+    many = {"18": rec["one_card_many"]} if n == 1 else rec.get("many", {}) if cards >= 4 else {}
+    assert sorted(many) == (["18"] if n == 1 else ["16", "24", "8"] if cards >= 4 else []), sorted(many)
+    for world, rec_w in many.items():
+        (split,) = rec_w.values()
+        assert split["ranks"] == int(world) and max(split["wait_share"]) < 0.5, split
+        assert all(row["checks"] and row["same_every_rank"] for row in split["share"].values()), split["share"]
+        for cell in split["cells"].values():
+            assert cell["graph_launches_per_unit"] == [1.0] * int(world)
+            assert cell["host_reads_per_unit"] == [0.0] * int(world)

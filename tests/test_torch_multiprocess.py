@@ -28,6 +28,9 @@ on the CPU.
     and poses within 1e-5 m of ``odometry_offline``. And
     ``extract_features_sharded``, each rank a row of a (2 data x 2 line)
     mesh, or of a (4 data x 1 line) one: equal to ``extract_features_batch``.
+  * ``many``: ``pose_graph``, ``scan_to_map`` and ``offline`` one after
+    another in one group, each held as above, for 8 ranks x 1 shard
+    (``tests/test_torch_world_sizes.py``, on two hosts of four).
   * ``from_numpy``: 2 ranks x 1 shard load ``loam_tpu``'s sharded
     scan-to-map state of two shards, which the test writes with JAX after 4
     frames (``ScanToMapState.from_numpy(mesh=)``): each rank holds its own
@@ -76,7 +79,7 @@ torch.set_num_threads(1)
 _HERE = os.path.dirname(os.path.abspath(__file__))
 # shards a rank holds, by mode and ranks
 SHARDS = {("pose_graph", 2): 2, ("scan_to_map", 2): 1, ("offline", 2): 2, ("from_numpy", 2): 1,
-          ("pose_graph", 4): 1, ("scan_to_map", 4): 1, ("offline", 4): 1}
+          ("pose_graph", 4): 1, ("scan_to_map", 4): 1, ("offline", 4): 1, ("many", 8): 1}
 GRAPH_TOL = 1e-8
 POS_TOL = 1e-5
 TIMEOUT_S = 300
@@ -191,9 +194,25 @@ def _offline(mesh, line, out_dir):
     return res, dict(t=one.translation.numpy(), q=one.rotation.numpy(), term=det1.termination.numpy())
 
 
+def _many(mesh, line, out_dir):
+    """``pose_graph``, ``scan_to_map`` and ``offline`` on one mesh, each
+    held to its single-device run here and its programs checked (the
+    mesh's earlier ones dropped first); their results under
+    ``<mode>.<key>``."""
+    got = {}
+    for mode in MANY:
+        program.forget(mesh=mesh.token)
+        res, want = RUN[mode](mesh, line, out_dir)
+        _check_single(mode, res, want)
+        if mesh.group is not None:
+            _check_programs(mode, mesh)
+        got.update({f"{mode}.{k}": v for k, v in res.items()})
+    return got, None
+
+
 def _check_single(mode, got, want):
     """The sharded result against the single-device one."""
-    if mode == "from_numpy":
+    if mode in ("from_numpy", "many"):
         return
     if mode == "pose_graph":
         for key in ("translation", "rotation"):
@@ -247,7 +266,9 @@ def _check_mesh_rules(mesh):
     assert torch.equal(got, torch.arange(world, dtype=torch.float32).repeat_interleave(2)[:, None].expand(-1, 3))
 
 
-RUN = {"pose_graph": _pose_graph, "scan_to_map": _scan_to_map, "offline": _offline, "from_numpy": _from_numpy}
+RUN = {"pose_graph": _pose_graph, "scan_to_map": _scan_to_map, "offline": _offline, "from_numpy": _from_numpy,
+       "many": _many}
+MANY = ("pose_graph", "scan_to_map", "offline")
 
 
 def _line(mode, world) -> int:
@@ -368,7 +389,8 @@ def main(rank: int, world: int, port: int, mode: str, out_dir: str, hosts: str =
             got["islands"] = np.asarray([next(i for i, isl in enumerate(mesh.islands) if r in isl)
                                          for r in range(world)])
         _check_single(mode, got, want)
-        _check_programs(mode, mesh)
+        if mode != "many":  # its modes' programs are checked as they run
+            _check_programs(mode, mesh)
         _check_mesh_rules(mesh)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **got)
     finally:

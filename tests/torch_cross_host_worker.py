@@ -1,13 +1,15 @@
 """One rank of the mesh's collectives on the card across hosts, for
 ``tests/test_torch_cuda.py`` (no JAX: it runs on a machine without it).
 
-    python tests/torch_cross_host_worker.py <rank> <world> <port> <hosts> <mode> <out_dir>
+    python tests/torch_cross_host_worker.py <rank> <world> <port> <hosts> <mode> <out_dir> [<window>]
 
 The ranks join a gloo group over 127.0.0.1 (gloo, since NCCL takes one rank
 a card and the ranks may share one), each on card ``rank % cards``, and make
 a mesh of one shard a rank with ``hosts`` (comma-separated labels, one a
 rank, or ``machine`` for each rank's machine: ranks of one card are then one
-island). ``mode``:
+island). ``window``: the bytes of a remote peer's staging slot
+(``peer_cuda.STAGE_BYTES``, set before the mesh is made), small enough for
+the collectives to run in pieces. ``mode``:
 
   * ``check``: the kernel's tree gather and its fixed-order sum (float32,
     float64, int32, int64) eager, in a plain graph, in a WHILE body (3
@@ -131,6 +133,10 @@ def _check(mesh, dev, rank) -> dict:
             torch.cuda.synchronize()
             got["replay_after_growth"] = (all(_equal(a, b) for a, b in zip(outs, want_tree)) and
                                           all(_equal(a, b) for a, b in zip(totals, want_sums)))
+    if mesh.peer is not None and mesh.peer.remote:  # how many pieces the largest leaf's gather took
+        got["pieces"] = mesh.peer.plan(0, tree[0].numel() * tree[0].element_size())["pieces"]
+        got["bytes"] = mesh.peer.footprint()
+        got["wait_share"] = mesh.peer.max_wait()["share"]
     got["islands"] = [list(i) for i in mesh.islands]
     got["remote"] = list(mesh.peer.remote) if mesh.peer is not None else []
     links = mesh.peer.link_counters() if mesh.peer is not None else {}
@@ -155,7 +161,9 @@ def _lost(mesh, dev, rank, world) -> dict:
         return {"raised": True, "seconds": time.perf_counter() - t0, "error": str(err)[:300]}
 
 
-def main(rank, world, port, hosts, mode, out_dir) -> None:
+def main(rank, world, port, hosts, mode, out_dir, window=None) -> None:
+    if window and int(window):
+        peer_cuda.STAGE_BYTES = int(window)
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
@@ -172,4 +180,4 @@ def main(rank, world, port, hosts, mode, out_dir) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6], *sys.argv[7:])
