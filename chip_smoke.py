@@ -672,13 +672,15 @@ def _plain_seed(knn_cuda, q, t_points, t_mask, k, prev=None):
                          knn_cuda.seed_bound_from_window(q, *win, k))
 
 
-def _seconds_per_run(run, reps: int) -> float:
+def _seconds_per_run(run, reps: int, warm: bool = True) -> float:
     """Host seconds per call over ``reps`` calls after one warm-up call
-    (which captures the ICF loop's graphs where the cache lacks them),
-    ended by a synchronize."""
+    (which captures the ICF loop's graphs where the cache lacks them; none
+    with ``warm=False``, for a run that has just run), ended by a
+    synchronize."""
     import torch
 
-    run()
+    if warm:
+        run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1042,6 +1044,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     with _dual_knn(False):
         st_sh, out_sh = drive("scan_to_map_sharded", run_sharded, extraction + ("knn", "peer_gather", "peer_sum"),
                               ("knn_dual",))
+        forks = {"scan_to_map_sharded": _branch_stats("phase 12 scan_to_map_sharded", mesh, "scan_to_map_sharded")}
         st_1, out_1 = run_single()
         st_az, out_az = run_single(T.registration.azimuth_sort_features)
         dt_sh = _seconds_per_run(run_sharded, reps)
@@ -1114,6 +1117,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     with _dual_knn(False):
         run_off = lambda: parallel.odometry_offline_sharded(scans_np, lidar, mesh, fp, rp)
         traj_sh, det_sh = drive("offline_sharded", run_off, extraction + ("knn", "peer_gather"), ("knn_dual",))
+        forks["offline_sharded"] = _branch_stats("phase 12 offline_sharded", mesh, "offline_sharded")
         run_off1 = lambda: T.odometry_offline(scans_np, lidar, fp, rp, chunk_pairs=frames // D)
         traj_1, det_1 = run_off1()
         traj_p, _ = T.odometry_offline(scans_np, lidar, fp, rp)
@@ -1139,6 +1143,7 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     mesh22 = parallel.make_mesh([dev] * D, line_axis=2, group=group)
     got = drive("extract_sharded", lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp),
                 extraction + ("peer_gather",), ("knn", "knn_dual"))
+    forks["extract_sharded (2 x 2)"] = _branch_stats("phase 12 extract_sharded", mesh22, "extract_sharded")
     want = T.extract_features_batch(scans, lidar, fp)
     for field, a, b in zip(want._fields, got, want):
         _require_equal(f"extract_features_sharded {field}", a, b)
@@ -1155,6 +1160,9 @@ def _sharded_checks(T, torch, dev, smi, scans, scans_np, lidar, fp, rp, gt, fram
     opt_sh, cost_sh = solve_sharded(init_d, edges_p, mesh, 10)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held
+    forks["pose_graph_sharded"] = _branch_stats("phase 12 pose_graph_sharded", mesh, "pose_graph_sharded")
+    print(f"phase 12: each sharded call's shard loops side by side, {D} branches a fork: " + "; ".join(
+        f"{path}: {_graph_text(g, f'1 x {D}')}" for path, g in forks.items()) + f", on {smi}")
     dt_pg = _seconds_per_run(lambda: solve_sharded(init_d, edges_p, mesh, 10), reps)
     gap_pg = max(_max_err(opt_sh.translation, opt64.translation), _max_err(opt_sh.rotation, opt64.rotation))
     err_pg = _max_err(opt_sh.translation.cpu(), gt1k.translation)
@@ -1510,6 +1518,24 @@ def _profile_run(torch, run, units: int):
             "loop_iterations": loop.iterations - n0}
 
 
+def _kernel_trace(torch, run) -> dict:
+    """Wall ms and device kernel ms of one run of ``run`` in a
+    ``torch.profiler`` trace of the card's activity alone (kernels, copies
+    and the runtime's calls, no host operator events: an eager run's
+    thousands of operators make a full trace slow to read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch.profiling import kernel_times
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return {"wall_ms": wall, "device_kernel_ms": sum(kernel_times(prof.events()).values()) / 1e3}
+
+
 def _device_span_ms(torch, run, reps: int = 2) -> float:
     """Mean device span of ``run`` by CUDA events, no profiler: from the
     call (the host's work before the first launch included) to its last
@@ -1555,11 +1581,14 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
     terminations, iteration counts, detail rows, maps, the prep cache),
     every kernel's launches and the outer ICF iterations equal; one
     ``cudaGraphLaunch`` and no host read a unit inside the driver's range;
-    capture seconds, nodes and pool bytes a key; scans/s of both in turns
+    a rank's shards side by side (:func:`_forks_ok`: a cell's ``shards``,
+    1 unless it says more); capture seconds, nodes, forks and pool bytes a
+    key; scans/s of both in turns
     (graph, eager, eager, graph); a trace of the graph run (host launch
     calls a run, device kernel ms, idle share) and its device span by CUDA
-    events; for a trajectory call (one unit), a trace of the eager run too,
-    whose device kernel ms are the same kernels', each counted."""
+    events; for a trajectory call (one unit), a trace of the eager run's
+    device activity alone (:func:`_kernel_trace`), whose device kernel ms
+    are the same kernels', each counted."""
     from loam_tpu_torch.registration import loop
 
     out = {}
@@ -1569,7 +1598,8 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
         # none; ``check`` holds the graph's output to its phase's gates;
         # ``rate``: a run is the 16 frames (scans/s), else another unit
         opts = opts[0] if opts else {}
-        branches, check, rate = opts.get("branches", True), opts.get("check"), opts.get("rate", True)
+        conditional, check, rate = opts.get("conditional", True), opts.get("check"), opts.get("rate", True)
+        shards = opts.get("shards", 1)
         with _env(**env):
             loop.clear_cache()
             n0 = loop.iterations
@@ -1578,9 +1608,13 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
             if check is not None:
                 check(got)
             stats = loop.graph_stats()
-            if not stats or not all((g["if_nodes"] > 0) == branches for g in stats):
-                raise AssertionError(f"{cell}: no program {'with' if branches else 'without'} conditional "
+            if not stats or not all((g["if_nodes"] > 0) == conditional for g in stats):
+                raise AssertionError(f"{cell}: no program {'with' if conditional else 'without'} conditional "
                                      f"nodes was captured: {stats}")
+            # a rank's shards side by side: every fork of the shards' count, none on one device
+            narrow = [(g["path"], g["branches"], g["forks"]) for g in stats if not _forks_ok(g, shards)]
+            if narrow:
+                raise AssertionError(f"{cell}: {shards} shard(s), programs (path, widest fork, forks) {narrow}")
             with loop._eager():
                 n0 = loop.iterations
                 want = drive(f"eager_{cell}", run, must, must_not)
@@ -1596,8 +1630,9 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
                 _require_equal(f"{cell} output tensor {i} (graph vs eager)", x, y)
             ms = []
             for graph in (True, False, False, True):
+                # both forms ran above (the graph captured): no warm-up call a turn
                 with contextlib.nullcontext() if graph else loop._eager():
-                    ms.append(_seconds_per_run(run, reps) * 1e3)
+                    ms.append(_seconds_per_run(run, reps, warm=False) * 1e3)
             row = {"units": units, "graph_ms": (ms[0] + ms[3]) / 2, "eager_ms": (ms[1] + ms[2]) / 2,
                    "turns_ms": ms, "icf_iterations": n_graph, "programs": loop.graph_stats()}
             row["graph_scans_s"], row["eager_scans_s"] = frames / row["graph_ms"] * 1e3, frames / row["eager_ms"] * 1e3
@@ -1611,7 +1646,7 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
                 # overlap); the eager run's span from its call to its last kernel
                 row["graph_back_to_back_ms"] = _back_to_back_ms(torch, run)
                 with loop._eager():
-                    row["profile_eager"] = _profile_run(torch, run, units)
+                    row["profile_eager"] = _kernel_trace(torch, run)
                     row["eager_device_span_ms"] = _device_span_ms(torch, run)
                 print(f"{cell} (eager): device kernels {row['profile_eager']['device_kernel_ms']:.3f} ms of "
                       f"{row['profile_eager']['wall_ms']:.3f} ms (profiler trace); by CUDA events: the eager "
@@ -1638,7 +1673,8 @@ def _graph_phase(torch, smi, frames, drive, path_launches, cells, reps) -> dict:
             print(f"{cell}: graph vs eager bit-equal ({len(a)} output tensors), launches equal "
                   f"{path_launches[f'graph_{cell}']}, {n_graph} ICF iterations; {speed}; captured " + "; ".join(
                       f"{g['path']}: conditional nodes {g['conditional_nodes']}, {g['nodes']} nodes in "
-                      f"{g['capture_s']:.3f} s, pool {g['pool_bytes']} B, {g['replays']} replays"
+                      f"{g['capture_s']:.3f} s, widest fork {g['branches']}, forks {g['forks'] or 'none'}, pool "
+                      f"{g['pool_bytes']} B, {g['replays']} replays"
                       for g in row["programs"]) + f", on {smi}")
     return out
 
@@ -1655,7 +1691,8 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
     and ``optimize_pose_graph_sharded`` on phase 11's float64 graph (its
     edges padded to a multiple of 4; the shards' sums inside the LM loop's
     WHILE node; within 1e-8 of phase 11's solve and 1e-5 m of the truth):
-    through :func:`_graph_phase` against the same calls eager, then the
+    through :func:`_graph_phase` against the same calls eager, each shard
+    loop a fork of 4 branches in the graph (``program.branches``), then the
     scan-to-map cell's graphs at 16 and 64 frames (:func:`_graph_size_phase`;
     the offline cell's: phase 16)."""
     from loam_tpu_torch import parallel
@@ -1692,18 +1729,19 @@ def _sharded_graph_phase(T, torch, dev, smi, scans, long, lidar, fp, rp, frames,
         run_off = lambda x=scans: parallel.odometry_offline_sharded(x, lidar, mesh, fp, rp)
         cells = {
             "s2m-64x1024-sharded4": (run_s2m, frames, dict(LOAM_ICF_DUAL_KNN="0"),
-                                     extraction + ("knn", "peer_gather", "peer_sum"), ("knn_dual",)),
+                                     extraction + ("knn", "peer_gather", "peer_sum"), ("knn_dual",),
+                                     dict(shards=4)),
             "offline-64x1024-sharded4": (run_off, 1, dict(LOAM_ICF_DUAL_KNN="0"),
-                                         extraction + ("knn", "peer_gather"), ("knn_dual",)),
+                                         extraction + ("knn", "peer_gather"), ("knn_dual",), dict(shards=4)),
             "extract-64x1024-2x2": (lambda: parallel.extract_features_sharded(scans, lidar, mesh22, fp), 1,
                                     dict(LOAM_ICF_DUAL_KNN="0"), extraction + ("peer_gather",), no_knn,
-                                    dict(branches=False)),
+                                    dict(conditional=False, shards=4)),
             "pairs-64x1024-sharded4": (lambda: parallel.register_pairs_sharded(src, tgt, ident, mesh, rp), 1,
                                        dict(LOAM_ICF_DUAL_KNN="0"), ("knn", "peer_gather"),
-                                       ("knn_dual",) + extraction),
+                                       ("knn_dual",) + extraction, dict(shards=4)),
             "posegraph-1000-sharded4": (lambda: optimize_pose_graph_sharded(pg64[0], edges_p, mesh, 10), 1, {},
                                         ("peer_sum",), no_knn + extraction + ("peer_gather",),
-                                        dict(check=check_graph, rate=False)),
+                                        dict(check=check_graph, rate=False, shards=4)),
         }
         out = _graph_phase(torch, smi, frames, drive, path_launches, cells, reps)
         with _dual_knn(False):
@@ -2029,6 +2067,9 @@ RANKS_FRAMES = 16
 RANKS_PAIRS = 8
 # phase 17's cells, in the order they run
 RANKS_CELLS = ("s2m", "offline", "extract", "pairs", "posegraph")
+#: The program path of each of phase 17's cells (``graph_stats()``'s ``path``).
+CELL_PATHS = {"s2m": "scan_to_map_sharded", "offline": "offline_sharded", "extract": "extract_sharded",
+              "pairs": "pairs_sharded", "posegraph": "pose_graph_sharded"}
 # phase 17 past one rank a card: ranks that share the cards (rank r on card
 # r % cards) in a gloo group (NCCL takes one rank a card), by world size,
 # hosts x ranks a host: on four cards 8, 16 and 24 ranks stand in for two
@@ -2568,11 +2609,51 @@ def _wire_text(w: dict) -> str:
             f"{r['sleep_s'] * 1e3:.3f} ms (the largest link's)")
 
 
-def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
+def _forks_ok(g: dict, shards: int) -> bool:
+    """Whether a program's graph (``graph_stats()``) runs ``shards`` shards
+    of a rank side by side: with more than one, its widest fork (and its
+    bodies') of ``shards`` branches and at least one fork, every fork of
+    ``shards`` (its join counted that many ends); with one, no fork and a
+    chain (``branches`` 1)."""
+    if shards > 1:
+        return g["branches"] == shards and bool(g["forks"]) and all(f == shards for f in g["forks"])
+    return g["branches"] == 1 and not g["forks"]
+
+
+def _branch_stats(what: str, mesh, path: str) -> dict:
+    """The graph of ``mesh``'s program ``path`` (``graph_stats()``: nodes,
+    conditional nodes, pool bytes, ``branches`` and ``forks``), required to
+    run the rank's shards side by side: with L > 1 shards a rank, the graph
+    and its bodies at most L wide and at least one fork, every fork of L
+    branches (its join counted L ends); with one, no fork and a chain
+    (``branches`` 1: the graph of N ranks x 1 keeps its nodes)."""
+    from loam_tpu_torch.registration import loop
+
+    L = len(mesh.shard_ids)
+    got = [g for g in loop.graph_stats() if g["path"] == path and g.get("mesh") == mesh.token]
+    if len(got) != 1:
+        raise AssertionError(f"{what}: {len(got)} captured programs of {path} on the mesh")
+    g = got[0]
+    if not _forks_ok(g, L):
+        raise AssertionError(f"{what}: {L} shard(s) a rank, the graph's widest fork {g['branches']}, its forks "
+                             f"{g['forks']}")
+    return {k: g[k] for k in ("nodes", "conditional_nodes", "pool_bytes", "branches", "forks")}
+
+
+def _graph_text(g: dict, layout: str) -> str:
+    """A line's words for :func:`_branch_stats`'s record of ``layout``'s graph."""
+    return (f"{layout}'s graph {g['nodes']} nodes, conditional {g['conditional_nodes']}, widest fork "
+            f"{g['branches']}, forks {g['forks'] or 'none'}, pool {g['pool_bytes']} B")
+
+
+def _rank_runs(torch, cells, counters, reps, stamp, traced=True, mesh=None, eager=False) -> tuple:
     """Each of ``cells`` on its mesh: a counted first run (every counter at
     0 just before, read just after; the kernels it must launch, and never
-    the dual kNN), where ``traced`` and the cell is one program a
-    ``torch.profiler`` run
+    the dual kNN), its program's graph through :func:`_branch_stats` on
+    ``mesh`` (the rank's shards side by side), with ``eager`` the same cell
+    under ``program.eager`` (every output bit-equal, every kernel's launches
+    and the ICF iterations equal), where ``traced`` and the cell is one
+    program a ``torch.profiler`` run
     (``cudaGraphLaunch`` calls and host reads a unit inside
     ``program.DRIVER_RANGE``), then ms a run over ``reps`` after a warm-up.
     Where the pose graph follows scan-to-map, the frames run once more at
@@ -2590,18 +2671,36 @@ def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
                             planar_map=st.planar_map._replace(points=None, mask=None)), out)
         return [x.cpu() for x in maps], [x.cpu() for x in _leaves(rest)]
 
+    from loam_tpu_torch import program
+    from loam_tpu_torch.registration import loop
+
+    def counted(run):
+        for fn in counters.values():
+            fn.launches = 0
+        n0 = loop.iterations
+        got = run()
+        torch.cuda.synchronize()
+        return got, {k: fn.launches for k, fn in counters.items()}, loop.iterations - n0
+
     outputs, rows, summary = {}, {}, {}
     for cell, (run, units, must) in cells.items():
         stamp(f"{cell}: first run")
-        for fn in counters.values():
-            fn.launches = 0
-        got = run()
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
+        got, launches, icf = counted(run)
         missing = [k for k in must if launches[k] <= 0]
         if missing or launches["knn_dual"]:
             raise AssertionError(f"phase 17 {cell}: launches {launches}, must launch {list(must)} and not "
                                  f"knn_dual")
+        graph = None if mesh is None else _branch_stats(f"phase 17 {cell}", mesh, CELL_PATHS[cell])
+        if eager:
+            stamp(f"{cell}: eager run")
+            with program.eager():
+                want, eager_launches, eager_icf = counted(run)
+            if eager_launches != launches or eager_icf != icf:
+                raise AssertionError(f"phase 17 {cell}: launches {launches} and {icf} ICF iterations through the "
+                                     f"graph, {eager_launches} and {eager_icf} eager")
+            if not _same(torch, _leaves(got), _leaves(want)):
+                raise AssertionError(f"phase 17 {cell}: the graph's outputs differ from eager's")
+            del want
         if cell == "s2m":
             st, out = got
             outputs["s2m_maps"], outputs[cell] = s2m_leaves(got)
@@ -2616,7 +2715,8 @@ def _rank_runs(torch, cells, counters, reps, stamp, traced=True) -> tuple:
             traj, det = got
             summary[cell] = {"t": traj.translation.cpu(), "q": traj.rotation.cpu(),
                              "termination": det.termination.tolist()}
-        rows[cell] = {"units": units, "launches": launches}
+        rows[cell] = {"units": units, "launches": launches, "icf_iterations": icf, "graph": graph,
+                      "eager_equal": eager or None}
         if traced:
             stamp(f"{cell}: traced run")
             pg = _profile_run(torch, run, units)
@@ -2816,7 +2916,7 @@ def _rank_worker(rank: int, world: int, port: int, out_dir: str, cells=RANKS_CEL
                 with _env(LOAM_ICF_DUAL_KNN="0"):
                     outputs, rows, summary = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp,
                                                                            graph, cells), counters,
-                                                        1 if across else 2, mark)
+                                                        1 if across else 2, mark, mesh=mesh)
             peer = shared = None
             if full or alone:
                 mark("the kernel's collectives against their plain versions at the cells' shapes")
@@ -3102,7 +3202,8 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
         mesh = parallel.make_mesh([dev] * N, group=group)
         stamp = lambda what: _stamp(f"phase 17, 1 rank x {N} shard(s): {what}")
         one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
-                                                                 cells), counters, reps, stamp, traced=False)
+                                                                 cells), counters, reps, stamp, traced=False,
+                                              mesh=mesh, eager=True)
         if full:
             one_peer = _peer_check(torch, mesh, _peer_shapes(T, torch, mesh, scans, lidar, fp), 5)
             if not all(row["equal"] for row in one_peer.values()):
@@ -3165,7 +3266,9 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
                "traced_wall_ms_rank0": row.get("wall_ms"), "device_kernel_ms_rank0": row.get("device_kernel_ms"),
                "peer_kernel_us_rank0": row.get("peer_kernel_us"),
                "again_after_posegraph_equal": [res["rows"][cell].get("again_after_posegraph_equal")
-                                               for res in ranks] if cell == "s2m" else None}
+                                               for res in ranks] if cell == "s2m" else None,
+               "one_rank_graph": one["graph"], "one_rank_eager_equal": one["eager_equal"],
+               "graph_rank0": row["graph"]}
         if cell in ("s2m", "offline", "extract"):
             rec["scans_s"], rec["one_rank_scans_s"] = frames / slowest * 1e3, frames / one["ms"] * 1e3
         record["cells"][cell] = rec
@@ -3177,7 +3280,9 @@ def _ranks_phase(T, torch, smi, scans_np, gt, counters, path_launches, ate_rmse,
               f"{rec['graph_launches_per_unit']}, host reads {rec['host_reads_per_unit']}; rank 0's traced run "
               f"{rec['traced_wall_ms_rank0']:.3f} ms, kernels {rec['device_kernel_ms_rank0']:.3f} ms, of which the "
               f"gather's {rec['peer_kernel_us_rank0']} us (a conditional body's counted once); rank 0's launches "
-              f"{row['launches']}, on {smi}")
+              f"{row['launches']}; {_graph_text(one['graph'], f'1 x {N}')}, bit-equal to its eager form with "
+              f"its launches and {one['icf_iterations']} ICF iterations; {_graph_text(row['graph'], f'{N} x 1')}, "
+              f"on {smi}")
     print(f"phase 17: {N} rank(s) on {cards} card(s) (cross-card traffic: {'yes' if N > 1 else 'no'}), NCCL "
           f"{record['nccl']}; every rank's outputs bit-equal to "
           f"rank 0's and to 1 rank x {N} shard(s): {'no' if any('differ' in f for f in failed) else 'yes'}; "
@@ -3411,14 +3516,18 @@ def _share_phase(T, torch, counters, scans_np, split: str, cells, failed: list, 
             mesh = parallel.make_mesh([dev] * world, group=group)
             stamp = lambda what: _stamp(f"phase 17, 1 rank x {world} shards: {what}")
             one_outputs, one_rows, _ = _rank_runs(torch, _rank_cells(T, torch, mesh, scans, lidar, fp, rp, graph,
-                                                                     cells), counters, 1, stamp, traced=False)
+                                                                     cells), counters, 1, stamp, traced=False,
+                                                  mesh=mesh, eager=True)
             mesh.release()
     rec = _split_checks(torch, ranks, one_outputs, failed, smi)
     rec[split].update(spawn_s=spawn_s, ranks=world, cards=torch.cuda.device_count(),
                       one_rank_ms_a_unit={cell: row["ms_per_unit"] for cell, row in one_rows.items()})
     for cell, row in one_rows.items():
         print(f"phase 17 {cell}, 1 rank x {world} shards of cuda:0: {row['ms_per_unit']:.3f} ms a "
-              f"{'frame' if row['units'] > 1 else 'call'}, on {smi}", flush=True)
+              f"{'frame' if row['units'] > 1 else 'call'}; {_graph_text(row['graph'], f'1 x {world}')}, bit-equal "
+              f"to its eager form with its launches and {row['icf_iterations']} ICF iterations; rank 0's "
+              f"{_graph_text(ranks[0]['rows'][cell]['graph'], f'{world} x 1')}, on {smi}",
+              flush=True)
     return rec
 
 

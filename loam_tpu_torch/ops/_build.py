@@ -4,7 +4,7 @@ The sources under ``csrc/`` (the kernels; ``peer_gather.cu``: the mesh's
 gather and sum over peer memory, ``ops/peer_cuda.py``, and ``peer_proxy.cpp``,
 its host proxy across hosts, plain C++; and ``graph_if.cu``: the
 CUDA-graph conditional nodes of ``program.when``, ``program.while_loop`` and
-``program.scan``) are compiled with ``nvcc``, one
+``program.scan``, and the stream forks of ``program.branches``) are compiled with ``nvcc``, one
 process per source and all at once, and linked into one shared library with a plain C
 interface, which is loaded with ``ctypes`` (no PyTorch headers, so the build
 takes seconds). The library lands in ``ops/_build/``, named by a hash of the
@@ -85,10 +85,16 @@ SIGNATURES = {
     # CUDA-graph conditional nodes (graph_if.cu; program.when, while_loop, scan)
     "loam_stream_create": (ctypes.POINTER(_P),),
     "loam_if_begin": (_P, _P, _P),
-    "loam_if_end": (_P, ctypes.POINTER(ctypes.c_size_t)),
+    "loam_if_end": (_P, ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t)),
     "loam_while_begin": (_P, _P, ctypes.POINTER(ctypes.c_ulonglong), _P),
-    "loam_while_end": (_P, ctypes.c_ulonglong, _P, ctypes.POINTER(ctypes.c_size_t)),
+    "loam_while_end": (_P, ctypes.c_ulonglong, _P, ctypes.POINTER(ctypes.c_size_t),
+                       ctypes.POINTER(ctypes.c_size_t)),
     "loam_capture_nodes": (_P, ctypes.POINTER(ctypes.c_size_t)),
+    "loam_capture_width": (_P, ctypes.POINTER(ctypes.c_size_t)),
+    # forks and joins of streams (graph_if.cu; program.branches)
+    "loam_event_create": (ctypes.POINTER(_P),),
+    "loam_fork": (_P, ctypes.POINTER(_P), _I, _P),
+    "loam_join": (ctypes.POINTER(_P), ctypes.POINTER(_P), _I, ctypes.POINTER(ctypes.c_size_t), _P),
 }
 
 _lib = None

@@ -203,18 +203,24 @@ def sharded_map_insert(
     inserts the points whose voxel key mod D is ``g``, with its own eviction
     around ``center``. Returns the updated map and the dropped-voxel count
     summed over every shard.
+
+    A rank's shards insert side by side (``program.branches``: on the card
+    a stream each, at once, inside the keyframe's IF node too), each with
+    the launches and shapes of a rank that holds that shard alone; the sum
+    of the dropped counts runs after them, so its order of adds is the
+    global shard order whatever ran beside what.
     """
     D, mine = mesh.shards_along(axis)
     dev = mesh.device
     pts, mask = new_points.to(dev), new_mask.to(dev)
     ctr = None if center is None else center.to(dev)
-    out, dropped = [], []
-    for s, g in enumerate(mine):
+
+    def insert(s, g):
         local = VoxelMap(maps.points[s], maps.mask[s], maps.voxel_size, maps.origin)
         own = (_voxel_key(local, pts, mask) % D) == g
-        m, d = voxel_map_insert(local, pts, mask & own, ctr, keep_radius)
-        out.append(m)
-        dropped.append(d)
+        return voxel_map_insert(local, pts, mask & own, ctr, keep_radius)
+
+    out, dropped = zip(*program.branches([lambda s=s, g=g: insert(s, g) for s, g in enumerate(mine)], dev))
     return (VoxelMap(torch.stack([m.points for m in out]), torch.stack([m.mask for m in out]),
                      maps.voxel_size, maps.origin),
             collectives.sum(mesh, torch.stack(dropped)))

@@ -7,8 +7,11 @@ programs; PyTorch runs one process (rank) per GPU under ``torch.distributed``.
 The port's :class:`Mesh` joins the two: a rank holds one or more shards, all
 on its one device (several GPUs means several ranks), and the ranks form the
 mesh's process group. Inputs are replicated (every rank passes all frames),
-each shard computes its block, and the blocks are gathered
-(``collectives.gather``), so every rank returns the whole result.
+each shard computes its block, a rank's shards side by side
+(``program.branches``: on the card a CUDA stream a shard, forked and joined
+inside the call's graph, as ``loam_tpu``'s devices run at once), and the
+blocks are gathered (``collectives.gather``, after the join), so every rank
+returns the whole result.
 
 Axes, as in ``loam_tpu``:
 
@@ -237,29 +240,43 @@ def _per_row(fn, count: int, mesh: Mesh, *trees) -> tuple:
     in row order. Every shard's block is one call at one shape, whatever
     the rank holds besides, as each device runs its own block in
     ``loam_tpu``'s ``shard_map``: a batch's sums (the ICF's normal
-    equations) round alike on one rank of N shards and on N ranks of one."""
+    equations) round alike on one rank of N shards and on N ranks of one.
+    The rows run side by side (``program.branches``: on the card a stream
+    each, at once): each row's launches and shapes are those of a rank that
+    holds that row alone, so its sums round alike whatever runs beside it."""
     _, rows = mesh.rows()
     n = count // rows
-    parts = [fn(*(tree_map(lambda x, i=i: x[i * n:(i + 1) * n], t) for t in trees)) for i in range(rows)]
+    parts = program.branches([lambda i=i: fn(*(tree_map(lambda x: x[i * n:(i + 1) * n], t) for t in trees))
+                              for i in range(rows)], mesh.device)
     return tuple(tree_map(lambda *xs: torch.cat(xs), *outs) for outs in zip(*parts))
 
 
 def _extract_lines(pts: torch.Tensor, lidar: LidarParams, params: FeatureExtractionParams,
-                   line: int) -> FeatureSet:
-    """Features of frames (B, L, P, 3), extracted per line block of
-    ``L / line`` lines (one shard each) and joined along the slots, which
-    are line-major."""
-    L = lidar.scan_lines
+                   line: int, rows: int = 1) -> FeatureSet:
+    """Features of frames (B, L, P, 3), extracted per shard: ``rows``
+    blocks of ``B / rows`` frames (the rank's data rows) by ``line`` blocks
+    of ``L / line`` lines, side by side (``program.branches``), joined along
+    the slots, which are line-major, then along the frames. Each frame's
+    features equal the one-batch extraction's bit for bit: the kernels and
+    their plain versions work line by line."""
+    B, L = pts.shape[0], lidar.scan_lines
     if L % line:
         raise ValueError(f"{L} scan lines do not split evenly over the mesh's line axis of {line}")
-    n = L // line
+    n, m = L // line, B // rows
     sub = dataclasses.replace(lidar, scan_lines=n)
-    parts = []
-    for b in range(line):
-        blk = pts[:, b * n:(b + 1) * n]
-        parts.append(_extract_core(blk, compute_curvature(blk, sub, params),
-                                   compute_valid_points(blk, sub, params), sub, params, line0=b * n))
-    return tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
+
+    def shard(r, b):
+        blk = pts[r * m:(r + 1) * m, b * n:(b + 1) * n]
+        return _extract_core(blk, compute_curvature(blk, sub, params),
+                             compute_valid_points(blk, sub, params), sub, params, line0=b * n)
+
+    parts = program.branches([lambda r=r, b=b: shard(r, b) for r in range(rows) for b in range(line)],
+                             pts.device)
+    lines = lambda row: tree_map(lambda *xs: torch.cat(xs, dim=1), *row)
+    if rows == 1:
+        return lines(parts)
+    return tree_map(lambda *xs: torch.cat(xs), *[parts[r] if line == 1 else lines(parts[r * line:(r + 1) * line])
+                                                 for r in range(rows)])
 
 
 def _extract_rank(pts: torch.Tensor, lidar: LidarParams, params: FeatureExtractionParams,
@@ -308,6 +325,18 @@ def _register_in_blocks(frames: FeatureSet, after: FeatureSet, params: Registrat
     return tree_map(cut, pose), tree_map(cut, detail)
 
 
+def _side_by_side(rows: int, pairs: int) -> int:
+    """How many of a rank's ``rows`` data rows of ``pairs`` pairs each
+    register at once: as many as fit ``EXTRACT_BLOCK`` pairs of the ICF's
+    workspace in flight (or one pair a row where the rows are more), each
+    row a block of ``min(pairs, EXTRACT_BLOCK)`` (:func:`_register_in_blocks`).
+    F17's bound on a call's memory: every row at once while each holds a
+    short block (a call of a few frames a row), one row at a time once a
+    row fills a block, so the pool does not grow with a longer drive. The
+    rows' launches and shapes are the same either way."""
+    return max(1, max(EXTRACT_BLOCK, rows) // min(pairs, EXTRACT_BLOCK))
+
+
 def _scans(scans, lidar: LidarParams, mesh: Mesh) -> torch.Tensor:
     pts = validate_scan(place(scans, mesh.device), lidar)
     if pts.ndim != 4:
@@ -330,7 +359,7 @@ def extract_features_sharded(
     lo, hi = _blocks(pts.shape[0], "frames", mesh)
 
     def fn(p):
-        return gather(mesh, _extract_lines(p[lo:hi], lidar, params, mesh.shape["line"]))
+        return gather(mesh, _extract_lines(p[lo:hi], lidar, params, mesh.shape["line"], mesh.rows()[1]))
 
     prog, out = run_program(mesh, ("extract_sharded", lidar, params), pts, fn, None,
                             path="extract_sharded", frames=pts.shape[0])
@@ -381,7 +410,9 @@ def odometry_offline_sharded(
     frame of the block to its right (the halo), a data row of its shards
     at a time in batches of ``EXTRACT_BLOCK`` pairs
     (:func:`_register_in_blocks`); the relative poses are gathered and
-    composed on every rank. One
+    composed on every rank. A rank's rows register side by side while
+    their blocks together hold at most ``EXTRACT_BLOCK`` pairs
+    (:func:`_side_by_side`). One
     program a call (the module docstring), as ``odometry_offline``'s.
     """
     pts = _scans(scans, lidar, mesh)
@@ -398,12 +429,16 @@ def odometry_offline_sharded(
         # last rank's, its last frame again (a pair of it against itself, so
         # every rank gathers n pairs; the pad is cut below)
         after = heads.map(lambda x: x[hi // n:hi // n + 1]) if hi < F else feats.map(lambda x: x[-1:])
-        # each data row's pairs registered on their own, as _per_row does
+        # each data row's pairs registered on their own, as _per_row does,
+        # side by side (_side_by_side: as many rows at once as F17's block holds)
         _, rows = mesh.rows()
         m = n // rows
         row = lambda r: feats.map(lambda x: x[r * m:(r + 1) * m])
-        parts = [_register_in_blocks(row(r), row(r + 1).map(lambda x: x[:1]) if r + 1 < rows else after, reg_params)
-                 for r in range(rows)]
+        register = lambda r: _register_in_blocks(row(r), row(r + 1).map(lambda x: x[:1]) if r + 1 < rows else after,
+                                                 reg_params)
+        at_once = _side_by_side(rows, m)
+        parts = [part for w in range(0, rows, at_once) for part in program.branches(
+            [lambda r=r: register(r) for r in range(w, min(w + at_once, rows))], mesh.device)]
         rel, details = (tree_map(lambda *xs: torch.cat(xs), *outs) for outs in zip(*parts))
         rel, details = gather(mesh, (rel, details))
         cut = lambda x: x[:F - 1]

@@ -318,7 +318,11 @@ def optimize_pose_graph_sharded(
     pad with masked edges. One program a call (``sharding.run_program``,
     keyed on the mesh's token): on the card one CUDA-graph launch, the
     shards' assemblies and the sums' gathers inside the LM loop's WHILE
-    node, at every world size; eager on the CPU and over gloo.
+    node, at every world size; eager on the CPU and over gloo. A rank's
+    shards assemble, and cost, side by side (``program.branches``: on the
+    card a stream each, at once, inside the WHILE node), each with the
+    launches of a rank that holds that shard alone, its system copied into
+    its row of the stack; the sums come after them.
     """
     from .parallel import collectives
     from .parallel.sharding import run_program
@@ -337,17 +341,20 @@ def optimize_pose_graph_sharded(
         poses, edges = _cast(*bufs)
         dtype, dim = poses.translation.dtype, 6 * poses.translation.shape[0]
         blocks = [tree_map(lambda x, g=g: x[g * n:(g + 1) * n], edges) for g in mine]
-        # the shards' partial systems, one at a time beside the stack
+        # the shards' partial systems, side by side, each copied into its row of the stack
         H = torch.empty((len(blocks), dim, dim), dtype=dtype, device=mesh.device)
         b = torch.empty((len(blocks), dim), dtype=dtype, device=mesh.device)
 
+        def shard(p, s, e):
+            H[s], b[s] = _assemble(p, e, dim)
+
         def assemble(p):
-            for s, e in enumerate(blocks):
-                H[s], b[s] = _assemble(p, e, dim)
+            program.branches([lambda s=s, e=e: shard(p, s, e) for s, e in enumerate(blocks)], mesh.device)
             return collectives.sum(mesh, H), collectives.sum(mesh, b)
 
         def cost(p):
-            return collectives.sum(mesh, torch.stack([_cost(p, e) for e in blocks]))
+            return collectives.sum(mesh, torch.stack(program.branches([lambda e=e: _cost(p, e) for e in blocks],
+                                                                      mesh.device)))
 
         return _levenberg_marquardt(poses, iterations, assemble, cost)
 

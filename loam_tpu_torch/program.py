@@ -21,20 +21,37 @@ host read.
   them with the CUDA runtime). The body is captured on a stream of its own
   into the node's body graph and allocates from a second memory pool of the
   program's. Conditional nodes nest (a registration's WHILE node and a
-  keyframe's IF node inside the WHILE node of a scan over frames): each depth
-  has its body stream, made before any capture; the depths share the body
-  pool, whose blocks the allocator keeps apart by stream.
+  keyframe's IF node inside the WHILE node of a scan over frames).
+* :func:`branches` is a mesh's shards side by side, as ``loam_tpu``'s
+  devices run their blocks of a ``shard_map`` at once: eagerly a host loop
+  in order; on the card each branch runs on a stream of its own, forked
+  from the current stream and joined back, so a capture holds the branches
+  as parallel paths of its graph (or of a conditional node's body), which
+  the card runs at once.
+* Lanes. What a stream enqueues belongs to a lane: the program's own
+  stream is lane ``()``, branch ``b`` of a fork in lane ``l`` at body depth
+  ``d`` is lane ``l + ((d, b),)`` (a stream that joined a capture stays in
+  it until it ends, so a body forks onto other streams than the graph
+  around it). A lane has its branch stream, a body stream a nesting depth,
+  and a row of the tally; all are made before any capture (a stream cannot
+  be created while one is under way), the root lane's with the capture,
+  the branches' in its warm-up, which forks onto the same streams. The
+  allocator keeps a stream's freed blocks for that stream, so a lane's
+  bodies of one depth reuse each other's blocks (they run one after
+  another: a lane is a chain of the graph) and two lanes never share one
+  (their branches run at once).
 * A value made inside a body and read after the node, or carried from one
   iteration to the next, lives in a buffer allocated before the node and is
   ``copy_``'d: a skipped body leaves the tensors it would have made
   undefined, and a WHILE body replays its allocations at the same addresses
   every iteration. :func:`scan` writes its stacked outputs into buffers
   that the capture's warm-up allocated (the warm-up's run of the same scan
-  knows their shapes), which the program keeps.
+  knows their shapes, and its branches run in the capture's order), which
+  the program keeps.
 * Capture warms every branch up first: the function runs once eagerly with
   every body run once regardless of its flag (kernel builds and loads,
-  cuBLAS's workspace, cached constants; nothing may copy from the host inside
-  a capture), then the inputs are copied in afresh.
+  cuBLAS's workspace a stream, cached constants; nothing may copy from the
+  host inside a capture), then the inputs are copied in afresh.
 * A program inside another (a registration inside a frame, the extraction
   inside a trajectory) runs inline: its work and its conditional nodes land
   in the outer program.
@@ -43,8 +60,9 @@ Counts. A kernel wrapper (:class:`Counted`) and the ICF loop's iteration
 count (a :class:`Counter`) stay exact through conditional nodes: what runs
 unconditionally is counted on the host (each replay adds what its capture
 counted outside any body), what runs inside a body is counted by the body
-itself, on the device, in a slot of that device's tally, once each time the
-body runs. A count is read (one device read a device) only when someone
+itself, on the device, in a slot of its lane's row of the tally, once each
+time the body runs (branches that run at once add to rows of their own: no
+add is lost). A count is read (one device read a lane) only when someone
 reads it.
 """
 
@@ -71,15 +89,17 @@ MAX_DEPTH = 4
 #: chunks (one program launch each).
 DRIVER_RANGE = "driver_loop"
 
-_tallies: dict = {}  # device -> int64 (TALLY_SLOTS,) tensor
+_lanes: dict = {}  # (device, lane) -> _Lane
+_lane: tuple = ()  # the lane whose work is enqueued now
 _cache: dict = {}  # device -> OrderedDict(key -> Program)
 _mode = "eager"  # how bodies run: "eager", "warm" (once, always) or "capture" (a conditional node)
 _depth = 0  # programs running: one inside another runs inline
 _eager_only = False
 _conditional: dict = {}  # conditional nodes by type in the capture under way
 _body_nodes = 0  # nodes of the capture under way's body graphs
+_body_width = 1  # the widest fork of the capture under way's body graphs
+_forks: list = []  # the capture under way's forks: each one's branches, as its join counted them
 _body_pool = None  # the torch.cuda.MemPool the capture's bodies allocate from
-_body_streams: dict = {}  # device -> the raw streams bodies are captured on, one a depth
 _body_depth = 0  # bodies being captured, one inside another
 _scan_outputs: list = []  # the stacked outputs of a warm-up's scans, in call order
 
@@ -101,16 +121,16 @@ class Counter:
 
     @property
     def value(self) -> int:
-        """The count; reads each device's slot (a sync there)."""
-        return self.host + sum(int(t[self.slot]) for t in _tallies.values())
+        """The count; reads each lane's slot (a sync on its device)."""
+        return self.host + sum(int(lane.tally[self.slot]) for lane in _lanes.values())
 
     def set(self, n: int) -> None:
-        """Count from ``n``: the devices' slots are zeroed in stream order."""
+        """Count from ``n``: every lane's slot is zeroed in stream order."""
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"counter {self.name} set during a capture")
         self.host = n
-        for t in _tallies.values():
-            t[self.slot].zero_()
+        for lane in _lanes.values():
+            lane.tally[self.slot].zero_()
 
 
 class Counted:
@@ -132,12 +152,6 @@ class Counted:
     @launches.setter
     def launches(self, n: int) -> None:
         self.counter.set(n)
-
-
-def _tally(dev: torch.device) -> torch.Tensor:
-    if dev not in _tallies:
-        _tallies[dev] = torch.zeros(TALLY_SLOTS, dtype=torch.int64, device=dev)
-    return _tallies[dev]
 
 
 @contextlib.contextmanager
@@ -175,24 +189,45 @@ def _running(mode: str):
         _depth -= 1
 
 
-def _make_body_streams(dev: torch.device) -> None:
-    """The streams bodies are captured on, one a nesting depth, made before
-    any capture (a stream cannot be created while one is under way). The
-    bodies of a depth share its stream, and with it their freed blocks: a
-    body runs after the one before it ended."""
-    if dev in _body_streams:
-        return
-    from .ops import _build
+class _Lane:
+    """A lane's own on one device (the module docstring): the raw stream its
+    branch runs on (``None`` for the root lane, whose work is the program's
+    stream's) and its ``ExternalStream``, the raw streams its bodies are
+    captured on (one a nesting depth: a lane's bodies of a depth run one
+    after another, so they share that stream and its freed blocks), an
+    event its forks record, an event its branch's join records, and its
+    row of the tally. Made outside any capture."""
 
-    streams = []
-    for _ in range(MAX_DEPTH):
-        handle = ctypes.c_void_p()
-        with torch.cuda.device(dev):
-            err = _build.lib().loam_stream_create(ctypes.byref(handle))
-        if err != 0:
-            raise RuntimeError(f"conditional node: creating a body stream failed with cudaError_t {err}")
-        streams.append(handle.value)
-    _body_streams[dev] = streams
+    def __init__(self, dev: torch.device, root: bool):
+        from .ops import _build
+
+        lib = _build.lib()
+
+        def made(create, what):
+            handle = ctypes.c_void_p()
+            with torch.cuda.device(dev):
+                err = create(ctypes.byref(handle))
+            if err != 0:
+                raise RuntimeError(f"creating {what} failed with cudaError_t {err}")
+            return handle.value
+
+        self.stream = None if root else made(lib.loam_stream_create, "a branch stream")
+        self.external = None if root else torch.cuda.ExternalStream(self.stream, device=dev)
+        self.bodies = [made(lib.loam_stream_create, "a body stream") for _ in range(MAX_DEPTH)]
+        self.fork = made(lib.loam_event_create, "a fork event")
+        self.join = made(lib.loam_event_create, "a join event")
+        self.tally = torch.zeros(TALLY_SLOTS, dtype=torch.int64, device=dev)
+
+
+def _lane_at(dev: torch.device, key: tuple) -> _Lane:
+    """Lane ``key`` on ``dev``, made if missing (never during a capture:
+    the capture's warm-up made every lane it forks onto)."""
+    lane = _lanes.get((dev, key))
+    if lane is None:
+        if _mode == "capture":
+            raise RuntimeError(f"lane {key} on {dev} was not made before the capture")
+        lane = _lanes[(dev, key)] = _Lane(dev, root=not key)
+    return lane
 
 
 @contextlib.contextmanager
@@ -203,15 +238,16 @@ def _body(kind: str, flag: torch.Tensor):
     a kernel that copies ``flag`` (which the body updates) into the node's
     condition. What the body launched is counted where it runs: on the
     device. A node that cannot be added raises."""
-    global _body_depth, _body_nodes
+    global _body_depth, _body_nodes, _body_width
     from .ops import _build
 
     if _body_depth >= MAX_DEPTH:
         raise RuntimeError(f"conditional nodes nest at most {MAX_DEPTH} deep")
     lib, dev = _build.lib(), flag.device
-    body_stream = _body_streams[dev][_body_depth]
+    lane = _lanes[(dev, _lane)]
+    body_stream = lane.bodies[_body_depth]
     before = [c.host for c in Counter.all]
-    handle, nodes = ctypes.c_ulonglong(), ctypes.c_size_t()
+    handle, nodes, width = ctypes.c_ulonglong(), ctypes.c_size_t(), ctypes.c_size_t()
     what = f"{kind.upper()} node"
     if kind == "while":
         _build.launch(lib.loam_while_begin, what, flag, flag.data_ptr(), body_stream, ctypes.byref(handle))
@@ -224,21 +260,34 @@ def _body(kind: str, flag: torch.Tensor):
     try:
         with torch.cuda.stream(torch.cuda.ExternalStream(body_stream, device=dev)), pool:
             yield
-            tally = _tally(dev)
             for c, n in zip(Counter.all, before):
                 if c.host != n:
-                    tally[c.slot].add_(c.host - n)
+                    lane.tally[c.slot].add_(c.host - n)
                     c.host = n
     finally:
         _body_depth -= 1
         if kind == "while":
-            err = lib.loam_while_end(flag.data_ptr(), handle, body_stream, ctypes.byref(nodes))
+            err = lib.loam_while_end(flag.data_ptr(), handle, body_stream, ctypes.byref(nodes),
+                                     ctypes.byref(width))
         else:
-            err = lib.loam_if_end(body_stream, ctypes.byref(nodes))
+            err = lib.loam_if_end(body_stream, ctypes.byref(nodes), ctypes.byref(width))
     if err != 0:
         raise RuntimeError(f"{what}: ending the body's capture failed with cudaError_t {err}")
     _conditional[kind] += 1
     _body_nodes += nodes.value
+    _body_width = max(_body_width, width.value)
+
+
+@contextlib.contextmanager
+def _inline_body():
+    """A body run inline in a capture's warm-up, at the depth its capture
+    will capture it: its forks make the lanes the capture forks onto."""
+    global _body_depth
+    _body_depth += 1
+    try:
+        yield
+    finally:
+        _body_depth -= 1
 
 
 def when(pred: torch.Tensor, body) -> bool | None:
@@ -249,7 +298,8 @@ def when(pred: torch.Tensor, body) -> bool | None:
     returns nothing: what it makes for later it ``copy_``'s into buffers
     allocated before."""
     if _mode == "warm":
-        body()
+        with _inline_body():
+            body()
         return None
     if _mode == "capture":
         with _body("if", pred):
@@ -269,13 +319,67 @@ def while_loop(flag: torch.Tensor, body) -> None:
     in a capture one WHILE node; during a capture's warm-up the body runs
     once, regardless."""
     if _mode == "warm":
-        body()
+        with _inline_body():
+            body()
     elif _mode == "capture":
         with _body("while", flag):
             body()
     else:
         while bool(flag):
             body()
+
+
+def branches(fns, device: torch.device) -> list:
+    """Each of ``fns`` (functions of no argument) side by side, the shards
+    of a mesh on one device as ``loam_tpu``'s devices run their blocks at
+    once; returns their outputs in order. Eagerly (the CPU, and the card
+    under :func:`eager`) a host loop in order: the plain version. On the
+    card during a capture's warm-up and the capture, branch ``b`` runs on
+    the stream of lane ``l + ((d, b),)`` (``l`` the lane forking, ``d`` the
+    depth of the body it forks in, 0 outside any): the branch
+    streams wait for what the current stream enqueued (the fork), the
+    branches run in order on the host, and the current stream waits for
+    each branch's end (the join); a capture holds them as parallel paths of
+    its graph or of the conditional node's body under way, each with its
+    own body streams, tally row and freed blocks. One function forks
+    nothing. A fork or join that CUDA refuses raises with its
+    ``cudaError_t``. The caller keeps collectives out of the branches: they
+    come after the join, on the current stream."""
+    global _lane
+    fns = list(fns)
+    if len(fns) < 2 or _mode == "eager":
+        return [fn() for fn in fns]
+    from .ops import _build
+
+    lib, parent = _build.lib(), _lane
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    # a stream that joined a capture stays in it until it ends: a body's
+    # forks go to lanes of the body's depth, not to those of the graph around it
+    keys = [parent + ((_body_depth, b),) for b in range(len(fns))]
+    lanes = [_lane_at(device, key) for key in keys]
+    n = len(lanes)
+    streams = (ctypes.c_void_p * n)(*[lane.stream for lane in lanes])
+    joins = (ctypes.c_void_p * n)(*[lane.join for lane in lanes])
+    here = torch.cuda.current_stream(device).cuda_stream
+    err = lib.loam_fork(_lane_at(device, parent).fork, streams, n, here)
+    if err != 0:
+        raise RuntimeError(f"forking {n} branches failed with cudaError_t {err}")
+    outs = []
+    try:
+        for key, lane, fn in zip(keys, lanes, fns):
+            _lane = key
+            with torch.cuda.stream(lane.external):
+                outs.append(fn())
+    finally:
+        _lane = parent
+    deps = ctypes.c_size_t()
+    err = lib.loam_join(joins, streams, n, ctypes.byref(deps), here)
+    if err != 0:
+        raise RuntimeError(f"joining {n} branches failed with cudaError_t {err}")
+    if _mode == "capture":
+        _forks.append(deps.value)
+    return outs
 
 
 def scan(n: int, body, device: torch.device):
@@ -414,6 +518,8 @@ class Program:
         self.pool_bytes = 0
         self.conditional = {}  # conditional nodes by type: "if", "while"
         self.nodes = 0  # the graph's nodes, its bodies' counted once each
+        self.branches = 1  # the widest fork of the graph and its bodies
+        self.forks = []  # each fork's branches, in capture order, as its join counted them
         self.scan_outputs = []  # what the graph's scans write, allocated in the warm-up
         self.replays = 0
 
@@ -454,14 +560,13 @@ class Program:
         capture it on that stream into one graph and pool. The counters
         are as before; ``deltas`` keeps what the capture counted outside
         any body."""
-        global _conditional, _body_nodes, _body_pool
+        global _conditional, _body_nodes, _body_width, _forks, _body_pool
         from .ops import _build
 
         dev = self.dev
         saved = [c.host for c in Counter.all]
         t0 = time.perf_counter()
-        _tally(dev)
-        _make_body_streams(dev)
+        _lane_at(dev, ())
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         _scan_outputs.clear()
@@ -479,10 +584,12 @@ class Program:
             pool, body_pool = torch.cuda.MemPool(), torch.cuda.MemPool()
             graph = torch.cuda.CUDAGraph()
             _conditional, _body_nodes, _body_pool = {"if": 0, "while": 0}, 0, body_pool
-            top = ctypes.c_size_t()
+            _body_width, _forks = 1, []
+            top, width = ctypes.c_size_t(), ctypes.c_size_t()
             with torch.cuda.graph(graph, pool=pool.id, stream=stream), _running("capture"):
                 out = fn(self.buffers)
                 err = _build.lib().loam_capture_nodes(stream.cuda_stream, ctypes.byref(top))
+                err = err or _build.lib().loam_capture_width(stream.cuda_stream, ctypes.byref(width))
             if err != 0:
                 raise RuntimeError(f"counting the graph's nodes failed with cudaError_t {err}")
             if _scan_outputs:
@@ -496,6 +603,7 @@ class Program:
                 c.host = n
         self.graph, self.pools, self.out = graph, (pool, body_pool), out
         self.conditional, self.nodes = dict(_conditional), top.value + _body_nodes
+        self.branches, self.forks = max(width.value, _body_width), list(_forks)
         self.scan_outputs = scan_outputs
         self.capture_seconds = time.perf_counter() - t0
         ids = {tuple(pool.id), tuple(body_pool.id)}
@@ -535,11 +643,16 @@ def graph_stats() -> list:
     """One dict per captured program: what it is (``info``: its path and
     shapes), its conditional nodes (``if_nodes``: IF and WHILE together;
     ``conditional_nodes``: by type), its nodes (``nodes``: the graph's and
-    each body's once, however often a body runs), capture seconds (warm-up
+    each body's once, however often a body runs), its widest fork
+    (``branches``: of the graph and every body graph, the most nodes that
+    depend on one node or the root nodes, through the CUDA graph API; 1 for
+    a chain) and each :func:`branches` fork's width as its join counted the
+    branches' ends (``forks``, in capture order), capture seconds (warm-up
     included), the bytes of its memory pools and of its scans' outputs, and
     the replays since it was captured."""
     return [{"device": str(dev), **prog.info, "if_nodes": prog.if_nodes,
              "conditional_nodes": prog.conditional, "nodes": prog.nodes,
+             "branches": prog.branches, "forks": prog.forks,
              "capture_s": prog.capture_seconds, "pool_bytes": prog.pool_bytes,
              "replays": prog.replays}
             for dev, progs in _cache.items() for prog in progs.values() if prog.graph is not None]

@@ -1377,6 +1377,59 @@ def test_while_node_with_a_nested_if_matches_eager(dev):
     assert prog.nodes > 4  # the graph's and both bodies'
 
 
+def test_branches_of_while_nodes_count_as_eager(dev):
+    """``program.branches`` of 4 branches, each a WHILE node of its own
+    iteration count that allocates in its body and counts into one
+    ``Counter``, captured as 4 parallel paths of one graph (``branches``
+    4, one fork of 4): over replays with other counts the outputs are
+    bit-equal to the eager loop and the count is eager's, every branch's
+    iterations (each lane adds to its own row of the tally)."""
+    from loam_tpu_torch import program
+
+    counter = program.Counter("toy_branches")
+
+    def fn(bufs):
+        (limits,) = bufs
+
+        def branch(b):
+            acc = torch.zeros(8, device=dev)
+            k = torch.zeros((), dtype=torch.int64, device=dev)
+            going = k < limits[b]
+
+            def body():
+                half = acc * 0.5
+                acc.copy_(half + (b + 1.0))
+                counter.add()
+                k.add_(1)
+                torch.lt(k, limits[b], out=going)
+
+            program.while_loop(going, body)
+            return acc, k
+
+        return program.branches([lambda b=b: branch(b) for b in range(4)], dev)
+
+    try:
+        limits = torch.tensor([2, 5, 0, 9], device=dev)
+        prog = program.Program(dev, (limits,))
+        for counts in ([2, 5, 0, 9], [7, 1, 3, 4], [0, 0, 0, 1]):
+            limits = torch.tensor(counts, device=dev)
+            counter.set(0)
+            got = prog.own(prog.run(fn, (limits,)))
+            n_graph = counter.value
+            counter.set(0)
+            with program.eager():
+                want = program.Program(dev, (limits,)).run(fn, (limits,))
+            n_eager = counter.value
+            torch.cuda.synchronize()
+            assert n_graph == n_eager == sum(counts), (counts, n_graph, n_eager)
+            for (a, ka), (b, kb) in zip(got, want):
+                assert torch.equal(a, b) and torch.equal(ka, kb)
+        assert prog.graph is not None and prog.branches == 4 and prog.forks == [4]
+        assert prog.conditional == {"if": 0, "while": 4} and prog.replays == 3
+    finally:
+        program.Counter.all.remove(counter)
+
+
 DRIVER_CELLS = ("s2m", "s2m-dewarp", "s2s-dewarp-dual", "offline-c4", "offline-c4-dual", "stream-k8")
 
 
@@ -1647,6 +1700,80 @@ def test_sharded_program_matches_eager(nccl_meshes, cell):
     assert host_reads(events) == {}
     for a, b in zip(_tensor_leaves(again), want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", SHARDED_CELLS)
+def test_sharded_program_runs_its_shards_side_by_side(nccl_meshes, cell):
+    """On 4 shards of the card each shard loop of a sharded call is a fork
+    of 4 streams in the call's graph (``program.branches``): the graph's
+    ``branches`` (its widest fork and its bodies', through the CUDA graph
+    API) is 4 and each fork's join counted 4 branch ends -- one for the
+    pairs and for offline's data rows, one for extraction's (data row,
+    line block) shards on the 2 x 2 mesh, two in scan-to-map's keyframe IF
+    node (the edge and the planar map); the registration against sharded
+    maps has no shard loop and forks nothing. Bit-equal to eager, with the
+    launches and iterations: ``test_sharded_program_matches_eager``."""
+    from loam_tpu_torch.registration import loop
+
+    run, _ = _sharded_run(nccl_meshes, cell)
+    loop.clear_cache()
+    run()
+    torch.cuda.synchronize()
+    (g,) = loop.graph_stats()
+    want = {"s2m": [4, 4], "offline": [4], "extract": [4], "pairs": [4], "register": []}[cell]
+    assert g["forks"] == want and g["branches"] == (4 if want else 1), g
+
+
+def test_one_shard_and_pose_graph_branches(nccl_meshes):
+    """``register_pairs_sharded`` on a one-shard mesh of the group is one
+    chain (``branches`` 1, no fork: N ranks x 1 keep their nodes; on 1 x 4
+    a graph of 4 branches, ``test_sharded_program_runs_its_shards_side_by_side``);
+    the sharded pose graph on 1 x 4 forks 4 for its cost before the LM
+    loop and for the assembly and the cost inside its WHILE node; each
+    bit-equal to its eager form."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch import parallel
+    from loam_tpu_torch.io import random_pose_graph
+    from loam_tpu_torch.pose_graph import optimize_pose_graph_sharded
+    from loam_tpu_torch.registration import loop
+    from loam_tpu_torch.registration.detail import tree_map
+
+    mesh = nccl_meshes[0]
+    dev = mesh.device
+    one = parallel.make_mesh([dev], group=mesh.group)
+    two = _pairs_inputs(dev, 2)
+    _, init, edges = random_pose_graph(60, 5, seed=3)  # 64 edges over 4 shards
+    init, edges = (tree_map(lambda x: x.to(dev), t) for t in (init, edges))  # float64
+    runs = {"pairs_one_shard": (lambda: parallel.register_pairs_sharded(
+                *two, one, T.RegistrationParams(max_iterations=10)), []),
+            "posegraph": (lambda: optimize_pose_graph_sharded(init, edges, mesh, 5), [4, 4, 4])}
+    try:
+        for name, (run, forks) in runs.items():
+            loop.clear_cache()
+            got = _tensor_leaves(run())
+            (g,) = [g for g in loop.graph_stats() if g["path"].endswith("_sharded")]
+            with loop._eager():
+                want = _tensor_leaves(run())
+            torch.cuda.synchronize()
+            assert g["forks"] == forks and g["branches"] == (4 if forks else 1), (name, g)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), name
+    finally:
+        one.release()
+
+
+def _pairs_inputs(dev, pairs):
+    """``pairs`` consecutive pairs of 16x360 frames, sorted by azimuth."""
+    import loam_tpu_torch as T
+    from loam_tpu_torch.io import render_trajectory
+    from loam_tpu_torch.registration import azimuth_sort_features
+
+    lidar = T.LidarParams(16, 360, 0.5, 80.0)
+    scans_np, _ = render_trajectory(lidar, pairs + 1, step=np.array([0.2, 0.05, 0.0]), yaw_rate=0.02,
+                                    noise=0.003, seed=11, dtype=np.float32)
+    feats = T.extract_features_batch(torch.from_numpy(scans_np).to(dev), lidar, post=azimuth_sort_features)
+    return (feats.map(lambda x: x[1:]), feats.map(lambda x: x[:-1]),
+            T.Pose3.identity(torch.float32, (pairs,), dev))
 
 
 @pytest.mark.parametrize("cell", ["s2m", "offline"])

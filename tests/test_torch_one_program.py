@@ -25,6 +25,8 @@ float64: 1e-4 m / 1e-4 rad, terminations equal
 (``test_torch_scan_to_scan.py``). The port against itself: bit for bit.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -252,13 +254,13 @@ def test_offline_and_scan_to_scan_match_loam_tpu(scans):
 
 def test_device_counts_equal_the_eager_loops(scans, monkeypatch):
     """The counts a replay keeps on the device: a WHILE body adds what it
-    launched to its device's tally each time it runs and leaves the host's
-    count as it was. With a tally on the CPU and the WHILE node's semantics
-    on the host, the outer iterations (``loop.iterations``) and each kernel
-    wrapper's ``launches`` read the same as the eager loop's, and setting a
-    count zeroes its slot."""
-    monkeypatch.setitem(program._tallies, CPU, torch.zeros(program.TALLY_SLOTS, dtype=torch.int64))
-    tally = program._tallies[CPU]
+    launched to its lane's row of the tally each time it runs and leaves the
+    host's count as it was. With the root lane's row on the CPU and the
+    WHILE node's semantics on the host, the outer iterations
+    (``loop.iterations``) and each kernel wrapper's ``launches`` read the
+    same as the eager loop's, and setting a count zeroes its slot."""
+    tally = torch.zeros(program.TALLY_SLOTS, dtype=torch.int64)
+    monkeypatch.setitem(program._lanes, (CPU, ()), SimpleNamespace(tally=tally))
     src, tgt, init, params = _chunk_ending_three_ways(scans, 10)
     run = lambda: T.register_features_batch(src, tgt, init, params, with_matches=True, reorder_mode="none")
 
